@@ -1,0 +1,629 @@
+// Fused GQA attention forward (online softmax) for sm_90a.
+//
+// Replaces the TPU kernel repro/kernels/flash_attention.py (_flash_kernel):
+// same function -- 1/sqrt(D) scale, optional tanh soft-cap, causal and/or
+// sliding-window mask (0 <= q - k < window), fp32 accumulation,
+// NEG_INF = -1e30, division by max(l, 1e-30) -- but laid out for this card.
+//
+// What bounds it here: operations.  Prefill attention does 4*S*T*D flops per
+// head on S*D-sized inputs, far above the card's flops-per-byte ridge, so
+// the score matrix must never reach device memory and every K/V byte read
+// must be reused as often as possible.
+//
+// What the design does about it:
+//   * The TPU kernel's sequential innermost grid axis with (m, l, acc) in
+//     scratch memory becomes a loop over key tiles inside one thread block;
+//     m, l and the output accumulator live in registers for the whole loop.
+//   * A block owns BM = 64 consecutive rows of the flattened (position,
+//     group-head) axis of one KV head: row r is position r / G, query head
+//     kv_head * G + r % G.  With q laid out (B, S, H, D) those rows are
+//     contiguous in memory, every G is legal (MQA included), and all G
+//     heads of a group share each K/V tile in shared memory.
+//   * fp32 inputs: both products are register-tiled on the CUDA cores (each
+//     of 16 x 16 threads owns a 4 x 4 score tile and a 4 x D/16 output
+//     tile), reading operands from padded shared memory with 16-byte loads,
+//     so fp32 never rounds through TF32.
+//   * bf16 inputs: both products run on the tensor cores with warp-level
+//     mma.sync (m16n8k16, fp32 accumulate).  Each of 4 warps owns 16 query
+//     rows: its Q fragments stay in registers for the whole key loop, the
+//     score tile never leaves registers (the accumulator layout of QK^T is
+//     the A-operand layout of PV, so the probabilities are packed to bf16
+//     in place, as the reference casts them before the PV product), K
+//     and V fragments come from padded shared memory with ldmatrix (V
+//     transposed on the way), and the next K/V tile is copied in with
+//     cp.async while the current one is computed.  Warpgroup (wgmma) tiles
+//     fed by TMA are later work.
+//   * Key tiles that the causal or window mask kills entirely are never
+//     loaded (the loop's bounds skip them); ragged last tiles in S*G and T
+//     are masked, so no divisibility is required (a superset of the
+//     reference, which asserts it).
+//   * Heaviest causal row tiles are scheduled first.
+
+#include "common.cuh"
+
+namespace {
+
+using namespace repro;
+
+constexpr int BM = 64;    // query rows per block
+constexpr int BN = 64;    // keys per tile
+constexpr int NT = 256;   // threads per block: 16 (rows) x 16 (columns)
+constexpr int RPT = 4;    // rows per thread
+constexpr int KPT = 4;    // keys per thread
+
+template <int D> constexpr int smem_floats() {
+  return (BM + 2 * BN) * (D + 4) + BM * (BN + 4);
+}
+
+// Copy `rows` rows of D elements (row i at base + row_offset(i)) into padded
+// shared memory as floats; rows for which valid(i) is false are zero-filled.
+template <typename T, int D, typename Off, typename Valid>
+__device__ __forceinline__ void load_rows(float* dst, const T* base, int rows,
+                                          Off row_offset, Valid valid) {
+  constexpr int VEC = Elem<T>::VEC;
+  constexpr int LD = D + 4;
+  constexpr int VPR = D / VEC;  // 16-byte vectors per row
+  for (int idx = threadIdx.x; idx < rows * VPR; idx += NT) {
+    const int r = idx / VPR;
+    const int c = (idx % VPR) * VEC;
+    float x[VEC];
+    if (valid(r)) {
+      Elem<T>::load16(base + row_offset(r) + c, x);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) x[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < VEC; e += 4) {
+      *reinterpret_cast<float4*>(dst + r * LD + c + e) =
+          make_float4(x[e], x[e + 1], x[e + 2], x[e + 3]);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o, int S, int Tk,
+                 int H, int K, int G, int causal, int window, float scale,
+                 float softcap) {
+  constexpr int LD = D + 4;    // padded strides keep 16-byte loads
+  constexpr int LDP = BN + 4;  // conflict-free across a quarter warp
+  constexpr int CPT = D / 16;  // output columns per thread
+  constexpr int VW = CPT < 4 ? CPT : 4;
+  constexpr int NG = CPT / VW;
+
+  extern __shared__ float smem[];
+  float* Qs = smem;
+  float* Ks = Qs + BM * LD;
+  float* Vs = Ks + BN * LD;
+  float* Ps = Vs + BN * LD;
+
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const int tile = gridDim.x - 1 - blockIdx.x;
+  const int kh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int M = S * G;  // flattened (position, group-head) rows
+  const int r0 = tile * BM;
+
+  const size_t q_row = (size_t)H * D;  // stride between positions
+  const size_t kv_row = (size_t)K * D;
+  const T* qb = q + (size_t)b * S * q_row + (size_t)kh * G * D;
+  const T* kb = k + (size_t)b * Tk * kv_row + (size_t)kh * D;
+  const T* vb = v + (size_t)b * Tk * kv_row + (size_t)kh * D;
+  T* ob = o + (size_t)b * S * q_row + (size_t)kh * G * D;
+
+  load_rows<T, D>(
+      Qs, qb, BM,
+      [&](int r) {
+        const int rr = r0 + r;
+        return (size_t)(rr / G) * q_row + (size_t)(rr % G) * D;
+      },
+      [&](int r) { return r0 + r < M; });
+
+  int pos[RPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int r = min(r0 + ty + 16 * i, M - 1);
+    pos[i] = r / G;
+  }
+  const int p_lo = r0 / G;
+  const int p_hi = min(r0 + BM - 1, M - 1) / G;
+
+  // key range that any row of this tile can see
+  int n_begin = 0;
+  int n_end = Tk;
+  if (causal) n_end = min(Tk, p_hi + 1);
+  if (window > 0) {
+    const int lo = p_lo - window + 1;
+    if (lo > 0) n_begin = (lo / BN) * BN;
+  }
+
+  float m_i[RPT], l_i[RPT], acc[RPT][CPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    m_i[i] = NEG_INF;
+    l_i[i] = 0.f;  // partial over this thread's key columns
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int n0 = n_begin; n0 < n_end; n0 += BN) {
+    __syncthreads();  // previous tile's PV product has finished with Vs, Ps
+    load_rows<T, D>(
+        Ks, kb, BN, [&](int r) { return (size_t)(n0 + r) * kv_row; },
+        [&](int r) { return n0 + r < Tk; });
+    load_rows<T, D>(
+        Vs, vb, BN, [&](int r) { return (size_t)(n0 + r) * kv_row; },
+        [&](int r) { return n0 + r < Tk; });
+    __syncthreads();
+
+    // ---- scores: 4 x 4 tile per thread, rows ty + 16 i, keys tx + 16 j ----
+    float s[RPT][KPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) s[i][j] = 0.f;
+
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 qa[RPT], ka[KPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+        qa[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * LD + d);
+#pragma unroll
+      for (int j = 0; j < KPT; ++j)
+        ka[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * LD + d);
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < KPT; ++j) {
+          s[i][j] += qa[i].x * ka[j].x;
+          s[i][j] += qa[i].y * ka[j].y;
+          s[i][j] += qa[i].z * ka[j].z;
+          s[i][j] += qa[i].w * ka[j].w;
+        }
+    }
+
+    // ---- scale, soft-cap, mask; online-softmax update ----
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) {
+        const int kpos = n0 + tx + 16 * j;
+        float x = s[i][j] * scale;
+        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+        const int diff = pos[i] - kpos;
+        bool dead = kpos >= Tk;
+        if (causal) dead = dead || diff < 0;
+        if (window > 0) dead = dead || diff >= window;
+        x = dead ? NEG_INF : x;
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+      // the 16 threads of a row are the 16 lanes of a half warp
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m_i[i], mx);
+      const float corr = expf(m_i[i] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        psum += p;
+        Ps[(ty + 16 * i) * LDP + tx + 16 * j] = Elem<T>::round_through(p);
+      }
+      l_i[i] = l_i[i] * corr + psum;
+      m_i[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) acc[i][c] *= corr;
+    }
+    __syncthreads();
+
+    // ---- acc += P V: rows ty + 16 i, columns g*16*VW + tx*VW + e ----
+#pragma unroll 2
+    for (int n = 0; n < BN; n += 4) {
+      float pa[RPT][4];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const float4 p4 =
+            *reinterpret_cast<const float4*>(Ps + (ty + 16 * i) * LDP + n);
+        pa[i][0] = p4.x; pa[i][1] = p4.y; pa[i][2] = p4.z; pa[i][3] = p4.w;
+      }
+#pragma unroll
+      for (int nn = 0; nn < 4; ++nn) {
+        float vv[CPT];
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          const float* vp = Vs + (n + nn) * LD + g * 16 * VW + tx * VW;
+          if constexpr (VW == 4) {
+            const float4 x = *reinterpret_cast<const float4*>(vp);
+            vv[g * VW + 0] = x.x; vv[g * VW + 1] = x.y;
+            vv[g * VW + 2] = x.z; vv[g * VW + 3] = x.w;
+          } else {
+            const float2 x = *reinterpret_cast<const float2*>(vp);
+            vv[g * VW + 0] = x.x; vv[g * VW + 1] = x.y;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+          for (int c = 0; c < CPT; ++c) acc[i][c] += pa[i][nn] * vv[c];
+      }
+    }
+  }
+
+  // ---- flush: out = acc / max(l, 1e-30) ----
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    float l = l_i[i];
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      l += __shfl_xor_sync(0xffffffffu, l, off);
+    const int r = r0 + ty + 16 * i;
+    if (r < M) {
+      const float inv = 1.f / fmaxf(l, 1e-30f);
+      T* orow = ob + (size_t)(r / G) * q_row + (size_t)(r % G) * D;
+#pragma unroll
+      for (int g = 0; g < NG; ++g)
+#pragma unroll
+        for (int e = 0; e < VW; ++e)
+          orow[g * 16 * VW + tx * VW + e] =
+              Elem<T>::from_float(acc[i][g * VW + e] * inv);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor-core path
+// ---------------------------------------------------------------------------
+constexpr int MMA_NT = 128;  // 4 warps x 16 query rows = BM
+
+__device__ __forceinline__ void mma_m16n8k16(float (&c)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 bf16 matrices, transposed on the way into the fragments; lane l
+// passes the address of row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* row) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(row);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// the same without the transpose
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* row) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(row);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// asynchronous 16-byte copy global -> shared; `bytes` of them are read and
+// the rest of the 16 are written as zeros (0 for a row past the end)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int bytes) {
+  const uint32_t dst = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_NT)
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     __nv_bfloat16* __restrict__ o, int S, int Tk, int H,
+                     int K, int G, int causal, int window, float scale,
+                     float softcap) {
+  using bf16 = __nv_bfloat16;
+  constexpr int LD = D + 8;    // padded row (bf16): conflict-free fragments
+  constexpr int KS = D / 16;   // k-steps of QK^T
+  constexpr int NB = BN / 8;   // 8-key column blocks of the score tile
+  constexpr int DB = D / 8;    // 8-wide column blocks of the output
+  constexpr int VPR = D / 8;   // 16-byte vectors per row
+
+  constexpr int TILE = BN * LD;  // one K or V tile; two buffers of each
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ksm = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vsm = Ksm + 2 * TILE;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int qr = lane >> 2;         // fragment row (and row + 8)
+  const int qc = (lane & 3) * 2;    // fragment column pair
+  const int tile = gridDim.x - 1 - blockIdx.x;
+  const int kh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int M = S * G;
+  const int r0 = tile * BM;
+
+  const size_t q_row = (size_t)H * D;
+  const size_t kv_row = (size_t)K * D;
+  const bf16* qb = q + (size_t)b * S * q_row + (size_t)kh * G * D;
+  const bf16* kb = k + (size_t)b * Tk * kv_row + (size_t)kh * D;
+  const bf16* vb = v + (size_t)b * Tk * kv_row + (size_t)kh * D;
+  bf16* ob = o + (size_t)b * S * q_row + (size_t)kh * G * D;
+
+  // this thread's two query rows (flattened), their positions and memory
+  int row[2], pos[2];
+  const bf16* qp[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row[h] = r0 + warp * 16 + qr + 8 * h;
+    const int rr = min(row[h], M - 1);
+    pos[h] = rr / G;
+    qp[h] = qb + (size_t)(rr / G) * q_row + (size_t)(rr % G) * D;
+  }
+
+  // Q fragments: a0 (row, k..k+1), a1 (row+8, same), a2 (row, k+8..9), a3
+  uint32_t qa[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bool live = row[h] < M;
+      const uint32_t* p =
+          reinterpret_cast<const uint32_t*>(qp[h] + ks * 16 + qc);
+      qa[ks][h] = live ? p[0] : 0u;
+      qa[ks][2 + h] = live ? p[4] : 0u;  // 8 elements further
+    }
+
+  const int p_lo = r0 / G;
+  const int p_hi = min(r0 + BM - 1, M - 1) / G;
+  int n_begin = 0;
+  int n_end = Tk;
+  if (causal) n_end = min(Tk, p_hi + 1);
+  if (window > 0) {
+    const int lo = p_lo - window + 1;
+    if (lo > 0) n_begin = (lo / BN) * BN;
+  }
+
+  float m_i[2] = {NEG_INF, NEG_INF};
+  float l_i[2] = {0.f, 0.f};  // partial over this thread's key columns
+  float acc[DB][4];
+#pragma unroll
+  for (int j = 0; j < DB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  // copy the K and V tiles that start at key n0 into buffer `buf`
+  auto fetch = [&](int n0, int buf) {
+    for (int idx = threadIdx.x; idx < BN * VPR; idx += MMA_NT) {
+      const int r = idx / VPR;
+      const int c = (idx % VPR) * 8;
+      const bool live = n0 + r < Tk;
+      const size_t src = (size_t)(live ? n0 + r : 0) * kv_row + c;
+      cp_async16(Ksm + buf * TILE + r * LD + c, kb + src, live ? 16 : 0);
+      cp_async16(Vsm + buf * TILE + r * LD + c, vb + src, live ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+
+  if (n_begin < n_end) fetch(n_begin, 0);
+  int buf = 0;
+  for (int n0 = n_begin; n0 < n_end; n0 += BN, buf ^= 1) {
+    // the next tile travels while this one is computed
+    if (n0 + BN < n_end) {
+      fetch(n0 + BN, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Ks = Ksm + buf * TILE;
+    const bf16* Vs = Vsm + buf * TILE;
+
+    // ---- scores: S = Q K^T, 16 x BN per warp ----
+    float s[NB][4];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ks += 2) {
+        // B fragments of K^T for two k-steps: matrices (keys nb*8.., d
+        // ks*16 + 0, 8, 16, 24..): (k pair, n = key) is a row-major 8x8 read
+        uint32_t kf[4];
+        ldmatrix_x4(kf, Ks + (nb * 8 + (lane & 7)) * LD + ks * 16 +
+                            (lane >> 3) * 8);
+        mma_m16n8k16(s[nb], qa[ks], kf[0], kf[1]);
+        mma_m16n8k16(s[nb], qa[ks + 1], kf[2], kf[3]);
+      }
+    }
+
+    // ---- scale, soft-cap, mask; online-softmax update ----
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kpos = n0 + nb * 8 + qc + e;
+          float x = s[nb][2 * h + e] * scale;
+          if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+          const int diff = pos[h] - kpos;
+          bool dead = kpos >= Tk;
+          if (causal) dead = dead || diff < 0;
+          if (window > 0) dead = dead || diff >= window;
+          x = dead ? NEG_INF : x;
+          s[nb][2 * h + e] = x;
+          mx = fmaxf(mx, x);
+        }
+      // a row's columns are spread over the 4 lanes of a quad
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_i[h], mx);
+      corr[h] = __expf(m_i[h] - m_new);
+      m_i[h] = m_new;
+      float psum = 0.f;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = __expf(s[nb][2 * h + e] - m_new);
+          s[nb][2 * h + e] = p;
+          psum += p;
+        }
+      l_i[h] = l_i[h] * corr[h] + psum;
+    }
+#pragma unroll
+    for (int j = 0; j < DB; ++j) {
+      acc[j][0] *= corr[0];
+      acc[j][1] *= corr[0];
+      acc[j][2] *= corr[1];
+      acc[j][3] *= corr[1];
+    }
+
+    // ---- acc += P V: the score accumulators are PV's A fragments ----
+#pragma unroll
+    for (int ks = 0; ks < BN / 16; ++ks) {
+      uint32_t pa[4];
+      pa[0] = pack_bf16(s[2 * ks][0], s[2 * ks][1]);
+      pa[1] = pack_bf16(s[2 * ks][2], s[2 * ks][3]);
+      pa[2] = pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]);
+      pa[3] = pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3]);
+#pragma unroll
+      for (int j = 0; j < DB; j += 2) {
+        // matrices: (keys 0-7, cols j), (keys 8-15, cols j),
+        //           (keys 0-7, cols j+1), (keys 8-15, cols j+1)
+        const int mat = lane >> 3;
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, Vs + (ks * 16 + (mat & 1) * 8 + (lane & 7)) * LD +
+                                  (j + (mat >> 1)) * 8);
+        mma_m16n8k16(acc[j], pa, vf[0], vf[1]);
+        mma_m16n8k16(acc[j + 1], pa, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer: it may refill
+  }
+
+  // ---- flush: out = acc / max(l, 1e-30) ----
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = l_i[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    if (row[h] < M) {
+      const float inv = 1.f / fmaxf(l, 1e-30f);
+      bf16* orow = ob + (size_t)(row[h] / G) * q_row +
+                   (size_t)(row[h] % G) * D;
+#pragma unroll
+      for (int j = 0; j < DB; ++j)
+        *reinterpret_cast<uint32_t*>(orow + j * 8 + qc) =
+            pack_bf16(acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv);
+    }
+  }
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
+               int S, int Tk, int H, int K, int causal, int window,
+               float softcap, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  constexpr int bytes = 4 * BN * (D + 8) * (int)sizeof(bf16);
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const int G = H / K;
+  const dim3 grid((S * G + BM - 1) / BM, K, B);
+  flash_fwd_mma_kernel<D><<<grid, MMA_NT, bytes, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, S, Tk, H, K,
+      G, causal, window, 1.0f / sqrtf((float)D), softcap);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
+           int Tk, int H, int K, int causal, int window, float softcap,
+           cudaStream_t stream) {
+  constexpr int bytes = smem_floats<D>() * (int)sizeof(float);
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const int G = H / K;
+  const dim3 grid((S * G + BM - 1) / BM, K, B);
+  flash_fwd_kernel<T, D><<<grid, NT, bytes, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, S, Tk, H, K, G, causal,
+      window, 1.0f / sqrtf((float)D), softcap);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_t(int dtype, const void* q, const void* k, const void* v, void* o,
+             int B, int S, int Tk, int H, int K, int causal, int window,
+             float softcap, cudaStream_t stream) {
+  if (dtype == DTYPE_F32)  // CUDA cores: full fp32
+    return launch<float, D>(q, k, v, o, B, S, Tk, H, K, causal, window,
+                            softcap, stream);
+  if (dtype == DTYPE_BF16)  // tensor cores
+    return launch_mma<D>(q, k, v, o, B, S, Tk, H, K, causal, window, softcap,
+                         stream);
+  return ERR_UNSUPPORTED;
+}
+
+}  // namespace
+
+// q, o: (B, S, H, D); k, v: (B, T, K, D); all contiguous, same dtype.
+// Returns 0, a cudaError_t, or ERR_UNSUPPORTED.  Does not synchronise.
+extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
+                                         const void* v, void* o, int B, int S,
+                                         int T, int H, int K, int D, int dtype,
+                                         int causal, int window, float softcap,
+                                         void* stream) {
+  if (B <= 0 || S <= 0 || T <= 0 || K <= 0 || H % K != 0 || B > 65535 ||
+      K > 65535)
+    return ERR_UNSUPPORTED;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (D) {
+    case 32:
+      return launch_t<32>(dtype, q, k, v, o, B, S, T, H, K, causal, window,
+                          softcap, st);
+    case 64:
+      return launch_t<64>(dtype, q, k, v, o, B, S, T, H, K, causal, window,
+                          softcap, st);
+    case 128:
+      return launch_t<128>(dtype, q, k, v, o, B, S, T, H, K, causal, window,
+                           softcap, st);
+    default:
+      return ERR_UNSUPPORTED;
+  }
+}

@@ -1,0 +1,220 @@
+"""Port vs reference: the two kernel modules and their dispatch.
+
+On the CPU the port's wrappers run the plain PyTorch versions kept beside the
+kernels (the CUDA kernels themselves are held against those plain versions on
+the card by ``chip_smoke.py``).  Here the plain versions are held against the
+reference's Pallas kernels, run in interpret mode exactly as
+``tests/test_kernels.py`` and ``tests/test_paged_attention.py`` run them, on
+the reference's own cases with numpy inputs handed to both sides.
+
+Tolerances are the reference's own: attention 2e-5 in fp32 (different
+summation order: tiled online softmax vs one softmax) and 2e-2 in bf16 (bf16
+rounding of inputs, probabilities and outputs); paged decode 1e-5 (fp32).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as ref_ops
+from repro.kernels.paged_attention import (
+    paged_decode_attention as ref_paged_decode_attention)
+
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import (attention_plain,
+                                                 flash_attention)
+from repro_torch.kernels.paged_attention import (paged_attention_plain,
+                                                 paged_decode_attention)
+
+ATTN_CASES = [
+    # B, S, T, H, K, D, causal, window, dtype  (tests/test_kernels.py)
+    (2, 128, 128, 8, 2, 32, True, 0, "float32"),
+    (1, 256, 256, 4, 4, 64, True, 0, "float32"),
+    (2, 128, 128, 6, 1, 32, False, 0, "float32"),   # MQA, bidirectional
+    (1, 256, 256, 8, 2, 32, True, 64, "float32"),   # sliding window
+    (1, 128, 128, 4, 2, 64, True, 0, "bfloat16"),
+    (1, 64, 64, 2, 2, 128, True, 32, "float32"),    # head_dim 128
+]
+
+
+def _qkv(B, S, T, H, K, D, seed=7):
+    r = np.random.RandomState(seed)
+    return (r.standard_normal((B, S, H, D)).astype(np.float32),
+            r.standard_normal((B, T, K, D)).astype(np.float32),
+            r.standard_normal((B, T, K, D)).astype(np.float32))
+
+
+@pytest.mark.parametrize("B,S,T,H,K,D,causal,window,dtype", ATTN_CASES)
+def test_flash_attention_matches_reference_kernel(B, S, T, H, K, D, causal,
+                                                  window, dtype):
+    q, k, v = _qkv(B, S, T, H, K, D)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    want = ref_ops.attention(
+        jnp.asarray(q).astype(jdt), jnp.asarray(k).astype(jdt),
+        jnp.asarray(v).astype(jdt), causal=causal, window=window,
+        impl="pallas", block_q=64, block_k=64, interpret=True)
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    want = np.asarray(want.astype(jnp.float32))
+    for fn in (flash_attention, attention_plain, ref.attention_ref):
+        got = fn(tq, tk, tv, causal=causal, window=window)
+        assert got.dtype == tdt and got.shape == (B, S, H, D)
+        np.testing.assert_allclose(got.float().numpy(), want, atol=tol,
+                                   rtol=tol, err_msg=fn.__name__)
+
+
+def test_flash_attention_softcap_matches_reference_kernel():
+    q, k, v = _qkv(1, 128, 128, 4, 2, 32, seed=3)
+    want = ref_ops.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             softcap=30.0, impl="pallas", block_q=64,
+                             block_k=64, interpret=True)
+    got = ops.attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                        softcap=30.0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
+
+
+def test_flash_attention_ragged_and_unequal_lengths():
+    """No divisibility needed (a superset of the reference's assertion), and
+    S != T is allowed: plain version == oracle."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 50, 77, 6, 2, 32))
+    a = flash_attention(q, k, v, causal=False)
+    b = ref.attention_ref(q, k, v, causal=False)
+    np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-5, rtol=2e-5)
+
+
+def test_flash_wrapper_rejects_bad_inputs_and_counts_no_cpu_launch():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 8, 4, 2, 32))
+    before = dict(ops.launch_counts())
+    flash_attention(q, k, v)
+    assert ops.launch_counts() == before        # CPU: the plain version ran
+    with pytest.raises(ValueError):
+        flash_attention(q[:, :, :3], k, v)      # 3 heads over 2 kv heads
+    with pytest.raises(TypeError):
+        flash_attention(q.bfloat16(), k, v)
+    with pytest.raises(ValueError):
+        ops.attention(q, k, v, impl="pallas")
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention
+# ---------------------------------------------------------------------------
+def _paged_inputs(B, T, D, G, K, ps, lengths, seed=0):
+    """Random q + paged K/V pool with per-row exclusive, shuffled tables."""
+    H = G * K
+    P = T // ps
+    n_pages = B * P + 1                      # +1 unreferenced page
+    r = np.random.RandomState(seed)
+    q = r.standard_normal((B, H, D)).astype(np.float32)
+    kp = r.standard_normal((n_pages, ps, K, D)).astype(np.float32)
+    vp = r.standard_normal((n_pages, ps, K, D)).astype(np.float32)
+    tables = r.permutation(B * P).reshape(B, P).astype(np.int32)
+    return q, kp, vp, tables, np.asarray(lengths, np.int32)
+
+
+PAGED_CASES = [
+    # B, T, D, G, K, page_size, block_k, lengths (tests/test_paged_attention)
+    (2, 64, 32, 2, 2, 16, 32, [64, 40]),       # ragged, mid-page end
+    (1, 128, 64, 1, 4, 16, 48, [96]),          # non-pow2 ppb=3, MHA
+    (4, 64, 32, 4, 1, 8, 256, [64, 8, 17, 33]),  # MQA, block_k > T clamps
+    (2, 64, 32, 2, 2, 16, 16, [16, 32]),       # exact page boundaries
+    (3, 32, 64, 2, 2, 8, 8, [1, 31, 32]),      # single-token history
+]
+
+
+def _both_paged(inputs, bk, softcap=0.0):
+    want = ref_paged_decode_attention(
+        *(jnp.asarray(a) for a in inputs), block_k=bk, softcap=softcap,
+        interpret=True)
+    t = [torch.from_numpy(a) for a in inputs]
+    got = paged_decode_attention(*t, block_k=bk, softcap=softcap)
+    return np.asarray(want), got.numpy(), t
+
+
+@pytest.mark.parametrize("B,T,D,G,K,ps,bk,lengths", PAGED_CASES)
+def test_paged_attention_matches_reference_kernel(B, T, D, G, K, ps, bk,
+                                                  lengths):
+    inputs = _paged_inputs(B, T, D, G, K, ps, lengths)
+    want, got, t = _both_paged(inputs, bk)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    oracle = ref.paged_attention_ref(*t)
+    np.testing.assert_allclose(got, oracle.numpy(), atol=1e-5, rtol=1e-5)
+
+
+def test_paged_zero_length_row_is_zero_and_finite():
+    inputs = _paged_inputs(2, 64, 32, 2, 2, 16, [0, 64])
+    want, got, _ = _both_paged(inputs, 32)
+    assert np.isfinite(got).all()
+    assert np.all(got[0] == 0)               # empty history -> zeros
+    assert np.all(want[0] == 0)              # as the reference kernel gives
+    np.testing.assert_allclose(got[1], want[1], atol=1e-5, rtol=1e-5)
+
+
+def test_paged_softcap_matches_reference_kernel():
+    inputs = _paged_inputs(2, 64, 32, 2, 2, 16, [64, 50])
+    want, got, _ = _both_paged(inputs, 32, softcap=30.0)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_paged_ignores_slots_past_lengths():
+    """Garbage in every slot at or past ``lengths[b]`` (stale K/V of a
+    recycled page) and in the unreferenced page must not change the result.
+    (Finite garbage here: the plain version masks dead slots; the CUDA
+    kernel never reads them, which ``chip_smoke.py`` checks with NaNs.)"""
+    q, kp, vp, tables, lens = _paged_inputs(2, 64, 32, 2, 2, 16, [40, 17])
+    clean = paged_decode_attention(
+        *(torch.from_numpy(a) for a in (q, kp, vp, tables, lens)))
+    kp2, vp2 = kp.copy(), vp.copy()
+    kp2[-1] = vp2[-1] = 1e30
+    for b, n in enumerate(lens):
+        for t in range(n, 64):
+            kp2[tables[b, t // 16], t % 16] = 1e30
+            vp2[tables[b, t // 16], t % 16] = -1e30
+    dirty = paged_decode_attention(
+        *(torch.from_numpy(a) for a in (q, kp2, vp2, tables, lens)))
+    assert torch.isfinite(dirty).all()
+    assert torch.equal(clean, dirty)
+
+
+def test_paged_ops_dispatch_and_checks():
+    inputs = [torch.from_numpy(a) for a in
+              _paged_inputs(2, 64, 32, 2, 2, 16, [64, 40])]
+    a = ops.paged_attention(*inputs, impl="kernel")
+    b = ops.paged_attention(*inputs, impl="plain")
+    np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6, rtol=1e-6)
+    with pytest.raises(ValueError):
+        ops.paged_attention(*inputs, impl="xla")
+    with pytest.raises(ValueError):
+        paged_decode_attention(inputs[0][:, :3], *inputs[1:])
+    with pytest.raises(ValueError):
+        paged_decode_attention(*inputs[:4], inputs[4][:1])
+
+
+# ---------------------------------------------------------------------------
+# on the card (skipped where there is none)
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card "
+                    "(python3 chip_smoke.py holds them against their plain "
+                    "versions there)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_kernels_match_plain_versions_on_the_card(cuda_device):
+    q, k, v = (torch.from_numpy(a).to(cuda_device)
+               for a in _qkv(1, 100, 77, 6, 2, 64))
+    got = flash_attention(q, k, v)
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               attention_plain(q, k, v).cpu().numpy(),
+                               atol=2e-5, rtol=2e-5)
+    t = [torch.from_numpy(a).to(cuda_device)
+         for a in _paged_inputs(3, 32, 64, 2, 2, 8, [1, 31, 0])]
+    got = paged_decode_attention(*t)
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               paged_attention_plain(*t).cpu().numpy(),
+                               atol=1e-5, rtol=1e-5)
+    assert ops.launch_counts()["flash_attention"] > 0
