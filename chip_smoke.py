@@ -6,17 +6,22 @@ computes the right thing on an NVIDIA GPU.  Run from the repository root:
 
 It needs one CUDA device, ``nvcc`` and the checkout's sources -- no network,
 no CPU fallback.  Any failure (no GPU, a kernel that does not build or
-launch, a comparison out of tolerance, an unserved request) ends the run with
-a non-zero exit code.  Phases, one JSON object per line:
+launch, a comparison out of tolerance, an unserved request, a loss that does
+not fall) ends the run with a non-zero exit code.  Phases, one JSON object
+per line:
 
   env           card name and power limit (``nvidia-smi``), torch / CUDA
                 versions, seconds spent building the kernels;
   kernel_cases  each CUDA kernel against its plain PyTorch version on the
-                card: the reference's test cases (fp32 at 2e-5 / 1e-5, bf16
-                at 2e-2) and the shapes the served llama3.2-3b gives them,
-                with times (CUDA events), the plain version's time, one
-                PyTorch library call's time where there is one, and the
-                bound (least time the card could take);
+                card: the reference's test cases (forward fp32 at 2e-5 /
+                1e-5, backward fp32 at 5e-4, bf16 at 2e-2; the training
+                kernels' bf16 results also against the size of what they
+                compare, see ``SCALED_TOL``) and the shapes the served and
+                the trained llama3.2-3b give them, with times (CUDA events),
+                the plain version's time, one PyTorch library call's time
+                where there is one, and the bound (least time the card could
+                take); at the train shape, faults planted in the plain
+                backward's result must fail the same comparison;
   serve_paged   llama3.2-3b at full width in bf16, random weights from seed
                 0 made on the device, 16 requests through
                 ``AsyncServeEngine(mode="paged")``; pure-decode iterations
@@ -26,14 +31,32 @@ a non-zero exit code.  Phases, one JSON object per line:
   parity        greedy streams with the kernels equal those with the plain
                 oracle (2 layers, full-width heads, fp32); one bf16 decode
                 step's logits kernel vs plain at full depth;
+  train         llama3.2-3b trained at full width and depth (28 layers, bf16
+                compute, fp32 parameters, per-block activation
+                checkpointing, AdamW) on 2 x 4096-token synthetic batches
+                for 5 steps; every step must launch the stats-emitting
+                forward 2 x 28 times (forward and recompute) and each
+                backward kernel 28 times; the first step's loss and
+                attention gradients (wq, wk, wv of every layer) must agree
+                within 2e-2 with a pass through the plain attention from the
+                same weights and batch; the loss must fall (a smoke signal
+                only); then one more step under torch.profiler (device time
+                by kind of kernel, idle share);
+  train_parity  one step with the kernels against one with the plain
+                attention from the same weights and batch (2 layers,
+                full-width heads, fp32: loss, grad norm, every gradient
+                within 5e-4 of its max-abs) and bf16 gradients at full depth
+                (grad norm, and the attention gradients of every layer,
+                within 2e-2);
   kernels       the per-kernel summary line, launches counted on the served
-                runs above.
+                and trained runs above.
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, and last
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -48,14 +71,23 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.configs import get_config                    # noqa: E402
-from repro_torch.configs.base import ATTN, PolicyConfig        # noqa: E402
+from repro_torch.configs.base import (ATTN, PolicyConfig,      # noqa: E402
+                                      ShapeConfig)
+from repro_torch.data import SyntheticDataset                  # noqa: E402
 from repro_torch.kernels import build, ops                     # noqa: E402
 from repro_torch.kernels.flash_attention import (              # noqa: E402
     attention_plain, flash_attention)
+from repro_torch.kernels.flash_attention_bwd import (          # noqa: E402
+    attention_bwd_plain, attention_delta, attention_fwd_stats_plain,
+    flash_attention_bwd_dkv, flash_attention_bwd_dq,
+    flash_attention_fwd_stats, flash_attention_vjp)
 from repro_torch.kernels.paged_attention import (              # noqa: E402
     paged_attention_plain, paged_decode_attention)
 from repro_torch.models.lm import LM                           # noqa: E402
+from repro_torch.optim import (AdamWConfig, ScheduleConfig,    # noqa: E402
+                               global_norm)
 from repro_torch.serve import AsyncServeEngine, ServeRequest   # noqa: E402
+from repro_torch.train import trainer                          # noqa: E402
 
 # published peaks of one H100 SXM (dense): what the bounds are stated against
 HBM_BYTES_PER_S = 3.35e12
@@ -63,6 +95,10 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 ARCH = "llama3.2-3b"
 DEV = "cuda"
+# the trained shape: TRAIN_4K's sequence, its global batch of 256 cut to 2
+# for one card
+TRAIN_SHAPE = ShapeConfig("train_4k_b2", 4096, 2, "train")
+TRAIN_STEPS = 5
 
 
 def emit(phase: str, **fields) -> None:
@@ -155,6 +191,39 @@ def _err(got, want, tol, what):
     ok = bool(((got - want).abs() <= tol + tol * want.abs()).all())
     check(ok, f"{what}: max abs err {err} exceeds atol=rtol={tol}")
     return err
+
+
+# The training kernels' bf16 results are also held to the size of what they
+# compare: at the train shape a typical gradient entry is about 0.03, so 2e-2
+# elementwise alone would let a kernel drop part of every row.  Errors over
+# the largest |want|, over the norm of want (relative Frobenius), and each
+# row's (last axis) error over that row's norm, floored at the median row
+# norm (a query that sees a single key has a zero gradient).
+SCALED_TOL = {"max_err_over_max_abs": 2e-2, "rel_fro": 1e-2,
+              "row_rel_max": 5e-2}
+
+
+def _scaled(got, want):
+    got, want = got.float(), want.float()
+    diff = got - want
+    rows = want.norm(dim=-1)
+    floor = rows.flatten().median()
+    return {"max_err_over_max_abs":
+            float(diff.abs().max() / want.abs().max()),
+            "rel_fro": float(diff.norm() / want.norm()),
+            "row_rel_max": float((diff.norm(dim=-1)
+                                  / torch.maximum(rows, floor)).max())}
+
+
+def _passes(scaled) -> bool:
+    return all(v <= SCALED_TOL[k] for k, v in scaled.items())
+
+
+def _scaled_err(got, want, what):
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    s = _scaled(got, want)
+    check(_passes(s), f"{what}: scaled errors {s} exceed {SCALED_TOL}")
+    return s
 
 
 def flash_cases(gen):
@@ -304,6 +373,213 @@ def paged_main_shape(gen, cfg):
 
 
 # ---------------------------------------------------------------------------
+# the training kernels (stats-emitting forward, dK/dV, dQ)
+# ---------------------------------------------------------------------------
+BWD_CASES = [
+    # B, S, T, H, K, D, causal, window, dtype -- tests/test_kernels_bwd.py
+    (2, 128, 128, 4, 2, 32, True, 0, torch.float32),
+    (1, 128, 128, 4, 4, 64, True, 0, torch.float32),      # MHA
+    (1, 128, 128, 6, 1, 32, False, 0, torch.float32),     # MQA, bidir.
+    (1, 256, 256, 4, 2, 32, True, 64, torch.float32),     # window
+    # ragged S*G and T tiles, S != T, windows, MQA with G = 6
+    (1, 100, 77, 6, 2, 64, True, 0, torch.float32),
+    (2, 130, 130, 3, 1, 128, True, 50, torch.float32),
+    (1, 96, 200, 6, 1, 64, False, 0, torch.float32),
+    (1, 200, 150, 4, 2, 128, True, 0, torch.float32),
+    (1, 128, 128, 4, 2, 64, True, 0, torch.bfloat16),
+    (2, 130, 130, 6, 1, 32, True, 50, torch.bfloat16),
+    (1, 100, 77, 24, 8, 128, True, 0, torch.bfloat16),
+]
+
+
+def _bwd_inputs(gen, B, S, T, H, K, D, dt):
+    return (_randn(gen, B, S, H, D, dtype=dt), _randn(gen, B, T, K, D, dtype=dt),
+            _randn(gen, B, T, K, D, dtype=dt), _randn(gen, B, S, H, D, dtype=dt))
+
+
+def _bwd_check(q, k, v, ct, kw, tol_fwd, tol_bwd, what):
+    """Each of the three kernels against its plain version on the same
+    inputs; returns the largest error of each and, for bf16, the scaled
+    errors of o, dq, dk and dv."""
+    o, m, l = flash_attention_fwd_stats(q, k, v, **kw)
+    torch.cuda.synchronize()
+    o2, m2, l2 = attention_fwd_stats_plain(q, k, v, **kw)
+    err_f = max(_err(o, o2, tol_fwd, f"{what} fwd_stats o"),
+                _err(m, m2, tol_fwd, f"{what} fwd_stats m"),
+                _err(l, l2, tol_fwd, f"{what} fwd_stats l"))
+    delta = attention_delta(o, ct)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, ct, m, l, delta, **kw)
+    dq = flash_attention_bwd_dq(q, k, v, ct, m, l, delta, **kw)
+    torch.cuda.synchronize()
+    dq2, dk2, dv2 = attention_bwd_plain(q, k, v, ct, m, l, delta, **kw)
+    err_kv = max(_err(dk, dk2, tol_bwd, f"{what} bwd_dkv dk"),
+                 _err(dv, dv2, tol_bwd, f"{what} bwd_dkv dv"))
+    err_q = _err(dq, dq2, tol_bwd, f"{what} bwd_dq dq")
+    scaled = {}
+    if q.dtype == torch.bfloat16:
+        scaled = {n: _scaled_err(a, b, f"{what} {n}") for n, a, b in
+                  (("o", o, o2), ("dq", dq, dq2), ("dk", dk, dk2),
+                   ("dv", dv, dv2))}
+    return err_f, err_kv, err_q, scaled
+
+
+def bwd_cases(gen):
+    rows = []
+    for (B, S, T, H, K, D, causal, window, dt) in BWD_CASES:
+        q, k, v, ct = _bwd_inputs(gen, B, S, T, H, K, D, dt)
+        for softcap in (0.0, 30.0):
+            kw = dict(causal=causal, window=window, softcap=softcap)
+            what = f"flash bwd {(B, S, T, H, K, D, causal, window)} {dt} " \
+                   f"softcap={softcap}"
+            tol_f, tol_b = _tol(dt, 2e-5), _tol(dt, 5e-4)
+            ef, ekv, eq, scaled = _bwd_check(q, k, v, ct, kw, tol_f, tol_b,
+                                             what)
+            rows.append({"shape": [B, S, T, H, K, D], "causal": causal,
+                         "window": window, "softcap": softcap,
+                         "dtype": str(dt), "tol_fwd": tol_f, "tol_bwd": tol_b,
+                         "err_fwd_stats": ef, "err_bwd_dkv": ekv,
+                         "err_bwd_dq": eq, "scaled": scaled})
+    # the gradients of the whole Function against autograd of the plain
+    # forward (fp32, the first reference case, with and without soft-cap)
+    B, S, T, H, K, D = 2, 128, 128, 4, 2, 32
+    q, k, v, ct = _bwd_inputs(gen, B, S, T, H, K, D, torch.float32)
+    autograd = []
+    for softcap in (0.0, 30.0):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        got = torch.autograd.grad(
+            (flash_attention_vjp(*leaves, True, 0, softcap) * ct).sum(),
+            leaves)
+        want = torch.autograd.grad(
+            (attention_plain(*leaves, causal=True, softcap=softcap)
+             * ct).sum(), leaves)
+        autograd.append({"softcap": softcap, "tol": 5e-4, "max_abs_err": max(
+            _err(g, w, 5e-4, f"flash_attention_vjp vs autograd {n}")
+            for g, w, n in zip(got, want, ("dq", "dk", "dv")))})
+    return rows, autograd
+
+
+def _bound(nbytes, flops, dt):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dt] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def _library_bwd_ms(q, k, v, do, iters):
+    """The backward of ``scaled_dot_product_attention`` (dq, dk and dv in
+    one call) through ``torch.autograd.grad``, timed with CUDA events around
+    ``iters`` eager calls: autograd's backward is not graph-captured here."""
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    with torch.enable_grad():
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        for _ in range(2):
+            torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+        end.record()
+        torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _planted_faults(q, k, v, do, stats, kw, tile=64):
+    """Faults planted in the plain backward's result, each of which the
+    scaled comparison must reject: (a) every query row loses the keys of
+    its own ``tile``-key block -- a skipped diagonal tile -- in dq, dk and
+    dv; (b) the ``tile`` query positions at mid-sequence lose one block of
+    ``tile`` keys at a quarter of it -- a single skipped tile.  Returns each
+    fault's scaled errors."""
+    B, S = q.shape[:2]
+    want = dict(zip(("dq", "dk", "dv"),
+                    attention_bwd_plain(q, k, v, do, *stats, **kw)))
+
+    def tiles(x):
+        return x.float().reshape(B * (S // tile), tile, *x.shape[2:])
+
+    faults = {}
+    diag = attention_bwd_plain(*(tiles(x) for x in (q, k, v, do) + stats),
+                               **kw)
+    for (n, w), part in zip(want.items(), diag):
+        faults[f"{n}_diagonal_tile"] = w.float() - part.reshape(w.shape)
+    r, c = slice(S // 2, S // 2 + tile), slice(S // 4, S // 4 + tile)
+    one = attention_bwd_plain(q[:, r].float(), k[:, c].float(),
+                              v[:, c].float(), do[:, r].float(),
+                              *(x[:, r] for x in stats), causal=False,
+                              softcap=kw["softcap"])
+    for (n, w), part, sl in zip(want.items(), one, (r, c, c)):
+        bad = w.float().clone()
+        bad[:, sl] -= part
+        faults[f"{n}_one_tile"] = bad
+    out = {}
+    for n, bad in faults.items():
+        out[n] = _scaled(bad, want[n[:2]])
+        check(not _passes(out[n]), f"planted fault {n} passes the scaled "
+                                   f"comparison {out[n]}: it cannot see it")
+    return out
+
+
+def bwd_main_shape(gen, cfg):
+    """The trained model's attention: B=2, S=T=4096, 24 heads over 8 KV
+    heads, head_dim 128, bf16, causal."""
+    (B, S), H, K, D = (TRAIN_SHAPE.global_batch, TRAIN_SHAPE.seq_len), \
+        cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = torch.bfloat16
+    q, k, v, do = _bwd_inputs(gen, B, S, S, H, K, D, dt)
+    kw = dict(causal=True, window=0, softcap=0.0)
+    ef, ekv, eq, scaled = _bwd_check(q, k, v, do, kw, 2e-2, 2e-2,
+                                     "flash bwd main shape")
+    o, m, l = flash_attention_fwd_stats(q, k, v, **kw)
+    delta = attention_delta(o, do)
+    stats = (m, l, delta)
+    faults = _planted_faults(q, k, v, do, stats, kw)
+    qkv_bytes = (q.numel() + k.numel() + v.numel()) * q.element_size()
+    row_bytes = m.numel() * 4                  # one fp32 per query row
+    pairs = H * B * (S * (S + 1) // 2)         # live (query, key) pairs
+    shape = {"shape": [B, S, S, H, K, D], "dtype": str(dt), "tol": 2e-2}
+
+    fwd = dict(shape, max_abs_err=ef, **_bound(
+        qkv_bytes + q.numel() * 2 + 2 * row_bytes, 4 * D * pairs, dt))
+    fwd["ms"] = time_ms([lambda: flash_attention_fwd_stats(q, k, v, **kw)], 5)
+    fwd["plain_ms"] = time_ms(
+        [lambda: attention_fwd_stats_plain(q, k, v, **kw)], 2)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    fwd["library_ms"] = time_ms(
+        [lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)], 5)
+
+    # backward: q, k, v, dO and three row statistics read; dk, dv or dq
+    # written (in the inputs' dtype)
+    bwd_in = qkv_bytes + do.numel() * 2 + 3 * row_bytes
+    library_ms = _library_bwd_ms(q, k, v, do, 5)
+    dkv = dict(shape, max_abs_err=ekv, **_bound(
+        bwd_in + (k.numel() + v.numel()) * 2, 8 * D * pairs, dt))
+    dkv["ms"] = time_ms(
+        [lambda: flash_attention_bwd_dkv(q, k, v, do, *stats, **kw)], 3)
+    dq = dict(shape, max_abs_err=eq, **_bound(
+        bwd_in + q.numel() * 2, 6 * D * pairs, dt))
+    dq["ms"] = time_ms(
+        [lambda: flash_attention_bwd_dq(q, k, v, do, *stats, **kw)], 3)
+    plain_ms = time_ms(
+        [lambda: attention_bwd_plain(q, k, v, do, *stats, **kw)], 1)
+    for row in (dkv, dq):
+        # the plain version and the library call compute dq, dk and dv
+        # together: their times stand in both rows
+        row["plain_ms"] = plain_ms
+        row["library_ms"] = library_ms
+    fwd["scaled"] = {"o": scaled["o"]}
+    dkv["scaled"] = {n: scaled[n] for n in ("dk", "dv")}
+    dq["scaled"] = {"dq": scaled["dq"]}
+    return fwd, dkv, dq, faults
+
+
+# ---------------------------------------------------------------------------
 # the served path
 # ---------------------------------------------------------------------------
 def _prompt(seed, n, vocab):
@@ -424,8 +700,9 @@ def parity(cfg, model):
         check(a == b, f"parity: greedy streams differ in {mode} mode "
                       f"(kernel {a} vs full {b})")
     after = ops.launch_counts()
-    check(all(after[k] > before[k] for k in after),
-          "parity: the kernel runs launched no kernel")
+    check(all(after[k] > before[k]
+              for k in ("flash_attention", "paged_decode_attention")),
+          "parity: the kernel runs launched no serving kernel")
     del m2
 
     # full depth, bf16: one decode step's logits, kernel vs plain
@@ -457,6 +734,236 @@ def parity(cfg, model):
          bf16_decode_logits_max_abs_err=err, tol_rel=2e-2)
 
 
+# ---------------------------------------------------------------------------
+# the trained path
+# ---------------------------------------------------------------------------
+TRAIN_POLICY = PolicyConfig(compute_dtype="bfloat16", param_dtype="float32",
+                            remat="block", attn_impl="kernel")
+
+
+def _model_flops_per_step(cfg, n_params):
+    """6 * N * tokens for the weight products, plus the causal attention
+    products (QK^T and PV: 4 * D flops per live (query, key) pair and head
+    forward, twice that backward); activation recompute not counted."""
+    B, S = TRAIN_SHAPE.global_batch, TRAIN_SHAPE.seq_len
+    pairs = B * cfg.n_heads * (S * (S + 1) // 2)
+    return 6 * n_params * B * S + 12 * cfg.head_dim * pairs * cfg.n_layers
+
+
+def _profile_step(step_fn, state, batch):
+    """One more step under ``torch.profiler``: device time by kind of kernel
+    and the device's idle share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_kind = {"attention_kernels": 0.0, "matmul": 0.0, "other": 0.0}
+    by_name: dict = {}
+    n = 0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = ev.time_range.elapsed_us()
+        name = ev.name
+        n += 1
+        by_name[name] = by_name.get(name, 0.0) + us
+        if "flash_fwd" in name or "flash_bwd" in name:
+            by_kind["attention_kernels"] += us
+        elif any(t in name.lower() for t in ("gemm", "xmma", "nvjet",
+                                             "cutlass")):
+            by_kind["matmul"] += us
+        else:
+            by_kind["other"] += us
+    check(n > 0, "train: the profiler saw no device activity")
+    busy = sum(by_kind.values())
+    check(busy <= 1.05 * wall_us,
+          f"train: profiled device time {busy / 1e3} ms exceeds the step's "
+          f"wall time {wall_us / 1e3} ms: kernels counted twice")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / wall_us,
+            "device_ms_by_kind": {k: v / 1e3 for k, v in by_kind.items()},
+            "device_events": n,
+            "top_kernels_ms": [[k[:80], v / 1e3] for k, v in top]}
+
+
+def train(cfg):
+    """llama3.2-3b at full width and depth, bf16 compute, fp32 parameters
+    and AdamW state, per-block activation checkpointing, 2 x 4096 tokens
+    per step, random weights from seed 0 made on the device."""
+    L = cfg.n_layers
+    optcfg = AdamWConfig(lr=3e-4)
+    # Adam's first updates move every weight by about lr * sign(g): from
+    # this random init the loss rises for two steps at any lr >= 1.5e-4 and
+    # falls again as the cosine decays (PERF.md, the training findings); with
+    # the one warm-up step at lr 0 it ends below where it started
+    sched = ScheduleConfig(kind="cosine", peak_lr=3e-4, warmup_steps=1,
+                           total_steps=TRAIN_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.init_state(cfg, TRAIN_POLICY, optcfg, seed=0, device=DEV)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    step_fn = trainer.make_train_step(cfg, TRAIN_POLICY, optcfg, sched,
+                                      shape=TRAIN_SHAPE)
+    ds = SyntheticDataset(cfg, TRAIN_SHAPE, seed=0)
+    batches = [ds.batch_at(i) for i in range(TRAIN_STEPS)]
+    want = {"flash_attention_fwd_stats": 2 * L, "flash_attention_bwd_dkv": L,
+            "flash_attention_bwd_dq": L, "flash_attention": 0,
+            "paged_decode_attention": 0}
+    # the first step's loss and attention gradients are held against one
+    # pass through the plain attention from the same weights and batch
+    grads, full_loss = _grads(
+        state.model, dataclasses.replace(TRAIN_POLICY, attn_impl="full"),
+        batches[0])
+    full_attn = _attention(grads)
+    del grads
+    losses, norms, lrs, step_s = [], [], [], []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()               # just before the main path
+    for i, batch in enumerate(batches):
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        after = ops.launch_counts()
+        per_step = {k: after[k] - before[k] for k in after}
+        check(per_step == want, f"train step {i}: launches {per_step} != "
+                                f"{want} (2 x layers stats-forwards, "
+                                f"layers x each backward kernel)")
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        lrs.append(float(m["lr"]))
+        if i == 0:
+            check(abs(losses[0] - full_loss) <= 2e-2 * abs(full_loss),
+                  f"train: first loss {losses[0]} vs {full_loss} through "
+                  f"the plain attention (> 2e-2)")
+            attn_err = _leaf_errs(
+                _attention({n: p.grad for n, p in
+                            state.model.named_parameters()}),
+                full_attn, 2e-2, "train: first step vs plain attention")
+            del full_attn
+            # the peak below is that of the steady steps
+            torch.cuda.reset_peak_memory_stats()
+    counts = ops.launch_counts()            # just after
+    profile = _profile_step(step_fn, state, batches[-1])
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"train: non-finite loss or grad norm {losses} {norms}")
+    # a smoke signal only: whether the gradients are right is checked above
+    check(losses[-1] < losses[0],
+          f"train: loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    p50 = float(np.median(step_s[1:]))      # the first step is warm-up
+    tokens = TRAIN_SHAPE.tokens
+    flops = _model_flops_per_step(cfg, n_params)
+    emit("train", arch=cfg.name, n_layers=L, params=n_params,
+         batch=TRAIN_SHAPE.global_batch, seq=TRAIN_SHAPE.seq_len,
+         compute_dtype="bfloat16", param_dtype="float32", remat="block",
+         steps=TRAIN_STEPS, warmup_steps_excluded=1, losses=losses,
+         grad_norms=norms, lrs=lrs, step_s=step_s, step_s_p50=p50,
+         tokens_per_s=tokens / p50, model_flops_per_step=flops,
+         model_flops_per_s=flops / p50,
+         model_flops_per_s_over_989_tflops=flops / p50 / 989e12,
+         launches=counts,
+         first_step_vs_plain_attention={
+             "loss": [losses[0], full_loss],
+             "worst_attention_grad_err_over_max_abs": attn_err,
+             "tol_rel": 2e-2},
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         profiled_step=profile,
+         cuts=["global batch 256 -> 2 (one card)"])
+    del state, step_fn
+    torch.cuda.empty_cache()
+    return counts
+
+
+ATTN_LEAVES = ("wq", "wk", "wv")
+
+
+def _grads(model, policy, batch):
+    """Gradients by parameter name and loss of one forward and backward
+    pass; the parameters' ``.grad`` is cleared again."""
+    loss_fn = trainer.make_loss_fn(model.cfg, policy)
+    grads, loss, _ = trainer._accum_grads(
+        loss_fn, model, trainer._device_batch(batch, DEV), 1)
+    for p in model.parameters():
+        p.grad = None
+    return grads, float(loss)
+
+
+def _attention(grads):
+    """The attention projections' gradients (wq, wk, wv of every layer)."""
+    return {n: g for n, g in grads.items()
+            if n.rsplit(".", 1)[-1] in ATTN_LEAVES}
+
+
+def _leaf_errs(got, want, tol, what):
+    """Each gradient of ``want`` against ``got`` within ``tol`` of its
+    max-abs; returns the worst error over max-abs."""
+    worst = 0.0
+    for n, w in want.items():
+        scale = float(w.abs().max())
+        err = float((got[n] - w).abs().max())
+        check(err <= tol * scale, f"{what}: gradient {n} differs by {err} "
+                                  f"(> {tol} x max-abs {scale})")
+        worst = max(worst, err / scale if scale else 0.0)
+    return worst
+
+
+def train_parity(cfg):
+    # 2 layers, full-width heads, fp32: one whole step, kernel vs plain
+    small = dataclasses.replace(cfg, name=cfg.name + "-2l", n_layers=2,
+                                block_pattern=(ATTN,) * 2)
+    shape = ShapeConfig("parity", 1024, 2, "train")
+    batch = SyntheticDataset(small, shape, seed=1).batch_at(0)
+    fp32 = dataclasses.replace(TRAIN_POLICY, compute_dtype="float32")
+    base = LM.init(small, seed=1, dtype=torch.float32, device=DEV)
+    out = {}
+    for impl in ("kernel", "full"):
+        policy = dataclasses.replace(fp32, attn_impl=impl)
+        state = trainer.TrainState.create(copy.deepcopy(base), policy)
+        step = trainer.make_train_step(small, policy, shape=shape)
+        _, m = step(state, batch)
+        out[impl] = (float(m["loss"]), float(m["grad_norm"]),
+                     {n: p.grad for n, p in state.model.named_parameters()})
+    (lk, nk, gk), (lf, nf, gf) = out["kernel"], out["full"]
+    check(abs(lk - lf) <= 5e-4 * abs(lf), f"train_parity: loss {lk} vs {lf}")
+    check(abs(nk - nf) <= 5e-4 * nf, f"train_parity: grad norm {nk} vs {nf}")
+    worst = _leaf_errs(gk, gf, 5e-4, "train_parity")
+    del out, gk, gf, base
+
+    # full depth, bf16: the gradients' global norm and the attention
+    # gradients of every layer, kernel vs plain
+    model = LM.init(cfg, seed=2, dtype=torch.float32, device=DEV)
+    shape16 = ShapeConfig("parity_bf16", 2048, 2, "train")
+    batch16 = SyntheticDataset(cfg, shape16, seed=2).batch_at(0)
+    res = {}
+    for impl in ("kernel", "full"):
+        policy = dataclasses.replace(TRAIN_POLICY, attn_impl=impl)
+        grads, loss = _grads(model, policy, batch16)
+        res[impl] = (loss, float(global_norm(grads.values())),
+                     _attention(grads))
+        del grads
+    (l16k, n16k, ak), (l16f, n16f, af) = res["kernel"], res["full"]
+    check(np.isfinite(l16k) and np.isfinite(n16k),
+          "train_parity: non-finite bf16 loss or grad norm")
+    check(abs(n16k - n16f) <= 2e-2 * n16f,
+          f"train_parity: bf16 grad norm {n16k} vs {n16f} (> 2e-2)")
+    worst16 = _leaf_errs(ak, af, 2e-2, "train_parity: bf16")
+    del model, res, ak, af
+    torch.cuda.empty_cache()
+    emit("train_parity", fp32={"shape": [2, 1024], "n_layers": 2,
+                               "loss": [lk, lf], "grad_norm": [nk, nf],
+                               "worst_grad_err_over_max_abs": worst,
+                               "tol_rel": 5e-4},
+         bf16={"shape": [2, 2048], "n_layers": cfg.n_layers,
+               "loss": [l16k, l16f], "grad_norm": [n16k, n16f],
+               "worst_attention_grad_err_over_max_abs": worst16,
+               "tol_rel": 2e-2})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script proves the port on "
@@ -477,9 +984,21 @@ def main() -> int:
         f_cases, p_cases = flash_cases(gen), paged_cases(gen)
         f_main = [flash_main_shape(gen, cfg, S) for S in (512, 2048)]
         p_main = paged_main_shape(gen, cfg)
+    b_cases, b_autograd = bwd_cases(gen)
+    with torch.no_grad():
+        *b_main, b_faults = bwd_main_shape(gen, cfg)
+    torch.cuda.empty_cache()
     emit("kernel_cases",
          flash_attention={"cases": f_cases, "main_path": f_main},
-         paged_decode_attention={"cases": p_cases, "main_path": [p_main]})
+         paged_decode_attention={"cases": p_cases, "main_path": [p_main]},
+         flash_attention_bwd={"cases": b_cases,
+                              "vjp_vs_autograd": b_autograd,
+                              "main_path": {
+                                  "flash_attention_fwd_stats": b_main[0],
+                                  "flash_attention_bwd_dkv": b_main[1],
+                                  "flash_attention_bwd_dq": b_main[2]},
+                              "scaled_tol": SCALED_TOL,
+                              "planted_faults_rejected": b_faults})
 
     model = LM.init(cfg, seed=0, dtype=torch.bfloat16, device=DEV)
     policy = PolicyConfig(compute_dtype="bfloat16", remat="none",
@@ -487,6 +1006,10 @@ def main() -> int:
     n_paged = serve_paged(cfg, model, policy)
     n_flash = serve_dense(cfg, model, policy)
     parity(cfg, model)
+    del model
+    torch.cuda.empty_cache()
+    n_train = train(cfg)
+    train_parity(cfg)
 
     def row(name, source, replaces, launches, main):
         head = main[-1]                     # the largest main-path shape
@@ -498,6 +1021,7 @@ def main() -> int:
                 "library_ms": head["library_ms"], "shape": head["shape"],
                 "dtype": head["dtype"]}
 
+    bwd_src = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
     print(json.dumps({"kernels": [
         row("flash_attention",
             "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -505,6 +1029,16 @@ def main() -> int:
         row("paged_decode_attention",
             "src/repro_torch/kernels/csrc/paged_attention.cu",
             "src/repro/kernels/paged_attention.py:151", n_paged, [p_main]),
+        row("flash_attention_fwd_stats",
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention_bwd.py:238",
+            n_train["flash_attention_fwd_stats"], [b_main[0]]),
+        row("flash_attention_bwd_dkv", bwd_src,
+            "src/repro/kernels/flash_attention_bwd.py:280",
+            n_train["flash_attention_bwd_dkv"], [b_main[1]]),
+        row("flash_attention_bwd_dq", bwd_src,
+            "src/repro/kernels/flash_attention_bwd.py:313",
+            n_train["flash_attention_bwd_dq"], [b_main[2]]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

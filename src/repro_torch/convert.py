@@ -14,7 +14,7 @@ transposed.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -101,13 +101,21 @@ def from_reference(params: Mapping[str, Any], cfg: ModelConfig, *,
     return model
 
 
-def to_reference(model: LM) -> Dict[str, Any]:
+def to_reference(model: LM, leaf: Optional[Callable] = None
+                 ) -> Dict[str, Any]:
     """The inverse: the port's weights as the reference's pytree of numpy
-    arrays (fp32), stacked per segment as ``init_stack`` lays them out."""
+    arrays (fp32), stacked per segment as ``init_stack`` lays them out.
+
+    ``leaf(param)`` picks what is laid out for each parameter instead of
+    the parameter itself -- ``lambda p: p.grad`` for the gradients, or
+    ``by_name(model, state.opt.m)`` for AdamW's first moments -- so that
+    gradients and optimizer state compare leaf by leaf with the
+    reference's."""
     cfg = model.cfg
+    pick = leaf if leaf is not None else (lambda p: p)
 
     def arr(p):
-        return p.detach().float().cpu().numpy()
+        return pick(p).detach().float().cpu().numpy()
 
     def norm(m):
         out = {"scale": arr(m.scale)}
@@ -150,3 +158,10 @@ def to_reference(model: LM) -> Dict[str, Any]:
     if cfg.pos_embedding == "learned":
         out["pos_embed"] = arr(model.pos_embed)
     return out
+
+
+def by_name(model: LM, tensors: Mapping[str, torch.Tensor]) -> Callable:
+    """A ``leaf`` for ``to_reference``: the tensor of ``tensors`` (keyed by
+    parameter name, as the optimizer state is) that belongs to a parameter."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return lambda p: tensors[names[id(p)]]

@@ -1,5 +1,7 @@
-// Helpers shared by the hand-written kernels: element conversion and
-// 16-byte vector loads that widen to float.
+// Helpers shared by the hand-written kernels: element conversion,
+// 16-byte vector loads that widen to float, a row copy into padded shared
+// memory, and the warp-level tensor-core pieces of the bf16 kernels
+// (mma.sync m16n8k16, ldmatrix, cp.async).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -61,5 +63,87 @@ template <> struct Elem<__nv_bfloat16> {
     return __bfloat162float(__float2bfloat16(x));
   }
 };
+
+// Copy `rows` rows of D elements (row i at base + row_offset(i)) into shared
+// memory as floats, row i at dst + i * (D + 4) (the padding keeps 16-byte
+// accesses and spreads a column over the banks); rows for which valid(i) is
+// false are zero-filled.  All NTHREADS threads of the block take part.
+template <typename T, int D, int NTHREADS, typename Off, typename Valid>
+__device__ __forceinline__ void load_rows(float* dst, const T* base, int rows,
+                                          Off row_offset, Valid valid) {
+  constexpr int VEC = Elem<T>::VEC;
+  constexpr int LD = D + 4;
+  constexpr int VPR = D / VEC;  // 16-byte vectors per row
+  for (int idx = threadIdx.x; idx < rows * VPR; idx += NTHREADS) {
+    const int r = idx / VPR;
+    const int c = (idx % VPR) * VEC;
+    float x[VEC];
+    if (valid(r)) {
+      Elem<T>::load16(base + row_offset(r) + c, x);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) x[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < VEC; e += 4) {
+      *reinterpret_cast<float4*>(dst + r * LD + c + e) =
+          make_float4(x[e], x[e + 1], x[e + 2], x[e + 3]);
+    }
+  }
+}
+
+// ---- bf16 tensor cores, warp level ----
+
+__device__ __forceinline__ void mma_m16n8k16(float (&c)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 bf16 matrices, transposed on the way into the fragments; lane l
+// passes the address of row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* row) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(row);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// the same without the transpose
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* row) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(row);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// asynchronous 16-byte copy global -> shared; `bytes` of them are read and
+// the rest of the 16 are written as zeros (0 for a row past the end)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int bytes) {
+  const uint32_t dst = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
 
 }  // namespace repro

@@ -38,6 +38,14 @@
 //     are masked, so no divisibility is required (a superset of the
 //     reference, which asserts it).
 //   * Heaviest causal row tiles are scheduled first.
+//
+// repro_flash_attention_fwd_stats is the same launch that also writes each
+// row's softmax statistics (m, l) for the backward kernels in
+// flash_attention_bwd.cu; it replaces the TPU kernel
+// repro/kernels/flash_attention_bwd.py (_fwd / _fwd_kernel).  The kernels
+// keep m and l in registers anyway, so only the flush changes: 8 bytes per
+// query row against 2*D bytes of q and o.  With null statistics pointers
+// (repro_flash_attention_fwd, the serving path) nothing else changes.
 
 #include "common.cuh"
 
@@ -55,38 +63,13 @@ template <int D> constexpr int smem_floats() {
   return (BM + 2 * BN) * (D + 4) + BM * (BN + 4);
 }
 
-// Copy `rows` rows of D elements (row i at base + row_offset(i)) into padded
-// shared memory as floats; rows for which valid(i) is false are zero-filled.
-template <typename T, int D, typename Off, typename Valid>
-__device__ __forceinline__ void load_rows(float* dst, const T* base, int rows,
-                                          Off row_offset, Valid valid) {
-  constexpr int VEC = Elem<T>::VEC;
-  constexpr int LD = D + 4;
-  constexpr int VPR = D / VEC;  // 16-byte vectors per row
-  for (int idx = threadIdx.x; idx < rows * VPR; idx += NT) {
-    const int r = idx / VPR;
-    const int c = (idx % VPR) * VEC;
-    float x[VEC];
-    if (valid(r)) {
-      Elem<T>::load16(base + row_offset(r) + c, x);
-    } else {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) x[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < VEC; e += 4) {
-      *reinterpret_cast<float4*>(dst + r * LD + c + e) =
-          make_float4(x[e], x[e + 1], x[e + 2], x[e + 3]);
-    }
-  }
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S, int Tk,
-                 int H, int K, int G, int causal, int window, float scale,
-                 float softcap) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ m_out, float* __restrict__ l_out, int S,
+                 int Tk, int H, int K, int G, int causal, int window,
+                 float scale, float softcap) {
   constexpr int LD = D + 4;    // padded strides keep 16-byte loads
   constexpr int LDP = BN + 4;  // conflict-free across a quarter warp
   constexpr int CPT = D / 16;  // output columns per thread
@@ -114,7 +97,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + (size_t)b * Tk * kv_row + (size_t)kh * D;
   T* ob = o + (size_t)b * S * q_row + (size_t)kh * G * D;
 
-  load_rows<T, D>(
+  load_rows<T, D, NT>(
       Qs, qb, BM,
       [&](int r) {
         const int rr = r0 + r;
@@ -151,10 +134,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int n0 = n_begin; n0 < n_end; n0 += BN) {
     __syncthreads();  // previous tile's PV product has finished with Vs, Ps
-    load_rows<T, D>(
+    load_rows<T, D, NT>(
         Ks, kb, BN, [&](int r) { return (size_t)(n0 + r) * kv_row; },
         [&](int r) { return n0 + r < Tk; });
-    load_rows<T, D>(
+    load_rows<T, D, NT>(
         Vs, vb, BN, [&](int r) { return (size_t)(n0 + r) * kv_row; },
         [&](int r) { return n0 + r < Tk; });
     __syncthreads();
@@ -267,6 +250,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (r < M) {
       const float inv = 1.f / fmaxf(l, 1e-30f);
       T* orow = ob + (size_t)(r / G) * q_row + (size_t)(r % G) * D;
+      if (m_out != nullptr && tx == 0) {
+        const size_t st = ((size_t)b * S + r / G) * H + (size_t)kh * G + r % G;
+        m_out[st] = m_i[i];
+        l_out[st] = fmaxf(l, 1e-30f);
+      }
 #pragma unroll
       for (int g = 0; g < NG; ++g)
 #pragma unroll
@@ -282,66 +270,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 constexpr int MMA_NT = 128;  // 4 warps x 16 query rows = BM
 
-__device__ __forceinline__ void mma_m16n8k16(float (&c)[4],
-                                             const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8x8 bf16 matrices, transposed on the way into the fragments; lane l
-// passes the address of row l % 8 of matrix l / 8
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* row) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(row);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// the same without the transpose
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const void* row) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(row);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// asynchronous 16-byte copy global -> shared; `bytes` of them are read and
-// the rest of the 16 are written as zeros (0 for a row past the end)
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int bytes) {
-  const uint32_t dst = (uint32_t)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 template <int D>
 __global__ void __launch_bounds__(MMA_NT)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, int S, int Tk, int H,
-                     int K, int G, int causal, int window, float scale,
-                     float softcap) {
+                     __nv_bfloat16* __restrict__ o,
+                     float* __restrict__ m_out, float* __restrict__ l_out,
+                     int S, int Tk, int H, int K, int G, int causal,
+                     int window, float scale, float softcap) {
   using bf16 = __nv_bfloat16;
   constexpr int LD = D + 8;    // padded row (bf16): conflict-free fragments
   constexpr int KS = D / 16;   // k-steps of QK^T
@@ -536,6 +473,12 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       const float inv = 1.f / fmaxf(l, 1e-30f);
       bf16* orow = ob + (size_t)(row[h] / G) * q_row +
                    (size_t)(row[h] % G) * D;
+      if (m_out != nullptr && (lane & 3) == 0) {
+        const size_t st = ((size_t)b * S + row[h] / G) * H +
+                          (size_t)kh * G + row[h] % G;
+        m_out[st] = m_i[h];
+        l_out[st] = fmaxf(l, 1e-30f);
+      }
 #pragma unroll
       for (int j = 0; j < DB; ++j)
         *reinterpret_cast<uint32_t*>(orow + j * 8 + qc) =
@@ -545,9 +488,9 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int Tk, int H, int K, int causal, int window,
-               float softcap, cudaStream_t stream) {
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               float* m_out, float* l_out, int B, int S, int Tk, int H, int K,
+               int causal, int window, float softcap, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   constexpr int bytes = 4 * BN * (D + 8) * (int)sizeof(bf16);
   static bool configured = false;
@@ -561,15 +504,15 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
   const int G = H / K;
   const dim3 grid((S * G + BM - 1) / BM, K, B);
   flash_fwd_mma_kernel<D><<<grid, MMA_NT, bytes, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, S, Tk, H, K,
-      G, causal, window, 1.0f / sqrtf((float)D), softcap);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, m_out, l_out,
+      S, Tk, H, K, G, causal, window, 1.0f / sqrtf((float)D), softcap);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int Tk, int H, int K, int causal, int window, float softcap,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* m_out,
+           float* l_out, int B, int S, int Tk, int H, int K, int causal,
+           int window, float softcap, cudaStream_t stream) {
   constexpr int bytes = smem_floats<D>() * (int)sizeof(float);
   static bool configured = false;
   if (!configured) {
@@ -582,22 +525,45 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   const int G = H / K;
   const dim3 grid((S * G + BM - 1) / BM, K, B);
   flash_fwd_kernel<T, D><<<grid, NT, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, S, Tk, H, K, G, causal,
-      window, 1.0f / sqrtf((float)D), softcap);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, m_out, l_out, S, Tk, H, K,
+      G, causal, window, 1.0f / sqrtf((float)D), softcap);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_t(int dtype, const void* q, const void* k, const void* v, void* o,
-             int B, int S, int Tk, int H, int K, int causal, int window,
-             float softcap, cudaStream_t stream) {
+             float* m_out, float* l_out, int B, int S, int Tk, int H, int K,
+             int causal, int window, float softcap, cudaStream_t stream) {
   if (dtype == DTYPE_F32)  // CUDA cores: full fp32
-    return launch<float, D>(q, k, v, o, B, S, Tk, H, K, causal, window,
-                            softcap, stream);
+    return launch<float, D>(q, k, v, o, m_out, l_out, B, S, Tk, H, K, causal,
+                            window, softcap, stream);
   if (dtype == DTYPE_BF16)  // tensor cores
-    return launch_mma<D>(q, k, v, o, B, S, Tk, H, K, causal, window, softcap,
-                         stream);
+    return launch_mma<D>(q, k, v, o, m_out, l_out, B, S, Tk, H, K, causal,
+                         window, softcap, stream);
   return ERR_UNSUPPORTED;
+}
+
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             float* m_out, float* l_out, int B, int S, int T, int H, int K,
+             int D, int dtype, int causal, int window, float softcap,
+             void* stream) {
+  if (B <= 0 || S <= 0 || T <= 0 || K <= 0 || H % K != 0 || B > 65535 ||
+      K > 65535)
+    return ERR_UNSUPPORTED;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (D) {
+    case 32:
+      return launch_t<32>(dtype, q, k, v, o, m_out, l_out, B, S, T, H, K,
+                          causal, window, softcap, st);
+    case 64:
+      return launch_t<64>(dtype, q, k, v, o, m_out, l_out, B, S, T, H, K,
+                          causal, window, softcap, st);
+    case 128:
+      return launch_t<128>(dtype, q, k, v, o, m_out, l_out, B, S, T, H, K,
+                           causal, window, softcap, st);
+    default:
+      return ERR_UNSUPPORTED;
+  }
 }
 
 }  // namespace
@@ -609,21 +575,19 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
                                          int T, int H, int K, int D, int dtype,
                                          int causal, int window, float softcap,
                                          void* stream) {
-  if (B <= 0 || S <= 0 || T <= 0 || K <= 0 || H % K != 0 || B > 65535 ||
-      K > 65535)
-    return ERR_UNSUPPORTED;
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (D) {
-    case 32:
-      return launch_t<32>(dtype, q, k, v, o, B, S, T, H, K, causal, window,
-                          softcap, st);
-    case 64:
-      return launch_t<64>(dtype, q, k, v, o, B, S, T, H, K, causal, window,
-                          softcap, st);
-    case 128:
-      return launch_t<128>(dtype, q, k, v, o, B, S, T, H, K, causal, window,
-                           softcap, st);
-    default:
-      return ERR_UNSUPPORTED;
-  }
+  return dispatch(q, k, v, o, nullptr, nullptr, B, S, T, H, K, D, dtype,
+                  causal, window, softcap, stream);
+}
+
+// The same, also writing each query row's softmax statistics for the
+// backward kernels: m (running max of the masked, capped, scaled scores) and
+// l = max(sum exp(s - m), 1e-30), both fp32 (B, S, H) -- the layout of q
+// without its last axis, so the rows of one KV head are ordered as the
+// kernels' flattened (position, group-head) axis.
+extern "C" int repro_flash_attention_fwd_stats(
+    const void* q, const void* k, const void* v, void* o, float* m, float* l,
+    int B, int S, int T, int H, int K, int D, int dtype, int causal,
+    int window, float softcap, void* stream) {
+  return dispatch(q, k, v, o, m, l, B, S, T, H, K, D, dtype, causal, window,
+                  softcap, stream);
 }

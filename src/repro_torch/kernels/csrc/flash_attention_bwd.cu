@@ -1,0 +1,964 @@
+// Fused GQA attention backward (dK/dV and dQ) for sm_90a.
+//
+// Replaces the TPU kernels of repro/kernels/flash_attention_bwd.py
+// (_bwd_dkv_kernel and _bwd_dq_kernel, launched from _bwd): the
+// FlashAttention-2 recipe -- each probability tile is recomputed from the
+// row statistics (m, l) that the forward wrote (flash_attention.cu,
+// repro_flash_attention_fwd_stats), delta = rowsum(dO * O) comes in
+// precomputed, and no (S, T) matrix ever reaches device memory:
+//
+//   s  = scale * q k^T, soft-capped (c tanh(s / c)), masked
+//   p  = exp(s - m) / l                 (0 where the mask kills the pair)
+//   dp = dO v^T
+//   dS = p (dp - delta) (1 - (s / c)^2) scale
+//   dV = sum p^T dO,   dK = sum dS^T q,   dQ = sum dS k
+//
+// (1 - (s/c)^2) is the exact derivative of the soft-cap at the capped score
+// s; the reference kernel applies tanh to the capped score once more
+// (1 - tanh^2(s/c)), which is wrong by up to a few percent at small c.
+//
+// What bounds it here: operations.  Four products per (query, key) pair in
+// the dK/dV kernel (q k^T again, dO v^T, p^T dO, dS^T q) and three in the
+// dQ kernel, against inputs of S*D size.
+//
+// What the design does about it:
+//   * The TPU kernels' sequential innermost grid axis, with the gradient
+//     tile in scratch memory, becomes a loop inside one thread block with
+//     the accumulators in registers.
+//   * dK/dV: one block per (batch, KV head, tile of BN keys).  It loops
+//     over the tiles of BM rows of the flattened (position, group-head) axis
+//     that the causal and window masks leave live -- the axis of the forward
+//     kernel, contiguous in q's (B, S, H, D) layout -- so the sum over the G
+//     query heads of a group happens inside the block: no atomics, no
+//     second pass.
+//   * dQ: one block per (batch, KV head, tile of BM flattened rows), looping
+//     over the live key tiles, heaviest causal tiles first.
+//   * Tiles that the mask kills entirely are never loaded; ragged tiles in
+//     S*G and T are masked, so no divisibility is required.
+//   * fp32 inputs: all products run on the CUDA cores in fp32, operands
+//     widened to float in padded shared memory (16-byte loads, no bank
+//     conflicts on the score products), so fp32 never rounds through TF32.
+//   * bf16 inputs: all products run on the tensor cores with warp-level
+//     mma.sync (m16n8k16, fp32 accumulate), as the forward kernel does.
+//     dK/dV: each of 4 warps owns 16 keys and computes the transposed tiles
+//     S^T = K Q^T and dP^T = V dO^T for 16 query rows at a time, so that
+//     their accumulators are already the A operands of dV += P^T dO and
+//     dK += dS^T Q (P and dS are packed to bf16 in registers, as the
+//     forward packs P); K and V stay in shared memory for the block's life,
+//     the next tile of q / dO rows arrives by cp.async while the current
+//     one is computed, and the dK and dV tiles live in registers.  dQ: each
+//     warp owns 16 query rows whose q and dO fragments stay in registers;
+//     S, dP, then dQ += dS K with K read transposed by ldmatrix, K and V
+//     tiles double-buffered by cp.async.  Warpgroup (wgmma) tiles fed by
+//     TMA are later work.
+//   * m, l and delta live in (B, S, H) fp32, q's layout without its last
+//     axis, so no transpose is paid per layer; the outputs are written in
+//     the input dtype from fp32 accumulators.
+
+#include "common.cuh"
+
+namespace {
+
+using namespace repro;
+
+constexpr int BM = 64;   // flattened query rows per tile
+constexpr int BN = 64;   // keys per tile
+constexpr int NT = 256;  // threads per block: 16 (rows) x 16 (columns)
+constexpr int RPT = 4;   // score-tile rows per thread
+constexpr int KPT = 4;   // score-tile keys per thread
+
+// Q, dO (BM rows); K, V (BN rows); P, dS (BM x BN); m, l, delta (BM)
+template <int D> constexpr int smem_floats() {
+  return 2 * BM * (D + 4) + 2 * BN * (D + 4) + 2 * BM * (BN + 4) + 3 * BM;
+}
+
+struct Smem {
+  float *Q, *dO, *K, *V, *P, *dS, *m, *l, *delta;
+};
+
+template <int D> __device__ __forceinline__ Smem carve(float* base) {
+  Smem s;
+  s.Q = base;
+  s.dO = s.Q + BM * (D + 4);
+  s.K = s.dO + BM * (D + 4);
+  s.V = s.K + BN * (D + 4);
+  s.P = s.V + BN * (D + 4);
+  s.dS = s.P + BM * (BN + 4);
+  s.m = s.dS + BM * (BN + 4);
+  s.l = s.m + BM;
+  s.delta = s.l + BM;
+  return s;
+}
+
+// Rows r0 .. r0+BM-1 of one KV head's flattened axis: q and dO rows into
+// shared memory, and their statistics (a row past the end gets m = 0,
+// l = 1, delta = 0 and zero q / dO; the mask zeroes its p).
+template <typename T, int D>
+__device__ __forceinline__ void load_row_tile(
+    const Smem& sm, const T* qb, const T* dob, const float* mb,
+    const float* lb, const float* db, int r0, int M, int G, size_t q_row,
+    int H) {
+  auto off = [&](int r) {
+    const int rr = r0 + r;
+    return (size_t)(rr / G) * q_row + (size_t)(rr % G) * D;
+  };
+  auto valid = [&](int r) { return r0 + r < M; };
+  load_rows<T, D, NT>(sm.Q, qb, BM, off, valid);
+  load_rows<T, D, NT>(sm.dO, dob, BM, off, valid);
+  for (int r = threadIdx.x; r < BM; r += NT) {
+    const int rr = r0 + r;
+    const bool live = rr < M;
+    const size_t st = (size_t)(rr / G) * H + rr % G;
+    sm.m[r] = live ? mb[st] : 0.f;
+    sm.l[r] = live ? lb[st] : 1.f;
+    sm.delta[r] = live ? db[st] : 0.f;
+  }
+}
+
+// Keys n0 .. n0+BN-1: k and v rows into shared memory (zero past Tk).
+template <typename T, int D>
+__device__ __forceinline__ void load_key_tile(const Smem& sm, const T* kb,
+                                              const T* vb, int n0, int Tk,
+                                              size_t kv_row) {
+  auto off = [&](int r) { return (size_t)(n0 + r) * kv_row; };
+  auto valid = [&](int r) { return n0 + r < Tk; };
+  load_rows<T, D, NT>(sm.K, kb, BN, off, valid);
+  load_rows<T, D, NT>(sm.V, vb, BN, off, valid);
+}
+
+// P and dS of the (BM rows from r0) x (BN keys from n0) tile, from the
+// operands in shared memory, written to sm.P and sm.dS.  Thread (tx, ty)
+// computes rows ty + 16 i and keys tx + 16 j.
+template <int D>
+__device__ __forceinline__ void p_and_ds(const Smem& sm, int r0, int n0,
+                                         int M, int G, int Tk, int causal,
+                                         int window, float scale,
+                                         float softcap) {
+  constexpr int LD = D + 4;
+  constexpr int LDP = BN + 4;
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+
+  float s[RPT][KPT], dp[RPT][KPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int j = 0; j < KPT; ++j) s[i][j] = dp[i][j] = 0.f;
+
+#pragma unroll 2
+  for (int d = 0; d < D; d += 4) {
+    float4 qa[RPT], oa[RPT], ka[KPT], va[KPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      qa[i] = *reinterpret_cast<const float4*>(sm.Q + (ty + 16 * i) * LD + d);
+      oa[i] = *reinterpret_cast<const float4*>(sm.dO + (ty + 16 * i) * LD + d);
+    }
+#pragma unroll
+    for (int j = 0; j < KPT; ++j) {
+      ka[j] = *reinterpret_cast<const float4*>(sm.K + (tx + 16 * j) * LD + d);
+      va[j] = *reinterpret_cast<const float4*>(sm.V + (tx + 16 * j) * LD + d);
+    }
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) {
+        s[i][j] += qa[i].x * ka[j].x;
+        s[i][j] += qa[i].y * ka[j].y;
+        s[i][j] += qa[i].z * ka[j].z;
+        s[i][j] += qa[i].w * ka[j].w;
+        dp[i][j] += oa[i].x * va[j].x;
+        dp[i][j] += oa[i].y * va[j].y;
+        dp[i][j] += oa[i].z * va[j].z;
+        dp[i][j] += oa[i].w * va[j].w;
+      }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int ri = ty + 16 * i;
+    const int row = r0 + ri;
+    const int pos = row / G;
+    const float m = sm.m[ri];
+    const float inv_l = 1.f / sm.l[ri];
+    const float delta = sm.delta[ri];
+#pragma unroll
+    for (int j = 0; j < KPT; ++j) {
+      const int kj = tx + 16 * j;
+      const int kpos = n0 + kj;
+      float x = s[i][j] * scale;
+      if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+      const int diff = pos - kpos;
+      bool dead = row >= M || kpos >= Tk;
+      if (causal) dead = dead || diff < 0;
+      if (window > 0) dead = dead || diff >= window;
+      const float p = dead ? 0.f : expf(x - m) * inv_l;
+      float ds = p * (dp[i][j] - delta);
+      if (softcap > 0.f) {
+        const float t = x / softcap;
+        ds *= 1.f - t * t;
+      }
+      sm.P[ri * LDP + kj] = p;
+      sm.dS[ri * LDP + kj] = ds * scale;
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ m, const float* __restrict__ l,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, int S, int Tk, int H, int K, int G,
+                     int causal, int window, float scale, float softcap) {
+  constexpr int LD = D + 4;
+  constexpr int LDP = BN + 4;
+  constexpr int CPT = D / 16;  // gradient columns per thread
+  constexpr int VW = CPT < 4 ? CPT : 4;
+  constexpr int NG = CPT / VW;
+
+  extern __shared__ float smem[];
+  const Smem sm = carve<D>(smem);
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const int n0 = blockIdx.x * BN;
+  const int kh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int M = S * G;
+
+  const size_t q_row = (size_t)H * D;
+  const size_t kv_row = (size_t)K * D;
+  const T* qb = q + (size_t)b * S * q_row + (size_t)kh * G * D;
+  const T* dob = dout + (size_t)b * S * q_row + (size_t)kh * G * D;
+  const T* kb = k + (size_t)b * Tk * kv_row + (size_t)kh * D;
+  const T* vb = v + (size_t)b * Tk * kv_row + (size_t)kh * D;
+  const size_t st0 = (size_t)b * S * H + (size_t)kh * G;
+
+  load_key_tile<T, D>(sm, kb, vb, n0, Tk, kv_row);
+
+  // rows that any key of this tile is live for
+  int r_begin = 0;
+  int r_end = M;
+  if (causal) r_begin = (min(n0, S) * G / BM) * BM;  // position >= n0
+  if (window > 0) r_end = min(M, (n0 + BN - 1 + window) * G);
+
+  float dk_acc[KPT][CPT], dv_acc[KPT][CPT];  // keys ty + 16 i
+#pragma unroll
+  for (int i = 0; i < KPT; ++i)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+
+  for (int r0 = r_begin; r0 < r_end; r0 += BM) {
+    __syncthreads();  // the previous tile's products are done with Q, dO, P
+    load_row_tile<T, D>(sm, qb, dob, m + st0, l + st0, delta + st0, r0, M, G,
+                        q_row, H);
+    __syncthreads();
+    p_and_ds<D>(sm, r0, n0, M, G, Tk, causal, window, scale, softcap);
+    __syncthreads();
+
+    // dV += P^T dO, dK += dS^T Q: keys ty + 16 i, columns
+    // g*16*VW + tx*VW + e
+#pragma unroll 2
+    for (int r = 0; r < BM; ++r) {
+      float pa[KPT], sa[KPT];
+#pragma unroll
+      for (int i = 0; i < KPT; ++i) {
+        pa[i] = sm.P[r * LDP + ty + 16 * i];
+        sa[i] = sm.dS[r * LDP + ty + 16 * i];
+      }
+      float oo[CPT], qq[CPT];
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        const int c = g * 16 * VW + tx * VW;
+        if constexpr (VW == 4) {
+          const float4 x = *reinterpret_cast<const float4*>(sm.dO + r * LD + c);
+          const float4 y = *reinterpret_cast<const float4*>(sm.Q + r * LD + c);
+          oo[g * VW + 0] = x.x; oo[g * VW + 1] = x.y;
+          oo[g * VW + 2] = x.z; oo[g * VW + 3] = x.w;
+          qq[g * VW + 0] = y.x; qq[g * VW + 1] = y.y;
+          qq[g * VW + 2] = y.z; qq[g * VW + 3] = y.w;
+        } else {
+          const float2 x = *reinterpret_cast<const float2*>(sm.dO + r * LD + c);
+          const float2 y = *reinterpret_cast<const float2*>(sm.Q + r * LD + c);
+          oo[g * VW + 0] = x.x; oo[g * VW + 1] = x.y;
+          qq[g * VW + 0] = y.x; qq[g * VW + 1] = y.y;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < KPT; ++i)
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) {
+          dv_acc[i][c] += pa[i] * oo[c];
+          dk_acc[i][c] += sa[i] * qq[c];
+        }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < KPT; ++i) {
+    const int key = n0 + ty + 16 * i;
+    if (key < Tk) {
+      T* dkr = dk + (size_t)b * Tk * kv_row + (size_t)key * kv_row +
+               (size_t)kh * D;
+      T* dvr = dv + (size_t)b * Tk * kv_row + (size_t)key * kv_row +
+               (size_t)kh * D;
+#pragma unroll
+      for (int g = 0; g < NG; ++g)
+#pragma unroll
+        for (int e = 0; e < VW; ++e) {
+          const int c = g * 16 * VW + tx * VW + e;
+          dkr[c] = Elem<T>::from_float(dk_acc[i][g * VW + e]);
+          dvr[c] = Elem<T>::from_float(dv_acc[i][g * VW + e]);
+        }
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ m, const float* __restrict__ l,
+                    const float* __restrict__ delta, T* __restrict__ dq, int S,
+                    int Tk, int H, int K, int G, int causal, int window,
+                    float scale, float softcap) {
+  constexpr int LD = D + 4;
+  constexpr int LDP = BN + 4;
+  constexpr int CPT = D / 16;
+  constexpr int VW = CPT < 4 ? CPT : 4;
+  constexpr int NG = CPT / VW;
+
+  extern __shared__ float smem[];
+  const Smem sm = carve<D>(smem);
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const int tile = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int kh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int M = S * G;
+  const int r0 = tile * BM;
+
+  const size_t q_row = (size_t)H * D;
+  const size_t kv_row = (size_t)K * D;
+  const T* qb = q + (size_t)b * S * q_row + (size_t)kh * G * D;
+  const T* dob = dout + (size_t)b * S * q_row + (size_t)kh * G * D;
+  const T* kb = k + (size_t)b * Tk * kv_row + (size_t)kh * D;
+  const T* vb = v + (size_t)b * Tk * kv_row + (size_t)kh * D;
+  const size_t st0 = (size_t)b * S * H + (size_t)kh * G;
+
+  load_row_tile<T, D>(sm, qb, dob, m + st0, l + st0, delta + st0, r0, M, G,
+                      q_row, H);
+
+  // keys that any row of this tile can see (as the forward kernel)
+  const int p_lo = r0 / G;
+  const int p_hi = min(r0 + BM - 1, M - 1) / G;
+  int n_begin = 0;
+  int n_end = Tk;
+  if (causal) n_end = min(Tk, p_hi + 1);
+  if (window > 0) {
+    const int lo = p_lo - window + 1;
+    if (lo > 0) n_begin = (lo / BN) * BN;
+  }
+
+  float acc[RPT][CPT];  // rows ty + 16 i, columns g*16*VW + tx*VW + e
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
+
+  for (int n0 = n_begin; n0 < n_end; n0 += BN) {
+    __syncthreads();  // the previous tile's product is done with K, dS
+    load_key_tile<T, D>(sm, kb, vb, n0, Tk, kv_row);
+    __syncthreads();
+    p_and_ds<D>(sm, r0, n0, M, G, Tk, causal, window, scale, softcap);
+    __syncthreads();
+
+    // dQ += dS K
+#pragma unroll 2
+    for (int n = 0; n < BN; n += 4) {
+      float sa[RPT][4];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const float4 s4 =
+            *reinterpret_cast<const float4*>(sm.dS + (ty + 16 * i) * LDP + n);
+        sa[i][0] = s4.x; sa[i][1] = s4.y; sa[i][2] = s4.z; sa[i][3] = s4.w;
+      }
+#pragma unroll
+      for (int nn = 0; nn < 4; ++nn) {
+        float kk[CPT];
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          const float* kp = sm.K + (n + nn) * LD + g * 16 * VW + tx * VW;
+          if constexpr (VW == 4) {
+            const float4 x = *reinterpret_cast<const float4*>(kp);
+            kk[g * VW + 0] = x.x; kk[g * VW + 1] = x.y;
+            kk[g * VW + 2] = x.z; kk[g * VW + 3] = x.w;
+          } else {
+            const float2 x = *reinterpret_cast<const float2*>(kp);
+            kk[g * VW + 0] = x.x; kk[g * VW + 1] = x.y;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+          for (int c = 0; c < CPT; ++c) acc[i][c] += sa[i][nn] * kk[c];
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int r = r0 + ty + 16 * i;
+    if (r < M) {
+      T* row = dq + (size_t)b * S * q_row + (size_t)(r / G) * q_row +
+               (size_t)(kh * G + r % G) * D;
+#pragma unroll
+      for (int g = 0; g < NG; ++g)
+#pragma unroll
+        for (int e = 0; e < VW; ++e)
+          row[g * 16 * VW + tx * VW + e] =
+              Elem<T>::from_float(acc[i][g * VW + e]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor-core path
+// ---------------------------------------------------------------------------
+constexpr int MMA_NT = 128;  // 4 warps
+
+template <int D> constexpr int kMmaTile = 64 * (D + 8);  // bf16 elements
+
+// dK/dV: K, V (one tile each); q, dO rows (two buffers each); m, l, delta
+// of the rows (two buffers)
+template <int D> constexpr int dkv_mma_smem_bytes() {
+  return 6 * kMmaTile<D> * 2 + 2 * 3 * BM * 4;
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_NT)
+flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ m,
+                         const float* __restrict__ l,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int S, int Tk, int H,
+                         int K, int G, int causal, int window, float scale,
+                         float softcap) {
+  using bf16 = __nv_bfloat16;
+  constexpr int LD = D + 8;  // padded row: conflict-free ldmatrix
+  constexpr int KS = D / 16;
+  constexpr int DB = D / 8;
+  constexpr int VPR = D / 8;  // 16-byte vectors per row
+  constexpr int TILE = kMmaTile<D>;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + TILE;
+  bf16* Qs = Vs + TILE;        // two buffers
+  bf16* dOs = Qs + 2 * TILE;   // two buffers
+  float* stats = reinterpret_cast<float*>(dOs + 2 * TILE);  // 2 x (m, l, delta)
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int qr = lane >> 2;
+  const int qc = (lane & 3) * 2;
+  const int n0 = blockIdx.x * BN;
+  const int kh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int M = S * G;
+
+  const size_t q_row = (size_t)H * D;
+  const size_t kv_row = (size_t)K * D;
+  const bf16* qb = q + (size_t)b * S * q_row + (size_t)kh * G * D;
+  const bf16* dob = dout + (size_t)b * S * q_row + (size_t)kh * G * D;
+  const bf16* kb = k + (size_t)b * Tk * kv_row + (size_t)kh * D;
+  const bf16* vb = v + (size_t)b * Tk * kv_row + (size_t)kh * D;
+  const size_t st0 = (size_t)b * S * H + (size_t)kh * G;
+
+  for (int idx = threadIdx.x; idx < BN * VPR; idx += MMA_NT) {
+    const int r = idx / VPR;
+    const int c = (idx % VPR) * 8;
+    const bool live = n0 + r < Tk;
+    const size_t src = (size_t)(live ? n0 + r : 0) * kv_row + c;
+    cp_async16(Ks + r * LD + c, kb + src, live ? 16 : 0);
+    cp_async16(Vs + r * LD + c, vb + src, live ? 16 : 0);
+  }
+  cp_async_commit();
+
+  int r_begin = 0;
+  int r_end = M;
+  if (causal) r_begin = (min(n0, S) * G / BM) * BM;  // position >= n0
+  if (window > 0) r_end = min(M, (n0 + BN - 1 + window) * G);
+
+  // rows r0 .. r0+BM-1 of q and dO, and their statistics, into buffer buf
+  auto fetch = [&](int r0, int buf) {
+    for (int idx = threadIdx.x; idx < BM * VPR; idx += MMA_NT) {
+      const int r = idx / VPR;
+      const int c = (idx % VPR) * 8;
+      const int rr = r0 + r;
+      const bool live = rr < M;
+      const size_t src =
+          (live ? (size_t)(rr / G) * q_row + (size_t)(rr % G) * D : 0) + c;
+      cp_async16(Qs + buf * TILE + r * LD + c, qb + src, live ? 16 : 0);
+      cp_async16(dOs + buf * TILE + r * LD + c, dob + src, live ? 16 : 0);
+    }
+    cp_async_commit();
+    float* st = stats + buf * 3 * BM;
+    for (int r = threadIdx.x; r < BM; r += MMA_NT) {
+      const int rr = r0 + r;
+      const bool live = rr < M;
+      const size_t i = st0 + (size_t)(rr / G) * H + rr % G;
+      st[r] = live ? m[i] : 0.f;
+      st[BM + r] = live ? 1.f / l[i] : 1.f;
+      st[2 * BM + r] = live ? delta[i] : 0.f;
+    }
+  };
+
+  float dk_acc[DB][4], dv_acc[DB][4];  // keys warp*16 + qr (+8), cols j*8+qc
+#pragma unroll
+  for (int j = 0; j < DB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+
+  const int kw = warp * 16;  // this warp's first key in the tile
+  if (r_begin < r_end) fetch(r_begin, 0);
+  int buf = 0;
+  for (int r0 = r_begin; r0 < r_end; r0 += BM, buf ^= 1) {
+    if (r0 + BM < r_end) {
+      fetch(r0 + BM, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Q = Qs + buf * TILE;
+    const bf16* dO = dOs + buf * TILE;
+    const float* ms = stats + buf * 3 * BM;
+    const float* inv_ls = ms + BM;
+    const float* deltas = ms + 2 * BM;
+
+#pragma unroll 1
+    for (int np = 0; np < BM / 16; ++np) {  // 16 query rows: one k-step
+      // S^T and dP^T for row blocks 2np, 2np+1 (8 rows each)
+      float st[2][4], dpt[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[h][e] = dpt[h][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ks += 2) {
+        uint32_t ka[2][4], va[2][4];
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const int off = (kw + (lane & 15)) * LD + (ks + t) * 16 +
+                          (lane >> 4) * 8;
+          ldmatrix_x4(ka[t], Ks + off);
+          ldmatrix_x4(va[t], Vs + off);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int off = ((2 * np + h) * 8 + (lane & 7)) * LD + ks * 16 +
+                          (lane >> 3) * 8;
+          uint32_t qf[4], of[4];
+          ldmatrix_x4(qf, Q + off);
+          ldmatrix_x4(of, dO + off);
+          mma_m16n8k16(st[h], ka[0], qf[0], qf[1]);
+          mma_m16n8k16(st[h], ka[1], qf[2], qf[3]);
+          mma_m16n8k16(dpt[h], va[0], of[0], of[1]);
+          mma_m16n8k16(dpt[h], va[1], of[2], of[3]);
+        }
+      }
+
+      // P^T and dS^T, then their A fragments (keys x these 16 rows)
+      uint32_t pa[4], dsa[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = n0 + kw + qr + (e >> 1) * 8;
+          const int rl = (2 * np + h) * 8 + qc + (e & 1);
+          const int row = r0 + rl;
+          const int diff = row / G - kpos;
+          float x = st[h][e] * scale;
+          if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+          bool dead = row >= M || kpos >= Tk;
+          if (causal) dead = dead || diff < 0;
+          if (window > 0) dead = dead || diff >= window;
+          const float pv = dead ? 0.f : __expf(x - ms[rl]) * inv_ls[rl];
+          float ds = pv * (dpt[h][e] - deltas[rl]);
+          if (softcap > 0.f) {
+            const float t = x / softcap;
+            ds *= 1.f - t * t;
+          }
+          st[h][e] = pv;
+          dpt[h][e] = ds * scale;
+        }
+        pa[2 * h] = pack_bf16(st[h][0], st[h][1]);
+        pa[2 * h + 1] = pack_bf16(st[h][2], st[h][3]);
+        dsa[2 * h] = pack_bf16(dpt[h][0], dpt[h][1]);
+        dsa[2 * h + 1] = pack_bf16(dpt[h][2], dpt[h][3]);
+      }
+
+      // dV += P^T dO, dK += dS^T Q over these 16 rows: dO and Q read
+      // transposed by ldmatrix, as the forward reads V
+#pragma unroll
+      for (int j = 0; j < DB; j += 2) {
+        const int mat = lane >> 3;
+        const int off = (np * 16 + (mat & 1) * 8 + (lane & 7)) * LD +
+                        (j + (mat >> 1)) * 8;
+        uint32_t of[4], qf[4];
+        ldmatrix_x4_trans(of, dO + off);
+        mma_m16n8k16(dv_acc[j], pa, of[0], of[1]);
+        mma_m16n8k16(dv_acc[j + 1], pa, of[2], of[3]);
+        ldmatrix_x4_trans(qf, Q + off);
+        mma_m16n8k16(dk_acc[j], dsa, qf[0], qf[1]);
+        mma_m16n8k16(dk_acc[j + 1], dsa, qf[2], qf[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer: it may refill
+  }
+  cp_async_wait<0>();  // the K/V copy, where no row tile was live
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = n0 + kw + qr + 8 * h;
+    if (key < Tk) {
+      const size_t at = ((size_t)b * Tk + key) * kv_row + (size_t)kh * D;
+#pragma unroll
+      for (int j = 0; j < DB; ++j) {
+        *reinterpret_cast<uint32_t*>(dk + at + j * 8 + qc) =
+            pack_bf16(dk_acc[j][2 * h], dk_acc[j][2 * h + 1]);
+        *reinterpret_cast<uint32_t*>(dv + at + j * 8 + qc) =
+            pack_bf16(dv_acc[j][2 * h], dv_acc[j][2 * h + 1]);
+      }
+    }
+  }
+}
+
+// dQ: K and V tiles, two buffers each
+template <int D> constexpr int dq_mma_smem_bytes() {
+  return 4 * kMmaTile<D> * 2;
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_NT)
+flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ m,
+                        const float* __restrict__ l,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dq, int S, int Tk, int H,
+                        int K, int G, int causal, int window, float scale,
+                        float softcap) {
+  using bf16 = __nv_bfloat16;
+  constexpr int LD = D + 8;
+  constexpr int KS = D / 16;
+  constexpr int DB = D / 8;
+  constexpr int VPR = D / 8;
+  constexpr int TILE = kMmaTile<D>;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ksm = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vsm = Ksm + 2 * TILE;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int qr = lane >> 2;
+  const int qc = (lane & 3) * 2;
+  const int tile = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int kh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int M = S * G;
+  const int r0 = tile * BM;
+
+  const size_t q_row = (size_t)H * D;
+  const size_t kv_row = (size_t)K * D;
+  const bf16* qb = q + (size_t)b * S * q_row + (size_t)kh * G * D;
+  const bf16* dob = dout + (size_t)b * S * q_row + (size_t)kh * G * D;
+  const bf16* kb = k + (size_t)b * Tk * kv_row + (size_t)kh * D;
+  const bf16* vb = v + (size_t)b * Tk * kv_row + (size_t)kh * D;
+  const size_t st0 = (size_t)b * S * H + (size_t)kh * G;
+
+  // this thread's two rows, their positions, statistics and fragments
+  int row[2], pos[2];
+  float m_r[2], inv_l[2], delta_r[2];
+  uint32_t qa[KS][4], oa[KS][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row[h] = r0 + warp * 16 + qr + 8 * h;
+    const bool live = row[h] < M;
+    const int rr = min(row[h], M - 1);
+    pos[h] = rr / G;
+    const size_t at = (size_t)(rr / G) * q_row + (size_t)(rr % G) * D;
+    const size_t i = st0 + (size_t)(rr / G) * H + rr % G;
+    m_r[h] = live ? m[i] : 0.f;
+    inv_l[h] = live ? 1.f / l[i] : 1.f;
+    delta_r[h] = live ? delta[i] : 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const uint32_t* qp =
+          reinterpret_cast<const uint32_t*>(qb + at + ks * 16 + qc);
+      const uint32_t* op =
+          reinterpret_cast<const uint32_t*>(dob + at + ks * 16 + qc);
+      qa[ks][h] = live ? qp[0] : 0u;
+      qa[ks][2 + h] = live ? qp[4] : 0u;
+      oa[ks][h] = live ? op[0] : 0u;
+      oa[ks][2 + h] = live ? op[4] : 0u;
+    }
+  }
+
+  const int p_lo = r0 / G;
+  const int p_hi = min(r0 + BM - 1, M - 1) / G;
+  int n_begin = 0;
+  int n_end = Tk;
+  if (causal) n_end = min(Tk, p_hi + 1);
+  if (window > 0) {
+    const int lo = p_lo - window + 1;
+    if (lo > 0) n_begin = (lo / BN) * BN;
+  }
+
+  float acc[DB][4];
+#pragma unroll
+  for (int j = 0; j < DB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  auto fetch = [&](int n0, int buf) {
+    for (int idx = threadIdx.x; idx < BN * VPR; idx += MMA_NT) {
+      const int r = idx / VPR;
+      const int c = (idx % VPR) * 8;
+      const bool live = n0 + r < Tk;
+      const size_t src = (size_t)(live ? n0 + r : 0) * kv_row + c;
+      cp_async16(Ksm + buf * TILE + r * LD + c, kb + src, live ? 16 : 0);
+      cp_async16(Vsm + buf * TILE + r * LD + c, vb + src, live ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+
+  if (n_begin < n_end) fetch(n_begin, 0);
+  int buf = 0;
+  for (int n0 = n_begin; n0 < n_end; n0 += BN, buf ^= 1) {
+    if (n0 + BN < n_end) {
+      fetch(n0 + BN, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Ks = Ksm + buf * TILE;
+    const bf16* Vs = Vsm + buf * TILE;
+
+#pragma unroll 1
+    for (int kk = 0; kk < BN / 16; ++kk) {  // 16 keys: one k-step of dS K
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[h][e] = dp[h][e] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < KS; ks += 2) {
+          const int off = ((2 * kk + h) * 8 + (lane & 7)) * LD + ks * 16 +
+                          (lane >> 3) * 8;
+          uint32_t kf[4], vf[4];
+          ldmatrix_x4(kf, Ks + off);
+          ldmatrix_x4(vf, Vs + off);
+          mma_m16n8k16(s[h], qa[ks], kf[0], kf[1]);
+          mma_m16n8k16(s[h], qa[ks + 1], kf[2], kf[3]);
+          mma_m16n8k16(dp[h], oa[ks], vf[0], vf[1]);
+          mma_m16n8k16(dp[h], oa[ks + 1], vf[2], vf[3]);
+        }
+      }
+      uint32_t dsa[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;  // c0, c1: row qr; c2, c3: row qr + 8
+          const int kpos = n0 + (2 * kk + h) * 8 + qc + (e & 1);
+          const int diff = pos[r] - kpos;
+          float x = s[h][e] * scale;
+          if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+          bool dead = row[r] >= M || kpos >= Tk;
+          if (causal) dead = dead || diff < 0;
+          if (window > 0) dead = dead || diff >= window;
+          const float pv = dead ? 0.f : __expf(x - m_r[r]) * inv_l[r];
+          float ds = pv * (dp[h][e] - delta_r[r]);
+          if (softcap > 0.f) {
+            const float t = x / softcap;
+            ds *= 1.f - t * t;
+          }
+          s[h][e] = ds * scale;
+        }
+        dsa[2 * h] = pack_bf16(s[h][0], s[h][1]);
+        dsa[2 * h + 1] = pack_bf16(s[h][2], s[h][3]);
+      }
+      // dQ += dS K: K read transposed by ldmatrix, as the forward reads V
+#pragma unroll
+      for (int j = 0; j < DB; j += 2) {
+        const int mat = lane >> 3;
+        uint32_t kf[4];
+        ldmatrix_x4_trans(kf, Ks + (kk * 16 + (mat & 1) * 8 + (lane & 7)) *
+                                       LD + (j + (mat >> 1)) * 8);
+        mma_m16n8k16(acc[j], dsa, kf[0], kf[1]);
+        mma_m16n8k16(acc[j + 1], dsa, kf[2], kf[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer: it may refill
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row[h] < M) {
+      bf16* out = dq + (size_t)b * S * q_row + (size_t)(row[h] / G) * q_row +
+                  (size_t)(kh * G + row[h] % G) * D;
+#pragma unroll
+      for (int j = 0; j < DB; ++j)
+        *reinterpret_cast<uint32_t*>(out + j * 8 + qc) =
+            pack_bf16(acc[j][2 * h], acc[j][2 * h + 1]);
+    }
+  }
+}
+
+template <typename KernelT>
+int configure(KernelT kernel, int bytes, bool& done) {
+  if (done) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  done = true;
+  return 0;
+}
+
+template <typename T, int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const float* m, const float* l, const float* delta, void* dk,
+               void* dv, int B, int S, int Tk, int H, int K, int causal,
+               int window, float softcap, cudaStream_t stream) {
+  constexpr int bytes = smem_floats<D>() * (int)sizeof(float);
+  static bool configured = false;
+  const int rc = configure(flash_bwd_dkv_kernel<T, D>, bytes, configured);
+  if (rc != 0) return rc;
+  const dim3 grid((Tk + BN - 1) / BN, K, B);
+  flash_bwd_dkv_kernel<T, D><<<grid, NT, bytes, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, m, l, delta,
+      (T*)dk, (T*)dv, S, Tk, H, K, H / K, causal, window,
+      1.0f / sqrtf((float)D), softcap);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const float* m, const float* l, const float* delta, void* dq,
+              int B, int S, int Tk, int H, int K, int causal, int window,
+              float softcap, cudaStream_t stream) {
+  constexpr int bytes = smem_floats<D>() * (int)sizeof(float);
+  static bool configured = false;
+  const int rc = configure(flash_bwd_dq_kernel<T, D>, bytes, configured);
+  if (rc != 0) return rc;
+  const int G = H / K;
+  const dim3 grid((S * G + BM - 1) / BM, K, B);
+  flash_bwd_dq_kernel<T, D><<<grid, NT, bytes, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, m, l, delta,
+      (T*)dq, S, Tk, H, K, G, causal, window, 1.0f / sqrtf((float)D),
+      softcap);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv_mma(const void* q, const void* k, const void* v,
+                   const void* dout, const float* m, const float* l,
+                   const float* delta, void* dk, void* dv, int B, int S,
+                   int Tk, int H, int K, int causal, int window,
+                   float softcap, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  constexpr int bytes = dkv_mma_smem_bytes<D>();
+  static bool configured = false;
+  const int rc = configure(flash_bwd_dkv_mma_kernel<D>, bytes, configured);
+  if (rc != 0) return rc;
+  const dim3 grid((Tk + BN - 1) / BN, K, B);
+  flash_bwd_dkv_mma_kernel<D><<<grid, MMA_NT, bytes, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, m, l,
+      delta, (bf16*)dk, (bf16*)dv, S, Tk, H, K, H / K, causal, window,
+      1.0f / sqrtf((float)D), softcap);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dq_mma(const void* q, const void* k, const void* v,
+                  const void* dout, const float* m, const float* l,
+                  const float* delta, void* dq, int B, int S, int Tk, int H,
+                  int K, int causal, int window, float softcap,
+                  cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  constexpr int bytes = dq_mma_smem_bytes<D>();
+  static bool configured = false;
+  const int rc = configure(flash_bwd_dq_mma_kernel<D>, bytes, configured);
+  if (rc != 0) return rc;
+  const int G = H / K;
+  const dim3 grid((S * G + BM - 1) / BM, K, B);
+  flash_bwd_dq_mma_kernel<D><<<grid, MMA_NT, bytes, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, m, l,
+      delta, (bf16*)dq, S, Tk, H, K, G, causal, window,
+      1.0f / sqrtf((float)D), softcap);
+  return (int)cudaGetLastError();
+}
+
+bool shape_ok(int B, int S, int T, int H, int K) {
+  return B > 0 && S > 0 && T > 0 && K > 0 && H % K == 0 && B <= 65535 &&
+         K <= 65535;
+}
+
+// one switch over D for both kernels: fp32 on the CUDA cores, bf16 on the
+// tensor cores
+#define REPRO_BWD_DISPATCH(LAUNCH, ...)                                      \
+  switch (D) {                                                               \
+    case 32:                                                                 \
+      return dtype == DTYPE_F32 ? LAUNCH<float, 32>(__VA_ARGS__)             \
+                                : LAUNCH##_mma<32>(__VA_ARGS__);             \
+    case 64:                                                                 \
+      return dtype == DTYPE_F32 ? LAUNCH<float, 64>(__VA_ARGS__)             \
+                                : LAUNCH##_mma<64>(__VA_ARGS__);             \
+    case 128:                                                                \
+      return dtype == DTYPE_F32 ? LAUNCH<float, 128>(__VA_ARGS__)            \
+                                : LAUNCH##_mma<128>(__VA_ARGS__);            \
+    default:                                                                 \
+      return ERR_UNSUPPORTED;                                                \
+  }
+
+}  // namespace
+
+// q, dout: (B, S, H, D); k, v: (B, T, K, D); m, l, delta: (B, S, H) fp32;
+// dk, dv: (B, T, K, D) in the inputs' dtype.  All contiguous.  Returns 0, a
+// cudaError_t, or ERR_UNSUPPORTED.  Does not synchronise.
+extern "C" int repro_flash_attention_bwd_dkv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* m, const float* l, const float* delta, void* dk, void* dv,
+    int B, int S, int T, int H, int K, int D, int dtype, int causal,
+    int window, float softcap, void* stream) {
+  if (!shape_ok(B, S, T, H, K) ||
+      (dtype != DTYPE_F32 && dtype != DTYPE_BF16))
+    return ERR_UNSUPPORTED;
+  cudaStream_t st = (cudaStream_t)stream;
+  REPRO_BWD_DISPATCH(launch_dkv, q, k, v, dout, m, l, delta, dk, dv, B, S, T,
+                     H, K, causal, window, softcap, st)
+}
+
+// The same inputs; dq: (B, S, H, D) in the inputs' dtype.
+extern "C" int repro_flash_attention_bwd_dq(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* m, const float* l, const float* delta, void* dq, int B,
+    int S, int T, int H, int K, int D, int dtype, int causal, int window,
+    float softcap, void* stream) {
+  if (!shape_ok(B, S, T, H, K) ||
+      (dtype != DTYPE_F32 && dtype != DTYPE_BF16))
+    return ERR_UNSUPPORTED;
+  cudaStream_t st = (cudaStream_t)stream;
+  REPRO_BWD_DISPATCH(launch_dq, q, k, v, dout, m, l, delta, dq, B, S, T, H,
+                     K, causal, window, softcap, st)
+}

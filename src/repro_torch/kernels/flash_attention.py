@@ -10,7 +10,10 @@ file says how.
 
 ``flash_attention`` launches the kernel for CUDA tensors -- or raises: there
 is no fallback -- and runs ``attention_plain`` only for tensors that lie on
-the CPU.  ``flash_attention.launches`` counts kernel launches.
+the CPU.  ``flash_attention.launches`` counts kernel launches.  It has no
+backward: called where autograd needs a gradient of q, k or v it raises on
+either device (``flash_attention_bwd.flash_attention_vjp`` is the
+differentiable path).
 """
 from __future__ import annotations
 
@@ -68,6 +71,11 @@ def attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     return o.reshape(B, S, H, D).to(q.dtype)
 
 
+def needs_grad(*tensors) -> bool:
+    """True where autograd would need a gradient of one of ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def _check(q, k, v):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: want q (B,S,H,D), k/v (B,T,K,D); "
@@ -91,6 +99,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     or T is required -- a superset of the reference, which asserts it.
     """
     _check(q, k, v)
+    if needs_grad(q, k, v):
+        raise RuntimeError(
+            "flash_attention is forward-only and q/k/v need a gradient: use "
+            "flash_attention_bwd.flash_attention_vjp (or ops.attention, "
+            "which picks it)")
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, window=window,
                                softcap=softcap)

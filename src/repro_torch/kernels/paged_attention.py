@@ -18,6 +18,8 @@ own table row, touches no page past ``lengths[b]``, and streams rows with
 ``paged_decode_attention`` launches the kernel for CUDA tensors -- or raises:
 there is no fallback -- and runs ``paged_attention_plain`` only for tensors
 that lie on the CPU.  ``paged_decode_attention.launches`` counts launches.
+It has no backward, and raises on either device where autograd would need a
+gradient of q or the pages.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import needs_grad
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
@@ -108,6 +111,10 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths, *,
     """
     del block_k
     _check(q, k_pages, v_pages, tables, lengths)
+    if needs_grad(q, k_pages, v_pages):
+        raise RuntimeError(
+            "paged_decode_attention is forward-only (a decode step) and "
+            "q/pages need a gradient: run it under torch.no_grad()")
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, tables, lengths,
                                      softcap=softcap)

@@ -7,8 +7,6 @@ Conventions:
   * the compute dtype is passed explicitly; norms compute in fp32;
   * wherever the reference takes a PRNG key, an explicit ``torch.Generator``
     is taken here.
-
-The loss functions arrive with the training slice.
 """
 from __future__ import annotations
 
@@ -201,3 +199,92 @@ def embed_tokens(table, tokens, compute_dtype=torch.bfloat16):
 
 def unembed(table, x, compute_dtype=torch.bfloat16):
     return x.to(compute_dtype) @ table.to(compute_dtype).T
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+def _gold_logit(logits, labels):
+    """logits[..., labels] (the reference's masked reduction picks the same
+    single value)."""
+    return logits.gather(-1, labels.long()[..., None])[..., 0]
+
+
+def softmax_xent(logits, labels, mask=None):
+    """Mean next-token cross entropy; logits (..., V) any float dtype,
+    labels int."""
+    logits = logits.float()
+    nll = torch.logsumexp(logits, dim=-1) - _gold_logit(logits, labels)
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+class _ChunkedXent(torch.autograd.Function):
+    """Forward: per sequence chunk, (B, chunk, V) logits -> per-token NLL,
+    then discarded.  Backward: each chunk's logits are recomputed from the
+    saved hidden states and per-token log-sum-exp, so the full (B, S, V)
+    logits never exist in either pass.  The table's gradient is summed over
+    chunks in fp32 (the reference's scan carries it in the compute dtype:
+    the same in fp32, a rounding apart in bf16)."""
+
+    @staticmethod
+    def forward(ctx, x, table, labels, mask, chunk, compute_dtype):
+        B, S, _ = x.shape
+        tab = table.to(compute_dtype)
+        lse = torch.empty((B, S), dtype=torch.float32, device=x.device)
+        tot = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c0 in range(0, S, chunk):
+            sl = slice(c0, c0 + chunk)
+            logits = (x[:, sl].to(compute_dtype) @ tab.T).float()
+            lse[:, sl] = torch.logsumexp(logits, dim=-1)
+            nll = (lse[:, sl] - _gold_logit(logits, labels[:, sl])) \
+                * mask[:, sl]
+            tot = tot + nll.sum()
+        cnt = mask.sum().clamp_min(1.0)
+        ctx.save_for_backward(x, table, labels, mask, lse, cnt)
+        ctx.chunk, ctx.compute_dtype = chunk, compute_dtype
+        return tot / cnt
+
+    @staticmethod
+    def backward(ctx, g):
+        x, table, labels, mask, lse, cnt = ctx.saved_tensors
+        cd, chunk = ctx.compute_dtype, ctx.chunk
+        B, S, D = x.shape
+        tab = table.to(cd)
+        dx = torch.empty_like(x)
+        dtab = torch.zeros(table.shape, dtype=torch.float32,
+                           device=table.device)
+        w = mask * (g / cnt)                     # d loss / d nll, per token
+        for c0 in range(0, S, chunk):
+            sl = slice(c0, c0 + chunk)
+            xc = x[:, sl].to(cd)
+            logits = (xc @ tab.T).float()
+            # d nll / d logits = softmax - onehot(label)
+            dl = torch.exp(logits - lse[:, sl, None])
+            dl.scatter_add_(-1, labels[:, sl].long()[..., None],
+                            -torch.ones_like(dl[..., :1]))
+            dl = (dl * w[:, sl, None]).to(cd)
+            dx[:, sl] = (dl @ tab).to(x.dtype)
+            dtab += (dl.reshape(-1, dl.shape[-1]).T
+                     @ xc.reshape(-1, D)).float()
+        return dx, dtab.to(table.dtype), None, None, None, None
+
+
+def chunked_softmax_xent(x, embed_table, labels, *, chunk: int,
+                         compute_dtype=torch.bfloat16, mask=None):
+    """Cross entropy without materialising the full (B, S, V) logits.
+
+    x: (B, S, D) final hidden states; embed_table: (V, D).  Each chunk of
+    ``chunk`` positions computes (B, chunk, V) logits, reduces them to
+    per-token NLL and discards them; the backward recomputes them chunk by
+    chunk (the reference's docstring intends this; its ``lax.scan`` is
+    differentiated by JAX)."""
+    B, S, _ = x.shape
+    if S % chunk:
+        raise ValueError(f"sequence {S} is not a multiple of chunk {chunk}")
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
+    return _ChunkedXent.apply(x, embed_table, labels, mask.float(), chunk,
+                              compute_dtype)

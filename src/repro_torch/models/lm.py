@@ -1,5 +1,5 @@
-"""LM wrapper: embeddings -> stack -> final norm -> head, held against
-``repro/models/lm.py``.  ``lm_loss`` arrives with the training slice.
+"""LM wrapper: embeddings -> stack -> final norm -> head, and the loss,
+held against ``repro/models/lm.py``.
 
 Input modes: ``tokens`` (int token ids) and ``embeddings`` (precomputed
 (B, S, d_model) inputs fed straight to the stack).
@@ -108,3 +108,23 @@ class LM(nn.Module):
             return x, new_caches, aux
         logits = layers.unembed(self.head_table(), x, ctx.compute_dtype)
         return logits, new_caches, aux
+
+
+def lm_loss(model: LM, batch, ctx: RunCtx, *, xent_chunk: int = 0,
+            aux_weight: float = 0.01):
+    """Held against ``repro/models/lm.py:76-92``.  batch: {"inputs":
+    tokens|embeds, "labels": (B,S) int, optional "mask": (B,S)}.  Returns
+    (loss, {"loss", "xent", "aux"}).  Logits and the loss run over the
+    padded vocabulary, as in the reference."""
+    hidden, _, aux = model(batch["inputs"], ctx, return_hidden=True)
+    table = model.head_table()
+    mask = batch.get("mask")
+    if xent_chunk and hidden.shape[1] % xent_chunk == 0:
+        xent = layers.chunked_softmax_xent(
+            hidden, table, batch["labels"], chunk=xent_chunk,
+            compute_dtype=ctx.compute_dtype, mask=mask)
+    else:
+        logits = layers.unembed(table, hidden, ctx.compute_dtype)
+        xent = layers.softmax_xent(logits, batch["labels"], mask)
+    loss = xent + aux_weight * aux
+    return loss, {"loss": loss, "xent": xent, "aux": aux}

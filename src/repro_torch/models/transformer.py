@@ -6,6 +6,12 @@ with one ``Block`` per layer and caches are a list with one entry per layer.
 ``plan_segments`` is kept because the reference's parameter pytree is
 stacked by segment and ``convert.from_reference`` has to unstack it.
 
+With ``RunCtx.remat == "block"`` each block runs under
+``torch.utils.checkpoint`` (non-reentrant) wherever autograd records: its
+activations are dropped after the forward and recomputed in the backward,
+as ``jax.checkpoint`` does per scanned unit in the reference
+(``transformer.py:241-242``; only ``"block"`` triggers it there too).
+
 Ported block types: ``attn`` (global attention), with and without
 ``parallel_residual``.  ``ssm``, ``rglru``, ``attn_local`` and MoE FFNs raise
 ``NotImplementedError`` naming their ROADMAP item.
@@ -17,6 +23,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN, ATTN_LOCAL, RGLRU, SSM,
                                       ModelConfig)
@@ -38,6 +45,7 @@ class RunCtx:
     compute_dtype: Any = torch.bfloat16
     attn_impl: str = "kernel"         # kernel | full
     cache_capacity: int = 0
+    remat: str = "block"              # none | block
 
 
 # ---------------------------------------------------------------------------
@@ -158,7 +166,13 @@ class Stack(nn.Module):
             rope = layers.rope_tables(
                 positions, cfg.head_dim, ctx.compute_dtype,
                 fraction=cfg.rope_fraction, theta=cfg.rope_theta)
+        remat = ctx.remat == "block" and caches is None and \
+            torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):
+            if remat:
+                x = checkpoint(self._run_block, block, x, ctx, positions,
+                               kv_mask, rope, use_reentrant=False)
+                continue
             c_in = caches if caches is None or isinstance(caches, str) \
                 else caches[i]
             x, nc = block(x, ctx, positions=positions, cache=c_in,
@@ -166,3 +180,8 @@ class Stack(nn.Module):
             if new_caches is not None:
                 new_caches.append(nc)
         return x, new_caches
+
+    @staticmethod
+    def _run_block(block, x, ctx, positions, kv_mask, rope):
+        return block(x, ctx, positions=positions, kv_mask=kv_mask,
+                     rope=rope)[0]

@@ -1,1 +1,1 @@
-"""Training (only ``make_run_ctx``, which the serving engine needs, so far)."""
+"""Training: the step builder, checkpoints (held against ``repro/train``)."""

@@ -1,4 +1,4 @@
-"""Port vs reference: the two kernel modules and their dispatch.
+"""Port vs reference: the kernel modules and their dispatch.
 
 On the CPU the port's wrappers run the plain PyTorch versions kept beside the
 kernels (the CUDA kernels themselves are held against those plain versions on
@@ -9,18 +9,24 @@ the reference's own cases with numpy inputs handed to both sides.
 
 Tolerances are the reference's own: attention 2e-5 in fp32 (different
 summation order: tiled online softmax vs one softmax) and 2e-2 in bf16 (bf16
-rounding of inputs, probabilities and outputs); paged decode 1e-5 (fp32).
+rounding of inputs, probabilities and outputs); paged decode 1e-5 (fp32);
+attention gradients 5e-4 (``tests/test_kernels_bwd.py``).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ops as ref_ops
+from repro.kernels.flash_attention_bwd import (
+    flash_attention_vjp as ref_flash_attention_vjp)
 from repro.kernels.paged_attention import (
     paged_decode_attention as ref_paged_decode_attention)
+from repro.kernels.ref import attention_ref as ref_attention_ref
 
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import flash_attention_bwd as fab
 from repro_torch.kernels.flash_attention import (attention_plain,
                                                  flash_attention)
 from repro_torch.kernels.paged_attention import (paged_attention_plain,
@@ -192,6 +198,172 @@ def test_paged_ops_dispatch_and_checks():
 
 
 # ---------------------------------------------------------------------------
+# the differentiable path (stats-emitting forward, dK/dV, dQ)
+# ---------------------------------------------------------------------------
+BWD_CASES = [
+    # B, S, T, H, K, D, causal, window, softcap
+    (2, 128, 128, 4, 2, 32, True, 0, 0.0),     # tests/test_kernels_bwd.py
+    (1, 128, 128, 4, 4, 64, True, 0, 0.0),     # MHA
+    (1, 128, 128, 6, 1, 32, False, 0, 0.0),    # MQA, bidirectional
+    (1, 256, 256, 4, 2, 32, True, 64, 0.0),    # sliding window
+    (1, 50, 77, 6, 2, 32, True, 0, 0.0),       # S < T, ragged
+    (1, 77, 50, 6, 3, 32, True, 0, 0.0),       # S > T, ragged
+    (2, 70, 70, 6, 1, 64, True, 30, 30.0),     # MQA, window, soft-cap
+    (1, 128, 128, 4, 2, 32, True, 0, 30.0),    # soft-cap
+]
+
+
+def _bwd_inputs(B, S, T, H, K, D, seed=11):
+    r = np.random.RandomState(seed)
+    return (r.standard_normal((B, S, H, D)).astype(np.float32),
+            r.standard_normal((B, T, K, D)).astype(np.float32),
+            r.standard_normal((B, T, K, D)).astype(np.float32),
+            r.standard_normal((B, S, H, D)).astype(np.float32))
+
+
+def _port_grads(q, k, v, ct, causal, window, softcap):
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = fab.flash_attention_vjp(*leaves, causal, window, softcap)
+    grads = torch.autograd.grad((out * torch.from_numpy(ct)).sum(), leaves)
+    return out.detach().numpy(), [g.numpy() for g in grads]
+
+
+def _jax_grads(fn, q, k, v, ct):
+    return [np.asarray(g) for g in jax.grad(
+        lambda q, k, v: jnp.sum(fn(q, k, v) * ct), argnums=(0, 1, 2))(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))]
+
+
+def _oracle_grads(q, k, v, ct, causal, window, softcap):
+    return _jax_grads(lambda q, k, v: ref_attention_ref(
+        q, k, v, causal=causal, window=window, softcap=softcap), q, k, v, ct)
+
+
+@pytest.mark.parametrize("B,S,T,H,K,D,causal,window,softcap", BWD_CASES)
+def test_flash_vjp_grads_match_the_reference_oracle(B, S, T, H, K, D, causal,
+                                                    window, softcap):
+    q, k, v, ct = _bwd_inputs(B, S, T, H, K, D)
+    out, got = _port_grads(q, k, v, ct, causal, window, softcap)
+    want = _oracle_grads(q, k, v, ct, causal, window, softcap)
+    for a, b, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(a, b, atol=5e-4, rtol=5e-4, err_msg=name)
+    # its forward is the forward-only path's output
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    np.testing.assert_allclose(
+        out, flash_attention(*t, causal=causal, window=window,
+                             softcap=softcap).numpy(), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("case", [0, 3])
+def test_flash_vjp_matches_the_reference_kernels_without_softcap(case):
+    """Against the reference's Pallas backward in interpret mode, as
+    tests/test_kernels_bwd.py runs it (blocks 64/64)."""
+    B, S, T, H, K, D, causal, window, _ = BWD_CASES[case]
+    q, k, v, ct = _bwd_inputs(B, S, T, H, K, D)
+    _, got = _port_grads(q, k, v, ct, causal, window, 0.0)
+    want = _jax_grads(lambda q, k, v: ref_flash_attention_vjp(
+        q, k, v, causal, window, 0.0, 64, 64, True), q, k, v, ct)
+    for a, b, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(a, b, atol=5e-4, rtol=5e-4, err_msg=name)
+
+
+def test_reference_softcap_backward_is_wrong_and_the_port_is_not():
+    """The reference kernel scales dS by 1 - tanh(s/c)**2 with s the score
+    *after* the cap (flash_attention_bwd.py:156-160, :204-206); the exact
+    factor is 1 - (s/c)**2.  At c = 5 its dq and dk miss jax.grad of the
+    oracle by more than 1e-2 (gradients of max-abs ~2); the port matches the
+    oracle at 5e-4."""
+    q, k, v, ct = _bwd_inputs(1, 128, 128, 4, 2, 32)
+    want = _oracle_grads(q, k, v, ct, True, 0, 5.0)
+    _, got = _port_grads(q, k, v, ct, True, 0, 5.0)
+    for a, b, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(a, b, atol=5e-4, rtol=5e-4, err_msg=name)
+    ref = _jax_grads(lambda q, k, v: ref_flash_attention_vjp(
+        q, k, v, True, 0, 5.0, 64, 64, True), q, k, v, ct)
+    assert np.abs(ref[0] - want[0]).max() > 1e-2         # dq
+    assert np.abs(ref[1] - want[1]).max() > 1e-2         # dk
+    np.testing.assert_allclose(ref[2], want[2], atol=5e-4, rtol=5e-4)  # dv
+
+
+def test_stats_and_backward_plain_versions_agree_with_autograd():
+    """The plain versions the CUDA kernels are held against on the card:
+    stats give the softmax back, and the backward equals autograd of the
+    plain forward, in fp32 and bf16."""
+    q, k, v, ct = (torch.from_numpy(a) for a in _bwd_inputs(2, 40, 56, 6, 2,
+                                                          32))
+    for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        tq, tk, tv, tct = (x.to(dt) for x in (q, k, v, ct))
+        kw = dict(causal=True, window=9, softcap=20.0)
+        o, m, l = fab.attention_fwd_stats_plain(tq, tk, tv, **kw)
+        assert m.shape == l.shape == (2, 40, 6) and m.dtype == torch.float32
+        assert torch.equal(o, attention_plain(tq, tk, tv, **kw))
+        delta = fab.attention_delta(o, tct)
+        dq, dk, dv = fab.attention_bwd_plain(tq, tk, tv, tct, m, l, delta,
+                                             **kw)
+        assert (dq.dtype, dk.dtype, dv.dtype) == (dt, dt, dt)
+        leaves = [x.float().clone().requires_grad_() for x in (tq, tk, tv)]
+        want = torch.autograd.grad(
+            (attention_plain(*leaves, **kw) * tct.float()).sum(), leaves)
+        for a, b in zip((dq, dk, dv), want):
+            np.testing.assert_allclose(a.float().numpy(), b.numpy(),
+                                       atol=tol, rtol=tol)
+
+
+def test_a_query_row_with_no_live_key_gets_zero_gradients():
+    q, k, v, ct = (torch.from_numpy(a) for a in _bwd_inputs(1, 40, 8, 2, 1,
+                                                          32))
+    kw = dict(causal=True, window=4, softcap=0.0)  # rows 11.. see no key
+    _, m, l = fab.flash_attention_fwd_stats(q, k, v, **kw)
+    delta = torch.zeros_like(m)
+    dq = fab.flash_attention_bwd_dq(q, k, v, ct, m, l, delta, **kw)
+    assert torch.isfinite(dq).all() and (dq[:, 11:] == 0).all()
+    assert (dq[:, :11].abs() > 0).any()
+
+
+def test_forward_only_wrappers_raise_where_autograd_needs_a_gradient():
+    """Fault 1 of the first slice: the forward-only kernel's output has no
+    grad_fn, so a backward through it gave q/k/v no gradient and no error.
+    The wrappers now refuse, on either device; ops.attention takes the
+    differentiable path instead."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 8, 4, 2, 32))
+    qg = q.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="forward-only"):
+        flash_attention(qg, k, v)
+    with torch.no_grad():
+        flash_attention(qg, k, v)                    # no gradient needed
+    pin = [torch.from_numpy(a) for a in
+           _paged_inputs(2, 64, 32, 2, 2, 16, [64, 40])]
+    with pytest.raises(RuntimeError, match="forward-only"):
+        paged_decode_attention(pin[0].requires_grad_(), *pin[1:])
+    before = dict(ops.launch_counts())
+    out = ops.attention(qg, k, v)
+    (g,) = torch.autograd.grad(out.sum(), [qg])
+    assert torch.isfinite(g).all() and g.abs().sum() > 0
+    assert ops.launch_counts() == before         # CPU: the plain versions
+
+
+def test_backward_wrappers_check_their_statistics():
+    q, k, v, ct = (torch.from_numpy(a) for a in _bwd_inputs(1, 8, 8, 4, 2,
+                                                          32))
+    _, m, l = fab.flash_attention_fwd_stats(q, k, v)
+    with pytest.raises(ValueError):
+        fab.flash_attention_bwd_dkv(q, k, v, ct, m[:, :4], l, m)
+    with pytest.raises(ValueError):
+        fab.flash_attention_bwd_dq(q, k, v, ct, m.double(), l, m)
+
+
+def test_launch_counters_cover_all_five_wrappers():
+    counts = ops.launch_counts()
+    assert sorted(counts) == sorted([
+        "flash_attention", "paged_decode_attention",
+        "flash_attention_fwd_stats", "flash_attention_bwd_dkv",
+        "flash_attention_bwd_dq"])
+    fab.flash_attention_bwd_dq.launches += 3
+    ops.reset_launch_counts()
+    assert set(ops.launch_counts().values()) == {0}
+
+
+# ---------------------------------------------------------------------------
 # on the card (skipped where there is none)
 # ---------------------------------------------------------------------------
 @pytest.fixture
@@ -218,3 +390,12 @@ def test_kernels_match_plain_versions_on_the_card(cuda_device):
                                paged_attention_plain(*t).cpu().numpy(),
                                atol=1e-5, rtol=1e-5)
     assert ops.launch_counts()["flash_attention"] > 0
+    q, k, v, ct = (torch.from_numpy(a).to(cuda_device)
+                   for a in _bwd_inputs(1, 100, 77, 6, 2, 64))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    got = torch.autograd.grad((ops.attention(*leaves) * ct).sum(), leaves)
+    want = torch.autograd.grad((attention_plain(*leaves) * ct).sum(), leaves)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   atol=5e-4, rtol=5e-4)
+    assert ops.launch_counts()["flash_attention_bwd_dkv"] > 0
