@@ -48,8 +48,33 @@ per line:
                 within 5e-4 of its max-abs) and bf16 gradients at full depth
                 (grad norm, and the attention gradients of every layer,
                 within 2e-2);
+  serve_ssm     mamba2-780m at full width and depth in bf16 (48 SSM layers),
+                random weights from seed 0 made on the device, 12 requests
+                through ``AsyncServeEngine(mode="auto")`` (dense); every
+                prefill must launch the SSD kernel once per layer;
+  serve_hybrid  recurrentgemma-2b at full width and depth in bf16 ((R, R,
+                A) x 8 + (R, R)), 6 requests, prompts up to 3000 tokens
+                (past the 2048-token window, so the window mask and the ring
+                wrap run); every prefill must launch the RG-LRU kernel 18
+                times and the windowed flash kernel (D = 256) 8 times;
+  parity_recurrent  for each of the two: greedy streams with the kernels
+                equal those with the plain versions (2-layer mamba2, 3-layer
+                (R, R, A) recurrentgemma, full width, fp32); one prefill at
+                full depth, last-token logits kernel vs plain within 2e-4 of
+                max-abs in fp32, and in bf16 within twice the spread between
+                two plain implementations measured in the same run (one
+                prefill; a prefill of all but 16 tokens, then 16 decode
+                steps);
   kernels       the per-kernel summary line, launches counted on the served
-                and trained runs above.
+                and trained runs above (the flash kernel has two rows: its
+                llama launches at D = 128 and recurrentgemma's at D = 256).
+
+``kernel_cases`` also holds the SSD kernel (the reference's cases, the
+ragged one included, fp32 and bf16 x/B/C, the sequential-recurrence case and
+the served shape; y and h_final within 2e-4 of max |want| and per row, see
+``SSD_TOL``; a dropped sub-chunk state update planted in the plain result
+must fail the comparison), the RG-LRU kernel (the reference's cases at 2e-5
+and the served shape) and the flash kernel at D = 256 with a window.
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, and last
 ``{"ok": true, "device": {...}}``.
@@ -75,6 +100,7 @@ from repro_torch.configs.base import (ATTN, PolicyConfig,      # noqa: E402
                                       ShapeConfig)
 from repro_torch.data import SyntheticDataset                  # noqa: E402
 from repro_torch.kernels import build, ops                     # noqa: E402
+from repro_torch.kernels.registry import bucket_pow2           # noqa: E402
 from repro_torch.kernels.flash_attention import (              # noqa: E402
     attention_plain, flash_attention)
 from repro_torch.kernels.flash_attention_bwd import (          # noqa: E402
@@ -83,10 +109,15 @@ from repro_torch.kernels.flash_attention_bwd import (          # noqa: E402
     flash_attention_fwd_stats, flash_attention_vjp)
 from repro_torch.kernels.paged_attention import (              # noqa: E402
     paged_attention_plain, paged_decode_attention)
+from repro_torch.kernels.rglru import rglru, rglru_plain       # noqa: E402
+from repro_torch.kernels.ssd import ssd, ssd_plain             # noqa: E402
 from repro_torch.models.lm import LM                           # noqa: E402
+from repro_torch.models.ssm import ssd_decode_step             # noqa: E402
 from repro_torch.optim import (AdamWConfig, ScheduleConfig,    # noqa: E402
                                global_norm)
 from repro_torch.serve import AsyncServeEngine, ServeRequest   # noqa: E402
+from repro_torch.serve.engine import (make_decode_step,        # noqa: E402
+                                      make_prefill_step)
 from repro_torch.train import trainer                          # noqa: E402
 
 # published peaks of one H100 SXM (dense): what the bounds are stated against
@@ -215,14 +246,14 @@ def _scaled(got, want):
                                   / torch.maximum(rows, floor)).max())}
 
 
-def _passes(scaled) -> bool:
-    return all(v <= SCALED_TOL[k] for k, v in scaled.items())
+def _passes(scaled, tol=SCALED_TOL) -> bool:
+    return all(v <= tol[k] for k, v in scaled.items())
 
 
-def _scaled_err(got, want, what):
+def _scaled_err(got, want, what, tol=SCALED_TOL):
     check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
     s = _scaled(got, want)
-    check(_passes(s), f"{what}: scaled errors {s} exceed {SCALED_TOL}")
+    check(_passes(s, tol), f"{what}: scaled errors {s} exceed {tol}")
     return s
 
 
@@ -580,6 +611,281 @@ def bwd_main_shape(gen, cfg):
 
 
 # ---------------------------------------------------------------------------
+# the recurrent kernels (SSD, RG-LRU) and the flash kernel at D = 256
+# ---------------------------------------------------------------------------
+SSD_CASES = [
+    # B, S, H, P, G, N, chunk -- tests/test_kernels.py
+    (2, 128, 4, 16, 1, 32, 32),
+    (1, 64, 8, 32, 2, 16, 16),
+    (1, 256, 2, 64, 1, 64, 64),
+    (3, 96, 4, 16, 4, 16, 32),      # ragged for the kernel's 64 steps
+    (3, 100, 4, 16, 4, 16, 32),     # ragged for every chunk length
+]
+# y and h_final of the SSD kernel against its plain version: all math is
+# fp32 on both sides (bf16 inputs widen exactly), so only the summation order
+# and the kernel's own sub-chunk length differ
+SSD_TOL = {"max_err_over_max_abs": 2e-4, "rel_fro": 2e-4,
+           "row_rel_max": 2e-4}
+RGLRU_CASES = [(2, 128, 64), (1, 64, 256), (3, 96, 32), (1, 128, 8)]
+ATTN_D256_CASES = [
+    # B, S, T, H, K, D, causal, window, dtype: recurrentgemma's MQA heads
+    (1, 300, 300, 10, 1, 256, True, 64, torch.float32),
+    (1, 300, 300, 10, 1, 256, True, 64, torch.bfloat16),
+    (2, 130, 130, 10, 1, 256, True, 0, torch.bfloat16),
+    (1, 200, 200, 4, 2, 256, True, 50, torch.float32),
+]
+SSD_SERVED = (1, 2048, 48, 64, 1, 128)      # mamba2-780m, one 2048 prefill
+RGLRU_SERVED = (1, 4096, 2560)              # recurrentgemma-2b, 4096 prefill
+ATTN_SERVED = (1, 4096, 4096, 10, 1, 256, True, 2048, torch.bfloat16)
+
+
+def _ssd_inputs(gen, B, S, H, P, G, N, dt_, served=False):
+    """The reference tests' distributions; at the served shape dt and A
+    follow the model's init ranges instead (small dt, A in [-16, -1]), so
+    the state carries across many sub-chunks."""
+    x = _randn(gen, B, S, H, P, dtype=dt_)
+    if served:
+        dt = torch.nn.functional.softplus(_randn(gen, B, S, H,
+                                                 dtype=torch.float32) - 3.0)
+        A = -(1.0 + 15.0 * torch.rand(H, generator=gen, device=DEV))
+    else:
+        dt = torch.nn.functional.softplus(_randn(gen, B, S, H,
+                                                 dtype=torch.float32))
+        A = -torch.exp(_randn(gen, H, dtype=torch.float32))
+    Bm = (_randn(gen, B, S, G, N, dtype=torch.float32) * 0.5).to(dt_)
+    Cm = (_randn(gen, B, S, G, N, dtype=torch.float32) * 0.5).to(dt_)
+    return x, dt, A, Bm, Cm
+
+
+def _ssd_dropped(x, dt, A, Bm, Cm, drop, L=64):
+    """The plain SSD over sub-chunks of ``L`` steps, the state carried from
+    one to the next through ``h0`` -- except that sub-chunk ``drop`` leaves
+    the state as it found it: a kernel that skips one state update."""
+    B, S, H, P = x.shape
+    N = Bm.shape[3]
+    h = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+    ys = []
+    for j, s0 in enumerate(range(0, S, L)):
+        sl = slice(s0, s0 + L)
+        y, h_new = ssd_plain(x[:, sl], dt[:, sl], A, Bm[:, sl], Cm[:, sl],
+                             chunk=L, h0=h)
+        ys.append(y)
+        if j != drop:
+            h = h_new
+    return torch.cat(ys, dim=1), h
+
+
+def _ssd_check(got, want, what):
+    return {"y": _scaled_err(got[0], want[0], f"{what} y", SSD_TOL),
+            "h_final": _scaled_err(got[1], want[1], f"{what} h_final",
+                                   SSD_TOL)}
+
+
+def ssd_cases(gen):
+    rows = []
+    for (B, S, H, P, G, N, chunk) in SSD_CASES:
+        for dt_ in (torch.float32, torch.bfloat16):
+            ins = _ssd_inputs(gen, B, S, H, P, G, N, dt_)
+            got = ssd(*ins)
+            torch.cuda.synchronize()
+            want = ssd_plain(*ins, chunk=chunk)
+            rows.append({"shape": [B, S, H, P, G, N], "chunk": chunk,
+                         "dtype": str(dt_), "scaled": _ssd_check(
+                             got, want, f"ssd {(B, S, H, P, G, N)} {dt_}")})
+    # a given initial state (the first case)
+    B, S, H, P, G, N, chunk = SSD_CASES[0]
+    ins = _ssd_inputs(gen, B, S, H, P, G, N, torch.float32)
+    h0 = _randn(gen, B, H, N, P, dtype=torch.float32)
+    got = ssd(*ins, h0=h0)
+    torch.cuda.synchronize()
+    rows.append({"shape": [B, S, H, P, G, N], "chunk": chunk, "h0": True,
+                 "dtype": "torch.float32", "scaled": _ssd_check(
+                     got, ssd_plain(*ins, chunk=chunk, h0=h0),
+                     "ssd with h0")})
+    # the sequential recurrence: one decode step at a time on the card
+    B, S, H, P, G, N, _ = 1, 16, 2, 8, 1, 4, 8
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, B, S, H, P, G, N, torch.float32)
+    y, h = ssd(x, dt, A, Bm, Cm)
+    hs = torch.zeros((B, H, N, P), device=DEV)
+    ys = []
+    for t in range(S):
+        yt, hs = ssd_decode_step(x[:, t], dt[:, t], A, Bm[:, t], Cm[:, t],
+                                 hs)
+        ys.append(yt)
+    rows.append({"shape": [B, S, H, P, G, N], "dtype": "torch.float32",
+                 "against": "ssd_decode_step, step by step",
+                 "scaled": _ssd_check((y, h), (torch.stack(ys, 1), hs),
+                                      "ssd vs the sequential recurrence")})
+    return rows
+
+
+def _ssd_least_flops(B, S, H, P, G, N):
+    """(chunk, fp32 operations) of the chunked SSD at the chunk length that
+    needs the least.  At chunk c: per head, the causal intra-chunk product
+    S(c+1)P, the chunk states and their read-out 4SNP, and the state carried
+    across chunks 2NP per chunk; per group the causal C B^T, S(c+1)N.
+    c = 1 is the plain recurrence."""
+    def flops(c):
+        return B * (S * (H * ((c + 1) * P + 4 * N * P) + G * (c + 1) * N)
+                    + H * -(-S // c) * 2 * N * P)
+    return min(((c, flops(c)) for c in range(1, S + 1)), key=lambda t: t[1])
+
+
+def ssd_main_shape(gen):
+    """The served prefill: x, B, C bf16 (the compute dtype), dt and A fp32.
+    A dropped sub-chunk state update at mid-sequence, planted in the plain
+    result, must fail the comparison."""
+    B, S, H, P, G, N = SSD_SERVED
+    dt_ = torch.bfloat16
+    ins = _ssd_inputs(gen, B, S, H, P, G, N, dt_, served=True)
+    got = ssd(*ins)
+    torch.cuda.synchronize()
+    want = ssd_plain(*ins, chunk=256)
+    scaled = _ssd_check(got, want, "ssd served shape")
+    fault = _ssd_dropped(*ins, drop=S // 64 // 2)
+    fault_scaled = {"y": _scaled(fault[0], want[0]),
+                    "h_final": _scaled(fault[1], want[1])}
+    check(not all(_passes(v, SSD_TOL) for v in fault_scaled.values()),
+          f"planted fault (one dropped sub-chunk state update) passes the "
+          f"SSD comparison {fault_scaled}: it cannot see it")
+    x, dt, A, Bm, Cm = ins
+    ms = time_ms([lambda: ssd(*ins)], 10)
+    plain_ms = time_ms([lambda: ssd_plain(*ins, chunk=256)], 2)
+    # bytes: each input read once, y and h_final written once
+    nbytes = sum(t.numel() * t.element_size() for t in ins) \
+        + (B * S * H * P + B * H * N * P) * 4
+    chunk, flops = _ssd_least_flops(B, S, H, P, G, N)
+    return dict({"shape": [B, S, H, P, G, N], "dtype": "x/B/C bf16, dt/A "
+                 "fp32", "tol": SSD_TOL["max_err_over_max_abs"],
+                 "bound_chunk": chunk,
+                 "max_abs_err": float((got[0] - want[0]).abs().max()),
+                 "scaled": scaled, "planted_fault_rejected": fault_scaled,
+                 "ms": ms, "plain_ms": plain_ms, "library_ms": None},
+                **_bound(nbytes, flops, torch.float32))
+
+
+def rglru_cases(gen):
+    rows = []
+    for (B, S, W) in RGLRU_CASES:
+        la = -torch.nn.functional.softplus(_randn(gen, B, S, W,
+                                                  dtype=torch.float32))
+        g = _randn(gen, B, S, W, dtype=torch.float32)
+        h0 = _randn(gen, B, W, dtype=torch.float32)
+        for with_h0 in (False, True):
+            kw = dict(h0=h0) if with_h0 else {}
+            got = rglru(la, g, **kw)
+            torch.cuda.synchronize()
+            err = _err(got, rglru_plain(la, g, **kw), 2e-5,
+                       f"rglru {(B, S, W)} h0={with_h0}")
+            rows.append({"shape": [B, S, W], "h0": with_h0, "tol": 2e-5,
+                         "max_abs_err": err})
+    return rows
+
+
+def rglru_main_shape(gen):
+    B, S, W = RGLRU_SERVED
+    copies = [(-torch.nn.functional.softplus(
+        _randn(gen, B, S, W, dtype=torch.float32)),
+        _randn(gen, B, S, W, dtype=torch.float32)) for _ in range(2)]
+    la, g = copies[0]
+    got = rglru(la, g)
+    torch.cuda.synchronize()
+    err = _err(got, rglru_plain(la, g), 2e-5, "rglru served shape")
+    # two input sets in turn keep a launch's 84 MB of inputs out of L2
+    ms = time_ms([lambda a=a, b=b: rglru(a, b) for a, b in copies], 10)
+    plain_ms = time_ms([lambda: rglru_plain(la, g)], 2)
+    return dict({"shape": [B, S, W], "dtype": "torch.float32", "tol": 2e-5,
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                 "library_ms": None},
+                **_bound(3 * B * S * W * 4, 3 * B * S * W, torch.float32))
+
+
+def _live_pairs(S, T, causal, window):
+    """(query, key) pairs the mask leaves live, per batch row and head."""
+    i = np.arange(S)[:, None]
+    j = np.arange(T)[None, :]
+    live = np.ones((S, T), bool)
+    if causal:
+        live &= j <= i
+    if window > 0:
+        live &= i - j < window
+    return int(live.sum())
+
+
+def flash_d256_cases(gen):
+    rows = []
+    for (B, S, T, H, K, D, causal, window, dt) in ATTN_D256_CASES:
+        q = _randn(gen, B, S, H, D, dtype=dt)
+        k = _randn(gen, B, T, K, D, dtype=dt)
+        v = _randn(gen, B, T, K, D, dtype=dt)
+        for softcap in (0.0, 30.0):
+            kw = dict(causal=causal, window=window, softcap=softcap)
+            got = flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            want = attention_plain(q, k, v, **kw)
+            tol = _tol(dt, 2e-5)
+            what = f"flash_attention D=256 " \
+                   f"{(B, S, T, H, K, D, causal, window)} {dt} " \
+                   f"softcap={softcap}"
+            row = {"shape": [B, S, T, H, K, D], "causal": causal,
+                   "window": window, "softcap": softcap, "dtype": str(dt),
+                   "tol": tol, "max_abs_err": _err(got, want, tol, what)}
+            if dt == torch.bfloat16:
+                row["scaled"] = _scaled_err(got, want, what)
+            rows.append(row)
+    return rows
+
+
+def flash_d256_main_shape(gen):
+    """recurrentgemma-2b's local attention over a 4096-token prefill: q
+    (1,4096,10,256), k/v (1,4096,1,256) bf16, causal, window 2048."""
+    B, S, T, H, K, D, causal, window, dt = ATTN_SERVED
+    q = _randn(gen, B, S, H, D, dtype=dt)
+    k = _randn(gen, B, T, K, D, dtype=dt)
+    v = _randn(gen, B, T, K, D, dtype=dt)
+    kw = dict(causal=causal, window=window)
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = attention_plain(q, k, v, **kw)
+    err = _err(got, want, 2e-2, "flash_attention D=256 served shape")
+    scaled = _scaled_err(got, want, "flash_attention D=256 served shape")
+    ms = time_ms([lambda: flash_attention(q, k, v, **kw)], 10)
+    plain_ms = time_ms([lambda: attention_plain(q, k, v, **kw)], 2)
+    i = torch.arange(S, device=DEV)[:, None]
+    j = torch.arange(T, device=DEV)[None, :]
+    mask = (j <= i) & (i - j < window)          # True = attend
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = time_ms(
+        [lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)], 5)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    flops = 4 * D * H * B * _live_pairs(S, T, causal, window)
+    return dict({"shape": [B, S, T, H, K, D], "window": window,
+                 "dtype": str(dt), "tol": 2e-2, "max_abs_err": err,
+                 "scaled": scaled, "ms": ms, "plain_ms": plain_ms,
+                 "library_ms": library_ms}, **_bound(nbytes, flops, dt))
+
+
+def ptxas_usage(names):
+    """Registers and spills that ``nvcc -Xptxas -v`` reported for each
+    kernel whose mangled name contains one of ``names``."""
+    out, cur = {}, None
+    for line in build.build_log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            cur = next((n for n in names if n in fn), None)
+            if cur is not None:
+                cur = f"{cur}:{fn[-40:]}"
+        elif cur is not None and "spill stores" in line:
+            out.setdefault(cur, {})["spill"] = line.strip()
+        elif cur is not None and "Used" in line and "registers" in line:
+            out.setdefault(cur, {})["registers"] = int(
+                line.split("Used")[1].split("registers")[0])
+            cur = None
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the served path
 # ---------------------------------------------------------------------------
 def _prompt(seed, n, vocab):
@@ -750,18 +1056,24 @@ def _model_flops_per_step(cfg, n_params):
     return 6 * n_params * B * S + 12 * cfg.head_dim * pairs * cfg.n_layers
 
 
-def _profile_step(step_fn, state, batch):
-    """One more step under ``torch.profiler``: device time by kind of kernel
-    and the device's idle share of the step's wall time."""
+KINDS = (("attention_kernels", ("flash_fwd", "flash_bwd")),
+         ("ssd_kernel", ("ssd_kernel",)), ("rglru_kernel", ("rglru_kernel",)),
+         ("matmul", ("gemm", "xmma", "nvjet", "cutlass")))
+
+
+def _profile(fn, what):
+    """``fn()`` once more under ``torch.profiler``: device time by kind of
+    kernel and the device's idle share of the call's wall time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step_fn(state, batch)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    by_kind = {"attention_kernels": 0.0, "matmul": 0.0, "other": 0.0}
+    by_kind = {k: 0.0 for k, _ in KINDS}
+    by_kind["other"] = 0.0
     by_name: dict = {}
     n = 0
     for ev in prof.events():
@@ -771,18 +1083,14 @@ def _profile_step(step_fn, state, batch):
         name = ev.name
         n += 1
         by_name[name] = by_name.get(name, 0.0) + us
-        if "flash_fwd" in name or "flash_bwd" in name:
-            by_kind["attention_kernels"] += us
-        elif any(t in name.lower() for t in ("gemm", "xmma", "nvjet",
-                                             "cutlass")):
-            by_kind["matmul"] += us
-        else:
-            by_kind["other"] += us
-    check(n > 0, "train: the profiler saw no device activity")
+        kind = next((k for k, keys in KINDS
+                     if any(t in name.lower() for t in keys)), "other")
+        by_kind[kind] += us
+    check(n > 0, f"{what}: the profiler saw no device activity")
     busy = sum(by_kind.values())
     check(busy <= 1.05 * wall_us,
-          f"train: profiled device time {busy / 1e3} ms exceeds the step's "
-          f"wall time {wall_us / 1e3} ms: kernels counted twice")
+          f"{what}: profiled device time {busy / 1e3} ms exceeds the wall "
+          f"time {wall_us / 1e3} ms: kernels counted twice")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / wall_us,
@@ -810,9 +1118,9 @@ def train(cfg):
                                       shape=TRAIN_SHAPE)
     ds = SyntheticDataset(cfg, TRAIN_SHAPE, seed=0)
     batches = [ds.batch_at(i) for i in range(TRAIN_STEPS)]
-    want = {"flash_attention_fwd_stats": 2 * L, "flash_attention_bwd_dkv": L,
-            "flash_attention_bwd_dq": L, "flash_attention": 0,
-            "paged_decode_attention": 0}
+    want = dict({k: 0 for k in ops.launch_counts()},
+                flash_attention_fwd_stats=2 * L, flash_attention_bwd_dkv=L,
+                flash_attention_bwd_dq=L)
     # the first step's loss and attention gradients are held against one
     # pass through the plain attention from the same weights and batch
     grads, full_loss = _grads(
@@ -849,7 +1157,7 @@ def train(cfg):
             # the peak below is that of the steady steps
             torch.cuda.reset_peak_memory_stats()
     counts = ops.launch_counts()            # just after
-    profile = _profile_step(step_fn, state, batches[-1])
+    profile = _profile(lambda: step_fn(state, batches[-1]), "train")
     check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
           f"train: non-finite loss or grad norm {losses} {norms}")
     # a smoke signal only: whether the gradients are right is checked above
@@ -964,6 +1272,234 @@ def train_parity(cfg):
                "tol_rel": 2e-2})
 
 
+# ---------------------------------------------------------------------------
+# the recurrent archs served
+# ---------------------------------------------------------------------------
+SSM_ARCH = "mamba2-780m"
+HYBRID_ARCH = "recurrentgemma-2b"
+
+
+def _serve_dense_auto(cfg, model, policy, *, n_slots, max_seq, lens, max_new,
+                      seed):
+    """``AsyncServeEngine(mode="auto")`` (which must pick ``dense``) over
+    requests of the given prompt lengths; launches are counted from zero
+    after the warm-up.  Returns (engine report, requests, launch counts,
+    the warm-up's launch counts, wall seconds, peak device memory, the
+    profiled prefill and decode step)."""
+    eng = AsyncServeEngine(cfg, model, policy, mode="auto", n_slots=n_slots,
+                           max_seq=max_seq, device=DEV)
+    check(eng.mode == "dense", f"{cfg.name}: auto mode picked {eng.mode}")
+    ops.reset_launch_counts()
+    eng.warmup()
+    warm = ops.launch_counts()
+    reqs = [ServeRequest(i, _prompt(seed + i, n, cfg.vocab_size),
+                         max_new=max_new) for i, n in enumerate(lens)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()               # just before the main path
+    t0 = time.perf_counter()
+    for r in reqs:
+        check(eng.submit(r), f"request {r.rid} rejected: {r.why_rejected}")
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()            # just after
+    served = sum(r.done for r in reqs)
+    check(served == len(reqs), f"{cfg.name}: served {served}/{len(reqs)}")
+    check(all(len(r.out) == max_new and all(0 <= t < cfg.padded_vocab
+                                            for t in r.out) for r in reqs),
+          f"{cfg.name}: a request's output is malformed")
+    peak = torch.cuda.max_memory_allocated()
+    profiled = _profile_dense(eng, max(lens), f"{cfg.name} prefill")
+    return eng.report(), reqs, counts, warm, wall, peak, profiled
+
+
+def _profile_dense(eng, prompt_len, what):
+    """One more bucketed prefill of ``prompt_len`` tokens and one decode
+    step over all slots, each under ``torch.profiler``."""
+    S = min(bucket_pow2(prompt_len, floor=16), eng.max_seq)
+    toks = torch.zeros((1, S), dtype=torch.int32, device=DEV)
+    length = torch.full((1,), prompt_len, dtype=torch.int32, device=DEV)
+    prefill = _profile(lambda: eng.prefill(eng.model, toks, length), what)
+    B = eng.n_slots
+    tok = torch.zeros((B, 1), dtype=torch.int32, device=DEV)
+    pos = torch.full((B, 1), prompt_len, dtype=torch.int32, device=DEV)
+    decode = _profile(lambda: eng.decode(eng.model, eng.caches, tok, pos),
+                      what.replace("prefill", "decode"))
+    return {"prefill": dict(prefill, tokens=prompt_len, bucket=S),
+            "decode_step": dict(decode, rows=B)}
+
+
+def _per_prefill(cfg, counts, n_prefills, want_per_prefill):
+    """Every kernel's launches against ``want_per_prefill`` (zero for the
+    kernels not named) times the prefills."""
+    want = {k: want_per_prefill.get(k, 0) * n_prefills for k in counts}
+    check(all(counts[k] > 0 for k in want_per_prefill),
+          f"{cfg.name}: a kernel of the path was never launched: {counts}")
+    check(counts == want, f"{cfg.name}: launches {counts} != {want} "
+                          f"({n_prefills} prefills)")
+
+
+def serve_ssm(cfg, model, policy):
+    lens = np.linspace(100, 1500, 12).astype(int).tolist()
+    rep, reqs, counts, warm, wall, peak, profiled = _serve_dense_auto(
+        cfg, model, policy, n_slots=8, max_seq=2048, lens=lens, max_new=64,
+        seed=400)
+    _per_prefill(cfg, counts, len(reqs), {"ssd": cfg.pattern.count("ssm")})
+    emit("serve_ssm", arch=cfg.name, n_layers=cfg.n_layers, dtype="bfloat16",
+         mode=rep["mode"], slots=8, max_seq=2048, requests=len(reqs),
+         served=sum(r.done for r in reqs), prompt_lens=lens, max_new=64,
+         wall_s=wall, launches=counts,
+         warmup_launches=warm,
+         max_memory_allocated=peak, profiled=profiled, **_latency(rep))
+    return counts["ssd"]
+
+
+def serve_hybrid(cfg, model, policy):
+    lens = [200, 700, 1300, 2100, 2600, 3000]   # three past the window
+    rep, reqs, counts, warm, wall, peak, profiled = _serve_dense_auto(
+        cfg, model, policy, n_slots=4, max_seq=4096, lens=lens, max_new=32,
+        seed=500)
+    _per_prefill(cfg, counts, len(reqs),
+                 {"rglru": cfg.pattern.count("rglru"),
+                  "flash_attention": cfg.pattern.count("attn_local")})
+    emit("serve_hybrid", arch=cfg.name, n_layers=cfg.n_layers,
+         dtype="bfloat16", mode=rep["mode"], slots=4, max_seq=4096,
+         window=cfg.local_window, requests=len(reqs),
+         served=sum(r.done for r in reqs), prompt_lens=lens, max_new=32,
+         wall_s=wall, launches=counts,
+         warmup_launches=warm,
+         max_memory_allocated=peak, profiled=profiled, **_latency(rep))
+    return counts
+
+
+def _dense_streams(cfg, model, impl, prompts, max_seq):
+    policy = PolicyConfig(compute_dtype="float32", remat="none",
+                          attn_impl=impl)
+    eng = AsyncServeEngine(cfg, model, policy, mode="auto", n_slots=3,
+                           max_seq=max_seq, device=DEV)
+    reqs = [ServeRequest(i, list(p), max_new=8)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        check(eng.submit(r), f"parity request {r.rid} rejected")
+    eng.run()
+    check(all(r.done for r in reqs), "parity: a request was not served")
+    return [r.out for r in reqs]
+
+
+# bf16 logits at full depth: the plain prefill against the plain prefill of
+# all but the last NOISE_DECODE_STEPS tokens followed by that many decode
+# steps -- two correct implementations whose spread is bf16 rounding grown
+# over the depth; the kernel path may be NOISE_MULTIPLE times as far
+NOISE_DECODE_STEPS = 16
+NOISE_MULTIPLE = 2.0
+
+
+def parity_recurrent(cfg, model, n_layers, lens, max_seq, prefill_len):
+    """Greedy streams kernels == plain versions at full width in fp32 over
+    the first ``n_layers`` of the pattern; then the last-token logits of one
+    prefill of the full depth: kernel vs plain within 2e-4 of max-abs in
+    fp32, and in bf16 (``model``) within ``NOISE_MULTIPLE`` times the
+    spread, measured in this run, between two plain implementations."""
+    small = dataclasses.replace(cfg, name=f"{cfg.name}-{n_layers}l",
+                                n_layers=n_layers,
+                                block_pattern=cfg.pattern[:n_layers])
+    m = LM.init(small, seed=1, dtype=torch.float32, device=DEV)
+    prompts = [_prompt(600 + i, n, small.vocab_size)
+               for i, n in enumerate(lens)]
+    ops.reset_launch_counts()
+    a = _dense_streams(small, m, "kernel", prompts, max_seq)
+    counts = ops.launch_counts()
+    b = _dense_streams(small, m, "full", prompts, max_seq)
+    check(a == b, f"parity_recurrent {cfg.name}: greedy streams differ "
+                  f"(kernel {a} vs plain {b})")
+    check(ops.launch_counts() == counts,
+          "parity_recurrent: the plain runs launched a kernel")
+    for kind, name in (("ssm", "ssd"), ("rglru", "rglru"),
+                       ("attn_local", "flash_attention")):
+        check(kind not in small.pattern or counts[name] > 0,
+              f"parity_recurrent {cfg.name}: the kernel runs launched no "
+              f"{name} kernel")
+    del m
+    # full depth: last-token logits, kernels vs plain versions, in fp32
+    # (fresh weights from the same seed) and in bf16
+    prompt = torch.tensor([_prompt(700, prefill_len, cfg.vocab_size)],
+                          dtype=torch.int32, device=DEV)
+
+    def last_logits(mdl, impl, dtype, decode_steps=0):
+        """One prefill of the prompt but its last ``decode_steps`` tokens,
+        then one decode step per remaining token."""
+        policy = PolicyConfig(compute_dtype=dtype, remat="none",
+                              attn_impl=impl)
+        n = prefill_len - decode_steps
+        lg, caches = make_prefill_step(cfg, policy,
+                                       cache_capacity=prefill_len)(
+            mdl, prompt[:, :n])
+        decode = make_decode_step(cfg, policy, max_seq=prefill_len, batch=1)
+        for t in range(n, prefill_len):
+            lg, caches = decode(mdl, caches, prompt[:, t:t + 1],
+                                torch.full((1, 1), t, dtype=torch.int32,
+                                           device=DEV))
+        check(lg.shape == (1, 1, cfg.padded_vocab),
+              f"parity_recurrent {cfg.name}: logits have the wrong shape "
+              f"{tuple(lg.shape)}")
+        check(bool(torch.isfinite(lg).all()),
+              f"parity_recurrent {cfg.name}: non-finite {dtype} logits")
+        return lg.float()
+
+    k16, p16 = (last_logits(model, i, "bfloat16") for i in ("kernel", "full"))
+    q16 = last_logits(model, "full", "bfloat16", NOISE_DECODE_STEPS)
+    m32 = LM.init(cfg, seed=0, dtype=torch.float32, device=DEV)
+    k32, p32 = (last_logits(m32, i, "float32") for i in ("kernel", "full"))
+    del m32
+    scale = float(p32.abs().max())
+    err32 = float((k32 - p32).abs().max())
+    check(err32 <= 2e-4 * scale, f"parity_recurrent {cfg.name}: fp32 "
+                                 f"prefill logits differ by {err32} (> 2e-4 "
+                                 f"x max-abs {scale})")
+    err16 = float((k16 - p16).abs().max())
+    noise16 = float((q16 - p16).abs().max())
+    check(noise16 > 0, f"parity_recurrent {cfg.name}: the two plain bf16 "
+                       f"implementations agree exactly: no spread measured")
+    check(err16 <= NOISE_MULTIPLE * noise16,
+          f"parity_recurrent {cfg.name}: bf16 logits kernel vs plain differ "
+          f"by {err16}, more than {NOISE_MULTIPLE} x the {noise16} between "
+          f"two plain implementations")
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "fp32_streams_equal": True,
+            "fp32_n_layers": n_layers, "fp32_prompt_lens": lens,
+            "fp32_kernel_launches": counts, "prefill_len": prefill_len,
+            "n_layers": cfg.n_layers, "logits_max_abs_fp32": scale,
+            "fp32_kernel_vs_plain_max_abs_err": err32, "fp32_tol_rel": 2e-4,
+            "bf16_kernel_vs_plain_max_abs_err": err16,
+            "bf16_plain_vs_plain_max_abs_err": noise16,
+            "bf16_plain_noise_decode_steps": NOISE_DECODE_STEPS,
+            "bf16_tol_noise_multiple": NOISE_MULTIPLE,
+            "bf16_kernel_to_fp32_max_abs": float((k16 - p32).abs().max()),
+            "bf16_plain_to_fp32_max_abs": float((p16 - p32).abs().max())}
+
+
+def recurrent(policy):
+    """serve_ssm, serve_hybrid and their parity; returns the launches of
+    the two served runs."""
+    out = {}
+    parities = []
+    for arch, serve in ((SSM_ARCH, serve_ssm), (HYBRID_ARCH, serve_hybrid)):
+        cfg = get_config(arch)
+        model = LM.init(cfg, seed=0, dtype=torch.bfloat16, device=DEV)
+        out[arch] = serve(cfg, model, policy)
+        if arch == SSM_ARCH:
+            parities.append(parity_recurrent(cfg, model, 2, [40, 300, 700],
+                                             1024, 1000))
+        else:   # one fp32 prompt and the bf16 one past the 2048 window
+            parities.append(parity_recurrent(cfg, model, 3,
+                                             [40, 700, 2300], 4096, 2500))
+        del model
+        torch.cuda.empty_cache()
+    emit("parity_recurrent", results=parities)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script proves the port on "
@@ -982,15 +1518,26 @@ def main() -> int:
     gen.manual_seed(0)
     with torch.no_grad():
         f_cases, p_cases = flash_cases(gen), paged_cases(gen)
+        f_cases += flash_d256_cases(gen)
         f_main = [flash_main_shape(gen, cfg, S) for S in (512, 2048)]
+        f_d256 = flash_d256_main_shape(gen)
         p_main = paged_main_shape(gen, cfg)
+        s_cases, s_main = ssd_cases(gen), ssd_main_shape(gen)
+        r_cases, r_main = rglru_cases(gen), rglru_main_shape(gen)
     b_cases, b_autograd = bwd_cases(gen)
     with torch.no_grad():
         *b_main, b_faults = bwd_main_shape(gen, cfg)
     torch.cuda.empty_cache()
     emit("kernel_cases",
-         flash_attention={"cases": f_cases, "main_path": f_main},
+         flash_attention={"cases": f_cases, "main_path": f_main,
+                          "main_path_d256": [f_d256]},
          paged_decode_attention={"cases": p_cases, "main_path": [p_main]},
+         ssd={"cases": s_cases, "main_path": [s_main],
+              "scaled_tol": SSD_TOL},
+         rglru={"cases": r_cases, "main_path": [r_main]},
+         ptxas=ptxas_usage(["flash_fwd_mma_kernelILi256",
+                            "flash_fwd_kernelIfLi256", "ssd_kernel",
+                            "rglru_kernel"]),
          flash_attention_bwd={"cases": b_cases,
                               "vjp_vs_autograd": b_autograd,
                               "main_path": {
@@ -1010,6 +1557,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     n_train = train(cfg)
     train_parity(cfg)
+    n_rec = recurrent(policy)
+    n_hybrid = n_rec[HYBRID_ARCH]
 
     def row(name, source, replaces, launches, main):
         head = main[-1]                     # the largest main-path shape
@@ -1022,15 +1571,19 @@ def main() -> int:
                 "dtype": head["dtype"]}
 
     bwd_src = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+    fa_src = "src/repro_torch/kernels/csrc/flash_attention.cu"
     print(json.dumps({"kernels": [
-        row("flash_attention",
-            "src/repro_torch/kernels/csrc/flash_attention.cu",
+        # one kernel, two rows: llama's serve_dense launches (D = 128) and
+        # recurrentgemma's serve_hybrid launches (D = 256, window 2048)
+        row("flash_attention", fa_src,
             "src/repro/kernels/flash_attention.py:124", n_flash, f_main),
+        row("flash_attention_d256", fa_src,
+            "src/repro/kernels/flash_attention.py:124",
+            n_hybrid["flash_attention"], [f_d256]),
         row("paged_decode_attention",
             "src/repro_torch/kernels/csrc/paged_attention.cu",
             "src/repro/kernels/paged_attention.py:151", n_paged, [p_main]),
-        row("flash_attention_fwd_stats",
-            "src/repro_torch/kernels/csrc/flash_attention.cu",
+        row("flash_attention_fwd_stats", fa_src,
             "src/repro/kernels/flash_attention_bwd.py:238",
             n_train["flash_attention_fwd_stats"], [b_main[0]]),
         row("flash_attention_bwd_dkv", bwd_src,
@@ -1039,6 +1592,10 @@ def main() -> int:
         row("flash_attention_bwd_dq", bwd_src,
             "src/repro/kernels/flash_attention_bwd.py:313",
             n_train["flash_attention_bwd_dq"], [b_main[2]]),
+        row("ssd", "src/repro_torch/kernels/csrc/ssd.cu",
+            "src/repro/kernels/ssd.py:103", n_rec[SSM_ARCH], [s_main]),
+        row("rglru", "src/repro_torch/kernels/csrc/rglru.cu",
+            "src/repro/kernels/rglru.py:58", n_hybrid["rglru"], [r_main]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

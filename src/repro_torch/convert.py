@@ -9,7 +9,8 @@ carry a leading layer axis when the segment's repeat count is > 1.  This
 unstacks them into the ``ModuleList`` (layer order: for each repeat, for
 each slot of the unit).  Weight layouts are the same on both sides
 (``wq (d,H,hd)``, ``wk/wv (d,K,hd)``, ``wo (H,hd,d)``, ``wi/wg (d,ff)``,
-``mlp.wo (ff,d)``, tables ``(padded_vocab, d)``), so leaves are copied, not
+``mlp.wo (ff,d)``, tables ``(padded_vocab, d)``; the ``ssm`` and ``rglru``
+mixers' leaves under the reference's names), so leaves are copied, not
 transposed.
 """
 from __future__ import annotations
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import RGLRU, SSM, ModelConfig
 from repro_torch.models.lm import LM, require_device
 from repro_torch.models.transformer import plan_segments
 
@@ -82,15 +83,25 @@ def from_reference(params: Mapping[str, Any], cfg: ModelConfig, *,
             zip(model.stack.blocks, _layer_trees(params["stack"], cfg))):
         pre = f"layer{i}"
         _put_norm(block.norm1, tree["norm1"], f"{pre}.norm1")
-        a = tree["attn"]
-        for n in ("wq", "wk", "wv", "wo"):
-            _put(getattr(block.attn, n), a[n], f"{pre}.attn.{n}")
-        if cfg.qkv_bias:
-            for n in ("bq", "bk", "bv"):
+        if block.blk in (SSM, RGLRU):
+            mixer = getattr(block, block.blk)
+            t = tree[block.blk]
+            for n, p in mixer.named_parameters(recurse=False):
+                _put(p, t[n], f"{pre}.{block.blk}.{n}")
+            if block.blk == SSM:
+                _put_norm(mixer.norm, t["norm"], f"{pre}.ssm.norm")
+        else:
+            a = tree["attn"]
+            for n in ("wq", "wk", "wv", "wo"):
                 _put(getattr(block.attn, n), a[n], f"{pre}.attn.{n}")
-        if cfg.qk_norm:
-            _put_norm(block.attn.q_norm, a["q_norm"], f"{pre}.attn.q_norm")
-            _put_norm(block.attn.k_norm, a["k_norm"], f"{pre}.attn.k_norm")
+            if cfg.qkv_bias:
+                for n in ("bq", "bk", "bv"):
+                    _put(getattr(block.attn, n), a[n], f"{pre}.attn.{n}")
+            if cfg.qk_norm:
+                _put_norm(block.attn.q_norm, a["q_norm"],
+                          f"{pre}.attn.q_norm")
+                _put_norm(block.attn.k_norm, a["k_norm"],
+                          f"{pre}.attn.k_norm")
         if "mlp" in tree:
             if not cfg.parallel_residual:
                 _put_norm(block.norm2, tree["norm2"], f"{pre}.norm2")
@@ -124,10 +135,14 @@ def to_reference(model: LM, leaf: Optional[Callable] = None
         return out
 
     def block_tree(b):
+        kind = b.blk if b.blk in (SSM, RGLRU) else "attn"
+        mixer = getattr(b, kind)
         t = {"norm1": norm(b.norm1),
-             "attn": {n: arr(p) for n, p in
-                      b.attn.named_parameters(recurse=False)}}
-        if cfg.qk_norm:
+             kind: {n: arr(p) for n, p in
+                    mixer.named_parameters(recurse=False)}}
+        if kind == SSM:
+            t[kind]["norm"] = norm(mixer.norm)
+        if kind == "attn" and cfg.qk_norm:
             t["attn"]["q_norm"] = norm(b.attn.q_norm)
             t["attn"]["k_norm"] = norm(b.attn.k_norm)
         if hasattr(b, "mlp"):

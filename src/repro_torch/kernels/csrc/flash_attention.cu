@@ -33,6 +33,13 @@
 //     transposed on the way), and the next K/V tile is copied in with
 //     cp.async while the current one is computed.  Warpgroup (wgmma) tiles
 //     fed by TMA are later work.
+//   * D = 256 (recurrentgemma-2b's MQA heads): the output accumulator alone
+//     is 128 fp32 registers a thread, and Q fragments held for the whole
+//     key loop would add 64 more and spill.  So at D = 256 the block copies
+//     its Q tile into shared memory once and each k-step of QK^T reads its
+//     A fragments from there with ldmatrix; the rest is unchanged.  The
+//     fp32 path takes D = 256 as it is (its tiles fill 212 KB of shared
+//     memory: one block per SM).
 //   * Key tiles that the causal or window mask kills entirely are never
 //     loaded (the loop's bounds skip them); ragged last tiles in S*G and T
 //     are masked, so no divisibility is required (a superset of the
@@ -286,10 +293,13 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int DB = D / 8;    // 8-wide column blocks of the output
   constexpr int VPR = D / 8;   // 16-byte vectors per row
 
+  constexpr bool Q_SMEM = D > 128;  // see the note at the top
+
   constexpr int TILE = BN * LD;  // one K or V tile; two buffers of each
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ksm = reinterpret_cast<bf16*>(smem_raw);
   bf16* Vsm = Ksm + 2 * TILE;
+  bf16* Qsm = Vsm + 2 * TILE;      // (BM, LD), used when Q_SMEM
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -319,18 +329,33 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     qp[h] = qb + (size_t)(rr / G) * q_row + (size_t)(rr % G) * D;
   }
 
-  // Q fragments: a0 (row, k..k+1), a1 (row+8, same), a2 (row, k+8..9), a3
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const bool live = row[h] < M;
-      const uint32_t* p =
-          reinterpret_cast<const uint32_t*>(qp[h] + ks * 16 + qc);
-      qa[ks][h] = live ? p[0] : 0u;
-      qa[ks][2 + h] = live ? p[4] : 0u;  // 8 elements further
+  // Q fragments: a0 (row, k..k+1), a1 (row+8, same), a2 (row, k+8..9), a3;
+  // held in registers, or (Q_SMEM) read from the block's Q tile per k-step
+  uint32_t qa[Q_SMEM ? 1 : KS][4];
+  if constexpr (Q_SMEM) {
+    for (int idx = threadIdx.x; idx < BM * VPR; idx += MMA_NT) {
+      const int r = idx / VPR;
+      const int c = (idx % VPR) * 8;
+      const int rr = r0 + r;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (rr < M)
+        val = load_raw16(qb + (size_t)(rr / G) * q_row + (size_t)(rr % G) * D +
+                         c);
+      *reinterpret_cast<uint4*>(Qsm + r * LD + c) = val;
     }
+    __syncthreads();
+  } else {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const bool live = row[h] < M;
+        const uint32_t* p =
+            reinterpret_cast<const uint32_t*>(qp[h] + ks * 16 + qc);
+        qa[ks][h] = live ? p[0] : 0u;
+        qa[ks][2 + h] = live ? p[4] : 0u;  // 8 elements further
+      }
+  }
 
   const int p_lo = r0 / G;
   const int p_hi = min(r0 + BM - 1, M - 1) / G;
@@ -380,18 +405,43 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     // ---- scores: S = Q K^T, 16 x BN per warp ----
     float s[NB][4];
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
+    for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
-#pragma unroll
+    if constexpr (Q_SMEM) {
+#pragma unroll 1
       for (int ks = 0; ks < KS; ks += 2) {
-        // B fragments of K^T for two k-steps: matrices (keys nb*8.., d
-        // ks*16 + 0, 8, 16, 24..): (k pair, n = key) is a row-major 8x8 read
-        uint32_t kf[4];
-        ldmatrix_x4(kf, Ks + (nb * 8 + (lane & 7)) * LD + ks * 16 +
-                            (lane >> 3) * 8);
-        mma_m16n8k16(s[nb], qa[ks], kf[0], kf[1]);
-        mma_m16n8k16(s[nb], qa[ks + 1], kf[2], kf[3]);
+        // A fragments of two k-steps: matrices (rows 0-7 | 8-15) x (k 0-7
+        // | 8-15) of this warp's 16 rows
+        const int mat = lane >> 3;
+        uint32_t qf0[4], qf1[4];
+        const bf16* qrow =
+            Qsm + (warp * 16 + (mat & 1) * 8 + (lane & 7)) * LD + (mat >> 1) * 8;
+        ldmatrix_x4(qf0, qrow + ks * 16);
+        ldmatrix_x4(qf1, qrow + ks * 16 + 16);
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) {
+          uint32_t kf[4];
+          ldmatrix_x4(kf, Ks + (nb * 8 + (lane & 7)) * LD + ks * 16 +
+                              (lane >> 3) * 8);
+          mma_m16n8k16(s[nb], qf0, kf[0], kf[1]);
+          mma_m16n8k16(s[nb], qf1, kf[2], kf[3]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+        for (int ks = 0; ks < KS; ks += 2) {
+          // B fragments of K^T for two k-steps: matrices (keys nb*8.., d
+          // ks*16 + 0, 8, 16, 24..): (k pair, n = key) is a row-major 8x8
+          // read
+          uint32_t kf[4];
+          ldmatrix_x4(kf, Ks + (nb * 8 + (lane & 7)) * LD + ks * 16 +
+                              (lane >> 3) * 8);
+          mma_m16n8k16(s[nb], qa[ks], kf[0], kf[1]);
+          mma_m16n8k16(s[nb], qa[ks + 1], kf[2], kf[3]);
+        }
       }
     }
 
@@ -492,7 +542,8 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
                float* m_out, float* l_out, int B, int S, int Tk, int H, int K,
                int causal, int window, float softcap, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
-  constexpr int bytes = 4 * BN * (D + 8) * (int)sizeof(bf16);
+  constexpr int bytes =
+      (4 * BN + (D > 128 ? BM : 0)) * (D + 8) * (int)sizeof(bf16);
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -560,6 +611,9 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
                           causal, window, softcap, st);
     case 128:
       return launch_t<128>(dtype, q, k, v, o, m_out, l_out, B, S, T, H, K,
+                           causal, window, softcap, st);
+    case 256:
+      return launch_t<256>(dtype, q, k, v, o, m_out, l_out, B, S, T, H, K,
                            causal, window, softcap, st);
     default:
       return ERR_UNSUPPORTED;

@@ -38,9 +38,12 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import (_DTYPE_CODE, HEAD_DIMS,
-                                                 NEG_INF, _check,
-                                                 attention_plain)
+from repro_torch.kernels.flash_attention import (_DTYPE_CODE, NEG_INF,
+                                                 _check, attention_plain)
+
+# the training kernels take the head dims of llama3.2-3b's path; D = 256 (the
+# serving forward's recurrentgemma heads) is not instantiated for them yet
+BWD_HEAD_DIMS = (32, 64, 128)
 
 _fns: dict = {}
 
@@ -156,9 +159,9 @@ def _kernel_args(q, k, *tensors):
         raise TypeError(f"flash attention kernels take float32 or bfloat16, "
                         f"not {q.dtype}")
     D = q.shape[3]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash attention kernels take head_dim in "
-                         f"{HEAD_DIMS}, not {D}")
+    if D not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash attention training kernels take head_dim "
+                         f"in {BWD_HEAD_DIMS}, not {D}")
     for t in (q, k) + tensors:
         if not t.is_contiguous():
             raise ValueError("flash attention kernels take contiguous "

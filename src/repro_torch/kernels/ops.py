@@ -1,11 +1,16 @@
 """Dispatch wrappers ``impl="kernel" | "plain"`` per kernel, held against
-``repro/kernels/ops.py`` (same signatures minus ``interpret``).
+``repro/kernels/ops.py`` (same signatures minus ``interpret``): attention
+(B1, and B2 under autograd), paged decode attention (B3), the Mamba-2 SSD
+scan (B4) and the RG-LRU recurrence (B5).
 
 ``"kernel"`` is the hand-written CUDA kernel (for a CPU tensor, the plain
 version beside it -- the wrappers decide that by the tensor's device alone);
 ``"plain"`` is the plain PyTorch version wherever the tensors lie.  The block
-arguments are the reference's TPU tiling knobs: accepted and ignored until
-the autotuner is ported.
+and chunk arguments are the reference's TPU tiling knobs: accepted and
+ignored until the autotuner is ported (``ssd``'s plain version takes the
+reference's default chunk of 256).  The SSD and RG-LRU kernels have no
+backward, as in the reference: on a CUDA tensor that needs a gradient they
+raise.
 
 ``attention(impl="kernel")`` goes through ``FlashAttentionFn`` (the
 stats-emitting forward, then the dK/dV and dQ kernels in the backward) when
@@ -19,6 +24,8 @@ from typing import Dict
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import rglru as _rg
+from repro_torch.kernels import ssd as _sd
 
 IMPLS = ("kernel", "plain")
 
@@ -55,12 +62,32 @@ def paged_attention(q, k_pages, v_pages, tables, lengths, *, softcap=0.0,
                                       block_k=block_k, softcap=softcap)
 
 
+def ssd(x, dt, A, Bm, Cm, *, chunk=None, impl="kernel"):
+    """Mamba-2 chunked SSD.  x (B,S,H,P); dt (B,S,H); A (H,); B/C
+    (B,S,G,N) -> (y (B,S,H,P) fp32, h_final (B,H,N,P) fp32)."""
+    _check_impl(impl)
+    chunk = _sd.CHUNK if chunk is None else chunk
+    if impl == "plain":
+        return _sd.ssd_plain(x, dt, A, Bm, Cm, chunk=chunk)
+    return _sd.ssd(x, dt, A, Bm, Cm, chunk=chunk)
+
+
+def rglru(log_a, gated, *, block_seq=None, impl="kernel"):
+    """h_t = exp(log_a_t) * h_{t-1} + gated_t.  log_a/gated (B,S,W) -> hs
+    (B,S,W) fp32."""
+    del block_seq
+    _check_impl(impl)
+    if impl == "plain":
+        return _rg.rglru_plain(log_a, gated)
+    return _rg.rglru(log_a, gated)
+
+
 # ---------------------------------------------------------------------------
 # launch counters (one plain integer on each wrapper)
 # ---------------------------------------------------------------------------
 _WRAPPERS = (_fa.flash_attention, _pa.paged_decode_attention,
              _fab.flash_attention_fwd_stats, _fab.flash_attention_bwd_dkv,
-             _fab.flash_attention_bwd_dq)
+             _fab.flash_attention_bwd_dq, _sd.ssd, _rg.rglru)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,14 +1,19 @@
 """Plain-PyTorch oracles for the kernels, held against
 ``repro/kernels/ref.py``.
 
-Like the reference's, these delegate to the model zoo's own attention
-functions, so the kernels (and the plain versions kept beside them) are
-validated against exactly the math the models serve with.
+Like the reference's, the attention oracles delegate to the model zoo's own
+attention functions, so the kernels (and the plain versions kept beside
+them) are validated against exactly the math the models serve with.  The
+SSD and RG-LRU oracles are the plain versions beside their kernels: copies
+of the reference model path's ``ssd_chunked`` and of ``rglru_scan``'s
+combine rule.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.rglru import rglru_plain
+from repro_torch.kernels.ssd import ssd_plain
 from repro_torch.models.attention import decode_attention, full_attention
 
 
@@ -39,3 +44,7 @@ def paged_attention_ref(q, k_pages, v_pages, tables, lengths, *,
                             torch.full_like(t, -1))
     return decode_attention(q[:, None], k, v, cache_pos,
                             softcap=softcap)[:, 0]
+
+
+ssd_ref = ssd_plain          # (x, dt, A, B, C, *, chunk, h0) -> (y, h_final)
+rglru_ref = rglru_plain      # (log_a, gated, h0) -> hs

@@ -11,15 +11,17 @@ Paths:
   * ``decode`` / ``chunk`` -- single-token / prompt-chunk attention over a
                    dense KV cache, plain PyTorch as in the reference.
 
-All paths support GQA (H = K * G query groups) and causal masking.  Shapes:
-q (B, S, H, D); k/v (B, T, Kh, D).  Caches are updated **in place**
-(``index_put_``) where the reference builds new arrays with ``.at[].set``.
+All paths support GQA (H = K * G query groups), causal masking and sliding
+windows (``attn_local`` blocks, ``window = cfg.local_window``): cache-less
+prefill passes the window to the flash kernel where the reference runs
+``local_flash_xla``; decode and chunked prefill keep a ring buffer of ``W =
+min(local_window, max_seq)`` slots (slot = position % W).  Shapes: q (B, S,
+H, D); k/v (B, T, Kh, D).  Caches are updated **in place** (``index_put_``)
+where the reference builds new arrays with ``.at[].set``.
 
 Not ported yet (asking for them raises ``NotImplementedError``): the mesh
 paths ``sharded_decode`` / ``sharded_flash`` (ROADMAP queue A item 7, the
-parallel layer) and the sliding-window paths -- ``local_flash_xla``, the
-ring-buffer cache branches, ``flash_attention_xla`` (ROADMAP queue A item 4,
-ring-buffer / ``attn_local``).
+parallel layer).
 """
 from __future__ import annotations
 
@@ -36,8 +38,6 @@ from repro_torch.models import layers
 
 NEG_INF = -1e30
 
-_RING = ("sliding-window (ring-buffer) attention caches are not ported yet: "
-         "ROADMAP queue A item 4 (ring-buffer / attn_local paths)")
 _MESH = ("mesh-sharded attention is not ported yet: ROADMAP queue A item 7 "
          "(the parallel layer)")
 
@@ -237,13 +237,15 @@ def apply_attention(params: Attention, x, cfg: ModelConfig, *, local: bool,
     """
     if mesh is not None:
         raise NotImplementedError(_MESH)
-    if local:
-        raise NotImplementedError(_RING)
+    window = cfg.local_window if local else 0
     B = x.shape[0]
     cd = compute_dtype
 
     if isinstance(cache, PagedDecodeCache):
         # ---- decode straight off the page pool (no dense view) ----
+        if window > 0:
+            raise ValueError("the page pool holds full-attention layers "
+                             "only; windowed layers use ring caches")
         if x.shape[1] != 1:
             raise ValueError("the paged decode path takes one token per row")
         q, k_new, v_new = project_qkv(params, x, cfg, positions, cd, rope)
@@ -264,6 +266,29 @@ def apply_attention(params: Attention, x, cfg: ModelConfig, *, local: bool,
         S = x.shape[1]
         q, k_new, v_new = project_qkv(params, x, cfg, positions, cd, rope)
         pos_l = positions.long()
+        W = cache["k"].shape[1]
+        if S > 1 and window > 0:
+            # ---- chunked prefill into a ring ----
+            # attend over [pre-write ring || full chunk] -- a ring write
+            # first would drop keys that early chunk queries still need
+            # whenever S > W; then apply the ring rule (the last min(S, W)
+            # tokens survive, slot = pos % W), matching
+            # build_cache_from_prefill and the single-token decode write
+            kc, vc = cache["k"], cache["v"]
+            o = chunk_decode_attention(
+                q, torch.cat([kc, k_new.to(kc.dtype)], 1),
+                torch.cat([vc, v_new.to(vc.dtype)], 1),
+                torch.cat([cache["pos"], positions.to(cache["pos"].dtype)],
+                          1),
+                positions, window=window, softcap=cfg.logit_softcap)
+            m = min(S, W)
+            bidx = torch.arange(B, device=x.device)[:, None]
+            slots = pos_l[:, -m:] % W
+            kc.index_put_((bidx, slots), k_new[:, -m:].to(kc.dtype))
+            vc.index_put_((bidx, slots), v_new[:, -m:].to(vc.dtype))
+            cache["pos"].index_put_(
+                (bidx, slots), positions[:, -m:].to(cache["pos"].dtype))
+            return _project_out(params, o, cd), cache
         if S > 1:
             # ---- chunked prefill: S new tokens appended to the cache ----
             bidx = torch.arange(B, device=x.device)[:, None]
@@ -275,22 +300,23 @@ def apply_attention(params: Attention, x, cfg: ModelConfig, *, local: bool,
                                        cache["pos"], positions,
                                        softcap=cfg.logit_softcap)
             return _project_out(params, o, cd), cache
-        # ---- decode: single new token at absolute position `positions` ----
+        # ---- decode: single new token at absolute position `positions`
+        # (ring slot position % W for a windowed layer) ----
         bidx = torch.arange(B, device=x.device)
-        slot = pos_l[:, 0]
+        slot = pos_l[:, 0] % W if window > 0 else pos_l[:, 0]
         cache["k"].index_put_((bidx, slot), k_new[:, 0].to(cache["k"].dtype))
         cache["v"].index_put_((bidx, slot), v_new[:, 0].to(cache["v"].dtype))
         cache["pos"].index_put_((bidx, slot),
                                 positions[:, 0].to(cache["pos"].dtype))
         o = decode_attention(q, cache["k"], cache["v"], cache["pos"],
-                             softcap=cfg.logit_softcap)
+                             window=window, softcap=cfg.logit_softcap)
         return _project_out(params, o, cd), cache
 
     # ---- cache-less prefill ----
     q, k, v = project_qkv(params, x, cfg, positions, cd, rope)
     if impl == "full":
-        o = full_attention(q, k, v, causal=cfg.causal, kv_mask=kv_mask,
-                           softcap=cfg.logit_softcap)
+        o = full_attention(q, k, v, causal=cfg.causal, window=window,
+                           kv_mask=kv_mask, softcap=cfg.logit_softcap)
     elif impl == "kernel":
         # right padding plus the causal mask keeps padded keys out of every
         # real query row, so the kernel needs no kv_mask; a bidirectional
@@ -299,7 +325,7 @@ def apply_attention(params: Attention, x, cfg: ModelConfig, *, local: bool,
             raise NotImplementedError(
                 "kv_mask with a non-causal model needs attn_impl='full'")
         o = ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                          causal=cfg.causal, window=0,
+                          causal=cfg.causal, window=window,
                           softcap=cfg.logit_softcap)
     else:
         raise ValueError(f"attn_impl {impl!r} not in ('kernel', 'full')")
@@ -308,24 +334,61 @@ def apply_attention(params: Attention, x, cfg: ModelConfig, *, local: bool,
     new_cache = None
     if cache == "init":
         new_cache = build_cache_from_prefill(
-            k, v, positions, window=0, capacity=cache_capacity,
+            k, v, positions, window=window, capacity=cache_capacity,
             kv_mask=kv_mask)
     return out, new_cache
 
 
 def build_cache_from_prefill(k, v, positions, *, window: int,
                              capacity: int = 0, kv_mask=None):
-    """Turn prefill K/V into a decode cache (global attention: cache slot =
-    absolute position, capacity >= S + decode budget).
+    """Turn prefill K/V into a decode cache.
+
+    Global attention: cache slot = absolute position (capacity >= S + decode
+    budget).  Local attention: ring buffer of ``W = min(window, capacity)``
+    slots (``window`` when no capacity is given), slot = pos % W -- the
+    decode-side write rule and the slot layout of ``init_decode_cache``.
+    (The reference always makes ``window`` slots here, so its dense engine
+    cannot scatter a prefill into a slot when ``max_seq < window``; ROADMAP
+    queue C.  A ring of ``capacity`` slots loses nothing: no position
+    reaches ``capacity``.)
 
     ``kv_mask`` (B, S) bool, True = real token (pow2-bucketed prefill):
-    right-padded entries must not enter the cache, so their slots are marked
-    empty (``pos = -1``).
+    right-padded entries must not enter the cache.  Full caches mark the
+    padded slots empty (``pos = -1``); ring caches gather the last
+    ``window`` *real* tokens of each row instead of the array tail.
     """
-    if window > 0:
-        raise NotImplementedError(_RING)
     B, S = k.shape[0], k.shape[1]
     pos = torch.broadcast_to(positions, (B, S)).to(torch.int32)
+    if window > 0:
+        W = min(window, capacity) if capacity > 0 else window
+        if kv_mask is not None:
+            # slot w holds the newest real index p = w (mod W); per-row
+            # lengths make this a gather, matching the decode write rule
+            L = kv_mask.to(torch.int64).sum(dim=1)              # (B,)
+            w_ids = torch.arange(W, device=k.device)[None, :]
+            p = (L[:, None] - 1) - torch.remainder(L[:, None] - 1 - w_ids, W)
+            valid = p >= 0
+            pc = p.clamp(min=0)
+
+            def gather(a):
+                idx = pc.reshape((B, W) + (1,) * (a.dim() - 2))
+                return torch.take_along_dim(a, idx, dim=1)
+
+            live = valid.reshape(B, W, 1, 1)
+            cache_k = gather(k).masked_fill(~live, 0)
+            cache_v = gather(v).masked_fill(~live, 0)
+            cache_p = torch.where(valid, torch.take_along_dim(pos, pc, 1),
+                                  -1).to(torch.int32)
+            return {"k": cache_k, "v": cache_v, "pos": cache_p}
+        m = min(S, W)
+        slots = torch.arange(S - m, S, device=k.device) % W
+        cache_k = k.new_zeros((B, W) + tuple(k.shape[2:]))
+        cache_v = v.new_zeros((B, W) + tuple(v.shape[2:]))
+        cache_p = pos.new_full((B, W), -1)
+        cache_k[:, slots] = k[:, -m:]
+        cache_v[:, slots] = v[:, -m:]
+        cache_p[:, slots] = pos[:, -m:]
+        return {"k": cache_k, "v": cache_v, "pos": cache_p}
     if kv_mask is not None:
         pos = torch.where(kv_mask, pos, -1)      # padded slots stay empty
     cap = max(capacity, S)
@@ -342,12 +405,10 @@ def build_cache_from_prefill(k, v, positions, *, window: int,
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                       local: bool, dtype=torch.bfloat16, device="cpu"):
-    if local:
-        raise NotImplementedError(_RING)
+    W = min(cfg.local_window, max_seq) if local else max_seq
     K, D = cfg.n_kv_heads, cfg.head_dim
     return {
-        "k": torch.zeros((batch, max_seq, K, D), dtype=dtype, device=device),
-        "v": torch.zeros((batch, max_seq, K, D), dtype=dtype, device=device),
-        "pos": torch.full((batch, max_seq), -1, dtype=torch.int32,
-                          device=device),
+        "k": torch.zeros((batch, W, K, D), dtype=dtype, device=device),
+        "v": torch.zeros((batch, W, K, D), dtype=dtype, device=device),
+        "pos": torch.full((batch, W), -1, dtype=torch.int32, device=device),
     }

@@ -62,12 +62,17 @@ class LM(nn.Module):
         casts to the compute dtype anyway (matmul weights, biases,
         embeddings); norm scales and biases stay as they are because norms
         compute in fp32.  Same values and arithmetic as casting on every
-        call, without re-reading the fp32 copy each step."""
-        norm_params = {id(p) for m in self.modules()
-                       if isinstance(m, layers.Norm)
-                       for p in m.parameters(recurse=False)}
+        call, without re-reading the fp32 copy each step.  Leaves that the
+        reference keeps in fp32 whatever the dtype (a module's
+        ``FP32_LEAVES``: the SSM's ``A_log``, ``D``, ``dt_bias``, the
+        RG-LRU's gates and ``lam``) stay fp32 too."""
+        keep = {id(p) for m in self.modules()
+                if isinstance(m, layers.Norm)
+                for p in m.parameters(recurse=False)}
+        keep |= {id(getattr(m, n)) for m in self.modules()
+                 for n in getattr(m, "FP32_LEAVES", ())}
         for p in self.parameters():
-            if id(p) not in norm_params and p.dtype != dtype:
+            if id(p) not in keep and p.dtype != dtype:
                 p.data = p.data.to(dtype)
         return self
 
@@ -93,8 +98,8 @@ class LM(nn.Module):
     def forward(self, inputs, ctx: RunCtx, *, positions=None, caches=None,
                 kv_mask=None, return_hidden: bool = False):
         """Returns (logits_or_hidden, new_caches, aux).  ``aux`` is the MoE
-        load-balance term of the reference: zero for the dense stacks ported
-        so far."""
+        load-balance term of the reference: zero for the stacks ported so
+        far (no MoE)."""
         B, S = inputs.shape[0], inputs.shape[1]
         if positions is None:
             positions = torch.arange(

@@ -12,9 +12,12 @@ activations are dropped after the forward and recomputed in the backward,
 as ``jax.checkpoint`` does per scanned unit in the reference
 (``transformer.py:241-242``; only ``"block"`` triggers it there too).
 
-Ported block types: ``attn`` (global attention), with and without
-``parallel_residual``.  ``ssm``, ``rglru``, ``attn_local`` and MoE FFNs raise
-``NotImplementedError`` naming their ROADMAP item.
+Ported block types: ``attn`` (global attention), ``attn_local`` (sliding
+window, ring-buffer caches), ``ssm`` (the Mamba-2 mixer; ``d_ff == 0`` gives
+mamba2 its FFN-free block) and ``rglru`` (the Griffin recurrent block), with
+and without ``parallel_residual``.  ``RunCtx.attn_impl`` picks the kernels
+(``"kernel"``) or their plain versions (``"full"``) for every mixer's
+prefill.  MoE FFNs raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -27,13 +30,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN, ATTN_LOCAL, RGLRU, SSM,
                                       ModelConfig)
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, rglru, ssm
 
-_NOT_PORTED = {
-    SSM: "ROADMAP queue A item 4 (ssd kernel + Mamba-2 mixer)",
-    RGLRU: "ROADMAP queue A item 4 (rglru kernel + RG-LRU block)",
-    ATTN_LOCAL: "ROADMAP queue A item 4 (ring-buffer / attn_local paths)",
-}
+_BLOCKS = (ATTN, ATTN_LOCAL, SSM, RGLRU)
 _MOE = "ROADMAP queue A item 5 (MoE / BERT / vision)"
 
 
@@ -76,11 +75,7 @@ def _has_ffn(cfg: ModelConfig) -> bool:
 
 
 def _check_ported(cfg: ModelConfig, blk: str) -> None:
-    if blk in _NOT_PORTED:
-        raise NotImplementedError(
-            f"block type {blk!r} ({cfg.name}) is not ported yet: "
-            f"{_NOT_PORTED[blk]}")
-    if blk != ATTN:
+    if blk not in _BLOCKS:
         raise ValueError(blk)
     if cfg.moe is not None:
         raise NotImplementedError(
@@ -96,7 +91,12 @@ class Block(nn.Module):
         kw = dict(dtype=dtype, device=device)
         self.norm1 = layers.Norm(cfg.norm, cfg.d_model, eps=cfg.norm_eps,
                                  **kw)
-        self.attn = attention.Attention(cfg, generator=generator, **kw)
+        if blk == SSM:
+            self.ssm = ssm.SSM(cfg, generator=generator, **kw)
+        elif blk == RGLRU:
+            self.rglru = rglru.RGLRU(cfg, generator=generator, **kw)
+        else:
+            self.attn = attention.Attention(cfg, generator=generator, **kw)
         if _has_ffn(cfg):
             if not cfg.parallel_residual:
                 self.norm2 = layers.Norm(cfg.norm, cfg.d_model,
@@ -109,10 +109,19 @@ class Block(nn.Module):
         """Returns (x, new_cache)."""
         cfg, cd = self.cfg, ctx.compute_dtype
         h = self.norm1(x)
-        mix, new_cache = attention.apply_attention(
-            self.attn, h, cfg, local=False, positions=positions,
-            compute_dtype=cd, impl=ctx.attn_impl, cache=cache,
-            kv_mask=kv_mask, cache_capacity=ctx.cache_capacity, rope=rope)
+        if self.blk in (SSM, RGLRU):
+            apply = ssm.apply_ssm if self.blk == SSM else rglru.apply_rglru
+            mix, new_cache = apply(
+                getattr(self, self.blk), h, cfg, compute_dtype=cd,
+                cache=cache if isinstance(cache, dict) else None,
+                build_cache=cache == "init", token_mask=kv_mask,
+                impl="plain" if ctx.attn_impl == "full" else "kernel")
+        else:
+            mix, new_cache = attention.apply_attention(
+                self.attn, h, cfg, local=self.blk == ATTN_LOCAL,
+                positions=positions, compute_dtype=cd, impl=ctx.attn_impl,
+                cache=cache, kv_mask=kv_mask,
+                cache_capacity=ctx.cache_capacity, rope=rope)
         if not _has_ffn(cfg):
             return x + mix.to(x.dtype), new_cache
         if cfg.parallel_residual:
@@ -128,9 +137,16 @@ class Block(nn.Module):
 # ---------------------------------------------------------------------------
 def init_block_cache(cfg: ModelConfig, blk: str, batch: int, max_seq: int,
                      dtype=torch.bfloat16, device="cpu"):
+    """As the reference: attention caches in ``dtype``, the recurrent
+    blocks' caches in their own default (fp32 conv tails and states)."""
     _check_ported(cfg, blk)
-    return attention.init_decode_cache(cfg, batch, max_seq, local=False,
-                                       dtype=dtype, device=device)
+    if blk == SSM:
+        return ssm.init_ssm_cache(cfg, batch, device=device)
+    if blk == RGLRU:
+        return rglru.init_rglru_cache(cfg, batch, device=device)
+    return attention.init_decode_cache(cfg, batch, max_seq,
+                                       local=blk == ATTN_LOCAL, dtype=dtype,
+                                       device=device)
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int, max_seq: int,

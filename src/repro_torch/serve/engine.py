@@ -20,7 +20,10 @@ Where the kernels sit (``attn_impl="kernel"``):
   * iterations that carry prefill chunks keep the reference's gather ->
     ``chunk_decode_attention`` -> scatter in plain PyTorch;
   * one-shot prefill (``make_prefill_step``: ``ServeEngine`` and the dense
-    mode) runs the flash-attention kernel.
+    mode) runs the flash-attention kernel (with the window for
+    ``attn_local`` layers), the SSD kernel for ``ssm`` layers and the RG-LRU
+    kernel for ``rglru`` layers; their decode steps are plain PyTorch over
+    ring buffers and recurrent states, as in the reference.
 
 With ``attn_impl="full"`` every path runs its plain version: the oracle.
 
@@ -230,7 +233,9 @@ class AsyncServeEngine:
 
     ``warmup()`` builds and first-launches the kernels (and the libraries'
     own first-call set-up) so latency percentiles measure steady state; that
-    time is reported separately (``report()["compile_s"]``).
+    time is reported separately (``report()["compile_s"]``).  A caller that
+    counts the launches of the served path sets the counts to zero after
+    ``warmup()``.
 
     Execution modes:
       * ``paged``  -- all-attention architectures: block tables over a
@@ -239,13 +244,16 @@ class AsyncServeEngine:
         the dense view, run the stack and scatter the new K/V back.  A
         prefix-cache hit simply starts the first chunk at the first uncached
         token;
-      * ``dense``  -- per-slot dense caches (the ``ServeEngine`` layout)
-        under the same scheduler, admission and telemetry; one-shot
-        pow2-bucketed prefill through the flash-attention kernel; no paging
-        or prefix reuse.
+      * ``dense``  -- per-slot dense caches (the ``ServeEngine`` layout:
+        ring buffers for windowed layers, conv tails and states for the
+        recurrent ones) under the same scheduler, admission and telemetry;
+        one-shot pow2-bucketed prefill through the kernels; no paging or
+        prefix reuse.
 
-    ``mode="auto"`` picks ``paged`` for all-attention patterns.  ``clock`` is
-    injectable for deterministic tests (defaults to ``time.monotonic``).
+    ``mode="auto"`` picks ``paged`` for all-attention patterns and ``dense``
+    for every other (ring-buffer or recurrent caches do not page).
+    ``clock`` is injectable for deterministic tests (defaults to
+    ``time.monotonic``).
 
     ``tracker`` is an optional object with ``log(row, step=)`` and
     ``log_system(row)``; with one given, every ``track_every`` iterations a

@@ -96,7 +96,11 @@ def scatter_slot(caches, one, slot: int):
     """Write a single-sequence cache (one dict per layer) into batch slot
     ``slot`` of a dense slot cache, in place -- the dense engines' prefill
     scatter (shared by ``ServeEngine`` and ``AsyncServeEngine``'s dense
-    mode)."""
+    mode).  Each leaf takes the slot's dtype: the recurrent blocks' conv
+    tails come out of prefill in the compute dtype and live in fp32 slots,
+    as in the reference (``init_block_cache`` makes them without a dtype).
+    Ring (windowed) caches have ``min(local_window, max_seq)`` slots on both
+    sides."""
     for c_all, c_one in zip(caches, one):
         for name, leaf in c_all.items():
             leaf[slot:slot + 1] = c_one[name].to(leaf.dtype)
