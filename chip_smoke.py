@@ -10,8 +10,8 @@ launch, a comparison out of tolerance, an unserved request, a loss that does
 not fall) ends the run with a non-zero exit code.  Phases, one JSON object
 per line:
 
-  env           card name and power limit (``nvidia-smi``), torch / CUDA
-                versions, seconds spent building the kernels;
+  env           card name and power limit (``nvidia-smi``), torch / CUDA /
+                nvcc versions, seconds spent building the kernels;
   kernel_cases  each CUDA kernel against its plain PyTorch version on the
                 card: the reference's test cases (forward fp32 at 2e-5 /
                 1e-5, backward fp32 at 5e-4, bf16 at 2e-2; the training
@@ -21,7 +21,11 @@ per line:
                 the plain version's time, one PyTorch library call's time
                 where there is one, and the bound (least time the card could
                 take); at the train shape, faults planted in the plain
-                backward's result must fail the same comparison;
+                backward's result (a skipped 64- or 128-key tile) must fail
+                the same comparison; the bf16 forward and dK/dV at
+                D = 128 (warpgroup designs) are timed in turns with the
+                mma.sync designs they replaced (``earlier_ms``), which the
+                library still exports for this alone;
   serve_paged   llama3.2-3b at full width in bf16, random weights from seed
                 0 made on the device, 16 requests through
                 ``AsyncServeEngine(mode="paged")``; pure-decode iterations
@@ -67,7 +71,9 @@ per line:
                 steps);
   kernels       the per-kernel summary line, launches counted on the served
                 and trained runs above (the flash kernel has two rows: its
-                llama launches at D = 128 and recurrentgemma's at D = 256).
+                llama launches at D = 128 and recurrentgemma's at D = 256),
+                each row with the design the library's dispatch names for
+                its shape, the redesigned rows with ``earlier_ms``.
 
 ``kernel_cases`` also holds the SSD kernel (the reference's cases, the
 ragged one included, fp32 and bf16 x/B/C, the sequential-recurrence case and
@@ -102,11 +108,11 @@ from repro_torch.data import SyntheticDataset                  # noqa: E402
 from repro_torch.kernels import build, ops                     # noqa: E402
 from repro_torch.kernels.registry import bucket_pow2           # noqa: E402
 from repro_torch.kernels.flash_attention import (              # noqa: E402
-    attention_plain, flash_attention)
+    attention_plain, design, flash_attention)
 from repro_torch.kernels.flash_attention_bwd import (          # noqa: E402
-    attention_bwd_plain, attention_delta, attention_fwd_stats_plain,
-    flash_attention_bwd_dkv, flash_attention_bwd_dq,
-    flash_attention_fwd_stats, flash_attention_vjp)
+    _kernel as c_entry_point, attention_bwd_plain, attention_delta,
+    attention_fwd_stats_plain, design_dkv, flash_attention_bwd_dkv,
+    flash_attention_bwd_dq, flash_attention_fwd_stats, flash_attention_vjp)
 from repro_torch.kernels.paged_attention import (              # noqa: E402
     paged_attention_plain, paged_decode_attention)
 from repro_torch.kernels.rglru import rglru, rglru_plain       # noqa: E402
@@ -176,6 +182,48 @@ def time_ms(calls, iters: int) -> float:
     return start.elapsed_time(end) / n
 
 
+def time_in_turns(new, earlier, iters: int):
+    """(new ms, earlier ms): two designs of one kernel timed in turns --
+    new, earlier, earlier, new -- each the mean of its two timings."""
+    a1, b1, b2, a2 = (time_ms([f], iters) for f in (new, earlier, earlier,
+                                                     new))
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+# The earlier mma.sync designs at D = 128, which the warpgroup designs replaced
+# there; the library exports them under their own names (with the C
+# interface of the kernels they replaced) and nothing of the package calls
+# them: timed here beside their successors (``earlier_ms``).
+def earlier_fwd(q, k, v, out, m=None, l=None, causal=True):
+    """A closure that launches the earlier forward (statistics when ``m``
+    and ``l`` are given) on the current stream into the given outputs."""
+    fn = c_entry_point("repro_flash_attention_fwd_mma", 6)
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+
+    def call():
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if m is None else m.data_ptr(),
+                None if l is None else l.data_ptr(), B, S, T, H, K, D, 1,
+                int(causal), 0, 0.0, torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"repro_flash_attention_fwd_mma returned {rc}")
+    return call
+
+
+def earlier_dkv(q, k, v, do, m, l, delta, dk, dv):
+    """A closure that launches the earlier dK/dV (causal) into dk, dv."""
+    fn = c_entry_point("repro_flash_attention_bwd_dkv_mma", 9)
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+
+    def call():
+        rc = fn(*(t.data_ptr() for t in (q, k, v, do, m, l, delta, dk, dv)),
+                B, S, T, H, K, D, 1, 1, 0, 0.0,
+                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"repro_flash_attention_bwd_dkv_mma returned {rc}")
+    return call
+
+
 # ---------------------------------------------------------------------------
 # kernels vs their plain versions
 # ---------------------------------------------------------------------------
@@ -192,6 +240,11 @@ ATTN_CASES = [
     (2, 130, 130, 3, 1, 128, True, 50, torch.bfloat16),
     (2, 96, 200, 4, 4, 32, False, 0, torch.bfloat16),
     (1, 200, 200, 6, 2, 64, True, 0, torch.bfloat16),
+    # the warpgroup design (bf16, D = 64 / 128): several 128-row and 128-key
+    # tiles, heads of a group in different blocks, S != T with a window
+    (1, 384, 384, 24, 8, 128, True, 0, torch.bfloat16),
+    (2, 300, 520, 6, 2, 128, True, 200, torch.bfloat16),
+    (2, 300, 300, 6, 2, 64, True, 0, torch.bfloat16),
 ]
 PAGED_CASES = [
     # B, T, D, G, K, page_size, lengths -- the reference's test cases
@@ -287,9 +340,16 @@ def flash_main_shape(gen, cfg, S):
     v = _randn(gen, 1, S, K, D, dtype=dt)
     got = flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
-    err = _err(got, attention_plain(q, k, v, causal=True), 2e-2,
-               f"flash_attention main shape S={S}")
-    ms = time_ms([lambda: flash_attention(q, k, v, causal=True)], 10)
+    want = attention_plain(q, k, v, causal=True)
+    err = _err(got, want, 2e-2, f"flash_attention main shape S={S}")
+    o_earlier = torch.empty_like(q)
+    earlier = earlier_fwd(q, k, v, o_earlier)
+    earlier()
+    torch.cuda.synchronize()
+    earlier_err = _err(o_earlier, want, 2e-2,
+                       f"earlier flash_attention main shape S={S}")
+    ms, earlier_ms = time_in_turns(
+        lambda: flash_attention(q, k, v, causal=True), earlier, 10)
     plain_ms = time_ms([lambda: attention_plain(q, k, v, causal=True)], 3)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     library_ms = time_ms(
@@ -302,7 +362,9 @@ def flash_main_shape(gen, cfg, S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dt] * 1e3
     return {"shape": [1, S, S, H, K, D], "dtype": str(dt), "tol": 2e-2,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "design": design(D, dt), "max_abs_err": err, "ms": ms,
+            "earlier_design": "mma.sync", "earlier_ms": earlier_ms,
+            "earlier_max_abs_err": earlier_err, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops}
@@ -420,6 +482,16 @@ BWD_CASES = [
     (1, 128, 128, 4, 2, 64, True, 0, torch.bfloat16),
     (2, 130, 130, 6, 1, 32, True, 50, torch.bfloat16),
     (1, 100, 77, 24, 8, 128, True, 0, torch.bfloat16),
+    # the warpgroup dK/dV (bf16, D = 128 and 64): window 50 with G = 3,
+    # S = 100 against T = 77, MQA (G = 6) bidirectional with S != T, and
+    # several 128-key tiles at 24 / 8 heads
+    (2, 130, 130, 3, 1, 128, True, 50, torch.bfloat16),
+    (2, 130, 130, 6, 2, 64, True, 50, torch.bfloat16),
+    (1, 100, 77, 6, 2, 64, True, 0, torch.bfloat16),
+    (1, 96, 200, 6, 1, 128, False, 0, torch.bfloat16),
+    (1, 96, 200, 6, 1, 64, False, 0, torch.bfloat16),
+    (1, 384, 384, 24, 8, 128, True, 0, torch.bfloat16),
+    (1, 384, 384, 24, 8, 64, True, 0, torch.bfloat16),
 ]
 
 
@@ -497,27 +569,33 @@ def _bound(nbytes, flops, dt):
             "bytes": nbytes, "flops": flops}
 
 
-def _library_bwd_ms(q, k, v, do, iters):
+def _library_bwd_ms(q, k, v, do, iters, rounds=5):
     """The backward of ``scaled_dot_product_attention`` (dq, dk and dv in
     one call) through ``torch.autograd.grad``, timed with CUDA events around
-    ``iters`` eager calls: autograd's backward is not graph-captured here."""
+    ``iters`` eager calls, in ``rounds`` rounds (autograd's backward is not
+    graph-captured here, and one round's time spread 1.2-2.7 ms between
+    calls): the median and the minimum of the rounds' means."""
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     dot = do.transpose(1, 2)
+    times = []
     with torch.enable_grad():
         out = torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)
         for _ in range(2):
             torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
-        end.record()
-        torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+        for _ in range(rounds):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                torch.autograd.grad(out, (qt, kt, vt), dot,
+                                    retain_graph=True)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / iters)
+    return float(np.median(times)), float(min(times))
 
 
 def _planted_faults(q, k, v, do, stats, kw, tile=64):
@@ -569,15 +647,28 @@ def bwd_main_shape(gen, cfg):
     o, m, l = flash_attention_fwd_stats(q, k, v, **kw)
     delta = attention_delta(o, do)
     stats = (m, l, delta)
-    faults = _planted_faults(q, k, v, do, stats, kw)
+    # a skipped tile of the old designs (64 keys) and of the warpgroup
+    # dK/dV (128 keys) must both be seen
+    faults = {f"tile_{t}": _planted_faults(q, k, v, do, stats, kw, tile=t)
+              for t in (64, 128)}
     qkv_bytes = (q.numel() + k.numel() + v.numel()) * q.element_size()
     row_bytes = m.numel() * 4                  # one fp32 per query row
     pairs = H * B * (S * (S + 1) // 2)         # live (query, key) pairs
     shape = {"shape": [B, S, S, H, K, D], "dtype": str(dt), "tol": 2e-2}
 
-    fwd = dict(shape, max_abs_err=ef, **_bound(
-        qkv_bytes + q.numel() * 2 + 2 * row_bytes, 4 * D * pairs, dt))
-    fwd["ms"] = time_ms([lambda: flash_attention_fwd_stats(q, k, v, **kw)], 5)
+    fwd = dict(shape, max_abs_err=ef, design=design(D, dt),
+               earlier_design="mma.sync", **_bound(
+                   qkv_bytes + q.numel() * 2 + 2 * row_bytes, 4 * D * pairs,
+                   dt))
+    o2, m2, l2 = torch.empty_like(q), torch.empty_like(m), torch.empty_like(l)
+    earlier = earlier_fwd(q, k, v, o2, m2, l2)
+    earlier()
+    torch.cuda.synchronize()
+    fwd["earlier_max_abs_err"] = max(
+        _err(a, b, 2e-2, f"earlier fwd_stats {n}")
+        for a, b, n in ((o2, o, "o"), (m2, m, "m"), (l2, l, "l")))
+    fwd["ms"], fwd["earlier_ms"] = time_in_turns(
+        lambda: flash_attention_fwd_stats(q, k, v, **kw), earlier, 5)
     fwd["plain_ms"] = time_ms(
         [lambda: attention_fwd_stats_plain(q, k, v, **kw)], 2)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -588,12 +679,21 @@ def bwd_main_shape(gen, cfg):
     # backward: q, k, v, dO and three row statistics read; dk, dv or dq
     # written (in the inputs' dtype)
     bwd_in = qkv_bytes + do.numel() * 2 + 3 * row_bytes
-    library_ms = _library_bwd_ms(q, k, v, do, 5)
-    dkv = dict(shape, max_abs_err=ekv, **_bound(
-        bwd_in + (k.numel() + v.numel()) * 2, 8 * D * pairs, dt))
-    dkv["ms"] = time_ms(
-        [lambda: flash_attention_bwd_dkv(q, k, v, do, *stats, **kw)], 3)
-    dq = dict(shape, max_abs_err=eq, **_bound(
+    library_ms, library_min = _library_bwd_ms(q, k, v, do, 5)
+    dkv = dict(shape, max_abs_err=ekv, design=design_dkv(D, dt),
+               earlier_design="mma.sync", **_bound(
+                   bwd_in + (k.numel() + v.numel()) * 2, 8 * D * pairs, dt))
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, *stats, **kw)
+    dk2, dv2 = torch.empty_like(k), torch.empty_like(v)
+    earlier = earlier_dkv(q, k, v, do, *stats, dk2, dv2)
+    earlier()
+    torch.cuda.synchronize()
+    dkv["earlier_max_abs_err"] = max(_err(dk2, dk, 2e-2, "earlier dk"),
+                                     _err(dv2, dv, 2e-2, "earlier dv"))
+    dkv["ms"], dkv["earlier_ms"] = time_in_turns(
+        lambda: flash_attention_bwd_dkv(q, k, v, do, *stats, **kw), earlier,
+        3)
+    dq = dict(shape, max_abs_err=eq, design="mma.sync", **_bound(
         bwd_in + q.numel() * 2, 6 * D * pairs, dt))
     dq["ms"] = time_ms(
         [lambda: flash_attention_bwd_dq(q, k, v, do, *stats, **kw)], 3)
@@ -604,6 +704,7 @@ def bwd_main_shape(gen, cfg):
         # together: their times stand in both rows
         row["plain_ms"] = plain_ms
         row["library_ms"] = library_ms
+        row["library_ms_min"] = library_min
     fwd["scaled"] = {"o": scaled["o"]}
     dkv["scaled"] = {n: scaled[n] for n in ("dk", "dv")}
     dq["scaled"] = {"dq": scaled["dq"]}
@@ -868,7 +969,8 @@ def flash_d256_main_shape(gen):
 
 def ptxas_usage(names):
     """Registers and spills that ``nvcc -Xptxas -v`` reported for each
-    kernel whose mangled name contains one of ``names``."""
+    kernel whose mangled name contains one of ``names``; fails where one of
+    them was not compiled or spills."""
     out, cur = {}, None
     for line in build.build_log.splitlines():
         if "Compiling entry function" in line:
@@ -882,6 +984,11 @@ def ptxas_usage(names):
             out.setdefault(cur, {})["registers"] = int(
                 line.split("Used")[1].split("registers")[0])
             cur = None
+    for n in names:
+        got = [v for k, v in out.items() if k.startswith(n + ":")]
+        check(bool(got), f"ptxas reported no kernel named like {n}")
+        check(all("0 bytes spill stores, 0 bytes spill loads" in v["spill"]
+                  for v in got), f"{n} spills: {got}")
     return out
 
 
@@ -967,6 +1074,9 @@ def serve_dense(cfg, model, policy):
     check(served == len(reqs), f"serve_dense served {served}/{len(reqs)}")
     n_flash = counts["flash_attention"]
     check(n_flash > 0, "serve_dense launched the flash kernel 0 times")
+    check(design(cfg.head_dim, torch.bfloat16) == "wgmma",
+          "serve_dense: the bf16 forward at this head_dim is not on the "
+          "warpgroup design")
     check(n_flash == len(reqs) * cfg.n_layers,
           f"flash launches {n_flash} != prefills x layers = "
           f"{len(reqs) * cfg.n_layers}")
@@ -1157,6 +1267,15 @@ def train(cfg):
             # the peak below is that of the steady steps
             torch.cuda.reset_peak_memory_stats()
     counts = ops.launch_counts()            # just after
+    # every launch above was bf16 at the model's head_dim: the library's
+    # dispatch names the design that served them
+    designs = {"flash_attention_fwd_stats": design(cfg.head_dim,
+                                                   torch.bfloat16),
+               "flash_attention_bwd_dkv": design_dkv(cfg.head_dim,
+                                                     torch.bfloat16)}
+    check(set(designs.values()) == {"wgmma"},
+          f"train: the stats forward and dK/dV are not on the warpgroup "
+          f"designs: {designs}")
     profile = _profile(lambda: step_fn(state, batches[-1]), "train")
     check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
           f"train: non-finite loss or grad norm {losses} {norms}")
@@ -1174,7 +1293,7 @@ def train(cfg):
          tokens_per_s=tokens / p50, model_flops_per_step=flops,
          model_flops_per_s=flops / p50,
          model_flops_per_s_over_989_tflops=flops / p50 / 989e12,
-         launches=counts,
+         launches=counts, designs=designs,
          first_step_vs_plain_attention={
              "loss": [losses[0], full_loss],
              "worst_attention_grad_err_over_max_abs": attn_err,
@@ -1363,6 +1482,9 @@ def serve_hybrid(cfg, model, policy):
     _per_prefill(cfg, counts, len(reqs),
                  {"rglru": cfg.pattern.count("rglru"),
                   "flash_attention": cfg.pattern.count("attn_local")})
+    check(design(cfg.head_dim, torch.bfloat16) == "mma.sync",
+          f"{cfg.name}: the bf16 forward at D = {cfg.head_dim} is not on "
+          f"the mma.sync design")
     emit("serve_hybrid", arch=cfg.name, n_layers=cfg.n_layers,
          dtype="bfloat16", mode=rep["mode"], slots=4, max_seq=4096,
          window=cfg.local_window, requests=len(reqs),
@@ -1508,8 +1630,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False    # fp32 means fp32
     smi = nvidia_smi_line()
     build.load()
+    nvcc = subprocess.run([build.find_nvcc(), "--version"],
+                          capture_output=True, text=True, timeout=60)
     emit("env", card=smi, device=torch.cuda.get_device_name(0),
          torch=torch.__version__, cuda=torch.version.cuda,
+         nvcc=nvcc.stdout.strip().splitlines()[-1],
          python=sys.version.split()[0], kernel_build_s=build.build_seconds,
          kernel_sources=[os.path.relpath(p, ROOT) for p in build.sources()])
 
@@ -1535,7 +1660,11 @@ def main() -> int:
          ssd={"cases": s_cases, "main_path": [s_main],
               "scaled_tol": SSD_TOL},
          rglru={"cases": r_cases, "main_path": [r_main]},
-         ptxas=ptxas_usage(["flash_fwd_mma_kernelILi256",
+         ptxas=ptxas_usage(["flash_fwd_wgmma_kernelILi128",
+                            "flash_fwd_wgmma_kernelILi64",
+                            "flash_bwd_dkv_wgmma_kernelILi128",
+                            "flash_bwd_dkv_wgmma_kernelILi64",
+                            "flash_fwd_mma_kernelILi256",
                             "flash_fwd_kernelIfLi256", "ssd_kernel",
                             "rglru_kernel"]),
          flash_attention_bwd={"cases": b_cases,
@@ -1560,15 +1689,22 @@ def main() -> int:
     n_rec = recurrent(policy)
     n_hybrid = n_rec[HYBRID_ARCH]
 
-    def row(name, source, replaces, launches, main):
+    def row(name, source, replaces, launches, main, kernel_design):
         head = main[-1]                     # the largest main-path shape
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": max(m["max_abs_err"] for m in main),
-                "ms": head["ms"], "plain_ms": head["plain_ms"],
-                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-                "library_ms": head["library_ms"], "shape": head["shape"],
-                "dtype": head["dtype"]}
+        out = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches,
+               "design": kernel_design,
+               "max_abs_err": max(m["max_abs_err"] for m in main),
+               "ms": head["ms"], "plain_ms": head["plain_ms"],
+               "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+               "library_ms": head["library_ms"], "shape": head["shape"],
+               "dtype": head["dtype"]}
+        if "earlier_ms" in head:            # redesigned in this slice
+            out["earlier_design"] = head["earlier_design"]
+            out["earlier_ms"] = head["earlier_ms"]
+        return out
+
+    D, bf16 = cfg.head_dim, torch.bfloat16
 
     bwd_src = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
     fa_src = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -1576,26 +1712,32 @@ def main() -> int:
         # one kernel, two rows: llama's serve_dense launches (D = 128) and
         # recurrentgemma's serve_hybrid launches (D = 256, window 2048)
         row("flash_attention", fa_src,
-            "src/repro/kernels/flash_attention.py:124", n_flash, f_main),
+            "src/repro/kernels/flash_attention.py:124", n_flash, f_main,
+            design(D, bf16)),
         row("flash_attention_d256", fa_src,
             "src/repro/kernels/flash_attention.py:124",
-            n_hybrid["flash_attention"], [f_d256]),
+            n_hybrid["flash_attention"], [f_d256], design(256, bf16)),
         row("paged_decode_attention",
             "src/repro_torch/kernels/csrc/paged_attention.cu",
-            "src/repro/kernels/paged_attention.py:151", n_paged, [p_main]),
+            "src/repro/kernels/paged_attention.py:151", n_paged, [p_main],
+            "cuda-cores"),
         row("flash_attention_fwd_stats", fa_src,
             "src/repro/kernels/flash_attention_bwd.py:238",
-            n_train["flash_attention_fwd_stats"], [b_main[0]]),
+            n_train["flash_attention_fwd_stats"], [b_main[0]],
+            design(D, bf16)),
         row("flash_attention_bwd_dkv", bwd_src,
             "src/repro/kernels/flash_attention_bwd.py:280",
-            n_train["flash_attention_bwd_dkv"], [b_main[1]]),
+            n_train["flash_attention_bwd_dkv"], [b_main[1]],
+            design_dkv(D, bf16)),
         row("flash_attention_bwd_dq", bwd_src,
             "src/repro/kernels/flash_attention_bwd.py:313",
-            n_train["flash_attention_bwd_dq"], [b_main[2]]),
+            n_train["flash_attention_bwd_dq"], [b_main[2]], "mma.sync"),
         row("ssd", "src/repro_torch/kernels/csrc/ssd.cu",
-            "src/repro/kernels/ssd.py:103", n_rec[SSM_ARCH], [s_main]),
+            "src/repro/kernels/ssd.py:103", n_rec[SSM_ARCH], [s_main],
+            "cuda-cores"),
         row("rglru", "src/repro_torch/kernels/csrc/rglru.cu",
-            "src/repro/kernels/rglru.py:58", n_hybrid["rglru"], [r_main]),
+            "src/repro/kernels/rglru.py:58", n_hybrid["rglru"], [r_main],
+            "cuda-cores"),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,19 @@ constexpr int DTYPE_BF16 = 1;
 // kernels are instantiated for
 constexpr int ERR_UNSUPPORTED = -1;
 
+// the attention kernels' common shape limits (grid dimensions included)
+inline bool shape_ok(int B, int S, int T, int H, int K) {
+  return B > 0 && S > 0 && T > 0 && K > 0 && H % K == 0 && B <= 65535 &&
+         K <= 65535;
+}
+
+// which design of an attention kernel serves a (head dim, dtype): the
+// dispatch switches on it, and the C entry points *_design report it
+constexpr int DESIGN_NONE = 0;        // not instantiated
+constexpr int DESIGN_CUDA_CORES = 1;  // fp32, register-tiled
+constexpr int DESIGN_MMA_SYNC = 2;    // bf16, warp-level mma.sync
+constexpr int DESIGN_WGMMA = 3;       // bf16, warpgroup wgmma fed by TMA
+
 // one 16-byte global load, kept as raw bits until it is used
 __device__ __forceinline__ uint4 load_raw16(const void* p) {
   return *reinterpret_cast<const uint4*>(p);

@@ -23,7 +23,10 @@
 //     of 16 x 16 threads owns a 4 x 4 score tile and a 4 x D/16 output
 //     tile), reading operands from padded shared memory with 16-byte loads,
 //     so fp32 never rounds through TF32.
-//   * bf16 inputs: both products run on the tensor cores with warp-level
+//   * bf16 inputs at D = 64 and 128 (flash_fwd_wgmma_kernel; llama's heads,
+//     served and trained): warpgroup products fed by the TMA, below.
+//   * bf16 inputs at D = 32 and 256 (flash_fwd_mma_kernel): both products
+//     run on the tensor cores with warp-level
 //     mma.sync (m16n8k16, fp32 accumulate).  Each of 4 warps owns 16 query
 //     rows: its Q fragments stay in registers for the whole key loop, the
 //     score tile never leaves registers (the accumulator layout of QK^T is
@@ -31,8 +34,9 @@
 //     in place, as the reference casts them before the PV product), K
 //     and V fragments come from padded shared memory with ldmatrix (V
 //     transposed on the way), and the next K/V tile is copied in with
-//     cp.async while the current one is computed.  Warpgroup (wgmma) tiles
-//     fed by TMA are later work.
+//     cp.async while the current one is computed.  The same design at
+//     D = 128 stays exported as repro_flash_attention_fwd_mma, which only
+//     chip_smoke.py calls (it times it beside the warpgroup design).
 //   * D = 256 (recurrentgemma-2b's MQA heads): the output accumulator alone
 //     is 128 fp32 registers a thread, and Q fragments held for the whole
 //     key loop would add 64 more and spill.  So at D = 256 the block copies
@@ -46,6 +50,44 @@
 //     reference, which asserts it).
 //   * Heaviest causal row tiles are scheduled first.
 //
+// flash_fwd_wgmma_kernel<D> (bf16, D = 64 and 128).  Also bounded by
+// operations; mma.sync cannot reach Hopper's tensor-core rate, and in the
+// design above each K fragment loaded by ldmatrix feeds only 16 query rows.
+// What this design does about it:
+//   * One block owns BM = 128 query positions of ONE query head and walks
+//     the live key tiles (BN = 128) of its KV head.  Per-head tiles are TMA
+//     boxes: q is the 3-D tensor map (H*D, S, B) with boxes (64, 128, 1) at
+//     column h*D (+64), k and v the maps (K*D, T, B).  The G heads of a
+//     group re-read each K/V tile from L2, not from device memory.  Ragged
+//     S and T are zero-filled by the TMA; the mask decides what counts.
+//   * Three warpgroups (384 threads).  Warpgroup 0 is the producer: it
+//     gives registers back (setmaxnreg 24) and one thread keeps a ring of
+//     WG_STAGES K/V tiles in flight, each completed through a "full"
+//     mbarrier and released through an "empty" one.  Warpgroups 1 and 2 are
+//     consumers (setmaxnreg 240), 64 query rows each.
+//   * S = Q K^T is wgmma m64n128k16 with both operands in shared memory
+//     (K-major, 128-byte swizzle, D/16 k-steps); O += P V is wgmma
+//     m64n64k16 per 64-column panel of V with P as the A operand from
+//     registers (the accumulator layout of S is the A-fragment layout, as
+//     with mma.sync) and V MN-major (the transposed-B flag).  m, l and the
+//     output accumulator stay in registers; masks are evaluated only on the
+//     tiles that the causal / window / ragged edges cross.
+//   * The softmax of one consumer warpgroup overlaps the other's products.
+//     Within a warpgroup the two products and the softmax run in turn
+//     (issuing S_j = Q K_j^T with O += P_{j-1} V_{j-1} and computing the
+//     softmax of S_j under the second product was slower on the H100).
+//   * The elementwise passes (scale and soft-cap, mask, exponentials) are
+//     branch-free blocks: the soft-cap and the mask are decided once per
+//     tile.  Per-element branches on them cost about a fifth of the
+//     kernel's time (PERF.md, the bring-up of this design).
+//   * The tensor maps are encoded per call on the host and passed as
+//     __grid_constant__ kernel parameters; the encoder comes from
+//     cudaGetDriverEntryPoint (hopper.cuh), the link line is unchanged.
+//   * ptxas (sm_90a, -Xptxas -v, nvcc 12.9): 168 registers at D = 64 and
+//     128 -- the bound of a 384-thread block; setmaxnreg then moves the
+//     producer to 24 and the consumers to 240 -- and 0 bytes of spill.
+//     chip_smoke.py prints both (kernel_cases, ptxas) and fails on a spill.
+//
 // repro_flash_attention_fwd_stats is the same launch that also writes each
 // row's softmax statistics (m, l) for the backward kernels in
 // flash_attention_bwd.cu; it replaces the TPU kernel
@@ -55,6 +97,7 @@
 // (repro_flash_attention_fwd, the serving path) nothing else changes.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -560,6 +603,286 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16, D = 64 and 128: warpgroup products fed by the TMA
+// ---------------------------------------------------------------------------
+constexpr int WG_BM = 128;     // query positions per block: 2 warpgroups x 64
+constexpr int WG_BN = 128;     // keys per tile
+constexpr int WG_STAGES = 3;   // K/V tiles in flight
+constexpr int WG_NT = 384;     // producer warpgroup + 2 consumer warpgroups
+
+// byte offsets from the block's 1024-aligned shared-memory base: Q (NP
+// panels of 128 rows), then WG_STAGES x NP panels of K, the same of V, then
+// the barriers
+template <int D> struct FwdLayout {
+  static constexpr int NP = D / 64;             // 64-column panels
+  static constexpr int Q_PANEL = WG_BM * 128;
+  static constexpr int KV_PANEL = WG_BN * 128;
+  static constexpr int Q = 0;
+  static constexpr int K = Q + NP * Q_PANEL;
+  static constexpr int V = K + WG_STAGES * NP * KV_PANEL;
+  static constexpr int BAR = V + WG_STAGES * NP * KV_PANEL;
+  static constexpr int BYTES = BAR + (2 * WG_STAGES + 1) * 8 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(WG_NT, 1)
+flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
+                       __grid_constant__ const CUtensorMap tk,
+                       __grid_constant__ const CUtensorMap tv,
+                       __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ m_out, float* __restrict__ l_out,
+                       int S, int Tk, int H, int G, int causal, int window,
+                       float scale, float softcap) {
+  using namespace hopper;
+  using Lay = FwdLayout<D>;
+  constexpr int NP = Lay::NP;
+  constexpr int NB = WG_BN / 8;     // 8-key column blocks of S
+  constexpr int PK = WG_BN / 16;    // k-steps of P V
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + Lay::BAR);
+  uint64_t* empty = full + WG_STAGES;
+  uint64_t* q_full = empty + WG_STAGES;
+
+  const int hq = blockIdx.x % H;                          // query head
+  const int b = blockIdx.x / H;
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * WG_BM;    // heaviest first
+  const int kh = hq / G;
+  int n_begin, n_end;
+  live_key_tiles(m0, WG_BM, WG_BN, Tk, causal, window, n_begin, n_end);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);    // lane 0 of each consumer warp
+    }
+    mbar_init(q_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer: one thread keeps the K/V ring full ----
+    regs_dealloc<24>();
+    if (threadIdx.x == 0) {
+      prefetch_tensor_map(&tq);
+      prefetch_tensor_map(&tk);
+      prefetch_tensor_map(&tv);
+      mbar_arrive_expect_tx(q_full, WG_BM * D * 2);
+      for (int p = 0; p < NP; ++p)
+        tma_load_3d(sm + Lay::Q + p * Lay::Q_PANEL, &tq, q_full,
+                    hq * D + p * 64, m0, b);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int n0 = n_begin; n0 < n_end; n0 += WG_BN) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_arrive_expect_tx(&full[stage], 2 * WG_BN * D * 2);
+        for (int p = 0; p < NP; ++p) {
+          const int at = (stage * NP + p) * Lay::KV_PANEL;
+          tma_load_3d(sm + Lay::K + at, &tk, &full[stage], kh * D + p * 64,
+                      n0, b);
+          tma_load_3d(sm + Lay::V + at, &tv, &full[stage], kh * D + p * 64,
+                      n0, b);
+        }
+        if (++stage == WG_STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows per warpgroup ----
+    regs_alloc<240>();
+    const int t = threadIdx.x - 128;
+    const int cw = t >> 7;                // consumer warpgroup
+    const int warp = (t >> 5) & 3;
+    const int lane = t & 31;
+    const int qc = (lane & 3) * 2;        // fragment column pair
+    const int r_lo = m0 + cw * 64;        // this warpgroup's first row
+    int row[2];
+    row[0] = r_lo + warp * 16 + (lane >> 2);
+    row[1] = row[0] + 8;
+
+    float m_i[2] = {NEG_INF, NEG_INF};
+    float l_i[2] = {0.f, 0.f};  // partial over this thread's key columns
+    // output accumulator per 64-column panel: [j * 4 + e] is row
+    // row[e >> 1], column p * 64 + j * 8 + qc + (e & 1)
+    float acc[NP][32];
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
+
+    const uint32_t q_addr = smem_u32(sm + Lay::Q) + cw * 64 * 128;
+    mbar_wait(q_full, 0);
+    // Per tile: S = Q K^T, the softmax, O += P V, in turn; the other
+    // consumer warpgroup's products fill the tensor cores meanwhile.
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int n0 = n_begin; n0 < n_end; n0 += WG_BN) {
+      mbar_wait(&full[stage], phase);
+      const uint32_t k_addr =
+          smem_u32(sm + Lay::K) + stage * NP * Lay::KV_PANEL;
+      const uint32_t v_addr =
+          smem_u32(sm + Lay::V) + stage * NP * Lay::KV_PANEL;
+
+      // ---- S = Q K^T (64 x 128 per warpgroup), both operands K-major in
+      // shared memory; [nb * 4 + e] is row row[e >> 1], key n0 + nb * 8 +
+      // qc + (e & 1) ----
+      float s[NB * 4];
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t kofs = (ks & 3) * 32;
+        wgmma_ss_n128(
+            s, sw128_desc(q_addr + (ks >> 2) * Lay::Q_PANEL + kofs, 16, 1024),
+            sw128_desc(k_addr + (ks >> 2) * Lay::KV_PANEL + kofs, 16, 1024),
+            ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+
+      // ---- scale, soft-cap, mask; online-softmax update.  Each pass over
+      // s is one branch-free block (the soft-cap and the mask are decided
+      // once per tile), so the elements' arithmetic can interleave ----
+      if (softcap > 0.f) {
+        const float to_t = scale / softcap;
+#pragma unroll
+        for (int i = 0; i < NB * 4; ++i) s[i] = softcap * tanhf(s[i] * to_t);
+      } else {
+#pragma unroll
+        for (int i = 0; i < NB * 4; ++i) s[i] *= scale;
+      }
+      const bool edge = n0 + WG_BN > Tk ||
+                        (causal && n0 + WG_BN - 1 > r_lo) ||
+                        (window > 0 && r_lo + 63 - n0 >= window);
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < NB * 4; ++i) {
+          const int kpos = n0 + (i >> 2) * 8 + qc + (i & 1);
+          const int diff = row[(i >> 1) & 1] - kpos;
+          const bool dead = (kpos >= Tk) | ((causal != 0) & (diff < 0)) |
+                            ((window > 0) & (diff >= window));
+          s[i] = dead ? NEG_INF : s[i];
+        }
+      }
+      float corr[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = NEG_INF;
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+          mx = fmaxf(mx, fmaxf(s[nb * 4 + 2 * h], s[nb * 4 + 2 * h + 1]));
+        // a row's columns are spread over the 4 lanes of a quad
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_i[h], mx);
+        corr[h] = __expf(m_i[h] - m_new);
+        m_i[h] = m_new;
+        float psum = 0.f;
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = __expf(s[nb * 4 + 2 * h + e] - m_new);
+            s[nb * 4 + 2 * h + e] = p;
+            psum += p;
+          }
+        l_i[h] = l_i[h] * corr[h] + psum;
+      }
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          acc[p][j * 4 + 0] *= corr[0];
+          acc[p][j * 4 + 1] *= corr[0];
+          acc[p][j * 4 + 2] *= corr[1];
+          acc[p][j * 4 + 3] *= corr[1];
+        }
+
+      // ---- O += P V: P's bf16 A fragments straight from the accumulator
+      // layout of S; V MN-major, one m64n64k16 per 16 keys and panel ----
+      uint32_t pa[PK][4];
+#pragma unroll
+      for (int kk = 0; kk < PK; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < PK; ++kk)
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+          wgmma_rs_n64_tb(acc[p], pa[kk],
+                          sw128_desc(v_addr + p * Lay::KV_PANEL +
+                                         kk * 16 * 128,
+                                     Lay::KV_PANEL, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int p = 0; p < NP; ++p) fence_regs(acc[p]);
+      if (lane == 0) mbar_arrive(&empty[stage]);  // this warp is done
+      if (++stage == WG_STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    // ---- flush: out = acc / max(l, 1e-30); statistics (B, S, H) ----
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float l = l_i[h];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      if (row[h] < S) {
+        const float inv = 1.f / fmaxf(l, 1e-30f);
+        const size_t at = ((size_t)b * S + row[h]) * H + hq;
+        if (m_out != nullptr && (lane & 3) == 0) {
+          m_out[at] = m_i[h];
+          l_out[at] = fmaxf(l, 1e-30f);
+        }
+        __nv_bfloat16* orow = o + at * D;
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            *reinterpret_cast<uint32_t*>(orow + p * 64 + j * 8 + qc) =
+                pack_bf16(acc[p][j * 4 + 2 * h] * inv,
+                          acc[p][j * 4 + 2 * h + 1] * inv);
+      }
+    }
+  }
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 float* m_out, float* l_out, int B, int S, int Tk, int H,
+                 int K, int causal, int window, float softcap,
+                 cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int rc = hopper::make_tensor_map(&tq, q, B, S, H * D, WG_BM);
+  if (rc == 0) rc = hopper::make_tensor_map(&tk, k, B, Tk, K * D, WG_BN);
+  if (rc == 0) rc = hopper::make_tensor_map(&tv, v, B, Tk, K * D, WG_BN);
+  if (rc != 0) return rc;
+  constexpr int bytes = FwdLayout<D>::BYTES;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_wgmma_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const dim3 grid(H * B, (S + WG_BM - 1) / WG_BM);
+  flash_fwd_wgmma_kernel<D><<<grid, WG_NT, bytes, stream>>>(
+      tq, tk, tv, (__nv_bfloat16*)o, m_out, l_out, S, Tk, H, H / K, causal,
+      window, 1.0f / sqrtf((float)D), softcap);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* m_out,
            float* l_out, int B, int S, int Tk, int H, int K, int causal,
@@ -581,43 +904,48 @@ int launch(const void* q, const void* k, const void* v, void* o, float* m_out,
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_t(int dtype, const void* q, const void* k, const void* v, void* o,
-             float* m_out, float* l_out, int B, int S, int Tk, int H, int K,
-             int causal, int window, float softcap, cudaStream_t stream) {
-  if (dtype == DTYPE_F32)  // CUDA cores: full fp32
-    return launch<float, D>(q, k, v, o, m_out, l_out, B, S, Tk, H, K, causal,
-                            window, softcap, stream);
-  if (dtype == DTYPE_BF16)  // tensor cores
-    return launch_mma<D>(q, k, v, o, m_out, l_out, B, S, Tk, H, K, causal,
-                         window, softcap, stream);
-  return ERR_UNSUPPORTED;
+// Which design serves (D, dtype): fp32 on the CUDA cores at every D; bf16
+// on warpgroup products fed by the TMA at D = 64 and 128 (llama's heads),
+// on mma.sync at D = 32 and 256.  No launch falls back to another design.
+int fwd_design(int D, int dtype) {
+  const bool any_d = D == 32 || D == 64 || D == 128 || D == 256;
+  if (dtype == DTYPE_F32) return any_d ? DESIGN_CUDA_CORES : DESIGN_NONE;
+  if (dtype != DTYPE_BF16 || !any_d) return DESIGN_NONE;
+  return D == 64 || D == 128 ? DESIGN_WGMMA : DESIGN_MMA_SYNC;
 }
 
 int dispatch(const void* q, const void* k, const void* v, void* o,
              float* m_out, float* l_out, int B, int S, int T, int H, int K,
              int D, int dtype, int causal, int window, float softcap,
              void* stream) {
-  if (B <= 0 || S <= 0 || T <= 0 || K <= 0 || H % K != 0 || B > 65535 ||
-      K > 65535)
-    return ERR_UNSUPPORTED;
+  if (!shape_ok(B, S, T, H, K)) return ERR_UNSUPPORTED;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (D) {
-    case 32:
-      return launch_t<32>(dtype, q, k, v, o, m_out, l_out, B, S, T, H, K,
-                          causal, window, softcap, st);
-    case 64:
-      return launch_t<64>(dtype, q, k, v, o, m_out, l_out, B, S, T, H, K,
-                          causal, window, softcap, st);
-    case 128:
-      return launch_t<128>(dtype, q, k, v, o, m_out, l_out, B, S, T, H, K,
-                           causal, window, softcap, st);
-    case 256:
-      return launch_t<256>(dtype, q, k, v, o, m_out, l_out, B, S, T, H, K,
-                           causal, window, softcap, st);
-    default:
-      return ERR_UNSUPPORTED;
+#define REPRO_FWD_ARGS \
+  q, k, v, o, m_out, l_out, B, S, T, H, K, causal, window, softcap, st
+  switch (fwd_design(D, dtype)) {
+    case DESIGN_CUDA_CORES:
+      switch (D) {
+        case 32: return launch<float, 32>(REPRO_FWD_ARGS);
+        case 64: return launch<float, 64>(REPRO_FWD_ARGS);
+        case 128: return launch<float, 128>(REPRO_FWD_ARGS);
+        case 256: return launch<float, 256>(REPRO_FWD_ARGS);
+      }
+      break;
+    case DESIGN_MMA_SYNC:
+      switch (D) {
+        case 32: return launch_mma<32>(REPRO_FWD_ARGS);
+        case 256: return launch_mma<256>(REPRO_FWD_ARGS);
+      }
+      break;
+    case DESIGN_WGMMA:
+      switch (D) {
+        case 64: return launch_wgmma<64>(REPRO_FWD_ARGS);
+        case 128: return launch_wgmma<128>(REPRO_FWD_ARGS);
+      }
+      break;
   }
+#undef REPRO_FWD_ARGS
+  return ERR_UNSUPPORTED;
 }
 
 }  // namespace
@@ -644,4 +972,23 @@ extern "C" int repro_flash_attention_fwd_stats(
     int window, float softcap, void* stream) {
   return dispatch(q, k, v, o, m, l, B, S, T, H, K, D, dtype, causal, window,
                   softcap, stream);
+}
+
+// The design that repro_flash_attention_fwd(_stats) launches for (D, dtype):
+// one of the DESIGN_* codes of common.cuh.
+extern "C" int repro_flash_attention_fwd_design(int D, int dtype) {
+  return fwd_design(D, dtype);
+}
+
+// The mma.sync design at D = 128 (bf16), which the warpgroup design
+// replaced there; m and l may be null.  Not on any path of the package:
+// chip_smoke.py times it beside its successor in the same run.
+extern "C" int repro_flash_attention_fwd_mma(
+    const void* q, const void* k, const void* v, void* o, float* m, float* l,
+    int B, int S, int T, int H, int K, int D, int dtype, int causal,
+    int window, float softcap, void* stream) {
+  if (!shape_ok(B, S, T, H, K) || D != 128 || dtype != DTYPE_BF16)
+    return ERR_UNSUPPORTED;
+  return launch_mma<128>(q, k, v, o, m, l, B, S, T, H, K, causal, window,
+                         softcap, (cudaStream_t)stream);
 }

@@ -38,7 +38,10 @@
 //   * fp32 inputs: all products run on the CUDA cores in fp32, operands
 //     widened to float in padded shared memory (16-byte loads, no bank
 //     conflicts on the score products), so fp32 never rounds through TF32.
-//   * bf16 inputs: all products run on the tensor cores with warp-level
+//   * bf16 inputs, dK/dV at D = 64 and 128: warpgroup products fed by the
+//     TMA (flash_bwd_dkv_wgmma_kernel, below).
+//   * bf16 inputs otherwise (dQ at every D, dK/dV at D = 32): all products
+//     run on the tensor cores with warp-level
 //     mma.sync (m16n8k16, fp32 accumulate), as the forward kernel does.
 //     dK/dV: each of 4 warps owns 16 keys and computes the transposed tiles
 //     S^T = K Q^T and dP^T = V dO^T for 16 query rows at a time, so that
@@ -49,13 +52,48 @@
 //     one is computed, and the dK and dV tiles live in registers.  dQ: each
 //     warp owns 16 query rows whose q and dO fragments stay in registers;
 //     S, dP, then dQ += dS K with K read transposed by ldmatrix, K and V
-//     tiles double-buffered by cp.async.  Warpgroup (wgmma) tiles fed by
-//     TMA are later work.
+//     tiles double-buffered by cp.async.  The dK/dV design at D = 128 stays
+//     exported as repro_flash_attention_bwd_dkv_mma, which only
+//     chip_smoke.py calls (it times it beside the warpgroup design).
 //   * m, l and delta live in (B, S, H) fp32, q's layout without its last
 //     axis, so no transpose is paid per layer; the outputs are written in
 //     the input dtype from fp32 accumulators.
+//
+// flash_bwd_dkv_wgmma_kernel<D> (bf16, D = 64 and 128).  Bounded by
+// operations (four products per live (query, key) pair).  The mma.sync
+// design above spends 512 bytes of shared-memory traffic on each 4096-flop
+// mma (its K and V fragments are re-read for every row block) and cannot
+// reach the tensor-core rate.  What this design does about it:
+//   * One block owns BN = 128 keys of one (batch, KV head): K and V arrive
+//     once by TMA and stay in shared memory for the block's life.  Two
+//     consumer warpgroups own 64 keys each.  The block loops over the
+//     (query tile of BM = 64 positions, group head g) pairs that the masks
+//     leave live (live_query_tiles), so the sum over the G heads of a group
+//     stays in registers: no atomics, no second pass.  The heaviest key
+//     tiles (n0 = 0 under causal) of every (batch, KV head) come first.
+//   * A producer warpgroup (setmaxnreg 24) streams the pairs' Q and dO
+//     tiles through a ring of DKV_STAGES stages by TMA (the forward's
+//     per-head tensor maps, boxes of 64 positions); its first warp also
+//     brings each pair's m, 1/l and delta -- strided by H in (B, S, H), too
+//     narrow for a TMA box -- into shared memory with plain loads, and its
+//     32 lanes arrive on the stage's "full" mbarrier with the TMA bytes.
+//   * Per pair and consumer warpgroup (setmaxnreg 240), four wgmma: S^T =
+//     K Q^T and dP^T = V dO^T (m64n64k16, both operands in shared memory,
+//     K-major), then P^T and dS^T in registers, packed to bf16 as the A
+//     operands of dV += P^T dO and dK += dS^T Q (m64n64k16 per 64-column
+//     panel, dO and Q MN-major through the transposed-B flag).  dK and dV
+//     accumulate in fp32 registers, 64 x D each per warpgroup.
+//   * The elementwise passes are branch-free blocks: the soft-cap and the
+//     mask (a bit per element, built only where an edge crosses the tile)
+//     are decided once per pair; per-element branches on them cost about a
+//     third of the kernel's time (PERF.md, the bring-up of this design).
+//   * ptxas (sm_90a, -Xptxas -v, nvcc 12.9): 168 registers at D = 64 and
+//     128 -- the bound of a 384-thread block; setmaxnreg then moves the
+//     producer to 24 and the consumers to 240 -- and 0 bytes of spill.
+//     chip_smoke.py prints both (kernel_cases, ptxas) and fails on a spill.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -825,6 +863,296 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 dK/dV, D = 64 and 128: warpgroup products fed by the TMA
+// ---------------------------------------------------------------------------
+constexpr int DKV_BN = 128;    // keys per block: 2 consumer warpgroups x 64
+constexpr int DKV_BM = 64;     // query positions per tile
+constexpr int DKV_STAGES = 3;  // (q, dO, statistics) tiles in flight
+constexpr int WG_NT = 384;     // producer warpgroup + 2 consumer warpgroups
+
+// byte offsets from the block's 1024-aligned shared-memory base: K and V (NP
+// panels of 128 keys each), then DKV_STAGES x NP panels of q, the same of
+// dO, DKV_STAGES x (m, 1/l, delta) x 64 floats, the barriers
+template <int D> struct DkvLayout {
+  static constexpr int NP = D / 64;
+  static constexpr int KV_PANEL = DKV_BN * 128;
+  static constexpr int Q_PANEL = DKV_BM * 128;
+  static constexpr int K = 0;
+  static constexpr int V = K + NP * KV_PANEL;
+  static constexpr int Q = V + NP * KV_PANEL;
+  static constexpr int DO = Q + DKV_STAGES * NP * Q_PANEL;
+  static constexpr int STATS = DO + DKV_STAGES * NP * Q_PANEL;
+  static constexpr int BAR = STATS + DKV_STAGES * 3 * DKV_BM * 4;
+  static constexpr int BYTES = BAR + (2 * DKV_STAGES + 1) * 8 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(WG_NT, 1)
+flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
+                           __grid_constant__ const CUtensorMap tk,
+                           __grid_constant__ const CUtensorMap tv,
+                           __grid_constant__ const CUtensorMap tdo,
+                           const float* __restrict__ m,
+                           const float* __restrict__ l,
+                           const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int S, int Tk,
+                           int H, int K, int G, int causal, int window,
+                           float scale, float softcap) {
+  using namespace hopper;
+  using Lay = DkvLayout<D>;
+  constexpr int NP = Lay::NP;
+  constexpr int KS = D / 16;        // k-steps of S^T and dP^T
+  constexpr int QB = DKV_BM / 8;    // 8-query column blocks of S^T
+  constexpr int PK = DKV_BM / 16;   // k-steps of the gradient products
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + Lay::BAR);
+  uint64_t* empty = full + DKV_STAGES;
+  uint64_t* kv_full = empty + DKV_STAGES;
+  float* stats = reinterpret_cast<float*>(sm + Lay::STATS);
+
+  const int kh = blockIdx.x % K;
+  const int b = blockIdx.x / K;
+  const int n0 = blockIdx.y * DKV_BN;   // n0 = 0 (heaviest) first
+  int m_begin, m_end;
+  live_query_tiles(n0, DKV_BN, DKV_BM, S, causal, window, m_begin, m_end);
+  // (query tile, group head) pairs: pair i is tile m_begin + (i / G) * BM,
+  // head kh * G + i % G
+  const int n_pairs =
+      m_begin < m_end ? (m_end - m_begin + DKV_BM - 1) / DKV_BM * G : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < DKV_STAGES; ++s) {
+      mbar_init(&full[s], 32);    // the producer warp's lanes
+      mbar_init(&empty[s], 8);    // lane 0 of each consumer warp
+    }
+    mbar_init(kv_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer: K, V once; then q, dO and statistics per pair ----
+    regs_dealloc<24>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        prefetch_tensor_map(&tq);
+        prefetch_tensor_map(&tk);
+        prefetch_tensor_map(&tv);
+        prefetch_tensor_map(&tdo);
+        mbar_arrive_expect_tx(kv_full, 2 * DKV_BN * D * 2);
+        for (int p = 0; p < NP; ++p) {
+          tma_load_3d(sm + Lay::K + p * Lay::KV_PANEL, &tk, kv_full,
+                      kh * D + p * 64, n0, b);
+          tma_load_3d(sm + Lay::V + p * Lay::KV_PANEL, &tv, kv_full,
+                      kh * D + p * 64, n0, b);
+        }
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int i = 0; i < n_pairs; ++i) {
+        const int m0 = m_begin + (i / G) * DKV_BM;
+        const int hq = kh * G + i % G;
+        mbar_wait(&empty[stage], phase ^ 1);
+        // rows past S: m = 0, 1/l = 1, delta = 0 (the mask zeroes their p)
+        float* st = stats + stage * 3 * DKV_BM;
+        for (int r = lane; r < DKV_BM; r += 32) {
+          const bool live = m0 + r < S;
+          const size_t at = ((size_t)b * S + (live ? m0 + r : 0)) * H + hq;
+          st[r] = live ? m[at] : 0.f;
+          st[DKV_BM + r] = live ? 1.f / l[at] : 1.f;
+          st[2 * DKV_BM + r] = live ? delta[at] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[stage], 2 * DKV_BM * D * 2);
+          for (int p = 0; p < NP; ++p) {
+            const int at = (stage * NP + p) * Lay::Q_PANEL;
+            tma_load_3d(sm + Lay::Q + at, &tq, &full[stage],
+                        hq * D + p * 64, m0, b);
+            tma_load_3d(sm + Lay::DO + at, &tdo, &full[stage],
+                        hq * D + p * 64, m0, b);
+          }
+        } else {
+          mbar_arrive(&full[stage]);
+        }
+        if (++stage == DKV_STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 keys per warpgroup ----
+    regs_alloc<240>();
+    const int t = threadIdx.x - 128;
+    const int cw = t >> 7;
+    const int warp = (t >> 5) & 3;
+    const int lane = t & 31;
+    const int qc = (lane & 3) * 2;
+    const int k_lo = n0 + cw * 64;        // this warpgroup's first key
+    int key[2];
+    key[0] = k_lo + warp * 16 + (lane >> 2);
+    key[1] = key[0] + 8;
+
+    // gradient accumulators per 64-column panel: [j * 4 + e] is key
+    // key[e >> 1], column p * 64 + j * 8 + qc + (e & 1)
+    float dk_acc[NP][32], dv_acc[NP][32];
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dk_acc[p][i] = dv_acc[p][i] = 0.f;
+
+    const uint32_t k_addr = smem_u32(sm + Lay::K) + cw * 64 * 128;
+    const uint32_t v_addr = smem_u32(sm + Lay::V) + cw * 64 * 128;
+    mbar_wait(kv_full, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int i = 0; i < n_pairs; ++i) {
+      const int m0 = m_begin + (i / G) * DKV_BM;
+      mbar_wait(&full[stage], phase);
+      const uint32_t q_addr =
+          smem_u32(sm + Lay::Q) + stage * NP * Lay::Q_PANEL;
+      const uint32_t do_addr =
+          smem_u32(sm + Lay::DO) + stage * NP * Lay::Q_PANEL;
+      const float* ms = stats + stage * 3 * DKV_BM;
+      const float* inv_ls = ms + DKV_BM;
+      const float* deltas = ms + 2 * DKV_BM;
+
+      // ---- S^T = K Q^T, dP^T = V dO^T (64 keys x 64 queries); [j * 4 +
+      // e] is key key[e >> 1], query m0 + j * 8 + qc + (e & 1) ----
+      float st[QB * 4], dpt[QB * 4];
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const uint32_t kofs = (ks & 3) * 32;
+        wgmma_ss_n64(
+            st, sw128_desc(k_addr + (ks >> 2) * Lay::KV_PANEL + kofs, 16, 1024),
+            sw128_desc(q_addr + (ks >> 2) * Lay::Q_PANEL + kofs, 16, 1024),
+            ks > 0);
+      }
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const uint32_t kofs = (ks & 3) * 32;
+        wgmma_ss_n64(
+            dpt,
+            sw128_desc(v_addr + (ks >> 2) * Lay::KV_PANEL + kofs, 16, 1024),
+            sw128_desc(do_addr + (ks >> 2) * Lay::Q_PANEL + kofs, 16, 1024),
+            ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // ---- P^T and dS^T, each pass one branch-free block: the soft-cap
+      // and the mask are decided once per pair ----
+      if (softcap > 0.f) {
+        const float to_t = scale / softcap;
+#pragma unroll
+        for (int i = 0; i < QB * 4; ++i)
+          st[i] = softcap * tanhf(st[i] * to_t);
+      } else {
+#pragma unroll
+        for (int i = 0; i < QB * 4; ++i) st[i] *= scale;
+      }
+      // bit i: element i is live (a tile that no edge crosses is all live)
+      uint32_t live = 0xffffffffu;
+      const bool edge = m0 + DKV_BM > S || k_lo + 64 > Tk ||
+                        (causal && k_lo + 63 > m0) ||
+                        (window > 0 && m0 + DKV_BM - 1 - k_lo >= window);
+      if (edge) {
+        live = 0u;
+#pragma unroll
+        for (int i = 0; i < QB * 4; ++i) {
+          const int qpos = m0 + (i >> 2) * 8 + qc + (i & 1);
+          const int kpos = key[(i >> 1) & 1];
+          const int diff = qpos - kpos;
+          const bool dead = (qpos >= S) | (kpos >= Tk) |
+                            ((causal != 0) & (diff < 0)) |
+                            ((window > 0) & (diff >= window));
+          live |= (uint32_t)!dead << i;
+        }
+      }
+      // the soft-cap's derivative at the capped score x is 1 - (x / c)^2;
+      // without a cap the factor is exactly 1
+      const float inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
+#pragma unroll
+      for (int j = 0; j < QB; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int ql = j * 8 + qc + e;    // query within the tile
+          const float mq = ms[ql];
+          const float il = inv_ls[ql];
+          const float dq = deltas[ql];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int idx = j * 4 + 2 * h + e;
+            const float x = st[idx];
+            const float pv = (live >> idx) & 1u ? __expf(x - mq) * il : 0.f;
+            const float tc = x * inv_cap;
+            st[idx] = pv;
+            dpt[idx] = pv * (dpt[idx] - dq) * (1.f - tc * tc) * scale;
+          }
+        }
+
+      // ---- dV += P^T dO, dK += dS^T Q: bf16 A fragments straight from
+      // the accumulators ----
+      uint32_t pa[PK][4], da[PK][4];
+#pragma unroll
+      for (int kk = 0; kk < PK; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          pa[kk][r] = pack_bf16(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
+          da[kk][r] = pack_bf16(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
+        }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < PK; ++kk)
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          const uint32_t at = p * Lay::Q_PANEL + kk * 16 * 128;
+          wgmma_rs_n64_tb(dv_acc[p], pa[kk],
+                          sw128_desc(do_addr + at, Lay::Q_PANEL, 1024));
+          wgmma_rs_n64_tb(dk_acc[p], da[kk],
+                          sw128_desc(q_addr + at, Lay::Q_PANEL, 1024));
+        }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        fence_regs(dv_acc[p]);
+        fence_regs(dk_acc[p]);
+      }
+      if (lane == 0) mbar_arrive(&empty[stage]);  // this warp is done
+      if (++stage == DKV_STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (key[h] < Tk) {
+        const size_t at = ((size_t)b * Tk + key[h]) * K * D + (size_t)kh * D;
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int c = p * 64 + j * 8 + qc;
+            *reinterpret_cast<uint32_t*>(dk + at + c) = pack_bf16(
+                dk_acc[p][j * 4 + 2 * h], dk_acc[p][j * 4 + 2 * h + 1]);
+            *reinterpret_cast<uint32_t*>(dv + at + c) = pack_bf16(
+                dv_acc[p][j * 4 + 2 * h], dv_acc[p][j * 4 + 2 * h + 1]);
+          }
+      }
+    }
+  }
+}
+
 template <typename KernelT>
 int configure(KernelT kernel, int bytes, bool& done) {
   if (done) return 0;
@@ -890,6 +1218,29 @@ int launch_dkv_mma(const void* q, const void* k, const void* v,
 }
 
 template <int D>
+int launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                     const void* dout, const float* m, const float* l,
+                     const float* delta, void* dk, void* dv, int B, int S,
+                     int Tk, int H, int K, int causal, int window,
+                     float softcap, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  int rc = hopper::make_tensor_map(&tq, q, B, S, H * D, DKV_BM);
+  if (rc == 0) rc = hopper::make_tensor_map(&tdo, dout, B, S, H * D, DKV_BM);
+  if (rc == 0) rc = hopper::make_tensor_map(&tk, k, B, Tk, K * D, DKV_BN);
+  if (rc == 0) rc = hopper::make_tensor_map(&tv, v, B, Tk, K * D, DKV_BN);
+  if (rc != 0) return rc;
+  constexpr int bytes = DkvLayout<D>::BYTES;
+  static bool configured = false;
+  rc = configure(flash_bwd_dkv_wgmma_kernel<D>, bytes, configured);
+  if (rc != 0) return rc;
+  const dim3 grid(K * B, (Tk + DKV_BN - 1) / DKV_BN);
+  flash_bwd_dkv_wgmma_kernel<D><<<grid, WG_NT, bytes, stream>>>(
+      tq, tk, tv, tdo, m, l, delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
+      S, Tk, H, K, H / K, causal, window, 1.0f / sqrtf((float)D), softcap);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
 int launch_dq_mma(const void* q, const void* k, const void* v,
                   const void* dout, const float* m, const float* l,
                   const float* delta, void* dq, int B, int S, int Tk, int H,
@@ -909,27 +1260,15 @@ int launch_dq_mma(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-bool shape_ok(int B, int S, int T, int H, int K) {
-  return B > 0 && S > 0 && T > 0 && K > 0 && H % K == 0 && B <= 65535 &&
-         K <= 65535;
+// Which design serves dK/dV at (D, dtype): fp32 on the CUDA cores; bf16 on
+// warpgroup products fed by the TMA at D = 64 and 128 (llama's heads), on
+// mma.sync at D = 32.  No launch falls back to another design.
+int dkv_design(int D, int dtype) {
+  const bool any_d = D == 32 || D == 64 || D == 128;
+  if (dtype == DTYPE_F32) return any_d ? DESIGN_CUDA_CORES : DESIGN_NONE;
+  if (dtype != DTYPE_BF16 || !any_d) return DESIGN_NONE;
+  return D == 32 ? DESIGN_MMA_SYNC : DESIGN_WGMMA;
 }
-
-// one switch over D for both kernels: fp32 on the CUDA cores, bf16 on the
-// tensor cores
-#define REPRO_BWD_DISPATCH(LAUNCH, ...)                                      \
-  switch (D) {                                                               \
-    case 32:                                                                 \
-      return dtype == DTYPE_F32 ? LAUNCH<float, 32>(__VA_ARGS__)             \
-                                : LAUNCH##_mma<32>(__VA_ARGS__);             \
-    case 64:                                                                 \
-      return dtype == DTYPE_F32 ? LAUNCH<float, 64>(__VA_ARGS__)             \
-                                : LAUNCH##_mma<64>(__VA_ARGS__);             \
-    case 128:                                                                \
-      return dtype == DTYPE_F32 ? LAUNCH<float, 128>(__VA_ARGS__)            \
-                                : LAUNCH##_mma<128>(__VA_ARGS__);            \
-    default:                                                                 \
-      return ERR_UNSUPPORTED;                                                \
-  }
 
 }  // namespace
 
@@ -941,12 +1280,30 @@ extern "C" int repro_flash_attention_bwd_dkv(
     const float* m, const float* l, const float* delta, void* dk, void* dv,
     int B, int S, int T, int H, int K, int D, int dtype, int causal,
     int window, float softcap, void* stream) {
-  if (!shape_ok(B, S, T, H, K) ||
-      (dtype != DTYPE_F32 && dtype != DTYPE_BF16))
-    return ERR_UNSUPPORTED;
+  if (!shape_ok(B, S, T, H, K)) return ERR_UNSUPPORTED;
   cudaStream_t st = (cudaStream_t)stream;
-  REPRO_BWD_DISPATCH(launch_dkv, q, k, v, dout, m, l, delta, dk, dv, B, S, T,
-                     H, K, causal, window, softcap, st)
+#define REPRO_DKV_ARGS                                                      \
+  q, k, v, dout, m, l, delta, dk, dv, B, S, T, H, K, causal, window,       \
+      softcap, st
+  switch (dkv_design(D, dtype)) {
+    case DESIGN_CUDA_CORES:
+      switch (D) {
+        case 32: return launch_dkv<float, 32>(REPRO_DKV_ARGS);
+        case 64: return launch_dkv<float, 64>(REPRO_DKV_ARGS);
+        case 128: return launch_dkv<float, 128>(REPRO_DKV_ARGS);
+      }
+      break;
+    case DESIGN_MMA_SYNC:
+      return launch_dkv_mma<32>(REPRO_DKV_ARGS);
+    case DESIGN_WGMMA:
+      switch (D) {
+        case 64: return launch_dkv_wgmma<64>(REPRO_DKV_ARGS);
+        case 128: return launch_dkv_wgmma<128>(REPRO_DKV_ARGS);
+      }
+      break;
+  }
+#undef REPRO_DKV_ARGS
+  return ERR_UNSUPPORTED;
 }
 
 // The same inputs; dq: (B, S, H, D) in the inputs' dtype.
@@ -959,6 +1316,40 @@ extern "C" int repro_flash_attention_bwd_dq(
       (dtype != DTYPE_F32 && dtype != DTYPE_BF16))
     return ERR_UNSUPPORTED;
   cudaStream_t st = (cudaStream_t)stream;
-  REPRO_BWD_DISPATCH(launch_dq, q, k, v, dout, m, l, delta, dq, B, S, T, H,
-                     K, causal, window, softcap, st)
+  // fp32 on the CUDA cores, bf16 on mma.sync, at every D
+#define REPRO_DQ(D_)                                                        \
+  case D_:                                                                  \
+    return dtype == DTYPE_F32                                               \
+               ? launch_dq<float, D_>(q, k, v, dout, m, l, delta, dq, B, S, \
+                                      T, H, K, causal, window, softcap, st) \
+               : launch_dq_mma<D_>(q, k, v, dout, m, l, delta, dq, B, S, T, \
+                                   H, K, causal, window, softcap, st);
+  switch (D) {
+    REPRO_DQ(32)
+    REPRO_DQ(64)
+    REPRO_DQ(128)
+  }
+#undef REPRO_DQ
+  return ERR_UNSUPPORTED;
+}
+
+// The design that repro_flash_attention_bwd_dkv launches for (D, dtype): one
+// of the DESIGN_* codes of common.cuh.
+extern "C" int repro_flash_attention_bwd_dkv_design(int D, int dtype) {
+  return dkv_design(D, dtype);
+}
+
+// The mma.sync dK/dV design at D = 128 (bf16), which the warpgroup design
+// replaced there.  Not on any path of the package: chip_smoke.py times it
+// beside its successor in the same run.
+extern "C" int repro_flash_attention_bwd_dkv_mma(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* m, const float* l, const float* delta, void* dk, void* dv,
+    int B, int S, int T, int H, int K, int D, int dtype, int causal,
+    int window, float softcap, void* stream) {
+  if (!shape_ok(B, S, T, H, K) || D != 128 || dtype != DTYPE_BF16)
+    return ERR_UNSUPPORTED;
+  return launch_dkv_mma<128>(q, k, v, dout, m, l, delta, dk, dv, B, S, T, H,
+                             K, causal, window, softcap,
+                             (cudaStream_t)stream);
 }

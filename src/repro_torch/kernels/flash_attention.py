@@ -8,6 +8,15 @@ the kernel keeps the score matrix out of device memory and shares every K/V
 tile among the G query heads of its group; the source note in the ``.cu``
 file says how.
 
+Which design serves a call depends on (head_dim, dtype) alone, as the C
+dispatch's switch says (``design``): fp32 on the CUDA cores; bf16 at
+D = 64 and 128 on warpgroup products (``wgmma``) fed by the TMA, with one
+producer warp and two consumer warpgroups; bf16 at D = 32 and 256 on
+warp-level ``mma.sync``.  The TMA reads q, k and v through tensor maps, which
+need 16-byte aligned base pointers: the wrapper checks that for every
+launch.  ``live_key_tiles`` is the key-tile walk of the warpgroup design,
+the same bounds as the ``.cu`` file computes.
+
 ``flash_attention`` launches the kernel for CUDA tensors -- or raises: there
 is no fallback -- and runs ``attention_plain`` only for tensors that lie on
 the CPU.  ``flash_attention.launches`` counts kernel launches.  It has no
@@ -28,6 +37,9 @@ NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+# the C dispatch's design codes (csrc/common.cuh DESIGN_*)
+DESIGNS = {0: None, 1: "cuda-cores", 2: "mma.sync", 3: "wgmma"}
+
 _fn = None
 
 
@@ -40,6 +52,31 @@ def _kernel():
                        + [ctypes.c_float, ctypes.c_void_p])
         _fn = fn
     return _fn
+
+
+def design(head_dim: int, dtype) -> str:
+    """The design the forward kernels launch for (``head_dim``, ``dtype``),
+    as the library's dispatch reports it ("cuda-cores", "mma.sync",
+    "wgmma"); builds the library if it is not built yet."""
+    fn = build.load().repro_flash_attention_fwd_design
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    return DESIGNS[fn(int(head_dim), _DTYPE_CODE[dtype])]
+
+
+def live_key_tiles(m0: int, BM: int, BN: int, T: int, causal: bool,
+                   window: int):
+    """Keys ``[n_begin, n_end)`` that any query position of ``m0 ..
+    m0+BM-1`` sees (query i at position i, key j at j); ``n_begin`` is a
+    multiple of ``BN``.  The warpgroup forward kernel walks the key tiles
+    ``range(n_begin, n_end, BN)`` of each block of ``BM`` positions
+    (``csrc/hopper.cuh`` ``live_key_tiles``, the same bounds)."""
+    n_begin, n_end = 0, T
+    if causal:
+        n_end = min(T, m0 + BM)
+    if window > 0 and m0 - window + 1 > 0:
+        n_begin = (m0 - window + 1) // BN * BN
+    return n_begin, n_end
 
 
 def attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
@@ -74,6 +111,17 @@ def attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
 def needs_grad(*tensors) -> bool:
     """True where autograd would need a gradient of one of ``tensors``."""
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def check_aligned(*tensors) -> None:
+    """The kernels read through TMA tensor maps and 16-byte vector loads:
+    each base pointer must be 16-byte aligned (a contiguous view with a
+    storage offset may not be)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash attention kernels need 16-byte aligned "
+                             f"tensors; got one at address {t.data_ptr():#x} "
+                             f"(storage offset {t.storage_offset()})")
 
 
 def _check(q, k, v):
@@ -119,6 +167,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                          f"{HEAD_DIMS}, not {D}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel takes contiguous q, k, v")
+    check_aligned(q, k, v)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         fn = _kernel()

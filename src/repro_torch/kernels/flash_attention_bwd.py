@@ -26,6 +26,14 @@ of the gradient at small ``c`` (ROADMAP queue C).  A pair that the mask
 kills has ``p = 0`` exactly, so a query row with no live key gets zero,
 finite gradients.
 
+Designs (the C dispatch's switch, ``design_dkv``): fp32 on the CUDA cores; in
+bf16 the stats forward is the forward's design (``flash_attention.design``),
+dK/dV runs on warpgroup products (``wgmma``) fed by the TMA at D = 64 and
+128 and on ``mma.sync`` at D = 32, dQ on ``mma.sync`` at every D.  The
+dK/dV block of the warpgroup design owns 128 keys and walks the (query
+tile, group head) pairs of ``live_query_tiles``, the same bounds as the
+``.cu`` file computes.
+
 Every wrapper launches its kernel for CUDA tensors -- or raises: there is no
 fallback -- and runs the plain version only for tensors on the CPU.  Each
 counts its launches in ``<wrapper>.launches``.
@@ -38,8 +46,10 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import (_DTYPE_CODE, NEG_INF,
-                                                 _check, attention_plain)
+from repro_torch.kernels.flash_attention import (_DTYPE_CODE, DESIGNS,
+                                                 NEG_INF, _check,
+                                                 attention_plain,
+                                                 check_aligned)
 
 # the training kernels take the head dims of llama3.2-3b's path; D = 256 (the
 # serving forward's recurrentgemma heads) is not instantiated for them yet
@@ -59,6 +69,30 @@ def _kernel(name: str, n_ptr: int):
                        + [ctypes.c_float, ctypes.c_void_p])
         _fns[name] = fn
     return _fns[name]
+
+
+def design_dkv(head_dim: int, dtype) -> str:
+    """The design the dK/dV kernels launch for (``head_dim``, ``dtype``), as
+    the library's dispatch reports it; builds the library if needed."""
+    fn = build.load().repro_flash_attention_bwd_dkv_design
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    return DESIGNS[fn(int(head_dim), _DTYPE_CODE[dtype])]
+
+
+def live_query_tiles(n0: int, BN: int, BM: int, S: int, causal: bool,
+                     window: int):
+    """Query positions ``[m_begin, m_end)`` for which any key of ``n0 ..
+    n0+BN-1`` is live; ``m_begin`` is a multiple of ``BM``.  The warpgroup
+    dK/dV kernel walks the query tiles ``range(m_begin, m_end, BM)`` of each
+    block of ``BN`` keys, each for every head of the group
+    (``csrc/hopper.cuh`` ``live_query_tiles``, the same bounds)."""
+    m_begin, m_end = 0, S
+    if causal:
+        m_begin = min(n0, S) // BM * BM
+    if window > 0:
+        m_end = min(S, n0 + BN - 1 + window)
+    return m_begin, m_end
 
 
 def _dead(S: int, T: int, causal: bool, window: int, device):
@@ -166,6 +200,7 @@ def _kernel_args(q, k, *tensors):
         if not t.is_contiguous():
             raise ValueError("flash attention kernels take contiguous "
                              "tensors")
+    check_aligned(q, k, *tensors)
 
 
 def _check_stats(q, *stats):

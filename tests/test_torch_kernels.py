@@ -103,6 +103,20 @@ def test_flash_wrapper_rejects_bad_inputs_and_counts_no_cpu_launch():
         ops.attention(q, k, v, impl="pallas")
 
 
+def test_kernel_wrappers_refuse_misaligned_tensors():
+    """The warpgroup kernels read q, k, v through TMA tensor maps (and the
+    others with 16-byte vector loads): a base pointer off a 16-byte boundary
+    -- a contiguous view with an odd storage offset -- must be refused
+    before any launch."""
+    from repro_torch.kernels.flash_attention import check_aligned
+    base = torch.zeros(4 * 64 + 8, dtype=torch.bfloat16)
+    check_aligned(base, base[8:])               # 16 bytes in: fine
+    for view in (base[1:], base[4:]):           # 2 and 8 bytes in
+        assert view.is_contiguous()
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            check_aligned(base, view)
+
+
 # ---------------------------------------------------------------------------
 # paged decode attention
 # ---------------------------------------------------------------------------
@@ -399,3 +413,32 @@ def test_kernels_match_plain_versions_on_the_card(cuda_device):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                    atol=5e-4, rtol=5e-4)
     assert ops.launch_counts()["flash_attention_bwd_dkv"] > 0
+
+
+@pytest.mark.gpu
+def test_warpgroup_designs_match_plain_versions_on_the_card(cuda_device):
+    """bf16 at D = 64 and 128 runs on the warpgroup designs: the forward
+    (with statistics) and dK/dV against their plain versions, several
+    128-key tiles, G = 3, ragged S."""
+    from repro_torch.kernels.flash_attention import design
+    bf16 = torch.bfloat16
+    assert design(128, bf16) == design(64, bf16) == "wgmma"
+    assert fab.design_dkv(128, bf16) == "wgmma"
+    assert design(256, bf16) == fab.design_dkv(32, bf16) == "mma.sync"
+    for D in (64, 128):
+        q, k, v, ct = (torch.from_numpy(a).to(cuda_device, bf16)
+                       for a in _bwd_inputs(2, 300, 300, 6, 2, D))
+        kw = dict(causal=True, window=0, softcap=0.0)
+        o, m, l = fab.flash_attention_fwd_stats(q, k, v, **kw)
+        o2, m2, l2 = fab.attention_fwd_stats_plain(q, k, v, **kw)
+        for a, b in ((o, o2), (m, m2), (l, l2)):
+            np.testing.assert_allclose(a.float().cpu().numpy(),
+                                       b.float().cpu().numpy(), atol=2e-2,
+                                       rtol=2e-2)
+        delta = fab.attention_delta(o, ct)
+        got = fab.flash_attention_bwd_dkv(q, k, v, ct, m, l, delta, **kw)
+        want = fab.attention_bwd_plain(q, k, v, ct, m, l, delta, **kw)[1:]
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.float().cpu().numpy(),
+                                       b.float().cpu().numpy(), atol=2e-2,
+                                       rtol=2e-2)
