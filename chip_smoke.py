@@ -22,10 +22,11 @@ per line:
                 where there is one, and the bound (least time the card could
                 take); at the train shape, faults planted in the plain
                 backward's result (a skipped 64- or 128-key tile) must fail
-                the same comparison; the bf16 forward and dK/dV at
+                the same comparison; the bf16 forward, dK/dV and dQ at
                 D = 128 (warpgroup designs) are timed in turns with the
-                mma.sync designs they replaced (``earlier_ms``), which the
-                library still exports for this alone;
+                mma.sync designs they replaced (``earlier_ms``), and the
+                chunk-parallel SSD with the serial one, which the library
+                still exports for this alone;
   serve_paged   llama3.2-3b at full width in bf16, random weights from seed
                 0 made on the device, 16 requests through
                 ``AsyncServeEngine(mode="paged")``; pure-decode iterations
@@ -76,11 +77,15 @@ per line:
                 its shape, the redesigned rows with ``earlier_ms``.
 
 ``kernel_cases`` also holds the SSD kernel (the reference's cases, the
-ragged one included, fp32 and bf16 x/B/C, the sequential-recurrence case and
-the served shape; y and h_final within 2e-4 of max |want| and per row, see
-``SSD_TOL``; a dropped sub-chunk state update planted in the plain result
-must fail the comparison), the RG-LRU kernel (the reference's cases at 2e-5
-and the served shape) and the flash kernel at D = 256 with a window.
+ragged one included, fp32 and bf16 x/B/C, cases at mamba2's P and N with S
+ragged, S shorter than a chunk, G > 1 and B > 1 over several chunks, h0 in
+both dtypes, the sequential-recurrence case and the served shape; y and
+h_final within 2e-4 of max |want| and per row, see ``SSD_TOL``; a dropped
+chunk state update and a state passed on without its chunk's decay,
+planted in the plain result, must fail the comparison, and so must the
+chunked SSD with the split fp32 operands rounded to bf16; two calls must be
+bit-identical), the RG-LRU kernel (the reference's cases at 2e-5 and the
+served shape) and the flash kernel at D = 256 with a window.
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, and last
 ``{"ok": true, "device": {...}}``.
@@ -88,9 +93,11 @@ Then the card's name and power limit as ``nvidia-smi`` prints them, and last
 from __future__ import annotations
 
 import copy
+import ctypes
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -111,12 +118,14 @@ from repro_torch.kernels.flash_attention import (              # noqa: E402
     attention_plain, design, flash_attention)
 from repro_torch.kernels.flash_attention_bwd import (          # noqa: E402
     _kernel as c_entry_point, attention_bwd_plain, attention_delta,
-    attention_fwd_stats_plain, design_dkv, flash_attention_bwd_dkv,
-    flash_attention_bwd_dq, flash_attention_fwd_stats, flash_attention_vjp)
+    attention_fwd_stats_plain, design_dkv, design_dq,
+    flash_attention_bwd_dkv, flash_attention_bwd_dq,
+    flash_attention_fwd_stats, flash_attention_vjp)
 from repro_torch.kernels.paged_attention import (              # noqa: E402
     paged_attention_plain, paged_decode_attention)
 from repro_torch.kernels.rglru import rglru, rglru_plain       # noqa: E402
-from repro_torch.kernels.ssd import ssd, ssd_plain             # noqa: E402
+from repro_torch.kernels.ssd import (                          # noqa: E402
+    CHUNK, design as ssd_design, kernel_chunk, ssd, ssd_plain)
 from repro_torch.models.lm import LM                           # noqa: E402
 from repro_torch.models.ssm import ssd_decode_step             # noqa: E402
 from repro_torch.optim import (AdamWConfig, ScheduleConfig,    # noqa: E402
@@ -221,6 +230,39 @@ def earlier_dkv(q, k, v, do, m, l, delta, dk, dv):
                 B, S, T, H, K, D, 1, 1, 0, 0.0,
                 torch.cuda.current_stream().cuda_stream)
         check(rc == 0, f"repro_flash_attention_bwd_dkv_mma returned {rc}")
+    return call
+
+
+def earlier_dq(q, k, v, do, m, l, delta, dq):
+    """A closure that launches the earlier dQ (causal) into dq."""
+    fn = c_entry_point("repro_flash_attention_bwd_dq_mma", 8)
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+
+    def call():
+        rc = fn(*(t.data_ptr() for t in (q, k, v, do, m, l, delta, dq)),
+                B, S, T, H, K, D, 1, 1, 0, 0.0,
+                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"repro_flash_attention_bwd_dq_mma returned {rc}")
+    return call
+
+
+def earlier_ssd(x, dt, A, Bm, Cm, y, hout):
+    """A closure that launches the earlier (serial) SSD design into
+    y and hout: one block per (batch, head)."""
+    fn = build.load().repro_ssd_fwd_serial
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + \
+        [ctypes.c_void_p]
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    code = {torch.float32: 0, torch.bfloat16: 1}[x.dtype]
+
+    def call():
+        rc = fn(*(t.data_ptr() for t in (x, dt, A, Bm, Cm)), None,
+                y.data_ptr(), hout.data_ptr(), B, S, H, P, G, N, code,
+                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"repro_ssd_fwd_serial returned {rc}")
     return call
 
 
@@ -492,6 +534,10 @@ BWD_CASES = [
     (1, 96, 200, 6, 1, 64, False, 0, torch.bfloat16),
     (1, 384, 384, 24, 8, 128, True, 0, torch.bfloat16),
     (1, 384, 384, 24, 8, 64, True, 0, torch.bfloat16),
+    # the warpgroup dQ (bf16, D = 128 and 64, 128 positions a block):
+    # several blocks with ragged S, windows, G = 3, S != T
+    (2, 300, 300, 6, 2, 64, True, 100, torch.bfloat16),
+    (1, 300, 520, 6, 2, 128, True, 200, torch.bfloat16),
 ]
 
 
@@ -647,8 +693,8 @@ def bwd_main_shape(gen, cfg):
     o, m, l = flash_attention_fwd_stats(q, k, v, **kw)
     delta = attention_delta(o, do)
     stats = (m, l, delta)
-    # a skipped tile of the old designs (64 keys) and of the warpgroup
-    # dK/dV (128 keys) must both be seen
+    # a skipped tile of the old designs and of the warpgroup dQ (64 keys)
+    # and of the warpgroup forward and dK/dV (128 keys) must both be seen
     faults = {f"tile_{t}": _planted_faults(q, k, v, do, stats, kw, tile=t)
               for t in (64, 128)}
     qkv_bytes = (q.numel() + k.numel() + v.numel()) * q.element_size()
@@ -693,10 +739,18 @@ def bwd_main_shape(gen, cfg):
     dkv["ms"], dkv["earlier_ms"] = time_in_turns(
         lambda: flash_attention_bwd_dkv(q, k, v, do, *stats, **kw), earlier,
         3)
-    dq = dict(shape, max_abs_err=eq, design="mma.sync", **_bound(
-        bwd_in + q.numel() * 2, 6 * D * pairs, dt))
-    dq["ms"] = time_ms(
-        [lambda: flash_attention_bwd_dq(q, k, v, do, *stats, **kw)], 3)
+    dq = dict(shape, max_abs_err=eq, design=design_dq(D, dt),
+              earlier_design="mma.sync", **_bound(
+                  bwd_in + q.numel() * 2, 6 * D * pairs, dt))
+    dq_new = flash_attention_bwd_dq(q, k, v, do, *stats, **kw)
+    dq_old = torch.empty_like(q)
+    earlier = earlier_dq(q, k, v, do, *stats, dq_old)
+    earlier()
+    torch.cuda.synchronize()
+    dq["earlier_max_abs_err"] = _err(dq_old, dq_new, 2e-2, "earlier dq")
+    dq["ms"], dq["earlier_ms"] = time_in_turns(
+        lambda: flash_attention_bwd_dq(q, k, v, do, *stats, **kw), earlier,
+        3)
     plain_ms = time_ms(
         [lambda: attention_bwd_plain(q, k, v, do, *stats, **kw)], 1)
     for row in (dkv, dq):
@@ -722,9 +776,20 @@ SSD_CASES = [
     (3, 96, 4, 16, 4, 16, 32),      # ragged for the kernel's 64 steps
     (3, 100, 4, 16, 4, 16, 32),     # ragged for every chunk length
 ]
-# y and h_final of the SSD kernel against its plain version: all math is
-# fp32 on both sides (bf16 inputs widen exactly), so only the summation order
-# and the kernel's own sub-chunk length differ
+# the chunk-parallel design (64-step chunks), mostly at mamba2's P = 64,
+# N = 128, where bf16 runs on the tensor cores: B, S, H, P, G, N, served
+# distributions (small dt: the state carries across chunks)
+SSD_CHUNK_CASES = [
+    (1, 100, 4, 64, 1, 128, False),     # S not a multiple of the chunk
+    (1, 40, 4, 64, 1, 128, False),      # S shorter than one chunk
+    (2, 200, 6, 64, 3, 128, False),     # G = 3, 4 chunks
+    (2, 300, 8, 64, 2, 128, True),      # B = 2, 5 chunks, slow decay
+    (1, 100, 4, 8, 1, 4, False),        # bf16 on the CUDA cores too
+]
+# y and h_final of the SSD kernel against its plain version: fp32 math on
+# both sides (bf16 inputs widen exactly), so the summation order and the
+# kernel's own chunk length differ -- and, for bf16 x/B/C on the tensor
+# cores, the fp32 operands' split into two bf16 halves (about 2^-17 of each)
 SSD_TOL = {"max_err_over_max_abs": 2e-4, "rel_fro": 2e-4,
            "row_rel_max": 2e-4}
 RGLRU_CASES = [(2, 128, 64), (1, 64, 256), (3, 96, 32), (1, 128, 8)]
@@ -758,21 +823,61 @@ def _ssd_inputs(gen, B, S, H, P, G, N, dt_, served=False):
     return x, dt, A, Bm, Cm
 
 
-def _ssd_dropped(x, dt, A, Bm, Cm, drop, L=64):
+def _ssd_faulty(x, dt, A, Bm, Cm, at, fault, L=64):
     """The plain SSD over sub-chunks of ``L`` steps, the state carried from
-    one to the next through ``h0`` -- except that sub-chunk ``drop`` leaves
-    the state as it found it: a kernel that skips one state update."""
+    one to the next through ``h0`` -- except at sub-chunk ``at``: with
+    ``fault="dropped"`` it leaves the state as it found it (a kernel that
+    skips one state update), with ``fault="undecayed"`` it passes on the
+    state it found plus its own local state, without the sub-chunk's decay
+    (a state passing that drops one exp(acum_end) factor)."""
     B, S, H, P = x.shape
     N = Bm.shape[3]
     h = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
     ys = []
     for j, s0 in enumerate(range(0, S, L)):
-        sl = slice(s0, s0 + L)
-        y, h_new = ssd_plain(x[:, sl], dt[:, sl], A, Bm[:, sl], Cm[:, sl],
-                             chunk=L, h0=h)
+        part = (x[:, s0:s0 + L], dt[:, s0:s0 + L], A, Bm[:, s0:s0 + L],
+                Cm[:, s0:s0 + L])
+        y, h_new = ssd_plain(*part, chunk=L, h0=h)
         ys.append(y)
-        if j != drop:
-            h = h_new
+        if j == at and fault == "dropped":
+            h_new = h
+        elif j == at and fault == "undecayed":
+            h_new = h + ssd_plain(*part, chunk=L)[1]
+        h = h_new
+    return torch.cat(ys, dim=1), h
+
+
+def _ssd_hi_only(x, dt, A, Bm, Cm, L=64):
+    """The SSD over chunks of ``L`` steps with the tensor-core design's
+    fp32 operands -- the weights W of W x, the scaled B of each chunk's
+    state, the state entering a chunk -- rounded to bf16 before their
+    products, all else fp32: the kernel with the lo halves of its split
+    dropped.  A control: the SSD comparison must reject it, or it cannot
+    tell the split from plain bf16."""
+    def hi(t):
+        return t.to(torch.bfloat16).float()
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    x, dt, A, Bm, Cm = (t.float() for t in (x, dt, A, Bm, Cm))
+    h = torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=x.device)
+    ys = []
+    for s0 in range(0, S, L):
+        sl = slice(s0, s0 + L)
+        xc, dtc = x[:, sl], dt[:, sl]
+        Bc, Cc = (t[:, sl].repeat_interleave(H // G, dim=2) for t in (Bm, Cm))
+        n = xc.shape[1]
+        acum = torch.cumsum(dtc * A, dim=1)                 # (B,n,H)
+        decay = torch.exp(torch.clamp(
+            acum[:, :, None] - acum[:, None], -60.0, 0.0))  # (B,n,n,H)
+        causal = torch.ones(n, n, dtype=torch.bool, device=x.device).tril()
+        W = torch.where(causal[None, :, :, None], torch.einsum(
+            "blhn,bmhn->blmh", Cc, Bc) * decay * dtc[:, None], 0.0)
+        ys.append(torch.einsum("blmh,bmhp->blhp", hi(W), xc)
+                  + torch.exp(acum)[..., None]
+                  * torch.einsum("blhn,bhnp->blhp", Cc, hi(h)))
+        rest = torch.exp(torch.clamp(acum[:, -1:] - acum, min=-60.0))
+        h = torch.exp(acum[:, -1])[..., None, None] * h + torch.einsum(
+            "bmhn,bmhp->bhnp", hi(Bc * (dtc * rest)[..., None]), xc)
     return torch.cat(ys, dim=1), h
 
 
@@ -793,16 +898,28 @@ def ssd_cases(gen):
             rows.append({"shape": [B, S, H, P, G, N], "chunk": chunk,
                          "dtype": str(dt_), "scaled": _ssd_check(
                              got, want, f"ssd {(B, S, H, P, G, N)} {dt_}")})
-    # a given initial state (the first case)
+    for (B, S, H, P, G, N, served) in SSD_CHUNK_CASES:
+        for dt_ in (torch.float32, torch.bfloat16):
+            ins = _ssd_inputs(gen, B, S, H, P, G, N, dt_, served=served)
+            got = ssd(*ins)
+            torch.cuda.synchronize()
+            rows.append({"shape": [B, S, H, P, G, N], "chunk": CHUNK,
+                         "dtype": str(dt_), "served_dt": served,
+                         "design": ssd_design(P, N, dt_),
+                         "scaled": _ssd_check(
+                             got, ssd_plain(*ins),
+                             f"ssd {(B, S, H, P, G, N)} {dt_}")})
+    # a given initial state (the first case; bf16 x/B/C on the tensor cores)
     B, S, H, P, G, N, chunk = SSD_CASES[0]
-    ins = _ssd_inputs(gen, B, S, H, P, G, N, torch.float32)
-    h0 = _randn(gen, B, H, N, P, dtype=torch.float32)
-    got = ssd(*ins, h0=h0)
-    torch.cuda.synchronize()
-    rows.append({"shape": [B, S, H, P, G, N], "chunk": chunk, "h0": True,
-                 "dtype": "torch.float32", "scaled": _ssd_check(
-                     got, ssd_plain(*ins, chunk=chunk, h0=h0),
-                     "ssd with h0")})
+    for dt_ in (torch.float32, torch.bfloat16):
+        ins = _ssd_inputs(gen, B, S, H, P, G, N, dt_)
+        h0 = _randn(gen, B, H, N, P, dtype=torch.float32)
+        got = ssd(*ins, h0=h0)
+        torch.cuda.synchronize()
+        rows.append({"shape": [B, S, H, P, G, N], "chunk": chunk, "h0": True,
+                     "dtype": str(dt_), "scaled": _ssd_check(
+                         got, ssd_plain(*ins, chunk=chunk, h0=h0),
+                         f"ssd with h0 {dt_}")})
     # the sequential recurrence: one decode step at a time on the card
     B, S, H, P, G, N, _ = 1, 16, 2, 8, 1, 4, 8
     x, dt, A, Bm, Cm = _ssd_inputs(gen, B, S, H, P, G, N, torch.float32)
@@ -834,35 +951,75 @@ def _ssd_least_flops(B, S, H, P, G, N):
 
 def ssd_main_shape(gen):
     """The served prefill: x, B, C bf16 (the compute dtype), dt and A fp32.
-    A dropped sub-chunk state update at mid-sequence, planted in the plain
-    result, must fail the comparison."""
+    Faults planted in the plain result at mid-sequence -- a dropped state
+    update and a state passed on without its chunk's decay, at the
+    kernel's chunk length -- must fail the comparison, and so must the
+    control with the split fp32 operands in bf16 alone (``_ssd_hi_only``);
+    two calls must give bit-identical outputs."""
     B, S, H, P, G, N = SSD_SERVED
     dt_ = torch.bfloat16
     ins = _ssd_inputs(gen, B, S, H, P, G, N, dt_, served=True)
     got = ssd(*ins)
+    again = ssd(*ins)
     torch.cuda.synchronize()
+    check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+          "ssd: two calls on the same inputs differ")
     want = ssd_plain(*ins, chunk=256)
     scaled = _ssd_check(got, want, "ssd served shape")
-    fault = _ssd_dropped(*ins, drop=S // 64 // 2)
-    fault_scaled = {"y": _scaled(fault[0], want[0]),
-                    "h_final": _scaled(fault[1], want[1])}
-    check(not all(_passes(v, SSD_TOL) for v in fault_scaled.values()),
-          f"planted fault (one dropped sub-chunk state update) passes the "
-          f"SSD comparison {fault_scaled}: it cannot see it")
-    x, dt, A, Bm, Cm = ins
-    ms = time_ms([lambda: ssd(*ins)], 10)
+    L = kernel_chunk()
+    faults = {}
+    for fault in ("dropped", "undecayed", "bf16_hi_only"):
+        bad = _ssd_hi_only(*ins, L=L) if fault == "bf16_hi_only" else \
+            _ssd_faulty(*ins, at=S // L // 2, fault=fault, L=L)
+        faults[fault] = {"y": _scaled(bad[0], want[0]),
+                         "h_final": _scaled(bad[1], want[1])}
+        check(not all(_passes(v, SSD_TOL) for v in faults[fault].values()),
+              f"planted fault ({fault}, {L}-step chunks) passes the SSD "
+              f"comparison {faults[fault]}: it cannot see it")
+    y_old, h_old = torch.empty_like(got[0]), torch.empty_like(got[1])
+    earlier = earlier_ssd(*ins, y_old, h_old)
+    earlier()
+    torch.cuda.synchronize()
+    earlier_scaled = _ssd_check((y_old, h_old), got, "earlier ssd vs ssd")
+    # the serial design does fp32 math on the CUDA cores: its distance from
+    # the plain version beside the new design's shows what the tensor
+    # cores' split operands add
+    earlier_vs_plain = {"y": _scaled(y_old, want[0]),
+                        "h_final": _scaled(h_old, want[1])}
+    ms, earlier_ms = time_in_turns(lambda: ssd(*ins), earlier, 10)
     plain_ms = time_ms([lambda: ssd_plain(*ins, chunk=256)], 2)
+    # device time of each of the call's three kernels, over 10 calls
+    staged = _profile(lambda: [ssd(*ins) for _ in range(10)],
+                      "ssd served shape")
+    stage_ms = {re.search(r"ssd_\w+", name).group(0): t / 10
+                for name, t in staged["top_kernels_ms"] if "ssd_" in name}
     # bytes: each input read once, y and h_final written once
     nbytes = sum(t.numel() * t.element_size() for t in ins) \
         + (B * S * H * P + B * H * N * P) * 4
     chunk, flops = _ssd_least_flops(B, S, H, P, G, N)
+    # the bound of the design that runs: on the tensor cores at the bf16
+    # rate, the products with an fp32 operand counted twice (hi and lo
+    # halves, so at most 2 x flops); the fp32 CUDA-core bound beside it
+    on_tc = ssd_design(P, N, dt_) == "mma.sync"
+    bound = _bound(nbytes, 2 * flops if on_tc else flops,
+                   torch.bfloat16 if on_tc else torch.float32)
+    fp32 = _bound(nbytes, flops, torch.float32)
     return dict({"shape": [B, S, H, P, G, N], "dtype": "x/B/C bf16, dt/A "
                  "fp32", "tol": SSD_TOL["max_err_over_max_abs"],
-                 "bound_chunk": chunk,
+                 "design": f"chunk-parallel, {ssd_design(P, N, dt_)}",
+                 "kernel_chunk": L, "bound_chunk": chunk,
                  "max_abs_err": float((got[0] - want[0]).abs().max()),
-                 "scaled": scaled, "planted_fault_rejected": fault_scaled,
-                 "ms": ms, "plain_ms": plain_ms, "library_ms": None},
-                **_bound(nbytes, flops, torch.float32))
+                 "scaled": scaled, "bit_identical_calls": True,
+                 "planted_faults_rejected": faults,
+                 "ms": ms, "earlier_design": "serial, cuda-cores",
+                 "earlier_ms": earlier_ms,
+                 "earlier_scaled": earlier_scaled,
+                 "earlier_vs_plain": earlier_vs_plain,
+                 "plain_ms": plain_ms, "library_ms": None,
+                 "stage_ms_profiled": stage_ms,
+                 "bound_ms_fp32_cuda_cores": fp32["bound_ms"],
+                 "bound_by_fp32_cuda_cores": fp32["bound_by"]},
+                **bound)
 
 
 def rglru_cases(gen):
@@ -1167,7 +1324,8 @@ def _model_flops_per_step(cfg, n_params):
 
 
 KINDS = (("attention_kernels", ("flash_fwd", "flash_bwd")),
-         ("ssd_kernel", ("ssd_kernel",)), ("rglru_kernel", ("rglru_kernel",)),
+         ("ssd_kernels", ("ssd_state", "ssd_pass", "ssd_output")),
+         ("rglru_kernel", ("rglru_kernel",)),
          ("matmul", ("gemm", "xmma", "nvjet", "cutlass")))
 
 
@@ -1272,9 +1430,11 @@ def train(cfg):
     designs = {"flash_attention_fwd_stats": design(cfg.head_dim,
                                                    torch.bfloat16),
                "flash_attention_bwd_dkv": design_dkv(cfg.head_dim,
-                                                     torch.bfloat16)}
+                                                     torch.bfloat16),
+               "flash_attention_bwd_dq": design_dq(cfg.head_dim,
+                                                   torch.bfloat16)}
     check(set(designs.values()) == {"wgmma"},
-          f"train: the stats forward and dK/dV are not on the warpgroup "
+          f"train: the stats forward, dK/dV and dQ are not on the warpgroup "
           f"designs: {designs}")
     profile = _profile(lambda: step_fn(state, batches[-1]), "train")
     check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
@@ -1465,10 +1625,15 @@ def serve_ssm(cfg, model, policy):
         cfg, model, policy, n_slots=8, max_seq=2048, lens=lens, max_new=64,
         seed=400)
     _per_prefill(cfg, counts, len(reqs), {"ssd": cfg.pattern.count("ssm")})
+    s = cfg.ssm
+    ssd_des = ssd_design(s.head_dim, s.d_state, torch.bfloat16)
+    check(ssd_des == "mma.sync", f"serve_ssm: the bf16 SSD at P = "
+          f"{s.head_dim}, N = {s.d_state} is not on the tensor cores: "
+          f"{ssd_des}")
     emit("serve_ssm", arch=cfg.name, n_layers=cfg.n_layers, dtype="bfloat16",
          mode=rep["mode"], slots=8, max_seq=2048, requests=len(reqs),
          served=sum(r.done for r in reqs), prompt_lens=lens, max_new=64,
-         wall_s=wall, launches=counts,
+         wall_s=wall, launches=counts, ssd_design=ssd_des,
          warmup_launches=warm,
          max_memory_allocated=peak, profiled=profiled, **_latency(rep))
     return counts["ssd"]
@@ -1664,8 +1829,12 @@ def main() -> int:
                             "flash_fwd_wgmma_kernelILi64",
                             "flash_bwd_dkv_wgmma_kernelILi128",
                             "flash_bwd_dkv_wgmma_kernelILi64",
+                            "flash_bwd_dq_wgmma_kernelILi128",
+                            "flash_bwd_dq_wgmma_kernelILi64",
                             "flash_fwd_mma_kernelILi256",
-                            "flash_fwd_kernelIfLi256", "ssd_kernel",
+                            "flash_fwd_kernelIfLi256", "ssd_state_tc_kernel",
+                            "ssd_pass_kernel", "ssd_output_tc_kernel",
+                            "ssd_state_kernel", "ssd_output_kernel",
                             "rglru_kernel"]),
          flash_attention_bwd={"cases": b_cases,
                               "vjp_vs_autograd": b_autograd,
@@ -1699,9 +1868,11 @@ def main() -> int:
                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                "library_ms": head["library_ms"], "shape": head["shape"],
                "dtype": head["dtype"]}
-        if "earlier_ms" in head:            # redesigned in this slice
+        if "earlier_ms" in head:            # a redesigned kernel
             out["earlier_design"] = head["earlier_design"]
             out["earlier_ms"] = head["earlier_ms"]
+        if "bound_ms_fp32_cuda_cores" in head:
+            out["bound_ms_fp32_cuda_cores"] = head["bound_ms_fp32_cuda_cores"]
         return out
 
     D, bf16 = cfg.head_dim, torch.bfloat16
@@ -1731,10 +1902,11 @@ def main() -> int:
             design_dkv(D, bf16)),
         row("flash_attention_bwd_dq", bwd_src,
             "src/repro/kernels/flash_attention_bwd.py:313",
-            n_train["flash_attention_bwd_dq"], [b_main[2]], "mma.sync"),
+            n_train["flash_attention_bwd_dq"], [b_main[2]],
+            design_dq(D, bf16)),
         row("ssd", "src/repro_torch/kernels/csrc/ssd.cu",
             "src/repro/kernels/ssd.py:103", n_rec[SSM_ARCH], [s_main],
-            "cuda-cores"),
+            s_main["design"]),
         row("rglru", "src/repro_torch/kernels/csrc/rglru.cu",
             "src/repro/kernels/rglru.py:58", n_hybrid["rglru"], [r_main],
             "cuda-cores"),

@@ -9,66 +9,326 @@
 //           x_m^T
 // chunk after chunk, all math in fp32 -- but laid out for this card.
 //
-// What bounds it here: operations.  The reference algorithm at chunk 256
-// does per head S((c+1)P + 4NP) flops plus S(c+1)N per group on inputs of
-// S(P + 2N) elements: about 4.9 GFLOP against 41 MB for the served mamba2
-// prefill (S = 2048, H = 48, P = 64, N = 128), and the reference asks for
-// fp32 math, so the peak is the CUDA cores' 67 TFLOP/s, not the tensor
-// cores'.
+// What bounds it here: operations on the CUDA cores, bytes on the tensor
+// cores.  The chunked algorithm does about 3.4 GFLOP at its cheapest chunk
+// length for the served mamba2 prefill (S = 2048, H = 48, P = 64, N = 128)
+// against 41 MB of inputs and outputs; the reference asks for fp32 math, so
+// on the CUDA cores the peak is 67 TFLOP/s (0.051 ms), while on the tensor
+// cores, with the fp32 operands split as below, the same work is far under
+// the time the bytes take (0.012 ms).
 //
-// What the design does about it:
-//   * The TPU kernel keeps a chunk of all H heads (~30 MB at c = 256) in
-//     VMEM; no SM holds that.  Here one block owns one (batch, head) and
-//     walks the sequence in sub-chunks of L = 64 steps, keeping the (N, P)
-//     fp32 state (32 KB at N = 128, P = 64) in shared memory for the whole
-//     sequence beside the sub-chunk's x, B, C tiles and the (L, L) weights.
-//     SSD results do not depend on the chunk length beyond rounding (the
-//     duality); the -60 clip then differs only where a decay is below e^-60.
-//   * Every product is register-tiled on the CUDA cores (4 x 4 outputs a
-//     thread, operands as 16-byte shared-memory loads from padded rows), so
-//     fp32 never rounds through TF32.  The (L, L) weight tile skips the
-//     tiles above the diagonal, and the intra-chunk product stops at the
-//     diagonal.
+// The chunk-parallel design (repro_ssd_fwd; the serial design it replaced
+// stays exported as repro_ssd_fwd_serial for chip_smoke.py's same-run
+// comparison only):
+//   * Three launches from one call, on the caller's stream, over chunks of
+//     SSD_C = 64 steps.  (a) ssd_state_*: one block per (head, chunk,
+//     batch) -- 48 x 32 = 1536 blocks at the served shape, where the serial
+//     design had 48 for 132 SMs -- computes the chunk's running sum of
+//     dt * A (two warp scans) and its local state s_c = sum_m B_m (dt_m
+//     exp(clip(acum_end - acum_m, -60))) x_m^T, an (N, P) fp32 array, into
+//     a scratch tensor (B, chunks, H, N, P) that the wrapper allocates, and
+//     acum_end into (B, chunks, H).  (b) ssd_pass_kernel: each of the N * P
+//     elements of a head is an independent scalar recurrence h_c =
+//     exp(acum_end) h_{c-1} + s_c; one thread owns four of them and walks
+//     the chunks (98,304 threads at the served shape), overwriting each s_c
+//     with the state entering chunk c and writing h_final.  (c)
+//     ssd_output_*: one block per (head, chunk, batch) computes y = (C B^T o
+//     decay o dt) x, causal inside the chunk, plus exp(acum_l) C_l h_c.
+//     Every block runs the same arithmetic whatever order the blocks run in,
+//     so two calls give bit-identical outputs.  A decoupled look-back
+//     (stages a-c in one launch, chunk c waiting for chunk c-1's state) was
+//     not taken: its chain of 32 dependent steps per head would serialise
+//     on the latency of each hand-off, and the state traffic it saves
+//     (4 x 50 MB, much of it in the 50 MB L2) is a few hundredths of a ms.
+//     c = 64 rather than 128: twice the blocks, the output stage's shared
+//     memory (81 KB) leaves two blocks per SM, and the causal half of C B^T
+//     is skipped at a finer grain; the states cost twice the bytes.
+//   * bf16 x, B, C at P and N multiples of 16 (the served path): every
+//     product runs on the tensor cores with warp-level mma.sync (m16n8k16,
+//     fp32 accumulate).  C B^T has two bf16 operands:
+//     each product is exact in fp32, so it is fp32 math in another
+//     summation order.  The products with one fp32 operand -- the weights W
+//     times x, the scaled B times x, C times the state -- keep the bf16
+//     operand exact and split the fp32 one into bf16 hi + lo (16
+//     significant bits of its 24), one product each; the error left is
+//     about 2^-17 of each fp32 operand (chip_smoke.py measures it against
+//     the fp32 plain version).  W never leaves registers: the accumulator
+//     layout of C B^T is the A-fragment layout of W x, as in the flash
+//     kernels.  In the output stage two warps own 16 rows of the chunk
+//     (each half the columns of P) and skip the key blocks above their
+//     diagonal; eight warps a block, two blocks an SM.
+//   * fp32 inputs (and bf16 at other P, N) keep fp32 math on the CUDA cores
+//     in the same three stages: the serial design's register tiles (4 x 4
+//     outputs a thread, operands as 16-byte loads from padded shared
+//     memory), so fp32 never rounds through TF32 or bf16.
 //   * Positions >= S act as dt = 0 (zero input, decay 1): the state passes
 //     through them unchanged, as the reference's own padding does, so any S
-//     is legal -- a superset of the TPU kernel, which asserts S % chunk == 0.
-//   * G > 1 works: a block reads the B/C rows of its head's group.
-//   * At batch 1 the served shape gives only H = 48 blocks for 132 SMs;
-//     splitting a head's P columns over blocks is later work.
+//     is legal -- a superset of the TPU kernel, which asserts S % chunk ==
+//     0.  SSD results do not depend on the chunk length beyond rounding
+//     (the duality); the -60 clip then differs only where a decay is below
+//     e^-60.  Any G dividing H: a block reads its head's group's B/C rows.
+//   * Left out: fusing the stages (above); Hopper's warpgroup products
+//     (wgmma), which would speed the products, not the loads and the state
+//     traffic that set the stages' times (PERF.md).
+//
+// The serial design (ssd_serial_kernel), which the chunk-parallel one
+// replaced: one block per (batch, head) walks the sequence in sub-chunks of
+// SSD_C = 64 steps, keeping the (N, P) fp32 state in shared memory for the
+// whole sequence; every product register-tiled on the CUDA cores; at batch
+// 1 only H blocks.
 
 #include "common.cuh"
 
 namespace {
 
 using namespace repro;
+using bf16 = __nv_bfloat16;
 
-constexpr int SSD_L = 64;    // sub-chunk length
-constexpr int SSD_NT = 256;  // threads per block: 16 x 16 tiles of 4 x 4
+constexpr int SSD_C = 64;    // chunk length (the serial design's sub-chunks)
+constexpr int CC_NT = 256;   // CUDA-core blocks: 16 x 16 tiles of 4 x 4
+constexpr int TC_NT = 256;   // tensor-core blocks: 8 warps
+constexpr int PASS_NT = 128;
+constexpr int MAX_SMEM = 232448;
+
+// raise a kernel's dynamic shared-memory limit to `bytes` the first time a
+// call needs more than it was given
+template <typename KernelT>
+int allow_smem(KernelT kernel, int bytes, int& configured) {
+  if (bytes <= configured) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  configured = bytes;
+  return 0;
+}
 
 __device__ __forceinline__ float as_float(float v) { return v; }
 __device__ __forceinline__ float as_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-int smem_bytes(int P, int N) {
-  constexpr int L = SSD_L;
+// ---------------------------------------------------------------------------
+// a chunk on the CUDA cores, fp32 math (both designs): CC_NT threads, rows
+// padded by 4 floats (16-byte loads, a column spread over the banks)
+// ---------------------------------------------------------------------------
+
+// dt of the chunk's steps (at: step 0's index in (B, S, H)); 0 past `live`
+__device__ __forceinline__ void load_chunk_dt(float* dts, const float* dt,
+                                              size_t at, int H, int live) {
+  const int t = threadIdx.x;
+  if (t < SSD_C) dts[t] = t < live ? dt[at + (size_t)t * H] : 0.f;
+}
+
+// Asynchronous 16-byte copies of SSD_C rows of `bytes_per_row` bytes (row
+// r at src + r * stride bytes; rows and dst 16-byte aligned) into shared
+// memory with a row stride of ld bytes; rows past `live` are zero-filled.
+// All copies of the block are in flight together: the caller commits and
+// waits (cp_async_commit, cp_async_wait<0>, __syncthreads).
+__device__ __forceinline__ void copy_chunk_rows_async(
+    void* dst, int ld, const void* src, size_t stride, int bytes_per_row,
+    int live) {
+  const int vpr = bytes_per_row / 16;
+  for (int i = threadIdx.x; i < SSD_C * vpr; i += blockDim.x) {
+    const int r = i / vpr, c = (i % vpr) * 16;
+    cp_async16(static_cast<unsigned char*>(dst) + r * ld + c,
+               static_cast<const unsigned char*>(src) +
+                   (r < live ? r : 0) * stride + c,
+               r < live ? 16 : 0);
+  }
+}
+
+// SSD_C rows of `cols` elements (row r at src + r * stride) as floats into
+// shared memory with row stride ld; rows past `live` are zero.  fp32 rows
+// are copied asynchronously (the caller waits), bf16 rows widened here.
+template <typename T>
+__device__ __forceinline__ void load_chunk_rows(float* dst, int ld,
+                                                const T* src, size_t stride,
+                                                int cols, int live) {
+  if constexpr (sizeof(T) == sizeof(float)) {
+    copy_chunk_rows_async(dst, ld * 4, src, stride * 4, cols * 4, live);
+  } else {
+    for (int i = threadIdx.x; i < SSD_C * cols; i += blockDim.x) {
+      const int r = i / cols, c = i % cols;
+      dst[r * ld + c] = r < live ? as_float(src[r * stride + c]) : 0.f;
+    }
+  }
+}
+
+// W[l][m] = (C_l . B_m) exp(clip(acum_l - acum_m, -60, 0)) dt_m for m <= l
+// and 0 above the diagonal: each of 16 x 16 threads its 4 x 4 tile, the
+// tiles above the diagonal skipped
+__device__ __forceinline__ void cc_weights(const float* Cs, const float* Bs,
+                                           float* Ws, const float* dts,
+                                           const float* acs, int N) {
+  const int LDN = N + 4, LDW = SSD_C + 4;
+  const int ti = threadIdx.x >> 4, tj = threadIdx.x & 15;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  if (tj <= ti) {
+    for (int n = 0; n < N; n += 4) {
+      float4 cv[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        cv[i] = *reinterpret_cast<const float4*>(Cs + (ti * 4 + i) * LDN + n);
+        bv[i] = *reinterpret_cast<const float4*>(Bs + (tj * 4 + i) * LDN + n);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[i][j] += cv[i].x * bv[j].x;
+          acc[i][j] += cv[i].y * bv[j].y;
+          acc[i][j] += cv[i].z * bv[j].z;
+          acc[i][j] += cv[i].w * bv[j].w;
+        }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int l = ti * 4 + i, m = tj * 4 + j;
+      float w = 0.f;
+      if (m <= l) {
+        const float d = fminf(fmaxf(acs[l] - acs[m], -60.f), 0.f);
+        w = acc[i][j] * expf(d) * dts[m];
+      }
+      Ws[l * LDW + m] = w;
+    }
+}
+
+// y_l = W_l x + exp(acum_l) C_l h for the rows l < live (row l at y + l *
+// stride), h the (N, P) state entering the chunk
+__device__ __forceinline__ void cc_outputs(const float* Xs, const float* Ws,
+                                           const float* Cs, const float* Hs,
+                                           const float* acs, float* y,
+                                           size_t stride, int P, int N,
+                                           int live) {
+  const int LDX = P + 4, LDN = N + 4, LDW = SSD_C + 4, LDH = P + 4;
+  const int CQ = P / 4;  // column quads of x, y and the state
+  for (int u = threadIdx.x; u < (SSD_C / 4) * CQ; u += CC_NT) {
+    const int ti = u / CQ, p0 = (u % CQ) * 4;
+    float yi[4][4], yc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) yi[i][j] = yc[i][j] = 0.f;
+    const int m_end = min(ti * 4 + 4, live);  // W is 0 past the diagonal
+    for (int m = 0; m < m_end; ++m) {
+      const float4 xv = *reinterpret_cast<const float4*>(Xs + m * LDX + p0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float w = Ws[(ti * 4 + i) * LDW + m];
+        yi[i][0] += w * xv.x;
+        yi[i][1] += w * xv.y;
+        yi[i][2] += w * xv.z;
+        yi[i][3] += w * xv.w;
+      }
+    }
+    for (int n = 0; n < N; ++n) {
+      const float4 hv = *reinterpret_cast<const float4*>(Hs + n * LDH + p0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float c = Cs[(ti * 4 + i) * LDN + n];
+        yc[i][0] += c * hv.x;
+        yc[i][1] += c * hv.y;
+        yc[i][2] += c * hv.z;
+        yc[i][3] += c * hv.w;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int l = ti * 4 + i;
+      if (l < live) {
+        const float e = expf(acs[l]);
+        *reinterpret_cast<float4*>(y + l * stride + p0) =
+            make_float4(yi[i][0] + e * yc[i][0], yi[i][1] + e * yc[i][1],
+                        yi[i][2] + e * yc[i][2], yi[i][3] + e * yc[i][3]);
+      }
+    }
+  }
+}
+
+// B_m *= dt_m * exp(clip(acum_end - acum_m, -60)) for the rows m < live
+__device__ __forceinline__ void cc_scale_b(float* Bs, const float* dts,
+                                           const float* acs, int N,
+                                           int live) {
+  const int LDN = N + 4;
+  const float a_end = acs[SSD_C - 1];
+  for (int i = threadIdx.x; i < live * N; i += CC_NT) {
+    const int m = i / N, n = i % N;
+    Bs[m * LDN + n] *= dts[m] * expf(fmaxf(a_end - acs[m], -60.f));
+  }
+}
+
+// dst (N, P; row stride ld) = [e * dst +] sum_{m < live} B_m x_m^T, B
+// scaled by cc_scale_b: each thread its 4 x 4 tiles
+__device__ __forceinline__ void cc_state_sum(const float* Bs,
+                                             const float* Xs, float* dst,
+                                             int ld, bool accumulate,
+                                             float e, int P, int N,
+                                             int live) {
+  const int LDX = P + 4, LDN = N + 4;
+  const int CQ = P / 4;
+  for (int u = threadIdx.x; u < (N / 4) * CQ; u += CC_NT) {
+    const int n0 = (u / CQ) * 4, p0 = (u % CQ) * 4;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int m = 0; m < live; ++m) {
+      const float4 bv = *reinterpret_cast<const float4*>(Bs + m * LDN + n0);
+      const float4 xv = *reinterpret_cast<const float4*>(Xs + m * LDX + p0);
+      const float bb[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[i][0] += bb[i] * xv.x;
+        acc[i][1] += bb[i] * xv.y;
+        acc[i][2] += bb[i] * xv.z;
+        acc[i][3] += bb[i] * xv.w;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float4* d = reinterpret_cast<float4*>(dst + (size_t)(n0 + i) * ld + p0);
+      float4 v = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      if (accumulate) {
+        const float4 old = *d;
+        v = make_float4(e * old.x + v.x, e * old.y + v.y, e * old.z + v.z,
+                        e * old.w + v.w);
+      }
+      *d = v;
+    }
+  }
+}
+
+// shared memory of a chunk with its weights and state: x, B, C, W, the
+// state, dt, acum (the serial design and the output stage)
+int cc_output_smem(int P, int N) {
+  constexpr int L = SSD_C;
   return (int)sizeof(float) *
          (L * (P + 4) + 2 * L * (N + 4) + L * (L + 4) + N * (P + 4) + 2 * L);
 }
 
+// ---------------------------------------------------------------------------
+// the serial design: one block per (batch, head) walks the chunks
+// ---------------------------------------------------------------------------
 template <typename T>
-__global__ void __launch_bounds__(SSD_NT)
-ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-           const float* __restrict__ A, const T* __restrict__ Bm,
-           const T* __restrict__ Cm, const float* __restrict__ h0,
-           float* __restrict__ y, float* __restrict__ hout, int S, int H,
-           int P, int G, int N) {
-  constexpr int L = SSD_L;
+__global__ void __launch_bounds__(CC_NT)
+ssd_serial_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                  const float* __restrict__ A, const T* __restrict__ Bm,
+                  const T* __restrict__ Cm, const float* __restrict__ h0,
+                  float* __restrict__ y, float* __restrict__ hout, int S,
+                  int H, int P, int G, int N) {
+  constexpr int L = SSD_C;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int g = h / (H / G);
   const int LDX = P + 4, LDN = N + 4, LDW = L + 4, LDH = P + 4;
-  const int CQ = P / 4;  // column quads of x, y and the state
 
   extern __shared__ __align__(16) float sm[];
   float* Xs = sm;             // (L, P)  this sub-chunk's x
@@ -82,26 +342,25 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const int tid = threadIdx.x;
   const float a_h = A[h];
   const size_t hoff = ((size_t)b * H + h) * (size_t)N * P;
-  for (int i = tid; i < N * P; i += SSD_NT)
+  for (int i = tid; i < N * P; i += CC_NT)
     Hs[(i / P) * LDH + i % P] = h0 != nullptr ? h0[hoff + i] : 0.f;
 
   for (int c0 = 0; c0 < S; c0 += L) {
     const int live = min(L, S - c0);
+    const size_t row0 = (size_t)b * S + c0;
     __syncthreads();  // the previous sub-chunk is done with every tile
-    for (int i = tid; i < L * P; i += SSD_NT) {
+    for (int i = tid; i < L * P; i += CC_NT) {
       const int l = i / P, p = i % P;
       Xs[l * LDX + p] =
-          l < live ? as_float(x[(((size_t)b * S + c0 + l) * H + h) * P + p])
-                   : 0.f;
+          l < live ? as_float(x[((row0 + l) * H + h) * P + p]) : 0.f;
     }
-    for (int i = tid; i < L * N; i += SSD_NT) {
+    for (int i = tid; i < L * N; i += CC_NT) {
       const int l = i / N, n = i % N;
-      const size_t o = (((size_t)b * S + c0 + l) * G + g) * N + n;
+      const size_t o = ((row0 + l) * G + g) * N + n;
       Bs[l * LDN + n] = l < live ? as_float(Bm[o]) : 0.f;
       Cs[l * LDN + n] = l < live ? as_float(Cm[o]) : 0.f;
     }
-    if (tid < L)
-      dts[tid] = tid < live ? dt[((size_t)b * S + c0 + tid) * H + h] : 0.f;
+    load_chunk_dt(dts, dt, row0 * H + h, H, live);
     __syncthreads();
     if (tid == 0) {
       float s = 0.f;
@@ -111,152 +370,514 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       }
     }
     __syncthreads();
-
-    // ---- W[l][m] = (C_l . B_m) * decay(l, m) * dt_m for m <= l ----
-    {
-      const int ti = tid >> 4, tj = tid & 15;
-      float acc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      if (tj <= ti) {
-        for (int n = 0; n < N; n += 4) {
-          float4 cv[4], bv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            cv[i] = *reinterpret_cast<const float4*>(Cs + (ti * 4 + i) * LDN + n);
-            bv[i] = *reinterpret_cast<const float4*>(Bs + (tj * 4 + i) * LDN + n);
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              acc[i][j] += cv[i].x * bv[j].x;
-              acc[i][j] += cv[i].y * bv[j].y;
-              acc[i][j] += cv[i].z * bv[j].z;
-              acc[i][j] += cv[i].w * bv[j].w;
-            }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int l = ti * 4 + i, m = tj * 4 + j;
-          float w = 0.f;
-          if (m <= l) {
-            const float d = fminf(fmaxf(acs[l] - acs[m], -60.f), 0.f);
-            w = acc[i][j] * expf(d) * dts[m];
-          }
-          Ws[l * LDW + m] = w;
-        }
-    }
+    cc_weights(Cs, Bs, Ws, dts, acs, N);
     __syncthreads();
-
-    // ---- y = W x + exp(acum) C h (the state before this sub-chunk) ----
-    for (int u = tid; u < (L / 4) * CQ; u += SSD_NT) {
-      const int ti = u / CQ, p0 = (u % CQ) * 4;
-      float yi[4][4], yc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) yi[i][j] = yc[i][j] = 0.f;
-      const int m_end = min(ti * 4 + 4, live);  // W is 0 past the diagonal
-      for (int m = 0; m < m_end; ++m) {
-        const float4 xv = *reinterpret_cast<const float4*>(Xs + m * LDX + p0);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float w = Ws[(ti * 4 + i) * LDW + m];
-          yi[i][0] += w * xv.x;
-          yi[i][1] += w * xv.y;
-          yi[i][2] += w * xv.z;
-          yi[i][3] += w * xv.w;
-        }
-      }
-      for (int n = 0; n < N; ++n) {
-        const float4 hv = *reinterpret_cast<const float4*>(Hs + n * LDH + p0);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float c = Cs[(ti * 4 + i) * LDN + n];
-          yc[i][0] += c * hv.x;
-          yc[i][1] += c * hv.y;
-          yc[i][2] += c * hv.z;
-          yc[i][3] += c * hv.w;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int l = ti * 4 + i;
-        if (l < live) {
-          const float e = expf(acs[l]);
-          *reinterpret_cast<float4*>(
-              y + (((size_t)b * S + c0 + l) * H + h) * P + p0) =
-              make_float4(yi[i][0] + e * yc[i][0], yi[i][1] + e * yc[i][1],
-                          yi[i][2] + e * yc[i][2], yi[i][3] + e * yc[i][3]);
-        }
-      }
-    }
+    // y with the state before this sub-chunk
+    cc_outputs(Xs, Ws, Cs, Hs, acs, y + (row0 * H + h) * P, (size_t)H * P,
+               P, N, live);
     __syncthreads();  // every reader of the old state is done
-
-    // ---- B_m *= dt_m * exp(clip(acum_end - acum_m, -60)) ----
-    const float a_end = acs[L - 1];
-    for (int i = tid; i < live * N; i += SSD_NT) {
-      const int l = i / N, n = i % N;
-      Bs[l * LDN + n] *= dts[l] * expf(fmaxf(a_end - acs[l], -60.f));
-    }
+    cc_scale_b(Bs, dts, acs, N, live);
     __syncthreads();
-
-    // ---- h = exp(acum_end) h + sum_m B_m x_m^T (each thread its tile) ----
-    const float e_end = expf(a_end);
-    for (int u = tid; u < (N / 4) * CQ; u += SSD_NT) {
-      const int n0 = (u / CQ) * 4, p0 = (u % CQ) * 4;
-      float acc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      for (int m = 0; m < live; ++m) {
-        const float4 bv = *reinterpret_cast<const float4*>(Bs + m * LDN + n0);
-        const float4 xv = *reinterpret_cast<const float4*>(Xs + m * LDX + p0);
-        const float bb[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][0] += bb[i] * xv.x;
-          acc[i][1] += bb[i] * xv.y;
-          acc[i][2] += bb[i] * xv.z;
-          acc[i][3] += bb[i] * xv.w;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float4* hp = reinterpret_cast<float4*>(Hs + (n0 + i) * LDH + p0);
-        const float4 hv = *hp;
-        *hp = make_float4(e_end * hv.x + acc[i][0], e_end * hv.y + acc[i][1],
-                          e_end * hv.z + acc[i][2], e_end * hv.w + acc[i][3]);
-      }
-    }
+    // h = exp(acum_end) h + sum_m B_m x_m^T
+    cc_state_sum(Bs, Xs, Hs, LDH, true, expf(acs[L - 1]), P, N, live);
   }
   __syncthreads();
-  for (int i = tid; i < N * P; i += SSD_NT)
+  for (int i = tid; i < N * P; i += CC_NT)
     hout[hoff + i] = Hs[(i / P) * LDH + i % P];
 }
 
 template <typename T>
-int launch(const void* x, const float* dt, const float* A, const void* Bm,
-           const void* Cm, const float* h0, float* y, float* hout, int B,
-           int S, int H, int P, int G, int N, cudaStream_t stream) {
-  const int bytes = smem_bytes(P, N);
+int launch_serial(const void* x, const float* dt, const float* A,
+                  const void* Bm, const void* Cm, const float* h0, float* y,
+                  float* hout, int B, int S, int H, int P, int G, int N,
+                  cudaStream_t stream) {
+  const int bytes = cc_output_smem(P, N);
   static int configured = 0;
-  if (bytes > configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ssd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return (int)e;
-    configured = bytes;
-  }
-  ssd_kernel<T><<<dim3(H, B), SSD_NT, bytes, stream>>>(
+  const int rc = allow_smem(ssd_serial_kernel<T>, bytes, configured);
+  if (rc != 0) return rc;
+  ssd_serial_kernel<T><<<dim3(H, B), CC_NT, bytes, stream>>>(
       (const T*)x, dt, A, (const T*)Bm, (const T*)Cm, h0, y, hout, S, H, P, G,
       N);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// the chunk-parallel design: (a) and (c) on the CUDA cores
+// ---------------------------------------------------------------------------
+
+// acs[l] = sum_{i <= l} dts[i] * a for l < SSD_C: two warp scans, then the
+// second warp adds the first's total.  Every thread of the block calls it
+// (it synchronises); dts must be visible to all threads.
+__device__ __forceinline__ void chunk_cumsum(const float* dts, float* acs,
+                                             float a) {
+  const int t = threadIdx.x;
+  if (t < SSD_C) {
+    float v = dts[t] * a;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float u = __shfl_up_sync(0xffffffffu, v, o);
+      if ((t & 31) >= o) v += u;
+    }
+    acs[t] = v;
+  }
+  __syncthreads();
+  if (t >= 32 && t < SSD_C) acs[t] += acs[31];
+  __syncthreads();
+}
+
+int cc_state_smem(int P, int N) {
+  return (int)sizeof(float) * (SSD_C * (P + 4) + SSD_C * (N + 4) + 2 * SSD_C);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(CC_NT)
+ssd_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                 const float* __restrict__ A, const T* __restrict__ Bm,
+                 float* __restrict__ states, float* __restrict__ aend, int S,
+                 int H, int P, int G, int N) {
+  constexpr int L = SSD_C;
+  const int h = blockIdx.x, j = blockIdx.y, b = blockIdx.z;
+  const int g = h / (H / G);
+  const int c0 = j * L, live = min(L, S - c0);
+  const int LDX = P + 4, LDN = N + 4;
+
+  extern __shared__ __align__(16) float sm[];
+  float* Xs = sm;             // (L, P)  the chunk's x
+  float* Bs = Xs + L * LDX;   // (L, N)  its B rows, then scaled in place
+  float* dts = Bs + L * LDN;  // (L,)
+  float* acs = dts + L;       // (L,)   running sum of dt * A
+
+  const size_t row0 = (size_t)b * S + c0;
+  load_chunk_rows(Xs, LDX, x + (row0 * H + h) * P, (size_t)H * P, P, live);
+  load_chunk_rows(Bs, LDN, Bm + (row0 * G + g) * N, (size_t)G * N, N, live);
+  load_chunk_dt(dts, dt, row0 * H + h, H, live);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  chunk_cumsum(dts, acs, A[h]);
+  cc_scale_b(Bs, dts, acs, N, live);
+  __syncthreads();
+  // s = sum_m B_m x_m^T from a zero state
+  const size_t blk = ((size_t)b * gridDim.y + j) * H + h;
+  cc_state_sum(Bs, Xs, states + blk * (size_t)N * P, P, false, 0.f, P, N,
+               live);
+  if (threadIdx.x == 0) aend[blk] = acs[L - 1];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(CC_NT)
+ssd_output_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                  const float* __restrict__ A, const T* __restrict__ Bm,
+                  const T* __restrict__ Cm, const float* __restrict__ states,
+                  float* __restrict__ y, int S, int H, int P, int G, int N) {
+  constexpr int L = SSD_C;
+  const int h = blockIdx.x, j = blockIdx.y, b = blockIdx.z;
+  const int g = h / (H / G);
+  const int c0 = j * L, live = min(L, S - c0);
+  const int LDX = P + 4, LDN = N + 4, LDW = L + 4, LDH = P + 4;
+
+  extern __shared__ __align__(16) float sm[];
+  float* Xs = sm;             // (L, P)
+  float* Bs = Xs + L * LDX;   // (L, N)
+  float* Cs = Bs + L * LDN;   // (L, N)
+  float* Ws = Cs + L * LDN;   // (L, L)  intra-chunk weights
+  float* Hs = Ws + L * LDW;   // (N, P)  the state entering the chunk
+  float* dts = Hs + N * LDH;  // (L,)
+  float* acs = dts + L;       // (L,)
+
+  const size_t row0 = (size_t)b * S + c0;
+  load_chunk_rows(Xs, LDX, x + (row0 * H + h) * P, (size_t)H * P, P, live);
+  load_chunk_rows(Bs, LDN, Bm + (row0 * G + g) * N, (size_t)G * N, N, live);
+  load_chunk_rows(Cs, LDN, Cm + (row0 * G + g) * N, (size_t)G * N, N, live);
+  load_chunk_dt(dts, dt, row0 * H + h, H, live);
+  const float* hin =
+      states + (((size_t)b * gridDim.y + j) * H + h) * (size_t)N * P;
+  for (int i = threadIdx.x; i < N * P / 4; i += CC_NT)
+    cp_async16(Hs + ((4 * i) / P) * LDH + (4 * i) % P, hin + 4 * i, 16);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  chunk_cumsum(dts, acs, A[h]);
+  cc_weights(Cs, Bs, Ws, dts, acs, N);
+  __syncthreads();
+  cc_outputs(Xs, Ws, Cs, Hs, acs, y + (row0 * H + h) * P, (size_t)H * P, P,
+             N, live);
+}
+
+// (b) state passing: h_c = exp(acum_end,c) h_{c-1} + s_c over the chunks,
+// from h0 (or zero).  Each s_c is overwritten with the state entering chunk
+// c; hout gets the last.  One thread per four elements of a head's (N, P)
+// state; eight chunks' loads are issued before their updates.
+__global__ void __launch_bounds__(PASS_NT)
+ssd_pass_kernel(float* __restrict__ states, const float* __restrict__ aend,
+                const float* __restrict__ h0, float* __restrict__ hout,
+                int nc, int H, int NP) {
+  constexpr int U = 8;
+  const int i = blockIdx.x * PASS_NT + threadIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  if (4 * i >= NP) return;
+  const size_t head = ((size_t)b * H + h) * NP;
+  float4 st = h0 != nullptr ? reinterpret_cast<const float4*>(h0 + head)[i]
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int j0 = 0; j0 < nc; j0 += U) {
+    float4 s[U];
+    float e[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      s[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      e[u] = 0.f;
+      if (j0 + u < nc) {
+        const size_t blk = ((size_t)b * nc + j0 + u) * H + h;
+        s[u] = reinterpret_cast<const float4*>(states + blk * NP)[i];
+        e[u] = expf(aend[blk]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (j0 + u < nc) {
+        const size_t blk = ((size_t)b * nc + j0 + u) * H + h;
+        reinterpret_cast<float4*>(states + blk * NP)[i] = st;
+        st = make_float4(e[u] * st.x + s[u].x, e[u] * st.y + s[u].y,
+                         e[u] * st.z + s[u].z, e[u] * st.w + s[u].w);
+      }
+    }
+  }
+  reinterpret_cast<float4*>(hout + head)[i] = st;
+}
+
+// ---------------------------------------------------------------------------
+// (a) and (c) on the tensor cores: bf16 x, B, C; P and N multiples of 16
+// ---------------------------------------------------------------------------
+
+// (a, b) ~ hi + lo, each a bf16 pair: 16 significant bits of an fp32 value
+__device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi,
+                                             uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 f = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - f.x, b - f.y);
+}
+
+// rows padded by 8 bf16 (16 bytes): the 8 row addresses of an ldmatrix
+// fall on distinct banks
+int tc_state_smem(int P, int N) {
+  return 3 * SSD_C * 4 + SSD_C * (P + 8) * 2 + 2 * SSD_C * (N + 8) * 2;
+}
+int tc_output_smem(int P, int N) {
+  return 2 * SSD_C * 4 + SSD_C * (P + 8) * 2 + 2 * SSD_C * (N + 8) * 2 +
+         2 * N * (P + 8) * 2;
+}
+
+__global__ void __launch_bounds__(TC_NT)
+ssd_state_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
+                    const float* __restrict__ A, const bf16* __restrict__ Bm,
+                    float* __restrict__ states, float* __restrict__ aend,
+                    int S, int H, int P, int G, int N) {
+  constexpr int L = SSD_C;
+  const int h = blockIdx.x, j = blockIdx.y, b = blockIdx.z;
+  const int g = h / (H / G);
+  const int c0 = j * L, live = min(L, S - c0);
+  const int LDX = P + 8, LDN = N + 8;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* dts = reinterpret_cast<float*>(smem);  // (L,)
+  float* acs = dts + L;                         // (L,)
+  float* ws = acs + L;                          // (L,) dt_m exp(...)
+  bf16* Xs = reinterpret_cast<bf16*>(ws + L);   // (L, P)
+  bf16* Bh = Xs + L * LDX;                      // (L, N) B, then hi(B w)
+  bf16* Bl = Bh + L * LDN;                      // (L, N) lo(B w)
+
+  const size_t row0 = (size_t)b * S + c0;
+  copy_chunk_rows_async(Xs, LDX * 2, x + (row0 * H + h) * P,
+                        (size_t)H * P * 2, P * 2, live);
+  copy_chunk_rows_async(Bh, LDN * 2, Bm + (row0 * G + g) * N,
+                        (size_t)G * N * 2, N * 2, live);
+  load_chunk_dt(dts, dt, row0 * H + h, H, live);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  chunk_cumsum(dts, acs, A[h]);
+  const int t = threadIdx.x;
+  if (t < L) ws[t] = dts[t] * expf(fmaxf(acs[L - 1] - acs[t], -60.f));
+  __syncthreads();
+  for (int i = t; i < L * (N / 2); i += TC_NT) {
+    const int m = i / (N / 2), n = (i % (N / 2)) * 2;
+    uint32_t* at = reinterpret_cast<uint32_t*>(Bh + m * LDN + n);
+    const float2 f =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(at));
+    uint32_t hi, lo;
+    split_bf16x2(f.x * ws[m], f.y * ws[m], hi, lo);
+    *at = hi;
+    *reinterpret_cast<uint32_t*>(Bl + m * LDN + n) = lo;
+  }
+  __syncthreads();
+
+  // ---- s (N x P) = (B w)^T x: 16 x 16 output units over the 8 warps; A
+  // fragments of (B w)^T read transposed from the (L, N) rows ----
+  const int warp = t >> 5, lane = t & 31, mat = lane >> 3;
+  const int g8 = lane >> 2, t2 = (lane & 3) * 2;
+  const size_t blk = ((size_t)b * gridDim.y + j) * H + h;
+  float* out = states + blk * (size_t)N * P;
+  const int pu = P / 16;
+  for (int u = warp; u < (N / 16) * pu; u += TC_NT / 32) {
+    const int n0 = (u / pu) * 16, p0 = (u % pu) * 16;
+    float acc[2][4];
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[q][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < L / 16; ++ks) {
+      const int a_off = (ks * 16 + (mat >> 1) * 8 + (lane & 7)) * LDN + n0 +
+                        (mat & 1) * 8;
+      uint32_t ah[4], al[4], bx[4];
+      ldmatrix_x4_trans(ah, Bh + a_off);
+      ldmatrix_x4_trans(al, Bl + a_off);
+      ldmatrix_x4_trans(bx, Xs + (ks * 16 + (mat & 1) * 8 + (lane & 7)) * LDX +
+                                p0 + (mat >> 1) * 8);
+      mma_m16n8k16(acc[0], ah, bx[0], bx[1]);
+      mma_m16n8k16(acc[0], al, bx[0], bx[1]);
+      mma_m16n8k16(acc[1], ah, bx[2], bx[3]);
+      mma_m16n8k16(acc[1], al, bx[2], bx[3]);
+    }
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<float2*>(out + (size_t)(n0 + g8 + 8 * r) * P + p0 +
+                                   q * 8 + t2) =
+            make_float2(acc[q][2 * r], acc[q][2 * r + 1]);
+  }
+  if (t == 0) aend[blk] = acs[L - 1];
+}
+
+__global__ void __launch_bounds__(TC_NT)
+ssd_output_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
+                     const float* __restrict__ A, const bf16* __restrict__ Bm,
+                     const bf16* __restrict__ Cm,
+                     const float* __restrict__ states, float* __restrict__ y,
+                     int S, int H, int P, int G, int N) {
+  constexpr int L = SSD_C;
+  const int h = blockIdx.x, j = blockIdx.y, b = blockIdx.z;
+  const int g = h / (H / G);
+  const int c0 = j * L, live = min(L, S - c0);
+  const int LDX = P + 8, LDN = N + 8;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* dts = reinterpret_cast<float*>(smem);  // (L,)
+  float* acs = dts + L;                         // (L,)
+  bf16* Xs = reinterpret_cast<bf16*>(acs + L);  // (L, P)
+  bf16* Bs = Xs + L * LDX;                      // (L, N)
+  bf16* Cs = Bs + L * LDN;                      // (L, N)
+  bf16* Hh = Cs + L * LDN;                      // (N, P) hi(state entering)
+  bf16* Hl = Hh + N * LDX;                      // (N, P) lo(state entering)
+
+  const size_t row0 = (size_t)b * S + c0;
+  copy_chunk_rows_async(Xs, LDX * 2, x + (row0 * H + h) * P,
+                        (size_t)H * P * 2, P * 2, live);
+  copy_chunk_rows_async(Bs, LDN * 2, Bm + (row0 * G + g) * N,
+                        (size_t)G * N * 2, N * 2, live);
+  copy_chunk_rows_async(Cs, LDN * 2, Cm + (row0 * G + g) * N,
+                        (size_t)G * N * 2, N * 2, live);
+  cp_async_commit();
+  load_chunk_dt(dts, dt, row0 * H + h, H, live);
+  // the state entering the chunk, split into hi / lo halves: U float4 loads
+  // a thread in flight at a time
+  constexpr int U = 8;
+  const float4* hin = reinterpret_cast<const float4*>(
+      states + (((size_t)b * gridDim.y + j) * H + h) * (size_t)N * P);
+  const int n4 = N * P / 4;
+  for (int i0 = threadIdx.x; i0 < n4; i0 += U * TC_NT) {
+    float4 v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      v[u] = i0 + u * TC_NT < n4 ? hin[i0 + u * TC_NT]
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * TC_NT;
+      if (i < n4) {
+        const int n = (4 * i) / P, p = (4 * i) % P;
+        uint32_t h0, l0, h1, l1;
+        split_bf16x2(v[u].x, v[u].y, h0, l0);
+        split_bf16x2(v[u].z, v[u].w, h1, l1);
+        *reinterpret_cast<uint2*>(Hh + n * LDX + p) = make_uint2(h0, h1);
+        *reinterpret_cast<uint2*>(Hl + n * LDX + p) = make_uint2(l0, l1);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  chunk_cumsum(dts, acs, A[h]);
+
+  // warps rw and rw + 4 own rows r0 .. r0+15 of the chunk, each half of
+  // the 16-column groups of P; this thread rows lr[0] and lr[1], columns
+  // t2, t2 + 1 of each 8-column block
+  const int t = threadIdx.x, lane = t & 31, mat = lane >> 3;
+  const int rw = (t >> 5) & 3, half = t >> 7;
+  const int g8 = lane >> 2, t2 = (lane & 3) * 2;
+  const int r0 = rw * 16;
+  const int lr[2] = {r0 + g8, r0 + g8 + 8};
+  // this lane's ldmatrix row of the A fragments of C (rows r0 ..)
+  const bf16* c_frag =
+      Cs + (r0 + (lane & 7) + (mat & 1) * 8) * LDN + (mat >> 1) * 8;
+
+  // ---- C B^T on the key blocks m < 16 (rw + 1): [jb][e] is row
+  // lr[e >> 1], key jb * 8 + t2 + (e & 1) ----
+  float cb[8][4];
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) cb[q][e] = 0.f;
+  for (int ks = 0; ks < N / 16; ++ks) {
+    uint32_t ca[4];
+    ldmatrix_x4(ca, c_frag + ks * 16);
+#pragma unroll
+    for (int jb2 = 0; jb2 < 4; ++jb2) {
+      if (jb2 <= rw) {
+        uint32_t bb[4];
+        ldmatrix_x4(bb, Bs + (jb2 * 16 + (mat >> 1) * 8 + (lane & 7)) * LDN +
+                            ks * 16 + (mat & 1) * 8);
+        mma_m16n8k16(cb[2 * jb2], ca, bb[0], bb[1]);
+        mma_m16n8k16(cb[2 * jb2 + 1], ca, bb[2], bb[3]);
+      }
+    }
+  }
+
+  // ---- W = C B^T * exp(clip(acum_l - acum_m, -60, 0)) * dt_m on m <= l,
+  // split into hi / lo bf16 A fragments of W x, one per 16 keys ----
+  uint32_t wh[4][4], wl[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int jb = 2 * kk + (r >> 1), e = (r & 1) * 2;
+      const int l = lr[r & 1];
+      float w[2] = {0.f, 0.f};
+      if (kk <= rw) {
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const int m = jb * 8 + t2 + v;
+          const float d = fminf(fmaxf(acs[l] - acs[m], -60.f), 0.f);
+          w[v] = m <= l ? cb[jb][e + v] * expf(d) * dts[m] : 0.f;
+        }
+      }
+      split_bf16x2(w[0], w[1], wh[kk][r], wl[kk][r]);
+    }
+
+  // ---- y = W x + exp(acum_l) C h, 16 columns of P at a time ----
+  const float ex[2] = {expf(acs[lr[0]]), expf(acs[lr[1]])};
+  for (int p0 = half * 16; p0 < P; p0 += 32) {
+    float yi[2][4], yc[2][4];
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) yi[q][e] = yc[q][e] = 0.f;
+    const int b_off = ((mat & 1) * 8 + (lane & 7)) * LDX + p0 + (mat >> 1) * 8;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (kk <= rw) {
+        uint32_t bx[4];
+        ldmatrix_x4_trans(bx, Xs + kk * 16 * LDX + b_off);
+        mma_m16n8k16(yi[0], wh[kk], bx[0], bx[1]);
+        mma_m16n8k16(yi[0], wl[kk], bx[0], bx[1]);
+        mma_m16n8k16(yi[1], wh[kk], bx[2], bx[3]);
+        mma_m16n8k16(yi[1], wl[kk], bx[2], bx[3]);
+      }
+    }
+    for (int ks = 0; ks < N / 16; ++ks) {
+      uint32_t ca[4], hh[4], hl[4];
+      ldmatrix_x4(ca, c_frag + ks * 16);
+      ldmatrix_x4_trans(hh, Hh + ks * 16 * LDX + b_off);
+      ldmatrix_x4_trans(hl, Hl + ks * 16 * LDX + b_off);
+      mma_m16n8k16(yc[0], ca, hh[0], hh[1]);
+      mma_m16n8k16(yc[0], ca, hl[0], hl[1]);
+      mma_m16n8k16(yc[1], ca, hh[2], hh[3]);
+      mma_m16n8k16(yc[1], ca, hl[2], hl[3]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (lr[r] < live) {
+        float* yrow = y + ((row0 + lr[r]) * H + h) * P + p0 + t2;
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          *reinterpret_cast<float2*>(yrow + q * 8) =
+              make_float2(yi[q][2 * r] + ex[r] * yc[q][2 * r],
+                          yi[q][2 * r + 1] + ex[r] * yc[q][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dispatch
+// ---------------------------------------------------------------------------
+
+// Which design serves (P, N, dtype): bf16 at P and N multiples of 16 on the
+// tensor cores (DESIGN_MMA_SYNC), fp32 -- and bf16 at other P and N -- on
+// the CUDA cores; both chunk-parallel.  No launch falls back to another.
+int ssd_design(int P, int N, int dtype) {
+  if (P < 4 || P % 4 != 0 || N < 4 || N % 4 != 0) return DESIGN_NONE;
+  if (dtype == DTYPE_BF16 && P % 16 == 0 && N % 16 == 0 &&
+      tc_output_smem(P, N) <= MAX_SMEM)
+    return DESIGN_MMA_SYNC;
+  if ((dtype == DTYPE_F32 || dtype == DTYPE_BF16) &&
+      cc_output_smem(P, N) <= MAX_SMEM)
+    return DESIGN_CUDA_CORES;
+  return DESIGN_NONE;
+}
+
+struct SsdArgs {
+  const void *x, *Bm, *Cm;
+  const float *dt, *A, *h0;
+  float *y, *hout, *states, *aend;
+  int B, S, H, P, G, N, nc;
+};
+
+template <typename T>
+int launch_cuda_cores(const SsdArgs& a, cudaStream_t st) {
+  static int cfg_a = 0, cfg_c = 0;
+  const int ba = cc_state_smem(a.P, a.N), bc = cc_output_smem(a.P, a.N);
+  int rc = allow_smem(ssd_state_kernel<T>, ba, cfg_a);
+  if (rc == 0) rc = allow_smem(ssd_output_kernel<T>, bc, cfg_c);
+  if (rc != 0) return rc;
+  const dim3 grid(a.H, a.nc, a.B);
+  ssd_state_kernel<T><<<grid, CC_NT, ba, st>>>(
+      (const T*)a.x, a.dt, a.A, (const T*)a.Bm, a.states, a.aend, a.S, a.H,
+      a.P, a.G, a.N);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  ssd_pass_kernel<<<dim3((a.N * a.P / 4 + PASS_NT - 1) / PASS_NT, a.H, a.B),
+                    PASS_NT, 0, st>>>(a.states, a.aend, a.h0, a.hout, a.nc,
+                                      a.H, a.N * a.P);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  ssd_output_kernel<T><<<grid, CC_NT, bc, st>>>(
+      (const T*)a.x, a.dt, a.A, (const T*)a.Bm, (const T*)a.Cm, a.states,
+      a.y, a.S, a.H, a.P, a.G, a.N);
+  return (int)cudaGetLastError();
+}
+
+int launch_tensor_cores(const SsdArgs& a, cudaStream_t st) {
+  static int cfg_a = 0, cfg_c = 0;
+  const int ba = tc_state_smem(a.P, a.N), bc = tc_output_smem(a.P, a.N);
+  int rc = allow_smem(ssd_state_tc_kernel, ba, cfg_a);
+  if (rc == 0) rc = allow_smem(ssd_output_tc_kernel, bc, cfg_c);
+  if (rc != 0) return rc;
+  const dim3 grid(a.H, a.nc, a.B);
+  ssd_state_tc_kernel<<<grid, TC_NT, ba, st>>>(
+      (const bf16*)a.x, a.dt, a.A, (const bf16*)a.Bm, a.states, a.aend, a.S,
+      a.H, a.P, a.G, a.N);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  ssd_pass_kernel<<<dim3((a.N * a.P / 4 + PASS_NT - 1) / PASS_NT, a.H, a.B),
+                    PASS_NT, 0, st>>>(a.states, a.aend, a.h0, a.hout, a.nc,
+                                      a.H, a.N * a.P);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  ssd_output_tc_kernel<<<grid, TC_NT, bc, st>>>(
+      (const bf16*)a.x, a.dt, a.A, (const bf16*)a.Bm, (const bf16*)a.Cm,
+      a.states, a.y, a.S, a.H, a.P, a.G, a.N);
   return (int)cudaGetLastError();
 }
 
@@ -264,21 +885,59 @@ int launch(const void* x, const float* dt, const float* A, const void* Bm,
 
 // x (B, S, H, P) and B/C (B, S, G, N) in one dtype (fp32 or bf16); dt
 // (B, S, H), A (H,), h0 (B, H, N, P) or null, y (B, S, H, P) and hout
-// (B, H, N, P) fp32; all contiguous.  Returns 0, a cudaError_t, or
-// ERR_UNSUPPORTED.  Does not synchronise.
+// (B, H, N, P) fp32; scratch: states (B, n_chunks, H, N, P) and aend (B,
+// n_chunks, H) fp32, n_chunks = ceil(S / 64) (repro_ssd_chunk()).  All
+// contiguous and 16-byte aligned.  Three launches on `stream`.  Returns 0,
+// a cudaError_t, or ERR_UNSUPPORTED.  Does not synchronise.
 extern "C" int repro_ssd_fwd(const void* x, const float* dt, const float* A,
                              const void* Bm, const void* Cm, const float* h0,
-                             float* y, float* hout, int B, int S, int H, int P,
-                             int G, int N, int dtype, void* stream) {
+                             float* y, float* hout, float* states,
+                             float* aend, int n_chunks, int B, int S, int H,
+                             int P, int G, int N, int dtype, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0 || B > 65535 ||
+      H > 65535 || n_chunks != (S + SSD_C - 1) / SSD_C || n_chunks > 65535)
+    return ERR_UNSUPPORTED;
+  const SsdArgs a{x, Bm, Cm, dt, A, h0, y, hout, states, aend,
+                  B, S, H, P, G, N, n_chunks};
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (ssd_design(P, N, dtype)) {
+    case DESIGN_MMA_SYNC:
+      return launch_tensor_cores(a, st);
+    case DESIGN_CUDA_CORES:
+      return dtype == DTYPE_F32 ? launch_cuda_cores<float>(a, st)
+                                : launch_cuda_cores<bf16>(a, st);
+  }
+  return ERR_UNSUPPORTED;
+}
+
+// The chunk length of repro_ssd_fwd's scratch tensors.
+extern "C" int repro_ssd_chunk() { return SSD_C; }
+
+// The design that repro_ssd_fwd launches for (P, N, dtype): one of the
+// DESIGN_* codes of common.cuh.
+extern "C" int repro_ssd_design(int P, int N, int dtype) {
+  return ssd_design(P, N, dtype);
+}
+
+// The serial design that the chunk-parallel one replaced: the
+// arguments of repro_ssd_fwd without the scratch.  Not on any path of the
+// package: chip_smoke.py times it beside its successor in the same run.
+extern "C" int repro_ssd_fwd_serial(const void* x, const float* dt,
+                                    const float* A, const void* Bm,
+                                    const void* Cm, const float* h0,
+                                    float* y, float* hout, int B, int S,
+                                    int H, int P, int G, int N, int dtype,
+                                    void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0 || P < 4 ||
       P % 4 != 0 || N < 4 || N % 4 != 0 || B > 65535 ||
-      smem_bytes(P, N) > 232448)
+      cc_output_smem(P, N) > MAX_SMEM)
     return ERR_UNSUPPORTED;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == DTYPE_F32)
-    return launch<float>(x, dt, A, Bm, Cm, h0, y, hout, B, S, H, P, G, N, st);
+    return launch_serial<float>(x, dt, A, Bm, Cm, h0, y, hout, B, S, H, P,
+                                G, N, st);
   if (dtype == DTYPE_BF16)
-    return launch<__nv_bfloat16>(x, dt, A, Bm, Cm, h0, y, hout, B, S, H, P, G,
-                                 N, st);
+    return launch_serial<bf16>(x, dt, A, Bm, Cm, h0, y, hout, B, S, H, P, G,
+                               N, st);
   return ERR_UNSUPPORTED;
 }

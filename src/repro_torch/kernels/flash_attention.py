@@ -116,10 +116,10 @@ def needs_grad(*tensors) -> bool:
 def check_aligned(*tensors) -> None:
     """The kernels read through TMA tensor maps and 16-byte vector loads:
     each base pointer must be 16-byte aligned (a contiguous view with a
-    storage offset may not be)."""
+    storage offset may not be).  The SSD kernels share the rule."""
     for t in tensors:
         if t.data_ptr() % 16:
-            raise ValueError(f"flash attention kernels need 16-byte aligned "
+            raise ValueError(f"the kernels need 16-byte aligned "
                              f"tensors; got one at address {t.data_ptr():#x} "
                              f"(storage offset {t.storage_offset()})")
 

@@ -26,13 +26,15 @@ of the gradient at small ``c`` (ROADMAP queue C).  A pair that the mask
 kills has ``p = 0`` exactly, so a query row with no live key gets zero,
 finite gradients.
 
-Designs (the C dispatch's switch, ``design_dkv``): fp32 on the CUDA cores; in
-bf16 the stats forward is the forward's design (``flash_attention.design``),
-dK/dV runs on warpgroup products (``wgmma``) fed by the TMA at D = 64 and
-128 and on ``mma.sync`` at D = 32, dQ on ``mma.sync`` at every D.  The
-dK/dV block of the warpgroup design owns 128 keys and walks the (query
-tile, group head) pairs of ``live_query_tiles``, the same bounds as the
-``.cu`` file computes.
+Designs (the C dispatch's switch, ``design_dkv`` and ``design_dq``): fp32 on
+the CUDA cores; in bf16 the stats forward is the forward's design
+(``flash_attention.design``), and dK/dV and dQ run on warpgroup products
+(``wgmma``) fed by the TMA at D = 64 and 128 and on ``mma.sync`` at D = 32.
+The dK/dV block of the warpgroup design owns 128 keys and walks the (query
+tile, group head) pairs of ``live_query_tiles``; the dQ block owns 128
+query positions of one head and walks the 64-key tiles of
+``flash_attention.live_key_tiles``: the same bounds as the ``.cu`` files
+compute.
 
 Every wrapper launches its kernel for CUDA tensors -- or raises: there is no
 fallback -- and runs the plain version only for tensors on the CPU.  Each
@@ -71,13 +73,23 @@ def _kernel(name: str, n_ptr: int):
     return _fns[name]
 
 
-def design_dkv(head_dim: int, dtype) -> str:
-    """The design the dK/dV kernels launch for (``head_dim``, ``dtype``), as
-    the library's dispatch reports it; builds the library if needed."""
-    fn = build.load().repro_flash_attention_bwd_dkv_design
+def _design(entry: str, head_dim: int, dtype) -> str:
+    fn = getattr(build.load(), entry)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
     return DESIGNS[fn(int(head_dim), _DTYPE_CODE[dtype])]
+
+
+def design_dkv(head_dim: int, dtype) -> str:
+    """The design the dK/dV kernels launch for (``head_dim``, ``dtype``), as
+    the library's dispatch reports it; builds the library if needed."""
+    return _design("repro_flash_attention_bwd_dkv_design", head_dim, dtype)
+
+
+def design_dq(head_dim: int, dtype) -> str:
+    """The design the dQ kernels launch for (``head_dim``, ``dtype``), as
+    the library's dispatch reports it; builds the library if needed."""
+    return _design("repro_flash_attention_bwd_dq_design", head_dim, dtype)
 
 
 def live_query_tiles(n0: int, BN: int, BM: int, S: int, causal: bool,

@@ -1,18 +1,22 @@
-"""Mamba-2 chunked SSD scan: wrapper of the CUDA kernel ``csrc/ssd.cu`` and,
-beside it, its plain PyTorch version.
+"""Mamba-2 chunked SSD scan: wrapper of the CUDA kernels ``csrc/ssd.cu`` and,
+beside them, their plain PyTorch version.
 
 Replaces the TPU kernel ``repro/kernels/ssd.py`` (``ssd`` / ``_ssd_kernel``);
 ``ssd_plain`` is a copy of the model path's ``ssd_chunked``
 (``repro/models/ssm.py:38-106``), padding and all, with an optional ``h0``.
-On this card the function is bounded by fp32 operations (the reference asks
-for all math in fp32); the source note in the ``.cu`` file says how the
-kernel lays it out.
+The kernel is chunk-parallel: one call launches three kernels on the current
+stream -- the chunks' local states, the state passing across chunks, the
+chunks' outputs -- with two scratch tensors that the wrapper allocates.  The
+source note in the ``.cu`` file says how they are laid out, and ``design``
+which products run where (bf16 on the tensor cores with fp32 operands split
+into two bf16 halves, fp32 on the CUDA cores).
 
-``ssd`` launches the kernel for CUDA tensors -- or raises: there is no
+``ssd`` launches the kernels for CUDA tensors -- or raises: there is no
 fallback -- and runs ``ssd_plain`` only for tensors that lie on the CPU.
-``ssd.launches`` counts kernel launches.  The kernel has no backward (nor
-has the reference's): called on CUDA tensors where autograd needs a
-gradient, it raises.
+``ssd.launches`` counts calls that launched: one per call, whatever number
+of CUDA kernels the call takes.  The kernel has no backward (nor has the
+reference's): called on CUDA tensors where autograd needs a gradient, it
+raises.
 """
 from __future__ import annotations
 
@@ -21,23 +25,47 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import needs_grad
+from repro_torch.kernels.flash_attention import (DESIGNS, check_aligned,
+                                                 needs_grad)
 
 CHUNK = 256      # the plain version's chunk: the reference's DEFAULT_SSD_CHUNK
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _fn = None
+_chunk = None
 
 
 def _kernel():
-    global _fn
+    global _fn, _chunk
     if _fn is None:
-        fn = build.load().repro_ssd_fwd
+        lib = build.load()
+        fn = lib.repro_ssd_fwd
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + \
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + \
             [ctypes.c_void_p]
+        lib.repro_ssd_chunk.restype = ctypes.c_int
+        lib.repro_ssd_chunk.argtypes = []
+        _chunk = lib.repro_ssd_chunk()
         _fn = fn
     return _fn
+
+
+def kernel_chunk() -> int:
+    """The chunk length of the kernels' scratch tensors (``csrc/ssd.cu``
+    ``SSD_C``), read once with the entry point; builds the library if
+    needed."""
+    _kernel()
+    return _chunk
+
+
+def design(head_dim: int, d_state: int, dtype) -> str:
+    """The design ``ssd`` launches for heads of ``head_dim`` (P) and a state
+    of ``d_state`` (N) in ``dtype``: "mma.sync" (tensor cores) or
+    "cuda-cores", both chunk-parallel; builds the library if needed."""
+    fn = build.load().repro_ssd_design
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3
+    return DESIGNS[fn(int(head_dim), int(d_state), _DTYPE_CODE[dtype])]
 
 
 def ssd_plain(x, dt, A, Bm, Cm, *, chunk: int = CHUNK, h0=None):
@@ -118,7 +146,7 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = CHUNK, h0=None):
     """x (B,S,H,P); dt (B,S,H); A (H,); B/C (B,S,G,N) -> (y (B,S,H,P) fp32,
     h_final (B,H,N,P) fp32).  Any S (ragged ends act as dt = 0) and any
     G dividing H.  ``chunk`` is the plain version's chunk length; the kernel
-    walks its own sub-chunks (SSD does not depend on the chunk length
+    uses its own (``kernel_chunk``: SSD does not depend on the chunk length
     beyond rounding)."""
     _check(x, dt, A, Bm, Cm, h0)
     if x.device.type == "cpu":
@@ -141,13 +169,21 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int = CHUNK, h0=None):
     ins = (x, dt, A, Bm, Cm) + ((h0,) if h0 is not None else ())
     if not all(t.is_contiguous() for t in ins):
         raise ValueError("ssd kernel takes contiguous inputs")
+    check_aligned(*ins)
+    nc = -(-S // kernel_chunk())
     y = torch.empty((Bsz, S, H, P), dtype=torch.float32, device=x.device)
     hout = torch.empty((Bsz, H, N, P), dtype=torch.float32, device=x.device)
+    # scratch: each chunk's local state, overwritten with the state entering
+    # it, and each chunk's acum_end
+    states = torch.empty((Bsz, nc, H, N, P), dtype=torch.float32,
+                         device=x.device)
+    aend = torch.empty((Bsz, nc, H), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         rc = _kernel()(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                        Bm.data_ptr(), Cm.data_ptr(),
                        h0.data_ptr() if h0 is not None else None,
-                       y.data_ptr(), hout.data_ptr(), Bsz, S, H, P, G, N,
+                       y.data_ptr(), hout.data_ptr(), states.data_ptr(),
+                       aend.data_ptr(), nc, Bsz, S, H, P, G, N,
                        _DTYPE_CODE[x.dtype],
                        torch.cuda.current_stream().cuda_stream)
     if rc != 0:

@@ -418,13 +418,19 @@ def test_kernels_match_plain_versions_on_the_card(cuda_device):
 @pytest.mark.gpu
 def test_warpgroup_designs_match_plain_versions_on_the_card(cuda_device):
     """bf16 at D = 64 and 128 runs on the warpgroup designs: the forward
-    (with statistics) and dK/dV against their plain versions, several
-    128-key tiles, G = 3, ragged S."""
+    (with statistics), dK/dV and dQ against their plain versions, several
+    128-key tiles, G = 3, ragged S; the chunk-parallel SSD at a ragged
+    multi-chunk shape on the tensor cores, against its plain version."""
     from repro_torch.kernels.flash_attention import design
+    from repro_torch.kernels.ssd import design as ssd_design
+    from repro_torch.kernels.ssd import ssd, ssd_plain
     bf16 = torch.bfloat16
     assert design(128, bf16) == design(64, bf16) == "wgmma"
     assert fab.design_dkv(128, bf16) == "wgmma"
+    assert fab.design_dq(128, bf16) == fab.design_dq(64, bf16) == "wgmma"
     assert design(256, bf16) == fab.design_dkv(32, bf16) == "mma.sync"
+    assert fab.design_dq(32, bf16) == "mma.sync"
+    assert ssd_design(64, 128, bf16) == "mma.sync"
     for D in (64, 128):
         q, k, v, ct = (torch.from_numpy(a).to(cuda_device, bf16)
                        for a in _bwd_inputs(2, 300, 300, 6, 2, D))
@@ -437,8 +443,27 @@ def test_warpgroup_designs_match_plain_versions_on_the_card(cuda_device):
                                        rtol=2e-2)
         delta = fab.attention_delta(o, ct)
         got = fab.flash_attention_bwd_dkv(q, k, v, ct, m, l, delta, **kw)
-        want = fab.attention_bwd_plain(q, k, v, ct, m, l, delta, **kw)[1:]
-        for a, b in zip(got, want):
+        got += (fab.flash_attention_bwd_dq(q, k, v, ct, m, l, delta, **kw),)
+        dq, dk, dv = fab.attention_bwd_plain(q, k, v, ct, m, l, delta, **kw)
+        for a, b in zip(got, (dk, dv, dq)):
             np.testing.assert_allclose(a.float().cpu().numpy(),
                                        b.float().cpu().numpy(), atol=2e-2,
                                        rtol=2e-2)
+    # SSD: S = 200 is three chunks and a ragged fourth, G = 3
+    r = np.random.RandomState(5)
+    B, S, H, P, G, N = 2, 200, 6, 64, 3, 128
+    x = torch.from_numpy(r.standard_normal((B, S, H, P)).astype(np.float32))
+    dt = torch.nn.functional.softplus(
+        torch.from_numpy(r.standard_normal((B, S, H)).astype(np.float32)))
+    A = -torch.exp(torch.from_numpy(r.standard_normal(H).astype(np.float32)))
+    Bm, Cm = (torch.from_numpy((r.standard_normal((B, S, G, N)) * 0.5)
+                               .astype(np.float32)) for _ in range(2))
+    ins = [t.to(cuda_device) for t in (x, dt, A, Bm, Cm)]
+    for i in (0, 3, 4):
+        ins[i] = ins[i].to(bf16)
+    got = ssd(*ins)
+    want = ssd_plain(*ins)
+    for a, b in zip(got, want):
+        scale = float(b.abs().max())
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   atol=2e-4 * scale, rtol=0)

@@ -4,13 +4,15 @@
 head, the key tiles ``flash_attention.live_key_tiles`` gives;
 ``flash_bwd_dkv_wgmma_kernel`` walks, for each block of BN keys of one KV
 head, the query tiles ``flash_attention_bwd.live_query_tiles`` gives, once
-per head of the group.  The ``.cu`` sources compute the same bounds
-(``csrc/hopper.cuh``).  Here plain PyTorch versions walk exactly those tiles
--- an online-softmax forward and a dK/dV that sums over the group -- and are
-held to the port's plain versions in fp32 at 1e-5 (summation order only) and
-to the reference's oracle (``repro.kernels.ref.attention_ref`` and
-``jax.grad`` of it) at the reference's 5e-4, so a bound that drops a live
-tile fails here before any time on the card.
+per head of the group; ``flash_bwd_dq_wgmma_kernel`` walks, for each block of
+BM query positions of one head, the 64-key tiles of ``live_key_tiles``.  The
+``.cu`` sources compute the same bounds (``csrc/hopper.cuh``).  Here plain
+PyTorch versions walk exactly those tiles -- an online-softmax forward, a
+dK/dV that sums over the group, a dQ -- and are held to the port's plain
+versions in fp32 at 1e-5 (summation order only) and to the reference's
+oracle (``repro.kernels.ref.attention_ref`` and ``jax.grad`` of it) at the
+reference's 5e-4, so a bound that drops a live tile fails here before any
+time on the card.
 """
 import functools
 import math
@@ -29,6 +31,7 @@ from repro_torch.kernels.flash_attention import (NEG_INF, attention_plain,
 from repro_torch.kernels.flash_attention_bwd import live_query_tiles
 
 BN = 128        # keys per tile (forward) and per block (dK/dV)
+DQ_BN = 64      # keys per tile of the dQ kernel (csrc DQ_BN)
 
 CASES = [
     # B, S, T, H, K, D, causal, window, softcap
@@ -145,9 +148,44 @@ def dkv_tile_walk(q, k, v, do, m, l, delta, *, causal, window, softcap, BM):
     return dk, dv
 
 
+def dq_tile_walk(q, k, v, do, m, l, delta, *, causal, window, softcap, BM):
+    """The warpgroup dQ's walk in fp32: per head and block of BM positions,
+    the DQ_BN-key tiles of ``live_key_tiles``; p from the saved statistics,
+    the exact soft-cap derivative, dQ accumulated over the tiles."""
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = 1.0 / math.sqrt(D)
+    dq = torch.zeros_like(q)
+    for h in range(H):
+        for m0 in range(0, S, BM):
+            rows = torch.arange(m0, min(m0 + BM, S))
+            qt, dot = q[:, rows, h], do[:, rows, h]     # (B, rows, D)
+            acc = torch.zeros((B, len(rows), D))
+            n_begin, n_end = live_key_tiles(m0, BM, DQ_BN, T, causal,
+                                            window)
+            assert n_begin % DQ_BN == 0
+            for n0 in range(n_begin, n_end, DQ_BN):
+                keys = torch.arange(n0, min(n0 + DQ_BN, T))
+                kt, vt = k[:, keys, h // G], v[:, keys, h // G]
+                s = _scores(qt, kt, scale, softcap)     # queries x keys
+                p = torch.where(
+                    _dead(rows, keys, S, T, causal, window), 0.0,
+                    torch.exp(s - m[:, rows, h][..., None])
+                    / l[:, rows, h][..., None])
+                ds = p * (dot @ vt.transpose(-1, -2)
+                          - delta[:, rows, h][..., None])
+                if softcap > 0:
+                    ds = ds * (1.0 - (s / softcap) ** 2)
+                acc += (ds * scale) @ kt
+            dq[:, rows, h] = acc
+    return dq
+
+
 @functools.lru_cache(maxsize=None)
 def _oracle(case):
-    """The reference's forward and its jax.grad (dk, dv) for ``case``."""
+    """The reference's forward and its jax.grad (dq, dk, dv) for
+    ``case``."""
     B, S, T, H, K, D, causal, window, softcap = case
     q, k, v, do = _inputs(B, S, T, H, K, D)
 
@@ -155,10 +193,10 @@ def _oracle(case):
         return ref_attention_ref(q, k, v, causal=causal, window=window,
                                  softcap=softcap)
     out = np.asarray(f(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
-    _, dk, dv = jax.grad(lambda q, k, v: jnp.sum(f(q, k, v) * do),
-                         argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
-                                            jnp.asarray(v))
-    return out, np.asarray(dk), np.asarray(dv)
+    dq, dk, dv = jax.grad(lambda q, k, v: jnp.sum(f(q, k, v) * do),
+                          argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
+                                             jnp.asarray(v))
+    return out, np.asarray(dq), np.asarray(dk), np.asarray(dv)
 
 
 def _close(got, want, tol, what):
@@ -192,9 +230,23 @@ def test_dkv_tile_walk_matches_plain_and_oracle(case, BM):
     _, dk2, dv2 = fab.attention_bwd_plain(q, k, v, do, m, l, delta, **kw)
     _close(dk, dk2, 1e-5, "dk vs attention_bwd_plain")
     _close(dv, dv2, 1e-5, "dv vs attention_bwd_plain")
-    _, dk3, dv3 = _oracle(case)
+    _, _, dk3, dv3 = _oracle(case)
     _close(dk, dk3, 5e-4, "dk vs jax.grad of attention_ref")
     _close(dv, dv3, 5e-4, "dv vs jax.grad of attention_ref")
+
+
+@pytest.mark.parametrize("BM", [64, 128])
+@pytest.mark.parametrize("case", CASES)
+def test_dq_tile_walk_matches_plain_and_oracle(case, BM):
+    B, S, T, H, K, D, causal, window, softcap = case
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(B, S, T, H, K, D))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, m, l = fab.attention_fwd_stats_plain(q, k, v, **kw)
+    delta = fab.attention_delta(o, do)
+    dq = dq_tile_walk(q, k, v, do, m, l, delta, BM=BM, **kw)
+    dq2 = fab.attention_bwd_plain(q, k, v, do, m, l, delta, **kw)[0]
+    _close(dq, dq2, 1e-5, "dq vs attention_bwd_plain")
+    _close(dq, _oracle(case)[1], 5e-4, "dq vs jax.grad of attention_ref")
 
 
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
@@ -202,7 +254,8 @@ def test_dkv_tile_walk_matches_plain_and_oracle(case, BM):
                                            (False, 64)])
 def test_tile_bounds_skip_only_dead_tiles(causal, window):
     """Integer check over many lengths: every live (query, key) pair lies in
-    a walked tile of both walks, and both walks start on a tile boundary."""
+    a walked tile of all three walks, and each walk starts on a tile
+    boundary."""
     for S, T in ((1, 1), (100, 77), (77, 100), (128, 128), (129, 300),
                  (300, 129), (513, 513)):
         for BM in (64, 128):
@@ -216,6 +269,14 @@ def test_tile_bounds_skip_only_dead_tiles(causal, window):
                 for n0 in range(n_begin, n_end, BN):
                     seen[m0:m0 + BM, n0:n0 + BN] = True
             assert not (live & ~seen).any(), (S, T, BM, "forward")
+            seen[:] = False
+            for m0 in range(0, S, BM):
+                n_begin, n_end = live_key_tiles(m0, BM, DQ_BN, T, causal,
+                                                window)
+                assert n_begin % DQ_BN == 0
+                for n0 in range(n_begin, n_end, DQ_BN):
+                    seen[m0:m0 + BM, n0:n0 + DQ_BN] = True
+            assert not (live & ~seen).any(), (S, T, BM, "dQ")
             seen[:] = False
             for n0 in range(0, T, BN):
                 m_begin, m_end = live_query_tiles(n0, BN, BM, S, causal,
