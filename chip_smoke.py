@@ -17,16 +17,19 @@ per line:
                 1e-5, backward fp32 at 5e-4, bf16 at 2e-2; the training
                 kernels' bf16 results also against the size of what they
                 compare, see ``SCALED_TOL``) and the shapes the served and
-                the trained llama3.2-3b give them, with times (CUDA events),
-                the plain version's time, one PyTorch library call's time
-                where there is one, and the bound (least time the card could
-                take); at the train shape, faults planted in the plain
-                backward's result (a skipped 64- or 128-key tile) must fail
-                the same comparison; the bf16 forward, dK/dV and dQ at
-                D = 128 (warpgroup designs) are timed in turns with the
-                mma.sync designs they replaced (``earlier_ms``), and the
-                chunk-parallel SSD with the serial one, which the library
-                still exports for this alone;
+                the trained llama3.2-3b give them, and at stablelm-12b's
+                head_dim 160 (fp32 and bf16; its served prefill, decode and
+                trained shapes), with times (CUDA events), the plain
+                version's time, one PyTorch library call's time where there
+                is one, and the bound (least time the card could take); at
+                both train shapes, faults planted in the plain backward's
+                result (a skipped 64- or 128-key tile) must fail the same
+                comparison; the split-KV paged decode and the chunked RG-LRU
+                are timed in turns with the designs they replaced
+                (``earlier_ms``), which the library still exports for this
+                alone;
+  ptxas         registers and spills that ``nvcc -Xptxas -v`` reported for
+                the kernels of ``PTXAS_KERNELS``; a spill fails the run;
   serve_paged   llama3.2-3b at full width in bf16, random weights from seed
                 0 made on the device, 16 requests through
                 ``AsyncServeEngine(mode="paged")``; pure-decode iterations
@@ -70,11 +73,22 @@ per line:
                 two plain implementations measured in the same run (one
                 prefill; a prefill of all but 16 tokens, then 16 decode
                 steps);
+  serve_paged, serve_dense (again)  stablelm-12b (head_dim 160) at full
+                width and depth in bf16 (40 layers, 12.1 B parameters),
+                after llama's model is freed: the paged decode kernel once per
+                layer of every pure-decode iteration, the flash kernel once
+                per layer of every prefill;
+  train (again) stablelm-12b at full width with its depth cut to 2 layers
+                (its fp32 parameters and AdamW state at full depth, about
+                194 GB, do not fit one card), 2 steps of 1 x 4096 tokens:
+                the same launch counts per step and first-step parity;
+  summary       the run's elapsed seconds, the kernels' build included;
   kernels       the per-kernel summary line, launches counted on the served
-                and trained runs above (the flash kernel has two rows: its
-                llama launches at D = 128 and recurrentgemma's at D = 256),
-                each row with the design the library's dispatch names for
-                its shape, the redesigned rows with ``earlier_ms``.
+                and trained runs above (the attention kernels have a row per
+                head dim: llama's D = 128, stablelm's D = 160 and, for the
+                flash kernel, recurrentgemma's D = 256), each row with the
+                design the library's dispatch names for its shape, the
+                redesigned rows with ``earlier_ms``.
 
 ``kernel_cases`` also holds the SSD kernel (the reference's cases, the
 ragged one included, fp32 and bf16 x/B/C, cases at mamba2's P and N with S
@@ -84,8 +98,9 @@ h_final within 2e-4 of max |want| and per row, see ``SSD_TOL``; a dropped
 chunk state update and a state passed on without its chunk's decay,
 planted in the plain result, must fail the comparison, and so must the
 chunked SSD with the split fp32 operands rounded to bf16; two calls must be
-bit-identical), the RG-LRU kernel (the reference's cases at 2e-5 and the
-served shape) and the flash kernel at D = 256 with a window.
+bit-identical), the RG-LRU kernel (the reference's cases at 2e-5, the
+chunked scan's: a ragged last chunk, S shorter than a chunk, one step, B > 1
+at the served width; and the served shape) and the flash kernel at D = 256 with a window.
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, and last
 ``{"ok": true, "device": {...}}``.
@@ -117,13 +132,14 @@ from repro_torch.kernels.registry import bucket_pow2           # noqa: E402
 from repro_torch.kernels.flash_attention import (              # noqa: E402
     attention_plain, design, flash_attention)
 from repro_torch.kernels.flash_attention_bwd import (          # noqa: E402
-    _kernel as c_entry_point, attention_bwd_plain, attention_delta,
+    attention_bwd_plain, attention_delta,
     attention_fwd_stats_plain, design_dkv, design_dq,
     flash_attention_bwd_dkv, flash_attention_bwd_dq,
     flash_attention_fwd_stats, flash_attention_vjp)
 from repro_torch.kernels.paged_attention import (              # noqa: E402
-    paged_attention_plain, paged_decode_attention)
-from repro_torch.kernels.rglru import rglru, rglru_plain       # noqa: E402
+    paged_attention_plain, paged_decode_attention, split_pieces)
+from repro_torch.kernels.rglru import (                        # noqa: E402
+    CHUNK as rglru_chunk_len, rglru, rglru_plain)
 from repro_torch.kernels.ssd import (                          # noqa: E402
     CHUNK, design as ssd_design, kernel_chunk, ssd, ssd_plain)
 from repro_torch.models.lm import LM                           # noqa: E402
@@ -144,7 +160,49 @@ DEV = "cuda"
 # the trained shape: TRAIN_4K's sequence, its global batch of 256 cut to 2
 # for one card
 TRAIN_SHAPE = ShapeConfig("train_4k_b2", 4096, 2, "train")
+TRAIN_SHAPE_BS = (TRAIN_SHAPE.global_batch, TRAIN_SHAPE.seq_len)
 TRAIN_STEPS = 5
+TRAIN_KERNELS = ("flash_attention_fwd_stats", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq")
+
+# stablelm-12b: head_dim 5120 / 32 = 160.  Served at full width and depth
+# (12.1 B parameters, 24 GB in bf16); trained at full width with its depth
+# cut, as 12.1 B fp32 parameters with AdamW state (about 194 GB) do not fit
+# one card
+STABLELM_ARCH = "stablelm-12b"
+TRAIN_CUT_LAYERS = 2
+TRAIN_CUT_SHAPE = ShapeConfig("train_4k_b1", 4096, 1, "train")
+TRAIN_CUT_STEPS = 2
+TRAIN_CUT = ("depth 40 -> 2 layers (12.1 B fp32 parameters with AdamW "
+             "state, ~194 GB, do not fit one card)",
+             "global batch 256 -> 1 (one card)", "5 steps -> 2")
+
+# the bf16 design the library's dispatch must name for the served and
+# trained head dims
+WANT_DESIGN = {32: "mma.sync", 64: "wgmma", 128: "wgmma", 160: "mma.sync",
+               256: "mma.sync"}
+
+# kernels whose registers and spills ``nvcc -Xptxas -v`` must report (no
+# spill allowed)
+PTXAS_KERNELS = [
+    "flash_fwd_wgmma_kernelILi128", "flash_fwd_wgmma_kernelILi64",
+    "flash_bwd_dkv_wgmma_kernelILi128", "flash_bwd_dkv_wgmma_kernelILi64",
+    "flash_bwd_dq_wgmma_kernelILi128", "flash_bwd_dq_wgmma_kernelILi64",
+    "flash_fwd_mma_kernelILi160", "flash_fwd_mma_kernelILi256",
+    "flash_bwd_dkv_mma_kernelILi160", "flash_bwd_dq_mma_kernelILi160",
+    "flash_fwd_kernelIfLi160", "flash_fwd_kernelIfLi256",
+    "flash_bwd_dkv_kernelIfLi160", "flash_bwd_dq_kernelIfLi160",
+    "paged_split_kernel", "paged_merge_kernel",
+    "ssd_state_tc_kernel", "ssd_pass_kernel", "ssd_output_tc_kernel",
+    "ssd_state_kernel", "ssd_output_kernel",
+    "rglru_chunk_kernel", "rglru_carry_kernel", "rglru_scan_kernel"]
+
+
+def cut_depth(cfg, n_layers):
+    """``cfg`` with only its first ``n_layers`` blocks."""
+    return dataclasses.replace(cfg, name=f"{cfg.name}-{n_layers}l",
+                               n_layers=n_layers,
+                               block_pattern=cfg.pattern[:n_layers])
 
 
 def emit(phase: str, **fields) -> None:
@@ -199,70 +257,43 @@ def time_in_turns(new, earlier, iters: int):
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
-# The earlier mma.sync designs at D = 128, which the warpgroup designs replaced
-# there; the library exports them under their own names (with the C
-# interface of the kernels they replaced) and nothing of the package calls
-# them: timed here beside their successors (``earlier_ms``).
-def earlier_fwd(q, k, v, out, m=None, l=None, causal=True):
-    """A closure that launches the earlier forward (statistics when ``m``
-    and ``l`` are given) on the current stream into the given outputs."""
-    fn = c_entry_point("repro_flash_attention_fwd_mma", 6)
-    B, S, H, D = q.shape
-    T, K = k.shape[1], k.shape[2]
-
-    def call():
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                None if m is None else m.data_ptr(),
-                None if l is None else l.data_ptr(), B, S, T, H, K, D, 1,
-                int(causal), 0, 0.0, torch.cuda.current_stream().cuda_stream)
-        check(rc == 0, f"repro_flash_attention_fwd_mma returned {rc}")
-    return call
-
-
-def earlier_dkv(q, k, v, do, m, l, delta, dk, dv):
-    """A closure that launches the earlier dK/dV (causal) into dk, dv."""
-    fn = c_entry_point("repro_flash_attention_bwd_dkv_mma", 9)
-    B, S, H, D = q.shape
-    T, K = k.shape[1], k.shape[2]
-
-    def call():
-        rc = fn(*(t.data_ptr() for t in (q, k, v, do, m, l, delta, dk, dv)),
-                B, S, T, H, K, D, 1, 1, 0, 0.0,
-                torch.cuda.current_stream().cuda_stream)
-        check(rc == 0, f"repro_flash_attention_bwd_dkv_mma returned {rc}")
-    return call
-
-
-def earlier_dq(q, k, v, do, m, l, delta, dq):
-    """A closure that launches the earlier dQ (causal) into dq."""
-    fn = c_entry_point("repro_flash_attention_bwd_dq_mma", 8)
-    B, S, H, D = q.shape
-    T, K = k.shape[1], k.shape[2]
-
-    def call():
-        rc = fn(*(t.data_ptr() for t in (q, k, v, do, m, l, delta, dq)),
-                B, S, T, H, K, D, 1, 1, 0, 0.0,
-                torch.cuda.current_stream().cuda_stream)
-        check(rc == 0, f"repro_flash_attention_bwd_dq_mma returned {rc}")
-    return call
-
-
-def earlier_ssd(x, dt, A, Bm, Cm, y, hout):
-    """A closure that launches the earlier (serial) SSD design into
-    y and hout: one block per (batch, head)."""
-    fn = build.load().repro_ssd_fwd_serial
+# The earlier designs of paged decode (one block per (sequence, kv head)) and
+# of the RG-LRU scan (one thread per channel over all S steps), which split-KV
+# and the chunked scan replaced; the library exports them under their own
+# names and nothing of the package calls them: timed here beside their
+# successors (``earlier_ms``).
+def earlier_paged(q, kp, vp, tables, lengths, out):
+    """A closure that launches the earlier paged decode into ``out``."""
+    fn = build.load().repro_paged_decode_attention_block
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + \
-        [ctypes.c_void_p]
-    B, S, H, P = x.shape
-    G, N = Bm.shape[2], Bm.shape[3]
-    code = {torch.float32: 0, torch.bfloat16: 1}[x.dtype]
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_void_p])
+    B, H, D = q.shape
+    ps, K = kp.shape[1], kp.shape[2]
+    P = tables.shape[1]
+    code = {torch.float32: 0, torch.bfloat16: 1}[q.dtype]
 
     def call():
-        rc = fn(*(t.data_ptr() for t in (x, dt, A, Bm, Cm)), None,
-                y.data_ptr(), hout.data_ptr(), B, S, H, P, G, N, code,
+        rc = fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, H,
+                K, D, ps, P, code, 0.0,
                 torch.cuda.current_stream().cuda_stream)
-        check(rc == 0, f"repro_ssd_fwd_serial returned {rc}")
+        check(rc == 0, f"repro_paged_decode_attention_block returned {rc}")
+    return call
+
+
+def earlier_rglru(log_a, gated, y):
+    """A closure that launches the earlier (serial) RG-LRU into ``y``."""
+    fn = build.load().repro_rglru_fwd_serial
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
+        [ctypes.c_void_p]
+    B, S, W = log_a.shape
+
+    def call():
+        rc = fn(log_a.data_ptr(), gated.data_ptr(), None, y.data_ptr(), B, S,
+                W, torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"repro_rglru_fwd_serial returned {rc}")
     return call
 
 
@@ -287,6 +318,13 @@ ATTN_CASES = [
     (1, 384, 384, 24, 8, 128, True, 0, torch.bfloat16),
     (2, 300, 520, 6, 2, 128, True, 200, torch.bfloat16),
     (2, 300, 300, 6, 2, 64, True, 0, torch.bfloat16),
+    # stablelm-12b's D = 160 (bf16 on mma.sync; fp32 in float2 column
+    # slices): ragged tiles, S != T, a window, MHA and G = 4
+    (1, 200, 200, 8, 2, 160, True, 0, torch.float32),
+    (2, 130, 77, 4, 4, 160, False, 0, torch.float32),
+    (1, 300, 300, 8, 2, 160, True, 64, torch.bfloat16),
+    (2, 130, 200, 12, 4, 160, False, 0, torch.bfloat16),
+    (1, 256, 256, 32, 8, 160, True, 0, torch.bfloat16),
 ]
 PAGED_CASES = [
     # B, T, D, G, K, page_size, lengths -- the reference's test cases
@@ -298,6 +336,14 @@ PAGED_CASES = [
     (2, 64, 32, 2, 2, 16, [0, 64]),            # zero-length row
     (2, 96, 128, 6, 2, 12, [95, 3]),           # page size not a power of 2
     (2, 64, 64, 12, 1, 16, [64, 5]),           # G > 8: two head chunks
+    # split-KV (pieces of 128 tokens, whole pages): rows of several pieces,
+    # lengths at and one past a piece boundary, a row shorter than a piece,
+    # pieces with no live token, a zero-length row
+    (4, 1024, 128, 3, 8, 16, [1024, 257, 256, 1]),
+    (3, 384, 160, 4, 8, 16, [129, 128, 0]),    # stablelm-12b's D and G
+    (2, 512, 160, 4, 2, 16, [512, 300]),
+    (2, 96, 160, 2, 2, 12, [95, 3]),           # 120-token pieces
+    (2, 256, 160, 12, 1, 16, [200, 129]),      # G > 8 at D = 160
 ]
 
 
@@ -383,15 +429,10 @@ def flash_main_shape(gen, cfg, S):
     got = flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
     want = attention_plain(q, k, v, causal=True)
-    err = _err(got, want, 2e-2, f"flash_attention main shape S={S}")
-    o_earlier = torch.empty_like(q)
-    earlier = earlier_fwd(q, k, v, o_earlier)
-    earlier()
-    torch.cuda.synchronize()
-    earlier_err = _err(o_earlier, want, 2e-2,
-                       f"earlier flash_attention main shape S={S}")
-    ms, earlier_ms = time_in_turns(
-        lambda: flash_attention(q, k, v, causal=True), earlier, 10)
+    what = f"flash_attention main shape {cfg.name} S={S}"
+    err = _err(got, want, 2e-2, what)
+    scaled = _scaled_err(got, want, what)
+    ms = time_ms([lambda: flash_attention(q, k, v, causal=True)], 10)
     plain_ms = time_ms([lambda: attention_plain(q, k, v, causal=True)], 3)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     library_ms = time_ms(
@@ -403,10 +444,9 @@ def flash_main_shape(gen, cfg, S):
     flops = 4 * D * H * (S * (S + 1) // 2)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dt] * 1e3
-    return {"shape": [1, S, S, H, K, D], "dtype": str(dt), "tol": 2e-2,
-            "design": design(D, dt), "max_abs_err": err, "ms": ms,
-            "earlier_design": "mma.sync", "earlier_ms": earlier_ms,
-            "earlier_max_abs_err": earlier_err, "plain_ms": plain_ms,
+    return {"arch": cfg.name, "shape": [1, S, S, H, K, D], "dtype": str(dt),
+            "tol": 2e-2, "design": design(D, dt), "max_abs_err": err,
+            "scaled": scaled, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops}
@@ -474,7 +514,8 @@ def paged_main_shape(gen, cfg):
     """Decode step of the served model: 8 sequences, page 16, ragged lengths
     up to 2048, bf16.  Four disjoint pools are cycled so that every launch
     finds its K/V in device memory, not in the L2 cache, as a layer of the
-    served model does."""
+    served model does.  The design split-KV replaced is timed in turns with
+    it on the same pools."""
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     lengths = [2048, 1900, 1500, 1111, 1024, 700, 300, 129]
     dt = torch.bfloat16
@@ -485,26 +526,63 @@ def paged_main_shape(gen, cfg):
         got = paged_decode_attention(q, kp, vp, tab, lens)
         torch.cuda.synchronize()
         err = max(err, _err(got, paged_attention_plain(q, kp, vp, tab, lens),
-                            2e-2, "paged_decode_attention main shape"))
-    ms = time_ms([lambda tab=tab: paged_decode_attention(q, kp, vp, tab, lens)
-                  for tab in tabs], 10)
+                            2e-2, f"paged_decode_attention main shape "
+                                  f"{cfg.name}"))
+    earlier = {}
+    if D in (32, 64, 128):                  # the earlier design's head dims
+        out = [torch.empty_like(q) for _ in tabs]
+        olds = [earlier_paged(q, kp, vp, tab, lens, o)
+                for tab, o in zip(tabs, out)]
+        for f in olds:
+            f()
+        torch.cuda.synchronize()
+        new = [paged_decode_attention(q, kp, vp, tab, lens) for tab in tabs]
+        torch.cuda.synchronize()
+        earlier_err = max(_err(o, n, 2e-2, "earlier paged decode")
+                          for o, n in zip(out, new))
+
+        def old():
+            for f in olds:
+                f()
+
+        def cur():
+            for tab in tabs:
+                paged_decode_attention(q, kp, vp, tab, lens)
+        ms4, earlier_ms4 = time_in_turns(cur, old, 10)
+        ms = ms4 / len(tabs)
+        earlier = {"earlier_design": "block per (sequence, kv head)",
+                   "earlier_ms": earlier_ms4 / len(tabs),
+                   "earlier_max_abs_err": earlier_err}
+    else:
+        ms = time_ms([lambda tab=tab: paged_decode_attention(q, kp, vp, tab,
+                                                             lens)
+                      for tab in tabs], 10)
     plain_ms = time_ms(
         [lambda tab=tab: paged_attention_plain(q, kp, vp, tab, lens)
          for tab in tabs], 3)
+    # device time of the call's two kernels (the pieces, their merge), over
+    # 20 calls
+    staged = _profile(lambda: [paged_decode_attention(q, kp, vp, tab, lens)
+                               for tab in tabs * 5],
+                      f"paged_decode_attention {cfg.name}")
+    stage_ms = {re.search(r"paged_\w+_kernel", name).group(0): t / 20
+                for name, t in staged["top_kernels_ms"] if "paged_" in name}
     live = sum(lengths)
+    pages, n_pieces = split_pieces(tabs[0].shape[1], 16)
     # live K and V rows read once, q read and out written once, plus the
     # table entries and lengths the kernel follows
     nbytes = (2 * live * K * D + 2 * q.numel()) * q.element_size() \
         + 4 * (sum(-(-n // 16) for n in lengths) + len(lengths))
     flops = 4 * live * H * D
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dt] * 1e3
-    return {"shape": [8, 2048, D, H // K, K, 16], "lengths": lengths,
-            "dtype": str(dt), "tol": 2e-2, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": None,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops}
+    return dict({"arch": cfg.name, "shape": [8, 2048, D, H // K, K, 16],
+                 "lengths": lengths, "dtype": str(dt), "tol": 2e-2,
+                 "design": "split-KV", "piece_tokens": pages * 16,
+                 "pieces": n_pieces,
+                 "live_blocks": K * sum(-(-n // (pages * 16))
+                                        for n in lengths),
+                 "max_abs_err": err, "ms": ms, "stage_ms_profiled": stage_ms,
+                 "plain_ms": plain_ms, "library_ms": None}, **earlier,
+                **_bound(nbytes, flops, dt))
 
 
 # ---------------------------------------------------------------------------
@@ -538,6 +616,14 @@ BWD_CASES = [
     # several blocks with ragged S, windows, G = 3, S != T
     (2, 300, 300, 6, 2, 64, True, 100, torch.bfloat16),
     (1, 300, 520, 6, 2, 128, True, 200, torch.bfloat16),
+    # stablelm-12b's D = 160 (bf16 on mma.sync, fp32 on the CUDA cores):
+    # ragged tiles, S != T, a window, MQA bidirectional, G = 4
+    (1, 200, 150, 4, 2, 160, True, 0, torch.float32),
+    (2, 130, 130, 3, 1, 160, True, 50, torch.float32),
+    (1, 100, 77, 8, 2, 160, True, 0, torch.bfloat16),
+    (2, 130, 130, 6, 2, 160, True, 50, torch.bfloat16),
+    (1, 96, 200, 4, 1, 160, False, 0, torch.bfloat16),
+    (1, 384, 384, 32, 8, 160, True, 0, torch.bfloat16),
 ]
 
 
@@ -680,41 +766,34 @@ def _planted_faults(q, k, v, do, stats, kw, tile=64):
     return out
 
 
-def bwd_main_shape(gen, cfg):
-    """The trained model's attention: B=2, S=T=4096, 24 heads over 8 KV
-    heads, head_dim 128, bf16, causal."""
-    (B, S), H, K, D = (TRAIN_SHAPE.global_batch, TRAIN_SHAPE.seq_len), \
-        cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+def bwd_main_shape(gen, cfg, B, S):
+    """The trained model's attention at B x S tokens: its heads and head_dim,
+    bf16, causal (llama3.2-3b: 24 heads over 8 KV heads of 128; stablelm-12b:
+    32 over 8 of 160).  Faults planted in the plain backward's result must
+    fail the comparison."""
+    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = torch.bfloat16
     q, k, v, do = _bwd_inputs(gen, B, S, S, H, K, D, dt)
     kw = dict(causal=True, window=0, softcap=0.0)
     ef, ekv, eq, scaled = _bwd_check(q, k, v, do, kw, 2e-2, 2e-2,
-                                     "flash bwd main shape")
+                                     f"flash bwd main shape {cfg.name}")
     o, m, l = flash_attention_fwd_stats(q, k, v, **kw)
     delta = attention_delta(o, do)
     stats = (m, l, delta)
-    # a skipped tile of the old designs and of the warpgroup dQ (64 keys)
-    # and of the warpgroup forward and dK/dV (128 keys) must both be seen
+    # a skipped tile of the mma.sync designs and of the warpgroup dQ (64
+    # keys) and of the warpgroup forward and dK/dV (128 keys) must be seen
     faults = {f"tile_{t}": _planted_faults(q, k, v, do, stats, kw, tile=t)
               for t in (64, 128)}
     qkv_bytes = (q.numel() + k.numel() + v.numel()) * q.element_size()
     row_bytes = m.numel() * 4                  # one fp32 per query row
     pairs = H * B * (S * (S + 1) // 2)         # live (query, key) pairs
-    shape = {"shape": [B, S, S, H, K, D], "dtype": str(dt), "tol": 2e-2}
+    shape = {"arch": cfg.name, "shape": [B, S, S, H, K, D], "dtype": str(dt),
+             "tol": 2e-2}
 
-    fwd = dict(shape, max_abs_err=ef, design=design(D, dt),
-               earlier_design="mma.sync", **_bound(
-                   qkv_bytes + q.numel() * 2 + 2 * row_bytes, 4 * D * pairs,
-                   dt))
-    o2, m2, l2 = torch.empty_like(q), torch.empty_like(m), torch.empty_like(l)
-    earlier = earlier_fwd(q, k, v, o2, m2, l2)
-    earlier()
-    torch.cuda.synchronize()
-    fwd["earlier_max_abs_err"] = max(
-        _err(a, b, 2e-2, f"earlier fwd_stats {n}")
-        for a, b, n in ((o2, o, "o"), (m2, m, "m"), (l2, l, "l")))
-    fwd["ms"], fwd["earlier_ms"] = time_in_turns(
-        lambda: flash_attention_fwd_stats(q, k, v, **kw), earlier, 5)
+    fwd = dict(shape, max_abs_err=ef, design=design(D, dt), **_bound(
+        qkv_bytes + q.numel() * 2 + 2 * row_bytes, 4 * D * pairs, dt))
+    fwd["ms"] = time_ms([lambda: flash_attention_fwd_stats(q, k, v, **kw)],
+                        5)
     fwd["plain_ms"] = time_ms(
         [lambda: attention_fwd_stats_plain(q, k, v, **kw)], 2)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -726,31 +805,14 @@ def bwd_main_shape(gen, cfg):
     # written (in the inputs' dtype)
     bwd_in = qkv_bytes + do.numel() * 2 + 3 * row_bytes
     library_ms, library_min = _library_bwd_ms(q, k, v, do, 5)
-    dkv = dict(shape, max_abs_err=ekv, design=design_dkv(D, dt),
-               earlier_design="mma.sync", **_bound(
-                   bwd_in + (k.numel() + v.numel()) * 2, 8 * D * pairs, dt))
-    dk, dv = flash_attention_bwd_dkv(q, k, v, do, *stats, **kw)
-    dk2, dv2 = torch.empty_like(k), torch.empty_like(v)
-    earlier = earlier_dkv(q, k, v, do, *stats, dk2, dv2)
-    earlier()
-    torch.cuda.synchronize()
-    dkv["earlier_max_abs_err"] = max(_err(dk2, dk, 2e-2, "earlier dk"),
-                                     _err(dv2, dv, 2e-2, "earlier dv"))
-    dkv["ms"], dkv["earlier_ms"] = time_in_turns(
-        lambda: flash_attention_bwd_dkv(q, k, v, do, *stats, **kw), earlier,
-        3)
-    dq = dict(shape, max_abs_err=eq, design=design_dq(D, dt),
-              earlier_design="mma.sync", **_bound(
-                  bwd_in + q.numel() * 2, 6 * D * pairs, dt))
-    dq_new = flash_attention_bwd_dq(q, k, v, do, *stats, **kw)
-    dq_old = torch.empty_like(q)
-    earlier = earlier_dq(q, k, v, do, *stats, dq_old)
-    earlier()
-    torch.cuda.synchronize()
-    dq["earlier_max_abs_err"] = _err(dq_old, dq_new, 2e-2, "earlier dq")
-    dq["ms"], dq["earlier_ms"] = time_in_turns(
-        lambda: flash_attention_bwd_dq(q, k, v, do, *stats, **kw), earlier,
-        3)
+    dkv = dict(shape, max_abs_err=ekv, design=design_dkv(D, dt), **_bound(
+        bwd_in + (k.numel() + v.numel()) * 2, 8 * D * pairs, dt))
+    dkv["ms"] = time_ms(
+        [lambda: flash_attention_bwd_dkv(q, k, v, do, *stats, **kw)], 3)
+    dq = dict(shape, max_abs_err=eq, design=design_dq(D, dt), **_bound(
+        bwd_in + q.numel() * 2, 6 * D * pairs, dt))
+    dq["ms"] = time_ms(
+        [lambda: flash_attention_bwd_dq(q, k, v, do, *stats, **kw)], 3)
     plain_ms = time_ms(
         [lambda: attention_bwd_plain(q, k, v, do, *stats, **kw)], 1)
     for row in (dkv, dq):
@@ -792,7 +854,11 @@ SSD_CHUNK_CASES = [
 # cores, the fp32 operands' split into two bf16 halves (about 2^-17 of each)
 SSD_TOL = {"max_err_over_max_abs": 2e-4, "rel_fro": 2e-4,
            "row_rel_max": 2e-4}
-RGLRU_CASES = [(2, 128, 64), (1, 64, 256), (3, 96, 32), (1, 128, 8)]
+RGLRU_CASES = [(2, 128, 64), (1, 64, 256), (3, 96, 32), (1, 128, 8),
+               # the chunked scan (64-step chunks): a ragged last chunk, S
+               # shorter than a chunk, one step, B > 1 over many chunks at
+               # the served width
+               (2, 1000, 300), (1, 40, 130), (1, 1, 64), (3, 777, 2560)]
 ATTN_D256_CASES = [
     # B, S, T, H, K, D, causal, window, dtype: recurrentgemma's MQA heads
     (1, 300, 300, 10, 1, 256, True, 64, torch.float32),
@@ -976,17 +1042,7 @@ def ssd_main_shape(gen):
         check(not all(_passes(v, SSD_TOL) for v in faults[fault].values()),
               f"planted fault ({fault}, {L}-step chunks) passes the SSD "
               f"comparison {faults[fault]}: it cannot see it")
-    y_old, h_old = torch.empty_like(got[0]), torch.empty_like(got[1])
-    earlier = earlier_ssd(*ins, y_old, h_old)
-    earlier()
-    torch.cuda.synchronize()
-    earlier_scaled = _ssd_check((y_old, h_old), got, "earlier ssd vs ssd")
-    # the serial design does fp32 math on the CUDA cores: its distance from
-    # the plain version beside the new design's shows what the tensor
-    # cores' split operands add
-    earlier_vs_plain = {"y": _scaled(y_old, want[0]),
-                        "h_final": _scaled(h_old, want[1])}
-    ms, earlier_ms = time_in_turns(lambda: ssd(*ins), earlier, 10)
+    ms = time_ms([lambda: ssd(*ins)], 10)
     plain_ms = time_ms([lambda: ssd_plain(*ins, chunk=256)], 2)
     # device time of each of the call's three kernels, over 10 calls
     staged = _profile(lambda: [ssd(*ins) for _ in range(10)],
@@ -1011,10 +1067,7 @@ def ssd_main_shape(gen):
                  "max_abs_err": float((got[0] - want[0]).abs().max()),
                  "scaled": scaled, "bit_identical_calls": True,
                  "planted_faults_rejected": faults,
-                 "ms": ms, "earlier_design": "serial, cuda-cores",
-                 "earlier_ms": earlier_ms,
-                 "earlier_scaled": earlier_scaled,
-                 "earlier_vs_plain": earlier_vs_plain,
+                 "ms": ms,
                  "plain_ms": plain_ms, "library_ms": None,
                  "stage_ms_profiled": stage_ms,
                  "bound_ms_fp32_cuda_cores": fp32["bound_ms"],
@@ -1041,6 +1094,8 @@ def rglru_cases(gen):
 
 
 def rglru_main_shape(gen):
+    """The served prefill, timed in turns with the serial design the
+    chunked scan replaced."""
     B, S, W = RGLRU_SERVED
     copies = [(-torch.nn.functional.softplus(
         _randn(gen, B, S, W, dtype=torch.float32)),
@@ -1049,11 +1104,30 @@ def rglru_main_shape(gen):
     got = rglru(la, g)
     torch.cuda.synchronize()
     err = _err(got, rglru_plain(la, g), 2e-5, "rglru served shape")
+    ys = [torch.empty_like(a) for a, _ in copies]
+    olds = [earlier_rglru(a, b, y) for (a, b), y in zip(copies, ys)]
+    for f in olds:
+        f()
+    torch.cuda.synchronize()
+    earlier_err = _err(ys[0], rglru_plain(la, g), 2e-5,
+                       "earlier rglru served shape")
+
     # two input sets in turn keep a launch's 84 MB of inputs out of L2
-    ms = time_ms([lambda a=a, b=b: rglru(a, b) for a, b in copies], 10)
+    def cur():
+        for a, b in copies:
+            rglru(a, b)
+
+    def old():
+        for f in olds:
+            f()
+    ms2, earlier_ms2 = time_in_turns(cur, old, 10)
     plain_ms = time_ms([lambda: rglru_plain(la, g)], 2)
     return dict({"shape": [B, S, W], "dtype": "torch.float32", "tol": 2e-5,
-                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                 "design": f"chunked scan, {rglru_chunk_len}-step chunks",
+                 "max_abs_err": err, "ms": ms2 / 2,
+                 "earlier_design": "serial, one thread per channel",
+                 "earlier_ms": earlier_ms2 / 2,
+                 "earlier_max_abs_err": earlier_err, "plain_ms": plain_ms,
                  "library_ms": None},
                 **_bound(3 * B * S * W * 4, 3 * B * S * W, torch.float32))
 
@@ -1231,13 +1305,14 @@ def serve_dense(cfg, model, policy):
     check(served == len(reqs), f"serve_dense served {served}/{len(reqs)}")
     n_flash = counts["flash_attention"]
     check(n_flash > 0, "serve_dense launched the flash kernel 0 times")
-    check(design(cfg.head_dim, torch.bfloat16) == "wgmma",
-          "serve_dense: the bf16 forward at this head_dim is not on the "
-          "warpgroup design")
+    check(design(cfg.head_dim, torch.bfloat16) == WANT_DESIGN[cfg.head_dim],
+          f"serve_dense: the bf16 forward at D = {cfg.head_dim} is not on "
+          f"the {WANT_DESIGN[cfg.head_dim]} design")
     check(n_flash == len(reqs) * cfg.n_layers,
           f"flash launches {n_flash} != prefills x layers = "
           f"{len(reqs) * cfg.n_layers}")
-    emit("serve_dense", arch=cfg.name, requests=len(reqs), served=served,
+    emit("serve_dense", arch=cfg.name, n_layers=cfg.n_layers,
+         requests=len(reqs), served=served,
          prompt_lens=lens, max_new=16, wall_s=wall,
          flash_kernel_launches=n_flash, **_latency(rep))
     return n_flash
@@ -1314,18 +1389,18 @@ TRAIN_POLICY = PolicyConfig(compute_dtype="bfloat16", param_dtype="float32",
                             remat="block", attn_impl="kernel")
 
 
-def _model_flops_per_step(cfg, n_params):
+def _model_flops_per_step(cfg, n_params, shape):
     """6 * N * tokens for the weight products, plus the causal attention
     products (QK^T and PV: 4 * D flops per live (query, key) pair and head
     forward, twice that backward); activation recompute not counted."""
-    B, S = TRAIN_SHAPE.global_batch, TRAIN_SHAPE.seq_len
+    B, S = shape.global_batch, shape.seq_len
     pairs = B * cfg.n_heads * (S * (S + 1) // 2)
     return 6 * n_params * B * S + 12 * cfg.head_dim * pairs * cfg.n_layers
 
 
-KINDS = (("attention_kernels", ("flash_fwd", "flash_bwd")),
+KINDS = (("attention_kernels", ("flash_fwd", "flash_bwd", "paged_")),
          ("ssd_kernels", ("ssd_state", "ssd_pass", "ssd_output")),
-         ("rglru_kernel", ("rglru_kernel",)),
+         ("rglru_kernels", ("rglru_",)),
          ("matmul", ("gemm", "xmma", "nvjet", "cutlass")))
 
 
@@ -1367,10 +1442,14 @@ def _profile(fn, what):
             "top_kernels_ms": [[k[:80], v / 1e3] for k, v in top]}
 
 
-def train(cfg):
-    """llama3.2-3b at full width and depth, bf16 compute, fp32 parameters
-    and AdamW state, per-block activation checkpointing, 2 x 4096 tokens
-    per step, random weights from seed 0 made on the device."""
+def train(cfg, shape=TRAIN_SHAPE, steps=TRAIN_STEPS,
+          cuts=("global batch 256 -> 2 (one card)",), full=True):
+    """``cfg`` (llama3.2-3b at full width and depth) trained in bf16
+    compute, fp32 parameters and AdamW state, per-block activation
+    checkpointing, ``shape`` tokens per step, random weights from seed 0
+    made on the device.  ``full``: the loss must fall, and one more step is
+    profiled; else (a depth cut, two steps) only the launches and the first
+    step's parity are held."""
     L = cfg.n_layers
     optcfg = AdamWConfig(lr=3e-4)
     # Adam's first updates move every weight by about lr * sign(g): from
@@ -1378,14 +1457,14 @@ def train(cfg):
     # falls again as the cosine decays (PERF.md, the training findings); with
     # the one warm-up step at lr 0 it ends below where it started
     sched = ScheduleConfig(kind="cosine", peak_lr=3e-4, warmup_steps=1,
-                           total_steps=TRAIN_STEPS)
+                           total_steps=steps)
     torch.cuda.reset_peak_memory_stats()
     state = trainer.init_state(cfg, TRAIN_POLICY, optcfg, seed=0, device=DEV)
     n_params = sum(p.numel() for p in state.model.parameters())
     step_fn = trainer.make_train_step(cfg, TRAIN_POLICY, optcfg, sched,
-                                      shape=TRAIN_SHAPE)
-    ds = SyntheticDataset(cfg, TRAIN_SHAPE, seed=0)
-    batches = [ds.batch_at(i) for i in range(TRAIN_STEPS)]
+                                      shape=shape)
+    ds = SyntheticDataset(cfg, shape, seed=0)
+    batches = [ds.batch_at(i) for i in range(steps)]
     want = dict({k: 0 for k in ops.launch_counts()},
                 flash_attention_fwd_stats=2 * L, flash_attention_bwd_dkv=L,
                 flash_attention_bwd_dq=L)
@@ -1433,22 +1512,26 @@ def train(cfg):
                                                      torch.bfloat16),
                "flash_attention_bwd_dq": design_dq(cfg.head_dim,
                                                    torch.bfloat16)}
-    check(set(designs.values()) == {"wgmma"},
-          f"train: the stats forward, dK/dV and dQ are not on the warpgroup "
-          f"designs: {designs}")
-    profile = _profile(lambda: step_fn(state, batches[-1]), "train")
+    want_design = WANT_DESIGN[cfg.head_dim]
+    check(set(designs.values()) == {want_design},
+          f"train: the stats forward, dK/dV and dQ are not on the "
+          f"{want_design} designs: {designs}")
     check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
           f"train: non-finite loss or grad norm {losses} {norms}")
-    # a smoke signal only: whether the gradients are right is checked above
-    check(losses[-1] < losses[0],
-          f"train: loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    profile = None
+    if full:
+        profile = _profile(lambda: step_fn(state, batches[-1]), "train")
+        # a smoke signal only: whether the gradients are right is checked
+        # above
+        check(losses[-1] < losses[0],
+              f"train: loss did not fall over {steps} steps: {losses}")
     p50 = float(np.median(step_s[1:]))      # the first step is warm-up
-    tokens = TRAIN_SHAPE.tokens
-    flops = _model_flops_per_step(cfg, n_params)
+    tokens = shape.tokens
+    flops = _model_flops_per_step(cfg, n_params, shape)
     emit("train", arch=cfg.name, n_layers=L, params=n_params,
-         batch=TRAIN_SHAPE.global_batch, seq=TRAIN_SHAPE.seq_len,
+         batch=shape.global_batch, seq=shape.seq_len,
          compute_dtype="bfloat16", param_dtype="float32", remat="block",
-         steps=TRAIN_STEPS, warmup_steps_excluded=1, losses=losses,
+         steps=steps, warmup_steps_excluded=1, losses=losses,
          grad_norms=norms, lrs=lrs, step_s=step_s, step_s_p50=p50,
          tokens_per_s=tokens / p50, model_flops_per_step=flops,
          model_flops_per_s=flops / p50,
@@ -1459,8 +1542,7 @@ def train(cfg):
              "worst_attention_grad_err_over_max_abs": attn_err,
              "tol_rel": 2e-2},
          max_memory_allocated=torch.cuda.max_memory_allocated(),
-         profiled_step=profile,
-         cuts=["global batch 256 -> 2 (one card)"])
+         profiled_step=profile, cuts=list(cuts))
     del state, step_fn
     torch.cuda.empty_cache()
     return counts
@@ -1792,6 +1874,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device: this script proves the port on "
               "a GPU and has no CPU fallback", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False    # fp32 means fp32
     smi = nvidia_smi_line()
     build.load()
@@ -1804,50 +1887,47 @@ def main() -> int:
          kernel_sources=[os.path.relpath(p, ROOT) for p in build.sources()])
 
     cfg = get_config(ARCH)
+    slm = get_config(STABLELM_ARCH)
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
     with torch.no_grad():
         f_cases, p_cases = flash_cases(gen), paged_cases(gen)
         f_cases += flash_d256_cases(gen)
         f_main = [flash_main_shape(gen, cfg, S) for S in (512, 2048)]
+        f_d160 = flash_main_shape(gen, slm, 2048)
         f_d256 = flash_d256_main_shape(gen)
         p_main = paged_main_shape(gen, cfg)
+        p_d160 = paged_main_shape(gen, slm)
         s_cases, s_main = ssd_cases(gen), ssd_main_shape(gen)
         r_cases, r_main = rglru_cases(gen), rglru_main_shape(gen)
     b_cases, b_autograd = bwd_cases(gen)
     with torch.no_grad():
-        *b_main, b_faults = bwd_main_shape(gen, cfg)
+        *b_main, b_faults = bwd_main_shape(gen, cfg, *TRAIN_SHAPE_BS)
+        torch.cuda.empty_cache()
+        *b_d160, b_faults_d160 = bwd_main_shape(gen, slm, *TRAIN_SHAPE_BS)
     torch.cuda.empty_cache()
     emit("kernel_cases",
          flash_attention={"cases": f_cases, "main_path": f_main,
+                          "main_path_d160": [f_d160],
                           "main_path_d256": [f_d256]},
-         paged_decode_attention={"cases": p_cases, "main_path": [p_main]},
+         paged_decode_attention={"cases": p_cases, "main_path": [p_main],
+                                 "main_path_d160": [p_d160]},
          ssd={"cases": s_cases, "main_path": [s_main],
               "scaled_tol": SSD_TOL},
          rglru={"cases": r_cases, "main_path": [r_main]},
-         ptxas=ptxas_usage(["flash_fwd_wgmma_kernelILi128",
-                            "flash_fwd_wgmma_kernelILi64",
-                            "flash_bwd_dkv_wgmma_kernelILi128",
-                            "flash_bwd_dkv_wgmma_kernelILi64",
-                            "flash_bwd_dq_wgmma_kernelILi128",
-                            "flash_bwd_dq_wgmma_kernelILi64",
-                            "flash_fwd_mma_kernelILi256",
-                            "flash_fwd_kernelIfLi256", "ssd_state_tc_kernel",
-                            "ssd_pass_kernel", "ssd_output_tc_kernel",
-                            "ssd_state_kernel", "ssd_output_kernel",
-                            "rglru_kernel"]),
          flash_attention_bwd={"cases": b_cases,
                               "vjp_vs_autograd": b_autograd,
-                              "main_path": {
-                                  "flash_attention_fwd_stats": b_main[0],
-                                  "flash_attention_bwd_dkv": b_main[1],
-                                  "flash_attention_bwd_dq": b_main[2]},
+                              "main_path": dict(zip(TRAIN_KERNELS, b_main)),
+                              "main_path_d160": dict(zip(TRAIN_KERNELS,
+                                                         b_d160)),
                               "scaled_tol": SCALED_TOL,
-                              "planted_faults_rejected": b_faults})
+                              "planted_faults_rejected": b_faults,
+                              "planted_faults_rejected_d160": b_faults_d160})
+    emit("ptxas", kernels=ptxas_usage(PTXAS_KERNELS))
 
-    model = LM.init(cfg, seed=0, dtype=torch.bfloat16, device=DEV)
     policy = PolicyConfig(compute_dtype="bfloat16", remat="none",
                           attn_impl="kernel")
+    model = LM.init(cfg, seed=0, dtype=torch.bfloat16, device=DEV)
     n_paged = serve_paged(cfg, model, policy)
     n_flash = serve_dense(cfg, model, policy)
     parity(cfg, model)
@@ -1857,6 +1937,16 @@ def main() -> int:
     train_parity(cfg)
     n_rec = recurrent(policy)
     n_hybrid = n_rec[HYBRID_ARCH]
+    # stablelm-12b (D = 160): served at full width and depth, trained at
+    # full width with its depth cut
+    model = LM.init(slm, seed=0, dtype=torch.bfloat16, device=DEV)
+    n_paged_d160 = serve_paged(slm, model, policy)
+    n_flash_d160 = serve_dense(slm, model, policy)
+    del model
+    torch.cuda.empty_cache()
+    n_train_d160 = train(cut_depth(slm, TRAIN_CUT_LAYERS), TRAIN_CUT_SHAPE,
+                         TRAIN_CUT_STEPS, cuts=TRAIN_CUT, full=False)
+    torch.cuda.empty_cache()
 
     def row(name, source, replaces, launches, main, kernel_design):
         head = main[-1]                     # the largest main-path shape
@@ -1875,42 +1965,47 @@ def main() -> int:
             out["bound_ms_fp32_cuda_cores"] = head["bound_ms_fp32_cuda_cores"]
         return out
 
-    D, bf16 = cfg.head_dim, torch.bfloat16
-
+    bf16 = torch.bfloat16
     bwd_src = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
     fa_src = "src/repro_torch/kernels/csrc/flash_attention.cu"
-    print(json.dumps({"kernels": [
-        # one kernel, two rows: llama's serve_dense launches (D = 128) and
-        # recurrentgemma's serve_hybrid launches (D = 256, window 2048)
-        row("flash_attention", fa_src,
-            "src/repro/kernels/flash_attention.py:124", n_flash, f_main,
-            design(D, bf16)),
-        row("flash_attention_d256", fa_src,
-            "src/repro/kernels/flash_attention.py:124",
+    pa_src = "src/repro_torch/kernels/csrc/paged_attention.cu"
+    fa_ref = "src/repro/kernels/flash_attention.py:124"
+    pa_ref = "src/repro/kernels/paged_attention.py:151"
+    bwd_ref = ("src/repro/kernels/flash_attention_bwd.py:238",
+               "src/repro/kernels/flash_attention_bwd.py:280",
+               "src/repro/kernels/flash_attention_bwd.py:313")
+    designs = (design, design_dkv, design_dq)
+    rows = [
+        # one kernel, three rows: llama's serve_dense launches (D = 128),
+        # stablelm's (D = 160) and recurrentgemma's serve_hybrid launches
+        # (D = 256, window 2048)
+        row("flash_attention", fa_src, fa_ref, n_flash, f_main,
+            design(cfg.head_dim, bf16)),
+        row("flash_attention_d160", fa_src, fa_ref, n_flash_d160, [f_d160],
+            design(slm.head_dim, bf16)),
+        row("flash_attention_d256", fa_src, fa_ref,
             n_hybrid["flash_attention"], [f_d256], design(256, bf16)),
-        row("paged_decode_attention",
-            "src/repro_torch/kernels/csrc/paged_attention.cu",
-            "src/repro/kernels/paged_attention.py:151", n_paged, [p_main],
-            "cuda-cores"),
-        row("flash_attention_fwd_stats", fa_src,
-            "src/repro/kernels/flash_attention_bwd.py:238",
-            n_train["flash_attention_fwd_stats"], [b_main[0]],
-            design(D, bf16)),
-        row("flash_attention_bwd_dkv", bwd_src,
-            "src/repro/kernels/flash_attention_bwd.py:280",
-            n_train["flash_attention_bwd_dkv"], [b_main[1]],
-            design_dkv(D, bf16)),
-        row("flash_attention_bwd_dq", bwd_src,
-            "src/repro/kernels/flash_attention_bwd.py:313",
-            n_train["flash_attention_bwd_dq"], [b_main[2]],
-            design_dq(D, bf16)),
+        row("paged_decode_attention", pa_src, pa_ref, n_paged, [p_main],
+            p_main["design"]),
+        row("paged_decode_attention_d160", pa_src, pa_ref, n_paged_d160,
+            [p_d160], p_d160["design"])]
+    for name, src, ref, des, got, got_d160 in zip(
+            TRAIN_KERNELS, (fa_src, bwd_src, bwd_src), bwd_ref, designs,
+            b_main, b_d160):
+        rows.append(row(name, src, ref, n_train[name], [got],
+                        des(cfg.head_dim, bf16)))
+        rows.append(row(f"{name}_d160", src, ref, n_train_d160[name],
+                        [got_d160], des(slm.head_dim, bf16)))
+    rows += [
         row("ssd", "src/repro_torch/kernels/csrc/ssd.cu",
             "src/repro/kernels/ssd.py:103", n_rec[SSM_ARCH], [s_main],
             s_main["design"]),
         row("rglru", "src/repro_torch/kernels/csrc/rglru.cu",
             "src/repro/kernels/rglru.py:58", n_hybrid["rglru"], [r_main],
-            "cuda-cores"),
-    ]}), flush=True)
+            r_main["design"])]
+    emit("summary", elapsed_s=time.perf_counter() - t_start,
+         kernel_build_s=build.build_seconds)
+    print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,8 +25,8 @@
 //     so fp32 never rounds through TF32.
 //   * bf16 inputs at D = 64 and 128 (flash_fwd_wgmma_kernel; llama's heads,
 //     served and trained): warpgroup products fed by the TMA, below.
-//   * bf16 inputs at D = 32 and 256 (flash_fwd_mma_kernel): both products
-//     run on the tensor cores with warp-level
+//   * bf16 inputs at D = 32, 160 and 256 (flash_fwd_mma_kernel): both
+//     products run on the tensor cores with warp-level
 //     mma.sync (m16n8k16, fp32 accumulate).  Each of 4 warps owns 16 query
 //     rows: its Q fragments stay in registers for the whole key loop, the
 //     score tile never leaves registers (the accumulator layout of QK^T is
@@ -34,16 +34,17 @@
 //     in place, as the reference casts them before the PV product), K
 //     and V fragments come from padded shared memory with ldmatrix (V
 //     transposed on the way), and the next K/V tile is copied in with
-//     cp.async while the current one is computed.  The same design at
-//     D = 128 stays exported as repro_flash_attention_fwd_mma, which only
-//     chip_smoke.py calls (it times it beside the warpgroup design).
-//   * D = 256 (recurrentgemma-2b's MQA heads): the output accumulator alone
-//     is 128 fp32 registers a thread, and Q fragments held for the whole
-//     key loop would add 64 more and spill.  So at D = 256 the block copies
-//     its Q tile into shared memory once and each k-step of QK^T reads its
-//     A fragments from there with ldmatrix; the rest is unchanged.  The
-//     fp32 path takes D = 256 as it is (its tiles fill 212 KB of shared
-//     memory: one block per SM).
+//     cp.async while the current one is computed.
+//   * D = 160 (stablelm-12b) and 256 (recurrentgemma-2b's MQA heads): the
+//     output accumulator alone is 80 / 128 fp32 registers a thread, and Q
+//     fragments held for the whole key loop would add 40 / 64 more.  So
+//     above D = 128 the block copies its Q tile into shared memory once and
+//     each k-step of QK^T reads its A fragments from there with ldmatrix;
+//     the rest is unchanged (shared memory at D = 160: (4 * 64 + 64) rows of
+//     168 bf16, 107,520 bytes).  The fp32 path takes D = 160 and 256 as it
+//     is (its tiles fill 143 / 212 KB of shared memory); its threads own
+//     D / 16 output columns in float4 slices, or float2 slices where D / 16
+//     is not a multiple of 4 (D = 32, 160).
 //   * Key tiles that the causal or window mask kills entirely are never
 //     loaded (the loop's bounds skip them); ragged last tiles in S*G and T
 //     are masked, so no divisibility is required (a superset of the
@@ -112,6 +113,8 @@ constexpr int KPT = 4;    // keys per thread
 template <int D> constexpr int smem_floats() {
   return (BM + 2 * BN) * (D + 4) + BM * (BN + 4);
 }
+static_assert(smem_floats<256>() * 4 <= 232448, "fp32 tiles exceed the SM");
+static_assert(smem_floats<160>() * 4 <= 232448, "fp32 tiles exceed the SM");
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
@@ -123,8 +126,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int LD = D + 4;    // padded strides keep 16-byte loads
   constexpr int LDP = BN + 4;  // conflict-free across a quarter warp
   constexpr int CPT = D / 16;  // output columns per thread
-  constexpr int VW = CPT < 4 ? CPT : 4;
+  constexpr int VW = CPT % 4 == 0 ? 4 : 2;  // float4 or float2 slices
   constexpr int NG = CPT / VW;
+  static_assert(D % 32 == 0 && CPT % VW == 0,
+                "the column split must cover all D columns");
 
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -337,6 +342,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int VPR = D / 8;   // 16-byte vectors per row
 
   constexpr bool Q_SMEM = D > 128;  // see the note at the top
+  static_assert(KS % 2 == 0 && DB % 2 == 0, "k-steps and column blocks "
+                "are taken in pairs");
 
   constexpr int TILE = BN * LD;  // one K or V tile; two buffers of each
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -906,9 +913,11 @@ int launch(const void* q, const void* k, const void* v, void* o, float* m_out,
 
 // Which design serves (D, dtype): fp32 on the CUDA cores at every D; bf16
 // on warpgroup products fed by the TMA at D = 64 and 128 (llama's heads),
-// on mma.sync at D = 32 and 256.  No launch falls back to another design.
+// on mma.sync at D = 32, 160 (stablelm-12b) and 256 (recurrentgemma-2b).
+// No launch falls back to another design.
 int fwd_design(int D, int dtype) {
-  const bool any_d = D == 32 || D == 64 || D == 128 || D == 256;
+  const bool any_d =
+      D == 32 || D == 64 || D == 128 || D == 160 || D == 256;
   if (dtype == DTYPE_F32) return any_d ? DESIGN_CUDA_CORES : DESIGN_NONE;
   if (dtype != DTYPE_BF16 || !any_d) return DESIGN_NONE;
   return D == 64 || D == 128 ? DESIGN_WGMMA : DESIGN_MMA_SYNC;
@@ -928,12 +937,14 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
         case 32: return launch<float, 32>(REPRO_FWD_ARGS);
         case 64: return launch<float, 64>(REPRO_FWD_ARGS);
         case 128: return launch<float, 128>(REPRO_FWD_ARGS);
+        case 160: return launch<float, 160>(REPRO_FWD_ARGS);
         case 256: return launch<float, 256>(REPRO_FWD_ARGS);
       }
       break;
     case DESIGN_MMA_SYNC:
       switch (D) {
         case 32: return launch_mma<32>(REPRO_FWD_ARGS);
+        case 160: return launch_mma<160>(REPRO_FWD_ARGS);
         case 256: return launch_mma<256>(REPRO_FWD_ARGS);
       }
       break;
@@ -978,17 +989,4 @@ extern "C" int repro_flash_attention_fwd_stats(
 // one of the DESIGN_* codes of common.cuh.
 extern "C" int repro_flash_attention_fwd_design(int D, int dtype) {
   return fwd_design(D, dtype);
-}
-
-// The mma.sync design at D = 128 (bf16), which the warpgroup design
-// replaced there; m and l may be null.  Not on any path of the package:
-// chip_smoke.py times it beside its successor in the same run.
-extern "C" int repro_flash_attention_fwd_mma(
-    const void* q, const void* k, const void* v, void* o, float* m, float* l,
-    int B, int S, int T, int H, int K, int D, int dtype, int causal,
-    int window, float softcap, void* stream) {
-  if (!shape_ok(B, S, T, H, K) || D != 128 || dtype != DTYPE_BF16)
-    return ERR_UNSUPPORTED;
-  return launch_mma<128>(q, k, v, o, m, l, B, S, T, H, K, causal, window,
-                         softcap, (cudaStream_t)stream);
 }

@@ -40,9 +40,9 @@
 //     conflicts on the score products), so fp32 never rounds through TF32.
 //   * bf16 inputs at D = 64 and 128: warpgroup products fed by the TMA
 //     (flash_bwd_dkv_wgmma_kernel and flash_bwd_dq_wgmma_kernel, below).
-//   * bf16 inputs at D = 32: all products run on the tensor cores with
-//     warp-level mma.sync (m16n8k16, fp32 accumulate), as the forward
-//     kernel does.
+//   * bf16 inputs at D = 32 and 160 (stablelm-12b): all products run on
+//     the tensor cores with warp-level mma.sync (m16n8k16, fp32
+//     accumulate), as the forward kernel does.
 //     dK/dV: each of 4 warps owns 16 keys and computes the transposed tiles
 //     S^T = K Q^T and dP^T = V dO^T for 16 query rows at a time, so that
 //     their accumulators are already the A operands of dV += P^T dO and
@@ -52,10 +52,13 @@
 //     one is computed, and the dK and dV tiles live in registers.  dQ: each
 //     warp owns 16 query rows whose q and dO fragments stay in registers;
 //     S, dP, then dQ += dS K with K read transposed by ldmatrix, K and V
-//     tiles double-buffered by cp.async.  Both designs at D = 128 stay
-//     exported as repro_flash_attention_bwd_dkv_mma and
-//     repro_flash_attention_bwd_dq_mma, which only chip_smoke.py calls (it
-//     times them beside the warpgroup designs).
+//     tiles double-buffered by cp.async.  At D = 160 the dK and dV tiles
+//     alone are 2 x 80 fp32 registers a thread (dQ: 80, beside 80 of q and
+//     dO fragments); ptxas (nvcc 12.9) fits dK/dV in 246 registers and dQ
+//     in 238, with no spill.  Splitting the columns between two blocks,
+//     each recomputing S and dP, was slower.
+//   * fp32 at D = 32 and 160: a thread's D / 16 gradient columns are taken
+//     in float2 slices (D / 16 is not a multiple of 4), elsewhere float4.
 //   * m, l and delta live in (B, S, H) fp32, q's layout without its last
 //     axis, so no transpose is paid per layer; the outputs are written in
 //     the input dtype from fp32 accumulators.
@@ -143,6 +146,7 @@ constexpr int KPT = 4;   // score-tile keys per thread
 template <int D> constexpr int smem_floats() {
   return 2 * BM * (D + 4) + 2 * BN * (D + 4) + 2 * BM * (BN + 4) + 3 * BM;
 }
+static_assert(smem_floats<160>() * 4 <= 232448, "fp32 tiles exceed the SM");
 
 struct Smem {
   float *Q, *dO, *K, *V, *P, *dS, *m, *l, *delta;
@@ -275,8 +279,11 @@ __device__ __forceinline__ void p_and_ds(const Smem& sm, int r0, int n0,
   }
 }
 
+// One block an SM (the fp32 tiles above D = 64 fill most of its shared
+// memory anyway) lets ptxas give a thread all the registers it needs: with
+// the default bound it capped the D = 160 kernels at 128 and spilled.
 template <typename T, int D>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 1)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ m, const float* __restrict__ l,
@@ -286,8 +293,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int LD = D + 4;
   constexpr int LDP = BN + 4;
   constexpr int CPT = D / 16;  // gradient columns per thread
-  constexpr int VW = CPT < 4 ? CPT : 4;
+  constexpr int VW = CPT % 4 == 0 ? 4 : 2;  // float4 or float2 slices
   constexpr int NG = CPT / VW;
+  static_assert(D % 32 == 0 && CPT % VW == 0,
+                "the column split must cover all D columns");
 
   extern __shared__ float smem[];
   const Smem sm = carve<D>(smem);
@@ -387,7 +396,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ m, const float* __restrict__ l,
@@ -397,8 +406,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int LD = D + 4;
   constexpr int LDP = BN + 4;
   constexpr int CPT = D / 16;
-  constexpr int VW = CPT < 4 ? CPT : 4;
+  constexpr int VW = CPT % 4 == 0 ? 4 : 2;
   constexpr int NG = CPT / VW;
+  static_assert(D % 32 == 0 && CPT % VW == 0,
+                "the column split must cover all D columns");
 
   extern __shared__ float smem[];
   const Smem sm = carve<D>(smem);
@@ -526,6 +537,8 @@ flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int DB = D / 8;
   constexpr int VPR = D / 8;  // 16-byte vectors per row
   constexpr int TILE = kMmaTile<D>;
+  static_assert(KS % 2 == 0 && DB % 2 == 0,
+                "k-steps and column blocks are taken in pairs");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
@@ -734,6 +747,8 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int DB = D / 8;
   constexpr int VPR = D / 8;
   constexpr int TILE = kMmaTile<D>;
+  static_assert(KS % 2 == 0 && DB % 2 == 0,
+                "k-steps and column blocks are taken in pairs");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ksm = reinterpret_cast<bf16*>(smem_raw);
@@ -1503,6 +1518,7 @@ int launch_dkv_mma(const void* q, const void* k, const void* v,
                    float softcap, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   constexpr int bytes = dkv_mma_smem_bytes<D>();
+  static_assert(bytes <= 232448, "dK/dV tiles exceed the SM");
   static bool configured = false;
   const int rc = configure(flash_bwd_dkv_mma_kernel<D>, bytes, configured);
   if (rc != 0) return rc;
@@ -1582,12 +1598,13 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v,
 
 // Which design serves dK/dV at (D, dtype): fp32 on the CUDA cores; bf16 on
 // warpgroup products fed by the TMA at D = 64 and 128 (llama's heads), on
-// mma.sync at D = 32.  No launch falls back to another design.
+// mma.sync at D = 32 and 160 (stablelm-12b).  No launch falls back to
+// another design.
 int dkv_design(int D, int dtype) {
-  const bool any_d = D == 32 || D == 64 || D == 128;
+  const bool any_d = D == 32 || D == 64 || D == 128 || D == 160;
   if (dtype == DTYPE_F32) return any_d ? DESIGN_CUDA_CORES : DESIGN_NONE;
   if (dtype != DTYPE_BF16 || !any_d) return DESIGN_NONE;
-  return D == 32 ? DESIGN_MMA_SYNC : DESIGN_WGMMA;
+  return D == 64 || D == 128 ? DESIGN_WGMMA : DESIGN_MMA_SYNC;
 }
 
 // Which design serves dQ at (D, dtype): the same map as dK/dV's.
@@ -1614,10 +1631,15 @@ extern "C" int repro_flash_attention_bwd_dkv(
         case 32: return launch_dkv<float, 32>(REPRO_DKV_ARGS);
         case 64: return launch_dkv<float, 64>(REPRO_DKV_ARGS);
         case 128: return launch_dkv<float, 128>(REPRO_DKV_ARGS);
+        case 160: return launch_dkv<float, 160>(REPRO_DKV_ARGS);
       }
       break;
     case DESIGN_MMA_SYNC:
-      return launch_dkv_mma<32>(REPRO_DKV_ARGS);
+      switch (D) {
+        case 32: return launch_dkv_mma<32>(REPRO_DKV_ARGS);
+        case 160: return launch_dkv_mma<160>(REPRO_DKV_ARGS);
+      }
+      break;
     case DESIGN_WGMMA:
       switch (D) {
         case 64: return launch_dkv_wgmma<64>(REPRO_DKV_ARGS);
@@ -1645,10 +1667,15 @@ extern "C" int repro_flash_attention_bwd_dq(
         case 32: return launch_dq<float, 32>(REPRO_DQ_ARGS);
         case 64: return launch_dq<float, 64>(REPRO_DQ_ARGS);
         case 128: return launch_dq<float, 128>(REPRO_DQ_ARGS);
+        case 160: return launch_dq<float, 160>(REPRO_DQ_ARGS);
       }
       break;
     case DESIGN_MMA_SYNC:
-      return launch_dq_mma<32>(REPRO_DQ_ARGS);
+      switch (D) {
+        case 32: return launch_dq_mma<32>(REPRO_DQ_ARGS);
+        case 160: return launch_dq_mma<160>(REPRO_DQ_ARGS);
+      }
+      break;
     case DESIGN_WGMMA:
       switch (D) {
         case 64: return launch_dq_wgmma<64>(REPRO_DQ_ARGS);
@@ -1666,36 +1693,9 @@ extern "C" int repro_flash_attention_bwd_dkv_design(int D, int dtype) {
   return dkv_design(D, dtype);
 }
 
-// The mma.sync dK/dV design at D = 128 (bf16), which the warpgroup design
-// replaced there.  Not on any path of the package: chip_smoke.py times it
-// beside its successor in the same run.
-extern "C" int repro_flash_attention_bwd_dkv_mma(
-    const void* q, const void* k, const void* v, const void* dout,
-    const float* m, const float* l, const float* delta, void* dk, void* dv,
-    int B, int S, int T, int H, int K, int D, int dtype, int causal,
-    int window, float softcap, void* stream) {
-  if (!shape_ok(B, S, T, H, K) || D != 128 || dtype != DTYPE_BF16)
-    return ERR_UNSUPPORTED;
-  return launch_dkv_mma<128>(q, k, v, dout, m, l, delta, dk, dv, B, S, T, H,
-                             K, causal, window, softcap,
-                             (cudaStream_t)stream);
-}
 
 // The design that repro_flash_attention_bwd_dq launches for (D, dtype).
 extern "C" int repro_flash_attention_bwd_dq_design(int D, int dtype) {
   return dq_design(D, dtype);
 }
 
-// The mma.sync dQ design at D = 128 (bf16), which the warpgroup design
-// replaced there.  Not on any path of the package: chip_smoke.py times it
-// beside its successor in the same run.
-extern "C" int repro_flash_attention_bwd_dq_mma(
-    const void* q, const void* k, const void* v, const void* dout,
-    const float* m, const float* l, const float* delta, void* dq, int B,
-    int S, int T, int H, int K, int D, int dtype, int causal, int window,
-    float softcap, void* stream) {
-  if (!shape_ok(B, S, T, H, K) || D != 128 || dtype != DTYPE_BF16)
-    return ERR_UNSUPPORTED;
-  return launch_dq_mma<128>(q, k, v, dout, m, l, delta, dq, B, S, T, H, K,
-                            causal, window, softcap, (cudaStream_t)stream);
-}

@@ -17,9 +17,9 @@
 // cores, with the fp32 operands split as below, the same work is far under
 // the time the bytes take (0.012 ms).
 //
-// The chunk-parallel design (repro_ssd_fwd; the serial design it replaced
-// stays exported as repro_ssd_fwd_serial for chip_smoke.py's same-run
-// comparison only):
+// The chunk-parallel design (repro_ssd_fwd; it replaced a serial design,
+// one block per (batch, head) walking the sequence, whose time PERF.md
+// keeps):
 //   * Three launches from one call, on the caller's stream, over chunks of
 //     SSD_C = 64 steps.  (a) ssd_state_*: one block per (head, chunk,
 //     batch) -- 48 x 32 = 1536 blocks at the served shape, where the serial
@@ -58,7 +58,7 @@
 //     (each half the columns of P) and skip the key blocks above their
 //     diagonal; eight warps a block, two blocks an SM.
 //   * fp32 inputs (and bf16 at other P, N) keep fp32 math on the CUDA cores
-//     in the same three stages: the serial design's register tiles (4 x 4
+//     in the same three stages: register tiles (4 x 4
 //     outputs a thread, operands as 16-byte loads from padded shared
 //     memory), so fp32 never rounds through TF32 or bf16.
 //   * Positions >= S act as dt = 0 (zero input, decay 1): the state passes
@@ -70,12 +70,7 @@
 //   * Left out: fusing the stages (above); Hopper's warpgroup products
 //     (wgmma), which would speed the products, not the loads and the state
 //     traffic that set the stages' times (PERF.md).
-//
-// The serial design (ssd_serial_kernel), which the chunk-parallel one
-// replaced: one block per (batch, head) walks the sequence in sub-chunks of
-// SSD_C = 64 steps, keeping the (N, P) fp32 state in shared memory for the
-// whole sequence; every product register-tiled on the CUDA cores; at batch
-// 1 only H blocks.
+
 
 #include "common.cuh"
 
@@ -84,7 +79,7 @@ namespace {
 using namespace repro;
 using bf16 = __nv_bfloat16;
 
-constexpr int SSD_C = 64;    // chunk length (the serial design's sub-chunks)
+constexpr int SSD_C = 64;    // chunk length
 constexpr int CC_NT = 256;   // CUDA-core blocks: 16 x 16 tiles of 4 x 4
 constexpr int TC_NT = 256;   // tensor-core blocks: 8 warps
 constexpr int PASS_NT = 128;
@@ -108,7 +103,7 @@ __device__ __forceinline__ float as_float(__nv_bfloat16 v) {
 }
 
 // ---------------------------------------------------------------------------
-// a chunk on the CUDA cores, fp32 math (both designs): CC_NT threads, rows
+// a chunk on the CUDA cores, fp32 math: CC_NT threads, rows
 // padded by 4 floats (16-byte loads, a column spread over the banks)
 // ---------------------------------------------------------------------------
 
@@ -307,98 +302,11 @@ __device__ __forceinline__ void cc_state_sum(const float* Bs,
 }
 
 // shared memory of a chunk with its weights and state: x, B, C, W, the
-// state, dt, acum (the serial design and the output stage)
+// state, dt, acum (the output stage)
 int cc_output_smem(int P, int N) {
   constexpr int L = SSD_C;
   return (int)sizeof(float) *
          (L * (P + 4) + 2 * L * (N + 4) + L * (L + 4) + N * (P + 4) + 2 * L);
-}
-
-// ---------------------------------------------------------------------------
-// the serial design: one block per (batch, head) walks the chunks
-// ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(CC_NT)
-ssd_serial_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                  const float* __restrict__ A, const T* __restrict__ Bm,
-                  const T* __restrict__ Cm, const float* __restrict__ h0,
-                  float* __restrict__ y, float* __restrict__ hout, int S,
-                  int H, int P, int G, int N) {
-  constexpr int L = SSD_C;
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int g = h / (H / G);
-  const int LDX = P + 4, LDN = N + 4, LDW = L + 4, LDH = P + 4;
-
-  extern __shared__ __align__(16) float sm[];
-  float* Xs = sm;             // (L, P)  this sub-chunk's x
-  float* Bs = Xs + L * LDX;   // (L, N)  its B rows (later scaled in place)
-  float* Cs = Bs + L * LDN;   // (L, N)  its C rows
-  float* Ws = Cs + L * LDN;   // (L, L)  intra-chunk weights
-  float* Hs = Ws + L * LDW;   // (N, P)  the carried state
-  float* dts = Hs + N * LDH;  // (L,)
-  float* acs = dts + L;       // (L,)   running sum of dt * A
-
-  const int tid = threadIdx.x;
-  const float a_h = A[h];
-  const size_t hoff = ((size_t)b * H + h) * (size_t)N * P;
-  for (int i = tid; i < N * P; i += CC_NT)
-    Hs[(i / P) * LDH + i % P] = h0 != nullptr ? h0[hoff + i] : 0.f;
-
-  for (int c0 = 0; c0 < S; c0 += L) {
-    const int live = min(L, S - c0);
-    const size_t row0 = (size_t)b * S + c0;
-    __syncthreads();  // the previous sub-chunk is done with every tile
-    for (int i = tid; i < L * P; i += CC_NT) {
-      const int l = i / P, p = i % P;
-      Xs[l * LDX + p] =
-          l < live ? as_float(x[((row0 + l) * H + h) * P + p]) : 0.f;
-    }
-    for (int i = tid; i < L * N; i += CC_NT) {
-      const int l = i / N, n = i % N;
-      const size_t o = ((row0 + l) * G + g) * N + n;
-      Bs[l * LDN + n] = l < live ? as_float(Bm[o]) : 0.f;
-      Cs[l * LDN + n] = l < live ? as_float(Cm[o]) : 0.f;
-    }
-    load_chunk_dt(dts, dt, row0 * H + h, H, live);
-    __syncthreads();
-    if (tid == 0) {
-      float s = 0.f;
-      for (int l = 0; l < L; ++l) {
-        s += dts[l] * a_h;
-        acs[l] = s;
-      }
-    }
-    __syncthreads();
-    cc_weights(Cs, Bs, Ws, dts, acs, N);
-    __syncthreads();
-    // y with the state before this sub-chunk
-    cc_outputs(Xs, Ws, Cs, Hs, acs, y + (row0 * H + h) * P, (size_t)H * P,
-               P, N, live);
-    __syncthreads();  // every reader of the old state is done
-    cc_scale_b(Bs, dts, acs, N, live);
-    __syncthreads();
-    // h = exp(acum_end) h + sum_m B_m x_m^T
-    cc_state_sum(Bs, Xs, Hs, LDH, true, expf(acs[L - 1]), P, N, live);
-  }
-  __syncthreads();
-  for (int i = tid; i < N * P; i += CC_NT)
-    hout[hoff + i] = Hs[(i / P) * LDH + i % P];
-}
-
-template <typename T>
-int launch_serial(const void* x, const float* dt, const float* A,
-                  const void* Bm, const void* Cm, const float* h0, float* y,
-                  float* hout, int B, int S, int H, int P, int G, int N,
-                  cudaStream_t stream) {
-  const int bytes = cc_output_smem(P, N);
-  static int configured = 0;
-  const int rc = allow_smem(ssd_serial_kernel<T>, bytes, configured);
-  if (rc != 0) return rc;
-  ssd_serial_kernel<T><<<dim3(H, B), CC_NT, bytes, stream>>>(
-      (const T*)x, dt, A, (const T*)Bm, (const T*)Cm, h0, y, hout, S, H, P, G,
-      N);
-  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -919,25 +827,3 @@ extern "C" int repro_ssd_design(int P, int N, int dtype) {
   return ssd_design(P, N, dtype);
 }
 
-// The serial design that the chunk-parallel one replaced: the
-// arguments of repro_ssd_fwd without the scratch.  Not on any path of the
-// package: chip_smoke.py times it beside its successor in the same run.
-extern "C" int repro_ssd_fwd_serial(const void* x, const float* dt,
-                                    const float* A, const void* Bm,
-                                    const void* Cm, const float* h0,
-                                    float* y, float* hout, int B, int S,
-                                    int H, int P, int G, int N, int dtype,
-                                    void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0 || P < 4 ||
-      P % 4 != 0 || N < 4 || N % 4 != 0 || B > 65535 ||
-      cc_output_smem(P, N) > MAX_SMEM)
-    return ERR_UNSUPPORTED;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == DTYPE_F32)
-    return launch_serial<float>(x, dt, A, Bm, Cm, h0, y, hout, B, S, H, P,
-                                G, N, st);
-  if (dtype == DTYPE_BF16)
-    return launch_serial<bf16>(x, dt, A, Bm, Cm, h0, y, hout, B, S, H, P, G,
-                               N, st);
-  return ERR_UNSUPPORTED;
-}

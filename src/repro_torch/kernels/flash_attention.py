@@ -11,7 +11,7 @@ file says how.
 Which design serves a call depends on (head_dim, dtype) alone, as the C
 dispatch's switch says (``design``): fp32 on the CUDA cores; bf16 at
 D = 64 and 128 on warpgroup products (``wgmma``) fed by the TMA, with one
-producer warp and two consumer warpgroups; bf16 at D = 32 and 256 on
+producer warp and two consumer warpgroups; bf16 at D = 32, 160 and 256 on
 warp-level ``mma.sync``.  The TMA reads q, k and v through tensor maps, which
 need 16-byte aligned base pointers: the wrapper checks that for every
 launch.  ``live_key_tiles`` is the key-tile walk of the warpgroup design,
@@ -34,7 +34,7 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 128, 160, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # the C dispatch's design codes (csrc/common.cuh DESIGN_*)

@@ -29,7 +29,8 @@ finite gradients.
 Designs (the C dispatch's switch, ``design_dkv`` and ``design_dq``): fp32 on
 the CUDA cores; in bf16 the stats forward is the forward's design
 (``flash_attention.design``), and dK/dV and dQ run on warpgroup products
-(``wgmma``) fed by the TMA at D = 64 and 128 and on ``mma.sync`` at D = 32.
+(``wgmma``) fed by the TMA at D = 64 and 128 and on ``mma.sync`` at D = 32
+and 160.
 The dK/dV block of the warpgroup design owns 128 keys and walks the (query
 tile, group head) pairs of ``live_query_tiles``; the dQ block owns 128
 query positions of one head and walks the 64-key tiles of
@@ -53,9 +54,10 @@ from repro_torch.kernels.flash_attention import (_DTYPE_CODE, DESIGNS,
                                                  attention_plain,
                                                  check_aligned)
 
-# the training kernels take the head dims of llama3.2-3b's path; D = 256 (the
-# serving forward's recurrentgemma heads) is not instantiated for them yet
-BWD_HEAD_DIMS = (32, 64, 128)
+# the training kernels take the head dims of the trainable archs (llama3.2-3b
+# 128, stablelm-12b 160, qwen2-0.5b 64); D = 256 (the serving forward's
+# recurrentgemma heads) is not instantiated for them yet
+BWD_HEAD_DIMS = (32, 64, 128, 160)
 
 _fns: dict = {}
 

@@ -9,15 +9,19 @@ layer) through per-sequence block tables, so the decode step never builds the
 dense ``(B, W, K, D)`` view that ``kvcache.gather_dense`` makes.
 
 On this card the function is bounded by bytes: every live K/V byte is read
-once and used by the G heads of one group only.  The kernel reads a block's
-own table row, touches no page past ``lengths[b]``, and streams rows with
-16-byte loads; one block per (sequence, kv head) leaves SMs idle when
-``B*K`` is below the SM count, and splitting the token axis across blocks
-(split-KV) is later work.  The source note in the ``.cu`` file has the rest.
+once and used by the G heads of one group only.  The kernel splits each
+row's token axis into pieces of whole pages (``split_pieces``), runs one
+block per (piece, kv head, sequence) -- a block whose piece starts at or
+past ``lengths[b]`` returns at once, so no page past it is read -- writes
+each piece's fp32 partial ``(m, l, acc)`` to a workspace that the wrapper
+allocates, and merges the live pieces in a second launch from the same C
+call.  The number of pieces follows from the table width alone, so the host
+never reads ``lengths``.  The source note in the ``.cu`` file has the rest.
 
 ``paged_decode_attention`` launches the kernel for CUDA tensors -- or raises:
 there is no fallback -- and runs ``paged_attention_plain`` only for tensors
-that lie on the CPU.  ``paged_decode_attention.launches`` counts launches.
+that lie on the CPU.  ``paged_decode_attention.launches`` counts calls that
+launched (one per call: the pieces and their merge).
 It has no backward, and raises on either device where autograd would need a
 gradient of q or the pages.
 """
@@ -29,11 +33,13 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import needs_grad
+from repro_torch.kernels.flash_attention import check_aligned, needs_grad
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 160)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# tokens a piece of the split-KV kernel aims at (rounded to whole pages)
+PIECE_TOKENS = 128
 
 _fn = None
 
@@ -43,10 +49,18 @@ def _kernel():
     if _fn is None:
         fn = build.load().repro_paged_decode_attention
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         _fn = fn
     return _fn
+
+
+def split_pieces(P: int, page_size: int):
+    """(pages per piece, pieces) of the split-KV kernel for a table of
+    ``P`` pages: pieces of ``PIECE_TOKENS`` tokens rounded down to whole
+    pages (at least one), enough of them to cover the table."""
+    pages = max(1, PIECE_TOKENS // page_size)
+    return pages, -(-P // pages)
 
 
 def paged_attention_plain(q, k_pages, v_pages, tables, lengths, *,
@@ -138,12 +152,19 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths, *,
         if not t.is_contiguous():
             raise ValueError(f"paged_decode_attention kernel takes a "
                              f"contiguous {name}")
+    check_aligned(q, k_pages, v_pages)     # 16-byte copies of every row
     out = torch.empty_like(q)
+    pages, n_pieces = split_pieces(P, ps)
+    # each piece's (m, l, acc[G][D]) partial, fp32, from the caching
+    # allocator: no cudaMalloc and no host sync in a decode step
+    ws = torch.empty(B * H * n_pieces * (D + 2), dtype=torch.float32,
+                     device=q.device)
     with torch.cuda.device(q.device):
         fn = _kernel()
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                B, H, K, D, ps, P, _DTYPE_CODE[q.dtype], float(softcap),
+                ws.data_ptr(), B, H, K, D, ps, P, pages, n_pieces,
+                _DTYPE_CODE[q.dtype], float(softcap),
                 torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(

@@ -6,12 +6,16 @@ Replaces the TPU kernel ``repro/kernels/rglru.py`` (``rglru`` /
 ``rglru_plain`` is a log-depth (Hillis-Steele) scan in torch ops with the
 combine rule of the model path's ``rglru_scan``
 (``repro/models/rglru.py:100-114``), and an optional ``h0`` folded into the
-first step as there.  On this card the function is bounded by bytes; the
-source note in the ``.cu`` file says what the kernel does about it.
+first step as there.  On this card the function is bounded by bytes.  The
+kernel is a chunked scan over ``CHUNK``-step chunks: each chunk's composite
+(the product of its decays and its scan from zero) into a workspace that the
+wrapper allocates, then the carries across chunks, then each chunk again
+from its entering carry; the source note in the ``.cu`` file has the rest.
 
 ``rglru`` launches the kernel for CUDA tensors -- or raises: there is no
 fallback -- and runs ``rglru_plain`` only for tensors that lie on the CPU.
-``rglru.launches`` counts kernel launches.  The kernel has no backward (nor
+``rglru.launches`` counts calls that launched (one per call: the three
+passes).  The kernel has no backward (nor
 has the reference's): called on CUDA tensors where autograd needs a
 gradient, it raises.
 """
@@ -24,6 +28,10 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import needs_grad
 
+# steps per chunk of the kernel's scan (csrc/rglru.cu RG_CHUNK; the C entry
+# point refuses a workspace cut for another length)
+CHUNK = 64
+
 _fn = None
 
 
@@ -32,7 +40,7 @@ def _kernel():
     if _fn is None:
         fn = build.load().repro_rglru_fwd
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + \
             [ctypes.c_void_p]
         _fn = fn
     return _fn
@@ -92,10 +100,14 @@ def rglru(log_a, gated, *, h0=None):
         raise ValueError("rglru kernel takes contiguous inputs")
     B, S, W = log_a.shape
     y = torch.empty_like(log_a)
+    n_chunks = -(-S // CHUNK)
+    # each chunk's (product of decays, scan from zero), then the carries
+    ws = torch.empty(2 * B * n_chunks * W, dtype=torch.float32,
+                     device=log_a.device)
     with torch.cuda.device(log_a.device):
         rc = _kernel()(log_a.data_ptr(), gated.data_ptr(),
                        h0.data_ptr() if h0 is not None else None,
-                       y.data_ptr(), B, S, W,
+                       y.data_ptr(), ws.data_ptr(), n_chunks, B, S, W,
                        torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"rglru kernel launch failed (code {rc}) for "
