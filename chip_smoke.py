@@ -24,12 +24,19 @@ per line:
                 is one, and the bound (least time the card could take); at
                 both train shapes, faults planted in the plain backward's
                 result (a skipped 64- or 128-key tile) must fail the same
-                comparison; the split-KV paged decode and the chunked RG-LRU
-                are timed in turns with the designs they replaced
-                (``earlier_ms``), which the library still exports for this
-                alone;
+                comparison, and at D = 160 so must a dropped tail panel
+                (columns 128-159 of o, dk and dv zeroed); the bf16 D = 160
+                forward and dK/dV (warpgroup designs) are timed in turns with
+                the mma.sync designs they replaced (``earlier_ms``), which
+                the library still exports for this alone;
   ptxas         registers and spills that ``nvcc -Xptxas -v`` reported for
                 the kernels of ``PTXAS_KERNELS``; a spill fails the run;
+  memory_guards the bf16 warpgroup forward (served, with statistics) and
+                dK/dV at stablelm-12b's served and trained shapes and at
+                ragged ones, on tensors inside NaN guard bands at two
+                alignments: no guard may change, and every output must
+                equal the package's launch bit for bit, five times in a row
+                (``memory_guards``);
   serve_paged   llama3.2-3b at full width in bf16, random weights from seed
                 0 made on the device, 16 requests through
                 ``AsyncServeEngine(mode="paged")``; pure-decode iterations
@@ -177,15 +184,23 @@ TRAIN_CUT = ("depth 40 -> 2 layers (12.1 B fp32 parameters with AdamW "
              "state, ~194 GB, do not fit one card)",
              "global batch 256 -> 1 (one card)", "5 steps -> 2")
 
-# the bf16 design the library's dispatch must name for the served and
-# trained head dims
-WANT_DESIGN = {32: "mma.sync", 64: "wgmma", 128: "wgmma", 160: "mma.sync",
-               256: "mma.sync"}
+# the bf16 design the library's dispatch must name for each attention
+# kernel at the served and trained head dims (the stats-emitting forward is
+# the forward's launch)
+WANT_DESIGN = {
+    "flash_attention": {32: "mma.sync", 64: "wgmma", 128: "wgmma",
+                        160: "wgmma", 256: "mma.sync"},
+    "flash_attention_bwd_dkv": {32: "mma.sync", 64: "wgmma", 128: "wgmma",
+                                160: "wgmma"},
+    "flash_attention_bwd_dq": {32: "mma.sync", 64: "wgmma", 128: "wgmma",
+                               160: "mma.sync"}}
+WANT_DESIGN["flash_attention_fwd_stats"] = WANT_DESIGN["flash_attention"]
 
 # kernels whose registers and spills ``nvcc -Xptxas -v`` must report (no
 # spill allowed)
 PTXAS_KERNELS = [
-    "flash_fwd_wgmma_kernelILi128", "flash_fwd_wgmma_kernelILi64",
+    "flash_fwd_wgmma_kernelILi160", "flash_fwd_wgmma_kernelILi128",
+    "flash_fwd_wgmma_kernelILi64", "flash_bwd_dkv_wgmma_kernelILi160",
     "flash_bwd_dkv_wgmma_kernelILi128", "flash_bwd_dkv_wgmma_kernelILi64",
     "flash_bwd_dq_wgmma_kernelILi128", "flash_bwd_dq_wgmma_kernelILi64",
     "flash_fwd_mma_kernelILi160", "flash_fwd_mma_kernelILi256",
@@ -257,44 +272,44 @@ def time_in_turns(new, earlier, iters: int):
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
-# The earlier designs of paged decode (one block per (sequence, kv head)) and
-# of the RG-LRU scan (one thread per channel over all S steps), which split-KV
-# and the chunked scan replaced; the library exports them under their own
-# names and nothing of the package calls them: timed here beside their
-# successors (``earlier_ms``).
-def earlier_paged(q, kp, vp, tables, lengths, out):
-    """A closure that launches the earlier paged decode into ``out``."""
-    fn = build.load().repro_paged_decode_attention_block
+def _entry(lib, entry, tensors, causal=True):
+    """A closure that launches ``entry`` of the kernels' library ``lib``
+    with the arguments of the forward or dK/dV entry points: the pointers of
+    ``tensors`` (None for a null pointer; q and k first, bf16), then the
+    shapes.  It holds the tensors, so their memory outlives it."""
+    fn = getattr(lib, entry)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * len(tensors) + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_void_p])
-    B, H, D = q.shape
-    ps, K = kp.shape[1], kp.shape[2]
-    P = tables.shape[1]
-    code = {torch.float32: 0, torch.bfloat16: 1}[q.dtype]
+    q, k = tensors[:2]
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
 
     def call():
-        rc = fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-                tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, H,
-                K, D, ps, P, code, 0.0,
+        # the pointers are taken here, from ``tensors``: the closure holds
+        # the tensors, not only their addresses
+        ptrs = [None if t is None else t.data_ptr() for t in tensors]
+        rc = fn(*ptrs, B, S, T, H, K, D, 1, int(causal), 0, 0.0,
                 torch.cuda.current_stream().cuda_stream)
-        check(rc == 0, f"repro_paged_decode_attention_block returned {rc}")
+        check(rc == 0, f"{entry} returned {rc}")
     return call
 
 
-def earlier_rglru(log_a, gated, y):
-    """A closure that launches the earlier (serial) RG-LRU into ``y``."""
-    fn = build.load().repro_rglru_fwd_serial
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
-        [ctypes.c_void_p]
-    B, S, W = log_a.shape
+# The designs that the bf16 D = 160 warpgroup forward and dK/dV replaced
+# (mma.sync); the library exports them under their own names and nothing of
+# the package calls them: timed here beside their successors
+# (``earlier_ms``).
+def earlier_flash_d160(q, k, v, o, m=None, l=None, causal=True):
+    """The mma.sync forward into ``o`` (and the statistics into ``m``, ``l``
+    when given)."""
+    return _entry(build.load(), "repro_flash_attention_fwd_mma",
+                  (q, k, v, o, m, l), causal)
 
-    def call():
-        rc = fn(log_a.data_ptr(), gated.data_ptr(), None, y.data_ptr(), B, S,
-                W, torch.cuda.current_stream().cuda_stream)
-        check(rc == 0, f"repro_rglru_fwd_serial returned {rc}")
-    return call
+
+def earlier_dkv_d160(q, k, v, do, m, l, delta, dk, dv, causal=True):
+    """The mma.sync dK/dV into ``dk``, ``dv``."""
+    return _entry(build.load(), "repro_flash_attention_bwd_dkv_mma",
+                  (q, k, v, do, m, l, delta, dk, dv), causal)
 
 
 # ---------------------------------------------------------------------------
@@ -318,8 +333,9 @@ ATTN_CASES = [
     (1, 384, 384, 24, 8, 128, True, 0, torch.bfloat16),
     (2, 300, 520, 6, 2, 128, True, 200, torch.bfloat16),
     (2, 300, 300, 6, 2, 64, True, 0, torch.bfloat16),
-    # stablelm-12b's D = 160 (bf16 on mma.sync; fp32 in float2 column
-    # slices): ragged tiles, S != T, a window, MHA and G = 4
+    # stablelm-12b's D = 160 (bf16 on the warpgroup design in five 32-column
+    # panels; fp32 in float2 column slices): ragged tiles, S != T, a window,
+    # MHA and G = 4
     (1, 200, 200, 8, 2, 160, True, 0, torch.float32),
     (2, 130, 77, 4, 4, 160, False, 0, torch.float32),
     (1, 300, 300, 8, 2, 160, True, 64, torch.bfloat16),
@@ -356,12 +372,16 @@ def _tol(dtype, fp32_tol):
     return 2e-2 if dtype == torch.bfloat16 else fp32_tol
 
 
-def _err(got, want, tol, what):
+def _within(got, want, tol) -> bool:
     got, want = got.float(), want.float()
+    return bool(((got - want).abs() <= tol + tol * want.abs()).all())
+
+
+def _err(got, want, tol, what):
     check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
-    err = float((got - want).abs().max())
-    ok = bool(((got - want).abs() <= tol + tol * want.abs()).all())
-    check(ok, f"{what}: max abs err {err} exceeds atol=rtol={tol}")
+    err = float((got.float() - want.float()).abs().max())
+    check(_within(got, want, tol),
+          f"{what}: max abs err {err} exceeds atol=rtol={tol}")
     return err
 
 
@@ -419,8 +439,29 @@ def flash_cases(gen):
     return rows
 
 
+# A dropped tail panel at D = 160 -- columns 128-159 of a result left out,
+# as a 64-column panel split of the 160 columns would drop them -- planted
+# in the plain result: each must fail both comparisons the kernel passes.
+TAIL_COLUMNS = slice(128, 160)
+
+
+def _tail_panel_fault(want, what):
+    """``want`` with its tail panel zeroed, held to ``want`` by the
+    elementwise 2e-2 and ``SCALED_TOL``; fails the run if either accepts it.
+    Returns the fault's scaled errors."""
+    bad = want.float().clone()
+    bad[..., TAIL_COLUMNS] = 0.0
+    scaled = _scaled(bad, want)
+    check(not _within(bad, want, 2e-2) and not _passes(scaled),
+          f"planted fault {what} (tail panel dropped) passes a comparison "
+          f"{scaled}: it cannot see it")
+    return scaled
+
+
 def flash_main_shape(gen, cfg, S):
-    """Prefill of one ``S``-token bucket of the served model: bf16, causal."""
+    """Prefill of one ``S``-token bucket of the served model: bf16, causal.
+    At D = 160, timed in turns with the mma.sync design it replaced, and a
+    dropped tail panel of o must be rejected."""
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = torch.bfloat16
     q = _randn(gen, 1, S, H, D, dtype=dt)
@@ -432,7 +473,23 @@ def flash_main_shape(gen, cfg, S):
     what = f"flash_attention main shape {cfg.name} S={S}"
     err = _err(got, want, 2e-2, what)
     scaled = _scaled_err(got, want, what)
-    ms = time_ms([lambda: flash_attention(q, k, v, causal=True)], 10)
+
+    def new():
+        flash_attention(q, k, v, causal=True)
+    earlier = {}
+    if D == 160:
+        o_old = torch.empty_like(q)
+        old = earlier_flash_d160(q, k, v, o_old)
+        old()
+        torch.cuda.synchronize()
+        earlier_err = _err(o_old, want, 2e-2, f"earlier {what}")
+        ms, earlier_ms = time_in_turns(new, old, 10)
+        earlier = {"earlier_design": "mma.sync", "earlier_ms": earlier_ms,
+                   "earlier_max_abs_err": earlier_err,
+                   "planted_fault_tail_panel": _tail_panel_fault(
+                       want, f"{what} o")}
+    else:
+        ms = time_ms([new], 10)
     plain_ms = time_ms([lambda: attention_plain(q, k, v, causal=True)], 3)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     library_ms = time_ms(
@@ -449,7 +506,7 @@ def flash_main_shape(gen, cfg, S):
             "scaled": scaled, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops}
+            "bytes": nbytes, "flops": flops, **earlier}
 
 
 def _paged_inputs(gen, B, T, D, G, K, ps, lengths, dt, copies=1):
@@ -514,8 +571,7 @@ def paged_main_shape(gen, cfg):
     """Decode step of the served model: 8 sequences, page 16, ragged lengths
     up to 2048, bf16.  Four disjoint pools are cycled so that every launch
     finds its K/V in device memory, not in the L2 cache, as a layer of the
-    served model does.  The design split-KV replaced is timed in turns with
-    it on the same pools."""
+    served model does."""
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     lengths = [2048, 1900, 1500, 1111, 1024, 700, 300, 129]
     dt = torch.bfloat16
@@ -528,35 +584,8 @@ def paged_main_shape(gen, cfg):
         err = max(err, _err(got, paged_attention_plain(q, kp, vp, tab, lens),
                             2e-2, f"paged_decode_attention main shape "
                                   f"{cfg.name}"))
-    earlier = {}
-    if D in (32, 64, 128):                  # the earlier design's head dims
-        out = [torch.empty_like(q) for _ in tabs]
-        olds = [earlier_paged(q, kp, vp, tab, lens, o)
-                for tab, o in zip(tabs, out)]
-        for f in olds:
-            f()
-        torch.cuda.synchronize()
-        new = [paged_decode_attention(q, kp, vp, tab, lens) for tab in tabs]
-        torch.cuda.synchronize()
-        earlier_err = max(_err(o, n, 2e-2, "earlier paged decode")
-                          for o, n in zip(out, new))
-
-        def old():
-            for f in olds:
-                f()
-
-        def cur():
-            for tab in tabs:
-                paged_decode_attention(q, kp, vp, tab, lens)
-        ms4, earlier_ms4 = time_in_turns(cur, old, 10)
-        ms = ms4 / len(tabs)
-        earlier = {"earlier_design": "block per (sequence, kv head)",
-                   "earlier_ms": earlier_ms4 / len(tabs),
-                   "earlier_max_abs_err": earlier_err}
-    else:
-        ms = time_ms([lambda tab=tab: paged_decode_attention(q, kp, vp, tab,
-                                                             lens)
-                      for tab in tabs], 10)
+    ms = time_ms([lambda tab=tab: paged_decode_attention(q, kp, vp, tab, lens)
+                  for tab in tabs], 10)
     plain_ms = time_ms(
         [lambda tab=tab: paged_attention_plain(q, kp, vp, tab, lens)
          for tab in tabs], 3)
@@ -581,7 +610,7 @@ def paged_main_shape(gen, cfg):
                  "live_blocks": K * sum(-(-n // (pages * 16))
                                         for n in lengths),
                  "max_abs_err": err, "ms": ms, "stage_ms_profiled": stage_ms,
-                 "plain_ms": plain_ms, "library_ms": None}, **earlier,
+                 "plain_ms": plain_ms, "library_ms": None},
                 **_bound(nbytes, flops, dt))
 
 
@@ -616,8 +645,9 @@ BWD_CASES = [
     # several blocks with ragged S, windows, G = 3, S != T
     (2, 300, 300, 6, 2, 64, True, 100, torch.bfloat16),
     (1, 300, 520, 6, 2, 128, True, 200, torch.bfloat16),
-    # stablelm-12b's D = 160 (bf16 on mma.sync, fp32 on the CUDA cores):
-    # ragged tiles, S != T, a window, MQA bidirectional, G = 4
+    # stablelm-12b's D = 160 (bf16 dK/dV on the warpgroup design at 32-query
+    # tiles, dQ on mma.sync; fp32 on the CUDA cores): ragged tiles, S != T,
+    # a window, MQA bidirectional, G = 4
     (1, 200, 150, 4, 2, 160, True, 0, torch.float32),
     (2, 130, 130, 3, 1, 160, True, 50, torch.float32),
     (1, 100, 77, 8, 2, 160, True, 0, torch.bfloat16),
@@ -770,7 +800,9 @@ def bwd_main_shape(gen, cfg, B, S):
     """The trained model's attention at B x S tokens: its heads and head_dim,
     bf16, causal (llama3.2-3b: 24 heads over 8 KV heads of 128; stablelm-12b:
     32 over 8 of 160).  Faults planted in the plain backward's result must
-    fail the comparison."""
+    fail the comparison.  At D = 160 the forward and dK/dV are timed in
+    turns with the mma.sync designs they replaced, and a dropped tail panel
+    of o, dk and dv must be rejected."""
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = torch.bfloat16
     q, k, v, do = _bwd_inputs(gen, B, S, S, H, K, D, dt)
@@ -784,6 +816,13 @@ def bwd_main_shape(gen, cfg, B, S):
     # keys) and of the warpgroup forward and dK/dV (128 keys) must be seen
     faults = {f"tile_{t}": _planted_faults(q, k, v, do, stats, kw, tile=t)
               for t in (64, 128)}
+    if D == 160:
+        o2 = attention_fwd_stats_plain(q, k, v, **kw)[0]
+        _, dk2, dv2 = attention_bwd_plain(q, k, v, do, *stats, **kw)
+        faults["tail_panel"] = {
+            n: _tail_panel_fault(w, f"{cfg.name} {n}")
+            for n, w in (("o", o2), ("dk", dk2), ("dv", dv2))}
+        del o2, dk2, dv2
     qkv_bytes = (q.numel() + k.numel() + v.numel()) * q.element_size()
     row_bytes = m.numel() * 4                  # one fp32 per query row
     pairs = H * B * (S * (S + 1) // 2)         # live (query, key) pairs
@@ -792,8 +831,21 @@ def bwd_main_shape(gen, cfg, B, S):
 
     fwd = dict(shape, max_abs_err=ef, design=design(D, dt), **_bound(
         qkv_bytes + q.numel() * 2 + 2 * row_bytes, 4 * D * pairs, dt))
-    fwd["ms"] = time_ms([lambda: flash_attention_fwd_stats(q, k, v, **kw)],
-                        5)
+
+    def new_fwd():
+        return flash_attention_fwd_stats(q, k, v, **kw)
+    if D == 160:
+        outs = (torch.empty_like(q), torch.empty_like(m), torch.empty_like(l))
+        old = earlier_flash_d160(q, k, v, *outs)
+        old()
+        torch.cuda.synchronize()
+        err = max(_err(a, b, 2e-2, f"earlier fwd_stats {cfg.name}")
+                  for a, b in zip(outs, (o, m, l)))
+        fwd["ms"], fwd["earlier_ms"] = time_in_turns(new_fwd, old, 5)
+        fwd.update(earlier_design="mma.sync", earlier_max_abs_err=err)
+        del outs
+    else:
+        fwd["ms"] = time_ms([new_fwd], 5)
     fwd["plain_ms"] = time_ms(
         [lambda: attention_fwd_stats_plain(q, k, v, **kw)], 2)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -807,8 +859,22 @@ def bwd_main_shape(gen, cfg, B, S):
     library_ms, library_min = _library_bwd_ms(q, k, v, do, 5)
     dkv = dict(shape, max_abs_err=ekv, design=design_dkv(D, dt), **_bound(
         bwd_in + (k.numel() + v.numel()) * 2, 8 * D * pairs, dt))
-    dkv["ms"] = time_ms(
-        [lambda: flash_attention_bwd_dkv(q, k, v, do, *stats, **kw)], 3)
+
+    def new_dkv():
+        return flash_attention_bwd_dkv(q, k, v, do, *stats, **kw)
+    if D == 160:
+        dk, dv = new_dkv()
+        outs = (torch.empty_like(k), torch.empty_like(v))
+        old = earlier_dkv_d160(q, k, v, do, *stats, *outs)
+        old()
+        torch.cuda.synchronize()
+        err = max(_err(a, b, 2e-2, f"earlier bwd_dkv {cfg.name}")
+                  for a, b in zip(outs, (dk, dv)))
+        dkv["ms"], dkv["earlier_ms"] = time_in_turns(new_dkv, old, 3)
+        dkv.update(earlier_design="mma.sync", earlier_max_abs_err=err)
+        del outs, dk, dv
+    else:
+        dkv["ms"] = time_ms([new_dkv], 3)
     dq = dict(shape, max_abs_err=eq, design=design_dq(D, dt), **_bound(
         bwd_in + q.numel() * 2, 6 * D * pairs, dt))
     dq["ms"] = time_ms(
@@ -825,6 +891,103 @@ def bwd_main_shape(gen, cfg, B, S):
     dkv["scaled"] = {n: scaled[n] for n in ("dk", "dv")}
     dq["scaled"] = {"dq": scaled["dq"]}
     return fwd, dkv, dq, faults
+
+
+# ---------------------------------------------------------------------------
+# the bf16 warpgroup attention kernels' memory accesses
+# ---------------------------------------------------------------------------
+# B, S, H, K, D of the guarded launches: stablelm-12b's served prefill and
+# trained shapes, and ragged ones (S a multiple of no tile) at D = 160 and
+# at D = 128, which runs the same code
+GUARD_SHAPES = [(1, 2048, 32, 8, 160), (2, 4096, 32, 8, 160),
+                (2, 300, 4, 2, 160), (1, 200, 6, 2, 128)]
+GUARD = 4096            # NaN elements on each side of a guarded tensor
+GUARD_OFFSETS = (0, 16)  # bytes past a 1024-byte boundary a tensor starts
+GUARD_REPEATS = 5
+
+
+def _guarded(x, offset):
+    """``x`` copied into a NaN-filled buffer, ``GUARD`` elements plus
+    ``offset`` bytes from its start and ``GUARD`` elements from its end:
+    (the view, the buffer, the view's first element in the buffer)."""
+    lo = GUARD + offset // x.element_size()
+    buf = torch.full((lo + x.numel() + GUARD,), float("nan"), dtype=x.dtype,
+                     device=x.device)
+    view = buf[lo:lo + x.numel()].view(x.shape)
+    view.copy_(x)
+    return view, buf, lo
+
+
+def _bits(x):
+    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+
+def _guards_intact(view, buf, lo) -> bool:
+    nan = _bits(torch.full((1,), float("nan"), dtype=buf.dtype,
+                           device=buf.device))
+    rest = torch.cat([buf[:lo], buf[lo + view.numel():]])
+    return bool((_bits(rest) == nan).all())
+
+
+def memory_guards(shapes=GUARD_SHAPES, repeats=GUARD_REPEATS):
+    """The bf16 warpgroup forward (served, and with statistics) and dK/dV,
+    called through their C entry points on tensors that lie inside NaN
+    guard bands, 1024-byte aligned and 16 bytes past that: no launch may
+    write outside its outputs (every guard keeps its bits), a read past an
+    input's end would carry NaN into the result, and every output, filled
+    with NaN before each launch, must come out bit for bit as the package's
+    launch on ordinary tensors gave it, ``repeats`` times in a row (a race
+    would show as a difference).  The package's outputs are held to the
+    plain versions first."""
+    lib = build.load()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    out = []
+    for B, S, H, K, D in shapes:
+        q, k, v, do = _bwd_inputs(gen, B, S, S, H, K, D, torch.bfloat16)
+        served = flash_attention(q, k, v, causal=True)
+        o, m, l = flash_attention_fwd_stats(q, k, v, causal=True)
+        delta = attention_delta(o, do)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, m, l, delta,
+                                         causal=True)
+        torch.cuda.synchronize()
+        what = f"memory_guards {(B, S, H, K, D)}"
+        o2, m2, l2 = attention_fwd_stats_plain(q, k, v, causal=True)
+        _, dk2, dv2 = attention_bwd_plain(q, k, v, do, m, l, delta,
+                                          causal=True)
+        err = max(_err(a, b, 2e-2, what) for a, b in
+                  ((served, o2), (o, o2), (m, m2), (l, l2), (dk, dk2),
+                   (dv, dv2)))
+        del o2, m2, l2, dk2, dv2
+        launches = {
+            "fwd": ("repro_flash_attention_fwd", (q, k, v), (served,)),
+            "fwd_stats": ("repro_flash_attention_fwd_stats", (q, k, v),
+                          (o, m, l)),
+            "bwd_dkv": ("repro_flash_attention_bwd_dkv",
+                        (q, k, v, do, m, l, delta), (dk, dv))}
+        for name, (entry, ins, wants) in launches.items():
+            for offset in GUARD_OFFSETS:
+                g_in = [_guarded(x, offset) for x in ins]
+                g_out = [_guarded(w, offset) for w in wants]
+                call = _entry(lib, entry, [g[0] for g in g_in + g_out])
+                tag = f"{what} {name} offset {offset} B"
+                for _ in range(repeats):
+                    for view, _, _ in g_out:
+                        view.fill_(float("nan"))
+                    call()
+                    torch.cuda.synchronize()
+                    check(all(_guards_intact(*g) for g in g_in + g_out),
+                          f"{tag}: a guard band changed")
+                    check(all(torch.equal(_bits(g[0]), _bits(w))
+                              for g, w in zip(g_out, wants)),
+                          f"{tag}: output differs from the package's launch")
+                del g_in, g_out, call
+        out.append({"shape": [B, S, S, H, K, D], "max_abs_err": err,
+                    "launches": sorted(launches), "offsets_bytes":
+                    list(GUARD_OFFSETS), "repeats": repeats})
+        del q, k, v, do, served, o, m, l, delta, dk, dv
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1094,8 +1257,8 @@ def rglru_cases(gen):
 
 
 def rglru_main_shape(gen):
-    """The served prefill, timed in turns with the serial design the
-    chunked scan replaced."""
+    """The served prefill; two input sets in turn keep a launch's 84 MB of
+    inputs out of L2."""
     B, S, W = RGLRU_SERVED
     copies = [(-torch.nn.functional.softplus(
         _randn(gen, B, S, W, dtype=torch.float32)),
@@ -1104,30 +1267,11 @@ def rglru_main_shape(gen):
     got = rglru(la, g)
     torch.cuda.synchronize()
     err = _err(got, rglru_plain(la, g), 2e-5, "rglru served shape")
-    ys = [torch.empty_like(a) for a, _ in copies]
-    olds = [earlier_rglru(a, b, y) for (a, b), y in zip(copies, ys)]
-    for f in olds:
-        f()
-    torch.cuda.synchronize()
-    earlier_err = _err(ys[0], rglru_plain(la, g), 2e-5,
-                       "earlier rglru served shape")
-
-    # two input sets in turn keep a launch's 84 MB of inputs out of L2
-    def cur():
-        for a, b in copies:
-            rglru(a, b)
-
-    def old():
-        for f in olds:
-            f()
-    ms2, earlier_ms2 = time_in_turns(cur, old, 10)
+    ms = time_ms([lambda a=a, b=b: rglru(a, b) for a, b in copies], 10)
     plain_ms = time_ms([lambda: rglru_plain(la, g)], 2)
     return dict({"shape": [B, S, W], "dtype": "torch.float32", "tol": 2e-5,
                  "design": f"chunked scan, {rglru_chunk_len}-step chunks",
-                 "max_abs_err": err, "ms": ms2 / 2,
-                 "earlier_design": "serial, one thread per channel",
-                 "earlier_ms": earlier_ms2 / 2,
-                 "earlier_max_abs_err": earlier_err, "plain_ms": plain_ms,
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                  "library_ms": None},
                 **_bound(3 * B * S * W * 4, 3 * B * S * W, torch.float32))
 
@@ -1305,9 +1449,10 @@ def serve_dense(cfg, model, policy):
     check(served == len(reqs), f"serve_dense served {served}/{len(reqs)}")
     n_flash = counts["flash_attention"]
     check(n_flash > 0, "serve_dense launched the flash kernel 0 times")
-    check(design(cfg.head_dim, torch.bfloat16) == WANT_DESIGN[cfg.head_dim],
+    want = WANT_DESIGN["flash_attention"][cfg.head_dim]
+    check(design(cfg.head_dim, torch.bfloat16) == want,
           f"serve_dense: the bf16 forward at D = {cfg.head_dim} is not on "
-          f"the {WANT_DESIGN[cfg.head_dim]} design")
+          f"the {want} design")
     check(n_flash == len(reqs) * cfg.n_layers,
           f"flash launches {n_flash} != prefills x layers = "
           f"{len(reqs) * cfg.n_layers}")
@@ -1512,10 +1657,10 @@ def train(cfg, shape=TRAIN_SHAPE, steps=TRAIN_STEPS,
                                                      torch.bfloat16),
                "flash_attention_bwd_dq": design_dq(cfg.head_dim,
                                                    torch.bfloat16)}
-    want_design = WANT_DESIGN[cfg.head_dim]
-    check(set(designs.values()) == {want_design},
-          f"train: the stats forward, dK/dV and dQ are not on the "
-          f"{want_design} designs: {designs}")
+    want_design = {n: WANT_DESIGN[n][cfg.head_dim] for n in designs}
+    check(designs == want_design,
+          f"train: the stats forward, dK/dV and dQ are on the designs "
+          f"{designs}, not {want_design}")
     check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
           f"train: non-finite loss or grad norm {losses} {norms}")
     profile = None
@@ -1924,6 +2069,9 @@ def main() -> int:
                               "planted_faults_rejected": b_faults,
                               "planted_faults_rejected_d160": b_faults_d160})
     emit("ptxas", kernels=ptxas_usage(PTXAS_KERNELS))
+    with torch.no_grad():
+        emit("memory_guards", cases=memory_guards())
+    torch.cuda.empty_cache()
 
     policy = PolicyConfig(compute_dtype="bfloat16", remat="none",
                           attn_impl="kernel")
@@ -1959,6 +2107,9 @@ def main() -> int:
                "library_ms": head["library_ms"], "shape": head["shape"],
                "dtype": head["dtype"]}
         if "earlier_ms" in head:            # a redesigned kernel
+            check(head["ms"] < head["earlier_ms"],
+                  f"{name}: {head['ms']} ms, not faster than the design it "
+                  f"replaced ({head['earlier_ms']} ms, timed in turns)")
             out["earlier_design"] = head["earlier_design"]
             out["earlier_ms"] = head["earlier_ms"]
         if "bound_ms_fp32_cuda_cores" in head:

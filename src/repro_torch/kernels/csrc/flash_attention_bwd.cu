@@ -39,10 +39,14 @@
 //     widened to float in padded shared memory (16-byte loads, no bank
 //     conflicts on the score products), so fp32 never rounds through TF32.
 //   * bf16 inputs at D = 64 and 128: warpgroup products fed by the TMA
-//     (flash_bwd_dkv_wgmma_kernel and flash_bwd_dq_wgmma_kernel, below).
-//   * bf16 inputs at D = 32 and 160 (stablelm-12b): all products run on
+//     (flash_bwd_dkv_wgmma_kernel and flash_bwd_dq_wgmma_kernel, below); at
+//     D = 160 (stablelm-12b) dK/dV runs the warpgroup design too.
+//   * bf16 dK/dV at D = 32 and dQ at D = 32 and 160: all products run on
 //     the tensor cores with warp-level mma.sync (m16n8k16, fp32
-//     accumulate), as the forward kernel does.
+//     accumulate), as the forward kernel does.  The D = 160 mma.sync dK/dV,
+//     which the warpgroup kernel replaced, is exported as
+//     repro_flash_attention_bwd_dkv_mma for chip_smoke.py's timing in
+//     turns only.
 //     dK/dV: each of 4 warps owns 16 keys and computes the transposed tiles
 //     S^T = K Q^T and dP^T = V dO^T for 16 query rows at a time, so that
 //     their accumulators are already the A operands of dV += P^T dO and
@@ -63,21 +67,23 @@
 //     axis, so no transpose is paid per layer; the outputs are written in
 //     the input dtype from fp32 accumulators.
 //
-// flash_bwd_dkv_wgmma_kernel<D> (bf16, D = 64 and 128).  Bounded by
+// flash_bwd_dkv_wgmma_kernel<D> (bf16, D = 64, 128 and 160).  Bounded by
 // operations (four products per live (query, key) pair).  The mma.sync
 // design above spends 512 bytes of shared-memory traffic on each 4096-flop
 // mma (its K and V fragments are re-read for every row block) and cannot
-// reach the tensor-core rate.  What this design does about it:
+// reach the tensor-core rate (at D = 160: 13x its bound, 2.6x the
+// library's whole backward).  What this design does about it:
 //   * One block owns BN = 128 keys of one (batch, KV head): K and V arrive
 //     once by TMA and stay in shared memory for the block's life.  Two
 //     consumer warpgroups own 64 keys each.  The block loops over the
-//     (query tile of BM = 64 positions, group head g) pairs that the masks
-//     leave live (live_query_tiles), so the sum over the G heads of a group
-//     stays in registers: no atomics, no second pass.  The heaviest key
-//     tiles (n0 = 0 under causal) of every (batch, KV head) come first.
+//     (query tile of BM = 64 positions -- 32 at D = 160 -- group head g)
+//     pairs that the masks leave live (live_query_tiles), so the sum over
+//     the G heads of a group stays in registers: no atomics, no second
+//     pass.  The heaviest key tiles (n0 = 0 under causal) of every (batch,
+//     KV head) come first.
 //   * A producer warpgroup (setmaxnreg 24) streams the pairs' Q and dO
 //     tiles through a ring of DKV_STAGES stages by TMA (the forward's
-//     per-head tensor maps, boxes of 64 positions); its first warp also
+//     per-head tensor maps, boxes of BM positions); its first warp also
 //     brings each pair's m, 1/l and delta -- strided by H in (B, S, H), too
 //     narrow for a TMA box -- into shared memory with plain loads, and its
 //     32 lanes arrive on the stage's "full" mbarrier with the TMA bytes.
@@ -91,8 +97,25 @@
 //     mask (a bit per element, built only where an edge crosses the tile)
 //     are decided once per pair; per-element branches on them cost about a
 //     third of the kernel's time (PERF.md, the bring-up of this design).
-//   * ptxas (sm_90a, -Xptxas -v, nvcc 12.9): 168 registers at D = 64 and
-//     128 -- the bound of a 384-thread block; setmaxnreg then moves the
+//   * D = 160: registers are the limit.  A consumer thread's dK and dV
+//     accumulators alone are 2 x 80 fp32; with 64-query tiles S^T and dP^T
+//     would add 32 + 32 and their packed forms 16 + 16, past setmaxnreg
+//     240.  So at D = 160 the pairs' query tiles are BM = 32 positions: S^T
+//     and dP^T are m64n32k16 (16 + 16 fp32, 8 + 8 packed), about 210 live
+//     registers.  Splitting D across blocks that each recompute S and dP
+//     was slower (the mma.sync design's probe), and so was giving dV and
+//     dK to different warpgroups over the same 64 keys, P^T's factor
+//     passed through shared memory, at 64-query tiles: 1.38x, as the two
+//     wait on each other once a pair (PERF.md).  The columns are five
+//     32-column panels with the 64-byte swizzle on all four operands
+//     (hopper.cuh): the score products walk all ten k-steps, and dV += P^T
+//     dO and dK += dS^T Q are one m64n160k16 each per 16 queries, q and dO
+//     MN-major with the descriptor's LBO stepping from panel to panel --
+//     3.9 % faster than one m64n32k16 a panel, timed in turns on the
+//     H100 (PERF.md).  Shared memory: K and V 81,920 bytes,
+//     three stages of q, dO and statistics 62,592.
+//   * ptxas (sm_90a, -Xptxas -v, nvcc 12.9): 168 registers at D = 64, 128
+//     and 160 -- the bound of a 384-thread block; setmaxnreg then moves the
 //     producer to 24 and the consumers to 240 -- and 0 bytes of spill.
 //     chip_smoke.py prints both (kernel_cases, ptxas) and fails on a spill.
 //
@@ -913,28 +936,34 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dK/dV, D = 64 and 128: warpgroup products fed by the TMA
+// bf16 dK/dV, D = 64, 128 and 160: warpgroup products fed by the TMA
 // ---------------------------------------------------------------------------
 constexpr int DKV_BN = 128;    // keys per block: 2 consumer warpgroups x 64
-constexpr int DKV_BM = 64;     // query positions per tile
 constexpr int DKV_STAGES = 3;  // (q, dO, statistics) tiles in flight
 constexpr int WG_NT = 384;     // producer warpgroup + 2 consumer warpgroups
 
 // byte offsets from the block's 1024-aligned shared-memory base: K and V (NP
 // panels of 128 keys each), then DKV_STAGES x NP panels of q, the same of
-// dO, DKV_STAGES x (m, 1/l, delta) x 64 floats, the barriers
+// dO, DKV_STAGES x (m, 1/l, delta) x BM floats, the barriers.  A panel is
+// PW columns (hopper.cuh): 64 at D = 64 / 128, 32 at D = 160.  BM query
+// positions a tile: 64, and 32 at D = 160, where the dK and dV accumulators
+// alone take 160 fp32 registers a thread (see the note at the top).
 template <int D> struct DkvLayout {
-  static constexpr int NP = D / 64;
-  static constexpr int KV_PANEL = DKV_BN * 128;
-  static constexpr int Q_PANEL = DKV_BM * 128;
+  static constexpr int PW = hopper::kPanelCols<D>;
+  static constexpr int NP = D / PW;
+  static constexpr int RB = 2 * PW;             // bytes of a panel row
+  static constexpr int BM = D > 128 ? 32 : 64;
+  static constexpr int KV_PANEL = DKV_BN * RB;
+  static constexpr int Q_PANEL = BM * RB;
   static constexpr int K = 0;
   static constexpr int V = K + NP * KV_PANEL;
   static constexpr int Q = V + NP * KV_PANEL;
   static constexpr int DO = Q + DKV_STAGES * NP * Q_PANEL;
   static constexpr int STATS = DO + DKV_STAGES * NP * Q_PANEL;
-  static constexpr int BAR = STATS + DKV_STAGES * 3 * DKV_BM * 4;
+  static constexpr int BAR = STATS + DKV_STAGES * 3 * BM * 4;
   static constexpr int BYTES = BAR + (2 * DKV_STAGES + 1) * 8 + 1024;
 };
+static_assert(DkvLayout<160>::BYTES <= 232448, "D = 160 tiles exceed the SM");
 
 template <int D>
 __global__ void __launch_bounds__(WG_NT, 1)
@@ -952,9 +981,16 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
   using namespace hopper;
   using Lay = DkvLayout<D>;
   constexpr int NP = Lay::NP;
+  constexpr int PW = Lay::PW;
+  constexpr int RB = Lay::RB;
+  constexpr int BM = Lay::BM;
   constexpr int KS = D / 16;        // k-steps of S^T and dP^T
-  constexpr int QB = DKV_BM / 8;    // 8-query column blocks of S^T
-  constexpr int PK = DKV_BM / 16;   // k-steps of the gradient products
+  constexpr int KSP = PW / 16;      // of them per panel
+  constexpr int QB = BM / 8;        // 8-query column blocks of S^T
+  constexpr int PK = BM / 16;       // k-steps of the gradient products
+  constexpr int CB = PW / 8;        // 8-column blocks of a panel
+  static_assert(NP * PW == D, "the panels must cover all D columns");
+  static_assert(QB * 4 <= 32, "the live mask is one bit per element");
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
@@ -967,11 +1003,11 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
   const int b = blockIdx.x / K;
   const int n0 = blockIdx.y * DKV_BN;   // n0 = 0 (heaviest) first
   int m_begin, m_end;
-  live_query_tiles(n0, DKV_BN, DKV_BM, S, causal, window, m_begin, m_end);
+  live_query_tiles(n0, DKV_BN, BM, S, causal, window, m_begin, m_end);
   // (query tile, group head) pairs: pair i is tile m_begin + (i / G) * BM,
   // head kh * G + i % G
   const int n_pairs =
-      m_begin < m_end ? (m_end - m_begin + DKV_BM - 1) / DKV_BM * G : 0;
+      m_begin < m_end ? (m_end - m_begin + BM - 1) / BM * G : 0;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < DKV_STAGES; ++s) {
@@ -996,34 +1032,34 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
         mbar_arrive_expect_tx(kv_full, 2 * DKV_BN * D * 2);
         for (int p = 0; p < NP; ++p) {
           tma_load_3d(sm + Lay::K + p * Lay::KV_PANEL, &tk, kv_full,
-                      kh * D + p * 64, n0, b);
+                      kh * D + p * PW, n0, b);
           tma_load_3d(sm + Lay::V + p * Lay::KV_PANEL, &tv, kv_full,
-                      kh * D + p * 64, n0, b);
+                      kh * D + p * PW, n0, b);
         }
       }
       int stage = 0;
       uint32_t phase = 0;
       for (int i = 0; i < n_pairs; ++i) {
-        const int m0 = m_begin + (i / G) * DKV_BM;
+        const int m0 = m_begin + (i / G) * BM;
         const int hq = kh * G + i % G;
         mbar_wait(&empty[stage], phase ^ 1);
         // rows past S: m = 0, 1/l = 1, delta = 0 (the mask zeroes their p)
-        float* st = stats + stage * 3 * DKV_BM;
-        for (int r = lane; r < DKV_BM; r += 32) {
+        float* st = stats + stage * 3 * BM;
+        for (int r = lane; r < BM; r += 32) {
           const bool live = m0 + r < S;
           const size_t at = ((size_t)b * S + (live ? m0 + r : 0)) * H + hq;
           st[r] = live ? m[at] : 0.f;
-          st[DKV_BM + r] = live ? 1.f / l[at] : 1.f;
-          st[2 * DKV_BM + r] = live ? delta[at] : 0.f;
+          st[BM + r] = live ? 1.f / l[at] : 1.f;
+          st[2 * BM + r] = live ? delta[at] : 0.f;
         }
         if (lane == 0) {
-          mbar_arrive_expect_tx(&full[stage], 2 * DKV_BM * D * 2);
+          mbar_arrive_expect_tx(&full[stage], 2 * BM * D * 2);
           for (int p = 0; p < NP; ++p) {
             const int at = (stage * NP + p) * Lay::Q_PANEL;
             tma_load_3d(sm + Lay::Q + at, &tq, &full[stage],
-                        hq * D + p * 64, m0, b);
+                        hq * D + p * PW, m0, b);
             tma_load_3d(sm + Lay::DO + at, &tdo, &full[stage],
-                        hq * D + p * 64, m0, b);
+                        hq * D + p * PW, m0, b);
           }
         } else {
           mbar_arrive(&full[stage]);
@@ -1047,50 +1083,53 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
     key[0] = k_lo + warp * 16 + (lane >> 2);
     key[1] = key[0] + 8;
 
-    // gradient accumulators per 64-column panel: [j * 4 + e] is key
-    // key[e >> 1], column p * 64 + j * 8 + qc + (e & 1)
-    float dk_acc[NP][32], dv_acc[NP][32];
+    // gradient accumulators per panel: [j * 4 + e] is key key[e >> 1],
+    // column p * PW + j * 8 + qc + (e & 1)
+    float dk_acc[NP][CB * 4], dv_acc[NP][CB * 4];
 #pragma unroll
     for (int p = 0; p < NP; ++p)
 #pragma unroll
-      for (int i = 0; i < 32; ++i) dk_acc[p][i] = dv_acc[p][i] = 0.f;
+      for (int i = 0; i < CB * 4; ++i) dk_acc[p][i] = dv_acc[p][i] = 0.f;
 
-    const uint32_t k_addr = smem_u32(sm + Lay::K) + cw * 64 * 128;
-    const uint32_t v_addr = smem_u32(sm + Lay::V) + cw * 64 * 128;
+    const uint32_t k_addr = smem_u32(sm + Lay::K) + cw * 64 * RB;
+    const uint32_t v_addr = smem_u32(sm + Lay::V) + cw * 64 * RB;
     mbar_wait(kv_full, 0);
     int stage = 0;
     uint32_t phase = 0;
     for (int i = 0; i < n_pairs; ++i) {
-      const int m0 = m_begin + (i / G) * DKV_BM;
+      const int m0 = m_begin + (i / G) * BM;
       mbar_wait(&full[stage], phase);
       const uint32_t q_addr =
           smem_u32(sm + Lay::Q) + stage * NP * Lay::Q_PANEL;
       const uint32_t do_addr =
           smem_u32(sm + Lay::DO) + stage * NP * Lay::Q_PANEL;
-      const float* ms = stats + stage * 3 * DKV_BM;
-      const float* inv_ls = ms + DKV_BM;
-      const float* deltas = ms + 2 * DKV_BM;
+      const float* ms = stats + stage * 3 * BM;
+      const float* inv_ls = ms + BM;
+      const float* deltas = ms + 2 * BM;
 
-      // ---- S^T = K Q^T, dP^T = V dO^T (64 keys x 64 queries); [j * 4 +
-      // e] is key key[e >> 1], query m0 + j * 8 + qc + (e & 1) ----
+      // ---- S^T = K Q^T, dP^T = V dO^T (64 keys x BM queries), all D / 16
+      // k-steps over the NP panels; [j * 4 + e] is key key[e >> 1], query
+      // m0 + j * 8 + qc + (e & 1) ----
       float st[QB * 4], dpt[QB * 4];
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
-        const uint32_t kofs = (ks & 3) * 32;
-        wgmma_ss_n64(
-            st, sw128_desc(k_addr + (ks >> 2) * Lay::KV_PANEL + kofs, 16, 1024),
-            sw128_desc(q_addr + (ks >> 2) * Lay::Q_PANEL + kofs, 16, 1024),
-            ks > 0);
+        const uint32_t kofs = (ks % KSP) * 32;
+        wgmma_ss(st,
+                 panel_desc<PW>(k_addr + (ks / KSP) * Lay::KV_PANEL + kofs,
+                                16),
+                 panel_desc<PW>(q_addr + (ks / KSP) * Lay::Q_PANEL + kofs, 16),
+                 ks > 0);
       }
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
-        const uint32_t kofs = (ks & 3) * 32;
-        wgmma_ss_n64(
-            dpt,
-            sw128_desc(v_addr + (ks >> 2) * Lay::KV_PANEL + kofs, 16, 1024),
-            sw128_desc(do_addr + (ks >> 2) * Lay::Q_PANEL + kofs, 16, 1024),
-            ks > 0);
+        const uint32_t kofs = (ks % KSP) * 32;
+        wgmma_ss(dpt,
+                 panel_desc<PW>(v_addr + (ks / KSP) * Lay::KV_PANEL + kofs,
+                                16),
+                 panel_desc<PW>(do_addr + (ks / KSP) * Lay::Q_PANEL + kofs,
+                                16),
+                 ks > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -1110,9 +1149,9 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
       }
       // bit i: element i is live (a tile that no edge crosses is all live)
       uint32_t live = 0xffffffffu;
-      const bool edge = m0 + DKV_BM > S || k_lo + 64 > Tk ||
+      const bool edge = m0 + BM > S || k_lo + 64 > Tk ||
                         (causal && k_lo + 63 > m0) ||
-                        (window > 0 && m0 + DKV_BM - 1 - k_lo >= window);
+                        (window > 0 && m0 + BM - 1 - k_lo >= window);
       if (edge) {
         live = 0u;
 #pragma unroll
@@ -1149,7 +1188,8 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
         }
 
       // ---- dV += P^T dO, dK += dS^T Q: bf16 A fragments straight from
-      // the accumulators ----
+      // the accumulators; per 16 queries one m64n64k16 per panel (D = 64,
+      // 128) or one m64n160k16 over the five panels (D = 160) ----
       uint32_t pa[PK][4], da[PK][4];
 #pragma unroll
       for (int kk = 0; kk < PK; ++kk)
@@ -1160,15 +1200,12 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
         }
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < PK; ++kk)
-#pragma unroll
-        for (int p = 0; p < NP; ++p) {
-          const uint32_t at = p * Lay::Q_PANEL + kk * 16 * 128;
-          wgmma_rs_n64_tb(dv_acc[p], pa[kk],
-                          sw128_desc(do_addr + at, Lay::Q_PANEL, 1024));
-          wgmma_rs_n64_tb(dk_acc[p], da[kk],
-                          sw128_desc(q_addr + at, Lay::Q_PANEL, 1024));
-        }
+      for (int kk = 0; kk < PK; ++kk) {
+        wgmma_rs_panels<PW, NP>(dv_acc, pa[kk], do_addr + kk * 16 * RB,
+                                Lay::Q_PANEL);
+        wgmma_rs_panels<PW, NP>(dk_acc, da[kk], q_addr + kk * 16 * RB,
+                                Lay::Q_PANEL);
+      }
       wgmma_commit();
       wgmma_wait<0>();
 #pragma unroll
@@ -1190,8 +1227,8 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
 #pragma unroll
         for (int p = 0; p < NP; ++p)
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int c = p * 64 + j * 8 + qc;
+          for (int j = 0; j < CB; ++j) {
+            const int c = p * PW + j * 8 + qc;
             *reinterpret_cast<uint32_t*>(dk + at + c) = pack_bf16(
                 dk_acc[p][j * 4 + 2 * h], dk_acc[p][j * 4 + 2 * h + 1]);
             *reinterpret_cast<uint32_t*>(dv + at + c) = pack_bf16(
@@ -1359,8 +1396,8 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
       for (int ks = 0; ks < KS; ++ks) {
         const uint32_t kofs = (ks & 3) * 32;
         wgmma_ss_n64(
-            s, sw128_desc(q_addr + (ks >> 2) * Lay::Q_PANEL + kofs, 16, 1024),
-            sw128_desc(k_addr + (ks >> 2) * Lay::KV_PANEL + kofs, 16, 1024),
+            s, panel_desc<64>(q_addr + (ks >> 2) * Lay::Q_PANEL + kofs, 16),
+            panel_desc<64>(k_addr + (ks >> 2) * Lay::KV_PANEL + kofs, 16),
             ks > 0);
       }
       wgmma_commit();
@@ -1369,8 +1406,8 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
         const uint32_t kofs = (ks & 3) * 32;
         wgmma_ss_n64(
             dp,
-            sw128_desc(do_addr + (ks >> 2) * Lay::Q_PANEL + kofs, 16, 1024),
-            sw128_desc(v_addr + (ks >> 2) * Lay::KV_PANEL + kofs, 16, 1024),
+            panel_desc<64>(do_addr + (ks >> 2) * Lay::Q_PANEL + kofs, 16),
+            panel_desc<64>(v_addr + (ks >> 2) * Lay::KV_PANEL + kofs, 16),
             ks > 0);
       }
       wgmma_commit();
@@ -1436,9 +1473,9 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
 #pragma unroll
         for (int p = 0; p < NP; ++p)
           wgmma_rs_n64_tb(acc[p], da[kk],
-                          sw128_desc(k_addr + p * Lay::KV_PANEL +
-                                         kk * 16 * 128,
-                                     Lay::KV_PANEL, 1024));
+                          panel_desc<64>(k_addr + p * Lay::KV_PANEL +
+                                             kk * 16 * 128,
+                                         Lay::KV_PANEL));
       wgmma_commit();
       wgmma_wait<0>();
 #pragma unroll
@@ -1536,13 +1573,17 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v,
                      const float* delta, void* dk, void* dv, int B, int S,
                      int Tk, int H, int K, int causal, int window,
                      float softcap, cudaStream_t stream) {
+  using Lay = DkvLayout<D>;
   CUtensorMap tq, tk, tv, tdo;
-  int rc = hopper::make_tensor_map(&tq, q, B, S, H * D, DKV_BM);
-  if (rc == 0) rc = hopper::make_tensor_map(&tdo, dout, B, S, H * D, DKV_BM);
-  if (rc == 0) rc = hopper::make_tensor_map(&tk, k, B, Tk, K * D, DKV_BN);
-  if (rc == 0) rc = hopper::make_tensor_map(&tv, v, B, Tk, K * D, DKV_BN);
+  int rc = hopper::make_tensor_map(&tq, q, B, S, H * D, Lay::BM, Lay::PW);
+  if (rc == 0)
+    rc = hopper::make_tensor_map(&tdo, dout, B, S, H * D, Lay::BM, Lay::PW);
+  if (rc == 0)
+    rc = hopper::make_tensor_map(&tk, k, B, Tk, K * D, DKV_BN, Lay::PW);
+  if (rc == 0)
+    rc = hopper::make_tensor_map(&tv, v, B, Tk, K * D, DKV_BN, Lay::PW);
   if (rc != 0) return rc;
-  constexpr int bytes = DkvLayout<D>::BYTES;
+  constexpr int bytes = Lay::BYTES;
   static bool configured = false;
   rc = configure(flash_bwd_dkv_wgmma_kernel<D>, bytes, configured);
   if (rc != 0) return rc;
@@ -1597,18 +1638,22 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v,
 }
 
 // Which design serves dK/dV at (D, dtype): fp32 on the CUDA cores; bf16 on
-// warpgroup products fed by the TMA at D = 64 and 128 (llama's heads), on
-// mma.sync at D = 32 and 160 (stablelm-12b).  No launch falls back to
-// another design.
+// warpgroup products fed by the TMA at D = 64, 128 (llama's heads) and 160
+// (stablelm-12b), on mma.sync at D = 32.  No launch falls back to another
+// design.
 int dkv_design(int D, int dtype) {
   const bool any_d = D == 32 || D == 64 || D == 128 || D == 160;
   if (dtype == DTYPE_F32) return any_d ? DESIGN_CUDA_CORES : DESIGN_NONE;
   if (dtype != DTYPE_BF16 || !any_d) return DESIGN_NONE;
-  return D == 64 || D == 128 ? DESIGN_WGMMA : DESIGN_MMA_SYNC;
+  return D == 32 ? DESIGN_MMA_SYNC : DESIGN_WGMMA;
 }
 
-// Which design serves dQ at (D, dtype): the same map as dK/dV's.
-int dq_design(int D, int dtype) { return dkv_design(D, dtype); }
+// Which design serves dQ at (D, dtype): as dK/dV's, but bf16 at D = 160
+// stays on mma.sync.
+int dq_design(int D, int dtype) {
+  const int d = dkv_design(D, dtype);
+  return d == DESIGN_WGMMA && D == 160 ? DESIGN_MMA_SYNC : d;
+}
 
 }  // namespace
 
@@ -1637,13 +1682,13 @@ extern "C" int repro_flash_attention_bwd_dkv(
     case DESIGN_MMA_SYNC:
       switch (D) {
         case 32: return launch_dkv_mma<32>(REPRO_DKV_ARGS);
-        case 160: return launch_dkv_mma<160>(REPRO_DKV_ARGS);
       }
       break;
     case DESIGN_WGMMA:
       switch (D) {
         case 64: return launch_dkv_wgmma<64>(REPRO_DKV_ARGS);
         case 128: return launch_dkv_wgmma<128>(REPRO_DKV_ARGS);
+        case 160: return launch_dkv_wgmma<160>(REPRO_DKV_ARGS);
       }
       break;
   }
@@ -1693,9 +1738,24 @@ extern "C" int repro_flash_attention_bwd_dkv_design(int D, int dtype) {
   return dkv_design(D, dtype);
 }
 
-
 // The design that repro_flash_attention_bwd_dq launches for (D, dtype).
 extern "C" int repro_flash_attention_bwd_dq_design(int D, int dtype) {
   return dq_design(D, dtype);
+}
+
+// The design that flash_bwd_dkv_wgmma_kernel<160> replaced: the bf16
+// D = 160 dK/dV on mma.sync; the arguments of repro_flash_attention_bwd_dkv.
+// Not on any path of the package: chip_smoke.py times it beside its
+// successor in the same run.
+extern "C" int repro_flash_attention_bwd_dkv_mma(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* m, const float* l, const float* delta, void* dk, void* dv,
+    int B, int S, int T, int H, int K, int D, int dtype, int causal,
+    int window, float softcap, void* stream) {
+  if (!shape_ok(B, S, T, H, K) || D != 160 || dtype != DTYPE_BF16)
+    return ERR_UNSUPPORTED;
+  return launch_dkv_mma<160>(q, k, v, dout, m, l, delta, dk, dv, B, S, T, H,
+                             K, causal, window, softcap,
+                             (cudaStream_t)stream);
 }
 

@@ -4,11 +4,14 @@
 // descriptors, register reallocation (setmaxnreg), the host-side encoding of
 // the tensor maps, and the live-tile bounds both kernels walk.
 //
-// Shared-memory tiles are written by the TMA with the 128-byte swizzle: a
-// tile of R rows x 64 bf16 columns (one "panel", 128 bytes a row) whose
-// 16-byte chunk c of row r lands at chunk c ^ (r % 8); a head of D = 128
-// columns is two panels, R * 128 bytes apart.  Every panel starts on a
-// 1024-byte boundary, as the swizzle and the descriptors below assume.
+// Shared-memory tiles are written by the TMA in column panels.  Where D is a
+// multiple of 64 a panel is R rows x 64 bf16 columns (128 bytes a row) with
+// the 128-byte swizzle: 16-byte chunk c of row r lands at chunk c ^ (r % 8);
+// a head of D = 128 columns is two panels, R * 128 bytes apart.  Otherwise
+// (D = 160) a panel is R rows x 32 columns (64 bytes a row) with the 64-byte
+// swizzle, chunk c of row r at c ^ ((r / 2) % 4), and a head is five of
+// them.  Every panel starts on a 1024-byte boundary, as the swizzles and the
+// descriptors below assume.
 //
 // The tensor-map encoder is a driver-API function; it is reached through
 // cudaGetDriverEntryPoint(ByVersion) at its first use, so the library links
@@ -25,6 +28,9 @@ namespace hopper {
 
 // returned when the driver has no tensor-map encoder or refuses a map
 constexpr int ERR_TENSOR_MAP = -2;
+
+// bf16 columns of one panel of a head of D columns (see the top)
+template <int D> constexpr int kPanelCols = D % 64 == 0 ? 64 : 32;
 
 // ---- live tiles (the same bounds as kernels/flash_attention.py
 // live_key_tiles and kernels/flash_attention_bwd.py live_query_tiles, which
@@ -154,17 +160,23 @@ template <int N> __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-// Shared-memory matrix descriptor of a 128-byte-swizzled operand:
-// start address, leading and stride byte offsets (16-byte units), layout
-// type 1 (128B swizzle) in bits 62-63.  K-major (rows of 64 bf16 along K):
-// SBO = 1024 (the next 8 rows), LBO unused; a k-step of 16 elements adds 32
-// bytes to the start.  MN-major (rows of 64 bf16 along M or N, one row per
-// k): SBO = 1024 (the next 8 k), LBO = the next 64 columns (a panel).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr, uint32_t lbo,
-                                               uint32_t sbo) {
+// Shared-memory matrix descriptor of an operand stored in panels of PW bf16
+// columns (see the top): start address, leading and stride byte offsets
+// (16-byte units), and the layout type in bits 62-63 -- 1 (128-byte
+// swizzle) for PW = 64, 2 (64-byte) for PW = 32.  K-major (rows of PW bf16
+// along K): SBO = 8 rows of the panel (1024 or 512 bytes), LBO unused; a
+// k-step of 16 elements adds 32 bytes to the start.  MN-major (rows of PW
+// bf16 along M or N, one row per k): SBO = the next 8 k, LBO = the next PW
+// columns (the panel stride), read only where the operand is wider than one
+// panel.
+template <int PW>
+__device__ __forceinline__ uint64_t panel_desc(uint32_t saddr, uint32_t lbo) {
+  static_assert(PW == 64 || PW == 32, "panels are 64 or 32 columns");
+  constexpr uint64_t layout = PW == 64 ? 1 : 2;
+  constexpr uint32_t sbo = 8 * PW * 2;
   return (uint64_t)((saddr & 0x3FFFFu) >> 4) |
          ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | (1ull << 62);
+         ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | (layout << 62);
 }
 
 // d (64 x 128, fp32) = [d +] a (64 x 16) b (16 x 128), a and b in shared
@@ -222,6 +234,38 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (64 x 32, fp32) = [d +] a (64 x 16) b (16 x 32), a and b in shared
+// memory (descriptors), both K-major; accumulate = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15"
+      "}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// the SS product whose width the accumulator's size names: n32, n64, n128
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  wgmma_ss_n32(d, a, b, accumulate);
+}
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  wgmma_ss_n64(d, a, b, accumulate);
+}
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  wgmma_ss_n128(d, a, b, accumulate);
+}
+
 // d (64 x 64, fp32) += a (64 x 16: bf16 fragments in registers, the
 // mma.sync A layout per warp) b (16 x 64), b in shared memory (descriptor),
 // MN-major (the transposed-B flag)
@@ -245,6 +289,67 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32],
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 160, fp32; d[p] holds columns p * 32 .. p * 32 + 31 in the
+// layout of an m64n32 accumulator) += a (64 x 16, bf16 fragments in
+// registers) b (16 x 160), b in shared memory, MN-major in five 32-column
+// panels LBO bytes apart (the descriptor's): one instruction for all of
+// D = 160
+__device__ __forceinline__ void wgmma_rs_n160_tb(float (&d)[5][16],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
+      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, "
+      "{%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[0][4]), "+f"(d[0][5]), "+f"(d[0][6]), "+f"(d[0][7]),
+        "+f"(d[0][8]), "+f"(d[0][9]), "+f"(d[0][10]), "+f"(d[0][11]),
+        "+f"(d[0][12]), "+f"(d[0][13]), "+f"(d[0][14]), "+f"(d[0][15]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[1][4]), "+f"(d[1][5]), "+f"(d[1][6]), "+f"(d[1][7]),
+        "+f"(d[1][8]), "+f"(d[1][9]), "+f"(d[1][10]), "+f"(d[1][11]),
+        "+f"(d[1][12]), "+f"(d[1][13]), "+f"(d[1][14]), "+f"(d[1][15]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[2][4]), "+f"(d[2][5]), "+f"(d[2][6]), "+f"(d[2][7]),
+        "+f"(d[2][8]), "+f"(d[2][9]), "+f"(d[2][10]), "+f"(d[2][11]),
+        "+f"(d[2][12]), "+f"(d[2][13]), "+f"(d[2][14]), "+f"(d[2][15]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[3][4]), "+f"(d[3][5]), "+f"(d[3][6]), "+f"(d[3][7]),
+        "+f"(d[3][8]), "+f"(d[3][9]), "+f"(d[3][10]), "+f"(d[3][11]),
+        "+f"(d[3][12]), "+f"(d[3][13]), "+f"(d[3][14]), "+f"(d[3][15]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[4][4]), "+f"(d[4][5]), "+f"(d[4][6]), "+f"(d[4][7]),
+        "+f"(d[4][8]), "+f"(d[4][9]), "+f"(d[4][10]), "+f"(d[4][11]),
+        "+f"(d[4][12]), "+f"(d[4][13]), "+f"(d[4][14]), "+f"(d[4][15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// acc (64 x NP * PW, fp32, per panel) += a (64 x 16, registers) b (16 x
+// NP * PW), b MN-major in NP panels of PW columns, `panel` bytes apart from
+// b_addr on: every panel of the head's columns
+template <int PW, int NP>
+__device__ __forceinline__ void wgmma_rs_panels(float (&acc)[NP][PW / 2],
+                                                const uint32_t (&a)[4],
+                                                uint32_t b_addr,
+                                                uint32_t panel) {
+  if constexpr (PW == 32) {
+    static_assert(NP == 5, "32-column panels are D = 160's");
+    wgmma_rs_n160_tb(acc, a, panel_desc<PW>(b_addr, panel));
+  } else {
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      wgmma_rs_n64_tb(acc[p], a, panel_desc<PW>(b_addr + p * panel, panel));
+  }
 }
 
 // ---- host: tensor maps ----
@@ -275,23 +380,27 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A bf16 (batch, rows, cols) array, contiguous, as a 3-D tensor map with
-// boxes of 64 columns x box_rows rows x 1, 128-byte swizzled; reads past
-// rows or cols are zero-filled.  q (B, S, H, D) is (B, S, H*D), k and v
-// (B, T, K*D): head h's columns start at h*D.
+// boxes of box_cols (64 or 32) columns x box_rows rows x 1, swizzled by the
+// box's row width (128 or 64 bytes); reads past rows or cols are
+// zero-filled.  q (B, S, H, D) is (B, S, H*D), k and v (B, T, K*D): head h's
+// columns start at h*D.
 inline int make_tensor_map(CUtensorMap* map, const void* base, int batch,
-                           int rows, int cols, int box_rows) {
+                           int rows, int cols, int box_rows,
+                           int box_cols = 64) {
+  if (box_cols != 64 && box_cols != 32) return ERR_TENSOR_MAP;
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return ERR_TENSOR_MAP;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
                               (cuuint64_t)batch};
   const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
                                  (cuuint64_t)cols * 2 * (cuuint64_t)rows};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                         const_cast<void*>(base), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                       : CU_TENSOR_MAP_SWIZZLE_64B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP;

@@ -30,11 +30,9 @@
 // before it runs their dependent FMA chain.  The inputs are read twice
 // (about 210 MB, 63 us at 3.35 TB/s).  Chunk 0 is the serial arithmetic
 // exactly; a later chunk's entering carry differs from the serial one by
-// the rounding of A_c h + e_c.  Any S, any B.
-//
-// The design it replaced (one thread per channel over all S steps) stays
-// exported as repro_rglru_fwd_serial, for chip_smoke.py's timing in turns
-// only.
+// the rounding of A_c h + e_c.  Any S, any B.  The serial design it
+// replaced (one thread per channel over all S steps, 0.5258 ms at the served
+// shape against 0.0854) is deleted; PERF.md keeps its times.
 
 #include "common.cuh"
 
@@ -45,38 +43,6 @@ using namespace repro;
 constexpr int RG_NT = 128;     // threads (channels) per block
 constexpr int RG_CHUNK = 64;   // steps per chunk
 constexpr int AHEAD = 16;      // steps loaded before their FMA chain runs
-
-// the serial design: one thread per (batch, channel) over all S steps
-__global__ void __launch_bounds__(RG_NT)
-rglru_kernel(const float* __restrict__ log_a, const float* __restrict__ gated,
-             const float* __restrict__ h0, float* __restrict__ y, int S,
-             int W) {
-  const int w = blockIdx.x * RG_NT + threadIdx.x;
-  const int b = blockIdx.y;
-  if (w >= W) return;
-  const size_t base = (size_t)b * S * W + w;
-  float h = h0 != nullptr ? h0[(size_t)b * W + w] : 0.f;
-  int t = 0;
-  for (; t + AHEAD <= S; t += AHEAD) {
-    float la[AHEAD], gg[AHEAD];
-#pragma unroll
-    for (int i = 0; i < AHEAD; ++i) {
-      const size_t o = base + (size_t)(t + i) * W;
-      la[i] = log_a[o];
-      gg[i] = gated[o];
-    }
-#pragma unroll
-    for (int i = 0; i < AHEAD; ++i) {
-      h = expf(la[i]) * h + gg[i];
-      y[base + (size_t)(t + i) * W] = h;
-    }
-  }
-  for (; t < S; ++t) {
-    const size_t o = base + (size_t)t * W;
-    h = expf(log_a[o]) * h + gated[o];
-    y[o] = h;
-  }
-}
 
 // Steps t0 .. t0+n-1 of one channel (element `base` at step 0, stride W)
 // from h: h = exp(log_a_t) h + gated_t, with the product of the exp(log_a_t)
@@ -212,16 +178,3 @@ extern "C" int repro_rglru_fwd(const float* log_a, const float* gated,
   return (int)cudaGetLastError();
 }
 
-// The design that the chunked scan replaced: one thread per (batch,
-// channel) over all S steps; the arguments of repro_rglru_fwd without the
-// workspace.  Not on any path of the package: chip_smoke.py times it beside
-// its successor in the same run.
-extern "C" int repro_rglru_fwd_serial(const float* log_a, const float* gated,
-                                      const float* h0, float* y, int B,
-                                      int S, int W, void* stream) {
-  if (B <= 0 || S <= 0 || W <= 0 || B > 65535) return ERR_UNSUPPORTED;
-  const dim3 grid((W + RG_NT - 1) / RG_NT, B);
-  rglru_kernel<<<grid, RG_NT, 0, (cudaStream_t)stream>>>(log_a, gated, h0, y,
-                                                        S, W);
-  return (int)cudaGetLastError();
-}

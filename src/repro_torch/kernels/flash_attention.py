@@ -10,9 +10,10 @@ file says how.
 
 Which design serves a call depends on (head_dim, dtype) alone, as the C
 dispatch's switch says (``design``): fp32 on the CUDA cores; bf16 at
-D = 64 and 128 on warpgroup products (``wgmma``) fed by the TMA, with one
-producer warp and two consumer warpgroups; bf16 at D = 32, 160 and 256 on
-warp-level ``mma.sync``.  The TMA reads q, k and v through tensor maps, which
+D = 64, 128 and 160 on warpgroup products (``wgmma``) fed by the TMA, with
+one producer warp and two consumer warpgroups (at D = 160 the head's columns
+are five 32-column panels); bf16 at D = 32 and 256 on warp-level
+``mma.sync``.  The TMA reads q, k and v through tensor maps, which
 need 16-byte aligned base pointers: the wrapper checks that for every
 launch.  ``live_key_tiles`` is the key-tile walk of the warpgroup design,
 the same bounds as the ``.cu`` file computes.

@@ -28,11 +28,13 @@ finite gradients.
 
 Designs (the C dispatch's switch, ``design_dkv`` and ``design_dq``): fp32 on
 the CUDA cores; in bf16 the stats forward is the forward's design
-(``flash_attention.design``), and dK/dV and dQ run on warpgroup products
-(``wgmma``) fed by the TMA at D = 64 and 128 and on ``mma.sync`` at D = 32
-and 160.
+(``flash_attention.design``), dK/dV runs on warpgroup products
+(``wgmma``) fed by the TMA at D = 64, 128 and 160 and on ``mma.sync`` at
+D = 32, and dQ on warpgroup products at D = 64 and 128 and on ``mma.sync``
+at D = 32 and 160.
 The dK/dV block of the warpgroup design owns 128 keys and walks the (query
-tile, group head) pairs of ``live_query_tiles``; the dQ block owns 128
+tile, group head) pairs of ``live_query_tiles`` (tiles of 64 query
+positions, 32 at D = 160); the dQ block owns 128
 query positions of one head and walks the 64-key tiles of
 ``flash_attention.live_key_tiles``: the same bounds as the ``.cu`` files
 compute.

@@ -417,10 +417,11 @@ def test_kernels_match_plain_versions_on_the_card(cuda_device):
 
 @pytest.mark.gpu
 def test_warpgroup_designs_match_plain_versions_on_the_card(cuda_device):
-    """bf16 at D = 64 and 128 runs on the warpgroup designs: the forward
-    (with statistics), dK/dV and dQ against their plain versions, several
-    128-key tiles, G = 3, ragged S; the chunk-parallel SSD at a ragged
-    multi-chunk shape on the tensor cores, against its plain version."""
+    """bf16 at D = 64 and 128 runs on the warpgroup designs, and at D = 160
+    the forward and dK/dV do (dQ stays on mma.sync): the forward (with
+    statistics), dK/dV and dQ against their plain versions, several 128-key
+    tiles, G = 3, ragged S; the chunk-parallel SSD at a ragged multi-chunk
+    shape on the tensor cores, against its plain version."""
     from repro_torch.kernels.flash_attention import design
     from repro_torch.kernels.ssd import design as ssd_design
     from repro_torch.kernels.ssd import ssd, ssd_plain
@@ -430,8 +431,10 @@ def test_warpgroup_designs_match_plain_versions_on_the_card(cuda_device):
     assert fab.design_dq(128, bf16) == fab.design_dq(64, bf16) == "wgmma"
     assert design(256, bf16) == fab.design_dkv(32, bf16) == "mma.sync"
     assert fab.design_dq(32, bf16) == "mma.sync"
+    assert design(160, bf16) == fab.design_dkv(160, bf16) == "wgmma"
+    assert fab.design_dq(160, bf16) == "mma.sync"
     assert ssd_design(64, 128, bf16) == "mma.sync"
-    for D in (64, 128):
+    for D in (64, 128, 160):
         q, k, v, ct = (torch.from_numpy(a).to(cuda_device, bf16)
                        for a in _bwd_inputs(2, 300, 300, 6, 2, D))
         kw = dict(causal=True, window=0, softcap=0.0)

@@ -233,7 +233,10 @@ def test_apply_ssm_decode_step_matches_reference_from_one_cache():
     for n in cache:
         cache[n].copy_(torch.from_numpy(
             r.standard_normal(tuple(cache[n].shape)).astype(np.float32)))
-    rc = {n: jnp.asarray(t.numpy()) for n, t in cache.items()}
+    # copies: on the CPU jnp.asarray may alias the tensors' memory, which
+    # the port's step below updates in place while the reference's
+    # (dispatched asynchronously) may still be reading it
+    rc = {n: jnp.array(t.numpy()) for n, t in cache.items()}
     xt = r.standard_normal((2, 1, cfg.d_model)).astype(np.float32)
     y2, rc = ref_ssm.apply_ssm(rp, jnp.asarray(xt), ref_cfg,
                                compute_dtype=jnp.float32, cache=rc)

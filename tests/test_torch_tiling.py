@@ -12,7 +12,18 @@ dK/dV that sums over the group, a dQ -- and are held to the port's plain
 versions in fp32 at 1e-5 (summation order only) and to the reference's
 oracle (``repro.kernels.ref.attention_ref`` and ``jax.grad`` of it) at the
 reference's 5e-4, so a bound that drops a live tile fails here before any
-time on the card.
+time on the card.  At stablelm-12b's D = 160 the forward walks 128-key tiles
+and dK/dV 32-query tiles (``D160_CASES``), with plain products or on the
+kernels' column panels: the bf16 warpgroup kernels keep a head's D columns
+in shared memory as panels of ``panel_cols(D)`` columns, the layout the TMA
+writes (``csrc/hopper.cuh``): 64 at D = 64 and 128, five of 32 at D = 160.
+The score products (S = Q K^T; S^T = K Q^T and dP^T = V dO^T) walk D / 16
+k-steps of 16 columns, PW / 16 a panel; the products with an MN-major
+operand (O += P V, dV += P^T dO, dK += dS^T Q) take column n of their
+result from panel n // PW (at D = 160 one m64n160k16 whose descriptor's LBO
+steps from panel to panel).  A walk that leaves the tail panel out --
+columns 128-159, as a split of 160 columns into 64-column panels would --
+must fail the comparison that the whole walk passes.
 """
 import functools
 import math
@@ -43,6 +54,22 @@ CASES = [
     (1, 200, 200, 3, 1, 32, True, 0, 0.0),        # GQA G = 3
     (1, 180, 300, 6, 2, 32, True, 50, 30.0),      # soft-cap 30, window
 ]
+# stablelm-12b's head dim: the warpgroup forward at BM = 128 with 128-key
+# tiles, dK/dV at 32-query tiles of 128-key blocks
+D160_CASES = [
+    # B, S, T, H, K, D, causal, window, softcap
+    (1, 300, 300, 4, 2, 160, True, 0, 0.0),       # causal, several tiles
+    (1, 100, 77, 4, 1, 160, True, 0, 30.0),       # ragged, MQA, soft-cap
+    (2, 130, 200, 4, 2, 160, False, 0, 0.0),      # S != T, bidirectional
+    (1, 260, 260, 4, 2, 160, True, 50, 0.0),      # window 50
+]
+D160_DKV_BM = 32    # query positions per tile of the D = 160 dK/dV (csrc)
+# the same walks on llama's 64-column panels (D = 128) and at D = 64
+PANEL64_CASES = [
+    (1, 200, 200, 4, 2, 128, True, 0, 0.0),
+    (1, 130, 100, 2, 1, 64, True, 40, 30.0),
+]
+KSTEP = 16      # columns of one k-step of a wgmma (bf16)
 # Every query row of these cases sees at least one key.  A row that sees
 # none has no agreed output: the oracle and the plain versions give the mean
 # of all V (a uniform softmax over -1e30 scores), the reference's Pallas
@@ -56,8 +83,46 @@ def _inputs(B, S, T, H, K, D, seed=11):
                  ((B, S, H, D), (B, T, K, D), (B, T, K, D), (B, S, H, D)))
 
 
-def _scores(qt, kt, scale, softcap):
-    s = qt @ kt.transpose(-1, -2) * scale
+def panel_cols(D: int) -> int:
+    """Columns of one panel (``csrc/hopper.cuh`` ``kPanelCols``)."""
+    return 64 if D % 64 == 0 else 32
+
+
+def panels(x, pw):
+    """(..., rows, D) -> (NP, ..., rows, pw): the panel layout."""
+    assert x.shape[-1] % pw == 0
+    return torch.stack(x.split(pw, dim=-1))
+
+
+def kstep_product(a, b, pw=None, n_panels=None):
+    """a (..., M, D) b (..., N, D) -> a b^T; with a panel width ``pw``, as
+    the K-major products walk it: k-step ks = p * (pw / 16) + c reads
+    columns c * 16 .. c * 16 + 15 of panel p, and the k-steps' products
+    are summed; ``n_panels`` below NP leaves the tail out."""
+    if pw is None:
+        return a @ b.transpose(-1, -2)
+
+    def ksteps(x):                  # (..., rows, n, pw / 16, 16)
+        x = panels(x, pw)[:n_panels].movedim(0, -2)
+        return x.unflatten(-1, (pw // KSTEP, KSTEP))
+    return torch.einsum("...mpck,...npck->...mn", ksteps(a), ksteps(b))
+
+
+def panel_product(a, b, pw=None, n_panels=None):
+    """a (..., M, C) @ b (..., C, D); with a panel width ``pw``, b MN-major
+    in panels: column n of the result from panel n // pw, column n % pw (as
+    the wide instruction's LBO steps); ``n_panels`` below NP leaves the
+    tail columns zero."""
+    if pw is None:
+        return a @ b
+    wide = panels(b, pw)[:n_panels].movedim(0, -2).flatten(-2)
+    out = torch.zeros(a.shape[:-1] + (b.shape[-1],))
+    out[..., :wide.shape[-1]] = a @ wide
+    return out
+
+
+def _scores(qt, kt, scale, softcap, pw=None):
+    s = kstep_product(qt, kt, pw) * scale
     return softcap * torch.tanh(s / softcap) if softcap > 0 else s
 
 
@@ -72,10 +137,13 @@ def _dead(qpos, kpos, S, T, causal, window):
     return dead
 
 
-def forward_tile_walk(q, k, v, *, causal, window, softcap, BM):
+def forward_tile_walk(q, k, v, *, causal, window, softcap, BM, BN=BN,
+                      pw=None, n_panels=None):
     """The warpgroup forward's walk in fp32: per head and block of BM
-    positions, online softmax over the key tiles of ``live_key_tiles``.
-    Returns (o, m, l) as ``attention_fwd_stats_plain`` does."""
+    positions, online softmax over the BN-key tiles of ``live_key_tiles``;
+    the products on ``pw``-column panels where ``pw`` is given, the output's
+    from the first ``n_panels`` only.  Returns (o, m, l) as
+    ``attention_fwd_stats_plain`` does."""
     B, S, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
@@ -94,14 +162,15 @@ def forward_tile_walk(q, k, v, *, causal, window, softcap, BM):
             assert n_begin % BN == 0
             for n0 in range(n_begin, n_end, BN):
                 keys = torch.arange(n0, min(n0 + BN, T))
-                s = _scores(qt, k[:, keys, h // G], scale, softcap)
+                s = _scores(qt, k[:, keys, h // G], scale, softcap, pw)
                 s = s.masked_fill(_dead(rows, keys, S, T, causal, window),
                                   NEG_INF)
                 m_new = torch.maximum(m_i, s.amax(-1))
                 corr = torch.exp(m_i - m_new)
                 p = torch.exp(s - m_new[..., None])
                 l_i = l_i * corr + p.sum(-1)
-                acc = acc * corr[..., None] + p @ v[:, keys, h // G]
+                acc = acc * corr[..., None] + panel_product(
+                    p, v[:, keys, h // G], pw, n_panels)
                 m_i = m_new
             o[:, rows, h] = acc / l_i.clamp_min(1e-30)[..., None]
             m_out[:, rows, h] = m_i
@@ -109,11 +178,13 @@ def forward_tile_walk(q, k, v, *, causal, window, softcap, BM):
     return o, m_out, l_out
 
 
-def dkv_tile_walk(q, k, v, do, m, l, delta, *, causal, window, softcap, BM):
+def dkv_tile_walk(q, k, v, do, m, l, delta, *, causal, window, softcap, BM,
+                  BN=BN, pw=None, n_panels=None):
     """The warpgroup dK/dV's walk in fp32: per KV head and block of BN keys,
     the (query tile, group head) pairs of ``live_query_tiles``; p from the
     saved statistics, the exact soft-cap derivative, dK and dV summed over
-    the group in the block."""
+    the group in the block; the products on ``pw``-column panels where
+    ``pw`` is given, dK's and dV's from the first ``n_panels`` only."""
     B, S, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
@@ -133,16 +204,16 @@ def dkv_tile_walk(q, k, v, do, m, l, delta, *, causal, window, softcap, BM):
                 for g in range(G):
                     h = kh * G + g
                     qt, dot = q[:, rows, h], do[:, rows, h]
-                    st = _scores(kt, qt, scale, softcap)   # keys x queries
+                    st = _scores(kt, qt, scale, softcap, pw)  # keys x queries
                     dead = _dead(rows, keys, S, T, causal, window).T
                     pt = torch.where(dead, 0.0, torch.exp(
                         st - m[:, rows, h][:, None]) / l[:, rows, h][:, None])
-                    dpt = vt @ dot.transpose(-1, -2)
+                    dpt = kstep_product(vt, dot, pw)
                     dst = pt * (dpt - delta[:, rows, h][:, None])
                     if softcap > 0:
                         dst = dst * (1.0 - (st / softcap) ** 2)
-                    dv_acc += pt @ dot
-                    dk_acc += (dst * scale) @ qt
+                    dv_acc += panel_product(pt, dot, pw, n_panels)
+                    dk_acc += panel_product(dst * scale, qt, pw, n_panels)
             dk[:, keys, kh] = dk_acc
             dv[:, keys, kh] = dv_acc
     return dk, dv
@@ -247,6 +318,117 @@ def test_dq_tile_walk_matches_plain_and_oracle(case, BM):
     dq2 = fab.attention_bwd_plain(q, k, v, do, m, l, delta, **kw)[0]
     _close(dq, dq2, 1e-5, "dq vs attention_bwd_plain")
     _close(dq, _oracle(case)[1], 5e-4, "dq vs jax.grad of attention_ref")
+
+
+@pytest.mark.parametrize("pw", [None, 32])
+@pytest.mark.parametrize("case", D160_CASES)
+def test_forward_tile_walk_d160_matches_plain_and_oracle(case, pw):
+    B, S, T, H, K, D, causal, window, softcap = case
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(B, S, T, H, K, D))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, m, l = forward_tile_walk(q, k, v, BM=128, pw=pw, **kw)
+    o2, m2, l2 = fab.attention_fwd_stats_plain(q, k, v, **kw)
+    _close(o, o2, 1e-5, "o vs attention_fwd_stats_plain")
+    _close(m, m2, 1e-5, "m vs attention_fwd_stats_plain")
+    _close(l, l2, 1e-5, "l vs attention_fwd_stats_plain")
+    _close(o, _oracle(case)[0], 5e-4, "o vs attention_ref")
+
+
+@pytest.mark.parametrize("pw", [None, 32])
+@pytest.mark.parametrize("case", D160_CASES)
+def test_dkv_tile_walk_d160_matches_plain_and_oracle(case, pw):
+    B, S, T, H, K, D, causal, window, softcap = case
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(B, S, T, H, K, D))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, m, l = fab.attention_fwd_stats_plain(q, k, v, **kw)
+    delta = fab.attention_delta(o, do)
+    dk, dv = dkv_tile_walk(q, k, v, do, m, l, delta, BM=D160_DKV_BM, pw=pw,
+                           **kw)
+    _, dk2, dv2 = fab.attention_bwd_plain(q, k, v, do, m, l, delta, **kw)
+    _close(dk, dk2, 1e-5, "dk vs attention_bwd_plain")
+    _close(dv, dv2, 1e-5, "dv vs attention_bwd_plain")
+    _, _, dk3, dv3 = _oracle(case)
+    _close(dk, dk3, 5e-4, "dk vs jax.grad of attention_ref")
+    _close(dv, dv3, 5e-4, "dv vs jax.grad of attention_ref")
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 50), (True, 200),
+                                           (False, 64)])
+def test_d160_tile_bounds_skip_only_dead_tiles(causal, window):
+    """The same integer check for the D = 160 dK/dV's 32-query tiles of
+    128-key blocks (the forward's tiles are D = 128's, checked above)."""
+    for S, T in ((1, 1), (100, 77), (77, 100), (129, 300), (300, 129),
+                 (513, 513)):
+        live = ~_dead(torch.arange(S), torch.arange(T), S, T, causal,
+                      window).numpy()
+        seen = np.zeros_like(live)
+        for n0 in range(0, T, BN):
+            m_begin, m_end = live_query_tiles(n0, BN, D160_DKV_BM, S, causal,
+                                              window)
+            assert m_begin % D160_DKV_BM == 0
+            for m0 in range(m_begin, m_end, D160_DKV_BM):
+                seen[m0:m0 + D160_DKV_BM, n0:n0 + BN] = True
+        assert not (live & ~seen).any(), (S, T, "dK/dV, 32-query tiles")
+
+
+@pytest.mark.parametrize("D", [64, 128, 160])
+def test_panels_cover_every_column_once(D):
+    """The panel layout holds each column once, in order, and the k-steps
+    walk every 16-column slice once."""
+    pw = panel_cols(D)
+    x = torch.arange(3 * D, dtype=torch.float32).reshape(3, D)
+    p = panels(x, pw)
+    assert p.shape == (D // pw, 3, pw)
+    assert torch.equal(p.movedim(0, -2).flatten(-2), x)
+    seen = [divmod(ks, pw // KSTEP) for ks in range(D // KSTEP)]
+    cols = sorted(p_ * pw + c * KSTEP for p_, c in seen)
+    assert cols == list(range(0, D, KSTEP))
+
+
+@pytest.mark.parametrize("walk", ["forward", "dkv"])
+@pytest.mark.parametrize("case", PANEL64_CASES)
+def test_panel_walks_at_64_column_panels(case, walk):
+    """D = 64 and 128 run the same panel code on 64-column panels."""
+    B, S, T, H, K, D, causal, window, softcap = case
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(B, S, T, H, K, D))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, m, l = fab.attention_fwd_stats_plain(q, k, v, **kw)
+    if walk == "forward":
+        got = forward_tile_walk(q, k, v, BM=128, pw=panel_cols(D), **kw)[0]
+        _close(got, o, 1e-5, "o vs attention_fwd_stats_plain")
+        return
+    delta = fab.attention_delta(o, do)
+    dk, dv = dkv_tile_walk(q, k, v, do, m, l, delta, BM=64, pw=panel_cols(D),
+                           **kw)
+    _, dk2, dv2 = fab.attention_bwd_plain(q, k, v, do, m, l, delta, **kw)
+    _close(dk, dk2, 1e-5, "dk vs attention_bwd_plain")
+    _close(dv, dv2, 1e-5, "dv vs attention_bwd_plain")
+
+
+@pytest.mark.parametrize("case", D160_CASES)
+def test_dropped_tail_panel_fails(case):
+    """Four of the five panels (columns 0-127, a 64-column split of 160):
+    o, dk and dv miss their last 32 columns, and the comparison that the
+    whole walk passes rejects each of them; so does a score walk over the
+    first 128 columns only."""
+    B, S, T, H, K, D, causal, window, softcap = case
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(B, S, T, H, K, D))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o2, m, l = fab.attention_fwd_stats_plain(q, k, v, **kw)
+    delta = fab.attention_delta(o2, do)
+    o = forward_tile_walk(q, k, v, BM=128, pw=32, n_panels=4, **kw)[0]
+    dk, dv = dkv_tile_walk(q, k, v, do, m, l, delta, BM=D160_DKV_BM, pw=32,
+                           n_panels=4, **kw)
+    _, dk2, dv2 = fab.attention_bwd_plain(q, k, v, do, m, l, delta, **kw)
+    for name, got, want in (("o", o, o2), ("dk", dk, dk2), ("dv", dv, dv2)):
+        assert torch.equal(got[..., 128:], torch.zeros_like(got[..., 128:]))
+        _close(got[..., :128], want[..., :128], 1e-5, f"{name} columns 0-127")
+        with pytest.raises(AssertionError):
+            _close(got, want, 1e-5, name)
+    with pytest.raises(AssertionError):
+        _close(kstep_product(q, q, 32, n_panels=4), kstep_product(q, q, 32),
+               1e-5, "scores")
 
 
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
