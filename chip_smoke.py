@@ -25,18 +25,20 @@ per line:
                 both train shapes, faults planted in the plain backward's
                 result (a skipped 64- or 128-key tile) must fail the same
                 comparison, and at D = 160 so must a dropped tail panel
-                (columns 128-159 of o, dk and dv zeroed); the bf16 D = 160
-                forward and dK/dV (warpgroup designs) are timed in turns with
-                the mma.sync designs they replaced (``earlier_ms``), which
-                the library still exports for this alone;
+                (columns 128-159 of o, dq, dk and dv zeroed); the bf16
+                D = 160 dQ and D = 256 forward (warpgroup designs) are timed
+                in turns with the mma.sync designs they replaced
+                (``earlier_ms``), which the library still exports for this
+                alone;
   ptxas         registers and spills that ``nvcc -Xptxas -v`` reported for
                 the kernels of ``PTXAS_KERNELS``; a spill fails the run;
-  memory_guards the bf16 warpgroup forward (served, with statistics) and
-                dK/dV at stablelm-12b's served and trained shapes and at
-                ragged ones, on tensors inside NaN guard bands at two
-                alignments: no guard may change, and every output must
-                equal the package's launch bit for bit, five times in a row
-                (``memory_guards``);
+  memory_guards the bf16 warpgroup forward (served, with statistics),
+                dK/dV and dQ at stablelm-12b's served and trained shapes and
+                at ragged ones, the forward also at recurrentgemma-2b's
+                served shape (D = 256, window 2048) and a ragged windowed
+                one, on tensors inside NaN guard bands at two alignments: no
+                guard may change, and every output must equal the unguarded
+                launch bit for bit, five times in a row (``memory_guards``);
   serve_paged   llama3.2-3b at full width in bf16, random weights from seed
                 0 made on the device, 16 requests through
                 ``AsyncServeEngine(mode="paged")``; pure-decode iterations
@@ -107,7 +109,10 @@ planted in the plain result, must fail the comparison, and so must the
 chunked SSD with the split fp32 operands rounded to bf16; two calls must be
 bit-identical), the RG-LRU kernel (the reference's cases at 2e-5, the
 chunked scan's: a ragged last chunk, S shorter than a chunk, one step, B > 1
-at the served width; and the served shape) and the flash kernel at D = 256 with a window.
+at the served width; and the served shape) and the flash kernel at D = 256
+with a window (at the served shape a dropped last 64-column panel of o and
+a key tile skipped under the window, planted in the plain result, must be
+rejected).
 
 Then the card's name and power limit as ``nvidia-smi`` prints them, and last
 ``{"ok": true, "device": {...}}``.
@@ -137,9 +142,9 @@ from repro_torch.data import SyntheticDataset                  # noqa: E402
 from repro_torch.kernels import build, ops                     # noqa: E402
 from repro_torch.kernels.registry import bucket_pow2           # noqa: E402
 from repro_torch.kernels.flash_attention import (              # noqa: E402
-    attention_plain, design, flash_attention)
+    attention_plain, design, flash_attention, live_key_tiles)
 from repro_torch.kernels.flash_attention_bwd import (          # noqa: E402
-    attention_bwd_plain, attention_delta,
+    BWD_HEAD_DIMS, attention_bwd_plain, attention_delta,
     attention_fwd_stats_plain, design_dkv, design_dq,
     flash_attention_bwd_dkv, flash_attention_bwd_dq,
     flash_attention_fwd_stats, flash_attention_vjp)
@@ -189,22 +194,21 @@ TRAIN_CUT = ("depth 40 -> 2 layers (12.1 B fp32 parameters with AdamW "
 # the forward's launch)
 WANT_DESIGN = {
     "flash_attention": {32: "mma.sync", 64: "wgmma", 128: "wgmma",
-                        160: "wgmma", 256: "mma.sync"},
+                        160: "wgmma", 256: "wgmma"},
     "flash_attention_bwd_dkv": {32: "mma.sync", 64: "wgmma", 128: "wgmma",
-                                160: "wgmma"},
-    "flash_attention_bwd_dq": {32: "mma.sync", 64: "wgmma", 128: "wgmma",
-                               160: "mma.sync"}}
+                                160: "wgmma"}}
 WANT_DESIGN["flash_attention_fwd_stats"] = WANT_DESIGN["flash_attention"]
+WANT_DESIGN["flash_attention_bwd_dq"] = WANT_DESIGN["flash_attention_bwd_dkv"]
 
 # kernels whose registers and spills ``nvcc -Xptxas -v`` must report (no
 # spill allowed)
 PTXAS_KERNELS = [
-    "flash_fwd_wgmma_kernelILi160", "flash_fwd_wgmma_kernelILi128",
-    "flash_fwd_wgmma_kernelILi64", "flash_bwd_dkv_wgmma_kernelILi160",
-    "flash_bwd_dkv_wgmma_kernelILi128", "flash_bwd_dkv_wgmma_kernelILi64",
+    "flash_fwd_wgmma_kernelILi256", "flash_fwd_wgmma_kernelILi160",
+    "flash_fwd_wgmma_kernelILi128", "flash_fwd_wgmma_kernelILi64",
+    "flash_bwd_dkv_wgmma_kernelILi160", "flash_bwd_dkv_wgmma_kernelILi128",
+    "flash_bwd_dkv_wgmma_kernelILi64", "flash_bwd_dq_wgmma_kernelILi160",
     "flash_bwd_dq_wgmma_kernelILi128", "flash_bwd_dq_wgmma_kernelILi64",
-    "flash_fwd_mma_kernelILi160", "flash_fwd_mma_kernelILi256",
-    "flash_bwd_dkv_mma_kernelILi160", "flash_bwd_dq_mma_kernelILi160",
+    "flash_fwd_mma_kernelILi256", "flash_bwd_dq_mma_kernelILi160",
     "flash_fwd_kernelIfLi160", "flash_fwd_kernelIfLi256",
     "flash_bwd_dkv_kernelIfLi160", "flash_bwd_dq_kernelIfLi160",
     "paged_split_kernel", "paged_merge_kernel",
@@ -272,11 +276,12 @@ def time_in_turns(new, earlier, iters: int):
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
-def _entry(lib, entry, tensors, causal=True):
+def _entry(lib, entry, tensors, causal=True, window=0):
     """A closure that launches ``entry`` of the kernels' library ``lib``
-    with the arguments of the forward or dK/dV entry points: the pointers of
-    ``tensors`` (None for a null pointer; q and k first, bf16), then the
-    shapes.  It holds the tensors, so their memory outlives it."""
+    with the arguments of the forward or backward entry points: the
+    pointers of ``tensors`` (None for a null pointer; q and k first, bf16),
+    then the shapes and the mask.  It holds the tensors, so their memory
+    outlives it."""
     fn = getattr(lib, entry)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * len(tensors) + [ctypes.c_int] * 9
@@ -289,27 +294,26 @@ def _entry(lib, entry, tensors, causal=True):
         # the pointers are taken here, from ``tensors``: the closure holds
         # the tensors, not only their addresses
         ptrs = [None if t is None else t.data_ptr() for t in tensors]
-        rc = fn(*ptrs, B, S, T, H, K, D, 1, int(causal), 0, 0.0,
+        rc = fn(*ptrs, B, S, T, H, K, D, 1, int(causal), int(window), 0.0,
                 torch.cuda.current_stream().cuda_stream)
         check(rc == 0, f"{entry} returned {rc}")
     return call
 
 
-# The designs that the bf16 D = 160 warpgroup forward and dK/dV replaced
-# (mma.sync); the library exports them under their own names and nothing of
-# the package calls them: timed here beside their successors
-# (``earlier_ms``).
-def earlier_flash_d160(q, k, v, o, m=None, l=None, causal=True):
-    """The mma.sync forward into ``o`` (and the statistics into ``m``, ``l``
-    when given)."""
+# The designs that the bf16 D = 256 warpgroup forward and the D = 160
+# warpgroup dQ replaced (mma.sync); the library exports them under their own
+# names and nothing of the package calls them: timed here beside their
+# successors (``earlier_ms``).
+def earlier_flash_d256(q, k, v, o, window):
+    """The mma.sync forward into ``o``, causal under ``window``."""
     return _entry(build.load(), "repro_flash_attention_fwd_mma",
-                  (q, k, v, o, m, l), causal)
+                  (q, k, v, o, None, None), True, window)
 
 
-def earlier_dkv_d160(q, k, v, do, m, l, delta, dk, dv, causal=True):
-    """The mma.sync dK/dV into ``dk``, ``dv``."""
-    return _entry(build.load(), "repro_flash_attention_bwd_dkv_mma",
-                  (q, k, v, do, m, l, delta, dk, dv), causal)
+def earlier_dq_d160(q, k, v, do, m, l, delta, dq):
+    """The causal mma.sync dQ into ``dq``."""
+    return _entry(build.load(), "repro_flash_attention_bwd_dq_mma",
+                  (q, k, v, do, m, l, delta, dq))
 
 
 # ---------------------------------------------------------------------------
@@ -439,18 +443,20 @@ def flash_cases(gen):
     return rows
 
 
-# A dropped tail panel at D = 160 -- columns 128-159 of a result left out,
-# as a 64-column panel split of the 160 columns would drop them -- planted
-# in the plain result: each must fail both comparisons the kernel passes.
-TAIL_COLUMNS = slice(128, 160)
+# A dropped tail panel -- at D = 160 columns 128-159 of a result left out,
+# as a 64-column panel split of the 160 columns would drop them; at D = 256
+# the last of the four 64-column panels -- planted in the plain result: each
+# must fail both comparisons the kernel passes.
+TAIL_COLUMNS = {160: slice(128, 160), 256: slice(192, 256)}
 
 
 def _tail_panel_fault(want, what):
-    """``want`` with its tail panel zeroed, held to ``want`` by the
-    elementwise 2e-2 and ``SCALED_TOL``; fails the run if either accepts it.
-    Returns the fault's scaled errors."""
+    """``want`` with its tail panel (``TAIL_COLUMNS`` of its last axis)
+    zeroed, held to ``want`` by the elementwise 2e-2 and ``SCALED_TOL``;
+    fails the run if either accepts it.  Returns the fault's scaled
+    errors."""
     bad = want.float().clone()
-    bad[..., TAIL_COLUMNS] = 0.0
+    bad[..., TAIL_COLUMNS[want.shape[-1]]] = 0.0
     scaled = _scaled(bad, want)
     check(not _within(bad, want, 2e-2) and not _passes(scaled),
           f"planted fault {what} (tail panel dropped) passes a comparison "
@@ -460,8 +466,7 @@ def _tail_panel_fault(want, what):
 
 def flash_main_shape(gen, cfg, S):
     """Prefill of one ``S``-token bucket of the served model: bf16, causal.
-    At D = 160, timed in turns with the mma.sync design it replaced, and a
-    dropped tail panel of o must be rejected."""
+    At D = 160 a dropped tail panel of o must be rejected."""
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = torch.bfloat16
     q = _randn(gen, 1, S, H, D, dtype=dt)
@@ -474,22 +479,11 @@ def flash_main_shape(gen, cfg, S):
     err = _err(got, want, 2e-2, what)
     scaled = _scaled_err(got, want, what)
 
-    def new():
-        flash_attention(q, k, v, causal=True)
-    earlier = {}
-    if D == 160:
-        o_old = torch.empty_like(q)
-        old = earlier_flash_d160(q, k, v, o_old)
-        old()
-        torch.cuda.synchronize()
-        earlier_err = _err(o_old, want, 2e-2, f"earlier {what}")
-        ms, earlier_ms = time_in_turns(new, old, 10)
-        earlier = {"earlier_design": "mma.sync", "earlier_ms": earlier_ms,
-                   "earlier_max_abs_err": earlier_err,
-                   "planted_fault_tail_panel": _tail_panel_fault(
-                       want, f"{what} o")}
-    else:
-        ms = time_ms([new], 10)
+    faults = {}
+    if D in TAIL_COLUMNS:
+        faults["planted_fault_tail_panel"] = _tail_panel_fault(want,
+                                                               f"{what} o")
+    ms = time_ms([lambda: flash_attention(q, k, v, causal=True)], 10)
     plain_ms = time_ms([lambda: attention_plain(q, k, v, causal=True)], 3)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     library_ms = time_ms(
@@ -506,7 +500,7 @@ def flash_main_shape(gen, cfg, S):
             "scaled": scaled, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops, **earlier}
+            "bytes": nbytes, "flops": flops, **faults}
 
 
 def _paged_inputs(gen, B, T, D, G, K, ps, lengths, dt, copies=1):
@@ -646,14 +640,18 @@ BWD_CASES = [
     (2, 300, 300, 6, 2, 64, True, 100, torch.bfloat16),
     (1, 300, 520, 6, 2, 128, True, 200, torch.bfloat16),
     # stablelm-12b's D = 160 (bf16 dK/dV on the warpgroup design at 32-query
-    # tiles, dQ on mma.sync; fp32 on the CUDA cores): ragged tiles, S != T,
-    # a window, MQA bidirectional, G = 4
+    # tiles, dQ at 64-key tiles, both on five 32-column panels; fp32 on the
+    # CUDA cores): ragged tiles, S != T, a window, MQA bidirectional, G = 4
     (1, 200, 150, 4, 2, 160, True, 0, torch.float32),
     (2, 130, 130, 3, 1, 160, True, 50, torch.float32),
     (1, 100, 77, 8, 2, 160, True, 0, torch.bfloat16),
     (2, 130, 130, 6, 2, 160, True, 50, torch.bfloat16),
     (1, 96, 200, 4, 1, 160, False, 0, torch.bfloat16),
     (1, 384, 384, 32, 8, 160, True, 0, torch.bfloat16),
+    # the warpgroup dQ at D = 160: several blocks of 128 positions with
+    # ragged S, windows, G = 3, S != T
+    (2, 300, 300, 6, 2, 160, True, 100, torch.bfloat16),
+    (1, 300, 520, 6, 2, 160, True, 200, torch.bfloat16),
 ]
 
 
@@ -800,9 +798,9 @@ def bwd_main_shape(gen, cfg, B, S):
     """The trained model's attention at B x S tokens: its heads and head_dim,
     bf16, causal (llama3.2-3b: 24 heads over 8 KV heads of 128; stablelm-12b:
     32 over 8 of 160).  Faults planted in the plain backward's result must
-    fail the comparison.  At D = 160 the forward and dK/dV are timed in
-    turns with the mma.sync designs they replaced, and a dropped tail panel
-    of o, dk and dv must be rejected."""
+    fail the comparison.  At D = 160 dQ is timed in turns with the mma.sync
+    design it replaced, and a dropped tail panel of o, dq, dk and dv must be
+    rejected."""
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = torch.bfloat16
     q, k, v, do = _bwd_inputs(gen, B, S, S, H, K, D, dt)
@@ -816,13 +814,13 @@ def bwd_main_shape(gen, cfg, B, S):
     # keys) and of the warpgroup forward and dK/dV (128 keys) must be seen
     faults = {f"tile_{t}": _planted_faults(q, k, v, do, stats, kw, tile=t)
               for t in (64, 128)}
-    if D == 160:
+    if D in TAIL_COLUMNS:
         o2 = attention_fwd_stats_plain(q, k, v, **kw)[0]
-        _, dk2, dv2 = attention_bwd_plain(q, k, v, do, *stats, **kw)
+        dq2, dk2, dv2 = attention_bwd_plain(q, k, v, do, *stats, **kw)
         faults["tail_panel"] = {
             n: _tail_panel_fault(w, f"{cfg.name} {n}")
-            for n, w in (("o", o2), ("dk", dk2), ("dv", dv2))}
-        del o2, dk2, dv2
+            for n, w in (("o", o2), ("dq", dq2), ("dk", dk2), ("dv", dv2))}
+        del o2, dq2, dk2, dv2
     qkv_bytes = (q.numel() + k.numel() + v.numel()) * q.element_size()
     row_bytes = m.numel() * 4                  # one fp32 per query row
     pairs = H * B * (S * (S + 1) // 2)         # live (query, key) pairs
@@ -832,20 +830,8 @@ def bwd_main_shape(gen, cfg, B, S):
     fwd = dict(shape, max_abs_err=ef, design=design(D, dt), **_bound(
         qkv_bytes + q.numel() * 2 + 2 * row_bytes, 4 * D * pairs, dt))
 
-    def new_fwd():
-        return flash_attention_fwd_stats(q, k, v, **kw)
-    if D == 160:
-        outs = (torch.empty_like(q), torch.empty_like(m), torch.empty_like(l))
-        old = earlier_flash_d160(q, k, v, *outs)
-        old()
-        torch.cuda.synchronize()
-        err = max(_err(a, b, 2e-2, f"earlier fwd_stats {cfg.name}")
-                  for a, b in zip(outs, (o, m, l)))
-        fwd["ms"], fwd["earlier_ms"] = time_in_turns(new_fwd, old, 5)
-        fwd.update(earlier_design="mma.sync", earlier_max_abs_err=err)
-        del outs
-    else:
-        fwd["ms"] = time_ms([new_fwd], 5)
+    fwd["ms"] = time_ms([lambda: flash_attention_fwd_stats(q, k, v, **kw)],
+                        5)
     fwd["plain_ms"] = time_ms(
         [lambda: attention_fwd_stats_plain(q, k, v, **kw)], 2)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -860,25 +846,25 @@ def bwd_main_shape(gen, cfg, B, S):
     dkv = dict(shape, max_abs_err=ekv, design=design_dkv(D, dt), **_bound(
         bwd_in + (k.numel() + v.numel()) * 2, 8 * D * pairs, dt))
 
-    def new_dkv():
-        return flash_attention_bwd_dkv(q, k, v, do, *stats, **kw)
-    if D == 160:
-        dk, dv = new_dkv()
-        outs = (torch.empty_like(k), torch.empty_like(v))
-        old = earlier_dkv_d160(q, k, v, do, *stats, *outs)
-        old()
-        torch.cuda.synchronize()
-        err = max(_err(a, b, 2e-2, f"earlier bwd_dkv {cfg.name}")
-                  for a, b in zip(outs, (dk, dv)))
-        dkv["ms"], dkv["earlier_ms"] = time_in_turns(new_dkv, old, 3)
-        dkv.update(earlier_design="mma.sync", earlier_max_abs_err=err)
-        del outs, dk, dv
-    else:
-        dkv["ms"] = time_ms([new_dkv], 3)
+    dkv["ms"] = time_ms(
+        [lambda: flash_attention_bwd_dkv(q, k, v, do, *stats, **kw)], 3)
     dq = dict(shape, max_abs_err=eq, design=design_dq(D, dt), **_bound(
         bwd_in + q.numel() * 2, 6 * D * pairs, dt))
-    dq["ms"] = time_ms(
-        [lambda: flash_attention_bwd_dq(q, k, v, do, *stats, **kw)], 3)
+
+    def new_dq():
+        return flash_attention_bwd_dq(q, k, v, do, *stats, **kw)
+    if D == 160:
+        dq_new = new_dq()
+        dq_old = torch.empty_like(q)
+        old = earlier_dq_d160(q, k, v, do, *stats, dq_old)
+        old()
+        torch.cuda.synchronize()
+        err = _err(dq_old, dq_new, 2e-2, f"earlier bwd_dq {cfg.name}")
+        dq["ms"], dq["earlier_ms"] = time_in_turns(new_dq, old, 3)
+        dq.update(earlier_design="mma.sync", earlier_max_abs_err=err)
+        del dq_new, dq_old
+    else:
+        dq["ms"] = time_ms([new_dq], 3)
     plain_ms = time_ms(
         [lambda: attention_bwd_plain(q, k, v, do, *stats, **kw)], 1)
     for row in (dkv, dq):
@@ -896,11 +882,13 @@ def bwd_main_shape(gen, cfg, B, S):
 # ---------------------------------------------------------------------------
 # the bf16 warpgroup attention kernels' memory accesses
 # ---------------------------------------------------------------------------
-# B, S, H, K, D of the guarded launches: stablelm-12b's served prefill and
-# trained shapes, and ragged ones (S a multiple of no tile) at D = 160 and
-# at D = 128, which runs the same code
-GUARD_SHAPES = [(1, 2048, 32, 8, 160), (2, 4096, 32, 8, 160),
-                (2, 300, 4, 2, 160), (1, 200, 6, 2, 128)]
+# B, S, H, K, D, window of the guarded launches: stablelm-12b's served
+# prefill and trained shapes, and ragged ones (S a multiple of no tile) at
+# D = 160 and at D = 128, which runs the same code; recurrentgemma-2b's
+# served shape (D = 256, MQA, window 2048) and a ragged one with a window
+GUARD_SHAPES = [(1, 2048, 32, 8, 160, 0), (2, 4096, 32, 8, 160, 0),
+                (2, 300, 4, 2, 160, 0), (1, 200, 6, 2, 128, 0),
+                (1, 4096, 10, 1, 256, 2048), (2, 300, 10, 1, 256, 50)]
 GUARD = 4096            # NaN elements on each side of a guarded tensor
 GUARD_OFFSETS = (0, 16)  # bytes past a 1024-byte boundary a tensor starts
 GUARD_REPEATS = 5
@@ -929,47 +917,65 @@ def _guards_intact(view, buf, lo) -> bool:
     return bool((_bits(rest) == nan).all())
 
 
+def _stats_fwd(q, k, v, window):
+    """(o, m, l) from the stats-emitting forward's C entry point: the
+    package's wrapper takes the training head dims only, and D = 256 is
+    served, not trained."""
+    o = torch.empty_like(q)
+    m = torch.empty(q.shape[:3], dtype=torch.float32, device=DEV)
+    l = torch.empty_like(m)
+    _entry(build.load(), "repro_flash_attention_fwd_stats", (q, k, v, o, m, l),
+           True, window)()
+    return o, m, l
+
+
 def memory_guards(shapes=GUARD_SHAPES, repeats=GUARD_REPEATS):
-    """The bf16 warpgroup forward (served, and with statistics) and dK/dV,
-    called through their C entry points on tensors that lie inside NaN
-    guard bands, 1024-byte aligned and 16 bytes past that: no launch may
-    write outside its outputs (every guard keeps its bits), a read past an
-    input's end would carry NaN into the result, and every output, filled
-    with NaN before each launch, must come out bit for bit as the package's
-    launch on ordinary tensors gave it, ``repeats`` times in a row (a race
-    would show as a difference).  The package's outputs are held to the
-    plain versions first."""
+    """The bf16 warpgroup forward (served, and with statistics), dK/dV and
+    dQ (at the training head dims), called through their C entry points on
+    tensors that lie inside NaN guard bands, 1024-byte aligned and 16 bytes
+    past that: no launch may write outside its outputs (every guard keeps
+    its bits), a read past an input's end would carry NaN into the result,
+    and every output, filled with NaN before each launch, must come out bit
+    for bit as the launch on ordinary tensors gave it, ``repeats`` times in
+    a row (a race would show as a difference).  Those outputs are held to
+    the plain versions first."""
     lib = build.load()
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
     out = []
-    for B, S, H, K, D in shapes:
+    for B, S, H, K, D, window in shapes:
+        kw = dict(causal=True, window=window)
         q, k, v, do = _bwd_inputs(gen, B, S, S, H, K, D, torch.bfloat16)
-        served = flash_attention(q, k, v, causal=True)
-        o, m, l = flash_attention_fwd_stats(q, k, v, causal=True)
-        delta = attention_delta(o, do)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, do, m, l, delta,
-                                         causal=True)
+        served = flash_attention(q, k, v, **kw)
+        o, m, l = _stats_fwd(q, k, v, window)
         torch.cuda.synchronize()
-        what = f"memory_guards {(B, S, H, K, D)}"
-        o2, m2, l2 = attention_fwd_stats_plain(q, k, v, causal=True)
-        _, dk2, dv2 = attention_bwd_plain(q, k, v, do, m, l, delta,
-                                          causal=True)
-        err = max(_err(a, b, 2e-2, what) for a, b in
-                  ((served, o2), (o, o2), (m, m2), (l, l2), (dk, dk2),
-                   (dv, dv2)))
-        del o2, m2, l2, dk2, dv2
+        what = f"memory_guards {(B, S, H, K, D, window)}"
+        o2, m2, l2 = attention_fwd_stats_plain(q, k, v, **kw)
+        pairs = [(served, o2), (o, o2), (m, m2), (l, l2)]
         launches = {
             "fwd": ("repro_flash_attention_fwd", (q, k, v), (served,)),
             "fwd_stats": ("repro_flash_attention_fwd_stats", (q, k, v),
-                          (o, m, l)),
-            "bwd_dkv": ("repro_flash_attention_bwd_dkv",
-                        (q, k, v, do, m, l, delta), (dk, dv))}
+                          (o, m, l))}
+        if D in BWD_HEAD_DIMS:
+            delta = attention_delta(o, do)
+            dk, dv = flash_attention_bwd_dkv(q, k, v, do, m, l, delta, **kw)
+            dq = flash_attention_bwd_dq(q, k, v, do, m, l, delta, **kw)
+            torch.cuda.synchronize()
+            pairs += zip((dq, dk, dv), attention_bwd_plain(
+                q, k, v, do, m, l, delta, **kw))
+            stats = (m, l, delta)
+            launches["bwd_dkv"] = ("repro_flash_attention_bwd_dkv",
+                                   (q, k, v, do) + stats, (dk, dv))
+            launches["bwd_dq"] = ("repro_flash_attention_bwd_dq",
+                                  (q, k, v, do) + stats, (dq,))
+        err = max(_err(a, b, 2e-2, what) for a, b in pairs)
+        del o2, m2, l2, pairs
         for name, (entry, ins, wants) in launches.items():
             for offset in GUARD_OFFSETS:
                 g_in = [_guarded(x, offset) for x in ins]
                 g_out = [_guarded(w, offset) for w in wants]
-                call = _entry(lib, entry, [g[0] for g in g_in + g_out])
+                call = _entry(lib, entry, [g[0] for g in g_in + g_out],
+                              True, window)
                 tag = f"{what} {name} offset {offset} B"
                 for _ in range(repeats):
                     for view, _, _ in g_out:
@@ -980,12 +986,13 @@ def memory_guards(shapes=GUARD_SHAPES, repeats=GUARD_REPEATS):
                           f"{tag}: a guard band changed")
                     check(all(torch.equal(_bits(g[0]), _bits(w))
                               for g, w in zip(g_out, wants)),
-                          f"{tag}: output differs from the package's launch")
+                          f"{tag}: output differs from the unguarded launch")
                 del g_in, g_out, call
-        out.append({"shape": [B, S, S, H, K, D], "max_abs_err": err,
-                    "launches": sorted(launches), "offsets_bytes":
-                    list(GUARD_OFFSETS), "repeats": repeats})
-        del q, k, v, do, served, o, m, l, delta, dk, dv
+        out.append({"shape": [B, S, S, H, K, D], "window": window,
+                    "max_abs_err": err, "launches": sorted(launches),
+                    "offsets_bytes": list(GUARD_OFFSETS),
+                    "repeats": repeats})
+        del q, k, v, do, served, o, m, l, launches
         torch.cuda.empty_cache()
     return out
 
@@ -1028,6 +1035,12 @@ ATTN_D256_CASES = [
     (1, 300, 300, 10, 1, 256, True, 64, torch.bfloat16),
     (2, 130, 130, 10, 1, 256, True, 0, torch.bfloat16),
     (1, 200, 200, 4, 2, 256, True, 50, torch.float32),
+    # the warpgroup design (bf16, 64-key tiles on four 64-column panels):
+    # several 128-row blocks under a window, S != T with G = 2 (every row
+    # sees a key), MQA bidirectional with a ragged T
+    (1, 1000, 1000, 10, 1, 256, True, 200, torch.bfloat16),
+    (1, 300, 520, 4, 2, 256, True, 100, torch.bfloat16),
+    (2, 200, 333, 10, 1, 256, False, 0, torch.bfloat16),
 ]
 SSD_SERVED = (1, 2048, 48, 64, 1, 128)      # mamba2-780m, one 2048 prefill
 RGLRU_SERVED = (1, 4096, 2560)              # recurrentgemma-2b, 4096 prefill
@@ -1312,9 +1325,41 @@ def flash_d256_cases(gen):
     return rows
 
 
+def _skipped_tile_fault(q, k, v, want, window, m0, BM=128, BN=64):
+    """The output of the ``BM`` query positions from ``m0`` recomputed in
+    fp32 without the first key tile that ``live_key_tiles`` gives them
+    under the causal ``window`` -- a walk that starts one ``BN``-key tile
+    late -- and planted in ``want``; the scaled comparison must reject it.
+    The same recomputation with no tile dropped must pass it (a control on
+    the recomputation).  Returns both scaled errors."""
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    n_begin = live_key_tiles(m0, BM, BN, T, True, window)[0]
+    rows = slice(m0, m0 + BM)
+    i = torch.arange(m0, m0 + BM, device=DEV)[:, None]
+    j = torch.arange(T, device=DEV)[None, :]
+    kk, vv = (x.float().repeat_interleave(H // K, dim=2) for x in (k, v))
+    s = torch.einsum("brhd,bthd->bhrt", q[:, rows].float(), kk) / D ** 0.5
+    out = {}
+    for name, lo in (("control", n_begin), ("skipped_tile", n_begin + BN)):
+        live = (j <= i) & (i - j < window) & (j >= lo)
+        p = torch.softmax(s.masked_fill(~live, float("-inf")), dim=-1)
+        bad = want.float().clone()
+        bad[:, rows] = torch.einsum("bhrt,bthd->brhd", p, vv)
+        out[name] = _scaled(bad, want)
+    check(_passes(out["control"]), f"the skipped-tile recomputation without "
+                                   f"a skip fails: {out['control']}")
+    check(not _passes(out["skipped_tile"]),
+          f"planted fault: key tile {n_begin} of positions {m0}.. skipped, "
+          f"passes the scaled comparison {out['skipped_tile']}")
+    return {"m0": m0, "n0": n_begin, **out}
+
+
 def flash_d256_main_shape(gen):
     """recurrentgemma-2b's local attention over a 4096-token prefill: q
-    (1,4096,10,256), k/v (1,4096,1,256) bf16, causal, window 2048."""
+    (1,4096,10,256), k/v (1,4096,1,256) bf16, causal, window 2048.  Timed in
+    turns with the mma.sync design it replaced; a dropped last panel of o
+    and a key tile skipped under the window must be rejected."""
     B, S, T, H, K, D, causal, window, dt = ATTN_SERVED
     q = _randn(gen, B, S, H, D, dtype=dt)
     k = _randn(gen, B, T, K, D, dtype=dt)
@@ -1323,9 +1368,22 @@ def flash_d256_main_shape(gen):
     got = flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     want = attention_plain(q, k, v, **kw)
-    err = _err(got, want, 2e-2, "flash_attention D=256 served shape")
-    scaled = _scaled_err(got, want, "flash_attention D=256 served shape")
-    ms = time_ms([lambda: flash_attention(q, k, v, **kw)], 10)
+    what = "flash_attention D=256 served shape"
+    err = _err(got, want, 2e-2, what)
+    scaled = _scaled_err(got, want, what)
+    # the block of 128 positions whose first live tile the window decides
+    # (m0 - window + 1 is not a multiple of 64)
+    faults = {"planted_fault_tail_panel": _tail_panel_fault(want,
+                                                            f"{what} o"),
+              "planted_fault_skipped_tile": _skipped_tile_fault(
+                  q, k, v, want, window, m0=2944)}
+    o_old = torch.empty_like(q)
+    old = earlier_flash_d256(q, k, v, o_old, window)
+    old()
+    torch.cuda.synchronize()
+    earlier_err = _err(o_old, want, 2e-2, f"earlier {what}")
+    ms, earlier_ms = time_in_turns(
+        lambda: flash_attention(q, k, v, **kw), old, 10)
     plain_ms = time_ms([lambda: attention_plain(q, k, v, **kw)], 2)
     i = torch.arange(S, device=DEV)[:, None]
     j = torch.arange(T, device=DEV)[None, :]
@@ -1337,9 +1395,12 @@ def flash_d256_main_shape(gen):
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     flops = 4 * D * H * B * _live_pairs(S, T, causal, window)
     return dict({"shape": [B, S, T, H, K, D], "window": window,
-                 "dtype": str(dt), "tol": 2e-2, "max_abs_err": err,
-                 "scaled": scaled, "ms": ms, "plain_ms": plain_ms,
-                 "library_ms": library_ms}, **_bound(nbytes, flops, dt))
+                 "dtype": str(dt), "tol": 2e-2, "design": design(D, dt),
+                 "max_abs_err": err, "scaled": scaled, "ms": ms,
+                 "plain_ms": plain_ms, "library_ms": library_ms,
+                 "earlier_design": "mma.sync", "earlier_ms": earlier_ms,
+                 "earlier_max_abs_err": earlier_err, **faults},
+                **_bound(nbytes, flops, dt))
 
 
 def ptxas_usage(names):
@@ -1874,9 +1935,9 @@ def serve_hybrid(cfg, model, policy):
     _per_prefill(cfg, counts, len(reqs),
                  {"rglru": cfg.pattern.count("rglru"),
                   "flash_attention": cfg.pattern.count("attn_local")})
-    check(design(cfg.head_dim, torch.bfloat16) == "mma.sync",
+    check(design(cfg.head_dim, torch.bfloat16) == "wgmma",
           f"{cfg.name}: the bf16 forward at D = {cfg.head_dim} is not on "
-          f"the mma.sync design")
+          f"the wgmma design")
     emit("serve_hybrid", arch=cfg.name, n_layers=cfg.n_layers,
          dtype="bfloat16", mode=rep["mode"], slots=4, max_seq=4096,
          window=cfg.local_window, requests=len(reqs),

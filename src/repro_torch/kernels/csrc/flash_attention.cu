@@ -23,11 +23,11 @@
 //     of 16 x 16 threads owns a 4 x 4 score tile and a 4 x D/16 output
 //     tile), reading operands from padded shared memory with 16-byte loads,
 //     so fp32 never rounds through TF32.
-//   * bf16 inputs at D = 64, 128 (flash_fwd_wgmma_kernel; llama's heads)
-//     and 160 (stablelm-12b's), served and trained: warpgroup products fed
-//     by the TMA, below.
-//   * bf16 inputs at D = 32 and 256 (flash_fwd_mma_kernel; and at D = 160
-//     the design the warpgroup kernel replaced, exported as
+//   * bf16 inputs at D = 64, 128 (flash_fwd_wgmma_kernel; llama's heads),
+//     160 (stablelm-12b's) and 256 (recurrentgemma-2b's), served and
+//     trained: warpgroup products fed by the TMA, below.
+//   * bf16 inputs at D = 32 (flash_fwd_mma_kernel; and at D = 256 the
+//     design the warpgroup kernel replaced, exported as
 //     repro_flash_attention_fwd_mma for chip_smoke.py's timing in turns
 //     only): both products run on the tensor cores with warp-level
 //     mma.sync (m16n8k16, fp32 accumulate).  Each of 4 warps owns 16 query
@@ -38,13 +38,12 @@
 //     and V fragments come from padded shared memory with ldmatrix (V
 //     transposed on the way), and the next K/V tile is copied in with
 //     cp.async while the current one is computed.
-//   * D = 160 (stablelm-12b) and 256 (recurrentgemma-2b's MQA heads): the
-//     output accumulator alone is 80 / 128 fp32 registers a thread, and Q
-//     fragments held for the whole key loop would add 40 / 64 more.  So
-//     above D = 128 the block copies its Q tile into shared memory once and
-//     each k-step of QK^T reads its A fragments from there with ldmatrix;
-//     the rest is unchanged (shared memory at D = 160: (4 * 64 + 64) rows of
-//     168 bf16, 107,520 bytes).  The fp32 path takes D = 160 and 256 as it
+//   * D = 256 (recurrentgemma-2b's MQA heads) on mma.sync: the output
+//     accumulator alone is 128 fp32 registers a thread, and Q fragments
+//     held for the whole key loop would add 64 more.  So above D = 128 the
+//     block copies its Q tile into shared memory once and each k-step of
+//     QK^T reads its A fragments from there with ldmatrix; the rest is
+//     unchanged.  The fp32 path takes D = 160 and 256 as it
 //     is (its tiles fill 143 / 212 KB of shared memory); its threads own
 //     D / 16 output columns in float4 slices, or float2 slices where D / 16
 //     is not a multiple of 4 (D = 32, 160).
@@ -54,13 +53,14 @@
 //     reference, which asserts it).
 //   * Heaviest causal row tiles are scheduled first.
 //
-// flash_fwd_wgmma_kernel<D> (bf16, D = 64, 128 and 160).  Also bounded by
-// operations; mma.sync cannot reach Hopper's tensor-core rate, and in the
+// flash_fwd_wgmma_kernel<D> (bf16, D = 64, 128, 160 and 256).  Also bounded
+// by operations; mma.sync cannot reach Hopper's tensor-core rate, and in the
 // design above each K fragment loaded by ldmatrix feeds only 16 query rows
-// (at D = 160 it ran at 6.5x its bound, 2.5x the library's attention).
-// What this design does about it:
+// (at D = 160 it ran at 6.5x its bound, 2.5x the library's attention; at
+// D = 256 6.9x).  What this design does about it:
 //   * One block owns BM = 128 query positions of ONE query head and walks
-//     the live key tiles (BN = 128) of its KV head.  Per-head tiles are TMA
+//     the live key tiles (BN = 128, 64 at D = 256) of its KV head.  Per-head
+//     tiles are TMA
 //     boxes: q is the 3-D tensor map (H*D, S, B) with boxes (64, 128, 1) at
 //     column h*D (+64), k and v the maps (K*D, T, B).  The G heads of a
 //     group re-read each K/V tile from L2, not from device memory.  Ragged
@@ -76,12 +76,23 @@
 //     do not fit beside it; two stages of 128 keys (205,864 bytes in all)
 //     were 2.5 % (1 x 2048) and 5.7 % (2 x 4096) faster than three of 64
 //     in the same probe, so two of 128 it is.
+//   * D = 256 is four 64-column panels.  The output accumulator is 128 fp32
+//     a thread, and Q takes 65,536 bytes; one stage of 128 keys of K and V
+//     would take 131,072, so the key tiles are 64 keys (S = Q K^T is
+//     m64n64k16 over 16 k-steps, O += P V one m64n64k16 per panel and 16
+//     keys) in two stages: 197 KB of shared memory, and 128 + 32 of S + 16
+//     of packed P registers a consumer thread.  O += P V is one m64n256k16
+//     per 16 keys over the four panels, the descriptor's LBO stepping from
+//     panel to panel: bit-identical to one m64n64k16 a panel and 2.2 %
+//     faster, timed in turns on the H100 by scripts/probe_fwd_d256_pv.py
+//     (PERF.md).
 //   * Three warpgroups (384 threads).  Warpgroup 0 is the producer: it
 //     gives registers back (setmaxnreg 24) and one thread keeps a ring of
-//     STAGES K/V tiles in flight (three; two at D = 160), each completed
-//     through a "full" mbarrier and released through an "empty" one.
+//     STAGES K/V tiles in flight (three; two at D = 160 and 256), each
+//     completed through a "full" mbarrier and released through an "empty"
+//     one.
 //     Warpgroups 1 and 2 are consumers (setmaxnreg 240), 64 query rows each.
-//   * S = Q K^T is wgmma m64n128k16 with both operands in shared memory
+//   * S = Q K^T is wgmma m64nBNk16 with both operands in shared memory
 //     (K-major, 128-byte swizzle, D/16 k-steps); O += P V is wgmma
 //     m64n64k16 per 64-column panel of V (at D = 160 the 64-byte swizzle
 //     and one m64n160k16, above) with P as the A operand from
@@ -339,7 +350,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16, D = 32 and 256 (and the replaced D = 160): mma.sync
+// bf16, D = 32 (and the replaced D = 256): mma.sync
 // ---------------------------------------------------------------------------
 constexpr int MMA_NT = 128;  // 4 warps x 16 query rows = BM
 
@@ -629,22 +640,23 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
-// bf16, D = 64, 128 and 160: warpgroup products fed by the TMA
+// bf16, D = 64, 128, 160 and 256: warpgroup products fed by the TMA
 // ---------------------------------------------------------------------------
 constexpr int WG_BM = 128;     // query positions per block: 2 warpgroups x 64
 constexpr int WG_NT = 384;     // producer warpgroup + 2 consumer warpgroups
 
 // byte offsets from the block's 1024-aligned shared-memory base: Q (NP
 // panels of 128 rows), then STAGES x NP panels of K, the same of V, then
-// the barriers.  A panel is PW columns (hopper.cuh): 64 at D = 64 / 128, 32
-// at D = 160.  K/V tiles of 128 keys in flight: three at D <= 128; at
-// D = 160 three (245,760 bytes) do not fit beside Q (40,960), so two (see
-// the note at the top for why not three of 64 keys).
+// the barriers.  A panel is PW columns (hopper.cuh): 64 at D = 64 / 128 /
+// 256, 32 at D = 160.  K/V tiles in flight: three of 128 keys at D <= 128;
+// at D = 160 three (245,760 bytes) do not fit beside Q (40,960), so two
+// (see the note at the top for why not three of 64 keys); at D = 256 one
+// stage of 128 keys is 131,072 bytes beside Q's 65,536, so two of 64.
 template <int D> struct FwdLayout {
   static constexpr int PW = hopper::kPanelCols<D>;
   static constexpr int NP = D / PW;             // column panels
   static constexpr int RB = 2 * PW;             // bytes of a panel row
-  static constexpr int BN = 128;                // keys per tile
+  static constexpr int BN = D > 160 ? 64 : 128; // keys per tile
   static constexpr int STAGES = D > 128 ? 2 : 3;
   static constexpr int Q_PANEL = WG_BM * RB;
   static constexpr int KV_PANEL = BN * RB;
@@ -654,6 +666,7 @@ template <int D> struct FwdLayout {
   static constexpr int BAR = V + STAGES * NP * KV_PANEL;
   static constexpr int BYTES = BAR + (2 * STAGES + 1) * 8 + 1024;
 };
+static_assert(FwdLayout<256>::BYTES <= 232448, "D = 256 tiles exceed the SM");
 static_assert(FwdLayout<160>::BYTES <= 232448, "D = 160 tiles exceed the SM");
 static_assert(FwdLayout<128>::BYTES <= 232448, "D = 128 tiles exceed the SM");
 
@@ -845,7 +858,8 @@ flash_fwd_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
 
       // ---- O += P V: P's bf16 A fragments straight from the accumulator
       // layout of S; V MN-major, per 16 keys one m64n64k16 per panel (D =
-      // 64, 128) or one m64n160k16 over the five panels (D = 160) ----
+      // 64, 128), or one m64n160k16 / m64n256k16 over all the panels (D =
+      // 160, 256) ----
       uint32_t pa[PK][4];
 #pragma unroll
       for (int kk = 0; kk < PK; ++kk)
@@ -944,15 +958,15 @@ int launch(const void* q, const void* k, const void* v, void* o, float* m_out,
 }
 
 // Which design serves (D, dtype): fp32 on the CUDA cores at every D; bf16
-// on warpgroup products fed by the TMA at D = 64, 128 (llama's heads) and
-// 160 (stablelm-12b), on mma.sync at D = 32 and 256 (recurrentgemma-2b).
-// No launch falls back to another design.
+// on warpgroup products fed by the TMA at D = 64, 128 (llama's heads), 160
+// (stablelm-12b) and 256 (recurrentgemma-2b), on mma.sync at D = 32.  No
+// launch falls back to another design.
 int fwd_design(int D, int dtype) {
   const bool any_d =
       D == 32 || D == 64 || D == 128 || D == 160 || D == 256;
   if (dtype == DTYPE_F32) return any_d ? DESIGN_CUDA_CORES : DESIGN_NONE;
   if (dtype != DTYPE_BF16 || !any_d) return DESIGN_NONE;
-  return D == 64 || D == 128 || D == 160 ? DESIGN_WGMMA : DESIGN_MMA_SYNC;
+  return D == 32 ? DESIGN_MMA_SYNC : DESIGN_WGMMA;
 }
 
 int dispatch(const void* q, const void* k, const void* v, void* o,
@@ -976,7 +990,6 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
     case DESIGN_MMA_SYNC:
       switch (D) {
         case 32: return launch_mma<32>(REPRO_FWD_ARGS);
-        case 256: return launch_mma<256>(REPRO_FWD_ARGS);
       }
       break;
     case DESIGN_WGMMA:
@@ -984,6 +997,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
         case 64: return launch_wgmma<64>(REPRO_FWD_ARGS);
         case 128: return launch_wgmma<128>(REPRO_FWD_ARGS);
         case 160: return launch_wgmma<160>(REPRO_FWD_ARGS);
+        case 256: return launch_wgmma<256>(REPRO_FWD_ARGS);
       }
       break;
   }
@@ -1023,7 +1037,7 @@ extern "C" int repro_flash_attention_fwd_design(int D, int dtype) {
   return fwd_design(D, dtype);
 }
 
-// The design that flash_fwd_wgmma_kernel<160> replaced: the bf16 D = 160
+// The design that flash_fwd_wgmma_kernel<256> replaced: the bf16 D = 256
 // forward on mma.sync, with (m, l non-null) or without the statistics; the
 // arguments of repro_flash_attention_fwd_stats.  Not on any path of the
 // package: chip_smoke.py times it beside its successor in the same run.
@@ -1031,8 +1045,8 @@ extern "C" int repro_flash_attention_fwd_mma(
     const void* q, const void* k, const void* v, void* o, float* m, float* l,
     int B, int S, int T, int H, int K, int D, int dtype, int causal,
     int window, float softcap, void* stream) {
-  if (!shape_ok(B, S, T, H, K) || D != 160 || dtype != DTYPE_BF16)
+  if (!shape_ok(B, S, T, H, K) || D != 256 || dtype != DTYPE_BF16)
     return ERR_UNSUPPORTED;
-  return launch_mma<160>(q, k, v, o, m, l, B, S, T, H, K, causal, window,
+  return launch_mma<256>(q, k, v, o, m, l, B, S, T, H, K, causal, window,
                          softcap, (cudaStream_t)stream);
 }

@@ -38,15 +38,14 @@
 //   * fp32 inputs: all products run on the CUDA cores in fp32, operands
 //     widened to float in padded shared memory (16-byte loads, no bank
 //     conflicts on the score products), so fp32 never rounds through TF32.
-//   * bf16 inputs at D = 64 and 128: warpgroup products fed by the TMA
-//     (flash_bwd_dkv_wgmma_kernel and flash_bwd_dq_wgmma_kernel, below); at
-//     D = 160 (stablelm-12b) dK/dV runs the warpgroup design too.
-//   * bf16 dK/dV at D = 32 and dQ at D = 32 and 160: all products run on
-//     the tensor cores with warp-level mma.sync (m16n8k16, fp32
-//     accumulate), as the forward kernel does.  The D = 160 mma.sync dK/dV,
-//     which the warpgroup kernel replaced, is exported as
-//     repro_flash_attention_bwd_dkv_mma for chip_smoke.py's timing in
-//     turns only.
+//   * bf16 inputs at D = 64, 128 and 160 (stablelm-12b): warpgroup
+//     products fed by the TMA (flash_bwd_dkv_wgmma_kernel and
+//     flash_bwd_dq_wgmma_kernel, below).
+//   * bf16 at D = 32: all products run on the tensor cores with warp-level
+//     mma.sync (m16n8k16, fp32 accumulate), as the forward kernel does.
+//     The D = 160 mma.sync dQ, which the warpgroup kernel replaced, is
+//     exported as repro_flash_attention_bwd_dq_mma for chip_smoke.py's
+//     timing in turns only.
 //     dK/dV: each of 4 warps owns 16 keys and computes the transposed tiles
 //     S^T = K Q^T and dP^T = V dO^T for 16 query rows at a time, so that
 //     their accumulators are already the A operands of dV += P^T dO and
@@ -56,11 +55,9 @@
 //     one is computed, and the dK and dV tiles live in registers.  dQ: each
 //     warp owns 16 query rows whose q and dO fragments stay in registers;
 //     S, dP, then dQ += dS K with K read transposed by ldmatrix, K and V
-//     tiles double-buffered by cp.async.  At D = 160 the dK and dV tiles
-//     alone are 2 x 80 fp32 registers a thread (dQ: 80, beside 80 of q and
-//     dO fragments); ptxas (nvcc 12.9) fits dK/dV in 246 registers and dQ
-//     in 238, with no spill.  Splitting the columns between two blocks,
-//     each recomputing S and dP, was slower.
+//     tiles double-buffered by cp.async.  At D = 160 the dQ tile is 80
+//     fp32 registers a thread beside 80 of q and dO fragments; ptxas (nvcc
+//     12.9) fits it in 238, with no spill.
 //   * fp32 at D = 32 and 160: a thread's D / 16 gradient columns are taken
 //     in float2 slices (D / 16 is not a multiple of 4), elsewhere float4.
 //   * m, l and delta live in (B, S, H) fp32, q's layout without its last
@@ -119,10 +116,11 @@
 //     producer to 24 and the consumers to 240 -- and 0 bytes of spill.
 //     chip_smoke.py prints both (kernel_cases, ptxas) and fails on a spill.
 //
-// flash_bwd_dq_wgmma_kernel<D> (bf16, D = 64 and 128).  Bounded by
+// flash_bwd_dq_wgmma_kernel<D> (bf16, D = 64, 128 and 160).  Bounded by
 // operations (three products per live pair).  The mma.sync design above
 // re-reads its K and V fragments through ldmatrix for every 16 query rows
-// and cannot reach the tensor-core rate.  What this design does about it:
+// and cannot reach the tensor-core rate (at D = 160: 4.2x its bound).
+// What this design does about it:
 //   * The forward's iteration space: one block owns DQ_BM = 128 query
 //     positions of one query head (per-head 3-D tensor maps on q and dO,
 //     boxes of 128 positions, loaded once) and walks the key tiles of
@@ -144,8 +142,14 @@
 //   * Key tiles of DQ_BN = 64: S, dP and dQ at BN = 128, D = 128 would hold
 //     3 x 64 fp32 a thread next to the packed dS, too many under
 //     setmaxnreg 240; at 64 they hold 32 + 32 + 64.  ptxas: 168 registers
-//     (the launch bound; the consumers then take 240) and 0 bytes of spill
-//     at D = 64 and 128.
+//     (the launch bound; the consumers then take 240) and 0 bytes of spill.
+//   * D = 160: five 32-column panels with the 64-byte swizzle on all four
+//     operands (hopper.cuh), as in the forward and dK/dV.  S and dP walk
+//     all ten k-steps, two a panel; dQ += dS K is one m64n160k16 per 16
+//     keys, K MN-major with the descriptor's LBO stepping from panel to
+//     panel.  A consumer thread holds 80 fp32 of dQ, 32 of S, 32 of dP and
+//     16 packed dS, so the 64-key tile stays; shared memory: q and dO
+//     81,920 bytes, three stages of K and V 122,880.
 //   * The mask and the soft-cap are decided once per tile and each
 //     elementwise pass is branch-free, as in the other warpgroup kernels.
 //   * Left out: fusing dQ into the dK/dV kernel with fp32 atomics (the
@@ -1240,7 +1244,7 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dQ, D = 64 and 128: warpgroup products fed by the TMA
+// bf16 dQ, D = 64, 128 and 160: warpgroup products fed by the TMA
 // ---------------------------------------------------------------------------
 constexpr int DQ_BM = 128;     // query positions per block: 2 warpgroups x 64
 constexpr int DQ_BN = 64;      // keys per tile
@@ -1248,11 +1252,15 @@ constexpr int DQ_STAGES = 3;   // K/V tiles in flight
 
 // byte offsets from the block's 1024-aligned shared-memory base: q and dO
 // (NP panels of 128 rows each), then DQ_STAGES x NP panels of K, the same
-// of V, then the barriers
+// of V, then the barriers.  A panel is PW columns (hopper.cuh): 64 at D =
+// 64 / 128, 32 at D = 160 (q and dO 81,920 bytes, three stages of K and V
+// 122,880).
 template <int D> struct DqLayout {
-  static constexpr int NP = D / 64;
-  static constexpr int Q_PANEL = DQ_BM * 128;
-  static constexpr int KV_PANEL = DQ_BN * 128;
+  static constexpr int PW = hopper::kPanelCols<D>;
+  static constexpr int NP = D / PW;
+  static constexpr int RB = 2 * PW;             // bytes of a panel row
+  static constexpr int Q_PANEL = DQ_BM * RB;
+  static constexpr int KV_PANEL = DQ_BN * RB;
   static constexpr int Q = 0;
   static constexpr int DO = Q + NP * Q_PANEL;
   static constexpr int K = DO + NP * Q_PANEL;
@@ -1260,6 +1268,8 @@ template <int D> struct DqLayout {
   static constexpr int BAR = V + DQ_STAGES * NP * KV_PANEL;
   static constexpr int BYTES = BAR + (2 * DQ_STAGES + 1) * 8 + 1024;
 };
+static_assert(DqLayout<160>::BYTES <= 232448, "D = 160 tiles exceed the SM");
+static_assert(DqLayout<128>::BYTES <= 232448, "D = 128 tiles exceed the SM");
 
 template <int D>
 __global__ void __launch_bounds__(WG_NT, 1)
@@ -1276,9 +1286,14 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
   using namespace hopper;
   using Lay = DqLayout<D>;
   constexpr int NP = Lay::NP;
+  constexpr int PW = Lay::PW;
+  constexpr int RB = Lay::RB;
   constexpr int KS = D / 16;        // k-steps of S and dP
+  constexpr int KSP = PW / 16;      // of them per panel
   constexpr int NB = DQ_BN / 8;     // 8-key column blocks of S and dP
   constexpr int PK = DQ_BN / 16;    // k-steps of dS K
+  constexpr int CB = PW / 8;        // 8-column blocks of a panel
+  static_assert(NP * PW == D, "the panels must cover all D columns");
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
@@ -1315,9 +1330,9 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
       mbar_arrive_expect_tx(q_full, 2 * DQ_BM * D * 2);
       for (int p = 0; p < NP; ++p) {
         tma_load_3d(sm + Lay::Q + p * Lay::Q_PANEL, &tq, q_full,
-                    hq * D + p * 64, m0, b);
+                    hq * D + p * PW, m0, b);
         tma_load_3d(sm + Lay::DO + p * Lay::Q_PANEL, &tdo, q_full,
-                    hq * D + p * 64, m0, b);
+                    hq * D + p * PW, m0, b);
       }
       int stage = 0;
       uint32_t phase = 0;
@@ -1326,9 +1341,9 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
         mbar_arrive_expect_tx(&full[stage], 2 * DQ_BN * D * 2);
         for (int p = 0; p < NP; ++p) {
           const int at = (stage * NP + p) * Lay::KV_PANEL;
-          tma_load_3d(sm + Lay::K + at, &tk, &full[stage], kh * D + p * 64,
+          tma_load_3d(sm + Lay::K + at, &tk, &full[stage], kh * D + p * PW,
                       n0, b);
-          tma_load_3d(sm + Lay::V + at, &tv, &full[stage], kh * D + p * 64,
+          tma_load_3d(sm + Lay::V + at, &tv, &full[stage], kh * D + p * PW,
                       n0, b);
         }
         if (++stage == DQ_STAGES) {
@@ -1366,16 +1381,16 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
     // without a cap the factor is exactly 1
     const float inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
 
-    // dQ per 64-column panel: [j * 4 + e] is row row[e >> 1], column
-    // p * 64 + j * 8 + qc + (e & 1)
-    float acc[NP][32];
+    // dQ per panel: [j * 4 + e] is row row[e >> 1], column
+    // p * PW + j * 8 + qc + (e & 1)
+    float acc[NP][CB * 4];
 #pragma unroll
     for (int p = 0; p < NP; ++p)
 #pragma unroll
-      for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
+      for (int i = 0; i < CB * 4; ++i) acc[p][i] = 0.f;
 
-    const uint32_t q_addr = smem_u32(sm + Lay::Q) + cw * 64 * 128;
-    const uint32_t do_addr = smem_u32(sm + Lay::DO) + cw * 64 * 128;
+    const uint32_t q_addr = smem_u32(sm + Lay::Q) + cw * 64 * RB;
+    const uint32_t do_addr = smem_u32(sm + Lay::DO) + cw * 64 * RB;
     mbar_wait(q_full, 0);
     int stage = 0;
     uint32_t phase = 0;
@@ -1387,27 +1402,29 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
           smem_u32(sm + Lay::V) + stage * NP * Lay::KV_PANEL;
 
       // ---- S = Q K^T and dP = dO V^T (64 x 64 per warpgroup), all
-      // operands K-major in shared memory, as two commit groups: the
-      // probabilities are computed while dP is still in flight.  [nb * 4 +
-      // e] is row row[e >> 1], key n0 + nb * 8 + qc + (e & 1) ----
+      // operands K-major in shared memory, all D / 16 k-steps over the NP
+      // panels, as two commit groups: the probabilities are computed while
+      // dP is still in flight.  [nb * 4 + e] is row row[e >> 1], key n0 +
+      // nb * 8 + qc + (e & 1) ----
       float s[NB * 4], dp[NB * 4];
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
-        const uint32_t kofs = (ks & 3) * 32;
+        const uint32_t kofs = (ks % KSP) * 32;
         wgmma_ss_n64(
-            s, panel_desc<64>(q_addr + (ks >> 2) * Lay::Q_PANEL + kofs, 16),
-            panel_desc<64>(k_addr + (ks >> 2) * Lay::KV_PANEL + kofs, 16),
+            s,
+            panel_desc<PW>(q_addr + (ks / KSP) * Lay::Q_PANEL + kofs, 16),
+            panel_desc<PW>(k_addr + (ks / KSP) * Lay::KV_PANEL + kofs, 16),
             ks > 0);
       }
       wgmma_commit();
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
-        const uint32_t kofs = (ks & 3) * 32;
+        const uint32_t kofs = (ks % KSP) * 32;
         wgmma_ss_n64(
             dp,
-            panel_desc<64>(do_addr + (ks >> 2) * Lay::Q_PANEL + kofs, 16),
-            panel_desc<64>(v_addr + (ks >> 2) * Lay::KV_PANEL + kofs, 16),
+            panel_desc<PW>(do_addr + (ks / KSP) * Lay::Q_PANEL + kofs, 16),
+            panel_desc<PW>(v_addr + (ks / KSP) * Lay::KV_PANEL + kofs, 16),
             ks > 0);
       }
       wgmma_commit();
@@ -1465,17 +1482,14 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
                                 s[i + 1] * (dp[i + 1] - dl));
         }
 
-      // ---- dQ += dS K: K MN-major (the transposed-B flag), one m64n64k16
-      // per 16 keys and 64-column panel ----
+      // ---- dQ += dS K: K MN-major (the transposed-B flag), per 16 keys
+      // one m64n64k16 per panel (D = 64, 128) or one m64n160k16 over the
+      // five panels (D = 160) ----
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < PK; ++kk)
-#pragma unroll
-        for (int p = 0; p < NP; ++p)
-          wgmma_rs_n64_tb(acc[p], da[kk],
-                          panel_desc<64>(k_addr + p * Lay::KV_PANEL +
-                                             kk * 16 * 128,
-                                         Lay::KV_PANEL));
+        wgmma_rs_panels<PW, NP>(acc, da[kk], k_addr + kk * 16 * RB,
+                                Lay::KV_PANEL);
       wgmma_commit();
       wgmma_wait<0>();
 #pragma unroll
@@ -1494,8 +1508,8 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
 #pragma unroll
         for (int p = 0; p < NP; ++p)
 #pragma unroll
-          for (int j = 0; j < 8; ++j)
-            *reinterpret_cast<uint32_t*>(orow + p * 64 + j * 8 + qc) =
+          for (int j = 0; j < CB; ++j)
+            *reinterpret_cast<uint32_t*>(orow + p * PW + j * 8 + qc) =
                 pack_bf16(acc[p][j * 4 + 2 * h], acc[p][j * 4 + 2 * h + 1]);
       }
     }
@@ -1620,11 +1634,13 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v,
                     const float* delta, void* dq, int B, int S, int Tk,
                     int H, int K, int causal, int window, float softcap,
                     cudaStream_t stream) {
+  constexpr int PW = DqLayout<D>::PW;
   CUtensorMap tq, tk, tv, tdo;
-  int rc = hopper::make_tensor_map(&tq, q, B, S, H * D, DQ_BM);
-  if (rc == 0) rc = hopper::make_tensor_map(&tdo, dout, B, S, H * D, DQ_BM);
-  if (rc == 0) rc = hopper::make_tensor_map(&tk, k, B, Tk, K * D, DQ_BN);
-  if (rc == 0) rc = hopper::make_tensor_map(&tv, v, B, Tk, K * D, DQ_BN);
+  int rc = hopper::make_tensor_map(&tq, q, B, S, H * D, DQ_BM, PW);
+  if (rc == 0)
+    rc = hopper::make_tensor_map(&tdo, dout, B, S, H * D, DQ_BM, PW);
+  if (rc == 0) rc = hopper::make_tensor_map(&tk, k, B, Tk, K * D, DQ_BN, PW);
+  if (rc == 0) rc = hopper::make_tensor_map(&tv, v, B, Tk, K * D, DQ_BN, PW);
   if (rc != 0) return rc;
   constexpr int bytes = DqLayout<D>::BYTES;
   static bool configured = false;
@@ -1637,22 +1653,15 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// Which design serves dK/dV at (D, dtype): fp32 on the CUDA cores; bf16 on
-// warpgroup products fed by the TMA at D = 64, 128 (llama's heads) and 160
-// (stablelm-12b), on mma.sync at D = 32.  No launch falls back to another
-// design.
-int dkv_design(int D, int dtype) {
+// Which design serves dK/dV and dQ at (D, dtype): fp32 on the CUDA cores;
+// bf16 on warpgroup products fed by the TMA at D = 64, 128 (llama's heads)
+// and 160 (stablelm-12b), on mma.sync at D = 32.  No launch falls back to
+// another design.
+int bwd_design(int D, int dtype) {
   const bool any_d = D == 32 || D == 64 || D == 128 || D == 160;
   if (dtype == DTYPE_F32) return any_d ? DESIGN_CUDA_CORES : DESIGN_NONE;
   if (dtype != DTYPE_BF16 || !any_d) return DESIGN_NONE;
   return D == 32 ? DESIGN_MMA_SYNC : DESIGN_WGMMA;
-}
-
-// Which design serves dQ at (D, dtype): as dK/dV's, but bf16 at D = 160
-// stays on mma.sync.
-int dq_design(int D, int dtype) {
-  const int d = dkv_design(D, dtype);
-  return d == DESIGN_WGMMA && D == 160 ? DESIGN_MMA_SYNC : d;
 }
 
 }  // namespace
@@ -1670,7 +1679,7 @@ extern "C" int repro_flash_attention_bwd_dkv(
 #define REPRO_DKV_ARGS                                                      \
   q, k, v, dout, m, l, delta, dk, dv, B, S, T, H, K, causal, window,       \
       softcap, st
-  switch (dkv_design(D, dtype)) {
+  switch (bwd_design(D, dtype)) {
     case DESIGN_CUDA_CORES:
       switch (D) {
         case 32: return launch_dkv<float, 32>(REPRO_DKV_ARGS);
@@ -1706,7 +1715,7 @@ extern "C" int repro_flash_attention_bwd_dq(
   cudaStream_t st = (cudaStream_t)stream;
 #define REPRO_DQ_ARGS                                                       \
   q, k, v, dout, m, l, delta, dq, B, S, T, H, K, causal, window, softcap, st
-  switch (dq_design(D, dtype)) {
+  switch (bwd_design(D, dtype)) {
     case DESIGN_CUDA_CORES:
       switch (D) {
         case 32: return launch_dq<float, 32>(REPRO_DQ_ARGS);
@@ -1718,13 +1727,13 @@ extern "C" int repro_flash_attention_bwd_dq(
     case DESIGN_MMA_SYNC:
       switch (D) {
         case 32: return launch_dq_mma<32>(REPRO_DQ_ARGS);
-        case 160: return launch_dq_mma<160>(REPRO_DQ_ARGS);
       }
       break;
     case DESIGN_WGMMA:
       switch (D) {
         case 64: return launch_dq_wgmma<64>(REPRO_DQ_ARGS);
         case 128: return launch_dq_wgmma<128>(REPRO_DQ_ARGS);
+        case 160: return launch_dq_wgmma<160>(REPRO_DQ_ARGS);
       }
       break;
   }
@@ -1735,27 +1744,26 @@ extern "C" int repro_flash_attention_bwd_dq(
 // The design that repro_flash_attention_bwd_dkv launches for (D, dtype): one
 // of the DESIGN_* codes of common.cuh.
 extern "C" int repro_flash_attention_bwd_dkv_design(int D, int dtype) {
-  return dkv_design(D, dtype);
+  return bwd_design(D, dtype);
 }
 
 // The design that repro_flash_attention_bwd_dq launches for (D, dtype).
 extern "C" int repro_flash_attention_bwd_dq_design(int D, int dtype) {
-  return dq_design(D, dtype);
+  return bwd_design(D, dtype);
 }
 
-// The design that flash_bwd_dkv_wgmma_kernel<160> replaced: the bf16
-// D = 160 dK/dV on mma.sync; the arguments of repro_flash_attention_bwd_dkv.
+// The design that flash_bwd_dq_wgmma_kernel<160> replaced: the bf16
+// D = 160 dQ on mma.sync; the arguments of repro_flash_attention_bwd_dq.
 // Not on any path of the package: chip_smoke.py times it beside its
 // successor in the same run.
-extern "C" int repro_flash_attention_bwd_dkv_mma(
+extern "C" int repro_flash_attention_bwd_dq_mma(
     const void* q, const void* k, const void* v, const void* dout,
-    const float* m, const float* l, const float* delta, void* dk, void* dv,
-    int B, int S, int T, int H, int K, int D, int dtype, int causal,
-    int window, float softcap, void* stream) {
+    const float* m, const float* l, const float* delta, void* dq, int B,
+    int S, int T, int H, int K, int D, int dtype, int causal, int window,
+    float softcap, void* stream) {
   if (!shape_ok(B, S, T, H, K) || D != 160 || dtype != DTYPE_BF16)
     return ERR_UNSUPPORTED;
-  return launch_dkv_mma<160>(q, k, v, dout, m, l, delta, dk, dv, B, S, T, H,
-                             K, causal, window, softcap,
-                             (cudaStream_t)stream);
+  return launch_dq_mma<160>(q, k, v, dout, m, l, delta, dq, B, S, T, H, K,
+                            causal, window, softcap, (cudaStream_t)stream);
 }
 

@@ -7,7 +7,8 @@
 // Shared-memory tiles are written by the TMA in column panels.  Where D is a
 // multiple of 64 a panel is R rows x 64 bf16 columns (128 bytes a row) with
 // the 128-byte swizzle: 16-byte chunk c of row r lands at chunk c ^ (r % 8);
-// a head of D = 128 columns is two panels, R * 128 bytes apart.  Otherwise
+// a head of D = 128 columns is two panels, R * 128 bytes apart (D = 256
+// four).  Otherwise
 // (D = 160) a panel is R rows x 32 columns (64 bytes a row) with the 64-byte
 // swizzle, chunk c of row r at c ^ ((r / 2) % 4), and a head is five of
 // them.  Every panel starts on a 1024-byte boundary, as the swizzles and the
@@ -334,9 +335,70 @@ __device__ __forceinline__ void wgmma_rs_n160_tb(float (&d)[5][16],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (64 x 256, fp32; d[p] holds columns p * 64 .. p * 64 + 63 in the
+// layout of an m64n64 accumulator) += a (64 x 16, bf16 fragments in
+// registers) b (16 x 256), b in shared memory, MN-major in four 64-column
+// panels LBO bytes apart (the descriptor's): one instruction for all of
+// D = 256
+__device__ __forceinline__ void wgmma_rs_n256_tb(float (&d)[4][32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
+      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, "
+      "%109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[0][4]), "+f"(d[0][5]), "+f"(d[0][6]), "+f"(d[0][7]),
+        "+f"(d[0][8]), "+f"(d[0][9]), "+f"(d[0][10]), "+f"(d[0][11]),
+        "+f"(d[0][12]), "+f"(d[0][13]), "+f"(d[0][14]), "+f"(d[0][15]),
+        "+f"(d[0][16]), "+f"(d[0][17]), "+f"(d[0][18]), "+f"(d[0][19]),
+        "+f"(d[0][20]), "+f"(d[0][21]), "+f"(d[0][22]), "+f"(d[0][23]),
+        "+f"(d[0][24]), "+f"(d[0][25]), "+f"(d[0][26]), "+f"(d[0][27]),
+        "+f"(d[0][28]), "+f"(d[0][29]), "+f"(d[0][30]), "+f"(d[0][31]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[1][4]), "+f"(d[1][5]), "+f"(d[1][6]), "+f"(d[1][7]),
+        "+f"(d[1][8]), "+f"(d[1][9]), "+f"(d[1][10]), "+f"(d[1][11]),
+        "+f"(d[1][12]), "+f"(d[1][13]), "+f"(d[1][14]), "+f"(d[1][15]),
+        "+f"(d[1][16]), "+f"(d[1][17]), "+f"(d[1][18]), "+f"(d[1][19]),
+        "+f"(d[1][20]), "+f"(d[1][21]), "+f"(d[1][22]), "+f"(d[1][23]),
+        "+f"(d[1][24]), "+f"(d[1][25]), "+f"(d[1][26]), "+f"(d[1][27]),
+        "+f"(d[1][28]), "+f"(d[1][29]), "+f"(d[1][30]), "+f"(d[1][31]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[2][4]), "+f"(d[2][5]), "+f"(d[2][6]), "+f"(d[2][7]),
+        "+f"(d[2][8]), "+f"(d[2][9]), "+f"(d[2][10]), "+f"(d[2][11]),
+        "+f"(d[2][12]), "+f"(d[2][13]), "+f"(d[2][14]), "+f"(d[2][15]),
+        "+f"(d[2][16]), "+f"(d[2][17]), "+f"(d[2][18]), "+f"(d[2][19]),
+        "+f"(d[2][20]), "+f"(d[2][21]), "+f"(d[2][22]), "+f"(d[2][23]),
+        "+f"(d[2][24]), "+f"(d[2][25]), "+f"(d[2][26]), "+f"(d[2][27]),
+        "+f"(d[2][28]), "+f"(d[2][29]), "+f"(d[2][30]), "+f"(d[2][31]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[3][4]), "+f"(d[3][5]), "+f"(d[3][6]), "+f"(d[3][7]),
+        "+f"(d[3][8]), "+f"(d[3][9]), "+f"(d[3][10]), "+f"(d[3][11]),
+        "+f"(d[3][12]), "+f"(d[3][13]), "+f"(d[3][14]), "+f"(d[3][15]),
+        "+f"(d[3][16]), "+f"(d[3][17]), "+f"(d[3][18]), "+f"(d[3][19]),
+        "+f"(d[3][20]), "+f"(d[3][21]), "+f"(d[3][22]), "+f"(d[3][23]),
+        "+f"(d[3][24]), "+f"(d[3][25]), "+f"(d[3][26]), "+f"(d[3][27]),
+        "+f"(d[3][28]), "+f"(d[3][29]), "+f"(d[3][30]), "+f"(d[3][31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // acc (64 x NP * PW, fp32, per panel) += a (64 x 16, registers) b (16 x
 // NP * PW), b MN-major in NP panels of PW columns, `panel` bytes apart from
-// b_addr on: every panel of the head's columns
+// b_addr on: every panel of the head's columns.  D = 160 and 256 take one
+// wide instruction (9 % and 2.2 % faster than one per panel, timed in turns
+// on the H100; PERF.md), D = 64 and 128 one m64n64k16 a panel.
 template <int PW, int NP>
 __device__ __forceinline__ void wgmma_rs_panels(float (&acc)[NP][PW / 2],
                                                 const uint32_t (&a)[4],
@@ -345,6 +407,8 @@ __device__ __forceinline__ void wgmma_rs_panels(float (&acc)[NP][PW / 2],
   if constexpr (PW == 32) {
     static_assert(NP == 5, "32-column panels are D = 160's");
     wgmma_rs_n160_tb(acc, a, panel_desc<PW>(b_addr, panel));
+  } else if constexpr (NP == 4) {
+    wgmma_rs_n256_tb(acc, a, panel_desc<PW>(b_addr, panel));
   } else {
 #pragma unroll
     for (int p = 0; p < NP; ++p)

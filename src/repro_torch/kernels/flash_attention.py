@@ -10,10 +10,11 @@ file says how.
 
 Which design serves a call depends on (head_dim, dtype) alone, as the C
 dispatch's switch says (``design``): fp32 on the CUDA cores; bf16 at
-D = 64, 128 and 160 on warpgroup products (``wgmma``) fed by the TMA, with
-one producer warp and two consumer warpgroups (at D = 160 the head's columns
-are five 32-column panels); bf16 at D = 32 and 256 on warp-level
-``mma.sync``.  The TMA reads q, k and v through tensor maps, which
+D = 64, 128, 160 and 256 on warpgroup products (``wgmma``) fed by the TMA,
+with one producer warp and two consumer warpgroups (at D = 160 the head's
+columns are five 32-column panels; at D = 256 the key tiles are 64 keys);
+bf16 at D = 32 on warp-level ``mma.sync``.  The TMA reads q, k and v
+through tensor maps, which
 need 16-byte aligned base pointers: the wrapper checks that for every
 launch.  ``live_key_tiles`` is the key-tile walk of the warpgroup design,
 the same bounds as the ``.cu`` file computes.
@@ -70,8 +71,9 @@ def live_key_tiles(m0: int, BM: int, BN: int, T: int, causal: bool,
     """Keys ``[n_begin, n_end)`` that any query position of ``m0 ..
     m0+BM-1`` sees (query i at position i, key j at j); ``n_begin`` is a
     multiple of ``BN``.  The warpgroup forward kernel walks the key tiles
-    ``range(n_begin, n_end, BN)`` of each block of ``BM`` positions
-    (``csrc/hopper.cuh`` ``live_key_tiles``, the same bounds)."""
+    ``range(n_begin, n_end, BN)`` of each block of ``BM`` positions (BN =
+    128, 64 at D = 256; ``csrc/hopper.cuh`` ``live_key_tiles``, the same
+    bounds)."""
     n_begin, n_end = 0, T
     if causal:
         n_end = min(T, m0 + BM)

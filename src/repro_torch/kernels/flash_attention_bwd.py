@@ -28,16 +28,15 @@ finite gradients.
 
 Designs (the C dispatch's switch, ``design_dkv`` and ``design_dq``): fp32 on
 the CUDA cores; in bf16 the stats forward is the forward's design
-(``flash_attention.design``), dK/dV runs on warpgroup products
+(``flash_attention.design``), and dK/dV and dQ run on warpgroup products
 (``wgmma``) fed by the TMA at D = 64, 128 and 160 and on ``mma.sync`` at
-D = 32, and dQ on warpgroup products at D = 64 and 128 and on ``mma.sync``
-at D = 32 and 160.
+D = 32.
 The dK/dV block of the warpgroup design owns 128 keys and walks the (query
 tile, group head) pairs of ``live_query_tiles`` (tiles of 64 query
-positions, 32 at D = 160); the dQ block owns 128
-query positions of one head and walks the 64-key tiles of
-``flash_attention.live_key_tiles``: the same bounds as the ``.cu`` files
-compute.
+positions, 32 at D = 160); the dQ block owns 128 query positions of one
+head and walks the 64-key tiles of ``flash_attention.live_key_tiles``: the
+same bounds as the ``.cu`` files compute.  At D = 160 all of them keep a
+head's columns as five 32-column panels.
 
 Every wrapper launches its kernel for CUDA tensors -- or raises: there is no
 fallback -- and runs the plain version only for tensors on the CPU.  Each

@@ -417,11 +417,12 @@ def test_kernels_match_plain_versions_on_the_card(cuda_device):
 
 @pytest.mark.gpu
 def test_warpgroup_designs_match_plain_versions_on_the_card(cuda_device):
-    """bf16 at D = 64 and 128 runs on the warpgroup designs, and at D = 160
-    the forward and dK/dV do (dQ stays on mma.sync): the forward (with
-    statistics), dK/dV and dQ against their plain versions, several 128-key
-    tiles, G = 3, ragged S; the chunk-parallel SSD at a ragged multi-chunk
-    shape on the tensor cores, against its plain version."""
+    """bf16 at D = 64, 128 and 160 runs on the warpgroup designs: the
+    forward (with statistics), dK/dV and dQ against their plain versions,
+    several 128-key tiles, G = 3, ragged S; the served forward at D = 256
+    (64-key tiles) under a window with G = 10 and ragged S; the
+    chunk-parallel SSD at a ragged multi-chunk shape on the tensor cores,
+    against its plain version."""
     from repro_torch.kernels.flash_attention import design
     from repro_torch.kernels.ssd import design as ssd_design
     from repro_torch.kernels.ssd import ssd, ssd_plain
@@ -429,10 +430,10 @@ def test_warpgroup_designs_match_plain_versions_on_the_card(cuda_device):
     assert design(128, bf16) == design(64, bf16) == "wgmma"
     assert fab.design_dkv(128, bf16) == "wgmma"
     assert fab.design_dq(128, bf16) == fab.design_dq(64, bf16) == "wgmma"
-    assert design(256, bf16) == fab.design_dkv(32, bf16) == "mma.sync"
+    assert design(32, bf16) == fab.design_dkv(32, bf16) == "mma.sync"
     assert fab.design_dq(32, bf16) == "mma.sync"
     assert design(160, bf16) == fab.design_dkv(160, bf16) == "wgmma"
-    assert fab.design_dq(160, bf16) == "mma.sync"
+    assert design(256, bf16) == fab.design_dq(160, bf16) == "wgmma"
     assert ssd_design(64, 128, bf16) == "mma.sync"
     for D in (64, 128, 160):
         q, k, v, ct = (torch.from_numpy(a).to(cuda_device, bf16)
@@ -452,6 +453,14 @@ def test_warpgroup_designs_match_plain_versions_on_the_card(cuda_device):
             np.testing.assert_allclose(a.float().cpu().numpy(),
                                        b.float().cpu().numpy(), atol=2e-2,
                                        rtol=2e-2)
+    q, k, v = (torch.from_numpy(a).to(cuda_device, bf16)
+               for a in _qkv(1, 300, 300, 10, 1, 256))
+    for softcap in (0.0, 30.0):
+        kw = dict(causal=True, window=50, softcap=softcap)
+        np.testing.assert_allclose(
+            flash_attention(q, k, v, **kw).float().cpu().numpy(),
+            attention_plain(q, k, v, **kw).float().cpu().numpy(), atol=2e-2,
+            rtol=2e-2)
     # SSD: S = 200 is three chunks and a ragged fourth, G = 3
     r = np.random.RandomState(5)
     B, S, H, P, G, N = 2, 200, 6, 64, 3, 128

@@ -12,18 +12,21 @@ dK/dV that sums over the group, a dQ -- and are held to the port's plain
 versions in fp32 at 1e-5 (summation order only) and to the reference's
 oracle (``repro.kernels.ref.attention_ref`` and ``jax.grad`` of it) at the
 reference's 5e-4, so a bound that drops a live tile fails here before any
-time on the card.  At stablelm-12b's D = 160 the forward walks 128-key tiles
-and dK/dV 32-query tiles (``D160_CASES``), with plain products or on the
-kernels' column panels: the bf16 warpgroup kernels keep a head's D columns
-in shared memory as panels of ``panel_cols(D)`` columns, the layout the TMA
-writes (``csrc/hopper.cuh``): 64 at D = 64 and 128, five of 32 at D = 160.
-The score products (S = Q K^T; S^T = K Q^T and dP^T = V dO^T) walk D / 16
-k-steps of 16 columns, PW / 16 a panel; the products with an MN-major
-operand (O += P V, dV += P^T dO, dK += dS^T Q) take column n of their
-result from panel n // PW (at D = 160 one m64n160k16 whose descriptor's LBO
-steps from panel to panel).  A walk that leaves the tail panel out --
-columns 128-159, as a split of 160 columns into 64-column panels would --
-must fail the comparison that the whole walk passes.
+time on the card.  At stablelm-12b's D = 160 the forward walks 128-key tiles,
+dK/dV 32-query tiles and dQ 64-key tiles (``D160_CASES``); at
+recurrentgemma-2b's D = 256 the forward walks 64-key tiles (``D256_CASES``:
+MQA with G = 10, a window, ragged S).  Each walks with plain products or on
+the kernels' column panels: the bf16 warpgroup kernels keep a head's D
+columns in shared memory as panels of ``panel_cols(D)`` columns, the layout
+the TMA writes (``csrc/hopper.cuh``): 64 at D = 64, 128 and 256, five of 32
+at D = 160.  The score products (S = Q K^T, dP = dO V^T; S^T = K Q^T and
+dP^T = V dO^T) walk D / 16 k-steps of 16 columns, PW / 16 a panel; the
+products with an MN-major operand (O += P V, dV += P^T dO, dK += dS^T Q,
+dQ += dS K) take column n of their result from panel n // PW (at D = 160
+one m64n160k16 whose descriptor's LBO steps from panel to panel).  A walk
+that leaves the tail panel out -- columns 128-159 at D = 160, as a split of
+160 columns into 64-column panels would; columns 192-255 at D = 256 -- must
+fail the comparison that the whole walk passes.
 """
 import functools
 import math
@@ -64,6 +67,15 @@ D160_CASES = [
     (1, 260, 260, 4, 2, 160, True, 50, 0.0),      # window 50
 ]
 D160_DKV_BM = 32    # query positions per tile of the D = 160 dK/dV (csrc)
+# recurrentgemma-2b's MQA heads: the warpgroup forward at BM = 128 with
+# 64-key tiles (csrc FwdLayout<256>::BN) on four 64-column panels
+D256_CASES = [
+    # B, S, T, H, K, D, causal, window, softcap
+    (1, 300, 300, 10, 1, 256, True, 50, 0.0),     # window 50, ragged S
+    (1, 250, 250, 10, 1, 256, True, 50, 30.0),    # soft-cap 30
+    (2, 140, 200, 10, 1, 256, True, 0, 0.0),      # B = 2, S != T
+]
+D256_BN = 64
 # the same walks on llama's 64-column panels (D = 128) and at D = 64
 PANEL64_CASES = [
     (1, 200, 200, 4, 2, 128, True, 0, 0.0),
@@ -219,10 +231,13 @@ def dkv_tile_walk(q, k, v, do, m, l, delta, *, causal, window, softcap, BM,
     return dk, dv
 
 
-def dq_tile_walk(q, k, v, do, m, l, delta, *, causal, window, softcap, BM):
+def dq_tile_walk(q, k, v, do, m, l, delta, *, causal, window, softcap, BM,
+                 pw=None, n_panels=None):
     """The warpgroup dQ's walk in fp32: per head and block of BM positions,
     the DQ_BN-key tiles of ``live_key_tiles``; p from the saved statistics,
-    the exact soft-cap derivative, dQ accumulated over the tiles."""
+    the exact soft-cap derivative, dQ accumulated over the tiles; the
+    products on ``pw``-column panels where ``pw`` is given, dQ's from the
+    first ``n_panels`` only."""
     B, S, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
@@ -239,16 +254,16 @@ def dq_tile_walk(q, k, v, do, m, l, delta, *, causal, window, softcap, BM):
             for n0 in range(n_begin, n_end, DQ_BN):
                 keys = torch.arange(n0, min(n0 + DQ_BN, T))
                 kt, vt = k[:, keys, h // G], v[:, keys, h // G]
-                s = _scores(qt, kt, scale, softcap)     # queries x keys
+                s = _scores(qt, kt, scale, softcap, pw)  # queries x keys
                 p = torch.where(
                     _dead(rows, keys, S, T, causal, window), 0.0,
                     torch.exp(s - m[:, rows, h][..., None])
                     / l[:, rows, h][..., None])
-                ds = p * (dot @ vt.transpose(-1, -2)
+                ds = p * (kstep_product(dot, vt, pw)
                           - delta[:, rows, h][..., None])
                 if softcap > 0:
                     ds = ds * (1.0 - (s / softcap) ** 2)
-                acc += (ds * scale) @ kt
+                acc += panel_product(ds * scale, kt, pw, n_panels)
             dq[:, rows, h] = acc
     return dq
 
@@ -352,6 +367,50 @@ def test_dkv_tile_walk_d160_matches_plain_and_oracle(case, pw):
     _close(dv, dv3, 5e-4, "dv vs jax.grad of attention_ref")
 
 
+@pytest.mark.parametrize("pw", [None, 32])
+@pytest.mark.parametrize("case", D160_CASES)
+def test_dq_tile_walk_d160_matches_plain_and_oracle(case, pw):
+    B, S, T, H, K, D, causal, window, softcap = case
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(B, S, T, H, K, D))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, m, l = fab.attention_fwd_stats_plain(q, k, v, **kw)
+    delta = fab.attention_delta(o, do)
+    dq = dq_tile_walk(q, k, v, do, m, l, delta, BM=128, pw=pw, **kw)
+    dq2 = fab.attention_bwd_plain(q, k, v, do, m, l, delta, **kw)[0]
+    _close(dq, dq2, 1e-5, "dq vs attention_bwd_plain")
+    _close(dq, _oracle(case)[1], 5e-4, "dq vs jax.grad of attention_ref")
+
+
+@pytest.mark.parametrize("pw", [None, 64])
+@pytest.mark.parametrize("case", D256_CASES)
+def test_forward_tile_walk_d256_matches_plain_and_oracle(case, pw):
+    B, S, T, H, K, D, causal, window, softcap = case
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(B, S, T, H, K, D))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, m, l = forward_tile_walk(q, k, v, BM=128, BN=D256_BN, pw=pw, **kw)
+    o2, m2, l2 = fab.attention_fwd_stats_plain(q, k, v, **kw)
+    _close(o, attention_plain(q, k, v, **kw), 1e-5, "o vs attention_plain")
+    _close(m, m2, 1e-5, "m vs attention_fwd_stats_plain")
+    _close(l, l2, 1e-5, "l vs attention_fwd_stats_plain")
+    _close(o, _oracle(case)[0], 5e-4, "o vs attention_ref")
+
+
+@pytest.mark.parametrize("case", D256_CASES)
+def test_dropped_last_panel_d256_fails(case):
+    """Three of the four 64-column panels: o misses columns 192-255, and
+    the comparison that the whole walk passes rejects it."""
+    B, S, T, H, K, D, causal, window, softcap = case
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(B, S, T, H, K, D))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o = forward_tile_walk(q, k, v, BM=128, BN=D256_BN, pw=64, n_panels=3,
+                          **kw)[0]
+    want = attention_plain(q, k, v, **kw)
+    assert torch.equal(o[..., 192:], torch.zeros_like(o[..., 192:]))
+    _close(o[..., :192], want[..., :192], 1e-5, "o columns 0-191")
+    with pytest.raises(AssertionError):
+        _close(o, want, 1e-5, "o")
+
+
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
                                            (True, 50), (True, 200),
                                            (False, 64)])
@@ -372,7 +431,7 @@ def test_d160_tile_bounds_skip_only_dead_tiles(causal, window):
         assert not (live & ~seen).any(), (S, T, "dK/dV, 32-query tiles")
 
 
-@pytest.mark.parametrize("D", [64, 128, 160])
+@pytest.mark.parametrize("D", [64, 128, 160, 256])
 def test_panels_cover_every_column_once(D):
     """The panel layout holds each column once, in order, and the k-steps
     walk every 16-column slice once."""
@@ -386,7 +445,7 @@ def test_panels_cover_every_column_once(D):
     assert cols == list(range(0, D, KSTEP))
 
 
-@pytest.mark.parametrize("walk", ["forward", "dkv"])
+@pytest.mark.parametrize("walk", ["forward", "dkv", "dq"])
 @pytest.mark.parametrize("case", PANEL64_CASES)
 def test_panel_walks_at_64_column_panels(case, walk):
     """D = 64 and 128 run the same panel code on 64-column panels."""
@@ -399,6 +458,12 @@ def test_panel_walks_at_64_column_panels(case, walk):
         _close(got, o, 1e-5, "o vs attention_fwd_stats_plain")
         return
     delta = fab.attention_delta(o, do)
+    if walk == "dq":
+        dq = dq_tile_walk(q, k, v, do, m, l, delta, BM=128, pw=panel_cols(D),
+                          **kw)
+        dq2 = fab.attention_bwd_plain(q, k, v, do, m, l, delta, **kw)[0]
+        _close(dq, dq2, 1e-5, "dq vs attention_bwd_plain")
+        return
     dk, dv = dkv_tile_walk(q, k, v, do, m, l, delta, BM=64, pw=panel_cols(D),
                            **kw)
     _, dk2, dv2 = fab.attention_bwd_plain(q, k, v, do, m, l, delta, **kw)
@@ -409,7 +474,7 @@ def test_panel_walks_at_64_column_panels(case, walk):
 @pytest.mark.parametrize("case", D160_CASES)
 def test_dropped_tail_panel_fails(case):
     """Four of the five panels (columns 0-127, a 64-column split of 160):
-    o, dk and dv miss their last 32 columns, and the comparison that the
+    o, dq, dk and dv miss their last 32 columns, and the comparison that the
     whole walk passes rejects each of them; so does a score walk over the
     first 128 columns only."""
     B, S, T, H, K, D, causal, window, softcap = case
@@ -420,8 +485,11 @@ def test_dropped_tail_panel_fails(case):
     o = forward_tile_walk(q, k, v, BM=128, pw=32, n_panels=4, **kw)[0]
     dk, dv = dkv_tile_walk(q, k, v, do, m, l, delta, BM=D160_DKV_BM, pw=32,
                            n_panels=4, **kw)
-    _, dk2, dv2 = fab.attention_bwd_plain(q, k, v, do, m, l, delta, **kw)
-    for name, got, want in (("o", o, o2), ("dk", dk, dk2), ("dv", dv, dv2)):
+    dq = dq_tile_walk(q, k, v, do, m, l, delta, BM=128, pw=32, n_panels=4,
+                      **kw)
+    dq2, dk2, dv2 = fab.attention_bwd_plain(q, k, v, do, m, l, delta, **kw)
+    for name, got, want in (("o", o, o2), ("dq", dq, dq2), ("dk", dk, dk2),
+                            ("dv", dv, dv2)):
         assert torch.equal(got[..., 128:], torch.zeros_like(got[..., 128:]))
         _close(got[..., :128], want[..., :128], 1e-5, f"{name} columns 0-127")
         with pytest.raises(AssertionError):
