@@ -25,20 +25,29 @@ per line:
                 both train shapes, faults planted in the plain backward's
                 result (a skipped 64- or 128-key tile) must fail the same
                 comparison, and at D = 160 so must a dropped tail panel
-                (columns 128-159 of o, dq, dk and dv zeroed); the bf16
-                D = 160 dQ and D = 256 forward (warpgroup designs) are timed
-                in turns with the mma.sync designs they replaced
-                (``earlier_ms``), which the library still exports for this
-                alone;
+                (columns 128-159 of o, dq, dk and dv zeroed); the training
+                kernels also at recurrentgemma-2b's D = 256 (the reference's
+                backward cases at D = 256 in fp32 and bf16, its MQA heads
+                under windows, and its trained shape, 2 x 4096 tokens under
+                the 2048 window, where a dropped tail panel, a lost column
+                half (columns 128-255 of dq, dk and dv) and tiles skipped
+                under the window must be rejected); the RG-LRU backward
+                against its plain reverse scan and autograd of the plain
+                forward (ragged S, with and without h0) and at the trained
+                shape, where a zeroed carry into chunk 1 must be rejected,
+                each of its saved forwards (the RG-LRU kernel's, the trained
+                shape's included) held to the plain forward;
   ptxas         registers and spills that ``nvcc -Xptxas -v`` reported for
                 the kernels of ``PTXAS_KERNELS``; a spill fails the run;
   memory_guards the bf16 warpgroup forward (served, with statistics),
                 dK/dV and dQ at stablelm-12b's served and trained shapes and
-                at ragged ones, the forward also at recurrentgemma-2b's
-                served shape (D = 256, window 2048) and a ragged windowed
-                one, on tensors inside NaN guard bands at two alignments: no
-                guard may change, and every output must equal the unguarded
-                launch bit for bit, five times in a row (``memory_guards``);
+                at ragged ones, and at recurrentgemma-2b's D = 256 (served
+                and trained shapes under the 2048 window, a ragged windowed
+                one), and the RG-LRU backward at its trained shape and a
+                ragged one, on tensors inside NaN guard bands at two
+                alignments: no guard may change, and every output must equal
+                the unguarded launch bit for bit, five times in a row
+                (``memory_guards``, ``rglru_guards``);
   serve_paged   llama3.2-3b at full width in bf16, random weights from seed
                 0 made on the device, 16 requests through
                 ``AsyncServeEngine(mode="paged")``; pure-decode iterations
@@ -82,6 +91,13 @@ per line:
                 two plain implementations measured in the same run (one
                 prefill; a prefill of all but 16 tokens, then 16 decode
                 steps);
+  train (again) recurrentgemma-2b trained at full width and depth ((R, R,
+                A) x 8 + (R, R), 2.69 B parameters) as llama is: every step
+                launches the stats forward 16 times, dK/dV and dQ 8 (D =
+                256, window 2048), the RG-LRU forward 36 and its backward
+                18; the first step's loss and the gradients of wq, wk, wv,
+                wa, wx, lam and in_rec within 2e-2 of a pass through the
+                plain attention and RG-LRU;
   serve_paged, serve_dense (again)  stablelm-12b (head_dim 160) at full
                 width and depth in bf16 (40 layers, 12.1 B parameters),
                 after llama's model is freed: the paged decode kernel once per
@@ -94,10 +110,11 @@ per line:
   summary       the run's elapsed seconds, the kernels' build included;
   kernels       the per-kernel summary line, launches counted on the served
                 and trained runs above (the attention kernels have a row per
-                head dim: llama's D = 128, stablelm's D = 160 and, for the
-                flash kernel, recurrentgemma's D = 256), each row with the
-                design the library's dispatch names for its shape, the
-                redesigned rows with ``earlier_ms``.
+                head dim: llama's D = 128, stablelm's D = 160 and
+                recurrentgemma's D = 256), and the RG-LRU backward's row
+                (no TPU kernel: it replaces the reference's XLA gradient),
+                each row with the design the library's dispatch names for
+                its shape.
 
 ``kernel_cases`` also holds the SSD kernel (the reference's cases, the
 ragged one included, fp32 and bf16 x/B/C, cases at mamba2's P and N with S
@@ -136,7 +153,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.configs import get_config                    # noqa: E402
-from repro_torch.configs.base import (ATTN, PolicyConfig,      # noqa: E402
+from repro_torch.configs.base import (ATTN, ATTN_LOCAL,        # noqa: E402
+                                      RGLRU, PolicyConfig,
                                       ShapeConfig)
 from repro_torch.data import SyntheticDataset                  # noqa: E402
 from repro_torch.kernels import build, ops                     # noqa: E402
@@ -151,7 +169,7 @@ from repro_torch.kernels.flash_attention_bwd import (          # noqa: E402
 from repro_torch.kernels.paged_attention import (              # noqa: E402
     paged_attention_plain, paged_decode_attention, split_pieces)
 from repro_torch.kernels.rglru import (                        # noqa: E402
-    CHUNK as rglru_chunk_len, rglru, rglru_plain)
+    CHUNK as rglru_chunk_len, rglru, rglru_bwd, rglru_bwd_plain, rglru_plain)
 from repro_torch.kernels.ssd import (                          # noqa: E402
     CHUNK, design as ssd_design, kernel_chunk, ssd, ssd_plain)
 from repro_torch.models.lm import LM                           # noqa: E402
@@ -189,6 +207,13 @@ TRAIN_CUT = ("depth 40 -> 2 layers (12.1 B fp32 parameters with AdamW "
              "state, ~194 GB, do not fit one card)",
              "global batch 256 -> 1 (one card)", "5 steps -> 2")
 
+# recurrentgemma-2b trained at full width and depth ((R, R, A) x 8 + (R, R),
+# 2.69 B parameters, ~43 GB of fp32 parameters, gradients and AdamW state) on
+# TRAIN_SHAPE: 4096 tokens a row, past its 2048-token window.  The first
+# step is held against the plain attention and RG-LRU on the attention
+# blocks' projections and these RG-LRU leaves
+HYBRID_TRAIN_LEAVES = ("wq", "wk", "wv", "wa", "wx", "lam", "in_rec")
+
 # the bf16 design the library's dispatch must name for each attention
 # kernel at the served and trained head dims (the stats-emitting forward is
 # the forward's launch)
@@ -196,7 +221,7 @@ WANT_DESIGN = {
     "flash_attention": {32: "mma.sync", 64: "wgmma", 128: "wgmma",
                         160: "wgmma", 256: "wgmma"},
     "flash_attention_bwd_dkv": {32: "mma.sync", 64: "wgmma", 128: "wgmma",
-                                160: "wgmma"}}
+                                160: "wgmma", 256: "wgmma"}}
 WANT_DESIGN["flash_attention_fwd_stats"] = WANT_DESIGN["flash_attention"]
 WANT_DESIGN["flash_attention_bwd_dq"] = WANT_DESIGN["flash_attention_bwd_dkv"]
 
@@ -208,13 +233,16 @@ PTXAS_KERNELS = [
     "flash_bwd_dkv_wgmma_kernelILi160", "flash_bwd_dkv_wgmma_kernelILi128",
     "flash_bwd_dkv_wgmma_kernelILi64", "flash_bwd_dq_wgmma_kernelILi160",
     "flash_bwd_dq_wgmma_kernelILi128", "flash_bwd_dq_wgmma_kernelILi64",
-    "flash_fwd_mma_kernelILi256", "flash_bwd_dq_mma_kernelILi160",
+    "flash_bwd_dkv_wgmma_kernelILi256", "flash_bwd_dq_wgmma_kernelILi256",
+    "flash_bwd_dkv_kernelIfLi256", "flash_bwd_dq_kernelIfLi256",
     "flash_fwd_kernelIfLi160", "flash_fwd_kernelIfLi256",
     "flash_bwd_dkv_kernelIfLi160", "flash_bwd_dq_kernelIfLi160",
     "paged_split_kernel", "paged_merge_kernel",
     "ssd_state_tc_kernel", "ssd_pass_kernel", "ssd_output_tc_kernel",
     "ssd_state_kernel", "ssd_output_kernel",
-    "rglru_chunk_kernel", "rglru_carry_kernel", "rglru_scan_kernel"]
+    "rglru_chunk_kernel", "rglru_carry_kernel", "rglru_scan_kernel",
+    "rglru_bwd_chunk_kernel", "rglru_bwd_carry_kernel",
+    "rglru_bwd_scan_kernel"]
 
 
 def cut_depth(cfg, n_layers):
@@ -298,22 +326,6 @@ def _entry(lib, entry, tensors, causal=True, window=0):
                 torch.cuda.current_stream().cuda_stream)
         check(rc == 0, f"{entry} returned {rc}")
     return call
-
-
-# The designs that the bf16 D = 256 warpgroup forward and the D = 160
-# warpgroup dQ replaced (mma.sync); the library exports them under their own
-# names and nothing of the package calls them: timed here beside their
-# successors (``earlier_ms``).
-def earlier_flash_d256(q, k, v, o, window):
-    """The mma.sync forward into ``o``, causal under ``window``."""
-    return _entry(build.load(), "repro_flash_attention_fwd_mma",
-                  (q, k, v, o, None, None), True, window)
-
-
-def earlier_dq_d160(q, k, v, do, m, l, delta, dq):
-    """The causal mma.sync dQ into ``dq``."""
-    return _entry(build.load(), "repro_flash_attention_bwd_dq_mma",
-                  (q, k, v, do, m, l, delta, dq))
 
 
 # ---------------------------------------------------------------------------
@@ -652,6 +664,25 @@ BWD_CASES = [
     # ragged S, windows, G = 3, S != T
     (2, 300, 300, 6, 2, 160, True, 100, torch.bfloat16),
     (1, 300, 520, 6, 2, 160, True, 200, torch.bfloat16),
+    # recurrentgemma-2b's D = 256: the reference's four cases above in fp32
+    # and bf16 at D = 256 (the fp32 CUDA cores at 32 x 32 tiles; bf16 dK/dV
+    # at 32-query tiles in two column halves, dQ at 32-key tiles), then its
+    # MQA heads (G = 10) under windows, ragged S, S != T, G = 2 and 3
+    (2, 128, 128, 4, 2, 256, True, 0, torch.float32),
+    (1, 128, 128, 4, 4, 256, True, 0, torch.float32),
+    (1, 128, 128, 6, 1, 256, False, 0, torch.float32),
+    (1, 256, 256, 4, 2, 256, True, 64, torch.float32),
+    (2, 128, 128, 4, 2, 256, True, 0, torch.bfloat16),
+    (1, 128, 128, 4, 4, 256, True, 0, torch.bfloat16),
+    (1, 128, 128, 6, 1, 256, False, 0, torch.bfloat16),
+    (1, 256, 256, 4, 2, 256, True, 64, torch.bfloat16),
+    (1, 300, 300, 10, 1, 256, True, 64, torch.float32),
+    (1, 300, 300, 10, 1, 256, True, 64, torch.bfloat16),
+    (2, 130, 130, 10, 1, 256, True, 0, torch.bfloat16),
+    (1, 1000, 1000, 10, 1, 256, True, 200, torch.bfloat16),
+    (1, 300, 520, 4, 2, 256, True, 100, torch.bfloat16),
+    (2, 200, 333, 10, 1, 256, False, 0, torch.bfloat16),
+    (1, 100, 77, 6, 3, 256, True, 0, torch.bfloat16),
 ]
 
 
@@ -729,19 +760,29 @@ def _bound(nbytes, flops, dt):
             "bytes": nbytes, "flops": flops}
 
 
-def _library_bwd_ms(q, k, v, do, iters, rounds=5):
+def _window_mask(S, T, window):
+    """(S, T) bool, True where causal attention under ``window`` attends."""
+    i = torch.arange(S, device=DEV)[:, None]
+    j = torch.arange(T, device=DEV)[None, :]
+    return (j <= i) & (i - j < window)
+
+
+def _library_bwd_ms(q, k, v, do, iters, rounds=5, window=0):
     """The backward of ``scaled_dot_product_attention`` (dq, dk and dv in
-    one call) through ``torch.autograd.grad``, timed with CUDA events around
+    one call; causal, under ``window`` as a boolean mask where it is
+    given) through ``torch.autograd.grad``, timed with CUDA events around
     ``iters`` eager calls, in ``rounds`` rounds (autograd's backward is not
     graph-captured here, and one round's time spread 1.2-2.7 ms between
     calls): the median and the minimum of the rounds' means."""
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     dot = do.transpose(1, 2)
+    mask = dict(is_causal=True) if window == 0 else dict(
+        attn_mask=_window_mask(q.shape[1], k.shape[1], window))
     times = []
     with torch.enable_grad():
         out = torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+            qt, kt, vt, enable_gqa=True, **mask)
         for _ in range(2):
             torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
         for _ in range(rounds):
@@ -794,17 +835,84 @@ def _planted_faults(q, k, v, do, stats, kw, tile=64):
     return out
 
 
-def bwd_main_shape(gen, cfg, B, S):
+# The D = 256 backward keeps dK and dV of columns 128-255 in a second block
+# per key block, and dQ's wide product covers them: a lost column half
+# (zeroed in the plain result) must fail both comparisons.
+HALF_COLUMNS = {256: slice(128, 256)}
+
+
+def _pair_block(q, k, v, do, stats, rows, keys, window):
+    """The share of the (query, key) pairs ``rows`` x ``keys`` in dq, dk and
+    dv (fp32, causal under ``window``; ``stats`` = (m, l, delta)): what a
+    kernel that skips that tile leaves out."""
+    B, S, H, D = q.shape
+    K = k.shape[2]
+    G = H // K
+    m, l, delta = (x[:, rows].float() for x in stats)        # (B, r, H)
+    qr, dor = q[:, rows].float(), do[:, rows].float()
+    kk, vv = (x[:, keys].float().repeat_interleave(G, dim=2) for x in (k, v))
+    s = torch.einsum("brhd,bthd->bhrt", qr, kk) / D ** 0.5
+    live = _window_mask(S, k.shape[1], window)[rows][:, keys]
+    p = torch.where(live, torch.exp(s - m.permute(0, 2, 1)[..., None])
+                    / l.permute(0, 2, 1)[..., None], 0.0)
+    dp = torch.einsum("brhd,bthd->bhrt", dor, vv)
+    ds = p * (dp - delta.permute(0, 2, 1)[..., None]) / D ** 0.5
+    dq = torch.einsum("bhrt,bthd->brhd", ds, kk)
+    dk = torch.einsum("bhrt,brhd->bthd", ds, qr)
+    dv = torch.einsum("bhrt,brhd->bthd", p, dor)
+    return (dq, dk.reshape(B, -1, K, G, D).sum(3),
+            dv.reshape(B, -1, K, G, D).sum(3))
+
+
+def _window_tile_faults(q, k, v, do, stats, want, window):
+    """Faults of the D = 256 walks under the window, planted in the plain
+    backward's result ``want`` (dq, dk, dv): the dQ block of 128 positions
+    whose first live key tile the window decides skips that tile (its 32
+    keys, csrc ``DqLayout<256>::BN``), and the dK/dV block of the 128 keys
+    at a quarter of the sequence skips the last 32-query tile
+    (``DkvLayout<256>::BM``) the window leaves it.  The scaled comparison
+    must reject each.  Returns their scaled errors."""
+    S, T = q.shape[1], k.shape[1]
+    bn = 32
+    m0 = 3 * S // 4 // 128 * 128       # m0 - window + 1: mid-tile at 2048
+    n_begin = live_key_tiles(m0, 128, bn, T, True, window)[0]
+    rows, keys = slice(m0, m0 + 128), slice(n_begin, n_begin + bn)
+    dq_part = _pair_block(q, k, v, do, stats, rows, keys, window)[0]
+    bad_dq = want[0].float().clone()
+    bad_dq[:, m0:m0 + 128] -= dq_part
+    n0 = T // 4 - T // 4 % 128
+    m_end = min(S, n0 + 127 + window)
+    m_last = (m_end - 1) // 32 * 32
+    _, dk_part, dv_part = _pair_block(q, k, v, do, stats,
+                                      slice(m_last, m_end),
+                                      slice(n0, n0 + 128), window)
+    bad_dk, bad_dv = (w.float().clone() for w in want[1:])
+    bad_dk[:, n0:n0 + 128] -= dk_part
+    bad_dv[:, n0:n0 + 128] -= dv_part
+    out = {}
+    for n, bad, w in (("dq", bad_dq, want[0]), ("dk", bad_dk, want[1]),
+                      ("dv", bad_dv, want[2])):
+        out[n] = _scaled(bad, w)
+        check(not _passes(out[n]), f"planted fault: a {n} tile skipped "
+                                   f"under the window passes the scaled "
+                                   f"comparison {out[n]}")
+    out.update(dq_rows=[m0, m0 + 128], dq_keys=[n_begin, n_begin + bn],
+               dkv_keys=[n0, n0 + 128], dkv_rows=[m_last, m_end])
+    return out
+
+
+def bwd_main_shape(gen, cfg, B, S, window=0):
     """The trained model's attention at B x S tokens: its heads and head_dim,
-    bf16, causal (llama3.2-3b: 24 heads over 8 KV heads of 128; stablelm-12b:
-    32 over 8 of 160).  Faults planted in the plain backward's result must
-    fail the comparison.  At D = 160 dQ is timed in turns with the mma.sync
-    design it replaced, and a dropped tail panel of o, dq, dk and dv must be
-    rejected."""
+    bf16, causal under ``window`` (llama3.2-3b: 24 heads over 8 KV heads of
+    128; stablelm-12b: 32 over 8 of 160; recurrentgemma-2b: 10 over 1 of
+    256, window 2048).  Faults planted in the plain backward's result must
+    fail the comparison: a skipped 64- or 128-key tile; at D = 160 and 256
+    a dropped tail panel of o, dq, dk and dv; at D = 256 a lost column half
+    of dq, dk and dv and tiles skipped under the window."""
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = torch.bfloat16
     q, k, v, do = _bwd_inputs(gen, B, S, S, H, K, D, dt)
-    kw = dict(causal=True, window=0, softcap=0.0)
+    kw = dict(causal=True, window=window, softcap=0.0)
     ef, ekv, eq, scaled = _bwd_check(q, k, v, do, kw, 2e-2, 2e-2,
                                      f"flash bwd main shape {cfg.name}")
     o, m, l = flash_attention_fwd_stats(q, k, v, **kw)
@@ -816,16 +924,29 @@ def bwd_main_shape(gen, cfg, B, S):
               for t in (64, 128)}
     if D in TAIL_COLUMNS:
         o2 = attention_fwd_stats_plain(q, k, v, **kw)[0]
-        dq2, dk2, dv2 = attention_bwd_plain(q, k, v, do, *stats, **kw)
+        grads = attention_bwd_plain(q, k, v, do, *stats, **kw)
         faults["tail_panel"] = {
             n: _tail_panel_fault(w, f"{cfg.name} {n}")
-            for n, w in (("o", o2), ("dq", dq2), ("dk", dk2), ("dv", dv2))}
-        del o2, dq2, dk2, dv2
+            for n, w in zip(("o", "dq", "dk", "dv"), (o2,) + grads)}
+        if D in HALF_COLUMNS:
+            faults["column_half"] = {}
+            for n, w in zip(("dq", "dk", "dv"), grads):
+                bad = w.float().clone()
+                bad[..., HALF_COLUMNS[D]] = 0.0
+                sc = _scaled(bad, w)
+                check(not _within(bad, w, 2e-2) and not _passes(sc),
+                      f"planted fault {cfg.name} {n} (columns 128-255 "
+                      f"zeroed) passes a comparison {sc}")
+                faults["column_half"][n] = sc
+            faults["window_tiles"] = _window_tile_faults(q, k, v, do, stats,
+                                                         grads, window)
+        del o2, grads
     qkv_bytes = (q.numel() + k.numel() + v.numel()) * q.element_size()
     row_bytes = m.numel() * 4                  # one fp32 per query row
-    pairs = H * B * (S * (S + 1) // 2)         # live (query, key) pairs
+    # live (query, key) pairs
+    pairs = H * B * _live_pairs(S, S, True, window)
     shape = {"arch": cfg.name, "shape": [B, S, S, H, K, D], "dtype": str(dt),
-             "tol": 2e-2}
+             "window": window, "tol": 2e-2}
 
     fwd = dict(shape, max_abs_err=ef, design=design(D, dt), **_bound(
         qkv_bytes + q.numel() * 2 + 2 * row_bytes, 4 * D * pairs, dt))
@@ -835,14 +956,16 @@ def bwd_main_shape(gen, cfg, B, S):
     fwd["plain_ms"] = time_ms(
         [lambda: attention_fwd_stats_plain(q, k, v, **kw)], 2)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = dict(is_causal=True) if window == 0 else dict(
+        attn_mask=_window_mask(S, S, window))
     fwd["library_ms"] = time_ms(
         [lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)], 5)
+            qt, kt, vt, enable_gqa=True, **mask)], 5)
 
     # backward: q, k, v, dO and three row statistics read; dk, dv or dq
     # written (in the inputs' dtype)
     bwd_in = qkv_bytes + do.numel() * 2 + 3 * row_bytes
-    library_ms, library_min = _library_bwd_ms(q, k, v, do, 5)
+    library_ms, library_min = _library_bwd_ms(q, k, v, do, 5, window=window)
     dkv = dict(shape, max_abs_err=ekv, design=design_dkv(D, dt), **_bound(
         bwd_in + (k.numel() + v.numel()) * 2, 8 * D * pairs, dt))
 
@@ -851,20 +974,8 @@ def bwd_main_shape(gen, cfg, B, S):
     dq = dict(shape, max_abs_err=eq, design=design_dq(D, dt), **_bound(
         bwd_in + q.numel() * 2, 6 * D * pairs, dt))
 
-    def new_dq():
-        return flash_attention_bwd_dq(q, k, v, do, *stats, **kw)
-    if D == 160:
-        dq_new = new_dq()
-        dq_old = torch.empty_like(q)
-        old = earlier_dq_d160(q, k, v, do, *stats, dq_old)
-        old()
-        torch.cuda.synchronize()
-        err = _err(dq_old, dq_new, 2e-2, f"earlier bwd_dq {cfg.name}")
-        dq["ms"], dq["earlier_ms"] = time_in_turns(new_dq, old, 3)
-        dq.update(earlier_design="mma.sync", earlier_max_abs_err=err)
-        del dq_new, dq_old
-    else:
-        dq["ms"] = time_ms([new_dq], 3)
+    dq["ms"] = time_ms(
+        [lambda: flash_attention_bwd_dq(q, k, v, do, *stats, **kw)], 3)
     plain_ms = time_ms(
         [lambda: attention_bwd_plain(q, k, v, do, *stats, **kw)], 1)
     for row in (dkv, dq):
@@ -888,7 +999,11 @@ def bwd_main_shape(gen, cfg, B, S):
 # served shape (D = 256, MQA, window 2048) and a ragged one with a window
 GUARD_SHAPES = [(1, 2048, 32, 8, 160, 0), (2, 4096, 32, 8, 160, 0),
                 (2, 300, 4, 2, 160, 0), (1, 200, 6, 2, 128, 0),
-                (1, 4096, 10, 1, 256, 2048), (2, 300, 10, 1, 256, 50)]
+                (1, 4096, 10, 1, 256, 2048), (2, 300, 10, 1, 256, 50),
+                (2, 4096, 10, 1, 256, 2048)]
+# B, S, W, h0 of the guarded RG-LRU backward: the trained shape and a
+# ragged one with an initial state
+RGLRU_GUARD_SHAPES = [(2, 4096, 2560, False), (3, 777, 300, True)]
 GUARD = 4096            # NaN elements on each side of a guarded tensor
 GUARD_OFFSETS = (0, 16)  # bytes past a 1024-byte boundary a tensor starts
 GUARD_REPEATS = 5
@@ -917,16 +1032,62 @@ def _guards_intact(view, buf, lo) -> bool:
     return bool((_bits(rest) == nan).all())
 
 
-def _stats_fwd(q, k, v, window):
-    """(o, m, l) from the stats-emitting forward's C entry point: the
-    package's wrapper takes the training head dims only, and D = 256 is
-    served, not trained."""
-    o = torch.empty_like(q)
-    m = torch.empty(q.shape[:3], dtype=torch.float32, device=DEV)
-    l = torch.empty_like(m)
-    _entry(build.load(), "repro_flash_attention_fwd_stats", (q, k, v, o, m, l),
-           True, window)()
-    return o, m, l
+def _guarded_runs(call, g_in, g_out, wants, tag, repeats):
+    """``call()`` on guarded inputs and outputs ``repeats`` times: the guard
+    bands keep their bits and every output equals ``wants`` bit for bit."""
+    for _ in range(repeats):
+        for view, _, _ in g_out:
+            view.fill_(float("nan"))
+        call()
+        torch.cuda.synchronize()
+        check(all(_guards_intact(*g) for g in g_in + g_out),
+              f"{tag}: a guard band changed")
+        check(all(torch.equal(_bits(g[0]), _bits(w))
+                  for g, w in zip(g_out, wants)),
+              f"{tag}: output differs from the unguarded launch")
+
+
+def rglru_guards(shapes=RGLRU_GUARD_SHAPES, repeats=GUARD_REPEATS):
+    """The RG-LRU backward's C entry point on guarded tensors, as
+    ``memory_guards`` does for the attention kernels; its workspace lies in
+    a guard band too."""
+    from repro_torch.kernels.rglru import _kernel as rglru_entry
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(1)
+    fn = rglru_entry("repro_rglru_bwd", 8)
+    out = []
+    for B, S, W, with_h0 in shapes:
+        la, g, h0, dy = _rglru_inputs(gen, B, S, W)
+        h0 = h0 if with_h0 else None
+        hs = rglru(la, g, h0=h0)
+        wants = [w for w in rglru_bwd(la, hs, dy, h0=h0) if w is not None]
+        torch.cuda.synchronize()
+        what = f"rglru_guards {(B, S, W)} h0={with_h0}"
+        err = _rel_errs(wants + ([None] if h0 is None else []),
+                        rglru_bwd_plain(la, hs, dy, h0=h0), what)
+        n_chunks = -(-S // rglru_chunk_len)
+        ws = torch.zeros(2 * B * n_chunks * W, device=DEV)
+        for offset in GUARD_OFFSETS:
+            g_in = [_guarded(x, offset) for x in (la, hs, dy) +
+                    ((h0,) if h0 is not None else ())]
+            g_out = [_guarded(w, offset) for w in wants]
+            g_ws = _guarded(ws, offset)
+            ptrs_in = [x[0] for x in g_in] + ([None] if h0 is None else [])
+            ptrs_out = [x[0] for x in g_out] + ([None] if h0 is None else [])
+
+            def call():
+                rc = fn(*(None if t is None else t.data_ptr()
+                          for t in ptrs_in + ptrs_out + [g_ws[0]]),
+                        n_chunks, B, S, W,
+                        torch.cuda.current_stream().cuda_stream)
+                check(rc == 0, f"repro_rglru_bwd returned {rc}")
+            _guarded_runs(call, g_in + [g_ws], g_out, wants,
+                          f"{what} offset {offset} B", repeats)
+            del g_in, g_out, g_ws
+        out.append({"shape": [B, S, W], "h0": with_h0, "err_vs_plain": err,
+                    "offsets_bytes": list(GUARD_OFFSETS),
+                    "repeats": repeats})
+    return out
 
 
 def memory_guards(shapes=GUARD_SHAPES, repeats=GUARD_REPEATS):
@@ -938,7 +1099,8 @@ def memory_guards(shapes=GUARD_SHAPES, repeats=GUARD_REPEATS):
     and every output, filled with NaN before each launch, must come out bit
     for bit as the launch on ordinary tensors gave it, ``repeats`` times in
     a row (a race would show as a difference).  Those outputs are held to
-    the plain versions first."""
+    the plain versions first.  Then the same for the RG-LRU backward
+    (``rglru_guards``)."""
     lib = build.load()
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
@@ -947,7 +1109,7 @@ def memory_guards(shapes=GUARD_SHAPES, repeats=GUARD_REPEATS):
         kw = dict(causal=True, window=window)
         q, k, v, do = _bwd_inputs(gen, B, S, S, H, K, D, torch.bfloat16)
         served = flash_attention(q, k, v, **kw)
-        o, m, l = _stats_fwd(q, k, v, window)
+        o, m, l = flash_attention_fwd_stats(q, k, v, **kw)
         torch.cuda.synchronize()
         what = f"memory_guards {(B, S, H, K, D, window)}"
         o2, m2, l2 = attention_fwd_stats_plain(q, k, v, **kw)
@@ -976,17 +1138,8 @@ def memory_guards(shapes=GUARD_SHAPES, repeats=GUARD_REPEATS):
                 g_out = [_guarded(w, offset) for w in wants]
                 call = _entry(lib, entry, [g[0] for g in g_in + g_out],
                               True, window)
-                tag = f"{what} {name} offset {offset} B"
-                for _ in range(repeats):
-                    for view, _, _ in g_out:
-                        view.fill_(float("nan"))
-                    call()
-                    torch.cuda.synchronize()
-                    check(all(_guards_intact(*g) for g in g_in + g_out),
-                          f"{tag}: a guard band changed")
-                    check(all(torch.equal(_bits(g[0]), _bits(w))
-                              for g, w in zip(g_out, wants)),
-                          f"{tag}: output differs from the unguarded launch")
+                _guarded_runs(call, g_in, g_out, wants,
+                              f"{what} {name} offset {offset} B", repeats)
                 del g_in, g_out, call
         out.append({"shape": [B, S, S, H, K, D], "window": window,
                     "max_abs_err": err, "launches": sorted(launches),
@@ -1289,6 +1442,125 @@ def rglru_main_shape(gen):
                 **_bound(3 * B * S * W * 4, 3 * B * S * W, torch.float32))
 
 
+# the RG-LRU backward (rglru_bwd: the adjoint as the chunked scan run from
+# the end): ragged S across the 64-step chunks, S shorter than a chunk, one
+# step, B > 1 at the served width
+RGLRU_BWD_CASES = [(2, 1, 64), (1, 63, 130), (1, 64, 130), (1, 65, 130),
+                   (2, 300, 300), (3, 777, 2560)]
+RGLRU_TRAINED = (2, 4096, 2560)             # recurrentgemma-2b, TRAIN_SHAPE
+# d log_a, d gated (and d h0) against the plain reverse scan and autograd of
+# rglru_plain: within 1e-5 of each gradient's max-abs (fp32, other orders of
+# summation)
+RGLRU_BWD_TOL = 1e-5
+
+
+def _rglru_inputs(gen, B, S, W):
+    la = -torch.nn.functional.softplus(_randn(gen, B, S, W,
+                                              dtype=torch.float32))
+    return (la, _randn(gen, B, S, W, dtype=torch.float32),
+            _randn(gen, B, W, dtype=torch.float32),
+            _randn(gen, B, S, W, dtype=torch.float32))
+
+
+def _rel_errs(got, want, what, tol=RGLRU_BWD_TOL):
+    """Each gradient's max error over its max-abs; fails above ``tol``."""
+    errs = []
+    for n, a, b in zip(("d log_a", "d gated", "d h0"), got, want):
+        if a is None:
+            continue
+        check(bool(torch.isfinite(a).all()), f"{what} {n}: non-finite")
+        e = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+        check(e <= tol, f"{what} {n}: error {e} of max-abs > {tol}")
+        errs.append(e)
+    return errs
+
+
+def _rglru_carry_fault(la, hs, dy, h0=None, t1=2 * rglru_chunk_len):
+    """The plain backward with the adjoint carried into chunk 1 from its
+    right (the adjoint at step ``t1``, the first of chunk 2) zeroed: steps
+    before ``t1`` and after it as two separate sequences."""
+    head = rglru_bwd_plain(la[:, :t1], hs[:, :t1], dy[:, :t1], h0=h0)
+    tail = rglru_bwd_plain(la[:, t1:], hs[:, t1:], dy[:, t1:],
+                           h0=hs[:, t1 - 1])
+    return torch.cat([head[0], tail[0]], 1), torch.cat([head[1], tail[1]], 1)
+
+
+def rglru_bwd_cases(gen):
+    """rglru_bwd against its plain reverse scan and against autograd of
+    rglru_plain, with and without h0; then the trained shape, timed, with a
+    planted fault (the carry into chunk 1 zeroed) that must fail the same
+    comparison.  Each forward whose output the backward reads (the rglru
+    kernel's, at every shape here, the trained one included) is held to
+    rglru_plain first."""
+    rows = []
+    for (B, S, W) in RGLRU_BWD_CASES:
+        la, g, h0, dy = _rglru_inputs(gen, B, S, W)
+        for with_h0 in (False, True):
+            H0 = h0 if with_h0 else None
+            hs = rglru(la, g, h0=H0)
+            got = rglru_bwd(la, hs, dy, h0=H0)
+            torch.cuda.synchronize()
+            what = f"rglru_bwd {(B, S, W)} h0={with_h0}"
+            # the saved forward is the kernel's: held to the plain scan too
+            fwd_err = _err(hs, rglru_plain(la, g, h0=H0), 2e-5,
+                           f"rglru {(B, S, W)} h0={with_h0} (saved forward)")
+            leaves = [x.clone().requires_grad_()
+                      for x in (la, g) + ((h0,) if with_h0 else ())]
+            with torch.enable_grad():
+                auto = torch.autograd.grad(
+                    (rglru_plain(*leaves[:2], h0=leaves[2] if with_h0
+                                 else None) * dy).sum(), leaves,
+                    allow_unused=True, materialize_grads=True)
+            rows.append({"shape": [B, S, W], "h0": with_h0,
+                         "tol_rel": RGLRU_BWD_TOL, "fwd_tol": 2e-5,
+                         "fwd_max_abs_err": fwd_err,
+                         "err_vs_plain": _rel_errs(
+                             got, rglru_bwd_plain(la, hs, dy, h0=H0), what),
+                         "err_vs_autograd": _rel_errs(got, auto,
+                                                      f"{what} autograd")})
+    B, S, W = RGLRU_TRAINED
+    # two input sets in turn keep a launch's inputs (3 x 84 MB) out of L2
+    copies, gated = [], []
+    for _ in range(2):
+        la, g, _, dy = _rglru_inputs(gen, B, S, W)
+        copies.append((la, rglru(la, g), dy))
+        gated.append(g)
+    la, hs, dy = copies[0]
+    torch.cuda.synchronize()
+    # the forward kernel at the trained shape (it runs there 36 times a
+    # step), held to the plain scan at the forward cases' tolerance
+    fwd_err = _err(hs, rglru_plain(la, gated[0]), 2e-5,
+                   "rglru trained shape (saved forward)")
+    del gated
+    got = rglru_bwd(la, hs, dy)
+    torch.cuda.synchronize()
+    want = rglru_bwd_plain(la, hs, dy)
+    errs = _rel_errs(got, want, "rglru_bwd trained shape")
+    bad = _rglru_carry_fault(la, hs, dy)
+    fault = [float((a - b).abs().max() / b.abs().max())
+             for a, b in zip(bad, want)]
+    check(max(fault) > RGLRU_BWD_TOL, f"planted fault (carry into chunk 1 "
+                                      f"zeroed) passes the rglru_bwd "
+                                      f"comparison: {fault}")
+    ms = time_ms([lambda c=c: rglru_bwd(*c) for c in copies], 10)
+    plain_ms = time_ms([lambda: rglru_bwd_plain(la, hs, dy)], 2)
+    # log_a, hs and dy read once, d log_a and d gated written once; per
+    # step and channel an exp and four multiply-adds
+    main = dict({"shape": [B, S, W], "dtype": "torch.float32",
+                 "tol_rel": RGLRU_BWD_TOL,
+                 "design": f"chunked reverse scan, {rglru_chunk_len}-step "
+                           f"chunks",
+                 "max_abs_err": float(max((a - b).abs().max()
+                                          for a, b in zip(got[:2],
+                                                          want[:2]))),
+                 "err_vs_plain": errs, "fwd_tol": 2e-5,
+                 "fwd_max_abs_err": fwd_err,
+                 "planted_fault_carry_into_chunk_1": fault, "ms": ms,
+                 "plain_ms": plain_ms, "library_ms": None},
+                **_bound(5 * B * S * W * 4, 5 * B * S * W, torch.float32))
+    return rows, main
+
+
 def _live_pairs(S, T, causal, window):
     """(query, key) pairs the mask leaves live, per batch row and head."""
     i = np.arange(S)[:, None]
@@ -1357,9 +1629,9 @@ def _skipped_tile_fault(q, k, v, want, window, m0, BM=128, BN=64):
 
 def flash_d256_main_shape(gen):
     """recurrentgemma-2b's local attention over a 4096-token prefill: q
-    (1,4096,10,256), k/v (1,4096,1,256) bf16, causal, window 2048.  Timed in
-    turns with the mma.sync design it replaced; a dropped last panel of o
-    and a key tile skipped under the window must be rejected."""
+    (1,4096,10,256), k/v (1,4096,1,256) bf16, causal, window 2048.  A
+    dropped last panel of o and a key tile skipped under the window must be
+    rejected."""
     B, S, T, H, K, D, causal, window, dt = ATTN_SERVED
     q = _randn(gen, B, S, H, D, dtype=dt)
     k = _randn(gen, B, T, K, D, dtype=dt)
@@ -1377,17 +1649,9 @@ def flash_d256_main_shape(gen):
                                                             f"{what} o"),
               "planted_fault_skipped_tile": _skipped_tile_fault(
                   q, k, v, want, window, m0=2944)}
-    o_old = torch.empty_like(q)
-    old = earlier_flash_d256(q, k, v, o_old, window)
-    old()
-    torch.cuda.synchronize()
-    earlier_err = _err(o_old, want, 2e-2, f"earlier {what}")
-    ms, earlier_ms = time_in_turns(
-        lambda: flash_attention(q, k, v, **kw), old, 10)
+    ms = time_ms([lambda: flash_attention(q, k, v, **kw)], 10)
     plain_ms = time_ms([lambda: attention_plain(q, k, v, **kw)], 2)
-    i = torch.arange(S, device=DEV)[:, None]
-    j = torch.arange(T, device=DEV)[None, :]
-    mask = (j <= i) & (i - j < window)          # True = attend
+    mask = _window_mask(S, T, window)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     library_ms = time_ms(
         [lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -1397,9 +1661,7 @@ def flash_d256_main_shape(gen):
     return dict({"shape": [B, S, T, H, K, D], "window": window,
                  "dtype": str(dt), "tol": 2e-2, "design": design(D, dt),
                  "max_abs_err": err, "scaled": scaled, "ms": ms,
-                 "plain_ms": plain_ms, "library_ms": library_ms,
-                 "earlier_design": "mma.sync", "earlier_ms": earlier_ms,
-                 "earlier_max_abs_err": earlier_err, **faults},
+                 "plain_ms": plain_ms, "library_ms": library_ms, **faults},
                 **_bound(nbytes, flops, dt))
 
 
@@ -1596,12 +1858,15 @@ TRAIN_POLICY = PolicyConfig(compute_dtype="bfloat16", param_dtype="float32",
 
 
 def _model_flops_per_step(cfg, n_params, shape):
-    """6 * N * tokens for the weight products, plus the causal attention
+    """6 * N * tokens for the weight products, plus the attention blocks'
     products (QK^T and PV: 4 * D flops per live (query, key) pair and head
-    forward, twice that backward); activation recompute not counted."""
+    forward, twice that backward; causal, under the window in a local
+    block); activation recompute not counted."""
     B, S = shape.global_batch, shape.seq_len
-    pairs = B * cfg.n_heads * (S * (S + 1) // 2)
-    return 6 * n_params * B * S + 12 * cfg.head_dim * pairs * cfg.n_layers
+    pairs = sum(B * cfg.n_heads * _live_pairs(
+        S, S, True, cfg.local_window if blk == ATTN_LOCAL else 0)
+        for blk in cfg.pattern if blk in (ATTN, ATTN_LOCAL))
+    return 6 * n_params * B * S + 12 * cfg.head_dim * pairs
 
 
 KINDS = (("attention_kernels", ("flash_fwd", "flash_bwd", "paged_")),
@@ -1649,14 +1914,23 @@ def _profile(fn, what):
 
 
 def train(cfg, shape=TRAIN_SHAPE, steps=TRAIN_STEPS,
-          cuts=("global batch 256 -> 2 (one card)",), full=True):
-    """``cfg`` (llama3.2-3b at full width and depth) trained in bf16
-    compute, fp32 parameters and AdamW state, per-block activation
-    checkpointing, ``shape`` tokens per step, random weights from seed 0
-    made on the device.  ``full``: the loss must fall, and one more step is
-    profiled; else (a depth cut, two steps) only the launches and the first
-    step's parity are held."""
+          cuts=("global batch 256 -> 2 (one card)",), full=True,
+          leaves=None):
+    """``cfg`` (llama3.2-3b or recurrentgemma-2b at full width and depth)
+    trained in bf16 compute, fp32 parameters and AdamW state, per-block
+    activation checkpointing, ``shape`` tokens per step, random weights from
+    seed 0 made on the device.  Every step launches the stats-emitting
+    forward twice per attention block (forward and recompute) and dK/dV and
+    dQ once, the RG-LRU forward twice per RG-LRU block and its backward
+    once.  The first step's loss and the gradients of ``leaves`` (by
+    default the attention projections) are held against one pass through
+    the plain attention (and RG-LRU).  ``full``: the loss must fall, and one
+    more step is profiled; else (a depth cut, two steps) only the launches
+    and the first step's parity are held."""
     L = cfg.n_layers
+    leaves = leaves or ATTN_LEAVES
+    n_attn = sum(blk in (ATTN, ATTN_LOCAL) for blk in cfg.pattern)
+    n_rec = cfg.pattern.count(RGLRU)
     optcfg = AdamWConfig(lr=3e-4)
     # Adam's first updates move every weight by about lr * sign(g): from
     # this random init the loss rises for two steps at any lr >= 1.5e-4 and
@@ -1672,14 +1946,17 @@ def train(cfg, shape=TRAIN_SHAPE, steps=TRAIN_STEPS,
     ds = SyntheticDataset(cfg, shape, seed=0)
     batches = [ds.batch_at(i) for i in range(steps)]
     want = dict({k: 0 for k in ops.launch_counts()},
-                flash_attention_fwd_stats=2 * L, flash_attention_bwd_dkv=L,
-                flash_attention_bwd_dq=L)
-    # the first step's loss and attention gradients are held against one
-    # pass through the plain attention from the same weights and batch
+                flash_attention_fwd_stats=2 * n_attn,
+                flash_attention_bwd_dkv=n_attn,
+                flash_attention_bwd_dq=n_attn, rglru=2 * n_rec,
+                rglru_bwd=n_rec)
+    # the first step's loss and the gradients of ``leaves`` are held
+    # against one pass through the plain attention (and RG-LRU) from the
+    # same weights and batch
     grads, full_loss = _grads(
         state.model, dataclasses.replace(TRAIN_POLICY, attn_impl="full"),
         batches[0])
-    full_attn = _attention(grads)
+    full_attn = _pick(grads, leaves)
     del grads
     losses, norms, lrs, step_s = [], [], [], []
     torch.cuda.synchronize()
@@ -1693,8 +1970,8 @@ def train(cfg, shape=TRAIN_SHAPE, steps=TRAIN_STEPS,
         after = ops.launch_counts()
         per_step = {k: after[k] - before[k] for k in after}
         check(per_step == want, f"train step {i}: launches {per_step} != "
-                                f"{want} (2 x layers stats-forwards, "
-                                f"layers x each backward kernel)")
+                                f"{want} (two forwards and one backward per "
+                                f"attention and RG-LRU block)")
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
         lrs.append(float(m["lr"]))
@@ -1703,8 +1980,8 @@ def train(cfg, shape=TRAIN_SHAPE, steps=TRAIN_STEPS,
                   f"train: first loss {losses[0]} vs {full_loss} through "
                   f"the plain attention (> 2e-2)")
             attn_err = _leaf_errs(
-                _attention({n: p.grad for n, p in
-                            state.model.named_parameters()}),
+                _pick({n: p.grad for n, p in
+                       state.model.named_parameters()}, leaves),
                 full_attn, 2e-2, "train: first step vs plain attention")
             del full_attn
             # the peak below is that of the steady steps
@@ -1744,8 +2021,8 @@ def train(cfg, shape=TRAIN_SHAPE, steps=TRAIN_STEPS,
          model_flops_per_s_over_989_tflops=flops / p50 / 989e12,
          launches=counts, designs=designs,
          first_step_vs_plain_attention={
-             "loss": [losses[0], full_loss],
-             "worst_attention_grad_err_over_max_abs": attn_err,
+             "loss": [losses[0], full_loss], "leaves": list(leaves),
+             "worst_grad_err_over_max_abs": attn_err,
              "tol_rel": 2e-2},
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          profiled_step=profile, cuts=list(cuts))
@@ -1768,10 +2045,10 @@ def _grads(model, policy, batch):
     return grads, float(loss)
 
 
-def _attention(grads):
-    """The attention projections' gradients (wq, wk, wv of every layer)."""
-    return {n: g for n, g in grads.items()
-            if n.rsplit(".", 1)[-1] in ATTN_LEAVES}
+def _pick(grads, leaves=ATTN_LEAVES):
+    """The gradients of the parameters named ``leaves`` in every layer (by
+    default the attention projections wq, wk, wv)."""
+    return {n: g for n, g in grads.items() if n.rsplit(".", 1)[-1] in leaves}
 
 
 def _leaf_errs(got, want, tol, what):
@@ -1819,7 +2096,7 @@ def train_parity(cfg):
         policy = dataclasses.replace(TRAIN_POLICY, attn_impl=impl)
         grads, loss = _grads(model, policy, batch16)
         res[impl] = (loss, float(global_norm(grads.values())),
-                     _attention(grads))
+                     _pick(grads))
         del grads
     (l16k, n16k, ak), (l16f, n16f, af) = res["kernel"], res["full"]
     check(np.isfinite(l16k) and np.isfinite(n16k),
@@ -2094,6 +2371,7 @@ def main() -> int:
 
     cfg = get_config(ARCH)
     slm = get_config(STABLELM_ARCH)
+    hyb = get_config(HYBRID_ARCH)
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
     with torch.no_grad():
@@ -2106,11 +2384,15 @@ def main() -> int:
         p_d160 = paged_main_shape(gen, slm)
         s_cases, s_main = ssd_cases(gen), ssd_main_shape(gen)
         r_cases, r_main = rglru_cases(gen), rglru_main_shape(gen)
+        rb_cases, rb_main = rglru_bwd_cases(gen)
     b_cases, b_autograd = bwd_cases(gen)
     with torch.no_grad():
         *b_main, b_faults = bwd_main_shape(gen, cfg, *TRAIN_SHAPE_BS)
         torch.cuda.empty_cache()
         *b_d160, b_faults_d160 = bwd_main_shape(gen, slm, *TRAIN_SHAPE_BS)
+        torch.cuda.empty_cache()
+        *b_d256, b_faults_d256 = bwd_main_shape(gen, hyb, *TRAIN_SHAPE_BS,
+                                                window=hyb.local_window)
     torch.cuda.empty_cache()
     emit("kernel_cases",
          flash_attention={"cases": f_cases, "main_path": f_main,
@@ -2121,17 +2403,22 @@ def main() -> int:
          ssd={"cases": s_cases, "main_path": [s_main],
               "scaled_tol": SSD_TOL},
          rglru={"cases": r_cases, "main_path": [r_main]},
+         rglru_bwd={"cases": rb_cases, "main_path": [rb_main]},
          flash_attention_bwd={"cases": b_cases,
                               "vjp_vs_autograd": b_autograd,
                               "main_path": dict(zip(TRAIN_KERNELS, b_main)),
                               "main_path_d160": dict(zip(TRAIN_KERNELS,
                                                          b_d160)),
+                              "main_path_d256": dict(zip(TRAIN_KERNELS,
+                                                         b_d256)),
                               "scaled_tol": SCALED_TOL,
                               "planted_faults_rejected": b_faults,
-                              "planted_faults_rejected_d160": b_faults_d160})
+                              "planted_faults_rejected_d160": b_faults_d160,
+                              "planted_faults_rejected_d256": b_faults_d256})
     emit("ptxas", kernels=ptxas_usage(PTXAS_KERNELS))
     with torch.no_grad():
-        emit("memory_guards", cases=memory_guards())
+        emit("memory_guards", cases=memory_guards(),
+             rglru_bwd=rglru_guards())
     torch.cuda.empty_cache()
 
     policy = PolicyConfig(compute_dtype="bfloat16", remat="none",
@@ -2146,6 +2433,9 @@ def main() -> int:
     train_parity(cfg)
     n_rec = recurrent(policy)
     n_hybrid = n_rec[HYBRID_ARCH]
+    # recurrentgemma-2b trained at full width and depth: the D = 256
+    # backward under its window and the RG-LRU backward
+    n_train_hyb = train(hyb, leaves=HYBRID_TRAIN_LEAVES)
     # stablelm-12b (D = 160): served at full width and depth, trained at
     # full width with its depth cut
     model = LM.init(slm, seed=0, dtype=torch.bfloat16, device=DEV)
@@ -2167,12 +2457,6 @@ def main() -> int:
                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                "library_ms": head["library_ms"], "shape": head["shape"],
                "dtype": head["dtype"]}
-        if "earlier_ms" in head:            # a redesigned kernel
-            check(head["ms"] < head["earlier_ms"],
-                  f"{name}: {head['ms']} ms, not faster than the design it "
-                  f"replaced ({head['earlier_ms']} ms, timed in turns)")
-            out["earlier_design"] = head["earlier_design"]
-            out["earlier_ms"] = head["earlier_ms"]
         if "bound_ms_fp32_cuda_cores" in head:
             out["bound_ms_fp32_cuda_cores"] = head["bound_ms_fp32_cuda_cores"]
         return out
@@ -2208,13 +2492,22 @@ def main() -> int:
                         des(cfg.head_dim, bf16)))
         rows.append(row(f"{name}_d160", src, ref, n_train_d160[name],
                         [got_d160], des(slm.head_dim, bf16)))
+    for name, src, ref, des, got in zip(
+            TRAIN_KERNELS, (fa_src, bwd_src, bwd_src), bwd_ref, designs,
+            b_d256):
+        rows.append(row(f"{name}_d256", src, ref, n_train_hyb[name], [got],
+                        des(hyb.head_dim, bf16)))
     rows += [
         row("ssd", "src/repro_torch/kernels/csrc/ssd.cu",
             "src/repro/kernels/ssd.py:103", n_rec[SSM_ARCH], [s_main],
             s_main["design"]),
         row("rglru", "src/repro_torch/kernels/csrc/rglru.cu",
             "src/repro/kernels/rglru.py:58", n_hybrid["rglru"], [r_main],
-            r_main["design"])]
+            r_main["design"]),
+        # no TPU kernel: the reference differentiates its XLA scan
+        row("rglru_bwd", "src/repro_torch/kernels/csrc/rglru.cu",
+            "src/repro/models/rglru.py:134", n_train_hyb["rglru_bwd"],
+            [rb_main], rb_main["design"])]
     emit("summary", elapsed_s=time.perf_counter() - t_start,
          kernel_build_s=build.build_seconds)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,0 +1,181 @@
+#!/usr/bin/env python3
+"""Hold a shipped CUDA kernel against a variant of it, built from a patched
+scratch copy of its source, on one CUDA device: both are checked against the
+plain version on the same inputs and timed in turns (shipped, variant,
+variant, shipped), twice.  ``variant_library`` copies a ``.cu`` with the
+headers it includes into ``build/probe_variant/<probe>/``, replaces one line
+or block that must occur exactly once, and builds it with the package's nvcc
+flags.  The probes:
+
+  fwd_d256_pv     the bf16 D = 256 warpgroup forward's O += P V as shipped
+                  (one m64n256k16 per 16 keys over the four 64-column
+                  panels, ``csrc/hopper.cuh`` ``wgmma_rs_n256_tb``) and as
+                  one m64n64k16 per panel; on ``chip_smoke.ATTN_D256_CASES``'
+                  bf16 cases and recurrentgemma-2b's served shape, timed at
+                  the served shape;
+  dkv_d256_split  the bf16 D = 256 dK/dV as shipped (P in bf16 hi + lo
+                  halves for dV += P^T dO, ``csrc/flash_attention_bwd.cu``
+                  ``DkvLayout::SPLIT_P``) and with P in bf16 alone; at
+                  recurrentgemma-2b's trained shape (q (2,4096,10,256), k/v
+                  (2,4096,1,256), causal, window 2048) over six input draws,
+                  each gradient's worst ratio of error to chip_smoke.py's
+                  elementwise bound (0.02 + 0.02 |want|), where it sits and
+                  how many elements pass half of it; the shipped build must
+                  repeat bit for bit.
+
+Run from the repository root (no name runs every probe):
+
+    python3 scripts/probe_variant.py [fwd_d256_pv] [dkv_d256_split]
+
+Prints the card's name and power limit, then one JSON object per case,
+draw and round of turns, and exits non-zero without a CUDA device or on a
+mismatch of the forward probe.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import torch                                                   # noqa: E402
+
+import chip_smoke as cs                                        # noqa: E402
+from repro_torch.kernels import build                          # noqa: E402
+
+
+def variant_library(probe: str, source: str, patched: str, old: str,
+                    new: str) -> ctypes.CDLL:
+    """``source`` (a ``.cu`` of ``csrc/``) built from a scratch copy in which
+    the one occurrence of ``old`` in ``patched`` (that file or a header it
+    includes) is replaced by ``new``."""
+    out = os.path.join(ROOT, "build", "probe_variant", probe)
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    for name in ("common.cuh", "hopper.cuh", source):
+        shutil.copy(build.CSRC / name, out)
+    path = os.path.join(out, patched)
+    text = open(path).read()
+    cs.check(text.count(old) == 1, f"{patched}: the text to replace for "
+                                   f"{probe} does not occur exactly once")
+    with open(path, "w") as f:
+        f.write(text.replace(old, new))
+    lib = os.path.join(out, f"lib{probe}.so")
+    done = subprocess.run(
+        [build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-o", lib,
+         os.path.join(out, source)], capture_output=True, text=True)
+    cs.check(done.returncode == 0, "nvcc failed:\n" + done.stdout
+             + done.stderr)
+    return ctypes.CDLL(lib)
+
+
+def fwd_d256_pv(gen) -> None:
+    libs = {"shipped": build.load(), "per_panel": variant_library(
+        "fwd_d256_pv", "flash_attention.cu", "hopper.cuh",
+        "  } else if constexpr (NP == 4) {\n"
+        "    wgmma_rs_n256_tb(acc, a, panel_desc<PW>(b_addr, panel));\n", "")}
+    cases = [c for c in cs.ATTN_D256_CASES if c[-1] == torch.bfloat16]
+    for B, S, T, H, K, D, causal, window, dt in cases + [cs.ATTN_SERVED]:
+        q, k, v = (cs._randn(gen, B, n, h, D, dtype=dt)
+                   for n, h in ((S, H), (T, K), (T, K)))
+        want = cs.attention_plain(q, k, v, causal=causal, window=window)
+        outs = {n: torch.empty_like(q) for n in libs}
+        calls = {n: cs._entry(lib, "repro_flash_attention_fwd",
+                              (q, k, v, outs[n]), causal, window)
+                 for n, lib in libs.items()}
+        for call in calls.values():
+            call()
+        torch.cuda.synchronize()
+        row = {"probe": "fwd_d256_pv", "shape": [B, S, T, H, K, D],
+               "causal": causal, "window": window,
+               "bit_identical": torch.equal(*outs.values())}
+        for n, o in outs.items():
+            row[n] = {"max_abs_err": cs._err(o, want, 2e-2, n),
+                      "scaled": cs._scaled_err(o, want, n)}
+        print(json.dumps(row), flush=True)
+        if (B, S, T, H, K, D) == cs.ATTN_SERVED[:6]:
+            for _ in range(2):
+                ms, ms_per_panel = cs.time_in_turns(
+                    calls["shipped"], calls["per_panel"], 10)
+                print(json.dumps({"served_ms": {
+                    "shipped": ms, "per_panel": ms_per_panel,
+                    "gain": 1 - ms / ms_per_panel}}), flush=True)
+
+
+def _worst(got, want):
+    """The worst |got - want| / (0.02 + 0.02 |want|), its index, and the
+    count of elements above half of it."""
+    got, want = got.float(), want.float()
+    ratio = (got - want).abs() / (0.02 + 0.02 * want.abs())
+    at = [int(i) for i in torch.unravel_index(ratio.argmax(), ratio.shape)]
+    return {"worst_ratio": float(ratio.max()), "at_b_t_k_col": at,
+            "over_half": int((ratio > 0.5).sum())}
+
+
+def dkv_d256_split(gen, draws: int = 6) -> None:
+    split = "  static constexpr bool SPLIT_P = D > 160;"
+    libs = {"shipped": build.load(), "bf16_p": variant_library(
+        "dkv_d256_split", "flash_attention_bwd.cu", "flash_attention_bwd.cu",
+        split, split.replace("D > 160", "false"))}
+    B, S, H, K, D, window = 2, 4096, 10, 1, 256, 2048
+    kw = dict(causal=True, window=window, softcap=0.0)
+    for draw in range(draws):
+        q, k, v, do = cs._bwd_inputs(gen, B, S, S, H, K, D, torch.bfloat16)
+        o, m, l = cs.flash_attention_fwd_stats(q, k, v, **kw)
+        delta = cs.attention_delta(o, do)
+        outs = {n: (torch.empty_like(k), torch.empty_like(v)) for n in libs}
+        calls = {n: cs._entry(lib, "repro_flash_attention_bwd_dkv",
+                              (q, k, v, do, m, l, delta) + outs[n], True,
+                              window) for n, lib in libs.items()}
+        for call in calls.values():
+            call()
+        again = [x.clone() for x in outs["shipped"]]
+        calls["shipped"]()
+        torch.cuda.synchronize()
+        _, dk, dv = cs.attention_bwd_plain(q, k, v, do, m, l, delta, **kw)
+        row = {"probe": "dkv_d256_split", "draw": draw,
+               "shape": [B, S, H, K, D, window],
+               "shipped_repeats_bit_identical": all(
+                   torch.equal(a, b) for a, b in zip(again, outs["shipped"]))}
+        for n, (gk, gv) in outs.items():
+            row[n] = {"dk": _worst(gk, dk), "dv": _worst(gv, dv)}
+        print(json.dumps(row), flush=True)
+        if draw == draws - 1:
+            for _ in range(2):
+                ms, ms_bf16 = cs.time_in_turns(calls["shipped"],
+                                               calls["bf16_p"], 3)
+                print(json.dumps({"trained_ms": {
+                    "shipped": ms, "bf16_p": ms_bf16,
+                    "cost": ms / ms_bf16 - 1}}), flush=True)
+        del q, k, v, do, o, m, l, delta, outs, calls, again, dk, dv
+        torch.cuda.empty_cache()
+
+
+PROBES = {"fwd_d256_pv": fwd_d256_pv, "dkv_d256_split": dkv_d256_split}
+
+
+def main(names) -> int:
+    unknown = [n for n in names if n not in PROBES]
+    if unknown:
+        print(f"probe_variant: no probe {unknown}; the probes are "
+              f"{sorted(PROBES)}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("probe_variant: needs a CUDA device", file=sys.stderr)
+        return 1
+    print(cs.nvidia_smi_line(), flush=True)
+    gen = torch.Generator(device=cs.DEV)
+    with torch.no_grad():
+        for name in names or PROBES:
+            gen.manual_seed(0)
+            PROBES[name](gen)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main(sys.argv[1:]))

@@ -26,10 +26,8 @@
 //   * bf16 inputs at D = 64, 128 (flash_fwd_wgmma_kernel; llama's heads),
 //     160 (stablelm-12b's) and 256 (recurrentgemma-2b's), served and
 //     trained: warpgroup products fed by the TMA, below.
-//   * bf16 inputs at D = 32 (flash_fwd_mma_kernel; and at D = 256 the
-//     design the warpgroup kernel replaced, exported as
-//     repro_flash_attention_fwd_mma for chip_smoke.py's timing in turns
-//     only): both products run on the tensor cores with warp-level
+//   * bf16 inputs at D = 32 (flash_fwd_mma_kernel): both products run on
+//     the tensor cores with warp-level
 //     mma.sync (m16n8k16, fp32 accumulate).  Each of 4 warps owns 16 query
 //     rows: its Q fragments stay in registers for the whole key loop, the
 //     score tile never leaves registers (the accumulator layout of QK^T is
@@ -38,15 +36,10 @@
 //     and V fragments come from padded shared memory with ldmatrix (V
 //     transposed on the way), and the next K/V tile is copied in with
 //     cp.async while the current one is computed.
-//   * D = 256 (recurrentgemma-2b's MQA heads) on mma.sync: the output
-//     accumulator alone is 128 fp32 registers a thread, and Q fragments
-//     held for the whole key loop would add 64 more.  So above D = 128 the
-//     block copies its Q tile into shared memory once and each k-step of
-//     QK^T reads its A fragments from there with ldmatrix; the rest is
-//     unchanged.  The fp32 path takes D = 160 and 256 as it
-//     is (its tiles fill 143 / 212 KB of shared memory); its threads own
-//     D / 16 output columns in float4 slices, or float2 slices where D / 16
-//     is not a multiple of 4 (D = 32, 160).
+//   * The fp32 path takes D = 160 and 256 as it is (its tiles fill 143 /
+//     212 KB of shared memory); its threads own D / 16 output columns in
+//     float4 slices, or float2 slices where D / 16 is not a multiple of 4
+//     (D = 32, 160).
 //   * Key tiles that the causal or window mask kills entirely are never
 //     loaded (the loop's bounds skip them); ragged last tiles in S*G and T
 //     are masked, so no divisibility is required (a superset of the
@@ -84,8 +77,8 @@
 //     of packed P registers a consumer thread.  O += P V is one m64n256k16
 //     per 16 keys over the four panels, the descriptor's LBO stepping from
 //     panel to panel: bit-identical to one m64n64k16 a panel and 2.2 %
-//     faster, timed in turns on the H100 by scripts/probe_fwd_d256_pv.py
-//     (PERF.md).
+//     faster, timed in turns on the H100 by scripts/probe_variant.py
+//     (fwd_d256_pv; PERF.md).
 //   * Three warpgroups (384 threads).  Warpgroup 0 is the producer: it
 //     gives registers back (setmaxnreg 24) and one thread keeps a ring of
 //     STAGES K/V tiles in flight (three; two at D = 160 and 256), each
@@ -350,7 +343,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16, D = 32 (and the replaced D = 256): mma.sync
+// bf16, D = 32: mma.sync
 // ---------------------------------------------------------------------------
 constexpr int MMA_NT = 128;  // 4 warps x 16 query rows = BM
 
@@ -370,7 +363,6 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int DB = D / 8;    // 8-wide column blocks of the output
   constexpr int VPR = D / 8;   // 16-byte vectors per row
 
-  constexpr bool Q_SMEM = D > 128;  // see the note at the top
   static_assert(KS % 2 == 0 && DB % 2 == 0, "k-steps and column blocks "
                 "are taken in pairs");
 
@@ -378,7 +370,6 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ksm = reinterpret_cast<bf16*>(smem_raw);
   bf16* Vsm = Ksm + 2 * TILE;
-  bf16* Qsm = Vsm + 2 * TILE;      // (BM, LD), used when Q_SMEM
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -409,32 +400,18 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   // Q fragments: a0 (row, k..k+1), a1 (row+8, same), a2 (row, k+8..9), a3;
-  // held in registers, or (Q_SMEM) read from the block's Q tile per k-step
-  uint32_t qa[Q_SMEM ? 1 : KS][4];
-  if constexpr (Q_SMEM) {
-    for (int idx = threadIdx.x; idx < BM * VPR; idx += MMA_NT) {
-      const int r = idx / VPR;
-      const int c = (idx % VPR) * 8;
-      const int rr = r0 + r;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (rr < M)
-        val = load_raw16(qb + (size_t)(rr / G) * q_row + (size_t)(rr % G) * D +
-                         c);
-      *reinterpret_cast<uint4*>(Qsm + r * LD + c) = val;
+  // held in registers for the whole key loop
+  uint32_t qa[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bool live = row[h] < M;
+      const uint32_t* p =
+          reinterpret_cast<const uint32_t*>(qp[h] + ks * 16 + qc);
+      qa[ks][h] = live ? p[0] : 0u;
+      qa[ks][2 + h] = live ? p[4] : 0u;  // 8 elements further
     }
-    __syncthreads();
-  } else {
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const bool live = row[h] < M;
-        const uint32_t* p =
-            reinterpret_cast<const uint32_t*>(qp[h] + ks * 16 + qc);
-        qa[ks][h] = live ? p[0] : 0u;
-        qa[ks][2 + h] = live ? p[4] : 0u;  // 8 elements further
-      }
-  }
 
   const int p_lo = r0 / G;
   const int p_hi = min(r0 + BM - 1, M - 1) / G;
@@ -487,40 +464,18 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
-    if constexpr (Q_SMEM) {
-#pragma unroll 1
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
       for (int ks = 0; ks < KS; ks += 2) {
-        // A fragments of two k-steps: matrices (rows 0-7 | 8-15) x (k 0-7
-        // | 8-15) of this warp's 16 rows
-        const int mat = lane >> 3;
-        uint32_t qf0[4], qf1[4];
-        const bf16* qrow =
-            Qsm + (warp * 16 + (mat & 1) * 8 + (lane & 7)) * LD + (mat >> 1) * 8;
-        ldmatrix_x4(qf0, qrow + ks * 16);
-        ldmatrix_x4(qf1, qrow + ks * 16 + 16);
-#pragma unroll
-        for (int nb = 0; nb < NB; ++nb) {
-          uint32_t kf[4];
-          ldmatrix_x4(kf, Ks + (nb * 8 + (lane & 7)) * LD + ks * 16 +
-                              (lane >> 3) * 8);
-          mma_m16n8k16(s[nb], qf0, kf[0], kf[1]);
-          mma_m16n8k16(s[nb], qf1, kf[2], kf[3]);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-#pragma unroll
-        for (int ks = 0; ks < KS; ks += 2) {
-          // B fragments of K^T for two k-steps: matrices (keys nb*8.., d
-          // ks*16 + 0, 8, 16, 24..): (k pair, n = key) is a row-major 8x8
-          // read
-          uint32_t kf[4];
-          ldmatrix_x4(kf, Ks + (nb * 8 + (lane & 7)) * LD + ks * 16 +
-                              (lane >> 3) * 8);
-          mma_m16n8k16(s[nb], qa[ks], kf[0], kf[1]);
-          mma_m16n8k16(s[nb], qa[ks + 1], kf[2], kf[3]);
-        }
+        // B fragments of K^T for two k-steps: matrices (keys nb*8.., d
+        // ks*16 + 0, 8, 16, 24..): (k pair, n = key) is a row-major 8x8
+        // read
+        uint32_t kf[4];
+        ldmatrix_x4(kf, Ks + (nb * 8 + (lane & 7)) * LD + ks * 16 +
+                            (lane >> 3) * 8);
+        mma_m16n8k16(s[nb], qa[ks], kf[0], kf[1]);
+        mma_m16n8k16(s[nb], qa[ks + 1], kf[2], kf[3]);
       }
     }
 
@@ -621,8 +576,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
                float* m_out, float* l_out, int B, int S, int Tk, int H, int K,
                int causal, int window, float softcap, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
-  constexpr int bytes =
-      (4 * BN + (D > 128 ? BM : 0)) * (D + 8) * (int)sizeof(bf16);
+  constexpr int bytes = 4 * BN * (D + 8) * (int)sizeof(bf16);
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -1035,18 +989,4 @@ extern "C" int repro_flash_attention_fwd_stats(
 // one of the DESIGN_* codes of common.cuh.
 extern "C" int repro_flash_attention_fwd_design(int D, int dtype) {
   return fwd_design(D, dtype);
-}
-
-// The design that flash_fwd_wgmma_kernel<256> replaced: the bf16 D = 256
-// forward on mma.sync, with (m, l non-null) or without the statistics; the
-// arguments of repro_flash_attention_fwd_stats.  Not on any path of the
-// package: chip_smoke.py times it beside its successor in the same run.
-extern "C" int repro_flash_attention_fwd_mma(
-    const void* q, const void* k, const void* v, void* o, float* m, float* l,
-    int B, int S, int T, int H, int K, int D, int dtype, int causal,
-    int window, float softcap, void* stream) {
-  if (!shape_ok(B, S, T, H, K) || D != 256 || dtype != DTYPE_BF16)
-    return ERR_UNSUPPORTED;
-  return launch_mma<256>(q, k, v, o, m, l, B, S, T, H, K, causal, window,
-                         softcap, (cudaStream_t)stream);
 }

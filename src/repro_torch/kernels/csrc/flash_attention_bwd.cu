@@ -38,14 +38,11 @@
 //   * fp32 inputs: all products run on the CUDA cores in fp32, operands
 //     widened to float in padded shared memory (16-byte loads, no bank
 //     conflicts on the score products), so fp32 never rounds through TF32.
-//   * bf16 inputs at D = 64, 128 and 160 (stablelm-12b): warpgroup
-//     products fed by the TMA (flash_bwd_dkv_wgmma_kernel and
-//     flash_bwd_dq_wgmma_kernel, below).
+//   * bf16 inputs at D = 64, 128, 160 (stablelm-12b) and 256
+//     (recurrentgemma-2b): warpgroup products fed by the TMA
+//     (flash_bwd_dkv_wgmma_kernel and flash_bwd_dq_wgmma_kernel, below).
 //   * bf16 at D = 32: all products run on the tensor cores with warp-level
 //     mma.sync (m16n8k16, fp32 accumulate), as the forward kernel does.
-//     The D = 160 mma.sync dQ, which the warpgroup kernel replaced, is
-//     exported as repro_flash_attention_bwd_dq_mma for chip_smoke.py's
-//     timing in turns only.
 //     dK/dV: each of 4 warps owns 16 keys and computes the transposed tiles
 //     S^T = K Q^T and dP^T = V dO^T for 16 query rows at a time, so that
 //     their accumulators are already the A operands of dV += P^T dO and
@@ -55,16 +52,17 @@
 //     one is computed, and the dK and dV tiles live in registers.  dQ: each
 //     warp owns 16 query rows whose q and dO fragments stay in registers;
 //     S, dP, then dQ += dS K with K read transposed by ldmatrix, K and V
-//     tiles double-buffered by cp.async.  At D = 160 the dQ tile is 80
-//     fp32 registers a thread beside 80 of q and dO fragments; ptxas (nvcc
-//     12.9) fits it in 238, with no spill.
+//     tiles double-buffered by cp.async.
 //   * fp32 at D = 32 and 160: a thread's D / 16 gradient columns are taken
 //     in float2 slices (D / 16 is not a multiple of 4), elsewhere float4.
+//     The fp32 tiles are 64 x 64 (a thread owns 4 x 4 scores), and 32 x 32
+//     (2 x 2) at D = 256, where 64 x 64 tiles would need 301,824 bytes of
+//     shared memory (kFTile).
 //   * m, l and delta live in (B, S, H) fp32, q's layout without its last
 //     axis, so no transpose is paid per layer; the outputs are written in
 //     the input dtype from fp32 accumulators.
 //
-// flash_bwd_dkv_wgmma_kernel<D> (bf16, D = 64, 128 and 160).  Bounded by
+// flash_bwd_dkv_wgmma_kernel<D> (bf16, D = 64, 128, 160 and 256).  Bounded by
 // operations (four products per live (query, key) pair).  The mma.sync
 // design above spends 512 bytes of shared-memory traffic on each 4096-flop
 // mma (its K and V fragments are re-read for every row block) and cannot
@@ -73,7 +71,7 @@
 //   * One block owns BN = 128 keys of one (batch, KV head): K and V arrive
 //     once by TMA and stay in shared memory for the block's life.  Two
 //     consumer warpgroups own 64 keys each.  The block loops over the
-//     (query tile of BM = 64 positions -- 32 at D = 160 -- group head g)
+//     (query tile of BM = 64 positions -- 32 above D = 128 -- group head g)
 //     pairs that the masks leave live (live_query_tiles), so the sum over
 //     the G heads of a group stays in registers: no atomics, no second
 //     pass.  The heaviest key tiles (n0 = 0 under causal) of every (batch,
@@ -111,12 +109,34 @@
 //     3.9 % faster than one m64n32k16 a panel, timed in turns on the
 //     H100 (PERF.md).  Shared memory: K and V 81,920 bytes,
 //     three stages of q, dO and statistics 62,592.
-//   * ptxas (sm_90a, -Xptxas -v, nvcc 12.9): 168 registers at D = 64, 128
-//     and 160 -- the bound of a 384-thread block; setmaxnreg then moves the
+//   * D = 256: one warpgroup's dK and dV over all 256 columns would be
+//     2 x 128 fp32 registers a thread, past setmaxnreg 240.  So the grid
+//     has two blocks per 128 keys, one per column half (DkvLayout::NH):
+//     each recomputes S^T and dP^T over all four 64-column panels and
+//     accumulates dK and dV for its two panels only (64 + 64 fp32 a
+//     thread), 1.5x the products of one pass.  Rejected: a dV launch and a
+//     dK launch (1.25x the products, but two launches and the score
+//     products twice over anyway), and dV and dK in different warpgroups
+//     (1.38x slower at D = 160, PERF.md).  32-query tiles, m64n32k16 score
+//     products, one m64n64k16 a panel for the gradient products.  A key
+//     near the start of the sequence sums P^T dO over some 20,000 (query,
+//     head) pairs of G = 10 heads in a 2048 window, and with P rounded to
+//     bf16 alone the worst dV element of the trained shape reached 0.53-0.78
+//     of chip_smoke.py's elementwise bound (0.02 + 0.02 |want|) over six
+//     draws, and passed it in another.  So at D = 256 P is split into bf16
+//     hi + lo halves (DkvLayout::SPLIT_P) and dV += P^T dO takes both, as
+//     the SSD splits its fp32 operands: one more m64n64k16 a panel, which
+//     took the same draws to 0.26-0.31 for 2 % more time, timed in turns on
+//     the H100 by scripts/probe_variant.py (dkv_d256_split; PERF.md).
+//     Shared memory: K and V 131,072 bytes, three stages of q, dO and
+//     statistics 99,456: 231,608 bytes with the barriers and the alignment,
+//     against 232,448.
+//   * ptxas (sm_90a, -Xptxas -v, nvcc 12.9): 168 registers at D = 64, 128,
+//     160 and 256 -- the bound of a 384-thread block; setmaxnreg moves the
 //     producer to 24 and the consumers to 240 -- and 0 bytes of spill.
 //     chip_smoke.py prints both (kernel_cases, ptxas) and fails on a spill.
 //
-// flash_bwd_dq_wgmma_kernel<D> (bf16, D = 64, 128 and 160).  Bounded by
+// flash_bwd_dq_wgmma_kernel<D> (bf16, D = 64, 128, 160 and 256).  Bounded by
 // operations (three products per live pair).  The mma.sync design above
 // re-reads its K and V fragments through ldmatrix for every 16 query rows
 // and cannot reach the tensor-core rate (at D = 160: 4.2x its bound).
@@ -139,8 +159,8 @@
 //     (m64n64k16 per 64-column panel, K MN-major through the transposed-B
 //     flag: the forward's P V form).  dQ accumulates in fp32 registers and
 //     is written once, in bf16.
-//   * Key tiles of DQ_BN = 64: S, dP and dQ at BN = 128, D = 128 would hold
-//     3 x 64 fp32 a thread next to the packed dS, too many under
+//   * Key tiles of DqLayout::BN = 64: S, dP and dQ at BN = 128, D = 128
+//     would hold 3 x 64 fp32 a thread next to the packed dS, too many under
 //     setmaxnreg 240; at 64 they hold 32 + 32 + 64.  ptxas: 168 registers
 //     (the launch bound; the consumers then take 240) and 0 bytes of spill.
 //   * D = 160: five 32-column panels with the 64-byte swizzle on all four
@@ -150,6 +170,12 @@
 //     panel.  A consumer thread holds 80 fp32 of dQ, 32 of S, 32 of dP and
 //     16 packed dS, so the 64-key tile stays; shared memory: q and dO
 //     81,920 bytes, three stages of K and V 122,880.
+//   * D = 256: q and dO of 128 positions take 131,072 bytes, and one stage
+//     of 64 keys of K and V 65,536, so the key tiles are DqLayout::BN = 32
+//     keys in three stages (98,304 bytes; 230,456 in all).  S and dP are
+//     m64n32k16 over 16 k-steps (16 + 16 fp32 a thread beside 128 of dQ);
+//     dQ += dS K is one m64n256k16 per 16 keys over the four panels, as the
+//     forward's P V.
 //   * The mask and the soft-cap are decided once per tile and each
 //     elementwise pass is branch-free, as in the other warpgroup kernels.
 //   * Left out: fusing dQ into the dK/dV kernel with fp32 atomics (the
@@ -163,23 +189,29 @@ namespace {
 
 using namespace repro;
 
-constexpr int BM = 64;   // flattened query rows per tile
-constexpr int BN = 64;   // keys per tile
+constexpr int BM = 64;   // flattened query rows per tile (mma.sync)
+constexpr int BN = 64;   // keys per tile (mma.sync)
 constexpr int NT = 256;  // threads per block: 16 (rows) x 16 (columns)
-constexpr int RPT = 4;   // score-tile rows per thread
-constexpr int KPT = 4;   // score-tile keys per thread
+
+// The fp32 kernels' tiles: kFTile<D> flattened query rows x kFTile<D> keys,
+// a thread owning kFTile / 16 of each; 32 at D = 256, where 64 x 64 tiles
+// need 301,824 bytes of shared memory.
+template <int D> constexpr int kFTile = D > 160 ? 32 : 64;
 
 // Q, dO (BM rows); K, V (BN rows); P, dS (BM x BN); m, l, delta (BM)
 template <int D> constexpr int smem_floats() {
+  constexpr int BM = kFTile<D>, BN = kFTile<D>;
   return 2 * BM * (D + 4) + 2 * BN * (D + 4) + 2 * BM * (BN + 4) + 3 * BM;
 }
 static_assert(smem_floats<160>() * 4 <= 232448, "fp32 tiles exceed the SM");
+static_assert(smem_floats<256>() * 4 <= 232448, "fp32 tiles exceed the SM");
 
 struct Smem {
   float *Q, *dO, *K, *V, *P, *dS, *m, *l, *delta;
 };
 
 template <int D> __device__ __forceinline__ Smem carve(float* base) {
+  constexpr int BM = kFTile<D>, BN = kFTile<D>;
   Smem s;
   s.Q = base;
   s.dO = s.Q + BM * (D + 4);
@@ -201,6 +233,7 @@ __device__ __forceinline__ void load_row_tile(
     const Smem& sm, const T* qb, const T* dob, const float* mb,
     const float* lb, const float* db, int r0, int M, int G, size_t q_row,
     int H) {
+  constexpr int BM = kFTile<D>;
   auto off = [&](int r) {
     const int rr = r0 + r;
     return (size_t)(rr / G) * q_row + (size_t)(rr % G) * D;
@@ -223,6 +256,7 @@ template <typename T, int D>
 __device__ __forceinline__ void load_key_tile(const Smem& sm, const T* kb,
                                               const T* vb, int n0, int Tk,
                                               size_t kv_row) {
+  constexpr int BN = kFTile<D>;
   auto off = [&](int r) { return (size_t)(n0 + r) * kv_row; };
   auto valid = [&](int r) { return n0 + r < Tk; };
   load_rows<T, D, NT>(sm.K, kb, BN, off, valid);
@@ -237,6 +271,9 @@ __device__ __forceinline__ void p_and_ds(const Smem& sm, int r0, int n0,
                                          int M, int G, int Tk, int causal,
                                          int window, float scale,
                                          float softcap) {
+  constexpr int BN = kFTile<D>;
+  constexpr int RPT = kFTile<D> / 16;  // score-tile rows per thread
+  constexpr int KPT = kFTile<D> / 16;  // score-tile keys per thread
   constexpr int LD = D + 4;
   constexpr int LDP = BN + 4;
   const int tx = threadIdx.x & 15;
@@ -317,6 +354,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, int S, int Tk, int H, int K, int G,
                      int causal, int window, float scale, float softcap) {
+  constexpr int BM = kFTile<D>, BN = kFTile<D>;
+  constexpr int KPT = BN / 16;  // keys per thread
   constexpr int LD = D + 4;
   constexpr int LDP = BN + 4;
   constexpr int CPT = D / 16;  // gradient columns per thread
@@ -430,6 +469,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ delta, T* __restrict__ dq, int S,
                     int Tk, int H, int K, int G, int causal, int window,
                     float scale, float softcap) {
+  constexpr int BM = kFTile<D>, BN = kFTile<D>;
+  constexpr int RPT = BM / 16;  // rows per thread
   constexpr int LD = D + 4;
   constexpr int LDP = BN + 4;
   constexpr int CPT = D / 16;
@@ -940,7 +981,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dK/dV, D = 64, 128 and 160: warpgroup products fed by the TMA
+// bf16 dK/dV, D = 64, 128, 160 and 256: warpgroup products fed by the TMA
 // ---------------------------------------------------------------------------
 constexpr int DKV_BN = 128;    // keys per block: 2 consumer warpgroups x 64
 constexpr int DKV_STAGES = 3;  // (q, dO, statistics) tiles in flight
@@ -949,12 +990,18 @@ constexpr int WG_NT = 384;     // producer warpgroup + 2 consumer warpgroups
 // byte offsets from the block's 1024-aligned shared-memory base: K and V (NP
 // panels of 128 keys each), then DKV_STAGES x NP panels of q, the same of
 // dO, DKV_STAGES x (m, 1/l, delta) x BM floats, the barriers.  A panel is
-// PW columns (hopper.cuh): 64 at D = 64 / 128, 32 at D = 160.  BM query
-// positions a tile: 64, and 32 at D = 160, where the dK and dV accumulators
-// alone take 160 fp32 registers a thread (see the note at the top).
+// PW columns (hopper.cuh): 64 at D = 64 / 128 / 256, 32 at D = 160.  BM
+// query positions a tile: 64, and 32 above D = 128, where the dK and dV
+// accumulators alone take 160 (D = 160) or 128 (D = 256, a column half)
+// fp32 registers a thread.  NH column halves: at D = 256 a block
+// accumulates dK and dV for NPO = 2 of the 4 panels (see the note at the
+// top).
 template <int D> struct DkvLayout {
   static constexpr int PW = hopper::kPanelCols<D>;
   static constexpr int NP = D / PW;
+  static constexpr int NH = D > 160 ? 2 : 1;
+  static constexpr int NPO = NP / NH;           // panels of dK, dV a block owns
+  static constexpr bool SPLIT_P = D > 160;      // dV += (P_hi + P_lo)^T dO
   static constexpr int RB = 2 * PW;             // bytes of a panel row
   static constexpr int BM = D > 128 ? 32 : 64;
   static constexpr int KV_PANEL = DKV_BN * RB;
@@ -968,6 +1015,9 @@ template <int D> struct DkvLayout {
   static constexpr int BYTES = BAR + (2 * DKV_STAGES + 1) * 8 + 1024;
 };
 static_assert(DkvLayout<160>::BYTES <= 232448, "D = 160 tiles exceed the SM");
+static_assert(DkvLayout<256>::BYTES <= 232448, "D = 256 tiles exceed the SM");
+static_assert(DkvLayout<256>::NH * DkvLayout<256>::NPO * 64 == 256,
+              "the column halves must cover all D = 256 columns");
 
 template <int D>
 __global__ void __launch_bounds__(WG_NT, 1)
@@ -985,6 +1035,7 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
   using namespace hopper;
   using Lay = DkvLayout<D>;
   constexpr int NP = Lay::NP;
+  constexpr int NPO = Lay::NPO;
   constexpr int PW = Lay::PW;
   constexpr int RB = Lay::RB;
   constexpr int BM = Lay::BM;
@@ -994,6 +1045,7 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
   constexpr int PK = BM / 16;       // k-steps of the gradient products
   constexpr int CB = PW / 8;        // 8-column blocks of a panel
   static_assert(NP * PW == D, "the panels must cover all D columns");
+  static_assert(Lay::NH * NPO == NP, "the halves must cover all panels");
   static_assert(QB * 4 <= 32, "the live mask is one bit per element");
 
   extern __shared__ unsigned char smem_raw[];
@@ -1003,8 +1055,9 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
   uint64_t* kv_full = empty + DKV_STAGES;
   float* stats = reinterpret_cast<float*>(sm + Lay::STATS);
 
-  const int kh = blockIdx.x % K;
-  const int b = blockIdx.x / K;
+  const int panel0 = (blockIdx.x % Lay::NH) * NPO;  // the first panel of dK, dV
+  const int kh = blockIdx.x / Lay::NH % K;
+  const int b = blockIdx.x / Lay::NH / K;
   const int n0 = blockIdx.y * DKV_BN;   // n0 = 0 (heaviest) first
   int m_begin, m_end;
   live_query_tiles(n0, DKV_BN, BM, S, causal, window, m_begin, m_end);
@@ -1087,11 +1140,11 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
     key[0] = k_lo + warp * 16 + (lane >> 2);
     key[1] = key[0] + 8;
 
-    // gradient accumulators per panel: [j * 4 + e] is key key[e >> 1],
-    // column p * PW + j * 8 + qc + (e & 1)
-    float dk_acc[NP][CB * 4], dv_acc[NP][CB * 4];
+    // gradient accumulators per panel of this block's columns: [j * 4 + e]
+    // is key key[e >> 1], column (panel0 + p) * PW + j * 8 + qc + (e & 1)
+    float dk_acc[NPO][CB * 4], dv_acc[NPO][CB * 4];
 #pragma unroll
-    for (int p = 0; p < NP; ++p)
+    for (int p = 0; p < NPO; ++p)
 #pragma unroll
       for (int i = 0; i < CB * 4; ++i) dk_acc[p][i] = dv_acc[p][i] = 0.f;
 
@@ -1191,29 +1244,43 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
           }
         }
 
-      // ---- dV += P^T dO, dK += dS^T Q: bf16 A fragments straight from
-      // the accumulators; per 16 queries one m64n64k16 per panel (D = 64,
-      // 128) or one m64n160k16 over the five panels (D = 160) ----
-      uint32_t pa[PK][4], da[PK][4];
+      // ---- dV += P^T dO, dK += dS^T Q over this block's panels: bf16 A
+      // fragments straight from the accumulators; per 16 queries one
+      // m64n64k16 per panel (D = 64, 128, 256) or one m64n160k16 over the
+      // five panels (D = 160) ----
+      uint32_t pa[PK][4], da[PK][4], pl[Lay::SPLIT_P ? PK : 1][4];
 #pragma unroll
       for (int kk = 0; kk < PK; ++kk)
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          pa[kk][r] = pack_bf16(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
+          const float pv0 = st[8 * kk + 2 * r], pv1 = st[8 * kk + 2 * r + 1];
+          pa[kk][r] = pack_bf16(pv0, pv1);
           da[kk][r] = pack_bf16(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
+          if constexpr (Lay::SPLIT_P) {
+            // the rounding error of the hi half, itself rounded to bf16
+            const __nv_bfloat162 h2 =
+                *reinterpret_cast<const __nv_bfloat162*>(&pa[kk][r]);
+            pl[kk][r] =
+                pack_bf16(pv0 - __low2float(h2), pv1 - __high2float(h2));
+          }
         }
       wgmma_fence();
+      const uint32_t o_at = panel0 * Lay::Q_PANEL;
 #pragma unroll
       for (int kk = 0; kk < PK; ++kk) {
-        wgmma_rs_panels<PW, NP>(dv_acc, pa[kk], do_addr + kk * 16 * RB,
-                                Lay::Q_PANEL);
-        wgmma_rs_panels<PW, NP>(dk_acc, da[kk], q_addr + kk * 16 * RB,
-                                Lay::Q_PANEL);
+        wgmma_rs_panels<PW, NPO>(dv_acc, pa[kk],
+                                 do_addr + o_at + kk * 16 * RB, Lay::Q_PANEL);
+        if constexpr (Lay::SPLIT_P)
+          wgmma_rs_panels<PW, NPO>(dv_acc, pl[kk],
+                                   do_addr + o_at + kk * 16 * RB,
+                                   Lay::Q_PANEL);
+        wgmma_rs_panels<PW, NPO>(dk_acc, da[kk],
+                                 q_addr + o_at + kk * 16 * RB, Lay::Q_PANEL);
       }
       wgmma_commit();
       wgmma_wait<0>();
 #pragma unroll
-      for (int p = 0; p < NP; ++p) {
+      for (int p = 0; p < NPO; ++p) {
         fence_regs(dv_acc[p]);
         fence_regs(dk_acc[p]);
       }
@@ -1229,10 +1296,10 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
       if (key[h] < Tk) {
         const size_t at = ((size_t)b * Tk + key[h]) * K * D + (size_t)kh * D;
 #pragma unroll
-        for (int p = 0; p < NP; ++p)
+        for (int p = 0; p < NPO; ++p)
 #pragma unroll
           for (int j = 0; j < CB; ++j) {
-            const int c = p * PW + j * 8 + qc;
+            const int c = (panel0 + p) * PW + j * 8 + qc;
             *reinterpret_cast<uint32_t*>(dk + at + c) = pack_bf16(
                 dk_acc[p][j * 4 + 2 * h], dk_acc[p][j * 4 + 2 * h + 1]);
             *reinterpret_cast<uint32_t*>(dv + at + c) = pack_bf16(
@@ -1244,23 +1311,24 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dQ, D = 64, 128 and 160: warpgroup products fed by the TMA
+// bf16 dQ, D = 64, 128, 160 and 256: warpgroup products fed by the TMA
 // ---------------------------------------------------------------------------
 constexpr int DQ_BM = 128;     // query positions per block: 2 warpgroups x 64
-constexpr int DQ_BN = 64;      // keys per tile
 constexpr int DQ_STAGES = 3;   // K/V tiles in flight
 
 // byte offsets from the block's 1024-aligned shared-memory base: q and dO
 // (NP panels of 128 rows each), then DQ_STAGES x NP panels of K, the same
 // of V, then the barriers.  A panel is PW columns (hopper.cuh): 64 at D =
-// 64 / 128, 32 at D = 160 (q and dO 81,920 bytes, three stages of K and V
-// 122,880).
+// 64 / 128 / 256, 32 at D = 160 (q and dO 81,920 bytes, three stages of K
+// and V 122,880).  BN keys a tile: 64, and 32 at D = 256, where q and dO
+// take 131,072 bytes (three stages of 32 keys 98,304).
 template <int D> struct DqLayout {
   static constexpr int PW = hopper::kPanelCols<D>;
   static constexpr int NP = D / PW;
+  static constexpr int BN = D > 160 ? 32 : 64;
   static constexpr int RB = 2 * PW;             // bytes of a panel row
   static constexpr int Q_PANEL = DQ_BM * RB;
-  static constexpr int KV_PANEL = DQ_BN * RB;
+  static constexpr int KV_PANEL = BN * RB;
   static constexpr int Q = 0;
   static constexpr int DO = Q + NP * Q_PANEL;
   static constexpr int K = DO + NP * Q_PANEL;
@@ -1270,6 +1338,7 @@ template <int D> struct DqLayout {
 };
 static_assert(DqLayout<160>::BYTES <= 232448, "D = 160 tiles exceed the SM");
 static_assert(DqLayout<128>::BYTES <= 232448, "D = 128 tiles exceed the SM");
+static_assert(DqLayout<256>::BYTES <= 232448, "D = 256 tiles exceed the SM");
 
 template <int D>
 __global__ void __launch_bounds__(WG_NT, 1)
@@ -1288,12 +1357,14 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
   constexpr int NP = Lay::NP;
   constexpr int PW = Lay::PW;
   constexpr int RB = Lay::RB;
+  constexpr int BN = Lay::BN;
   constexpr int KS = D / 16;        // k-steps of S and dP
   constexpr int KSP = PW / 16;      // of them per panel
-  constexpr int NB = DQ_BN / 8;     // 8-key column blocks of S and dP
-  constexpr int PK = DQ_BN / 16;    // k-steps of dS K
+  constexpr int NB = BN / 8;        // 8-key column blocks of S and dP
+  constexpr int PK = BN / 16;       // k-steps of dS K
   constexpr int CB = PW / 8;        // 8-column blocks of a panel
   static_assert(NP * PW == D, "the panels must cover all D columns");
+  static_assert(NB * 4 <= 32, "the live mask is one bit per element");
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
@@ -1306,7 +1377,7 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
   const int m0 = (gridDim.y - 1 - blockIdx.y) * DQ_BM;    // heaviest first
   const int kh = hq / G;
   int n_begin, n_end;
-  live_key_tiles(m0, DQ_BM, DQ_BN, Tk, causal, window, n_begin, n_end);
+  live_key_tiles(m0, DQ_BM, BN, Tk, causal, window, n_begin, n_end);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < DQ_STAGES; ++s) {
@@ -1336,9 +1407,9 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
       }
       int stage = 0;
       uint32_t phase = 0;
-      for (int n0 = n_begin; n0 < n_end; n0 += DQ_BN) {
+      for (int n0 = n_begin; n0 < n_end; n0 += BN) {
         mbar_wait(&empty[stage], phase ^ 1);
-        mbar_arrive_expect_tx(&full[stage], 2 * DQ_BN * D * 2);
+        mbar_arrive_expect_tx(&full[stage], 2 * BN * D * 2);
         for (int p = 0; p < NP; ++p) {
           const int at = (stage * NP + p) * Lay::KV_PANEL;
           tma_load_3d(sm + Lay::K + at, &tk, &full[stage], kh * D + p * PW,
@@ -1394,14 +1465,14 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
     mbar_wait(q_full, 0);
     int stage = 0;
     uint32_t phase = 0;
-    for (int n0 = n_begin; n0 < n_end; n0 += DQ_BN) {
+    for (int n0 = n_begin; n0 < n_end; n0 += BN) {
       mbar_wait(&full[stage], phase);
       const uint32_t k_addr =
           smem_u32(sm + Lay::K) + stage * NP * Lay::KV_PANEL;
       const uint32_t v_addr =
           smem_u32(sm + Lay::V) + stage * NP * Lay::KV_PANEL;
 
-      // ---- S = Q K^T and dP = dO V^T (64 x 64 per warpgroup), all
+      // ---- S = Q K^T and dP = dO V^T (64 x BN per warpgroup), all
       // operands K-major in shared memory, all D / 16 k-steps over the NP
       // panels, as two commit groups: the probabilities are computed while
       // dP is still in flight.  [nb * 4 + e] is row row[e >> 1], key n0 +
@@ -1411,7 +1482,7 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
         const uint32_t kofs = (ks % KSP) * 32;
-        wgmma_ss_n64(
+        wgmma_ss(
             s,
             panel_desc<PW>(q_addr + (ks / KSP) * Lay::Q_PANEL + kofs, 16),
             panel_desc<PW>(k_addr + (ks / KSP) * Lay::KV_PANEL + kofs, 16),
@@ -1421,7 +1492,7 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
         const uint32_t kofs = (ks % KSP) * 32;
-        wgmma_ss_n64(
+        wgmma_ss(
             dp,
             panel_desc<PW>(do_addr + (ks / KSP) * Lay::Q_PANEL + kofs, 16),
             panel_desc<PW>(v_addr + (ks / KSP) * Lay::KV_PANEL + kofs, 16),
@@ -1443,8 +1514,8 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
       }
       // bit i: element i is live (a tile that no edge crosses is all live)
       uint32_t live = 0xffffffffu;
-      const bool edge = n0 + DQ_BN > Tk ||
-                        (causal && n0 + DQ_BN - 1 > r_lo) ||
+      const bool edge = n0 + BN > Tk ||
+                        (causal && n0 + BN - 1 > r_lo) ||
                         (window > 0 && r_lo + 63 - n0 >= window);
       if (edge) {
         live = 0u;
@@ -1483,8 +1554,8 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
         }
 
       // ---- dQ += dS K: K MN-major (the transposed-B flag), per 16 keys
-      // one m64n64k16 per panel (D = 64, 128) or one m64n160k16 over the
-      // five panels (D = 160) ----
+      // one m64n64k16 per panel (D = 64, 128), one m64n160k16 over the
+      // five panels (D = 160) or one m64n256k16 over the four (D = 256) ----
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < PK; ++kk)
@@ -1532,6 +1603,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                void* dv, int B, int S, int Tk, int H, int K, int causal,
                int window, float softcap, cudaStream_t stream) {
   constexpr int bytes = smem_floats<D>() * (int)sizeof(float);
+  constexpr int BN = kFTile<D>;
   static bool configured = false;
   const int rc = configure(flash_bwd_dkv_kernel<T, D>, bytes, configured);
   if (rc != 0) return rc;
@@ -1549,6 +1621,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               int B, int S, int Tk, int H, int K, int causal, int window,
               float softcap, cudaStream_t stream) {
   constexpr int bytes = smem_floats<D>() * (int)sizeof(float);
+  constexpr int BM = kFTile<D>;
   static bool configured = false;
   const int rc = configure(flash_bwd_dq_kernel<T, D>, bytes, configured);
   if (rc != 0) return rc;
@@ -1601,7 +1674,7 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v,
   static bool configured = false;
   rc = configure(flash_bwd_dkv_wgmma_kernel<D>, bytes, configured);
   if (rc != 0) return rc;
-  const dim3 grid(K * B, (Tk + DKV_BN - 1) / DKV_BN);
+  const dim3 grid(K * B * Lay::NH, (Tk + DKV_BN - 1) / DKV_BN);
   flash_bwd_dkv_wgmma_kernel<D><<<grid, WG_NT, bytes, stream>>>(
       tq, tk, tv, tdo, m, l, delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
       S, Tk, H, K, H / K, causal, window, 1.0f / sqrtf((float)D), softcap);
@@ -1635,12 +1708,13 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v,
                     int H, int K, int causal, int window, float softcap,
                     cudaStream_t stream) {
   constexpr int PW = DqLayout<D>::PW;
+  constexpr int BN = DqLayout<D>::BN;
   CUtensorMap tq, tk, tv, tdo;
   int rc = hopper::make_tensor_map(&tq, q, B, S, H * D, DQ_BM, PW);
   if (rc == 0)
     rc = hopper::make_tensor_map(&tdo, dout, B, S, H * D, DQ_BM, PW);
-  if (rc == 0) rc = hopper::make_tensor_map(&tk, k, B, Tk, K * D, DQ_BN, PW);
-  if (rc == 0) rc = hopper::make_tensor_map(&tv, v, B, Tk, K * D, DQ_BN, PW);
+  if (rc == 0) rc = hopper::make_tensor_map(&tk, k, B, Tk, K * D, BN, PW);
+  if (rc == 0) rc = hopper::make_tensor_map(&tv, v, B, Tk, K * D, BN, PW);
   if (rc != 0) return rc;
   constexpr int bytes = DqLayout<D>::BYTES;
   static bool configured = false;
@@ -1654,11 +1728,11 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v,
 }
 
 // Which design serves dK/dV and dQ at (D, dtype): fp32 on the CUDA cores;
-// bf16 on warpgroup products fed by the TMA at D = 64, 128 (llama's heads)
-// and 160 (stablelm-12b), on mma.sync at D = 32.  No launch falls back to
-// another design.
+// bf16 on warpgroup products fed by the TMA at D = 64, 128 (llama's heads),
+// 160 (stablelm-12b) and 256 (recurrentgemma-2b), on mma.sync at D = 32.
+// No launch falls back to another design.
 int bwd_design(int D, int dtype) {
-  const bool any_d = D == 32 || D == 64 || D == 128 || D == 160;
+  const bool any_d = D == 32 || D == 64 || D == 128 || D == 160 || D == 256;
   if (dtype == DTYPE_F32) return any_d ? DESIGN_CUDA_CORES : DESIGN_NONE;
   if (dtype != DTYPE_BF16 || !any_d) return DESIGN_NONE;
   return D == 32 ? DESIGN_MMA_SYNC : DESIGN_WGMMA;
@@ -1686,6 +1760,7 @@ extern "C" int repro_flash_attention_bwd_dkv(
         case 64: return launch_dkv<float, 64>(REPRO_DKV_ARGS);
         case 128: return launch_dkv<float, 128>(REPRO_DKV_ARGS);
         case 160: return launch_dkv<float, 160>(REPRO_DKV_ARGS);
+        case 256: return launch_dkv<float, 256>(REPRO_DKV_ARGS);
       }
       break;
     case DESIGN_MMA_SYNC:
@@ -1698,6 +1773,7 @@ extern "C" int repro_flash_attention_bwd_dkv(
         case 64: return launch_dkv_wgmma<64>(REPRO_DKV_ARGS);
         case 128: return launch_dkv_wgmma<128>(REPRO_DKV_ARGS);
         case 160: return launch_dkv_wgmma<160>(REPRO_DKV_ARGS);
+        case 256: return launch_dkv_wgmma<256>(REPRO_DKV_ARGS);
       }
       break;
   }
@@ -1722,6 +1798,7 @@ extern "C" int repro_flash_attention_bwd_dq(
         case 64: return launch_dq<float, 64>(REPRO_DQ_ARGS);
         case 128: return launch_dq<float, 128>(REPRO_DQ_ARGS);
         case 160: return launch_dq<float, 160>(REPRO_DQ_ARGS);
+        case 256: return launch_dq<float, 256>(REPRO_DQ_ARGS);
       }
       break;
     case DESIGN_MMA_SYNC:
@@ -1734,6 +1811,7 @@ extern "C" int repro_flash_attention_bwd_dq(
         case 64: return launch_dq_wgmma<64>(REPRO_DQ_ARGS);
         case 128: return launch_dq_wgmma<128>(REPRO_DQ_ARGS);
         case 160: return launch_dq_wgmma<160>(REPRO_DQ_ARGS);
+        case 256: return launch_dq_wgmma<256>(REPRO_DQ_ARGS);
       }
       break;
   }
@@ -1751,19 +1829,3 @@ extern "C" int repro_flash_attention_bwd_dkv_design(int D, int dtype) {
 extern "C" int repro_flash_attention_bwd_dq_design(int D, int dtype) {
   return bwd_design(D, dtype);
 }
-
-// The design that flash_bwd_dq_wgmma_kernel<160> replaced: the bf16
-// D = 160 dQ on mma.sync; the arguments of repro_flash_attention_bwd_dq.
-// Not on any path of the package: chip_smoke.py times it beside its
-// successor in the same run.
-extern "C" int repro_flash_attention_bwd_dq_mma(
-    const void* q, const void* k, const void* v, const void* dout,
-    const float* m, const float* l, const float* delta, void* dq, int B,
-    int S, int T, int H, int K, int D, int dtype, int causal, int window,
-    float softcap, void* stream) {
-  if (!shape_ok(B, S, T, H, K) || D != 160 || dtype != DTYPE_BF16)
-    return ERR_UNSUPPORTED;
-  return launch_dq_mma<160>(q, k, v, dout, m, l, delta, dq, B, S, T, H, K,
-                            causal, window, softcap, (cudaStream_t)stream);
-}
-

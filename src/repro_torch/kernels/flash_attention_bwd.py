@@ -29,14 +29,16 @@ finite gradients.
 Designs (the C dispatch's switch, ``design_dkv`` and ``design_dq``): fp32 on
 the CUDA cores; in bf16 the stats forward is the forward's design
 (``flash_attention.design``), and dK/dV and dQ run on warpgroup products
-(``wgmma``) fed by the TMA at D = 64, 128 and 160 and on ``mma.sync`` at
-D = 32.
+(``wgmma``) fed by the TMA at D = 64, 128, 160 and 256 and on ``mma.sync``
+at D = 32.
 The dK/dV block of the warpgroup design owns 128 keys and walks the (query
 tile, group head) pairs of ``live_query_tiles`` (tiles of 64 query
-positions, 32 at D = 160); the dQ block owns 128 query positions of one
-head and walks the 64-key tiles of ``flash_attention.live_key_tiles``: the
-same bounds as the ``.cu`` files compute.  At D = 160 all of them keep a
-head's columns as five 32-column panels.
+positions, 32 above D = 128); at D = 256 two blocks share each 128 keys,
+one per column half, each recomputing the scores over all columns.  The dQ
+block owns 128 query positions of one head and walks the key tiles of
+``flash_attention.live_key_tiles`` (64 keys, 32 at D = 256): the same
+bounds as the ``.cu`` files compute.  At D = 160 all of them keep a head's columns as five
+32-column panels, elsewhere as 64-column panels.
 
 Every wrapper launches its kernel for CUDA tensors -- or raises: there is no
 fallback -- and runs the plain version only for tensors on the CPU.  Each
@@ -56,9 +58,8 @@ from repro_torch.kernels.flash_attention import (_DTYPE_CODE, DESIGNS,
                                                  check_aligned)
 
 # the training kernels take the head dims of the trainable archs (llama3.2-3b
-# 128, stablelm-12b 160, qwen2-0.5b 64); D = 256 (the serving forward's
-# recurrentgemma heads) is not instantiated for them yet
-BWD_HEAD_DIMS = (32, 64, 128, 160)
+# 128, stablelm-12b 160, qwen2-0.5b 64, recurrentgemma-2b 256)
+BWD_HEAD_DIMS = (32, 64, 128, 160, 256)
 
 _fns: dict = {}
 

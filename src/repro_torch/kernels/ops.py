@@ -8,14 +8,15 @@ version beside it -- the wrappers decide that by the tensor's device alone);
 ``"plain"`` is the plain PyTorch version wherever the tensors lie.  The block
 and chunk arguments are the reference's TPU tiling knobs: accepted and
 ignored until the autotuner is ported (``ssd``'s plain version takes the
-reference's default chunk of 256).  The SSD and RG-LRU kernels have no
-backward, as in the reference: on a CUDA tensor that needs a gradient they
-raise.
+reference's default chunk of 256).  The SSD kernel has no backward, as in
+the reference: on a CUDA tensor that needs a gradient it raises.
 
 ``attention(impl="kernel")`` goes through ``FlashAttentionFn`` (the
 stats-emitting forward, then the dK/dV and dQ kernels in the backward) when
 autograd needs a gradient of q, k or v -- the reference's
 ``impl="pallas_vjp"`` -- and through the forward-only kernel otherwise.
+``rglru(impl="kernel")`` goes the same way through ``RGLRUFn`` (the forward
+kernel, then the hand-written backward kernel, which the reference lacks).
 """
 from __future__ import annotations
 
@@ -79,6 +80,8 @@ def rglru(log_a, gated, *, block_seq=None, impl="kernel"):
     _check_impl(impl)
     if impl == "plain":
         return _rg.rglru_plain(log_a, gated)
+    if _fa.needs_grad(log_a, gated):
+        return _rg.RGLRUFn.apply(log_a, gated, None)
     return _rg.rglru(log_a, gated)
 
 
@@ -87,7 +90,7 @@ def rglru(log_a, gated, *, block_seq=None, impl="kernel"):
 # ---------------------------------------------------------------------------
 _WRAPPERS = (_fa.flash_attention, _pa.paged_decode_attention,
              _fab.flash_attention_fwd_stats, _fab.flash_attention_bwd_dkv,
-             _fab.flash_attention_bwd_dq, _sd.ssd, _rg.rglru)
+             _fab.flash_attention_bwd_dq, _sd.ssd, _rg.rglru, _rg.rglru_bwd)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -7,10 +7,14 @@ Recurrence (per channel):
     log a_t = -c * softplus(Lambda) * r_t
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
-Prefill runs the recurrence through ``kernels.ops.rglru`` -- the
-hand-written kernel under ``impl="kernel"`` (the default), the plain
-log-depth scan under ``"plain"``; the reference's model path runs
-``rglru_scan_chunked``, an associative scan.  Decode is the single-step
+Prefill (and the training forward) runs the recurrence through
+``kernels.ops.rglru`` -- the hand-written kernel under ``impl="kernel"``
+(the default; under autograd ``RGLRUFn``, whose backward is the
+hand-written reverse scan), the plain log-depth scan under ``"plain"``
+(differentiated by autograd); the reference's model path runs
+``rglru_scan_chunked``, an associative scan that XLA differentiates.  The
+gates, the block-diagonal products and ``causal_conv1d`` are plain torch
+ops, differentiated by autograd as the reference's are by JAX.  Decode is the single-step
 recurrence in plain PyTorch, as in the reference.  Gates are block-diagonal
 (8 blocks), in fp32.  The full recurrent block is:
     x -> [linear -> gelu]  (gate branch)

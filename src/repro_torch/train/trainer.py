@@ -13,8 +13,10 @@ Not ported: meshes and with them ZeRO sharding and the manual-pod
 gradient exchange with ``grad_compression="int8_ef"`` (ROADMAP queue A item
 7; ``zero_stage`` has no effect without a mesh, as in the reference's
 un-sharded jit); ``StepTracker``, which needs ``repro.tracking`` (item 8);
-training the recurrent archs (``ssm`` / ``rglru`` / ``attn_local`` blocks,
-item 10).
+training the Mamba-2 archs (``ssm`` blocks: the SSD kernel has no backward
+yet, item 10).  ``rglru`` blocks train through ``RGLRUFn`` (the forward
+kernel and the hand-written RG-LRU backward) and ``attn_local`` blocks
+through the windowed attention kernels, as ``attn`` blocks do.
 """
 from __future__ import annotations
 
@@ -22,8 +24,8 @@ from typing import Any, Callable, Dict, Mapping, Optional
 
 import torch
 
-from repro_torch.configs.base import (ATTN_LOCAL, RGLRU, SSM, ModelConfig,
-                                      PolicyConfig, ShapeConfig)
+from repro_torch.configs.base import (SSM, ModelConfig, PolicyConfig,
+                                      ShapeConfig)
 from repro_torch.models import lm
 from repro_torch.models.lm import LM
 from repro_torch.models.transformer import RunCtx
@@ -34,10 +36,9 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 _MESH = ("meshes are not ported yet: ROADMAP queue A item 7 (the parallel "
          "layer)")
-_RECURRENT = ("training the recurrent archs is not ported yet: ROADMAP queue "
-              "A item 10 (the ssd and rglru kernels, like the reference's, "
-              "have no backward, and the windowed attention of attn_local "
-              "blocks has no D = 256 backward kernel)")
+_SSM = ("training ssm blocks is not ported yet: the ssd kernel, like the "
+        "reference's, has no backward; a hand-written SSD backward is "
+        "ROADMAP queue A item 10")
 
 
 def _dt(name: str) -> torch.dtype:
@@ -182,11 +183,9 @@ def make_train_step(cfg: ModelConfig, policy: PolicyConfig,
     """Returns ``train_step(state, batch) -> (state, metrics)`` with metrics
     ``loss``, ``xent``, ``aux``, ``grad_norm`` and ``lr``.  ``batch`` holds
     numpy arrays or tensors; they are moved to the state's device.
-    Patterns with ``ssm``, ``rglru`` or ``attn_local`` blocks raise."""
-    recurrent = sorted(set(cfg.pattern) & {SSM, RGLRU, ATTN_LOCAL})
-    if recurrent:
-        raise NotImplementedError(
-            f"{cfg.name} has {', '.join(recurrent)} blocks: {_RECURRENT}")
+    Patterns with ``ssm`` blocks raise."""
+    if SSM in cfg.pattern:
+        raise NotImplementedError(f"{cfg.name} has ssm blocks: {_SSM}")
     if mesh is not None:
         what = (" (and with it the manual-pod exchange of "
                 "grad_compression='int8_ef')"

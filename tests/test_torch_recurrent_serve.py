@@ -223,8 +223,11 @@ def test_engines_default_to_cuda_and_training_raises(weights):
         for cls in (AsyncServeEngine, ServeEngine):
             with pytest.raises(RuntimeError, match="CUDA"):
                 cls(cfg, model, POLICY)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        trainer.make_train_step(cfg, POLICY)
+    if "ssm" in cfg.pattern:        # mamba2: no SSD backward yet
+        with pytest.raises(NotImplementedError, match="SSD backward"):
+            trainer.make_train_step(cfg, POLICY)
+    else:                           # recurrentgemma trains
+        assert callable(trainer.make_train_step(cfg, POLICY))
 
 
 def test_launch_serve_runs_the_recurrent_archs_on_cpu(weights, capsys):

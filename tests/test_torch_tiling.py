@@ -14,19 +14,23 @@ oracle (``repro.kernels.ref.attention_ref`` and ``jax.grad`` of it) at the
 reference's 5e-4, so a bound that drops a live tile fails here before any
 time on the card.  At stablelm-12b's D = 160 the forward walks 128-key tiles,
 dK/dV 32-query tiles and dQ 64-key tiles (``D160_CASES``); at
-recurrentgemma-2b's D = 256 the forward walks 64-key tiles (``D256_CASES``:
-MQA with G = 10, a window, ragged S).  Each walks with plain products or on
-the kernels' column panels: the bf16 warpgroup kernels keep a head's D
-columns in shared memory as panels of ``panel_cols(D)`` columns, the layout
-the TMA writes (``csrc/hopper.cuh``): 64 at D = 64, 128 and 256, five of 32
-at D = 160.  The score products (S = Q K^T, dP = dO V^T; S^T = K Q^T and
+recurrentgemma-2b's D = 256 the forward walks 64-key tiles, dK/dV 32-query
+tiles in two column halves (each block accumulates dK and dV for 128 of the
+256 columns over the scores of all of them) and dQ 32-key tiles
+(``D256_CASES``: MQA with G = 10, a window, ragged S).  Each
+walks with plain products or on the kernels' column panels: the bf16
+warpgroup kernels keep a head's D columns in shared memory as panels of
+``panel_cols(D)`` columns, the layout the TMA writes (``csrc/hopper.cuh``):
+64 at D = 64, 128 and 256, five of 32 at D = 160.  The score products (S = Q K^T, dP = dO V^T; S^T = K Q^T and
 dP^T = V dO^T) walk D / 16 k-steps of 16 columns, PW / 16 a panel; the
 products with an MN-major operand (O += P V, dV += P^T dO, dK += dS^T Q,
 dQ += dS K) take column n of their result from panel n // PW (at D = 160
 one m64n160k16 whose descriptor's LBO steps from panel to panel).  A walk
 that leaves the tail panel out -- columns 128-159 at D = 160, as a split of
 160 columns into 64-column panels would; columns 192-255 at D = 256 -- must
-fail the comparison that the whole walk passes.
+fail the comparison that the whole walk passes, and so must a D = 256
+backward walk with one column half left out (columns 128-255 of dk, dv and
+dq).
 """
 import functools
 import math
@@ -76,6 +80,9 @@ D256_CASES = [
     (2, 140, 200, 10, 1, 256, True, 0, 0.0),      # B = 2, S != T
 ]
 D256_BN = 64
+# the D = 256 backward (csrc DkvLayout<256>, DqLayout<256>): dK/dV's
+# query positions a tile and column halves, dQ's keys a tile
+D256_DKV_BM, D256_HALVES, D256_DQ_BN = 32, 2, 32
 # the same walks on llama's 64-column panels (D = 128) and at D = 64
 PANEL64_CASES = [
     (1, 200, 200, 4, 2, 128, True, 0, 0.0),
@@ -120,16 +127,16 @@ def kstep_product(a, b, pw=None, n_panels=None):
     return torch.einsum("...mpck,...npck->...mn", ksteps(a), ksteps(b))
 
 
-def panel_product(a, b, pw=None, n_panels=None):
+def panel_product(a, b, pw=None, n_panels=None, first=0):
     """a (..., M, C) @ b (..., C, D); with a panel width ``pw``, b MN-major
     in panels: column n of the result from panel n // pw, column n % pw (as
-    the wide instruction's LBO steps); ``n_panels`` below NP leaves the
-    tail columns zero."""
+    the wide instruction's LBO steps); only panels ``first`` to
+    ``n_panels`` (exclusive) give columns, the others stay zero."""
     if pw is None:
         return a @ b
-    wide = panels(b, pw)[:n_panels].movedim(0, -2).flatten(-2)
+    wide = panels(b, pw)[first:n_panels].movedim(0, -2).flatten(-2)
     out = torch.zeros(a.shape[:-1] + (b.shape[-1],))
-    out[..., :wide.shape[-1]] = a @ wide
+    out[..., first * pw:first * pw + wide.shape[-1]] = a @ wide
     return out
 
 
@@ -191,18 +198,28 @@ def forward_tile_walk(q, k, v, *, causal, window, softcap, BM, BN=BN,
 
 
 def dkv_tile_walk(q, k, v, do, m, l, delta, *, causal, window, softcap, BM,
-                  BN=BN, pw=None, n_panels=None):
+                  BN=BN, pw=None, n_panels=None, halves=1, run=None):
     """The warpgroup dK/dV's walk in fp32: per KV head and block of BN keys,
     the (query tile, group head) pairs of ``live_query_tiles``; p from the
     saved statistics, the exact soft-cap derivative, dK and dV summed over
     the group in the block; the products on ``pw``-column panels where
-    ``pw`` is given, dK's and dV's from the first ``n_panels`` only."""
+    ``pw`` is given, dK's and dV's from the first ``n_panels`` only.  With
+    ``halves`` > 1 each block is that many blocks, one per column half
+    (``run``: the halves that run, all by default), each with the scores of
+    all D columns and dK, dV of its half's panels (the kernel's blocks
+    recompute the same scores; here they are computed once)."""
     B, S, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
     scale = 1.0 / math.sqrt(D)
     dk = torch.zeros_like(k)
     dv = torch.zeros_like(v)
+    npo = (D // (pw or D)) // halves      # panels of one half
+    cols = [(h * npo, (h + 1) * npo if n_panels is None
+             else min((h + 1) * npo, n_panels))
+            for h in (range(halves) if run is None else run)]
+    if halves > 1:
+        assert pw is not None and halves * npo * pw == D
     for kh in range(K):
         for n0 in range(0, T, BN):
             keys = torch.arange(n0, min(n0 + BN, T))
@@ -224,17 +241,19 @@ def dkv_tile_walk(q, k, v, do, m, l, delta, *, causal, window, softcap, BM,
                     dst = pt * (dpt - delta[:, rows, h][:, None])
                     if softcap > 0:
                         dst = dst * (1.0 - (st / softcap) ** 2)
-                    dv_acc += panel_product(pt, dot, pw, n_panels)
-                    dk_acc += panel_product(dst * scale, qt, pw, n_panels)
+                    for first, last in cols:
+                        dv_acc += panel_product(pt, dot, pw, last, first)
+                        dk_acc += panel_product(dst * scale, qt, pw, last,
+                                                first)
             dk[:, keys, kh] = dk_acc
             dv[:, keys, kh] = dv_acc
     return dk, dv
 
 
 def dq_tile_walk(q, k, v, do, m, l, delta, *, causal, window, softcap, BM,
-                 pw=None, n_panels=None):
+                 BN=DQ_BN, pw=None, n_panels=None):
     """The warpgroup dQ's walk in fp32: per head and block of BM positions,
-    the DQ_BN-key tiles of ``live_key_tiles``; p from the saved statistics,
+    the BN-key tiles of ``live_key_tiles``; p from the saved statistics,
     the exact soft-cap derivative, dQ accumulated over the tiles; the
     products on ``pw``-column panels where ``pw`` is given, dQ's from the
     first ``n_panels`` only."""
@@ -248,11 +267,10 @@ def dq_tile_walk(q, k, v, do, m, l, delta, *, causal, window, softcap, BM,
             rows = torch.arange(m0, min(m0 + BM, S))
             qt, dot = q[:, rows, h], do[:, rows, h]     # (B, rows, D)
             acc = torch.zeros((B, len(rows), D))
-            n_begin, n_end = live_key_tiles(m0, BM, DQ_BN, T, causal,
-                                            window)
-            assert n_begin % DQ_BN == 0
-            for n0 in range(n_begin, n_end, DQ_BN):
-                keys = torch.arange(n0, min(n0 + DQ_BN, T))
+            n_begin, n_end = live_key_tiles(m0, BM, BN, T, causal, window)
+            assert n_begin % BN == 0
+            for n0 in range(n_begin, n_end, BN):
+                keys = torch.arange(n0, min(n0 + BN, T))
                 kt, vt = k[:, keys, h // G], v[:, keys, h // G]
                 s = _scores(qt, kt, scale, softcap, pw)  # queries x keys
                 p = torch.where(
@@ -409,6 +427,85 @@ def test_dropped_last_panel_d256_fails(case):
     _close(o[..., :192], want[..., :192], 1e-5, "o columns 0-191")
     with pytest.raises(AssertionError):
         _close(o, want, 1e-5, "o")
+
+
+@pytest.mark.parametrize("pw", [None, 64])
+@pytest.mark.parametrize("case", D256_CASES)
+def test_dkv_tile_walk_d256_matches_plain_and_oracle(case, pw):
+    """32-query tiles of 128-key blocks, two column halves."""
+    B, S, T, H, K, D, causal, window, softcap = case
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(B, S, T, H, K, D))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, m, l = fab.attention_fwd_stats_plain(q, k, v, **kw)
+    delta = fab.attention_delta(o, do)
+    dk, dv = dkv_tile_walk(q, k, v, do, m, l, delta, BM=D256_DKV_BM, pw=pw,
+                           halves=D256_HALVES if pw else 1, **kw)
+    _, dk2, dv2 = fab.attention_bwd_plain(q, k, v, do, m, l, delta, **kw)
+    _close(dk, dk2, 1e-5, "dk vs attention_bwd_plain")
+    _close(dv, dv2, 1e-5, "dv vs attention_bwd_plain")
+    _, _, dk3, dv3 = _oracle(case)
+    _close(dk, dk3, 5e-4, "dk vs jax.grad of attention_ref")
+    _close(dv, dv3, 5e-4, "dv vs jax.grad of attention_ref")
+
+
+@pytest.mark.parametrize("pw", [None, 64])
+@pytest.mark.parametrize("case", D256_CASES)
+def test_dq_tile_walk_d256_matches_plain_and_oracle(case, pw):
+    """32-key tiles under blocks of 128 positions."""
+    B, S, T, H, K, D, causal, window, softcap = case
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(B, S, T, H, K, D))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, m, l = fab.attention_fwd_stats_plain(q, k, v, **kw)
+    delta = fab.attention_delta(o, do)
+    dq = dq_tile_walk(q, k, v, do, m, l, delta, BM=128, BN=D256_DQ_BN,
+                      pw=pw, **kw)
+    dq2 = fab.attention_bwd_plain(q, k, v, do, m, l, delta, **kw)[0]
+    _close(dq, dq2, 1e-5, "dq vs attention_bwd_plain")
+    _close(dq, _oracle(case)[1], 5e-4, "dq vs jax.grad of attention_ref")
+
+
+@pytest.mark.parametrize("case", D256_CASES)
+def test_dropped_column_half_d256_fails(case):
+    """The first of the two column halves alone: dk and dv miss columns
+    128-255; a dQ walk over the first two of the four panels misses the
+    same columns of dq; the comparison that the whole walk passes rejects
+    each of them."""
+    B, S, T, H, K, D, causal, window, softcap = case
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(B, S, T, H, K, D))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, m, l = fab.attention_fwd_stats_plain(q, k, v, **kw)
+    delta = fab.attention_delta(o, do)
+    dk, dv = dkv_tile_walk(q, k, v, do, m, l, delta, BM=D256_DKV_BM, pw=64,
+                           halves=D256_HALVES, run=(0,), **kw)
+    dq = dq_tile_walk(q, k, v, do, m, l, delta, BM=128, BN=D256_DQ_BN,
+                      pw=64, n_panels=2, **kw)
+    dq2, dk2, dv2 = fab.attention_bwd_plain(q, k, v, do, m, l, delta, **kw)
+    for name, got, want in (("dq", dq, dq2), ("dk", dk, dk2), ("dv", dv, dv2)):
+        assert torch.equal(got[..., 128:], torch.zeros_like(got[..., 128:]))
+        _close(got[..., :128], want[..., :128], 1e-5, f"{name} columns 0-127")
+        with pytest.raises(AssertionError):
+            _close(got, want, 1e-5, name)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 50), (True, 200),
+                                           (False, 64)])
+def test_d256_dq_tile_bounds_skip_only_dead_tiles(causal, window):
+    """The integer check for the D = 256 dQ's 32-key tiles under blocks of
+    128 positions (its dK/dV tiles are D = 160's, checked below)."""
+    BNq = D256_DQ_BN
+    assert D256_DKV_BM == D160_DKV_BM
+    for S, T in ((1, 1), (100, 77), (77, 100), (129, 300), (300, 129),
+                 (513, 513)):
+        live = ~_dead(torch.arange(S), torch.arange(T), S, T, causal,
+                      window).numpy()
+        seen = np.zeros_like(live)
+        for m0 in range(0, S, 128):
+            n_begin, n_end = live_key_tiles(m0, 128, BNq, T, causal, window)
+            assert n_begin % BNq == 0
+            for n0 in range(n_begin, n_end, BNq):
+                seen[m0:m0 + 128, n0:n0 + BNq] = True
+        assert not (live & ~seen).any(), (S, T, "dQ, 32-key tiles")
 
 
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
