@@ -8,7 +8,7 @@ It needs one CUDA device, ``nvcc`` and the checkout's sources -- no network,
 no CPU fallback.  Any failure (no GPU, a kernel that does not build or
 launch, a comparison out of tolerance, an unserved request, a loss that does
 not fall) ends the run with a non-zero exit code.  Phases, one JSON object
-per line:
+per line, each with ``at_s``, the seconds since the script's imports ended:
 
   env           card name and power limit (``nvidia-smi``), torch / CUDA /
                 nvcc versions, seconds spent building the kernels;
@@ -36,7 +36,17 @@ per line:
                 forward (ragged S, with and without h0) and at the trained
                 shape, where a zeroed carry into chunk 1 must be rejected,
                 each of its saved forwards (the RG-LRU kernel's, the trained
-                shape's included) held to the plain forward;
+                shape's included) held to the plain forward; the SSD
+                backward against its written-out plain version (ragged S, S
+                shorter than a chunk, G = 2, h0, a gradient of h_final, fp32
+                and bf16; see ``SSD_BWD_TOL_BF16``), in fp32 also against
+                autograd of the plain forward, and at mamba2's trained
+                shape (2 x 4096 tokens), where the SSD forward is held to
+                its plain version too, two calls must be bit-identical, and
+                three faults planted in the plain result (a zeroed carry of
+                the reverse state pass, one chunk's dB partial dropped from
+                the group sum, dA summed over one batch row) must be
+                rejected;
   ptxas         registers and spills that ``nvcc -Xptxas -v`` reported for
                 the kernels of ``PTXAS_KERNELS``; a spill fails the run;
   memory_guards the bf16 warpgroup forward (served, with statistics),
@@ -44,10 +54,12 @@ per line:
                 at ragged ones, and at recurrentgemma-2b's D = 256 (served
                 and trained shapes under the 2048 window, a ragged windowed
                 one), and the RG-LRU backward at its trained shape and a
-                ragged one, on tensors inside NaN guard bands at two
-                alignments: no guard may change, and every output must equal
-                the unguarded launch bit for bit, five times in a row
-                (``memory_guards``, ``rglru_guards``);
+                ragged one, and the SSD backward at its trained shape and a
+                ragged one with h0 and dh_final (its scratch guarded too),
+                on tensors inside NaN guard bands at two alignments: no
+                guard may change, and every output must equal the unguarded
+                launch bit for bit, five times in a row (``memory_guards``,
+                ``rglru_guards``, ``ssd_bwd_guards``);
   serve_paged   llama3.2-3b at full width in bf16, random weights from seed
                 0 made on the device, 16 requests through
                 ``AsyncServeEngine(mode="paged")``; pure-decode iterations
@@ -103,6 +115,16 @@ per line:
                 after llama's model is freed: the paged decode kernel once per
                 layer of every pure-decode iteration, the flash kernel once
                 per layer of every prefill;
+  train (again) mamba2-780m trained at full width and depth (48 SSM layers,
+                0.78 B parameters) as llama is: every step launches the SSD
+                forward 96 times (forward and recompute) and the SSD
+                backward 48; the loss and the gradients of in_x, in_b,
+                in_c, in_dt, A_log, D and dt_bias of one pass through the
+                kernels against one through the plain SSD, both in fp32 on
+                the first batch, within 5e-4 of max-abs (bf16 alone moves
+                them by up to 22 % at 48 layers; the bf16 kernels are held
+                at the trained shape in kernel_cases), and the first step's
+                bf16 loss within 2e-2 of the fp32 plain pass's;
   train (again) stablelm-12b at full width with its depth cut to 2 layers
                 (its fp32 parameters and AdamW state at full depth, about
                 194 GB, do not fit one card), 2 steps of 1 x 4096 tokens:
@@ -111,10 +133,11 @@ per line:
   kernels       the per-kernel summary line, launches counted on the served
                 and trained runs above (the attention kernels have a row per
                 head dim: llama's D = 128, stablelm's D = 160 and
-                recurrentgemma's D = 256), and the RG-LRU backward's row
-                (no TPU kernel: it replaces the reference's XLA gradient),
-                each row with the design the library's dispatch names for
-                its shape.
+                recurrentgemma's D = 256; the SSD one for the served and one
+                for the trained shape), and the RG-LRU and SSD backwards'
+                rows (no TPU kernel: each replaces the reference's XLA
+                gradient), each row with the design the library's dispatch
+                names for its shape.
 
 ``kernel_cases`` also holds the SSD kernel (the reference's cases, the
 ragged one included, fp32 and bf16 x/B/C, cases at mamba2's P and N with S
@@ -154,7 +177,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.configs import get_config                    # noqa: E402
 from repro_torch.configs.base import (ATTN, ATTN_LOCAL,        # noqa: E402
-                                      RGLRU, PolicyConfig,
+                                      RGLRU, SSM, PolicyConfig,
                                       ShapeConfig)
 from repro_torch.data import SyntheticDataset                  # noqa: E402
 from repro_torch.kernels import build, ops                     # noqa: E402
@@ -171,7 +194,8 @@ from repro_torch.kernels.paged_attention import (              # noqa: E402
 from repro_torch.kernels.rglru import (                        # noqa: E402
     CHUNK as rglru_chunk_len, rglru, rglru_bwd, rglru_bwd_plain, rglru_plain)
 from repro_torch.kernels.ssd import (                          # noqa: E402
-    CHUNK, design as ssd_design, kernel_chunk, ssd, ssd_plain)
+    CHUNK, bwd_design as ssd_bwd_design, design as ssd_design, kernel_chunk,
+    ssd, ssd_bwd, ssd_bwd_plain, ssd_plain)
 from repro_torch.models.lm import LM                           # noqa: E402
 from repro_torch.models.ssm import ssd_decode_step             # noqa: E402
 from repro_torch.optim import (AdamWConfig, ScheduleConfig,    # noqa: E402
@@ -213,6 +237,10 @@ TRAIN_CUT = ("depth 40 -> 2 layers (12.1 B fp32 parameters with AdamW "
 # step is held against the plain attention and RG-LRU on the attention
 # blocks' projections and these RG-LRU leaves
 HYBRID_TRAIN_LEAVES = ("wq", "wk", "wv", "wa", "wx", "lam", "in_rec")
+# mamba2-780m trained at full width and depth (48 SSM layers, 0.78 B
+# parameters) on TRAIN_SHAPE; the first step is held against the plain SSD
+# on the SSM leaves that reach the scan
+SSM_TRAIN_LEAVES = ("in_x", "in_b", "in_c", "in_dt", "A_log", "D", "dt_bias")
 
 # the bf16 design the library's dispatch must name for each attention
 # kernel at the served and trained head dims (the stats-emitting forward is
@@ -242,7 +270,8 @@ PTXAS_KERNELS = [
     "ssd_state_kernel", "ssd_output_kernel",
     "rglru_chunk_kernel", "rglru_carry_kernel", "rglru_scan_kernel",
     "rglru_bwd_chunk_kernel", "rglru_bwd_carry_kernel",
-    "rglru_bwd_scan_kernel"]
+    "rglru_bwd_scan_kernel", "ssd_bwd_state_kernel", "ssd_bwd_pass_kernel",
+    "ssd_bwd_chunk_kernel", "ssd_bwd_group_kernel", "ssd_bwd_da_kernel"]
 
 
 def cut_depth(cfg, n_layers):
@@ -252,8 +281,13 @@ def cut_depth(cfg, n_layers):
                                block_pattern=cfg.pattern[:n_layers])
 
 
+T_IMPORTED = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``at_s``: seconds since the script's imports ended."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": time.perf_counter() - T_IMPORTED}), flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -1561,6 +1595,294 @@ def rglru_bwd_cases(gen):
     return rows, main
 
 
+# the SSD backward (ssd_bwd): ragged S, S shorter than one chunk, G = 2,
+# h0 given, dh_final nonzero, at mamba2's P = 64, N = 128 and at the
+# reference's test widths: B, S, H, P, G, N, served distributions (small
+# dt), h0, dh_final
+SSD_BWD_CASES = [
+    (1, 100, 4, 64, 1, 128, False, False, False),   # ragged S
+    (1, 40, 4, 64, 1, 128, False, True, True),      # shorter than a chunk
+    (2, 300, 8, 64, 2, 128, True, True, True),      # G = 2, 5 chunks
+    (3, 100, 4, 16, 4, 16, False, True, False),     # the reference's widths
+    (1, 256, 2, 64, 1, 64, True, False, False),     # whole chunks
+]
+SSD_TRAINED = (2, 4096, 48, 64, 1, 128)     # mamba2-780m, TRAIN_SHAPE
+# the backward's outputs against ssd_bwd_plain (and autograd of ssd_plain):
+# the fp32 ones (ddt, dA, dh0, and every output for fp32 inputs) at
+# SSD_TOL -- fp32 math on both sides, other summation orders and chunk
+# lengths; dx, dB and dC for bf16 inputs come out in bf16, whose rounding
+# alone (8 significant bits) is up to 2^-8 of each element: twice that
+SSD_BWD_TOL_BF16 = {"max_err_over_max_abs": 8e-3, "rel_fro": 8e-3,
+                    "row_rel_max": 8e-3}
+SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dh0")
+
+
+def _ssd_bwd_tol(name, dtype):
+    return SSD_BWD_TOL_BF16 if dtype == torch.bfloat16 and \
+        name in ("dx", "dB", "dC") else SSD_TOL
+
+
+def _ssd_bwd_scaled(got, want, dtype):
+    """The scaled measures of each output (None where both are None)."""
+    return {n: None if w is None else _scaled(g, w)
+            for n, g, w in zip(SSD_BWD_NAMES, got, want)}
+
+
+def _ssd_bwd_check(got, want, dtype, what):
+    out = {}
+    for n, g, w in zip(SSD_BWD_NAMES, got, want):
+        if w is None:
+            check(g is None, f"{what} {n}: an output where none is wanted")
+            continue
+        out[n] = _scaled_err(g, w, f"{what} {n}", _ssd_bwd_tol(n, dtype))
+    return out
+
+
+def _ssd_bwd_passes(got, want, dtype):
+    return all(_passes(_scaled(g, w), _ssd_bwd_tol(n, dtype))
+               for n, g, w in zip(SSD_BWD_NAMES, got, want) if w is not None)
+
+
+def _ssd_bwd_faults(ins, dy, want, dtype, L):
+    """Three faults planted in the plain backward's result, each of which
+    the comparison must reject: (a) the carry of the reverse state pass
+    into the chunk before mid-sequence zeroed (the steps before and after
+    it as two sequences, the second from the forward's state there); (b)
+    one chunk's dB partial of head 0 dropped from the group sum; (c) dA
+    summed over batch row 0 only."""
+    x, dt, A, Bm, Cm = ins
+    S = x.shape[1]
+    t1 = (S // L // 2) * L
+    head = ssd_bwd_plain(*(t[:, :t1] for t in (x, dt)), A,
+                         *(t[:, :t1] for t in (Bm, Cm)), dy[:, :t1])
+    h_t1 = ssd_plain(*(t[:, :t1] for t in (x, dt)), A,
+                     *(t[:, :t1] for t in (Bm, Cm)))[1]
+    tail = ssd_bwd_plain(*(t[:, t1:] for t in (x, dt)), A,
+                         *(t[:, t1:] for t in (Bm, Cm)), dy[:, t1:],
+                         h0=h_t1)
+    carry = [torch.cat([a, b], 1) for a, b in zip(head[:2], tail[:2])] + \
+        [head[2] + tail[2]] + \
+        [torch.cat([a, b], 1) for a, b in zip(head[3:5], tail[3:5])] + [None]
+    # head 0's share of dB over the chunk at t1 (a one-head call: its dB is
+    # that head's partial), subtracted from the group sum
+    one = ssd_bwd_plain(x[:, :, :1], dt[:, :, :1], A[:1], Bm[:, :, :1],
+                        Cm[:, :, :1], dy[:, :, :1])[3]
+    dropped = list(want)
+    dB = want[3].clone()
+    dB[:, t1:t1 + L, 0] -= one[:, t1:t1 + L, 0]
+    dropped[3] = dB
+    one_row = list(want)
+    one_row[2] = ssd_bwd_plain(x[:1], dt[:1], A, Bm[:1], Cm[:1], dy[:1])[2]
+    faults = {}
+    for name, bad in (("zeroed_carry", carry), ("dB_partial_dropped",
+                                                 dropped),
+                      ("dA_one_batch_row", one_row)):
+        faults[name] = {n: s for n, s in _ssd_bwd_scaled(
+            bad, want, dtype).items() if s is not None}
+        check(not _ssd_bwd_passes(bad, want, dtype),
+              f"planted fault ({name}) passes the ssd_bwd comparison "
+              f"{faults[name]}: it cannot see it")
+    return faults
+
+
+def _ssd_bwd_least_flops(B, S, H, P, G, N):
+    """(chunk, fp32 operations) of the chunked backward at the chunk length
+    that needs the least.  At chunk c, per head: the causal dy x^T and W^T
+    dy, S(c+1)P each; the causal K^T C and K B, S(c+1)N each; the four
+    products with a chunk state (C^T dy, B G, x G^T, dy h^T), 2SNP each;
+    the reverse state pass, 2NP per chunk.  Per group the causal C B^T,
+    S(c+1)N."""
+    def flops(c):
+        return B * (S * (H * (2 * (c + 1) * (P + N) + 8 * N * P)
+                         + G * (c + 1) * N) + H * -(-S // c) * 2 * N * P)
+    return min(((c, flops(c)) for c in range(1, S + 1)), key=lambda t: t[1])
+
+
+def ssd_bwd_cases(gen):
+    """ssd_bwd against ssd_bwd_plain at SSD_BWD_CASES, fp32 and bf16, and
+    in fp32 against autograd of ssd_plain, each saved forward (the ssd
+    kernel's states) held to ssd_plain first; then the trained shape: the
+    forward
+    against ssd_plain, the backward against ssd_bwd_plain, two calls
+    bit-identical, planted faults rejected, timed."""
+    rows = []
+    for (B, S, H, P, G, N, served, with_h0, with_dh) in SSD_BWD_CASES:
+        for dt_ in (torch.float32, torch.bfloat16):
+            ins = _ssd_inputs(gen, B, S, H, P, G, N, dt_, served=served)
+            dy = _randn(gen, B, S, H, P, dtype=torch.float32)
+            h0 = _randn(gen, B, H, N, P, dtype=torch.float32) \
+                if with_h0 else None
+            dh = _randn(gen, B, H, N, P, dtype=torch.float32) \
+                if with_dh else None
+            what = f"ssd_bwd {(B, S, H, P, G, N)} {dt_} h0={with_h0} " \
+                   f"dh_final={with_dh}"
+            y, h, states, aend = ssd(*ins, h0=h0, keep_states=True)
+            got = ssd_bwd(*ins, dy, states=states, aend=aend, dh_final=dh,
+                          h0=h0)
+            torch.cuda.synchronize()
+            fwd = _ssd_check((y, h), ssd_plain(*ins, h0=h0),
+                             f"{what} (saved forward)")
+            plain = ssd_bwd_plain(*ins, dy, dh_final=dh, h0=h0)
+            row = {"shape": [B, S, H, P, G, N], "dtype": str(dt_),
+                   "served_dt": served, "h0": with_h0, "dh_final": with_dh,
+                   "saved_forward": fwd,
+                   "vs_plain": _ssd_bwd_check(got, plain, dt_, what)}
+            if dt_ == torch.float32:
+                # autograd runs in fp32 on both dtypes' inputs: once a
+                # case, where the kernel's outputs are fp32 too
+                leaves = [t.clone().requires_grad_()
+                          for t in ins + ((h0,) if with_h0 else ())]
+                with torch.enable_grad():
+                    yo, ho = ssd_plain(*leaves[:5],
+                                       h0=leaves[5] if with_h0 else None)
+                    loss = (yo * dy).sum() + \
+                        ((ho * dh).sum() if with_dh else 0)
+                    auto = list(torch.autograd.grad(loss, leaves))
+                auto += [None] * (6 - len(auto))
+                row["vs_autograd"] = _ssd_bwd_check(got, auto, dt_,
+                                                    f"{what} autograd")
+            rows.append(row)
+    # the trained shape
+    B, S, H, P, G, N = SSD_TRAINED
+    dt_ = torch.bfloat16
+    ins = _ssd_inputs(gen, B, S, H, P, G, N, dt_, served=True)
+    dy = _randn(gen, B, S, H, P, dtype=torch.float32)
+    y, h, states, aend = ssd(*ins, keep_states=True)
+    torch.cuda.synchronize()
+    # the forward at the shape the training path gives it (96 launches a
+    # step), held to the plain version as the served shape is
+    fwd_want = ssd_plain(*ins)
+    fwd = _ssd_check((y, h), fwd_want, "ssd trained shape")
+    fwd_err = float((y - fwd_want[0]).abs().max())
+    del fwd_want
+    got = ssd_bwd(*ins, dy, states=states, aend=aend)
+    again = ssd_bwd(*ins, dy, states=states, aend=aend)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got[:5], again[:5])),
+          "ssd_bwd: two calls on the same inputs differ")
+    del again
+    want = ssd_bwd_plain(*ins, dy)
+    scaled = _ssd_bwd_check(got, want, dt_, "ssd_bwd trained shape")
+    worst = max(v / _ssd_bwd_tol(n, dt_)[k] for n, s in scaled.items()
+                for k, v in s.items())
+    L = kernel_chunk()
+    faults = _ssd_bwd_faults(ins, dy, want, dt_, L)
+    max_err = float(max((g.float() - w).abs().max()
+                        for g, w in zip(got[:5], want[:5])))
+    fwd_ms = time_ms([lambda: ssd(*ins)], 10)
+    fwd_plain_ms = time_ms([lambda: ssd_plain(*ins)], 2)
+    ms = time_ms([lambda: ssd_bwd(*ins, dy, states=states, aend=aend)], 10)
+    plain_ms = time_ms([lambda: ssd_bwd_plain(*ins, dy)], 2)
+    staged = _profile(lambda: [ssd_bwd(*ins, dy, states=states, aend=aend)
+                               for _ in range(10)], "ssd_bwd trained shape")
+    stage_ms = {re.search(r"ssd_bwd_\w+", name).group(0): t / 10
+                for name, t in staged["top_kernels_ms"] if "ssd_bwd_" in name}
+    in_bytes = sum(t.numel() * t.element_size() for t in ins)
+    # bf16 x/B/C, fp32 dt/A: as the forward's, on the tensor cores
+    chunk_f, flops_f = _ssd_least_flops(B, S, H, P, G, N)
+    fwd_row = dict({"shape": [B, S, H, P, G, N], "dtype": "x/B/C bf16, "
+                    "dt/A fp32", "tol": SSD_TOL["max_err_over_max_abs"],
+                    "design": f"chunk-parallel, {ssd_design(P, N, dt_)}",
+                    "max_abs_err": fwd_err, "scaled": fwd,
+                    "ms": fwd_ms, "plain_ms": fwd_plain_ms,
+                    "library_ms": None, "bound_chunk": chunk_f},
+                   **_bound(in_bytes + (y.numel() + h.numel()) * 4,
+                            2 * flops_f, torch.bfloat16))
+    # bytes: x, dt, A, B, C, dy read once; dx, ddt, dA, dB, dC written
+    # once.  The saved chunk states and aend could be recomputed, so the
+    # bound leaves them out; with them it is reported beside.  Operations
+    # on the tensor cores, as the forward's: bf16 x/B/C, the fp32 operands
+    # (dy, the chunk states, the weights) split into bf16 hi + lo, which
+    # doubles the products
+    out_bytes = sum(t.numel() * t.element_size() for t in got[:5])
+    saved = (states.numel() + aend.numel()) * 4
+    nbytes = in_bytes + dy.numel() * 4 + out_bytes
+    chunk_b, flops_b = _ssd_bwd_least_flops(B, S, H, P, G, N)
+    bwd_row = dict({"shape": [B, S, H, P, G, N], "dtype": "x/B/C bf16, "
+                    "dt/A/dy fp32", "tol": SSD_TOL, "tol_bf16_outputs":
+                    SSD_BWD_TOL_BF16, "worst_ratio_to_tol": worst,
+                    "design": f"five launches, "
+                              f"{ssd_bwd_design(P, N, dt_)}",
+                    "kernel_chunk": L, "bound_chunk": chunk_b,
+                    "max_abs_err": max_err, "scaled": scaled,
+                    "bit_identical_calls": True,
+                    "planted_faults_rejected": faults, "ms": ms,
+                    "plain_ms": plain_ms, "library_ms": None,
+                    "stage_ms_profiled": stage_ms,
+                    "bound_ms_with_saved_states": _bound(
+                        nbytes + saved, 2 * flops_b,
+                        torch.bfloat16)["bound_ms"],
+                    "bound_ms_fp32_cuda_cores": _bound(
+                        nbytes, flops_b, torch.float32)["bound_ms"]},
+                   **_bound(nbytes, 2 * flops_b, torch.bfloat16))
+    return rows, fwd_row, bwd_row
+
+
+# B, S, H, P, G, N, h0 and dh_final of the guarded SSD backward: the
+# trained shape, and a ragged one with both
+SSD_BWD_GUARD_SHAPES = [(2, 4096, 48, 64, 1, 128, False),
+                        (3, 100, 4, 64, 2, 128, True)]
+
+
+def ssd_bwd_guards(shapes=SSD_BWD_GUARD_SHAPES, repeats=GUARD_REPEATS):
+    """The SSD backward's C entry point on guarded tensors, its scratch
+    too, as ``memory_guards`` does for the attention kernels: no guard may
+    change and every output must equal the unguarded launch bit for bit,
+    ``repeats`` times in a row."""
+    from repro_torch.kernels.ssd import _bwd_kernel
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(2)
+    fn = _bwd_kernel()
+    out = []
+    for B, S, H, P, G, N, extra in shapes:
+        ins = _ssd_inputs(gen, B, S, H, P, G, N, torch.bfloat16, served=True)
+        dy = _randn(gen, B, S, H, P, dtype=torch.float32)
+        h0 = _randn(gen, B, H, N, P, dtype=torch.float32) if extra else None
+        dh = _randn(gen, B, H, N, P, dtype=torch.float32) if extra else None
+        _, _, states, aend = ssd(*ins, h0=h0, keep_states=True)
+        wants = [w for w in ssd_bwd(*ins, dy, states=states, aend=aend,
+                                    dh_final=dh, h0=h0) if w is not None]
+        torch.cuda.synchronize()
+        what = f"ssd_bwd_guards {(B, S, H, P, G, N)} h0/dh_final={extra}"
+        plain = [w for w in ssd_bwd_plain(*ins, dy, dh_final=dh, h0=h0)
+                 if w is not None]
+        err = {n: _scaled_err(g, w, f"{what} {n}",
+                              _ssd_bwd_tol(n, torch.bfloat16))
+               for n, g, w in zip(SSD_BWD_NAMES, wants, plain)}
+        del plain
+        nc = states.shape[1]
+        f32 = dict(dtype=torch.float32, device=DEV)
+        scratch = [torch.zeros((B, nc, H, N, P), **f32),
+                   torch.zeros((B, S, H, N), **f32),
+                   torch.zeros((B, S, H, N), **f32),
+                   torch.zeros((B, nc, H), **f32)]
+        for offset in GUARD_OFFSETS:
+            g_in = [None if t is None else _guarded(t, offset)
+                    for t in (*ins, dy, dh, states, aend)]
+            g_out = [_guarded(w, offset) for w in wants]
+            g_ws = [_guarded(t, offset) for t in scratch]
+            # dx, ddt, dA, dB, dC, then dh0 where there is one
+            outs = [g[0] for g in g_out] + ([None] if h0 is None else [])
+            ptrs = [None if g is None else g[0] for g in g_in] + outs + \
+                [g[0] for g in g_ws]
+
+            def call():
+                rc = fn(*(None if t is None else t.data_ptr() for t in ptrs),
+                        nc, B, S, H, P, G, N, 1,
+                        torch.cuda.current_stream().cuda_stream)
+                check(rc == 0, f"repro_ssd_bwd returned {rc}")
+            _guarded_runs(call, [g for g in g_in if g is not None] + g_ws,
+                          g_out, wants, f"{what} offset {offset} B", repeats)
+            del g_in, g_out, g_ws, ptrs
+        out.append({"shape": [B, S, H, P, G, N], "h0_dh_final": extra,
+                    "scaled_vs_plain": err,
+                    "offsets_bytes": list(GUARD_OFFSETS),
+                    "repeats": repeats})
+        del ins, dy, states, aend, wants, scratch
+        torch.cuda.empty_cache()
+    return out
+
+
 def _live_pairs(S, T, causal, window):
     """(query, key) pairs the mask leaves live, per batch row and head."""
     i = np.arange(S)[:, None]
@@ -1870,6 +2192,7 @@ def _model_flops_per_step(cfg, n_params, shape):
 
 
 KINDS = (("attention_kernels", ("flash_fwd", "flash_bwd", "paged_")),
+         ("ssd_bwd_kernels", ("ssd_bwd_",)),
          ("ssd_kernels", ("ssd_state", "ssd_pass", "ssd_output")),
          ("rglru_kernels", ("rglru_",)),
          ("matmul", ("gemm", "xmma", "nvjet", "cutlass")))
@@ -1916,21 +2239,32 @@ def _profile(fn, what):
 def train(cfg, shape=TRAIN_SHAPE, steps=TRAIN_STEPS,
           cuts=("global batch 256 -> 2 (one card)",), full=True,
           leaves=None):
-    """``cfg`` (llama3.2-3b or recurrentgemma-2b at full width and depth)
-    trained in bf16 compute, fp32 parameters and AdamW state, per-block
-    activation checkpointing, ``shape`` tokens per step, random weights from
-    seed 0 made on the device.  Every step launches the stats-emitting
-    forward twice per attention block (forward and recompute) and dK/dV and
-    dQ once, the RG-LRU forward twice per RG-LRU block and its backward
-    once.  The first step's loss and the gradients of ``leaves`` (by
-    default the attention projections) are held against one pass through
-    the plain attention (and RG-LRU).  ``full``: the loss must fall, and one
-    more step is profiled; else (a depth cut, two steps) only the launches
-    and the first step's parity are held."""
+    """``cfg`` (llama3.2-3b, recurrentgemma-2b or mamba2-780m at full width
+    and depth) trained in bf16 compute, fp32 parameters and AdamW state,
+    per-block activation checkpointing, ``shape`` tokens per step, random
+    weights from seed 0 made on the device.  Every step launches the
+    stats-emitting forward twice per attention block (forward and
+    recompute) and dK/dV and dQ once, the RG-LRU forward twice per RG-LRU
+    block and its backward once, the SSD forward twice per SSM block and
+    its backward once.  The first step's loss and the gradients of
+    ``leaves`` (by default the attention projections) are held against one
+    pass through the plain attention (and RG-LRU), each gradient within
+    2e-2 of its max-abs.  With SSM blocks the reference pass is fp32, and
+    one pass through the kernels (their fp32 variants) is held to it, loss
+    and gradients at 5e-4: at mamba2's 48 layers bf16 alone moves these
+    gradients by 9-22 % of their max-abs (PERF.md's mamba2 training
+    findings), so no bf16 limit could tell a wrong kernel from rounding.
+    The bf16 kernels the steps run are held by ``ssd_bwd_cases`` at the
+    trained shape, and the first step's bf16 loss within 2e-2 of the fp32
+    reference's.  ``full``: the loss must fall, and one more step is profiled;
+    else (a depth cut, two steps) only the launches and the first step's
+    parity are held."""
+    t_start = time.perf_counter()
     L = cfg.n_layers
     leaves = leaves or ATTN_LEAVES
     n_attn = sum(blk in (ATTN, ATTN_LOCAL) for blk in cfg.pattern)
     n_rec = cfg.pattern.count(RGLRU)
+    n_ssm = cfg.pattern.count(SSM)
     optcfg = AdamWConfig(lr=3e-4)
     # Adam's first updates move every weight by about lr * sign(g): from
     # this random init the loss rises for two steps at any lr >= 1.5e-4 and
@@ -1949,17 +2283,33 @@ def train(cfg, shape=TRAIN_SHAPE, steps=TRAIN_STEPS,
                 flash_attention_fwd_stats=2 * n_attn,
                 flash_attention_bwd_dkv=n_attn,
                 flash_attention_bwd_dq=n_attn, rglru=2 * n_rec,
-                rglru_bwd=n_rec)
+                rglru_bwd=n_rec, ssd=2 * n_ssm, ssd_bwd=n_ssm)
     # the first step's loss and the gradients of ``leaves`` are held
-    # against one pass through the plain attention (and RG-LRU) from the
-    # same weights and batch
-    grads, full_loss = _grads(
-        state.model, dataclasses.replace(TRAIN_POLICY, attn_impl="full"),
-        batches[0])
-    full_attn = _pick(grads, leaves)
-    del grads
+    # against one pass through the plain attention (and RG-LRU, and SSD)
+    # from the same weights and batch
+    t_init = time.perf_counter()
+    plain = dataclasses.replace(TRAIN_POLICY, attn_impl="full")
+    tol, ref_dtype, full_attn, attn_err = 2e-2, "bfloat16", None, None
+    if n_ssm:
+        fp32 = dataclasses.replace(TRAIN_POLICY, compute_dtype="float32")
+        tol, ref_dtype = 5e-4, "float32"
+        grads, full_loss = _grads(state.model, dataclasses.replace(
+            plain, compute_dtype="float32"), batches[0])
+        plain32 = _pick(grads, leaves)
+        grads, loss32 = _grads(state.model, fp32, batches[0])
+        check(abs(loss32 - full_loss) <= tol * abs(full_loss),
+              f"train: fp32 first loss {loss32} vs {full_loss} through the "
+              f"plain versions (> {tol})")
+        attn_err = _leaf_errs(_pick(grads, leaves), plain32, tol,
+                              "train: fp32 first step vs the plain versions")
+        del grads, plain32
+    else:
+        grads, full_loss = _grads(state.model, plain, batches[0])
+        full_attn = _pick(grads, leaves)
+        del grads
     losses, norms, lrs, step_s = [], [], [], []
     torch.cuda.synchronize()
+    t_ref = time.perf_counter()
     ops.reset_launch_counts()               # just before the main path
     for i, batch in enumerate(batches):
         before = ops.launch_counts()
@@ -1971,37 +2321,46 @@ def train(cfg, shape=TRAIN_SHAPE, steps=TRAIN_STEPS,
         per_step = {k: after[k] - before[k] for k in after}
         check(per_step == want, f"train step {i}: launches {per_step} != "
                                 f"{want} (two forwards and one backward per "
-                                f"attention and RG-LRU block)")
+                                f"attention, RG-LRU and SSM block)")
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
         lrs.append(float(m["lr"]))
         if i == 0:
             check(abs(losses[0] - full_loss) <= 2e-2 * abs(full_loss),
                   f"train: first loss {losses[0]} vs {full_loss} through "
-                  f"the plain attention (> 2e-2)")
-            attn_err = _leaf_errs(
-                _pick({n: p.grad for n, p in
-                       state.model.named_parameters()}, leaves),
-                full_attn, 2e-2, "train: first step vs plain attention")
+                  f"the plain versions in {ref_dtype} (> 2e-2)")
+            if full_attn is not None:
+                attn_err = _leaf_errs(
+                    _pick({n: p.grad for n, p in
+                           state.model.named_parameters()}, leaves),
+                    full_attn, tol, "train: first step vs plain attention")
             del full_attn
             # the peak below is that of the steady steps
             torch.cuda.reset_peak_memory_stats()
     counts = ops.launch_counts()            # just after
-    # every launch above was bf16 at the model's head_dim: the library's
-    # dispatch names the design that served them
-    designs = {"flash_attention_fwd_stats": design(cfg.head_dim,
-                                                   torch.bfloat16),
-               "flash_attention_bwd_dkv": design_dkv(cfg.head_dim,
-                                                     torch.bfloat16),
-               "flash_attention_bwd_dq": design_dq(cfg.head_dim,
-                                                   torch.bfloat16)}
-    want_design = {n: WANT_DESIGN[n][cfg.head_dim] for n in designs}
+    # every launch above was bf16 at the model's head_dim (and its SSM
+    # widths): the library's dispatch names the design that served them
+    designs, want_design = {}, {}
+    if n_attn:
+        designs = {"flash_attention_fwd_stats": design(cfg.head_dim,
+                                                       torch.bfloat16),
+                   "flash_attention_bwd_dkv": design_dkv(cfg.head_dim,
+                                                         torch.bfloat16),
+                   "flash_attention_bwd_dq": design_dq(cfg.head_dim,
+                                                       torch.bfloat16)}
+        want_design = {n: WANT_DESIGN[n][cfg.head_dim] for n in designs}
+    if n_ssm:
+        P, N = cfg.ssm.head_dim, cfg.ssm.d_state
+        designs.update(ssd=ssd_design(P, N, torch.bfloat16),
+                       ssd_bwd=ssd_bwd_design(P, N, torch.bfloat16))
+        want_design.update(ssd="mma.sync", ssd_bwd="cuda-cores")
     check(designs == want_design,
-          f"train: the stats forward, dK/dV and dQ are on the designs "
-          f"{designs}, not {want_design}")
+          f"train: the kernels are on the designs {designs}, not "
+          f"{want_design}")
     check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
           f"train: non-finite loss or grad norm {losses} {norms}")
     profile = None
+    t_steps = time.perf_counter()
     if full:
         profile = _profile(lambda: step_fn(state, batches[-1]), "train")
         # a smoke signal only: whether the gradients are right is checked
@@ -2023,9 +2382,12 @@ def train(cfg, shape=TRAIN_SHAPE, steps=TRAIN_STEPS,
          first_step_vs_plain_attention={
              "loss": [losses[0], full_loss], "leaves": list(leaves),
              "worst_grad_err_over_max_abs": attn_err,
-             "tol_rel": 2e-2},
+             "tol_rel": tol, "reference_dtype": ref_dtype},
          max_memory_allocated=torch.cuda.max_memory_allocated(),
-         profiled_step=profile, cuts=list(cuts))
+         profiled_step=profile, cuts=list(cuts),
+         phase_s={"init": t_init - t_start, "reference_passes": t_ref - t_init,
+                  "steps": t_steps - t_ref,
+                  "profile": time.perf_counter() - t_steps})
     del state, step_fn
     torch.cuda.empty_cache()
     return counts
@@ -2385,6 +2747,8 @@ def main() -> int:
         s_cases, s_main = ssd_cases(gen), ssd_main_shape(gen)
         r_cases, r_main = rglru_cases(gen), rglru_main_shape(gen)
         rb_cases, rb_main = rglru_bwd_cases(gen)
+        sb_cases, s_trained, sb_main = ssd_bwd_cases(gen)
+    torch.cuda.empty_cache()
     b_cases, b_autograd = bwd_cases(gen)
     with torch.no_grad():
         *b_main, b_faults = bwd_main_shape(gen, cfg, *TRAIN_SHAPE_BS)
@@ -2404,6 +2768,10 @@ def main() -> int:
               "scaled_tol": SSD_TOL},
          rglru={"cases": r_cases, "main_path": [r_main]},
          rglru_bwd={"cases": rb_cases, "main_path": [rb_main]},
+         ssd_trained_shape={"main_path": [s_trained]},
+         ssd_bwd={"cases": sb_cases, "main_path": [sb_main],
+                  "scaled_tol": SSD_TOL, "scaled_tol_bf16_outputs":
+                  SSD_BWD_TOL_BF16},
          flash_attention_bwd={"cases": b_cases,
                               "vjp_vs_autograd": b_autograd,
                               "main_path": dict(zip(TRAIN_KERNELS, b_main)),
@@ -2418,7 +2786,7 @@ def main() -> int:
     emit("ptxas", kernels=ptxas_usage(PTXAS_KERNELS))
     with torch.no_grad():
         emit("memory_guards", cases=memory_guards(),
-             rglru_bwd=rglru_guards())
+             rglru_bwd=rglru_guards(), ssd_bwd=ssd_bwd_guards())
     torch.cuda.empty_cache()
 
     policy = PolicyConfig(compute_dtype="bfloat16", remat="none",
@@ -2436,6 +2804,9 @@ def main() -> int:
     # recurrentgemma-2b trained at full width and depth: the D = 256
     # backward under its window and the RG-LRU backward
     n_train_hyb = train(hyb, leaves=HYBRID_TRAIN_LEAVES)
+    # mamba2-780m trained at full width and depth: the SSD forward at the
+    # trained shape and the SSD backward
+    n_train_ssm = train(get_config(SSM_ARCH), leaves=SSM_TRAIN_LEAVES)
     # stablelm-12b (D = 160): served at full width and depth, trained at
     # full width with its depth cut
     model = LM.init(slm, seed=0, dtype=torch.bfloat16, device=DEV)
@@ -2457,8 +2828,9 @@ def main() -> int:
                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                "library_ms": head["library_ms"], "shape": head["shape"],
                "dtype": head["dtype"]}
-        if "bound_ms_fp32_cuda_cores" in head:
-            out["bound_ms_fp32_cuda_cores"] = head["bound_ms_fp32_cuda_cores"]
+        for k in ("bound_ms_fp32_cuda_cores", "bound_ms_with_saved_states"):
+            if k in head:
+                out[k] = head[k]
         return out
 
     bf16 = torch.bfloat16
@@ -2504,10 +2876,17 @@ def main() -> int:
         row("rglru", "src/repro_torch/kernels/csrc/rglru.cu",
             "src/repro/kernels/rglru.py:58", n_hybrid["rglru"], [r_main],
             r_main["design"]),
+        # the SSD forward again, at the shape mamba2's training gives it
+        row("ssd_trained", "src/repro_torch/kernels/csrc/ssd.cu",
+            "src/repro/kernels/ssd.py:103", n_train_ssm["ssd"], [s_trained],
+            s_trained["design"]),
         # no TPU kernel: the reference differentiates its XLA scan
         row("rglru_bwd", "src/repro_torch/kernels/csrc/rglru.cu",
             "src/repro/models/rglru.py:134", n_train_hyb["rglru_bwd"],
-            [rb_main], rb_main["design"])]
+            [rb_main], rb_main["design"]),
+        row("ssd_bwd", "src/repro_torch/kernels/csrc/ssd.cu",
+            "src/repro/models/ssm.py:38", n_train_ssm["ssd_bwd"], [sb_main],
+            sb_main["design"])]
     emit("summary", elapsed_s=time.perf_counter() - t_start,
          kernel_build_s=build.build_seconds)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -718,6 +718,577 @@ ssd_output_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
 }
 
 // ---------------------------------------------------------------------------
+// the backward: the three stages mirrored, fp32 math on the CUDA cores
+// ---------------------------------------------------------------------------
+//
+// No TPU kernel: the reference differentiates its XLA scan (ssd_chunked,
+// repro/models/ssm.py:38).  With G_c the gradient of the state leaving chunk
+// c, h_c the state entering it (the forward's `states`), W_lm = (C_l . B_m)
+// D_lm dt_m, D_lm = exp(clip(acum_l - acum_m, -60, 0)) (m <= l), K_lm =
+// (dy_l . x_m) D_lm dt_m and R_m = exp(max(acum_end - acum_m, -60)):
+//   G_{c-1} = exp(acum_end,c) G_c + u_c,  u_c = sum_l exp(acum_l) C_l dy_l^T
+//   dx = W^T dy + dt R B G_c     dB = K^T C + dt R x G_c^T
+//   dC = K B + exp(acum) dy h_c^T
+// and ddt = A ga + (direct terms), ga the reverse cumsum over the chunk of
+// the gradient of acum (the header of ssd_bwd_plain in ssd.py lists its
+// terms).  Five launches from one call:
+//   (a') ssd_bwd_state_kernel: u_c per (head, chunk, batch), into the
+//        scratch `gstates` (B, chunks, H, N, P);
+//   (b') ssd_bwd_pass_kernel: each element of a head's (N, P) state walks
+//        the chunks from the last, overwriting u_c with G_c; dh0 at the end;
+//   (c') ssd_bwd_chunk_kernel: per (head, chunk, batch) dx and ddt, dB and
+//        dC of this head into fp32 partials (B, S, H, N), dA's share into
+//        (B, chunks, H);
+//   (d') ssd_bwd_group_kernel sums the partials over the heads of each
+//        group, and ssd_bwd_da_kernel dA over (batch, chunk), each in a
+//        fixed order: two calls give bit-identical outputs (no atomics).
+// What bounds it: operations.  At the trained shape (B = 2, S = 4096, H = 48,
+// P = 64, N = 128) the chunked backward needs about 28 GFLOP at its
+// cheapest chunk length, 0.42 ms at the CUDA cores' fp32 peak, against
+// 0.06-0.12 ms of bytes.  This first design keeps every product fp32 on the
+// CUDA cores, for bf16 inputs too (widened as they are loaded), in the
+// register tiles of the forward's CUDA-core stages; stage (c') holds x, dy,
+// B, C, h_c, G_c and three L x L arrays in shared memory (226,336 bytes at
+// P = 64, N = 128: one block an SM).  The per-head partials of dB / dC (2 x 201 MB
+// written and read at the trained shape) are the price of the group sum's
+// fixed order.  Left out: the tensor cores (bf16 products with split fp32
+// operands, as the forward's), fusing (d') into (c').
+
+constexpr int BW_NT = 256;
+
+// (a') u_c = sum_l exp(acum_l) C_l dy_l^T, an (N, P) fp32 array
+template <typename T>
+__global__ void __launch_bounds__(CC_NT)
+ssd_bwd_state_kernel(const float* __restrict__ dt,
+                     const float* __restrict__ A, const T* __restrict__ Cm,
+                     const float* __restrict__ dy,
+                     float* __restrict__ gstates, int S, int H, int P, int G,
+                     int N) {
+  constexpr int L = SSD_C;
+  const int h = blockIdx.x, j = blockIdx.y, b = blockIdx.z;
+  const int g = h / (H / G);
+  const int c0 = j * L, live = min(L, S - c0);
+  const int LDX = P + 4, LDN = N + 4;
+
+  extern __shared__ __align__(16) float sm[];
+  float* DYs = sm;              // (L, P)  the chunk's dy
+  float* Cs = DYs + L * LDX;    // (L, N)  its C rows, then exp(acum) C
+  float* dts = Cs + L * LDN;    // (L,)
+  float* acs = dts + L;         // (L,)
+
+  const size_t row0 = (size_t)b * S + c0;
+  load_chunk_rows(DYs, LDX, dy + (row0 * H + h) * P, (size_t)H * P, P, live);
+  load_chunk_rows(Cs, LDN, Cm + (row0 * G + g) * N, (size_t)G * N, N, live);
+  load_chunk_dt(dts, dt, row0 * H + h, H, live);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  chunk_cumsum(dts, acs, A[h]);
+  for (int i = threadIdx.x; i < live * N; i += CC_NT) {
+    const int l = i / N, n = i % N;
+    Cs[l * LDN + n] *= expf(acs[l]);
+  }
+  __syncthreads();
+  const size_t blk = ((size_t)b * gridDim.y + j) * H + h;
+  cc_state_sum(Cs, DYs, gstates + blk * (size_t)N * P, P, false, 0.f, P, N,
+               live);
+}
+
+// (b') G_{c-1} = exp(acum_end,c) G_c + u_c from G_last = dh_final (or zero):
+// each u_c is overwritten with G_c; dh0 (if asked for) gets the last.  One
+// thread per four elements of a head's (N, P) state.
+__global__ void __launch_bounds__(PASS_NT)
+ssd_bwd_pass_kernel(float* __restrict__ gstates,
+                    const float* __restrict__ aend,
+                    const float* __restrict__ dh_final,
+                    float* __restrict__ dh0, int nc, int H, int NP) {
+  constexpr int U = 8;
+  const int i = blockIdx.x * PASS_NT + threadIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  if (4 * i >= NP) return;
+  const size_t head = ((size_t)b * H + h) * NP;
+  float4 st = dh_final != nullptr
+                  ? reinterpret_cast<const float4*>(dh_final + head)[i]
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int j0 = nc - 1; j0 >= 0; j0 -= U) {
+    float4 s[U];
+    float e[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      s[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      e[u] = 0.f;
+      if (j0 - u >= 0) {
+        const size_t blk = ((size_t)b * nc + j0 - u) * H + h;
+        s[u] = reinterpret_cast<const float4*>(gstates + blk * NP)[i];
+        e[u] = expf(aend[blk]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (j0 - u >= 0) {
+        const size_t blk = ((size_t)b * nc + j0 - u) * H + h;
+        reinterpret_cast<float4*>(gstates + blk * NP)[i] = st;
+        st = make_float4(e[u] * st.x + s[u].x, e[u] * st.y + s[u].y,
+                         e[u] * st.z + s[u].z, e[u] * st.w + s[u].w);
+      }
+    }
+  }
+  if (dh0 != nullptr) reinterpret_cast<float4*>(dh0 + head)[i] = st;
+}
+
+// shared memory of stage (c'), in floats: x, dy (L, P); B, C (L, N); h_c,
+// G_c (N, P); W, K (L, L); a third L x L array that also holds the row
+// partials of two (L, N) reductions; eight vectors of L; the block's warp
+// sums
+constexpr int BW_VECS = 8;
+__host__ __device__ constexpr int bw_scratch(int N) {
+  return SSD_C * (SSD_C + 4) > 2 * SSD_C * (N / 4) ? SSD_C * (SSD_C + 4)
+                                                   : 2 * SSD_C * (N / 4);
+}
+__host__ __device__ constexpr int bw_chunk_floats(int P, int N) {
+  return 2 * SSD_C * (P + 4) + 2 * SSD_C * (N + 4) + 2 * N * (P + 4) +
+         2 * SSD_C * (SSD_C + 4) + bw_scratch(N) + BW_VECS * SSD_C +
+         BW_NT / 32;
+}
+int bw_chunk_smem(int P, int N) {
+  return (int)sizeof(float) * bw_chunk_floats(P, N);
+}
+int bw_state_smem(int P, int N) {
+  return (int)sizeof(float) * (SSD_C * (P + 4) + SSD_C * (N + 4) + 2 * SSD_C);
+}
+// mamba2's P = 64, N = 128 fits one block an SM
+static_assert(sizeof(float) * bw_chunk_floats(64, 128) <= MAX_SMEM,
+              "ssd_bwd_chunk_kernel: shared memory at P = 64, N = 128");
+static_assert(BW_NT == 4 * SSD_C && CC_NT == BW_NT,
+              "ssd backward: 256 threads, 16 x 16 tiles of the L x L arrays");
+
+// (c') one block per (head, chunk, batch)
+template <typename T>
+__global__ void __launch_bounds__(BW_NT)
+ssd_bwd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                     const float* __restrict__ A, const T* __restrict__ Bm,
+                     const T* __restrict__ Cm, const float* __restrict__ dy,
+                     const float* __restrict__ states,
+                     const float* __restrict__ gstates, T* __restrict__ dx,
+                     float* __restrict__ ddt, float* __restrict__ dB_part,
+                     float* __restrict__ dC_part, float* __restrict__ dA_part,
+                     int S, int H, int P, int G, int N) {
+  constexpr int L = SSD_C;
+  const int h = blockIdx.x, j = blockIdx.y, b = blockIdx.z;
+  const int g = h / (H / G);
+  const int c0 = j * L, live = min(L, S - c0);
+  const int LDX = P + 4, LDN = N + 4, LDW = L + 4, LDH = P + 4;
+  const int NQ = N / 4, PQ = P / 4;
+  const int t = threadIdx.x;
+
+  extern __shared__ __align__(16) float sm[];
+  float* Xs = sm;                 // (L, P)  x
+  float* DYs = Xs + L * LDX;      // (L, P)  dy
+  float* Bs = DYs + L * LDX;      // (L, N)  B
+  float* Cs = Bs + L * LDN;       // (L, N)  C
+  float* Hs = Cs + L * LDN;       // (N, P)  h_c, the state entering
+  float* Gs = Hs + N * LDH;       // (N, P)  G_c, the gradient leaving
+  float* Ws = Gs + N * LDH;       // (L, L)  W
+  float* Ks = Ws + L * LDW;       // (L, L)  K
+  float* Es = Ks + L * LDW;       // (L, L)  E, then V, then row partials
+  float* dts = Es + bw_scratch(N);
+  float* acs = dts + L;           // running sum of dt * A
+  float* rowE = acs + L;          // sum_m E_lm
+  float* colE = rowE + L;         // sum_l E_lm
+  float* colV = colE + L;         // sum_l V_lm
+  float* zv = colV + L;           // R_m (B_m . G_c x_m)
+  float* sv = zv + L;             // dt_m z_m where the clip passes it
+  float* gac = sv + L;            // gradient of acum, then of a
+  float* red = gac + L;           // (BW_NT / 32) warp sums
+
+  const size_t row0 = (size_t)b * S + c0;
+  const size_t blk = ((size_t)b * gridDim.y + j) * H + h;
+  load_chunk_rows(Xs, LDX, x + (row0 * H + h) * P, (size_t)H * P, P, live);
+  load_chunk_rows(DYs, LDX, dy + (row0 * H + h) * P, (size_t)H * P, P, live);
+  load_chunk_rows(Bs, LDN, Bm + (row0 * G + g) * N, (size_t)G * N, N, live);
+  load_chunk_rows(Cs, LDN, Cm + (row0 * G + g) * N, (size_t)G * N, N, live);
+  load_chunk_dt(dts, dt, row0 * H + h, H, live);
+  {
+    const float* hin = states + blk * (size_t)N * P;
+    const float* gin = gstates + blk * (size_t)N * P;
+    for (int i = t; i < N * P / 4; i += BW_NT) {
+      const int n = (4 * i) / P, p = (4 * i) % P;
+      cp_async16(Hs + n * LDH + p, hin + 4 * i, 16);
+      cp_async16(Gs + n * LDH + p, gin + 4 * i, 16);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  const float a_h = A[h];
+  chunk_cumsum(dts, acs, a_h);
+  const float a_end = acs[L - 1];
+
+  // ---- the L x L arrays: thread (ti, tj) its 4 x 4 tile of C B^T and of
+  // dy x^T (tiles above the diagonal are zero), then W, K, E and V ----
+  const int ti = t >> 4, tj = t & 15;
+  float v[4][4];
+  {
+    float cb[4][4], q[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) cb[i][k] = q[i][k] = 0.f;
+    if (tj <= ti) {
+      for (int n = 0; n < N; n += 4) {
+        float4 cv[4], bv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          cv[i] = *reinterpret_cast<const float4*>(Cs + (ti * 4 + i) * LDN + n);
+          bv[i] = *reinterpret_cast<const float4*>(Bs + (tj * 4 + i) * LDN + n);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            cb[i][k] += cv[i].x * bv[k].x + cv[i].y * bv[k].y +
+                        cv[i].z * bv[k].z + cv[i].w * bv[k].w;
+      }
+      for (int p = 0; p < P; p += 4) {
+        float4 dv[4], xv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          dv[i] = *reinterpret_cast<const float4*>(DYs + (ti * 4 + i) * LDX + p);
+          xv[i] = *reinterpret_cast<const float4*>(Xs + (tj * 4 + i) * LDX + p);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            q[i][k] += dv[i].x * xv[k].x + dv[i].y * xv[k].y +
+                       dv[i].z * xv[k].z + dv[i].w * xv[k].w;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int l = ti * 4 + i, m = tj * 4 + k;
+        float w = 0.f, kk = 0.f, e = 0.f;
+        v[i][k] = 0.f;
+        if (m <= l) {
+          const float d = acs[l] - acs[m];
+          const float D = expf(fminf(fmaxf(d, -60.f), 0.f));
+          v[i][k] = cb[i][k] * D * q[i][k];
+          w = cb[i][k] * D * dts[m];
+          kk = q[i][k] * D * dts[m];
+          // a clipped exp passes no gradient to its argument
+          if (d >= -60.f && d <= 0.f) e = v[i][k] * dts[m];
+        }
+        Ws[l * LDW + m] = w;
+        Ks[l * LDW + m] = kk;
+        Es[l * LDW + m] = e;
+      }
+  }
+  __syncthreads();
+  if (t < L) {
+    float r = 0.f;
+    for (int m = 0; m < L; ++m) r += Es[t * LDW + m];
+    rowE[t] = r;
+  } else if (t < 2 * L) {
+    float c = 0.f;
+    for (int l = 0; l < L; ++l) c += Es[l * LDW + (t - L)];
+    colE[t - L] = c;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) Es[(ti * 4 + i) * LDW + tj * 4 + k] = v[i][k];
+  __syncthreads();
+  if (t < L) {
+    float c = 0.f;
+    for (int l = 0; l < L; ++l) c += Es[l * LDW + t];
+    colV[t] = c;
+  }
+  __syncthreads();
+
+  // ---- dx = W^T dy + dt R B G_c: 4 x 4 tiles of (m, p) ----
+  for (int u = t; u < (L / 4) * PQ; u += BW_NT) {
+    const int m0 = (u / PQ) * 4, p0 = (u % PQ) * 4;
+    float acc[4][4], st[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[i][k] = st[i][k] = 0.f;
+    for (int l = m0; l < live; ++l) {      // W_lm = 0 for l < m
+      const float4 wv = *reinterpret_cast<const float4*>(Ws + l * LDW + m0);
+      const float4 dv = *reinterpret_cast<const float4*>(DYs + l * LDX + p0);
+      const float ww[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[i][0] += ww[i] * dv.x;
+        acc[i][1] += ww[i] * dv.y;
+        acc[i][2] += ww[i] * dv.z;
+        acc[i][3] += ww[i] * dv.w;
+      }
+    }
+    for (int n = 0; n < N; ++n) {
+      const float4 gv = *reinterpret_cast<const float4*>(Gs + n * LDH + p0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float bb = Bs[(m0 + i) * LDN + n];
+        st[i][0] += bb * gv.x;
+        st[i][1] += bb * gv.y;
+        st[i][2] += bb * gv.z;
+        st[i][3] += bb * gv.w;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = m0 + i;
+      if (m < live) {
+        const float f = dts[m] * expf(fmaxf(a_end - acs[m], -60.f));
+        T* o = dx + ((row0 + m) * H + h) * P + p0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          o[k] = Elem<T>::from_float(acc[i][k] + f * st[i][k]);
+      }
+    }
+  }
+
+  // ---- dB = K^T C + dt R x G_c^T and dC = K B + exp(acum) dy h_c^T: 4 x 4
+  // tiles of (row, n); the row partials of B . (x G_c^T) and C . (dy h_c^T)
+  // over each tile's four columns go to Es ----
+  float* zpart = Es;              // (L, N / 4)
+  float* gpart = Es + L * NQ;     // (L, N / 4)
+  for (int u = t; u < (L / 4) * NQ; u += BW_NT) {
+    const int r0 = (u / NQ) * 4, nq = u % NQ, n0 = nq * 4;
+    float kc[4][4], xg[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) kc[i][k] = xg[i][k] = 0.f;
+    for (int l = r0; l < live; ++l) {      // K_lm = 0 for l < m
+      const float4 kv = *reinterpret_cast<const float4*>(Ks + l * LDW + r0);
+      const float4 cv = *reinterpret_cast<const float4*>(Cs + l * LDN + n0);
+      const float k4[4] = {kv.x, kv.y, kv.z, kv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        kc[i][0] += k4[i] * cv.x;
+        kc[i][1] += k4[i] * cv.y;
+        kc[i][2] += k4[i] * cv.z;
+        kc[i][3] += k4[i] * cv.w;
+      }
+    }
+    for (int p = 0; p < P; p += 4) {
+      float4 xv[4], gv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        xv[i] = *reinterpret_cast<const float4*>(Xs + (r0 + i) * LDX + p);
+        gv[i] = *reinterpret_cast<const float4*>(Gs + (n0 + i) * LDH + p);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          xg[i][k] += xv[i].x * gv[k].x + xv[i].y * gv[k].y +
+                      xv[i].z * gv[k].z + xv[i].w * gv[k].w;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = r0 + i;
+      const float4 bv = *reinterpret_cast<const float4*>(Bs + m * LDN + n0);
+      zpart[m * NQ + nq] = bv.x * xg[i][0] + bv.y * xg[i][1] +
+                           bv.z * xg[i][2] + bv.w * xg[i][3];
+      if (m < live) {
+        const float f = dts[m] * expf(fmaxf(a_end - acs[m], -60.f));
+        *reinterpret_cast<float4*>(dB_part + ((row0 + m) * H + h) * N + n0) =
+            make_float4(kc[i][0] + f * xg[i][0], kc[i][1] + f * xg[i][1],
+                        kc[i][2] + f * xg[i][2], kc[i][3] + f * xg[i][3]);
+      }
+    }
+    // reuse the registers: kc <- K B, xg <- dy h_c^T
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) kc[i][k] = xg[i][k] = 0.f;
+    const int m_end = min(r0 + 4, live);   // K_lm = 0 for m > l
+    for (int m = 0; m < m_end; ++m) {
+      const float4 bv = *reinterpret_cast<const float4*>(Bs + m * LDN + n0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float k1 = Ks[(r0 + i) * LDW + m];
+        kc[i][0] += k1 * bv.x;
+        kc[i][1] += k1 * bv.y;
+        kc[i][2] += k1 * bv.z;
+        kc[i][3] += k1 * bv.w;
+      }
+    }
+    for (int p = 0; p < P; p += 4) {
+      float4 dv[4], hv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        dv[i] = *reinterpret_cast<const float4*>(DYs + (r0 + i) * LDX + p);
+        hv[i] = *reinterpret_cast<const float4*>(Hs + (n0 + i) * LDH + p);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          xg[i][k] += dv[i].x * hv[k].x + dv[i].y * hv[k].y +
+                      dv[i].z * hv[k].z + dv[i].w * hv[k].w;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int l = r0 + i;
+      const float4 cv = *reinterpret_cast<const float4*>(Cs + l * LDN + n0);
+      gpart[l * NQ + nq] = cv.x * xg[i][0] + cv.y * xg[i][1] +
+                           cv.z * xg[i][2] + cv.w * xg[i][3];
+      if (l < live) {
+        const float e = expf(acs[l]);
+        *reinterpret_cast<float4*>(dC_part + ((row0 + l) * H + h) * N + n0) =
+            make_float4(kc[i][0] + e * xg[i][0], kc[i][1] + e * xg[i][1],
+                        kc[i][2] + e * xg[i][2], kc[i][3] + e * xg[i][3]);
+      }
+    }
+  }
+
+  // ---- <G_c, h_c>: a fixed split over the threads, then the warps ----
+  float gh = 0.f;
+  for (int i = t; i < N * P; i += BW_NT) {
+    const int n = i / P, p = i % P;
+    gh += Gs[n * LDH + p] * Hs[n * LDH + p];
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) gh += __shfl_xor_sync(0xffffffffu, gh, o);
+  if ((t & 31) == 0) red[t >> 5] = gh;
+  __syncthreads();
+
+  // ---- the gradient of acum, its reverse cumsum (the gradient of a), ddt
+  // and this block's share of dA ----
+  if (t < L) {
+    float z = 0.f, gi = 0.f;
+    for (int k = 0; k < NQ; ++k) {
+      z += zpart[t * NQ + k];
+      gi += gpart[t * NQ + k];
+    }
+    const float rest = a_end - acs[t];
+    z *= expf(fmaxf(rest, -60.f));
+    const float s = rest >= -60.f ? dts[t] * z : 0.f;
+    zv[t] = z;
+    sv[t] = s;
+    gac[t] = rowE[t] - colE[t] + expf(acs[t]) * gi - s;
+  }
+  __syncthreads();
+  if (t == 0) {
+    float ghs = 0.f, ss = 0.f;
+    for (int w = 0; w < BW_NT / 32; ++w) ghs += red[w];
+    for (int l = 0; l < L; ++l) ss += sv[l];
+    gac[L - 1] += expf(a_end) * ghs + ss;
+    float run = 0.f, da = 0.f;
+    for (int l = L - 1; l >= 0; --l) {
+      run += gac[l];
+      gac[l] = run;
+      da += dts[l] * run;
+    }
+    dA_part[blk] = da;
+  }
+  __syncthreads();
+  if (t < live) ddt[(row0 + t) * H + h] = a_h * gac[t] + colV[t] + zv[t];
+}
+
+// (d') dB / dC (B, S, G, N) = the per-head partials summed over the heads of
+// each group in order; one thread per four elements
+template <typename T>
+__global__ void __launch_bounds__(PASS_NT)
+ssd_bwd_group_kernel(const float* __restrict__ dB_part,
+                     const float* __restrict__ dC_part, T* __restrict__ dB,
+                     T* __restrict__ dC, size_t n4, int H, int G, int N) {
+  const size_t i = (size_t)blockIdx.x * PASS_NT + threadIdx.x;
+  if (i >= n4) return;
+  const size_t e = 4 * i;
+  const size_t row = e / ((size_t)G * N);
+  const int rem = (int)(e % ((size_t)G * N));
+  const int g = rem / N, n = rem % N, hpg = H / G;
+  float4 sb = make_float4(0.f, 0.f, 0.f, 0.f), sc = sb;
+  for (int k = 0; k < hpg; ++k) {
+    const size_t at = (row * H + g * hpg + k) * N + n;
+    const float4 pb = *reinterpret_cast<const float4*>(dB_part + at);
+    const float4 pc = *reinterpret_cast<const float4*>(dC_part + at);
+    sb = make_float4(sb.x + pb.x, sb.y + pb.y, sb.z + pb.z, sb.w + pb.w);
+    sc = make_float4(sc.x + pc.x, sc.y + pc.y, sc.z + pc.z, sc.w + pc.w);
+  }
+  const float vb[4] = {sb.x, sb.y, sb.z, sb.w};
+  const float vc[4] = {sc.x, sc.y, sc.z, sc.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    dB[e + k] = Elem<T>::from_float(vb[k]);
+    dC[e + k] = Elem<T>::from_float(vc[k]);
+  }
+}
+
+// (d') dA_h = sum over (batch, chunk) of the blocks' shares, in order
+__global__ void __launch_bounds__(PASS_NT)
+ssd_bwd_da_kernel(const float* __restrict__ dA_part, float* __restrict__ dA,
+                  int n_rows, int H) {
+  const int h = blockIdx.x * PASS_NT + threadIdx.x;
+  if (h >= H) return;
+  float s = 0.f;
+  for (int r = 0; r < n_rows; ++r) s += dA_part[(size_t)r * H + h];
+  dA[h] = s;
+}
+
+// Which design serves the backward at (P, N, dtype): the CUDA cores, fp32
+// math, where stage (c') fits the shared memory.
+int ssd_bwd_design(int P, int N, int dtype) {
+  if (P < 4 || P % 4 != 0 || N < 4 || N % 4 != 0) return DESIGN_NONE;
+  if ((dtype == DTYPE_F32 || dtype == DTYPE_BF16) &&
+      bw_chunk_smem(P, N) <= MAX_SMEM)
+    return DESIGN_CUDA_CORES;
+  return DESIGN_NONE;
+}
+
+struct SsdBwdArgs {
+  const void *x, *Bm, *Cm;
+  const float *dt, *A, *dy, *dh_final, *states, *aend;
+  void *dx, *dB, *dC;
+  float *ddt, *dA, *dh0, *gstates, *dB_part, *dC_part, *dA_part;
+  int B, S, H, P, G, N, nc;
+};
+
+template <typename T>
+int launch_bwd(const SsdBwdArgs& a, cudaStream_t st) {
+  static int cfg_a = 0, cfg_c = 0;
+  const int ba = bw_state_smem(a.P, a.N), bc = bw_chunk_smem(a.P, a.N);
+  int rc = allow_smem(ssd_bwd_state_kernel<T>, ba, cfg_a);
+  if (rc == 0) rc = allow_smem(ssd_bwd_chunk_kernel<T>, bc, cfg_c);
+  if (rc != 0) return rc;
+  const dim3 grid(a.H, a.nc, a.B);
+  ssd_bwd_state_kernel<T><<<grid, CC_NT, ba, st>>>(
+      a.dt, a.A, (const T*)a.Cm, a.dy, a.gstates, a.S, a.H, a.P, a.G, a.N);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  ssd_bwd_pass_kernel<<<dim3((a.N * a.P / 4 + PASS_NT - 1) / PASS_NT, a.H,
+                             a.B),
+                        PASS_NT, 0, st>>>(a.gstates, a.aend, a.dh_final,
+                                          a.dh0, a.nc, a.H, a.N * a.P);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  ssd_bwd_chunk_kernel<T><<<grid, BW_NT, bc, st>>>(
+      (const T*)a.x, a.dt, a.A, (const T*)a.Bm, (const T*)a.Cm, a.dy,
+      a.states, a.gstates, (T*)a.dx, a.ddt, a.dB_part, a.dC_part, a.dA_part,
+      a.S, a.H, a.P, a.G, a.N);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  const size_t n4 = (size_t)a.B * a.S * a.G * a.N / 4;
+  ssd_bwd_group_kernel<T><<<(unsigned)((n4 + PASS_NT - 1) / PASS_NT),
+                            PASS_NT, 0, st>>>(a.dB_part, a.dC_part,
+                                              (T*)a.dB, (T*)a.dC, n4, a.H,
+                                              a.G, a.N);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  ssd_bwd_da_kernel<<<(a.H + PASS_NT - 1) / PASS_NT, PASS_NT, 0, st>>>(
+      a.dA_part, a.dA, a.B * a.nc, a.H);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // dispatch
 // ---------------------------------------------------------------------------
 
@@ -827,3 +1398,39 @@ extern "C" int repro_ssd_design(int P, int N, int dtype) {
   return ssd_design(P, N, dtype);
 }
 
+// x, B/C in one dtype (fp32 or bf16) as repro_ssd_fwd took them, dt, A, h0
+// likewise; dy (B, S, H, P) fp32; dh_final (B, H, N, P) fp32 or null (zero);
+// states and aend: repro_ssd_fwd's scratch after the call (the state
+// entering each chunk, each chunk's acum_end).  Outputs: dx (x's dtype), ddt
+// (B, S, H) fp32, dA (H,) fp32, dB / dC (B's dtype), dh0 (B, H, N, P) fp32
+// or null.  Scratch: gstates (B, n_chunks, H, N, P), dB_part / dC_part (B,
+// S, H, N), dA_part (B, n_chunks, H), all fp32.  All contiguous and 16-byte
+// aligned.  Five launches on `stream`.  Returns 0, a cudaError_t, or
+// ERR_UNSUPPORTED.  Does not synchronise.
+extern "C" int repro_ssd_bwd(const void* x, const float* dt, const float* A,
+                             const void* Bm, const void* Cm, const float* dy,
+                             const float* dh_final, const float* states,
+                             const float* aend, void* dx, float* ddt,
+                             float* dA, void* dB, void* dC, float* dh0,
+                             float* gstates, float* dB_part, float* dC_part,
+                             float* dA_part, int n_chunks, int B, int S,
+                             int H, int P, int G, int N, int dtype,
+                             void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0 || B > 65535 ||
+      H > 65535 || n_chunks != (S + SSD_C - 1) / SSD_C || n_chunks > 65535)
+    return ERR_UNSUPPORTED;
+  const SsdBwdArgs a{x,     Bm,      Cm,      dt,      A,       dy,
+                     dh_final, states, aend,  dx,      dB,      dC,
+                     ddt,   dA,      dh0,     gstates, dB_part, dC_part,
+                     dA_part, B,     S,       H,       P,       G,
+                     N,     n_chunks};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (ssd_bwd_design(P, N, dtype) != DESIGN_CUDA_CORES) return ERR_UNSUPPORTED;
+  return dtype == DTYPE_F32 ? launch_bwd<float>(a, st)
+                            : launch_bwd<bf16>(a, st);
+}
+
+// The design that repro_ssd_bwd launches for (P, N, dtype).
+extern "C" int repro_ssd_bwd_design(int P, int N, int dtype) {
+  return ssd_bwd_design(P, N, dtype);
+}

@@ -8,15 +8,15 @@ version beside it -- the wrappers decide that by the tensor's device alone);
 ``"plain"`` is the plain PyTorch version wherever the tensors lie.  The block
 and chunk arguments are the reference's TPU tiling knobs: accepted and
 ignored until the autotuner is ported (``ssd``'s plain version takes the
-reference's default chunk of 256).  The SSD kernel has no backward, as in
-the reference: on a CUDA tensor that needs a gradient it raises.
+reference's default chunk of 256).
 
 ``attention(impl="kernel")`` goes through ``FlashAttentionFn`` (the
 stats-emitting forward, then the dK/dV and dQ kernels in the backward) when
 autograd needs a gradient of q, k or v -- the reference's
 ``impl="pallas_vjp"`` -- and through the forward-only kernel otherwise.
-``rglru(impl="kernel")`` goes the same way through ``RGLRUFn`` (the forward
-kernel, then the hand-written backward kernel, which the reference lacks).
+``rglru(impl="kernel")`` and ``ssd(impl="kernel")`` go the same way
+through ``RGLRUFn`` and ``SSDFn`` (the forward kernel, then a hand-written
+backward kernel; the reference has none and differentiates its XLA scans).
 """
 from __future__ import annotations
 
@@ -70,6 +70,8 @@ def ssd(x, dt, A, Bm, Cm, *, chunk=None, impl="kernel"):
     chunk = _sd.CHUNK if chunk is None else chunk
     if impl == "plain":
         return _sd.ssd_plain(x, dt, A, Bm, Cm, chunk=chunk)
+    if _fa.needs_grad(x, dt, A, Bm, Cm):
+        return _sd.SSDFn.apply(x, dt, A, Bm, Cm, None, chunk)
     return _sd.ssd(x, dt, A, Bm, Cm, chunk=chunk)
 
 
@@ -90,7 +92,8 @@ def rglru(log_a, gated, *, block_seq=None, impl="kernel"):
 # ---------------------------------------------------------------------------
 _WRAPPERS = (_fa.flash_attention, _pa.paged_decode_attention,
              _fab.flash_attention_fwd_stats, _fab.flash_attention_bwd_dkv,
-             _fab.flash_attention_bwd_dq, _sd.ssd, _rg.rglru, _rg.rglru_bwd)
+             _fab.flash_attention_bwd_dq, _sd.ssd, _sd.ssd_bwd, _rg.rglru,
+             _rg.rglru_bwd)
 
 
 def launch_counts() -> Dict[str, int]:

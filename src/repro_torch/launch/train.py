@@ -14,14 +14,15 @@ on the GPU unless ``--device cpu`` is given; without a GPU and without
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch recurrentgemma-2b --no-reduced --dtype bfloat16 --batch 2 \\
       --seq 4096 --steps 5
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m \\
+      --no-reduced --dtype bfloat16 --batch 2 --seq 4096 --steps 5
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --reduced --steps 30 --fail-at 12 --ckpt ckpt_demo  # exits 17; then
       ... --resume auto                                  # carries on
 
 ``--zero`` has no effect without a mesh (as in the reference's un-sharded
-step); meshes are ROADMAP queue A item 7.  The Mamba-2 archs do not train
-yet (no SSD backward, item 10): ``make_train_step`` raises for them.
-``--track`` needs the tracking plane, queue A item 8, and raises.
+step); meshes are ROADMAP queue A item 7.  ``--track`` needs the tracking
+plane, queue A item 8, and raises.
 """
 from __future__ import annotations
 

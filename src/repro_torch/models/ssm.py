@@ -3,7 +3,10 @@
 
 Prefill runs the chunked SSD scan through ``kernels.ops.ssd`` -- the
 hand-written kernel under ``impl="kernel"`` (the default), the plain version
-(a copy of the reference's ``ssd_chunked``) under ``"plain"``.  Decode is the
+(a copy of the reference's ``ssd_chunked``) under ``"plain"``.  Training
+reaches the same call with inputs that need gradients: ``ops.ssd`` then goes
+through ``SSDFn`` (the forward kernel and the hand-written SSD backward);
+``A_log``, ``D`` and ``dt_bias`` stay fp32 and get fp32 gradients.  Decode is the
 single-step linear recurrence ``h <- exp(dt*A) h + dt*B x^T`` in plain
 PyTorch, as in the reference, which has no kernel for it.
 

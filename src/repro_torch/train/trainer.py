@@ -12,10 +12,10 @@ waits for the step to finish.
 Not ported: meshes and with them ZeRO sharding and the manual-pod
 gradient exchange with ``grad_compression="int8_ef"`` (ROADMAP queue A item
 7; ``zero_stage`` has no effect without a mesh, as in the reference's
-un-sharded jit); ``StepTracker``, which needs ``repro.tracking`` (item 8);
-training the Mamba-2 archs (``ssm`` blocks: the SSD kernel has no backward
-yet, item 10).  ``rglru`` blocks train through ``RGLRUFn`` (the forward
-kernel and the hand-written RG-LRU backward) and ``attn_local`` blocks
+un-sharded jit); ``StepTracker``, which needs ``repro.tracking`` (item 8).
+``rglru`` blocks train through ``RGLRUFn`` (the forward kernel and the
+hand-written RG-LRU backward), ``ssm`` blocks through ``SSDFn`` (the SSD
+forward kernel and the hand-written SSD backward) and ``attn_local`` blocks
 through the windowed attention kernels, as ``attn`` blocks do.
 """
 from __future__ import annotations
@@ -24,8 +24,7 @@ from typing import Any, Callable, Dict, Mapping, Optional
 
 import torch
 
-from repro_torch.configs.base import (SSM, ModelConfig, PolicyConfig,
-                                      ShapeConfig)
+from repro_torch.configs.base import ModelConfig, PolicyConfig, ShapeConfig
 from repro_torch.models import lm
 from repro_torch.models.lm import LM
 from repro_torch.models.transformer import RunCtx
@@ -36,9 +35,6 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 _MESH = ("meshes are not ported yet: ROADMAP queue A item 7 (the parallel "
          "layer)")
-_SSM = ("training ssm blocks is not ported yet: the ssd kernel, like the "
-        "reference's, has no backward; a hand-written SSD backward is "
-        "ROADMAP queue A item 10")
 
 
 def _dt(name: str) -> torch.dtype:
@@ -182,10 +178,7 @@ def make_train_step(cfg: ModelConfig, policy: PolicyConfig,
                     shape: Optional[ShapeConfig] = None) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)`` with metrics
     ``loss``, ``xent``, ``aux``, ``grad_norm`` and ``lr``.  ``batch`` holds
-    numpy arrays or tensors; they are moved to the state's device.
-    Patterns with ``ssm`` blocks raise."""
-    if SSM in cfg.pattern:
-        raise NotImplementedError(f"{cfg.name} has ssm blocks: {_SSM}")
+    numpy arrays or tensors; they are moved to the state's device."""
     if mesh is not None:
         what = (" (and with it the manual-pod exchange of "
                 "grad_compression='int8_ef')"

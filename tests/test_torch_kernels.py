@@ -371,7 +371,7 @@ def test_launch_counters_cover_all_five_wrappers():
     assert sorted(counts) == sorted([
         "flash_attention", "paged_decode_attention",
         "flash_attention_fwd_stats", "flash_attention_bwd_dkv",
-        "flash_attention_bwd_dq", "ssd", "rglru", "rglru_bwd"])
+        "flash_attention_bwd_dq", "ssd", "ssd_bwd", "rglru", "rglru_bwd"])
     fab.flash_attention_bwd_dq.launches += 3
     ops.reset_launch_counts()
     assert set(ops.launch_counts().values()) == {0}

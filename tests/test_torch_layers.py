@@ -220,7 +220,7 @@ def test_port_modules_import_without_nvcc_triton_or_jax():
         "assert ops.launch_counts() == {'flash_attention': 0, "
         "'paged_decode_attention': 0, 'flash_attention_fwd_stats': 0, "
         "'flash_attention_bwd_dkv': 0, 'flash_attention_bwd_dq': 0, "
-        "'ssd': 0, 'rglru': 0, 'rglru_bwd': 0}\n"
+        "'ssd': 0, 'ssd_bwd': 0, 'rglru': 0, 'rglru_bwd': 0}\n"
         "print('ok', len(sys.modules))\n")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/nonexistent",
            "HOME": str(ROOT)}

@@ -301,22 +301,18 @@ def test_lm_init_defaults_to_cuda_and_raises_without_one():
     ("mamba2-780m", "ssd"), ("recurrentgemma-2b", "rglru"),
     ("moonshot-v1-16b-a3b", "MoE")])
 def test_unported_blocks_raise_naming_the_roadmap(arch, item):
-    """MoE blocks are not ported; the recurrent blocks serve, but training
-    the ssd blocks (no backward for the ssd kernel) is not ported; the
-    rglru blocks train (RGLRUFn, the hand-written RG-LRU backward)."""
+    """MoE blocks are not ported; the recurrent blocks serve and train: the
+    ssd blocks through SSDFn (the hand-written SSD backward), the rglru
+    blocks through RGLRUFn (the hand-written RG-LRU backward)."""
     cfg = reduced(get_config(arch))
     if item == "MoE":
         with pytest.raises(NotImplementedError, match="ROADMAP") as e:
             LM.init(cfg, device="cpu")
-    else:
-        LM.init(cfg, device="cpu")
-        policy = PolicyConfig(compute_dtype="float32")
-        if item == "rglru":
-            assert callable(trainer.make_train_step(cfg, policy))
-            return
-        with pytest.raises(NotImplementedError, match="ROADMAP") as e:
-            trainer.make_train_step(cfg, policy)
-    assert item in str(e.value)
+        assert item in str(e.value)
+        return
+    LM.init(cfg, device="cpu")
+    policy = PolicyConfig(compute_dtype="float32")
+    assert callable(trainer.make_train_step(cfg, policy))
 
 
 def test_unported_attention_paths_raise_naming_the_roadmap():

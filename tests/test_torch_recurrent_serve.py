@@ -223,11 +223,12 @@ def test_engines_default_to_cuda_and_training_raises(weights):
         for cls in (AsyncServeEngine, ServeEngine):
             with pytest.raises(RuntimeError, match="CUDA"):
                 cls(cfg, model, POLICY)
-    if "ssm" in cfg.pattern:        # mamba2: no SSD backward yet
-        with pytest.raises(NotImplementedError, match="SSD backward"):
-            trainer.make_train_step(cfg, POLICY)
-    else:                           # recurrentgemma trains
-        assert callable(trainer.make_train_step(cfg, POLICY))
+    # both archs train (SSDFn, RGLRUFn); like the engines, the trainer's
+    # state is made on the card unless the caller names the CPU
+    assert callable(trainer.make_train_step(cfg, POLICY))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            trainer.init_state(cfg, POLICY)
 
 
 def test_launch_serve_runs_the_recurrent_archs_on_cpu(weights, capsys):

@@ -299,7 +299,18 @@ def test_launch_train_runs_recurrentgemma_on_cpu(capsys):
     assert len(losses) == 2 and all(np.isfinite(losses))
 
 
-def test_make_train_step_refuses_mamba2_naming_the_ssd_backward():
+def test_make_train_step_builds_mamba2_through_ssdfn():
+    """The SSM blocks train through SSDFn (the SSD forward kernel and the
+    hand-written SSD backward; ``tests/test_torch_train_ssm.py`` holds them
+    against the reference): one reduced step on the CPU runs the plain
+    versions and gives every parameter a finite gradient."""
     cfg = reduced(get_config("mamba2-780m"), n_layers=2)
-    with pytest.raises(NotImplementedError, match="SSD backward"):
-        trainer.make_train_step(cfg, POLICY)
+    step = trainer.make_train_step(cfg, POLICY)
+    state = trainer.init_state(cfg, POLICY, seed=0, device="cpu")
+    before = dict(ops.launch_counts())
+    state, m = step(state, make_batch(cfg, ShapeConfig("t", 64, 2, "train"),
+                                      step=0))
+    assert ops.launch_counts() == before
+    assert np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0
+    for n, p in state.model.named_parameters():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), n
