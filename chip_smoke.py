@@ -42,11 +42,14 @@ per line, each with ``at_s``, the seconds since the script's imports ended:
                 and bf16; see ``SSD_BWD_TOL_BF16``), in fp32 also against
                 autograd of the plain forward, and at mamba2's trained
                 shape (2 x 4096 tokens), where the SSD forward is held to
-                its plain version too, two calls must be bit-identical, and
+                its plain version too, two calls must be bit-identical,
                 three faults planted in the plain result (a zeroed carry of
                 the reverse state pass, one chunk's dB partial dropped from
-                the group sum, dA summed over one batch row) must be
-                rejected;
+                the group sum, dA summed over one batch row) and the
+                backward with its split fp32 operands in bf16 alone must be
+                rejected, and the replaced bf16 design (fp32 math on the
+                CUDA cores) is held to the same comparison and timed in
+                turns with the tensor-core design;
   ptxas         registers and spills that ``nvcc -Xptxas -v`` reported for
                 the kernels of ``PTXAS_KERNELS``; a spill fails the run;
   memory_guards the bf16 warpgroup forward (served, with statistics),
@@ -55,8 +58,9 @@ per line, each with ``at_s``, the seconds since the script's imports ended:
                 and trained shapes under the 2048 window, a ragged windowed
                 one), and the RG-LRU backward at its trained shape and a
                 ragged one, and the SSD backward at its trained shape and a
-                ragged one with h0 and dh_final (its scratch guarded too),
-                on tensors inside NaN guard bands at two alignments: no
+                ragged one with h0 and dh_final (its scratch guarded too;
+                the replaced design's entry point at the trained shape), on
+                tensors inside NaN guard bands at two alignments: no
                 guard may change, and every output must equal the unguarded
                 launch bit for bit, five times in a row (``memory_guards``,
                 ``rglru_guards``, ``ssd_bwd_guards``);
@@ -122,9 +126,11 @@ per line, each with ``at_s``, the seconds since the script's imports ended:
                 in_c, in_dt, A_log, D and dt_bias of one pass through the
                 kernels against one through the plain SSD, both in fp32 on
                 the first batch, within 5e-4 of max-abs (bf16 alone moves
-                them by up to 22 % at 48 layers; the bf16 kernels are held
-                at the trained shape in kernel_cases), and the first step's
-                bf16 loss within 2e-2 of the fp32 plain pass's;
+                them by up to 22 % at 48 layers; that pass runs the SSD
+                backward's fp32 design, the bf16 steps its tensor-core
+                design, held at the trained shape in kernel_cases), and the
+                first step's bf16 loss within 2e-2 of the fp32 plain
+                pass's;
   train (again) stablelm-12b at full width with its depth cut to 2 layers
                 (its fp32 parameters and AdamW state at full depth, about
                 194 GB, do not fit one card), 2 steps of 1 x 4096 tokens:
@@ -194,8 +200,9 @@ from repro_torch.kernels.paged_attention import (              # noqa: E402
 from repro_torch.kernels.rglru import (                        # noqa: E402
     CHUNK as rglru_chunk_len, rglru, rglru_bwd, rglru_bwd_plain, rglru_plain)
 from repro_torch.kernels.ssd import (                          # noqa: E402
-    CHUNK, bwd_design as ssd_bwd_design, design as ssd_design, kernel_chunk,
-    ssd, ssd_bwd, ssd_bwd_plain, ssd_plain)
+    CHUNK, bwd_design as ssd_bwd_design, bwd_slices as ssd_bwd_slices,
+    design as ssd_design, kernel_chunk, ssd, ssd_bwd, ssd_bwd_plain,
+    ssd_plain)
 from repro_torch.models.lm import LM                           # noqa: E402
 from repro_torch.models.ssm import ssd_decode_step             # noqa: E402
 from repro_torch.optim import (AdamWConfig, ScheduleConfig,    # noqa: E402
@@ -271,7 +278,8 @@ PTXAS_KERNELS = [
     "rglru_chunk_kernel", "rglru_carry_kernel", "rglru_scan_kernel",
     "rglru_bwd_chunk_kernel", "rglru_bwd_carry_kernel",
     "rglru_bwd_scan_kernel", "ssd_bwd_state_kernel", "ssd_bwd_pass_kernel",
-    "ssd_bwd_chunk_kernel", "ssd_bwd_group_kernel", "ssd_bwd_da_kernel"]
+    "ssd_bwd_chunk_kernel", "ssd_bwd_group_kernel", "ssd_bwd_da_kernel",
+    "ssd_bwd_state_tc_kernel", "ssd_bwd_tc_kernel"]
 
 
 def cut_depth(cfg, n_layers):
@@ -1597,8 +1605,9 @@ def rglru_bwd_cases(gen):
 
 # the SSD backward (ssd_bwd): ragged S, S shorter than one chunk, G = 2,
 # h0 given, dh_final nonzero, at mamba2's P = 64, N = 128 and at the
-# reference's test widths: B, S, H, P, G, N, served distributions (small
-# dt), h0, dh_final
+# reference's test widths (bf16 on the tensor-core design there; at P = 64,
+# N = 64 on the CUDA-core design): B, S, H, P, G, N, served distributions
+# (small dt), h0, dh_final
 SSD_BWD_CASES = [
     (1, 100, 4, 64, 1, 128, False, False, False),   # ragged S
     (1, 40, 4, 64, 1, 128, False, True, True),      # shorter than a chunk
@@ -1643,13 +1652,136 @@ def _ssd_bwd_passes(got, want, dtype):
                for n, g, w in zip(SSD_BWD_NAMES, got, want) if w is not None)
 
 
+def _ssd_bwd_hi_only(x, dt, A, Bm, Cm, dy, L=64):
+    """The SSD backward over chunks of ``L`` steps with the tensor-core
+    design's fp32 operands -- exp(acum) dy of C^T dy, dy, the chunk states
+    h_c and their gradients G_c, the weights W and K -- rounded to bf16
+    before their products, all else fp32 (``ssd_bwd_plain``'s arithmetic):
+    the kernel with the lo halves of its split dropped.  A control: the
+    ssd_bwd comparison must reject it, or it cannot tell the split from
+    plain bf16."""
+    def hi(t):
+        return t.to(torch.bfloat16).float()
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    hpg = H // G
+    nc = -(-S // L)
+    pad = nc * L - S
+    f = torch.nn.functional.pad
+    x, dt, A, Bm, Cm, dy = (t.float() for t in (x, dt, A, Bm, Cm, dy))
+    xc = f(x, (0, 0, 0, 0, 0, pad)).reshape(Bsz, nc, L, H, P)
+    dyc = f(dy, (0, 0, 0, 0, 0, pad)).reshape(Bsz, nc, L, H, P)
+    dtc = f(dt, (0, 0, 0, pad)).reshape(Bsz, nc, L, H)
+    Bh, Ch = (f(t, (0, 0, 0, 0, 0, pad)).reshape(Bsz, nc, L, G, N)
+              .repeat_interleave(hpg, dim=3) for t in (Bm, Cm))
+    acum = torch.cumsum(dtc * A, dim=2)
+    aend = acum[:, :, -1]
+    rest = aend[:, :, None] - acum
+    R = torch.exp(torch.clamp(rest, min=-60.0))
+    dtR = dtc * R
+    local = torch.einsum("bjmhn,bjmhp->bjhnp", Bh * dtR[..., None], xc)
+    h = torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=x.device)
+    hin = []
+    for j in range(nc):
+        hin.append(h)
+        h = torch.exp(aend[:, j])[..., None, None] * h + local[:, j]
+    hin = torch.stack(hin, dim=1)
+    u = torch.einsum("bjlhn,bjlhp->bjhnp", Ch,
+                     hi(torch.exp(acum)[..., None] * dyc))
+    g = torch.zeros_like(h)
+    gout = [None] * nc
+    for j in reversed(range(nc)):
+        gout[j] = g
+        g = torch.exp(aend[:, j])[..., None, None] * g + u[:, j]
+    gout = torch.stack(gout, dim=1)
+    at = acum.permute(0, 1, 3, 2)
+    diff = at[..., :, None] - at[..., None, :]
+    causal = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    D = torch.where(causal, torch.exp(torch.clamp(diff, -60.0, 0.0)), 0.0)
+    live = causal & (diff >= -60.0) & (diff <= 0.0)
+    dt_m = dtc.permute(0, 1, 3, 2)[..., None, :]
+    CB = torch.einsum("bjlhn,bjmhn->bjhlm", Ch, Bh)
+    Q = torch.einsum("bjlhp,bjmhp->bjhlm", hi(dyc), xc)
+    W, K, V = CB * D * dt_m, Q * D * dt_m, CB * D * Q
+    E = torch.where(live, V * dt_m, 0.0)
+    G_, H_, DY = hi(gout), hi(hin), hi(dyc)
+    XG = torch.einsum("bjmhp,bjhnp->bjmhn", xc, G_)
+    DH = torch.einsum("bjlhp,bjhnp->bjlhn", DY, H_)
+    dx = torch.einsum("bjhlm,bjlhp->bjmhp", hi(W), DY) + dtR[..., None] * \
+        torch.einsum("bjmhn,bjhnp->bjmhp", Bh, G_)
+    dBh = torch.einsum("bjhlm,bjlhn->bjmhn", hi(K), Ch) + dtR[..., None] * XG
+    dCh = torch.einsum("bjhlm,bjmhn->bjlhn", hi(K), Bh) + \
+        torch.exp(acum)[..., None] * DH
+    z = R * (Bh * XG).sum(-1)
+    s = torch.where(rest >= -60.0, dtc * z, 0.0)
+    gacum = (E.sum(-1) - E.sum(-2)).permute(0, 1, 3, 2) + \
+        torch.exp(acum) * (Ch * DH).sum(-1) - s
+    last = torch.exp(aend) * (gout * hin).sum((-2, -1)) + s.sum(2)
+    gacum = torch.cat([gacum[:, :, :-1], gacum[:, :, -1:] + last[:, :, None]],
+                      dim=2)
+    ga = torch.flip(torch.cumsum(torch.flip(gacum, [2]), 2), [2])
+    ddt = A * ga + V.sum(-2).permute(0, 1, 3, 2) + z
+    dA = (dtc * ga).sum((0, 1, 2))
+    dB = dBh.reshape(Bsz, nc, L, G, hpg, N).sum(4)
+    dC = dCh.reshape(Bsz, nc, L, G, hpg, N).sum(4)
+    return (dx.reshape(Bsz, nc * L, H, P)[:, :S],
+            ddt.reshape(Bsz, nc * L, H)[:, :S], dA,
+            dB.reshape(Bsz, nc * L, G, N)[:, :S],
+            dC.reshape(Bsz, nc * L, G, N)[:, :S], None)
+
+
+def _ssd_bwd_fn(entry, lib=None):
+    """The backward's C entry point ``entry`` of the kernels' library (or
+    of ``lib``), with its argument types."""
+    fn = getattr(lib or build.load(), entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 8 + \
+        [ctypes.c_void_p]
+    return fn
+
+
+def _ssd_bwd_entry(entry, ins, dy, states, aend, dh=None, h0=None,
+                   nsl=None, lib=None):
+    """A closure that launches the backward's C entry point ``entry``
+    (``repro_ssd_bwd``, or ``repro_ssd_bwd_earlier``: the replaced bf16
+    design, fp32 math on the CUDA cores) on these inputs, into outputs and
+    scratch of its own (``nsl`` dB / dC partials a group; by default one
+    per head, the replaced design's; ``lib``: another build of the kernels'
+    library); returns (call, outputs, scratch), outputs (dx, ddt, dA, dB,
+    dC, dh0 or None).  It holds the tensors."""
+    fn = _ssd_bwd_fn(entry, lib)
+    x, dt, A, Bm, Cm = ins
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    nc = states.shape[1]
+    nsl = H // G if nsl is None else nsl
+    f32 = dict(dtype=torch.float32, device=DEV)
+    outs = [torch.empty_like(x), torch.empty((B, S, H), **f32),
+            torch.empty((H,), **f32), torch.empty_like(Bm),
+            torch.empty_like(Cm),
+            None if h0 is None else torch.empty((B, H, N, P), **f32)]
+    scratch = [torch.empty((B, nc, H, N, P), **f32),
+               torch.empty((B, S, G * nsl, N), **f32),
+               torch.empty((B, S, G * nsl, N), **f32),
+               torch.empty((B, nc, H), **f32)]
+    tensors = [x, dt, A, Bm, Cm, dy, dh, states, aend, *outs, *scratch]
+
+    def call():
+        rc = fn(*(None if t is None else t.data_ptr() for t in tensors),
+                nc, B, S, H, P, G, N, 1,
+                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"{entry} returned {rc}")
+    return call, outs, scratch
+
+
 def _ssd_bwd_faults(ins, dy, want, dtype, L):
     """Three faults planted in the plain backward's result, each of which
     the comparison must reject: (a) the carry of the reverse state pass
     into the chunk before mid-sequence zeroed (the steps before and after
     it as two sequences, the second from the forward's state there); (b)
     one chunk's dB partial of head 0 dropped from the group sum; (c) dA
-    summed over batch row 0 only."""
+    summed over batch row 0 only; and a control, the backward with its
+    split fp32 operands in bf16 alone (``_ssd_bwd_hi_only``)."""
     x, dt, A, Bm, Cm = ins
     S = x.shape[1]
     t1 = (S // L // 2) * L
@@ -1674,9 +1806,12 @@ def _ssd_bwd_faults(ins, dy, want, dtype, L):
     one_row = list(want)
     one_row[2] = ssd_bwd_plain(x[:1], dt[:1], A, Bm[:1], Cm[:1], dy[:1])[2]
     faults = {}
+    del head, tail, one
+    hi_only = _ssd_bwd_hi_only(*ins, dy, L=L)
     for name, bad in (("zeroed_carry", carry), ("dB_partial_dropped",
                                                  dropped),
-                      ("dA_one_batch_row", one_row)):
+                      ("dA_one_batch_row", one_row),
+                      ("bf16_hi_only", hi_only)):
         faults[name] = {n: s for n, s in _ssd_bwd_scaled(
             bad, want, dtype).items() if s is not None}
         check(not _ssd_bwd_passes(bad, want, dtype),
@@ -1702,9 +1837,11 @@ def ssd_bwd_cases(gen):
     """ssd_bwd against ssd_bwd_plain at SSD_BWD_CASES, fp32 and bf16, and
     in fp32 against autograd of ssd_plain, each saved forward (the ssd
     kernel's states) held to ssd_plain first; then the trained shape: the
-    forward
-    against ssd_plain, the backward against ssd_bwd_plain, two calls
-    bit-identical, planted faults rejected, timed."""
+    forward against ssd_plain, the backward against ssd_bwd_plain, two
+    calls bit-identical, planted faults and the hi-only control rejected,
+    timed in turns with the replaced design (``repro_ssd_bwd_earlier``),
+    which is held to ssd_bwd_plain too."""
+    t0 = time.perf_counter()
     rows = []
     for (B, S, H, P, G, N, served, with_h0, with_dh) in SSD_BWD_CASES:
         for dt_ in (torch.float32, torch.bfloat16):
@@ -1724,6 +1861,7 @@ def ssd_bwd_cases(gen):
                              f"{what} (saved forward)")
             plain = ssd_bwd_plain(*ins, dy, dh_final=dh, h0=h0)
             row = {"shape": [B, S, H, P, G, N], "dtype": str(dt_),
+                   "design": ssd_bwd_design(P, N, dt_),
                    "served_dt": served, "h0": with_h0, "dh_final": with_dh,
                    "saved_forward": fwd,
                    "vs_plain": _ssd_bwd_check(got, plain, dt_, what)}
@@ -1743,6 +1881,7 @@ def ssd_bwd_cases(gen):
                                                     f"{what} autograd")
             rows.append(row)
     # the trained shape
+    t_cases = time.perf_counter()
     B, S, H, P, G, N = SSD_TRAINED
     dt_ = torch.bfloat16
     ins = _ssd_inputs(gen, B, S, H, P, G, N, dt_, served=True)
@@ -1769,9 +1908,19 @@ def ssd_bwd_cases(gen):
     faults = _ssd_bwd_faults(ins, dy, want, dt_, L)
     max_err = float(max((g.float() - w).abs().max()
                         for g, w in zip(got[:5], want[:5])))
+    # the replaced design on the same inputs, held to the same comparison
+    earlier, e_outs, _ = _ssd_bwd_entry("repro_ssd_bwd_earlier", ins, dy,
+                                        states, aend)
+    earlier()
+    torch.cuda.synchronize()
+    _ssd_bwd_check(e_outs, want, dt_, "ssd_bwd earlier design")
+    earlier_err = float(max((g.float() - w).abs().max()
+                            for g, w in zip(e_outs[:5], want[:5])))
     fwd_ms = time_ms([lambda: ssd(*ins)], 10)
     fwd_plain_ms = time_ms([lambda: ssd_plain(*ins)], 2)
-    ms = time_ms([lambda: ssd_bwd(*ins, dy, states=states, aend=aend)], 10)
+    ms, earlier_ms = time_in_turns(
+        lambda: ssd_bwd(*ins, dy, states=states, aend=aend), earlier, 10)
+    del earlier, e_outs
     plain_ms = time_ms([lambda: ssd_bwd_plain(*ins, dy)], 2)
     staged = _profile(lambda: [ssd_bwd(*ins, dy, states=states, aend=aend)
                                for _ in range(10)], "ssd_bwd trained shape")
@@ -1803,17 +1952,25 @@ def ssd_bwd_cases(gen):
                     SSD_BWD_TOL_BF16, "worst_ratio_to_tol": worst,
                     "design": f"five launches, "
                               f"{ssd_bwd_design(P, N, dt_)}",
+                    "heads_per_block": H // G // ssd_bwd_slices(
+                        H // G, P, N, dt_),
                     "kernel_chunk": L, "bound_chunk": chunk_b,
                     "max_abs_err": max_err, "scaled": scaled,
                     "bit_identical_calls": True,
                     "planted_faults_rejected": faults, "ms": ms,
+                    "earlier_ms": earlier_ms,
+                    "earlier_design": "five launches, cuda-cores",
+                    "earlier_max_abs_err": earlier_err,
                     "plain_ms": plain_ms, "library_ms": None,
                     "stage_ms_profiled": stage_ms,
                     "bound_ms_with_saved_states": _bound(
                         nbytes + saved, 2 * flops_b,
                         torch.bfloat16)["bound_ms"],
                     "bound_ms_fp32_cuda_cores": _bound(
-                        nbytes, flops_b, torch.float32)["bound_ms"]},
+                        nbytes, flops_b, torch.float32)["bound_ms"],
+                    "phase_s": {"cases": t_cases - t0,
+                                "trained_shape": time.perf_counter()
+                                - t_cases}},
                    **_bound(nbytes, 2 * flops_b, torch.bfloat16))
     return rows, fwd_row, bwd_row
 
@@ -1828,57 +1985,67 @@ def ssd_bwd_guards(shapes=SSD_BWD_GUARD_SHAPES, repeats=GUARD_REPEATS):
     """The SSD backward's C entry point on guarded tensors, its scratch
     too, as ``memory_guards`` does for the attention kernels: no guard may
     change and every output must equal the unguarded launch bit for bit,
-    ``repeats`` times in a row."""
-    from repro_torch.kernels.ssd import _bwd_kernel
+    ``repeats`` times in a row; at the trained shape the replaced design's
+    entry point (``repro_ssd_bwd_earlier``, its per-head scratch) too."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(2)
-    fn = _bwd_kernel()
     out = []
-    for B, S, H, P, G, N, extra in shapes:
+    for i, (B, S, H, P, G, N, extra) in enumerate(shapes):
+        t0 = time.perf_counter()
         ins = _ssd_inputs(gen, B, S, H, P, G, N, torch.bfloat16, served=True)
         dy = _randn(gen, B, S, H, P, dtype=torch.float32)
         h0 = _randn(gen, B, H, N, P, dtype=torch.float32) if extra else None
         dh = _randn(gen, B, H, N, P, dtype=torch.float32) if extra else None
         _, _, states, aend = ssd(*ins, h0=h0, keep_states=True)
-        wants = [w for w in ssd_bwd(*ins, dy, states=states, aend=aend,
-                                    dh_final=dh, h0=h0) if w is not None]
-        torch.cuda.synchronize()
         what = f"ssd_bwd_guards {(B, S, H, P, G, N)} h0/dh_final={extra}"
         plain = [w for w in ssd_bwd_plain(*ins, dy, dh_final=dh, h0=h0)
                  if w is not None]
-        err = {n: _scaled_err(g, w, f"{what} {n}",
-                              _ssd_bwd_tol(n, torch.bfloat16))
-               for n, g, w in zip(SSD_BWD_NAMES, wants, plain)}
-        del plain
-        nc = states.shape[1]
-        f32 = dict(dtype=torch.float32, device=DEV)
-        scratch = [torch.zeros((B, nc, H, N, P), **f32),
-                   torch.zeros((B, S, H, N), **f32),
-                   torch.zeros((B, S, H, N), **f32),
-                   torch.zeros((B, nc, H), **f32)]
-        for offset in GUARD_OFFSETS:
-            g_in = [None if t is None else _guarded(t, offset)
-                    for t in (*ins, dy, dh, states, aend)]
-            g_out = [_guarded(w, offset) for w in wants]
-            g_ws = [_guarded(t, offset) for t in scratch]
-            # dx, ddt, dA, dB, dC, then dh0 where there is one
-            outs = [g[0] for g in g_out] + ([None] if h0 is None else [])
-            ptrs = [None if g is None else g[0] for g in g_in] + outs + \
-                [g[0] for g in g_ws]
+        entries = [("repro_ssd_bwd",
+                    ssd_bwd_slices(H // G, P, N, torch.bfloat16))]
+        if i == 0:
+            entries.append(("repro_ssd_bwd_earlier", H // G))
+        row = {"shape": [B, S, H, P, G, N], "h0_dh_final": extra,
+               "offsets_bytes": list(GUARD_OFFSETS), "repeats": repeats}
+        for entry, nsl in entries:
+            call, outs, scratch = _ssd_bwd_entry(entry, ins, dy, states,
+                                                 aend, dh, h0, nsl)
+            call()
+            torch.cuda.synchronize()
+            wants = [w for w in outs if w is not None]
+            row[entry] = {"design": ssd_bwd_design(P, N, torch.bfloat16)
+                          if entry == "repro_ssd_bwd" else "cuda-cores",
+                          "scaled_vs_plain": {
+                              n: _scaled_err(g, w, f"{what} {entry} {n}",
+                                             _ssd_bwd_tol(n, torch.bfloat16))
+                              for n, g, w in zip(SSD_BWD_NAMES, wants,
+                                                 plain)},
+                          "scratch": [list(t.shape) for t in scratch]}
+            fn = _ssd_bwd_fn(entry)
+            nc = states.shape[1]
+            for offset in GUARD_OFFSETS:
+                g_in = [None if t is None else _guarded(t, offset)
+                        for t in (*ins, dy, dh, states, aend)]
+                g_out = [_guarded(w, offset) for w in wants]
+                g_ws = [_guarded(t, offset) for t in scratch]
+                # dx, ddt, dA, dB, dC, then dh0 where there is one
+                outs_g = [g[0] for g in g_out] + ([None] if h0 is None
+                                                  else [])
+                ptrs = [None if g is None else g[0] for g in g_in] + \
+                    outs_g + [g[0] for g in g_ws]
 
-            def call():
-                rc = fn(*(None if t is None else t.data_ptr() for t in ptrs),
-                        nc, B, S, H, P, G, N, 1,
-                        torch.cuda.current_stream().cuda_stream)
-                check(rc == 0, f"repro_ssd_bwd returned {rc}")
-            _guarded_runs(call, [g for g in g_in if g is not None] + g_ws,
-                          g_out, wants, f"{what} offset {offset} B", repeats)
-            del g_in, g_out, g_ws, ptrs
-        out.append({"shape": [B, S, H, P, G, N], "h0_dh_final": extra,
-                    "scaled_vs_plain": err,
-                    "offsets_bytes": list(GUARD_OFFSETS),
-                    "repeats": repeats})
-        del ins, dy, states, aend, wants, scratch
+                def launch():
+                    rc = fn(*(None if t is None else t.data_ptr()
+                              for t in ptrs), nc, B, S, H, P, G, N, 1,
+                            torch.cuda.current_stream().cuda_stream)
+                    check(rc == 0, f"{entry} returned {rc}")
+                _guarded_runs(launch, [g for g in g_in if g is not None]
+                              + g_ws, g_out, wants,
+                              f"{what} {entry} offset {offset} B", repeats)
+                del g_in, g_out, g_ws, ptrs
+            del call, outs, scratch, wants
+        row["phase_s"] = time.perf_counter() - t0
+        out.append(row)
+        del ins, dy, states, aend, plain
         torch.cuda.empty_cache()
     return out
 
@@ -2254,9 +2421,10 @@ def train(cfg, shape=TRAIN_SHAPE, steps=TRAIN_STEPS,
     and gradients at 5e-4: at mamba2's 48 layers bf16 alone moves these
     gradients by 9-22 % of their max-abs (PERF.md's mamba2 training
     findings), so no bf16 limit could tell a wrong kernel from rounding.
-    The bf16 kernels the steps run are held by ``ssd_bwd_cases`` at the
-    trained shape, and the first step's bf16 loss within 2e-2 of the fp32
-    reference's.  ``full``: the loss must fall, and one more step is profiled;
+    That fp32 pass runs the SSD backward's fp32 design (the CUDA cores);
+    the bf16 steps run its tensor-core design, which ``ssd_bwd_cases``
+    holds at the trained shape, and the first step's bf16 loss within 2e-2
+    of the fp32 reference's.  ``full``: the loss must fall, and one more step is profiled;
     else (a depth cut, two steps) only the launches and the first step's
     parity are held."""
     t_start = time.perf_counter()
@@ -2353,7 +2521,7 @@ def train(cfg, shape=TRAIN_SHAPE, steps=TRAIN_STEPS,
         P, N = cfg.ssm.head_dim, cfg.ssm.d_state
         designs.update(ssd=ssd_design(P, N, torch.bfloat16),
                        ssd_bwd=ssd_bwd_design(P, N, torch.bfloat16))
-        want_design.update(ssd="mma.sync", ssd_bwd="cuda-cores")
+        want_design.update(ssd="mma.sync", ssd_bwd="mma.sync")
     check(designs == want_design,
           f"train: the kernels are on the designs {designs}, not "
           f"{want_design}")
@@ -2828,7 +2996,8 @@ def main() -> int:
                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                "library_ms": head["library_ms"], "shape": head["shape"],
                "dtype": head["dtype"]}
-        for k in ("bound_ms_fp32_cuda_cores", "bound_ms_with_saved_states"):
+        for k in ("bound_ms_fp32_cuda_cores", "bound_ms_with_saved_states",
+                  "earlier_ms"):
             if k in head:
                 out[k] = head[k]
         return out

@@ -21,11 +21,20 @@ flags.  The probes:
                   each gradient's worst ratio of error to chip_smoke.py's
                   elementwise bound (0.02 + 0.02 |want|), where it sits and
                   how many elements pass half of it; the shipped build must
-                  repeat bit for bit.
+                  repeat bit for bit;
+  ssd_bwd_heads   the bf16 SSD backward at mamba2-780m's trained shape with
+                  each block of stage (c') walking up to 48 heads of a
+                  group (shipped: one slice at H = 48, G = 1, no group sum
+                  of partials), 8, 16 or 24, each held to
+                  ``ssd_bwd_plain``, timed in turns with the shipped build;
+  ssd_bwd_parts   the same shape: the shipped build against variants of
+                  stage (c') that each leave one part of a head's work out
+                  (``SSD_BWD_PARTS``), timed in turns: what each part costs.
 
 Run from the repository root (no name runs every probe):
 
     python3 scripts/probe_variant.py [fwd_d256_pv] [dkv_d256_split]
+        [ssd_bwd_heads] [ssd_bwd_parts]
 
 Prints the card's name and power limit, then one JSON object per case,
 draw and round of turns, and exits non-zero without a CUDA device or on a
@@ -49,11 +58,12 @@ import chip_smoke as cs                                        # noqa: E402
 from repro_torch.kernels import build                          # noqa: E402
 
 
-def variant_library(probe: str, source: str, patched: str, old: str,
-                    new: str) -> ctypes.CDLL:
+def variant_library(probe: str, source: str, patched: str, old,
+                    new) -> ctypes.CDLL:
     """``source`` (a ``.cu`` of ``csrc/``) built from a scratch copy in which
     the one occurrence of ``old`` in ``patched`` (that file or a header it
-    includes) is replaced by ``new``."""
+    includes) is replaced by ``new`` (or of each of a list of ``old`` by
+    the ``new`` beside it)."""
     out = os.path.join(ROOT, "build", "probe_variant", probe)
     shutil.rmtree(out, ignore_errors=True)
     os.makedirs(out)
@@ -61,10 +71,14 @@ def variant_library(probe: str, source: str, patched: str, old: str,
         shutil.copy(build.CSRC / name, out)
     path = os.path.join(out, patched)
     text = open(path).read()
-    cs.check(text.count(old) == 1, f"{patched}: the text to replace for "
-                                   f"{probe} does not occur exactly once")
+    pairs = zip(old, new) if isinstance(old, (list, tuple)) else \
+        [(old, new)]
+    for o, n in pairs:
+        cs.check(text.count(o) == 1, f"{patched}: the text to replace for "
+                                     f"{probe} does not occur exactly once")
+        text = text.replace(o, n)
     with open(path, "w") as f:
-        f.write(text.replace(old, new))
+        f.write(text)
     lib = os.path.join(out, f"lib{probe}.so")
     done = subprocess.run(
         [build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-o", lib,
@@ -156,7 +170,117 @@ def dkv_d256_split(gen, draws: int = 6) -> None:
         torch.cuda.empty_cache()
 
 
-PROBES = {"fwd_d256_pv": fwd_d256_pv, "dkv_d256_split": dkv_d256_split}
+def ssd_bwd_heads(gen, heads=(8, 16, 24)) -> None:
+    """The bf16 SSD backward's stage (c') at mamba2-780m's trained shape
+    with each block walking ``BW_HEADS`` heads of its group (the largest
+    divisor of H / G up to it; shipped 48) against the shipped build: each
+    held to ssd_bwd_plain with chip_smoke.py's limits, the shipped build
+    repeating bit for bit, then timed in turns (shipped, variant, variant,
+    shipped), twice."""
+    shipped = "constexpr int BW_HEADS = 48;"
+    libs = {"shipped_48": build.load()}
+    for k in heads:
+        libs[f"heads_{k}"] = variant_library(
+            f"ssd_bwd_heads_{k}", "ssd.cu", "ssd.cu", shipped,
+            shipped.replace("48", str(k)))
+    B, S, H, P, G, N = cs.SSD_TRAINED
+    dt_ = torch.bfloat16
+    ins = cs._ssd_inputs(gen, B, S, H, P, G, N, dt_, served=True)
+    dy = cs._randn(gen, B, S, H, P, dtype=torch.float32)
+    _, _, states, aend = cs.ssd(*ins, keep_states=True)
+    want = cs.ssd_bwd_plain(*ins, dy)
+    calls = {}
+    for name, lib in libs.items():
+        k = int(name.split("_")[-1])
+        kk = max(d for d in range(1, min(k, H // G) + 1) if (H // G) % d == 0)
+        call, outs, _ = cs._ssd_bwd_entry("repro_ssd_bwd", ins, dy, states,
+                                          aend, nsl=H // G // kk, lib=lib)
+        call()
+        torch.cuda.synchronize()
+        row = {"probe": "ssd_bwd_heads", "variant": name,
+               "heads_per_block": kk, "shape": [B, S, H, P, G, N],
+               "scaled": cs._ssd_bwd_check(outs, want, dt_, name)}
+        if name == "shipped_48":
+            again = [o.clone() for o in outs[:5]]
+            call()
+            torch.cuda.synchronize()
+            row["repeats_bit_identical"] = all(
+                torch.equal(a, b) for a, b in zip(again, outs[:5]))
+            cs.check(row["repeats_bit_identical"],
+                     "ssd_bwd: two calls differ")
+        print(json.dumps(row), flush=True)
+        calls[name] = call
+    for name in libs:
+        if name == "shipped_48":
+            continue
+        for _ in range(2):
+            ms, ms_var = cs.time_in_turns(calls["shipped_48"], calls[name],
+                                          10)
+            print(json.dumps({"trained_ms": {"shipped_48": ms, name: ms_var,
+                                             "gain": 1 - ms / ms_var}}),
+                  flush=True)
+
+
+# parts of the bf16 SSD backward's stage (c') that ssd_bwd_parts leaves
+# out, one variant each: (texts of csrc/ssd.cu, their replacements)
+SSD_BWD_PARTS = {
+    "no_inputs": (["    {\n      // dy, G_c and h_c: every load of the thread in "
+                   "flight, then split"],
+                  ["    if (false) {\n      // dy, G_c and h_c: every load "
+                   "of the thread in flight, then split"]),
+    "no_tiles": (["    if (warp < 10) {\n      int i, jt;\n      "
+                  "bw_tile(warp, i, jt);\n      float q[2][4];"],
+                 ["    if (false) {\n      int i, jt;\n      "
+                  "bw_tile(warp, i, jt);\n      float q[2][4];"]),
+    "no_dx": (["for (int u = warp; u < Lay::DX_UNITS; u += BT_W) {"],
+              ["for (int u = warp; u < 0; u += BT_W) {"]),
+    "no_dB": (["for (int kb = rb; kb < 4; ++kb) {        // K^T is 0 below",
+               "        a_rows(a, Xs, LDP, r0, ks, lane);"],
+              ["for (int kb = 4; kb < 4; ++kb) {        // K^T is 0 below",
+               "        if (ks >= 0) continue;\n"
+               "        a_rows(a, Xs, LDP, r0, ks, lane);"]),
+    "no_dC": (["for (int kb = 0; kb <= rb; ++kb) {       // K is 0 past",
+               "        a_rows(ah, DYh, LDP, r0, ks, lane);"],
+              ["for (int kb = 0; kb < 0; ++kb) {       // K is 0 past",
+               "        if (ks >= 0) continue;\n"
+               "        a_rows(ah, DYh, LDP, r0, ks, lane);"]),
+    "no_ddt": (["    float gac = 0.f, zz = 0.f, colv = 0.f;\n    if (t < L) {"],
+               ["    float gac = 0.f, zz = 0.f, colv = 0.f;\n    if (false) {"]),
+}
+
+
+def ssd_bwd_parts(gen) -> None:
+    """Where the bf16 SSD backward's stage (c') spends its time at
+    mamba2-780m's trained shape: the shipped build against variants that
+    each leave one part of a head's work out (its outputs are then wrong
+    and are not checked) -- the loads of dy, G_c and h_c with their split
+    into hi / lo, the (m, l) tiles, the dx, dB and dC products, the ddt
+    pass -- timed in turns (shipped, variant, variant, shipped); a part's
+    share is the time its variant saves."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(SSD_BWD_PARTS)) as pool:
+        futs = {name: pool.submit(variant_library, f"ssd_bwd_{name}",
+                                  "ssd.cu", "ssd.cu", old, new)
+                for name, (old, new) in SSD_BWD_PARTS.items()}
+        libs = {name: f.result() for name, f in futs.items()}
+    B, S, H, P, G, N = cs.SSD_TRAINED
+    ins = cs._ssd_inputs(gen, B, S, H, P, G, N, torch.bfloat16, served=True)
+    dy = cs._randn(gen, B, S, H, P, dtype=torch.float32)
+    _, _, states, aend = cs.ssd(*ins, keep_states=True)
+    nsl = cs.ssd_bwd_slices(H // G, P, N, torch.bfloat16)
+    shipped, _, _ = cs._ssd_bwd_entry("repro_ssd_bwd", ins, dy, states,
+                                      aend, nsl=nsl)
+    for name, lib in libs.items():
+        call, _, _ = cs._ssd_bwd_entry("repro_ssd_bwd", ins, dy, states,
+                                       aend, nsl=nsl, lib=lib)
+        ms, ms_var = cs.time_in_turns(shipped, call, 10)
+        print(json.dumps({"probe": "ssd_bwd_parts", "variant": name,
+                          "shipped_ms": ms, "variant_ms": ms_var,
+                          "saved_ms": ms - ms_var}), flush=True)
+
+
+PROBES = {"fwd_d256_pv": fwd_d256_pv, "dkv_d256_split": dkv_d256_split,
+          "ssd_bwd_heads": ssd_bwd_heads, "ssd_bwd_parts": ssd_bwd_parts}
 
 
 def main(names) -> int:

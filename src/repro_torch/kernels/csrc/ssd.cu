@@ -742,17 +742,14 @@ ssd_output_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
 //   (d') ssd_bwd_group_kernel sums the partials over the heads of each
 //        group, and ssd_bwd_da_kernel dA over (batch, chunk), each in a
 //        fixed order: two calls give bit-identical outputs (no atomics).
-// What bounds it: operations.  At the trained shape (B = 2, S = 4096, H = 48,
-// P = 64, N = 128) the chunked backward needs about 28 GFLOP at its
-// cheapest chunk length, 0.42 ms at the CUDA cores' fp32 peak, against
-// 0.06-0.12 ms of bytes.  This first design keeps every product fp32 on the
-// CUDA cores, for bf16 inputs too (widened as they are loaded), in the
-// register tiles of the forward's CUDA-core stages; stage (c') holds x, dy,
-// B, C, h_c, G_c and three L x L arrays in shared memory (226,336 bytes at
-// P = 64, N = 128: one block an SM).  The per-head partials of dB / dC (2 x 201 MB
-// written and read at the trained shape) are the price of the group sum's
-// fixed order.  Left out: the tensor cores (bf16 products with split fp32
-// operands, as the forward's), fusing (d') into (c').
+// This design serves fp32 inputs (and bf16 at widths the tensor-core design
+// below is not instantiated for): every product fp32 on the CUDA cores, in
+// the register tiles of the forward's CUDA-core stages; stage (c') holds x,
+// dy, B, C, h_c, G_c and three L x L arrays in shared memory (226,336 bytes
+// at P = 64, N = 128: one block an SM).  Its bf16 instantiation served
+// mamba2's bf16 training until the tensor-core design replaced it (4.33 ms
+// at the trained shape, stage (c') 3.65 of it, PERF.md); it stays callable
+// as repro_ssd_bwd_earlier for one comparison in turns.
 
 constexpr int BW_NT = 256;
 
@@ -1193,22 +1190,23 @@ ssd_bwd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   if (t < live) ddt[(row0 + t) * H + h] = a_h * gac[t] + colV[t] + zv[t];
 }
 
-// (d') dB / dC (B, S, G, N) = the per-head partials summed over the heads of
-// each group in order; one thread per four elements
+// (d') dB / dC (B, S, G, N) = the nsl partials of each group, (B, S, G,
+// nsl, N) -- one per head (CUDA cores) or per slice of heads (tensor cores)
+// -- summed in order; one thread per four elements
 template <typename T>
 __global__ void __launch_bounds__(PASS_NT)
 ssd_bwd_group_kernel(const float* __restrict__ dB_part,
                      const float* __restrict__ dC_part, T* __restrict__ dB,
-                     T* __restrict__ dC, size_t n4, int H, int G, int N) {
+                     T* __restrict__ dC, size_t n4, int nsl, int G, int N) {
   const size_t i = (size_t)blockIdx.x * PASS_NT + threadIdx.x;
   if (i >= n4) return;
   const size_t e = 4 * i;
   const size_t row = e / ((size_t)G * N);
   const int rem = (int)(e % ((size_t)G * N));
-  const int g = rem / N, n = rem % N, hpg = H / G;
+  const int g = rem / N, n = rem % N;
   float4 sb = make_float4(0.f, 0.f, 0.f, 0.f), sc = sb;
-  for (int k = 0; k < hpg; ++k) {
-    const size_t at = (row * H + g * hpg + k) * N + n;
+  for (int k = 0; k < nsl; ++k) {
+    const size_t at = ((row * G + g) * nsl + k) * N + n;
     const float4 pb = *reinterpret_cast<const float4*>(dB_part + at);
     const float4 pc = *reinterpret_cast<const float4*>(dC_part + at);
     sb = make_float4(sb.x + pb.x, sb.y + pb.y, sb.z + pb.z, sb.w + pb.w);
@@ -1234,14 +1232,762 @@ ssd_bwd_da_kernel(const float* __restrict__ dA_part, float* __restrict__ dA,
   dA[h] = s;
 }
 
-// Which design serves the backward at (P, N, dtype): the CUDA cores, fp32
-// math, where stage (c') fits the shared memory.
+// ---------------------------------------------------------------------------
+// the backward on the tensor cores: bf16 x, B, C at the (P, N) that
+// bw_tc_smem names
+// ---------------------------------------------------------------------------
+//
+// The same five launches, with (a') and (c') on mma.sync m16n8k16 (fp32
+// accumulate).  x, B, C are bf16 and enter the products exactly; every
+// fp32 operand -- dy, the chunk states h_c and their gradients G_c, the
+// weights W and K -- is split into bf16 hi + lo (split_bf16x2), a product
+// with one fp32 operand taken as two products, with two as three (hi hi,
+// hi lo, lo hi); a scale is applied to the fp32 operand (exp(acum) dy in
+// (a')) or to the accumulator, never to a bf16 one.  E, V and their row
+// and column sums (the ddt and dA terms) stay fp32.
+//   (a') ssd_bwd_state_tc_kernel: u_c = C^T (exp(acum) dy), one block per
+//        (head, chunk, batch) as the forward's ssd_state_tc_kernel;
+//   (c') ssd_bwd_tc_kernel: one block per (slice of k heads of a group,
+//        chunk, batch) -- k = ssd_bwd_heads(H / G) -- walks its heads in
+//        order.  The group's B C^T is computed once per block; each head's
+//        L x L products are taken in the (m, l) orientation (x dy^T), so
+//        W^T and K^T come out row-major for the A operands of W^T dy and
+//        K^T C, and K B reads K^T with ldmatrix.trans.  The running dB and
+//        dC of the slice stay in registers across its heads and go out once
+//        as one fp32 partial per slice, (B, S, G * H / (G k), N);
+//   (d') ssd_bwd_group_kernel adds the slices in order (one slice where
+//        k = H / G), ssd_bwd_da_kernel dA.  No atomics: two calls are
+//        bit-identical.
+// Stage (c') at P = 64, N = 128 holds x, dy (hi, lo), B, C, h_c and G_c
+// (hi, lo), W^T and K^T (hi, lo), B C^T in fp32 and the row sums in 197 KB of
+// shared memory: one block of 16 warps an SM (two blocks of 8 warps would
+// need the running sums in shared memory, 64 KB more).  Sending for the
+// next head's inputs while a head computes (cp.async into 48 KB of fp32
+// staging), B C^T in registers and 16 x 32 dB / dC tiles a warp gained
+// under 2 %, and spilled (PERF.md, the SSD backward's findings).  What
+// bounds it: at mamba2's trained shape stage (c') moves ~615 MB (0.18 ms
+// at 3.35 TB/s) and its products take well under that on the tensor
+// cores, yet it runs 0.53 ms: the time spreads over the products, the hi
+// / lo splits and the block-wide barriers of one block an SM (nine a
+// head), none of them dominant.  Positions past S act as dt = 0, as in the
+// forward.
+
+constexpr int BT_NT = 512;   // stage (c'): 16 warps
+constexpr int BT_W = BT_NT / 32;
+// the largest number of heads a block of stage (c') walks: at H / G = 48,
+// 16, 24 and 48 (every head of a group: the group sum then converts one
+// partial) were within 1.3 % of each other, 8 2.5-3.3 % slower
+// (scripts/probe_variant.py ssd_bwd_heads; PERF.md)
+constexpr int BW_HEADS = 48;
+
+// heads per block of stage (c'): the largest divisor of H / G up to
+// BW_HEADS
+int ssd_bwd_heads(int hpg) {
+  int k = 1;
+  for (int d = 1; d <= hpg && d <= BW_HEADS; ++d)
+    if (hpg % d == 0) k = d;
+  return k;
+}
+
+template <int P, int N>
+struct BwTc {
+  static constexpr int L = SSD_C;
+  static constexpr int LDN = N + 8, LDP = P + 8, LDL = L + 8;  // bf16
+  static constexpr int LDCB = L + 4;                           // fp32
+  // output units of 16 rows x 16 columns a warp: dx (m, p), dB (m, n) and
+  // dC (l, n); the dB / dC units a warp owns for the whole block
+  static constexpr int DX_UNITS = 4 * (P / 16);
+  static constexpr int BC_UNITS = 4 * (N / 16);
+  static constexpr int UB = (BC_UNITS + BT_W - 1) / BT_W;
+  // byte offsets into the dynamic shared memory
+  static constexpr int B_OFF = 0;
+  static constexpr int C_OFF = B_OFF + L * LDN * 2;
+  static constexpr int X_OFF = C_OFF + L * LDN * 2;
+  static constexpr int DYH_OFF = X_OFF + L * LDP * 2;
+  static constexpr int DYL_OFF = DYH_OFF + L * LDP * 2;
+  static constexpr int GH_OFF = DYL_OFF + L * LDP * 2;
+  static constexpr int GL_OFF = GH_OFF + N * LDP * 2;
+  static constexpr int HH_OFF = GL_OFF + N * LDP * 2;
+  static constexpr int HL_OFF = HH_OFF + N * LDP * 2;
+  static constexpr int WH_OFF = HL_OFF + N * LDP * 2;
+  static constexpr int WL_OFF = WH_OFF + L * LDL * 2;
+  static constexpr int KH_OFF = WL_OFF + L * LDL * 2;
+  static constexpr int KL_OFF = KH_OFF + L * LDL * 2;
+  static constexpr int CB_OFF = KL_OFF + L * LDL * 2;
+  static constexpr int V_OFF = CB_OFF + L * LDCB * 4;
+  // fp32 vectors: dt, acum; colV, colE partials by l-block, rowE partials
+  // by m-block (4 x L each); z partials by dx unit column (P / 16 x L), gi
+  // partials by dC unit column (N / 16 x L); 16 warp sums of <G_c, h_c>
+  // and 8 scratch
+  static constexpr int VEC = 2 * L + 3 * 4 * L + (P / 16) * L +
+                             (N / 16) * L + BT_W + 8;
+  static constexpr int SMEM = V_OFF + VEC * 4;
+};
+
+template <int P, int N>
+constexpr bool bw_tc_fits() {
+  return BwTc<P, N>::SMEM <= MAX_SMEM;
+}
+static_assert(bw_tc_fits<64, 128>() && bw_tc_fits<16, 16>(),
+              "ssd_bwd_tc_kernel: shared memory of the instantiated (P, N)");
+static_assert(BwTc<64, 128>::SMEM == 197216,
+              "ssd_bwd_tc_kernel: 197,216 bytes at P = 64, N = 128");
+static_assert(SSD_C == 64 && BT_NT == 512,
+              "ssd_bwd_tc_kernel: 4 row blocks of 16, 16 warps, two warps "
+              "for the L-long vectors");
+
+// the (m-block, l-block) tile of the causal L x L products (l >= m) that
+// warp w < 10 owns
+__device__ __forceinline__ void bw_tile(int w, int& i, int& j) {
+  if (w < 4) {
+    i = 0; j = w;
+  } else if (w < 7) {
+    i = 1; j = w - 3;
+  } else if (w < 9) {
+    i = 2; j = w - 5;
+  } else {
+    i = 3; j = 3;
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// (a') u_c = C^T (exp(acum) dy), an (N, P) fp32 array: C exact, the scaled
+// dy split into hi / lo
+__global__ void __launch_bounds__(TC_NT)
+ssd_bwd_state_tc_kernel(const float* __restrict__ dt,
+                        const float* __restrict__ A,
+                        const bf16* __restrict__ Cm,
+                        const float* __restrict__ dy,
+                        float* __restrict__ gstates, int S, int H, int P,
+                        int G, int N) {
+  constexpr int L = SSD_C;
+  const int h = blockIdx.x, j = blockIdx.y, b = blockIdx.z;
+  const int g = h / (H / G);
+  const int c0 = j * L, live = min(L, S - c0);
+  const int LDP = P + 8, LDN = N + 8;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* dts = reinterpret_cast<float*>(smem);  // (L,)
+  float* acs = dts + L;                         // (L,)
+  bf16* Cs = reinterpret_cast<bf16*>(acs + L);  // (L, N)
+  bf16* Dh = Cs + L * LDN;                      // (L, P) hi(exp(acum) dy)
+  bf16* Dl = Dh + L * LDP;                      // (L, P) lo
+
+  const size_t row0 = (size_t)b * S + c0;
+  copy_chunk_rows_async(Cs, LDN * 2, Cm + (row0 * G + g) * N,
+                        (size_t)G * N * 2, N * 2, live);
+  cp_async_commit();
+  load_chunk_dt(dts, dt, row0 * H + h, H, live);
+  // dy's rows in flight while the running sum is taken: U float4 loads a
+  // thread at a time
+  constexpr int U = 4;
+  const int n4 = L * P / 4, t = threadIdx.x;
+  for (int i0 = 0; i0 < n4; i0 += U * TC_NT) {
+    float4 v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + t + u * TC_NT, r = (4 * i) / P, c = (4 * i) % P;
+      v[u] = i < n4 && r < live
+                 ? *reinterpret_cast<const float4*>(
+                       dy + ((row0 + r) * H + h) * P + c)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    if (i0 == 0) {
+      __syncthreads();
+      chunk_cumsum(dts, acs, A[h]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + t + u * TC_NT, r = (4 * i) / P, c = (4 * i) % P;
+      if (i < n4) {
+        const float e = expf(acs[r]);
+        uint32_t h0, l0, h1, l1;
+        split_bf16x2(e * v[u].x, e * v[u].y, h0, l0);
+        split_bf16x2(e * v[u].z, e * v[u].w, h1, l1);
+        *reinterpret_cast<uint2*>(Dh + r * LDP + c) = make_uint2(h0, h1);
+        *reinterpret_cast<uint2*>(Dl + r * LDP + c) = make_uint2(l0, l1);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // ---- u (N x P) = C^T (e dy): 16 x 16 output units over the 8 warps; A
+  // fragments of C^T and B fragments of e dy both read transposed ----
+  const int warp = t >> 5, lane = t & 31, mat = lane >> 3;
+  const int g8 = lane >> 2, t2 = (lane & 3) * 2;
+  float* out = gstates + (((size_t)b * gridDim.y + j) * H + h) * (size_t)N * P;
+  const int pu = P / 16;
+  for (int u = warp; u < (N / 16) * pu; u += TC_NT / 32) {
+    const int n0 = (u / pu) * 16, p0 = (u % pu) * 16;
+    float acc[2][4];
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[q][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < L / 16; ++ks) {
+      uint32_t ca[4], bh[4], bl[4];
+      ldmatrix_x4_trans(ca, Cs + (ks * 16 + (mat >> 1) * 8 + (lane & 7)) *
+                                     LDN + n0 + (mat & 1) * 8);
+      const int b_off = (ks * 16 + (mat & 1) * 8 + (lane & 7)) * LDP + p0 +
+                        (mat >> 1) * 8;
+      ldmatrix_x4_trans(bh, Dh + b_off);
+      ldmatrix_x4_trans(bl, Dl + b_off);
+      mma_m16n8k16(acc[0], ca, bh[0], bh[1]);
+      mma_m16n8k16(acc[0], ca, bl[0], bl[1]);
+      mma_m16n8k16(acc[1], ca, bh[2], bh[3]);
+      mma_m16n8k16(acc[1], ca, bl[2], bl[3]);
+    }
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<float2*>(out + (size_t)(n0 + g8 + 8 * r) * P + p0 +
+                                   q * 8 + t2) =
+            make_float2(acc[q][2 * r], acc[q][2 * r + 1]);
+  }
+}
+
+int bw_state_tc_smem(int P, int N) {
+  return 2 * SSD_C * 4 + SSD_C * (N + 8) * 2 + 2 * SSD_C * (P + 8) * 2;
+}
+
+// rows r0 .. r0 + 15 of an (rows, ld) bf16 array as the A fragment of
+// k-step ks (16 columns), stored row-major (M x K)
+__device__ __forceinline__ void a_rows(uint32_t (&a)[4], const bf16* s,
+                                       int ld, int r0, int ks, int lane) {
+  const int mat = lane >> 3;
+  ldmatrix_x4(a, s + (r0 + (lane & 7) + (mat & 1) * 8) * ld + ks * 16 +
+                     (mat >> 1) * 8);
+}
+// the A fragment of rows (M) m0 .. m0 + 15, k-step ks, of a matrix stored
+// transposed (K x M, row-major)
+__device__ __forceinline__ void a_cols(uint32_t (&a)[4], const bf16* s,
+                                       int ld, int m0, int ks, int lane) {
+  const int mat = lane >> 3;
+  ldmatrix_x4_trans(a, s + (ks * 16 + (mat >> 1) * 8 + (lane & 7)) * ld +
+                           m0 + (mat & 1) * 8);
+}
+// B fragments of two n8 blocks (n0 .. n0 + 15), k-step ks, of a matrix
+// stored N x K row-major: b[0], b[1] the first block, b[2], b[3] the second
+__device__ __forceinline__ void b_rows(uint32_t (&b)[4], const bf16* s,
+                                       int ld, int n0, int ks, int lane) {
+  const int mat = lane >> 3;
+  ldmatrix_x4(b, s + (n0 + (mat >> 1) * 8 + (lane & 7)) * ld + ks * 16 +
+                     (mat & 1) * 8);
+}
+// the same of a matrix stored K x N row-major
+__device__ __forceinline__ void b_cols(uint32_t (&b)[4], const bf16* s,
+                                       int ld, int n0, int ks, int lane) {
+  const int mat = lane >> 3;
+  ldmatrix_x4_trans(b, s + (ks * 16 + (mat & 1) * 8 + (lane & 7)) * ld + n0 +
+                           (mat >> 1) * 8);
+}
+
+// acc[2] (two n8 blocks) += a (bf16) times b (hi, lo)
+__device__ __forceinline__ void mma_1split(float (&acc)[2][4],
+                                           const uint32_t (&a)[4],
+                                           const uint32_t (&bh)[4],
+                                           const uint32_t (&bl)[4]) {
+  mma_m16n8k16(acc[0], a, bh[0], bh[1]);
+  mma_m16n8k16(acc[0], a, bl[0], bl[1]);
+  mma_m16n8k16(acc[1], a, bh[2], bh[3]);
+  mma_m16n8k16(acc[1], a, bl[2], bl[3]);
+}
+// acc[2] += (ah + al) (bh + bl) without al bl
+__device__ __forceinline__ void mma_2split(float (&acc)[2][4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[4],
+                                           const uint32_t (&bl)[4]) {
+  mma_1split(acc, ah, bh, bl);
+  mma_m16n8k16(acc[0], al, bh[0], bh[1]);
+  mma_m16n8k16(acc[1], al, bh[2], bh[3]);
+}
+// acc[2] += (ah + al) b, b bf16
+__device__ __forceinline__ void mma_asplit(float (&acc)[2][4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&b)[4]) {
+  mma_m16n8k16(acc[0], ah, b[0], b[1]);
+  mma_m16n8k16(acc[0], al, b[0], b[1]);
+  mma_m16n8k16(acc[1], ah, b[2], b[3]);
+  mma_m16n8k16(acc[1], al, b[2], b[3]);
+}
+
+__device__ __forceinline__ void zero_acc(float (&acc)[2][4]) {
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[q][e] = 0.f;
+}
+
+// (c') one block per (slice of k heads of a group, chunk, batch)
+template <int P, int N>
+__global__ void __launch_bounds__(BT_NT, 1)
+ssd_bwd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
+                  const float* __restrict__ A, const bf16* __restrict__ Bm,
+                  const bf16* __restrict__ Cm, const float* __restrict__ dy,
+                  const float* __restrict__ states,
+                  const float* __restrict__ gstates, bf16* __restrict__ dx,
+                  float* __restrict__ ddt, float* __restrict__ dB_part,
+                  float* __restrict__ dC_part, float* __restrict__ dA_part,
+                  int S, int H, int G, int k) {
+  using Lay = BwTc<P, N>;
+  constexpr int L = SSD_C;
+  constexpr int LDN = Lay::LDN, LDP = Lay::LDP, LDL = Lay::LDL;
+  constexpr int LDCB = Lay::LDCB;
+  const int hpg = H / G, nsl = hpg / k;
+  const int g = blockIdx.x / nsl, j = blockIdx.y, b = blockIdx.z;
+  const int c0 = j * L, live = min(L, S - c0);
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int g8 = lane >> 2, t2 = (lane & 3) * 2;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Bs = reinterpret_cast<bf16*>(smem + Lay::B_OFF);     // (L, N)
+  bf16* Cs = reinterpret_cast<bf16*>(smem + Lay::C_OFF);     // (L, N)
+  bf16* Xs = reinterpret_cast<bf16*>(smem + Lay::X_OFF);     // (L, P)
+  bf16* DYh = reinterpret_cast<bf16*>(smem + Lay::DYH_OFF);  // (L, P)
+  bf16* DYl = reinterpret_cast<bf16*>(smem + Lay::DYL_OFF);
+  bf16* Gh = reinterpret_cast<bf16*>(smem + Lay::GH_OFF);    // (N, P) G_c
+  bf16* Gl = reinterpret_cast<bf16*>(smem + Lay::GL_OFF);
+  bf16* Hh = reinterpret_cast<bf16*>(smem + Lay::HH_OFF);    // (N, P) h_c
+  bf16* Hl = reinterpret_cast<bf16*>(smem + Lay::HL_OFF);
+  bf16* WTh = reinterpret_cast<bf16*>(smem + Lay::WH_OFF);   // (m, l) W^T
+  bf16* WTl = reinterpret_cast<bf16*>(smem + Lay::WL_OFF);
+  bf16* KTh = reinterpret_cast<bf16*>(smem + Lay::KH_OFF);   // (m, l) K^T
+  bf16* KTl = reinterpret_cast<bf16*>(smem + Lay::KL_OFF);
+  float* CBs = reinterpret_cast<float*>(smem + Lay::CB_OFF); // (m, l) B C^T
+  float* dts = reinterpret_cast<float*>(smem + Lay::V_OFF);  // (L,)
+  float* acs = dts + L;                // running sum of dt * A
+  float* vpart = acs + L;              // [l-block][m] sums of V over l
+  float* ecpart = vpart + 4 * L;       // [l-block][m] sums of E over l
+  float* erpart = ecpart + 4 * L;      // [m-block][l] sums of E over m
+  float* zpart = erpart + 4 * L;       // [p-block][m] x . (B G_c)
+  float* gpart = zpart + (P / 16) * L; // [n-block][l] C . (dy h_c^T)
+  float* red = gpart + (N / 16) * L;   // (16,) warp sums of <G_c, h_c>
+  float* scr = red + BT_W;             // (8,)
+
+  const size_t row0 = (size_t)b * S + c0;
+  copy_chunk_rows_async(Bs, LDN * 2, Bm + (row0 * G + g) * N,
+                        (size_t)G * N * 2, N * 2, live);
+  copy_chunk_rows_async(Cs, LDN * 2, Cm + (row0 * G + g) * N,
+                        (size_t)G * N * 2, N * 2, live);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // ---- the group's B C^T in the (m, l) orientation, causal tiles only,
+  // once for the block's heads ----
+  if (warp < 10) {
+    int i, jt;
+    bw_tile(warp, i, jt);
+    float acc[2][4];
+    zero_acc(acc);
+#pragma unroll
+    for (int ks = 0; ks < N / 16; ++ks) {
+      uint32_t a[4], bb[4];
+      a_rows(a, Bs, LDN, i * 16, ks, lane);
+      b_rows(bb, Cs, LDN, jt * 16, ks, lane);
+      mma_m16n8k16(acc[0], a, bb[0], bb[1]);
+      mma_m16n8k16(acc[1], a, bb[2], bb[3]);
+    }
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<float2*>(CBs + (i * 16 + g8 + 8 * r) * LDCB +
+                                   jt * 16 + q * 8 + t2) =
+            make_float2(acc[q][2 * r], acc[q][2 * r + 1]);
+  }
+
+  // the running dB (rows m) and dC (rows l) of this warp's units: unit u =
+  // warp + 16 i is rows 16 (u % 4) .., columns 16 (u / 4) .. of N
+  constexpr int UB = Lay::UB;
+  float dB_run[UB][2][4], dC_run[UB][2][4];
+#pragma unroll
+  for (int i = 0; i < UB; ++i) {
+    zero_acc(dB_run[i]);
+    zero_acc(dC_run[i]);
+  }
+
+  constexpr int NT = BT_NT;
+  constexpr int NDY = L * P / 4, NST = N * P / 4;  // float4s of dy, a state
+  constexpr int UDY = (NDY + NT - 1) / NT, UST = (NST + NT - 1) / NT;
+
+  for (int hk = 0; hk < k; ++hk) {
+    const int h = g * hpg + (blockIdx.x % nsl) * k + hk;
+    const size_t blk = ((size_t)b * gridDim.y + j) * H + h;
+    __syncthreads();   // the previous head is done with the shared memory
+    copy_chunk_rows_async(Xs, LDP * 2, x + (row0 * H + h) * P,
+                          (size_t)H * P * 2, P * 2, live);
+    cp_async_commit();
+    load_chunk_dt(dts, dt, row0 * H + h, H, live);
+    {
+      // dy, G_c and h_c: every load of the thread in flight, then split
+      float4 vd[UDY], vg[UST], vh[UST];
+      const float4* gin =
+          reinterpret_cast<const float4*>(gstates + blk * (size_t)N * P);
+      const float4* hin =
+          reinterpret_cast<const float4*>(states + blk * (size_t)N * P);
+#pragma unroll
+      for (int u = 0; u < UDY; ++u) {
+        const int i = t + u * NT, r = (4 * i) / P, c = (4 * i) % P;
+        vd[u] = i < NDY && r < live
+                    ? *reinterpret_cast<const float4*>(
+                          dy + ((row0 + r) * H + h) * P + c)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < UST; ++u) {
+        const int i = t + u * NT;
+        const bool in = i < NST;
+        vg[u] = in ? gin[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+        vh[u] = in ? hin[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      float gh = 0.f;
+#pragma unroll
+      for (int u = 0; u < UDY; ++u) {
+        const int i = t + u * NT, r = (4 * i) / P, c = (4 * i) % P;
+        if (i < NDY) {
+          uint32_t h0, l0, h1, l1;
+          split_bf16x2(vd[u].x, vd[u].y, h0, l0);
+          split_bf16x2(vd[u].z, vd[u].w, h1, l1);
+          *reinterpret_cast<uint2*>(DYh + r * LDP + c) = make_uint2(h0, h1);
+          *reinterpret_cast<uint2*>(DYl + r * LDP + c) = make_uint2(l0, l1);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < UST; ++u) {
+        const int i = t + u * NT, n = (4 * i) / P, c = (4 * i) % P;
+        if (i < NST) {
+          gh += vg[u].x * vh[u].x + vg[u].y * vh[u].y + vg[u].z * vh[u].z +
+                vg[u].w * vh[u].w;
+          uint32_t h0, l0, h1, l1;
+          split_bf16x2(vg[u].x, vg[u].y, h0, l0);
+          split_bf16x2(vg[u].z, vg[u].w, h1, l1);
+          *reinterpret_cast<uint2*>(Gh + n * LDP + c) = make_uint2(h0, h1);
+          *reinterpret_cast<uint2*>(Gl + n * LDP + c) = make_uint2(l0, l1);
+          split_bf16x2(vh[u].x, vh[u].y, h0, l0);
+          split_bf16x2(vh[u].z, vh[u].w, h1, l1);
+          *reinterpret_cast<uint2*>(Hh + n * LDP + c) = make_uint2(h0, h1);
+          *reinterpret_cast<uint2*>(Hl + n * LDP + c) = make_uint2(l0, l1);
+        }
+      }
+      gh = warp_sum(gh);
+      if (lane == 0) red[warp] = gh;
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    const float a_h = A[h];
+    chunk_cumsum(dts, acs, a_h);
+    const float a_end = acs[L - 1];
+
+    // ---- (m, l) tiles: x dy^T, then W^T, K^T (split, to shared memory),
+    // V and E with their partial sums ----
+    if (warp < 10) {
+      int i, jt;
+      bw_tile(warp, i, jt);
+      float q[2][4];
+      zero_acc(q);
+#pragma unroll
+      for (int ks = 0; ks < P / 16; ++ks) {
+        uint32_t a[4], bh[4], bl[4];
+        a_rows(a, Xs, LDP, i * 16, ks, lane);
+        b_rows(bh, DYh, LDP, jt * 16, ks, lane);
+        b_rows(bl, DYl, LDP, jt * 16, ks, lane);
+        mma_1split(q, a, bh, bl);
+      }
+      float rowv[2] = {0.f, 0.f}, rowe[2] = {0.f, 0.f};
+      float cole[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+      for (int qq = 0; qq < 2; ++qq)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int m = i * 16 + g8 + 8 * r;
+          const float dtm = dts[m], am = acs[m];
+          const float2 cb = *reinterpret_cast<const float2*>(
+              CBs + m * LDCB + jt * 16 + qq * 8 + t2);
+          const float cbv[2] = {cb.x, cb.y};
+          float w[2], kk[2];
+#pragma unroll
+          for (int v = 0; v < 2; ++v) {
+            const int l = jt * 16 + qq * 8 + t2 + v;
+            const float d = acs[l] - am;
+            const float D = expf(fminf(fmaxf(d, -60.f), 0.f));
+            const bool on = l >= m;
+            const float qv = q[qq][2 * r + v];
+            w[v] = on ? cbv[v] * D * dtm : 0.f;
+            kk[v] = on ? qv * D * dtm : 0.f;
+            const float vv = on ? cbv[v] * D * qv : 0.f;
+            // a clipped exp passes no gradient to its argument
+            const float ee = on && d >= -60.f && d <= 0.f ? vv * dtm : 0.f;
+            rowv[r] += vv;
+            rowe[r] += ee;
+            cole[qq][v] += ee;
+          }
+          uint32_t hi, lo;
+          const int at = m * LDL + jt * 16 + qq * 8 + t2;
+          split_bf16x2(w[0], w[1], hi, lo);
+          *reinterpret_cast<uint32_t*>(WTh + at) = hi;
+          *reinterpret_cast<uint32_t*>(WTl + at) = lo;
+          split_bf16x2(kk[0], kk[1], hi, lo);
+          *reinterpret_cast<uint32_t*>(KTh + at) = hi;
+          *reinterpret_cast<uint32_t*>(KTl + at) = lo;
+        }
+      // sums over this tile's l (the 4 lanes of a row) and over its m (the
+      // 8 row groups of a column)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+#pragma unroll
+        for (int o = 1; o < 4; o <<= 1) {
+          rowv[r] += __shfl_xor_sync(0xffffffffu, rowv[r], o);
+          rowe[r] += __shfl_xor_sync(0xffffffffu, rowe[r], o);
+        }
+        if ((lane & 3) == 0) {
+          vpart[jt * L + i * 16 + g8 + 8 * r] = rowv[r];
+          ecpart[jt * L + i * 16 + g8 + 8 * r] = rowe[r];
+        }
+      }
+#pragma unroll
+      for (int qq = 0; qq < 2; ++qq)
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          float c = cole[qq][v];
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1)
+            c += __shfl_xor_sync(0xffffffffu, c, o);
+          if (g8 == 0) erpart[i * L + jt * 16 + qq * 8 + t2 + v] = c;
+        }
+    }
+    __syncthreads();
+
+    // ---- dx = W^T dy + dt R (B G_c), with z's partial x . (B G_c) ----
+    for (int u = warp; u < Lay::DX_UNITS; u += BT_W) {
+      const int m0 = (u & 3) * 16, p0 = (u >> 2) * 16;
+      float acc[2][4], st[2][4];
+      zero_acc(acc);
+      zero_acc(st);
+      for (int kb = u & 3; kb < 4; ++kb) {     // W^T is 0 below l = m
+        uint32_t wh[4], wl[4], bh[4], bl[4];
+        a_rows(wh, WTh, LDL, m0, kb, lane);
+        a_rows(wl, WTl, LDL, m0, kb, lane);
+        b_cols(bh, DYh, LDP, p0, kb, lane);
+        b_cols(bl, DYl, LDP, p0, kb, lane);
+        mma_2split(acc, wh, wl, bh, bl);
+      }
+#pragma unroll
+      for (int ks = 0; ks < N / 16; ++ks) {
+        uint32_t a[4], bh[4], bl[4];
+        a_rows(a, Bs, LDN, m0, ks, lane);
+        b_cols(bh, Gh, LDP, p0, ks, lane);
+        b_cols(bl, Gl, LDP, p0, ks, lane);
+        mma_1split(st, a, bh, bl);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int m = m0 + g8 + 8 * r;
+        const float f = dts[m] * expf(fmaxf(a_end - acs[m], -60.f));
+        float zp = 0.f;
+#pragma unroll
+        for (int qq = 0; qq < 2; ++qq) {
+          const int p = p0 + qq * 8 + t2;
+          const float2 xv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(Xs + m * LDP + p));
+          zp += xv.x * st[qq][2 * r] + xv.y * st[qq][2 * r + 1];
+          if (m < live)
+            *reinterpret_cast<uint32_t*>(dx + ((row0 + m) * H + h) * P + p) =
+                pack_bf16(acc[qq][2 * r] + f * st[qq][2 * r],
+                          acc[qq][2 * r + 1] + f * st[qq][2 * r + 1]);
+        }
+        zp += __shfl_xor_sync(0xffffffffu, zp, 1);
+        zp += __shfl_xor_sync(0xffffffffu, zp, 2);
+        if ((lane & 3) == 0) zpart[(u >> 2) * L + m] = zp;
+      }
+    }
+
+    // ---- dB += K^T C + dt R (x G_c^T); dC += K B + exp(acum) (dy h_c^T),
+    // with gi's partial C . (dy h_c^T) ----
+#pragma unroll
+    for (int ui = 0; ui < UB; ++ui) {
+      const int u = warp + BT_W * ui;
+      if (u >= Lay::BC_UNITS) break;
+      const int rb = u & 3, r0 = rb * 16, n0 = (u >> 2) * 16;
+      for (int kb = rb; kb < 4; ++kb) {        // K^T is 0 below l = m
+        uint32_t kh[4], kl[4], cb[4];
+        a_rows(kh, KTh, LDL, r0, kb, lane);
+        a_rows(kl, KTl, LDL, r0, kb, lane);
+        b_cols(cb, Cs, LDN, n0, kb, lane);
+        mma_asplit(dB_run[ui], kh, kl, cb);
+      }
+      float tmp[2][4];
+      zero_acc(tmp);
+#pragma unroll
+      for (int ks = 0; ks < P / 16; ++ks) {
+        uint32_t a[4], bh[4], bl[4];
+        a_rows(a, Xs, LDP, r0, ks, lane);
+        b_rows(bh, Gh, LDP, n0, ks, lane);
+        b_rows(bl, Gl, LDP, n0, ks, lane);
+        mma_1split(tmp, a, bh, bl);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int m = r0 + g8 + 8 * r;
+        const float f = dts[m] * expf(fmaxf(a_end - acs[m], -60.f));
+#pragma unroll
+        for (int qq = 0; qq < 2; ++qq) {
+          dB_run[ui][qq][2 * r] += f * tmp[qq][2 * r];
+          dB_run[ui][qq][2 * r + 1] += f * tmp[qq][2 * r + 1];
+        }
+      }
+      for (int kb = 0; kb <= rb; ++kb) {       // K is 0 past m = l
+        uint32_t kh[4], kl[4], bb[4];
+        a_cols(kh, KTh, LDL, r0, kb, lane);
+        a_cols(kl, KTl, LDL, r0, kb, lane);
+        b_cols(bb, Bs, LDN, n0, kb, lane);
+        mma_asplit(dC_run[ui], kh, kl, bb);
+      }
+      zero_acc(tmp);
+#pragma unroll
+      for (int ks = 0; ks < P / 16; ++ks) {
+        uint32_t ah[4], al[4], bh[4], bl[4];
+        a_rows(ah, DYh, LDP, r0, ks, lane);
+        a_rows(al, DYl, LDP, r0, ks, lane);
+        b_rows(bh, Hh, LDP, n0, ks, lane);
+        b_rows(bl, Hl, LDP, n0, ks, lane);
+        mma_2split(tmp, ah, al, bh, bl);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int l = r0 + g8 + 8 * r;
+        const float e = expf(acs[l]);
+        float gp = 0.f;
+#pragma unroll
+        for (int qq = 0; qq < 2; ++qq) {
+          const float2 cv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(
+                  Cs + l * LDN + n0 + qq * 8 + t2));
+          gp += cv.x * tmp[qq][2 * r] + cv.y * tmp[qq][2 * r + 1];
+          dC_run[ui][qq][2 * r] += e * tmp[qq][2 * r];
+          dC_run[ui][qq][2 * r + 1] += e * tmp[qq][2 * r + 1];
+        }
+        gp += __shfl_xor_sync(0xffffffffu, gp, 1);
+        gp += __shfl_xor_sync(0xffffffffu, gp, 2);
+        if ((lane & 3) == 0) gpart[(u >> 2) * L + l] = gp;
+      }
+    }
+    __syncthreads();
+
+    // ---- the gradient of acum, its reverse cumsum over the chunk (two
+    // warp scans), ddt and this head's share of dA; every sum in a fixed
+    // order ----
+    float gac = 0.f, zz = 0.f, colv = 0.f;
+    if (t < L) {
+      float zs = 0.f, gi = 0.f, cole = 0.f, rowe = 0.f;
+#pragma unroll
+      for (int pb = 0; pb < P / 16; ++pb) zs += zpart[pb * L + t];
+#pragma unroll
+      for (int nb = 0; nb < N / 16; ++nb) gi += gpart[nb * L + t];
+      for (int jb = t >> 4; jb < 4; ++jb) {
+        colv += vpart[jb * L + t];
+        cole += ecpart[jb * L + t];
+      }
+      for (int ib = 0; ib <= (t >> 4); ++ib) rowe += erpart[ib * L + t];
+      const float rest = a_end - acs[t];
+      zz = expf(fmaxf(rest, -60.f)) * zs;
+      const float s = rest >= -60.f ? dts[t] * zz : 0.f;
+      gac = rowe - cole + expf(acs[t]) * gi - s;
+      const float ss = warp_sum(s);
+      if (lane == 0) scr[warp] = ss;
+    }
+    __syncthreads();
+    float ga = 0.f;
+    if (t < L) {
+      if (t == L - 1) {
+        float ghs = 0.f;
+        for (int w = 0; w < BT_W; ++w) ghs += red[w];
+        gac += expf(a_end) * ghs + scr[0] + scr[1];
+      }
+      ga = gac;   // suffix sums inside each warp
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float v = __shfl_down_sync(0xffffffffu, ga, o);
+        if (lane + o < 32) ga += v;
+      }
+      if (lane == 0) scr[2 + warp] = ga;
+    }
+    __syncthreads();
+    if (t < L) {
+      if (warp == 0) ga += scr[3];
+      if (t < live) ddt[(row0 + t) * H + h] = a_h * ga + colv + zz;
+      const float da = warp_sum(dts[t] * ga);
+      if (lane == 0) scr[4 + warp] = da;
+    }
+    __syncthreads();
+    if (t == 0) dA_part[blk] = scr[4] + scr[5];
+  }
+
+  // ---- the slice's dB and dC, one fp32 partial ----
+  const int GS = G * nsl;
+#pragma unroll
+  for (int ui = 0; ui < UB; ++ui) {
+    const int u = warp + BT_W * ui;
+    if (u >= Lay::BC_UNITS) break;
+    const int r0 = (u & 3) * 16, n0 = (u >> 2) * 16;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + g8 + 8 * r;
+      if (row >= live) continue;
+      const size_t at = ((row0 + row) * GS + blockIdx.x) * N + n0 + t2;
+#pragma unroll
+      for (int qq = 0; qq < 2; ++qq) {
+        *reinterpret_cast<float2*>(dB_part + at + qq * 8) =
+            make_float2(dB_run[ui][qq][2 * r], dB_run[ui][qq][2 * r + 1]);
+        *reinterpret_cast<float2*>(dC_part + at + qq * 8) =
+            make_float2(dC_run[ui][qq][2 * r], dC_run[ui][qq][2 * r + 1]);
+      }
+    }
+  }
+}
+
+int bw_tc_smem(int P, int N) {
+  if (P == 64 && N == 128) return BwTc<64, 128>::SMEM;
+  if (P == 16 && N == 16) return BwTc<16, 16>::SMEM;
+  return 0;
+}
+
+// Which design serves the backward at (P, N, dtype): bf16 on the tensor
+// cores (DESIGN_MMA_SYNC) at the (P, N) the stage (c') kernel is
+// instantiated for -- mamba2's (64, 128) and the reference's test widths
+// (16, 16); fp32, and bf16 at other P and N (multiples of 4),
+// on the CUDA cores with fp32 math, where stage (c') fits the shared
+// memory.  No launch falls back to another.
 int ssd_bwd_design(int P, int N, int dtype) {
   if (P < 4 || P % 4 != 0 || N < 4 || N % 4 != 0) return DESIGN_NONE;
+  if (dtype == DTYPE_BF16 && bw_tc_smem(P, N) > 0) return DESIGN_MMA_SYNC;
   if ((dtype == DTYPE_F32 || dtype == DTYPE_BF16) &&
       bw_chunk_smem(P, N) <= MAX_SMEM)
     return DESIGN_CUDA_CORES;
   return DESIGN_NONE;
+}
+
+// the number of dB / dC partials per group of the design at (H / G, P, N,
+// dtype): one per head on the CUDA cores, one per slice of heads on the
+// tensor cores
+int ssd_bwd_slices(int hpg, int P, int N, int dtype) {
+  switch (ssd_bwd_design(P, N, dtype)) {
+    case DESIGN_MMA_SYNC:
+      return hpg / ssd_bwd_heads(hpg);
+    case DESIGN_CUDA_CORES:
+      return hpg;
+  }
+  return 0;
 }
 
 struct SsdBwdArgs {
@@ -1251,6 +1997,56 @@ struct SsdBwdArgs {
   float *ddt, *dA, *dh0, *gstates, *dB_part, *dC_part, *dA_part;
   int B, S, H, P, G, N, nc;
 };
+
+// the shared-memory limit of ssd_bwd_state_tc_kernel, which every (P, N)
+// launches: one record of what it was raised to, so that it only grows
+int allow_state_tc_smem(int bytes) {
+  static int configured = 0;
+  return allow_smem(ssd_bwd_state_tc_kernel, bytes, configured);
+}
+
+template <int P, int N>
+int launch_bwd_tc(const SsdBwdArgs& a, cudaStream_t st) {
+  static int cfg_c = 0;
+  const int ba = bw_state_tc_smem(a.P, a.N), bc = BwTc<P, N>::SMEM;
+  int rc = allow_state_tc_smem(ba);
+  if (rc == 0) rc = allow_smem(ssd_bwd_tc_kernel<P, N>, bc, cfg_c);
+  if (rc != 0) return rc;
+  ssd_bwd_state_tc_kernel<<<dim3(a.H, a.nc, a.B), TC_NT, ba, st>>>(
+      a.dt, a.A, (const bf16*)a.Cm, a.dy, a.gstates, a.S, a.H, a.P, a.G,
+      a.N);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  ssd_bwd_pass_kernel<<<dim3((a.N * a.P / 4 + PASS_NT - 1) / PASS_NT, a.H,
+                             a.B),
+                        PASS_NT, 0, st>>>(a.gstates, a.aend, a.dh_final,
+                                          a.dh0, a.nc, a.H, a.N * a.P);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  const int hpg = a.H / a.G, k = ssd_bwd_heads(hpg), nsl = hpg / k;
+  ssd_bwd_tc_kernel<P, N><<<dim3(a.G * nsl, a.nc, a.B), BT_NT, bc, st>>>(
+      (const bf16*)a.x, a.dt, a.A, (const bf16*)a.Bm, (const bf16*)a.Cm,
+      a.dy, a.states, a.gstates, (bf16*)a.dx, a.ddt, a.dB_part, a.dC_part,
+      a.dA_part, a.S, a.H, a.G, k);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  const size_t n4 = (size_t)a.B * a.S * a.G * a.N / 4;
+  ssd_bwd_group_kernel<bf16><<<(unsigned)((n4 + PASS_NT - 1) / PASS_NT),
+                               PASS_NT, 0, st>>>(a.dB_part, a.dC_part,
+                                                 (bf16*)a.dB, (bf16*)a.dC,
+                                                 n4, nsl, a.G, a.N);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  ssd_bwd_da_kernel<<<(a.H + PASS_NT - 1) / PASS_NT, PASS_NT, 0, st>>>(
+      a.dA_part, a.dA, a.B * a.nc, a.H);
+  return (int)cudaGetLastError();
+}
+
+int launch_tensor_cores_bwd(const SsdBwdArgs& a, cudaStream_t st) {
+  if (a.P == 64 && a.N == 128) return launch_bwd_tc<64, 128>(a, st);
+  if (a.P == 16 && a.N == 16) return launch_bwd_tc<16, 16>(a, st);
+  return ERR_UNSUPPORTED;
+}
 
 template <typename T>
 int launch_bwd(const SsdBwdArgs& a, cudaStream_t st) {
@@ -1279,8 +2075,8 @@ int launch_bwd(const SsdBwdArgs& a, cudaStream_t st) {
   const size_t n4 = (size_t)a.B * a.S * a.G * a.N / 4;
   ssd_bwd_group_kernel<T><<<(unsigned)((n4 + PASS_NT - 1) / PASS_NT),
                             PASS_NT, 0, st>>>(a.dB_part, a.dC_part,
-                                              (T*)a.dB, (T*)a.dC, n4, a.H,
-                                              a.G, a.N);
+                                              (T*)a.dB, (T*)a.dC, n4,
+                                              a.H / a.G, a.G, a.N);
   rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   ssd_bwd_da_kernel<<<(a.H + PASS_NT - 1) / PASS_NT, PASS_NT, 0, st>>>(
@@ -1404,9 +2200,9 @@ extern "C" int repro_ssd_design(int P, int N, int dtype) {
 // entering each chunk, each chunk's acum_end).  Outputs: dx (x's dtype), ddt
 // (B, S, H) fp32, dA (H,) fp32, dB / dC (B's dtype), dh0 (B, H, N, P) fp32
 // or null.  Scratch: gstates (B, n_chunks, H, N, P), dB_part / dC_part (B,
-// S, H, N), dA_part (B, n_chunks, H), all fp32.  All contiguous and 16-byte
-// aligned.  Five launches on `stream`.  Returns 0, a cudaError_t, or
-// ERR_UNSUPPORTED.  Does not synchronise.
+// S, G * repro_ssd_bwd_slices(), N), dA_part (B, n_chunks, H), all fp32.
+// All contiguous and 16-byte aligned.  Five launches on `stream`.  Returns
+// 0, a cudaError_t, or ERR_UNSUPPORTED.  Does not synchronise.
 extern "C" int repro_ssd_bwd(const void* x, const float* dt, const float* A,
                              const void* Bm, const void* Cm, const float* dy,
                              const float* dh_final, const float* states,
@@ -1425,12 +2221,48 @@ extern "C" int repro_ssd_bwd(const void* x, const float* dt, const float* A,
                      dA_part, B,     S,       H,       P,       G,
                      N,     n_chunks};
   cudaStream_t st = (cudaStream_t)stream;
-  if (ssd_bwd_design(P, N, dtype) != DESIGN_CUDA_CORES) return ERR_UNSUPPORTED;
-  return dtype == DTYPE_F32 ? launch_bwd<float>(a, st)
-                            : launch_bwd<bf16>(a, st);
+  switch (ssd_bwd_design(P, N, dtype)) {
+    case DESIGN_MMA_SYNC:
+      return launch_tensor_cores_bwd(a, st);
+    case DESIGN_CUDA_CORES:
+      return dtype == DTYPE_F32 ? launch_bwd<float>(a, st)
+                                : launch_bwd<bf16>(a, st);
+  }
+  return ERR_UNSUPPORTED;
 }
 
 // The design that repro_ssd_bwd launches for (P, N, dtype).
 extern "C" int repro_ssd_bwd_design(int P, int N, int dtype) {
   return ssd_bwd_design(P, N, dtype);
+}
+
+// The number of dB / dC partials per group (the slices of repro_ssd_bwd's
+// scratch) for H / G heads a group at (P, N, dtype); 0 where no design
+// serves it.
+extern "C" int repro_ssd_bwd_slices(int hpg, int P, int N, int dtype) {
+  return hpg > 0 ? ssd_bwd_slices(hpg, P, N, dtype) : 0;
+}
+
+// The replaced bf16 design (every product fp32 on the CUDA cores,
+// per-head dB / dC partials), kept beside the tensor-core design for one
+// comparison in turns: repro_ssd_bwd's arguments, bf16 x, B, C only,
+// dB_part / dC_part (B, S, H, N).
+extern "C" int repro_ssd_bwd_earlier(
+    const void* x, const float* dt, const float* A, const void* Bm,
+    const void* Cm, const float* dy, const float* dh_final,
+    const float* states, const float* aend, void* dx, float* ddt, float* dA,
+    void* dB, void* dC, float* dh0, float* gstates, float* dB_part,
+    float* dC_part, float* dA_part, int n_chunks, int B, int S, int H, int P,
+    int G, int N, int dtype, void* stream) {
+  if (dtype != DTYPE_BF16 || B <= 0 || S <= 0 || H <= 0 || G <= 0 ||
+      H % G != 0 || B > 65535 || H > 65535 ||
+      n_chunks != (S + SSD_C - 1) / SSD_C || n_chunks > 65535 || P < 4 ||
+      P % 4 != 0 || N < 4 || N % 4 != 0 || bw_chunk_smem(P, N) > MAX_SMEM)
+    return ERR_UNSUPPORTED;
+  const SsdBwdArgs a{x,     Bm,      Cm,      dt,      A,       dy,
+                     dh_final, states, aend,  dx,      dB,      dC,
+                     ddt,   dA,      dh0,     gstates, dB_part, dC_part,
+                     dA_part, B,     S,       H,       P,       G,
+                     N,     n_chunks};
+  return launch_bwd<bf16>(a, (cudaStream_t)stream);
 }

@@ -24,13 +24,16 @@ The backward has no TPU kernel: the reference differentiates its XLA scan
 (``ssd_chunked``, ``repro/models/ssm.py:38``).  ``ssd_bwd`` wraps the
 hand-written ``repro_ssd_bwd`` (the forward's three stages mirrored: each
 chunk's C^T dy, the state gradients passed from the last chunk to the first,
-each chunk's dx, ddt and per-head dB / dC, then the sums over the heads of a
-group and over the chunks for dA, in a fixed order); ``ssd_bwd_plain`` is
-the same analytical backward in chunked torch ops, independent of autograd;
-``SSDFn`` joins the forward and the backward.  It saves x, dt, A, B, C, h0
-and the forward's chunk states (under activation checkpointing these are
-dropped and the forward runs again in the backward pass).
-``ssd_bwd.launches`` counts as ``ssd.launches`` does.
+each chunk's dx, ddt and dB / dC, then the sums over a group's partials and
+over the chunks for dA, in a fixed order).  ``bwd_design`` says which
+design serves a width and dtype: bf16 on the tensor cores (split fp32
+operands as in the forward; one block walks a slice of a group's heads and
+keeps their dB / dC sums), fp32 on the CUDA cores (one partial per head).
+``ssd_bwd_plain`` is the same analytical backward in chunked torch ops,
+independent of autograd; ``SSDFn`` joins the forward and the backward.  It
+saves x, dt, A, B, C, h0 and the forward's chunk states (under activation
+checkpointing these are dropped and the forward runs again in the backward
+pass).  ``ssd_bwd.launches`` counts as ``ssd.launches`` does.
 """
 from __future__ import annotations
 
@@ -319,26 +322,41 @@ def ssd_bwd_plain(x, dt, A, Bm, Cm, dy, *, dh_final=None, h0=None,
 
 
 _bwd_fn = None
+_slices_fn = None
 
 
 def _bwd_kernel():
-    global _bwd_fn
+    global _bwd_fn, _slices_fn
     if _bwd_fn is None:
-        fn = build.load().repro_ssd_bwd
+        lib = build.load()
+        fn = lib.repro_ssd_bwd
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 8 + \
             [ctypes.c_void_p]
+        lib.repro_ssd_bwd_slices.restype = ctypes.c_int
+        lib.repro_ssd_bwd_slices.argtypes = [ctypes.c_int] * 4
+        _slices_fn = lib.repro_ssd_bwd_slices
         _bwd_fn = fn
     return _bwd_fn
 
 
 def bwd_design(head_dim: int, d_state: int, dtype) -> str:
-    """The design ``ssd_bwd`` launches for (P, N, dtype); builds the
-    library if needed."""
+    """The design ``ssd_bwd`` launches for (P, N, dtype): "mma.sync"
+    (tensor cores) or "cuda-cores"; builds the library if needed."""
     fn = build.load().repro_ssd_bwd_design
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] * 3
     return DESIGNS[fn(int(head_dim), int(d_state), _DTYPE_CODE[dtype])]
+
+
+def bwd_slices(heads_per_group: int, head_dim: int, d_state: int,
+               dtype) -> int:
+    """The number of dB / dC partials per group in ``ssd_bwd``'s scratch:
+    one per head on the CUDA cores, one per slice of heads that a block
+    walks on the tensor cores; builds the library if needed."""
+    _bwd_kernel()
+    return _slices_fn(int(heads_per_group), int(head_dim), int(d_state),
+                      _DTYPE_CODE[dtype])
 
 
 def ssd_bwd(x, dt, A, Bm, Cm, dy, *, states=None, aend=None, dh_final=None,
@@ -382,10 +400,12 @@ def ssd_bwd(x, dt, A, Bm, Cm, dy, *, states=None, aend=None, dh_final=None,
     dB, dC = torch.empty_like(Bm), torch.empty_like(Cm)
     dh0 = None if h0 is None else torch.empty((Bsz, H, N, P), **f32)
     # scratch: each chunk's C^T dy, overwritten with the gradient of the
-    # state leaving it; dB / dC per head; dA per (batch, chunk, head)
+    # state leaving it; dB / dC partials of each group; dA per (batch,
+    # chunk, head)
     gstates = torch.empty((Bsz, nc, H, N, P), **f32)
-    dB_part = torch.empty((Bsz, S, H, N), **f32)
-    dC_part = torch.empty((Bsz, S, H, N), **f32)
+    nsl = bwd_slices(H // G, P, N, x.dtype)
+    dB_part = torch.empty((Bsz, S, G * nsl, N), **f32)
+    dC_part = torch.empty((Bsz, S, G * nsl, N), **f32)
     dA_part = torch.empty((Bsz, nc, H), **f32)
 
     def ptr(t):

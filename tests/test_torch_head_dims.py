@@ -9,9 +9,10 @@ fallback).  The first test reads the lists the wrappers check
 ``BWD_HEAD_DIMS`` of ``flash_attention_bwd``) against each arch's paths:
 dense prefill (any attention block), paged decode (patterns of global
 attention only: ``mode="auto"`` picks paged serving for them) and training
-(any attention block in a pattern without ``ssm`` blocks, for which
-``make_train_step`` raises).  MoE archs raise when their blocks are built
-(ROADMAP queue A item 5) and are left out.
+(any attention block: every block kind trains, ``ssm`` blocks through the
+SSD backward, so a hybrid of SSM and attention blocks trains its attention
+through B2 too).  MoE archs raise when their blocks are built (ROADMAP queue
+A item 5) and are left out.
 
 The D = 160 tests hold the plain forward to the reference's Pallas flash
 kernel in interpret mode (2e-5) and the plain backward, through
@@ -28,7 +29,7 @@ from repro.kernels import ops as ref_ops
 from repro.kernels.ref import attention_ref as ref_attention_ref
 
 from repro_torch.configs import ASSIGNED_ARCHS, get_config
-from repro_torch.configs.base import ATTN, ATTN_LOCAL, SSM
+from repro_torch.configs.base import ATTN, ATTN_LOCAL
 from repro_torch.kernels import flash_attention_bwd as fab
 from repro_torch.kernels.flash_attention import (HEAD_DIMS as FWD_DIMS,
                                                  attention_plain)
@@ -41,7 +42,7 @@ def _paths(cfg):
     global_only = all(b == ATTN for b in cfg.pattern)
     return {"flash_attention": bool(attn),
             "paged_decode_attention": global_only,
-            "flash_attention_bwd": bool(attn) and SSM not in cfg.pattern}
+            "flash_attention_bwd": bool(attn)}
 
 
 # the full-size archs whose blocks the port builds (MoE FFNs raise)

@@ -252,6 +252,204 @@ def test_kernel_stages_match_the_plain_backward(B, S, H, G, with_h0,
                    name)
 
 
+def _split(t, lo=True):
+    """t ~ hi + lo, each rounded to bf16 (16 significant bits of t's 24);
+    ``lo=False`` drops the lo half."""
+    hi = t.bfloat16().float()
+    return hi, (t - hi).bfloat16().float() if lo else torch.zeros_like(t)
+
+
+def ssd_bwd_tc_walk(x, dt, A, Bm, Cm, dy, *, dh_final=None, h0=None,
+                    k=None, c=KC, lo=True):
+    """The tensor-core design of ``repro_ssd_bwd`` (bf16 x, B, C) as
+    ``csrc/ssd.cu`` arranges it, fp32 einsums on bf16-valued operands:
+    every fp32 operand of a product split into bf16 hi + lo (``_split``),
+    a product with one fp32 operand as two products, with two as three (hi
+    hi, hi lo, lo hi).  (a') u_c = C^T (exp(acum) dy), the scaled dy split;
+    (b') the reverse pass in fp32; (c') one block per (slice of ``k`` heads
+    of a group, chunk, batch row): the group's B C^T once, then each head
+    in order -- the (m, l) products x dy^T, W^T = (B C^T) D dt and K^T
+    (split), V and E in fp32 with their row and column sums; dx = W^T dy +
+    dt R (B G_c), z = R rowdot(x, B G_c); the slice's running dB += K^T C
+    + dt R (x G_c^T) and dC += K B + exp(acum) (dy h_c^T), gi = rowdot(C,
+    dy h_c^T), <G_c, h_c> in fp32, ddt and the chunk's share of dA;
+    (d') the slices' partials summed in order, dA over (batch, chunk).
+    Returns fp32 (dx, ddt, dA, dB, dC, dh0) before the kernel's cast of
+    dx, dB, dC to bf16.  ``lo=False`` drops every lo half."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    hpg = H // G
+    k = hpg if k is None else k
+    nsl = hpg // k
+    nc = -(-S // c)
+    pad = nc * c - S
+    f = torch.nn.functional.pad
+    xc = f(x, (0, 0, 0, 0, 0, pad)).reshape(Bsz, nc, c, H, P)
+    dyc = f(dy, (0, 0, 0, 0, 0, pad)).reshape(Bsz, nc, c, H, P)
+    dtc = f(dt, (0, 0, 0, pad)).reshape(Bsz, nc, c, H)
+    Bc = f(Bm, (0, 0, 0, 0, 0, pad)).reshape(Bsz, nc, c, G, N)
+    Cc = f(Cm, (0, 0, 0, 0, 0, pad)).reshape(Bsz, nc, c, G, N)
+    acum = torch.cumsum(dtc * A, dim=2)
+    aend = acum[:, :, -1]
+    w = dtc * torch.exp(torch.clamp(aend[:, :, None] - acum, min=-60.0))
+    local = torch.einsum("bjmhn,bjmhp->bjhnp",
+                         Bc.repeat_interleave(hpg, 3) * w[..., None], xc)
+    h = torch.zeros((Bsz, H, N, P)) if h0 is None else h0
+    states = []
+    for j in range(nc):
+        states.append(h)
+        h = torch.exp(aend[:, j])[..., None, None] * h + local[:, j]
+    states = torch.stack(states, 1)
+    # (a')
+    eh, el = _split(torch.exp(acum)[..., None] * dyc, lo)
+    Ch = Cc.repeat_interleave(hpg, 3)
+    gstates = torch.einsum("bjlhn,bjlhp->bjhnp", Ch, eh) + \
+        torch.einsum("bjlhn,bjlhp->bjhnp", Ch, el)
+    # (b')
+    g = torch.zeros((Bsz, H, N, P)) if dh_final is None else dh_final
+    gs = [None] * nc
+    for j in reversed(range(nc)):
+        gs[j] = g
+        g = torch.exp(aend[:, j])[..., None, None] * g + gstates[:, j]
+    gstates = torch.stack(gs, 1)
+    dh0 = None if h0 is None else g
+    # (c')
+    dx = torch.zeros((Bsz, nc, c, H, P))
+    ddt = torch.zeros((Bsz, nc, c, H))
+    dB_part = torch.zeros((Bsz, nc, c, G, nsl, N))
+    dC_part = torch.zeros((Bsz, nc, c, G, nsl, N))
+    dA_part = torch.zeros((Bsz, nc, H))
+    upper = torch.ones((c, c), dtype=torch.bool).triu()     # (m, l): l >= m
+    for b in range(Bsz):
+        for j in range(nc):
+            for gg in range(G):
+                Bs, Cs = Bc[b, j, :, gg], Cc[b, j, :, gg]
+                CBt = Bs @ Cs.T                             # (m, l)
+                for sl in range(nsl):
+                    dB_run = torch.zeros((c, N))
+                    dC_run = torch.zeros((c, N))
+                    for hh in range(gg * hpg + sl * k,
+                                    gg * hpg + (sl + 1) * k):
+                        X, DY = xc[b, j, :, hh], dyc[b, j, :, hh]
+                        dts, acs = dtc[b, j, :, hh], acum[b, j, :, hh]
+                        Gh, Gl = _split(gstates[b, j, hh], lo)
+                        Hh, Hl = _split(states[b, j, hh], lo)
+                        Dh, Dl = _split(DY, lo)
+                        d = acs[None, :] - acs[:, None]     # acum_l - acum_m
+                        D = torch.exp(torch.clamp(d, -60.0, 0.0))
+                        Qt = X @ Dh.T + X @ Dl.T            # (m, l)
+                        Wt = torch.where(upper, CBt * D * dts[:, None], 0.0)
+                        Kt = torch.where(upper, Qt * D * dts[:, None], 0.0)
+                        V = torch.where(upper, CBt * D * Qt, 0.0)
+                        E = torch.where(upper & (d >= -60.0) & (d <= 0.0),
+                                        V * dts[:, None], 0.0)
+                        colV, colE, rowE = V.sum(1), E.sum(1), E.sum(0)
+                        Wh, Wl = _split(Wt, lo)
+                        Kh, Kl = _split(Kt, lo)
+                        rest = acs[-1] - acs
+                        R = torch.exp(torch.clamp(rest, min=-60.0))
+                        st = Bs @ Gh + Bs @ Gl              # (m, p)
+                        dx[b, j, :, hh] = Wh @ Dh + Wh @ Dl + Wl @ Dh + \
+                            (dts * R)[:, None] * st
+                        z = R * (X * st).sum(1)
+                        XG = X @ Gh.T + X @ Gl.T            # (m, n)
+                        dB_run += Kh @ Cs + Kl @ Cs + (dts * R)[:, None] * XG
+                        DH = Dh @ Hh.T + Dh @ Hl.T + Dl @ Hh.T  # (l, n)
+                        e = torch.exp(acs)
+                        dC_run += Kh.T @ Bs + Kl.T @ Bs + e[:, None] * DH
+                        gi = (Cs * DH).sum(1)
+                        gh = (gstates[b, j, hh] * states[b, j, hh]).sum()
+                        s = torch.where(rest >= -60.0, dts * z, 0.0)
+                        gac = rowE - colE + e * gi - s
+                        gac[-1] += torch.exp(acs[-1]) * gh + s.sum()
+                        ga = torch.flip(torch.cumsum(torch.flip(gac, [0]), 0),
+                                        [0])
+                        ddt[b, j, :, hh] = A[hh] * ga + colV + z
+                        dA_part[b, j, hh] = (dts * ga).sum()
+                    dB_part[b, j, :, gg, sl] = dB_run
+                    dC_part[b, j, :, gg, sl] = dC_run
+    # (d')
+    dB, dC = dB_part.sum(4), dC_part.sum(4)
+    dA = dA_part.reshape(-1, H).sum(0)
+    return (dx.reshape(Bsz, nc * c, H, P)[:, :S],
+            ddt.reshape(Bsz, nc * c, H)[:, :S], dA,
+            dB.reshape(Bsz, nc * c, G, N)[:, :S],
+            dC.reshape(Bsz, nc * c, G, N)[:, :S], dh0)
+
+
+# dx, dB, dC leave the tensor-core design in bf16: its rounding (half a
+# unit in the last of 8 significant bits, 2^-9 of an element) bounds them,
+# twice that of the largest element; ddt, dA, dh0 stay fp32, at SSD_TOL of
+# chip_smoke.py (2e-4): other summation orders, the split's 2^-17
+TC_TOL = {"dx": 2 ** -8, "dB": 2 ** -8, "dC": 2 ** -8, "ddt": 2e-4,
+          "dA": 2e-4, "dh0": 2e-4}
+# STAGE_CASES at the reference's widths (P = N = 16, bf16 x, B, C), the
+# group's heads in one slice, and one case of two slices (k = 2 of 4)
+TC_CASES = [case + (None,) for case in STAGE_CASES] + \
+    [(2, 192, 4, 1, True, True, 2)]
+
+
+def _tc_case(B, S, H, G, with_h0, with_dh, seed):
+    ins, dy, dh, h0 = _inputs(B, S, H, 16, G, 16, seed=seed)
+    x, dt, A, Bm, Cm = _t(*ins)
+    x, Bm, Cm = (t.bfloat16().float() for t in (x, Bm, Cm))
+    return ((x, dt, A, Bm, Cm), torch.from_numpy(dy),
+            _t(dh)[0] if with_dh else None, _t(h0)[0] if with_h0 else None)
+
+
+def _tc_errors(got, want):
+    """Each output's error over its largest |want|, dx / dB / dC rounded
+    to bf16 as the kernel writes them."""
+    out = {}
+    for name, a, b in zip(NAMES, got, want):
+        if b is None:
+            assert a is None
+            continue
+        if name in ("dx", "dB", "dC"):
+            a = a.bfloat16().float()
+        out[name] = float((a - b).abs().max() / b.abs().max())
+    return out
+
+
+@pytest.mark.parametrize("B,S,H,G,with_h0,with_dh,k", TC_CASES)
+def test_tc_walk_matches_the_plain_backward(B, S, H, G, with_h0, with_dh,
+                                            k):
+    """The tensor-core design's arithmetic (split operands, k-head slices,
+    the group's B C^T once) against ssd_bwd_plain on the same bf16-valued
+    inputs, within TC_TOL of each output's max-abs; in the first case also
+    against jax.vjp of the reference's ssd_chunked at 5e-4 (the gradient
+    tolerance of ``tests/test_kernels_bwd.py``), before the bf16 cast."""
+    ins, dy, dh, h0 = _tc_case(B, S, H, G, with_h0, with_dh, seed=B * S + H)
+    got = ssd_bwd_tc_walk(*ins, dy, dh_final=dh, h0=h0, k=k)
+    want = ssd_bwd_plain(*ins, dy, dh_final=dh, h0=h0)
+    errs = _tc_errors(got, want)
+    assert all(v <= TC_TOL[n] for n, v in errs.items()), errs
+    if (B, S, H, G) != TC_CASES[0][:4]:
+        return
+
+    def f(*a):
+        return ref_ssm.ssd_chunked(*a, chunk=32)
+    (_, hf), vjp = jax.vjp(f, *(jnp.asarray(t.numpy()) for t in ins))
+    ref = vjp((jnp.asarray(dy.numpy()), jnp.zeros_like(hf)))
+    for name, a, b in zip(NAMES, got, ref):
+        _close_rel(a.numpy(), np.asarray(b), 5e-4, f"{name} vs jax.vjp")
+
+
+def test_tc_walk_without_lo_halves_fails_the_comparison():
+    """The same walk with every lo half dropped (the fp32 operands in bf16
+    alone) fails the comparison above: it can tell the split from plain
+    bf16."""
+    B, S, H, G, with_h0, with_dh, k = TC_CASES[-1]
+    ins, dy, dh, h0 = _tc_case(B, S, H, G, with_h0, with_dh, seed=7)
+    want = ssd_bwd_plain(*ins, dy, dh_final=dh, h0=h0)
+    split = _tc_errors(ssd_bwd_tc_walk(*ins, dy, dh_final=dh, h0=h0, k=k),
+                       want)
+    hi_only = _tc_errors(ssd_bwd_tc_walk(*ins, dy, dh_final=dh, h0=h0, k=k,
+                                         lo=False), want)
+    assert all(v <= TC_TOL[n] for n, v in split.items()), split
+    assert any(v > TC_TOL[n] for n, v in hi_only.items()), hi_only
+
+
 def test_kernel_stages_see_a_zeroed_carry():
     """The stage walk with the reverse pass's carry into the first chunk
     zeroed (its gradient computed from dh_final alone) is rejected by the
