@@ -30,8 +30,12 @@ per line, each with ``at_s``, the seconds since the script's imports ended:
                 backward cases at D = 256 in fp32 and bf16, its MQA heads
                 under windows, and its trained shape, 2 x 4096 tokens under
                 the 2048 window, where a dropped tail panel, a lost column
-                half (columns 128-255 of dq, dk and dv) and tiles skipped
-                under the window must be rejected); the RG-LRU backward
+                half (columns 128-255 of dq, dk and dv: one warpgroup's
+                dK and dV), tiles skipped under the window and a head
+                slice's dK/dV partial dropped or counted twice must be
+                rejected, two calls must be bit-identical, and the earlier
+                designs are held to the same comparison and timed in turns
+                with the shipped ones); the RG-LRU backward
                 against its plain reverse scan and autograd of the plain
                 forward (ragged S, with and without h0) and at the trained
                 shape, where a zeroed carry into chunk 1 must be rejected,
@@ -47,9 +51,7 @@ per line, each with ``at_s``, the seconds since the script's imports ended:
                 the reverse state pass, one chunk's dB partial dropped from
                 the group sum, dA summed over one batch row) and the
                 backward with its split fp32 operands in bf16 alone must be
-                rejected, and the replaced bf16 design (fp32 math on the
-                CUDA cores) is held to the same comparison and timed in
-                turns with the tensor-core design;
+                rejected;
   ptxas         registers and spills that ``nvcc -Xptxas -v`` reported for
                 the kernels of ``PTXAS_KERNELS``; a spill fails the run;
   memory_guards the bf16 warpgroup forward (served, with statistics),
@@ -58,9 +60,10 @@ per line, each with ``at_s``, the seconds since the script's imports ended:
                 and trained shapes under the 2048 window, a ragged windowed
                 one), and the RG-LRU backward at its trained shape and a
                 ragged one, and the SSD backward at its trained shape and a
-                ragged one with h0 and dh_final (its scratch guarded too;
-                the replaced design's entry point at the trained shape), on
-                tensors inside NaN guard bands at two alignments: no
+                ragged one with h0 and dh_final (their scratch guarded too:
+                the D = 256 dK/dV's head-slice partials, the SSD backward's
+                states and partials), on tensors inside NaN guard bands at
+                two alignments: no
                 guard may change, and every output must equal the unguarded
                 launch bit for bit, five times in a row (``memory_guards``,
                 ``rglru_guards``, ``ssd_bwd_guards``);
@@ -191,9 +194,10 @@ from repro_torch.kernels.registry import bucket_pow2           # noqa: E402
 from repro_torch.kernels.flash_attention import (              # noqa: E402
     attention_plain, design, flash_attention, live_key_tiles)
 from repro_torch.kernels.flash_attention_bwd import (          # noqa: E402
-    BWD_HEAD_DIMS, attention_bwd_plain, attention_delta,
-    attention_fwd_stats_plain, design_dkv, design_dq,
-    flash_attention_bwd_dkv, flash_attention_bwd_dq,
+    BWD_HEAD_DIMS, D256_DKV_BM, D256_DKV_BN, D256_DQ_BN, attention_bwd_plain,
+    attention_delta, attention_fwd_stats_plain, design_dkv, design_dq,
+    dkv_d256_slices, dkv_slices, flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
     flash_attention_fwd_stats, flash_attention_vjp)
 from repro_torch.kernels.paged_attention import (              # noqa: E402
     paged_attention_plain, paged_decode_attention, split_pieces)
@@ -269,6 +273,8 @@ PTXAS_KERNELS = [
     "flash_bwd_dkv_wgmma_kernelILi64", "flash_bwd_dq_wgmma_kernelILi160",
     "flash_bwd_dq_wgmma_kernelILi128", "flash_bwd_dq_wgmma_kernelILi64",
     "flash_bwd_dkv_wgmma_kernelILi256", "flash_bwd_dq_wgmma_kernelILi256",
+    "flash_bwd_dkv_d256_kernel", "flash_bwd_dq_d256_kernel",
+    "flash_bwd_dkv_sum_kernel",
     "flash_bwd_dkv_kernelIfLi256", "flash_bwd_dq_kernelIfLi256",
     "flash_fwd_kernelIfLi160", "flash_fwd_kernelIfLi256",
     "flash_bwd_dkv_kernelIfLi160", "flash_bwd_dq_kernelIfLi160",
@@ -708,7 +714,8 @@ BWD_CASES = [
     (1, 300, 520, 6, 2, 160, True, 200, torch.bfloat16),
     # recurrentgemma-2b's D = 256: the reference's four cases above in fp32
     # and bf16 at D = 256 (the fp32 CUDA cores at 32 x 32 tiles; bf16 dK/dV
-    # at 32-query tiles in two column halves, dQ at 32-key tiles), then its
+    # in items of 64 keys and a head slice, 64-query tiles, dQ at 48-key
+    # tiles), then its
     # MQA heads (G = 10) under windows, ragged S, S != T, G = 2 and 3
     (2, 128, 128, 4, 2, 256, True, 0, torch.float32),
     (1, 128, 128, 4, 4, 256, True, 0, torch.float32),
@@ -877,8 +884,8 @@ def _planted_faults(q, k, v, do, stats, kw, tile=64):
     return out
 
 
-# The D = 256 backward keeps dK and dV of columns 128-255 in a second block
-# per key block, and dQ's wide product covers them: a lost column half
+# The D = 256 backward keeps dK and dV of columns 128-255 in its second
+# consumer warpgroup, and dQ's wide product covers them: a lost column half
 # (zeroed in the plain result) must fail both comparisons.
 HALF_COLUMNS = {256: slice(128, 256)}
 
@@ -909,28 +916,29 @@ def _pair_block(q, k, v, do, stats, rows, keys, window):
 def _window_tile_faults(q, k, v, do, stats, want, window):
     """Faults of the D = 256 walks under the window, planted in the plain
     backward's result ``want`` (dq, dk, dv): the dQ block of 128 positions
-    whose first live key tile the window decides skips that tile (its 32
-    keys, csrc ``DqLayout<256>::BN``), and the dK/dV block of the 128 keys
-    at a quarter of the sequence skips the last 32-query tile
-    (``DkvLayout<256>::BM``) the window leaves it.  The scaled comparison
-    must reject each.  Returns their scaled errors."""
+    whose first live key tile the window decides skips that tile (its
+    ``D256_DQ_BN`` keys), and the dK/dV work items of the 64 keys at a
+    quarter of the sequence skip the last query tile (``D256_DKV_BM``
+    positions) the window leaves them.  The scaled comparison must reject
+    each.  Returns their scaled errors."""
     S, T = q.shape[1], k.shape[1]
-    bn = 32
+    bn = D256_DQ_BN
     m0 = 3 * S // 4 // 128 * 128       # m0 - window + 1: mid-tile at 2048
     n_begin = live_key_tiles(m0, 128, bn, T, True, window)[0]
     rows, keys = slice(m0, m0 + 128), slice(n_begin, n_begin + bn)
     dq_part = _pair_block(q, k, v, do, stats, rows, keys, window)[0]
     bad_dq = want[0].float().clone()
     bad_dq[:, m0:m0 + 128] -= dq_part
-    n0 = T // 4 - T // 4 % 128
-    m_end = min(S, n0 + 127 + window)
-    m_last = (m_end - 1) // 32 * 32
+    n0 = T // 4 - T // 4 % D256_DKV_BN
+    n1 = n0 + D256_DKV_BN
+    m_end = min(S, n1 - 1 + window)
+    m_last = (m_end - 1) // D256_DKV_BM * D256_DKV_BM
     _, dk_part, dv_part = _pair_block(q, k, v, do, stats,
-                                      slice(m_last, m_end),
-                                      slice(n0, n0 + 128), window)
+                                      slice(m_last, m_end), slice(n0, n1),
+                                      window)
     bad_dk, bad_dv = (w.float().clone() for w in want[1:])
-    bad_dk[:, n0:n0 + 128] -= dk_part
-    bad_dv[:, n0:n0 + 128] -= dv_part
+    bad_dk[:, n0:n1] -= dk_part
+    bad_dv[:, n0:n1] -= dv_part
     out = {}
     for n, bad, w in (("dq", bad_dq, want[0]), ("dk", bad_dk, want[1]),
                       ("dv", bad_dv, want[2])):
@@ -939,7 +947,38 @@ def _window_tile_faults(q, k, v, do, stats, want, window):
                                    f"under the window passes the scaled "
                                    f"comparison {out[n]}")
     out.update(dq_rows=[m0, m0 + 128], dq_keys=[n_begin, n_begin + bn],
-               dkv_keys=[n0, n0 + 128], dkv_rows=[m_last, m_end])
+               dkv_keys=[n0, n1], dkv_rows=[m_last, m_end])
+    return out
+
+
+def _slice_partial_faults(q, k, v, do, stats, want, window):
+    """Faults of the D = 256 dK/dV's head slices, planted in the plain
+    result ``want`` (dq, dk, dv; one KV head): the partial of the first
+    head slice of the 64 keys at a quarter of the sequence (its heads'
+    share of those keys' dK and dV, over every query) dropped from the
+    fixed-order sum, and counted twice.  The scaled comparison must reject
+    both.  Returns their scaled errors."""
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    check(K == 1, "the slice faults are planted for one KV head")
+    nsl = dkv_slices(B, T, H, K, D, q.dtype)
+    check(nsl == dkv_d256_slices(B, T, K, H // K),
+          f"the library's {nsl} head slices and dkv_d256_slices' differ")
+    gs = H // nsl + (H % nsl > 0)              # heads of slice 0
+    n0 = T // 4 - T // 4 % D256_DKV_BN
+    keys = slice(n0, n0 + D256_DKV_BN)
+    _, dk_part, dv_part = _pair_block(
+        q[:, :, :gs], k, v, do[:, :, :gs], tuple(x[:, :, :gs] for x in stats),
+        slice(0, S), keys, window)
+    out = {"slices": nsl, "heads": [0, gs], "keys": [n0, n0 + D256_DKV_BN]}
+    for fault, sign in (("dropped", -1.0), ("doubled", 1.0)):
+        for n, w, part in (("dk", want[1], dk_part), ("dv", want[2], dv_part)):
+            bad = w.float().clone()
+            bad[:, keys] += sign * part
+            out[f"{n}_{fault}"] = _scaled(bad, w)
+            check(not _passes(out[f"{n}_{fault}"]),
+                  f"planted fault: {n} with a head slice's partial {fault} "
+                  f"passes the scaled comparison {out[f'{n}_{fault}']}")
     return out
 
 
@@ -950,7 +989,11 @@ def bwd_main_shape(gen, cfg, B, S, window=0):
     256, window 2048).  Faults planted in the plain backward's result must
     fail the comparison: a skipped 64- or 128-key tile; at D = 160 and 256
     a dropped tail panel of o, dq, dk and dv; at D = 256 a lost column half
-    of dq, dk and dv and tiles skipped under the window."""
+    of dq, dk and dv, tiles skipped under the window and a head slice's
+    dK/dV partial dropped or doubled.  At D = 256 two calls must also be
+    bit-identical, and the earlier designs (the ``_earlier`` entry points) are
+    held to the same comparison and timed in turns with the shipped ones
+    (``earlier_ms``)."""
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = torch.bfloat16
     q, k, v, do = _bwd_inputs(gen, B, S, S, H, K, D, dt)
@@ -982,6 +1025,8 @@ def bwd_main_shape(gen, cfg, B, S, window=0):
                 faults["column_half"][n] = sc
             faults["window_tiles"] = _window_tile_faults(q, k, v, do, stats,
                                                          grads, window)
+            faults["slice_partials"] = _slice_partial_faults(
+                q, k, v, do, stats, grads, window)
         del o2, grads
     qkv_bytes = (q.numel() + k.numel() + v.numel()) * q.element_size()
     row_bytes = m.numel() * 4                  # one fp32 per query row
@@ -1029,7 +1074,56 @@ def bwd_main_shape(gen, cfg, B, S, window=0):
     fwd["scaled"] = {"o": scaled["o"]}
     dkv["scaled"] = {n: scaled[n] for n in ("dk", "dv")}
     dq["scaled"] = {"dq": scaled["dq"]}
+    if D in HALF_COLUMNS:
+        _d256_against_earlier(q, k, v, do, stats, kw, dkv, dq)
     return fwd, dkv, dq, faults
+
+
+def _d256_against_earlier(q, k, v, do, stats, kw, dkv, dq):
+    """The D = 256 backward at the trained shape: two calls bit-identical;
+    the earlier designs (``repro_flash_attention_bwd_dkv_earlier`` /
+    ``_dq_earlier``: two blocks per 128 keys, one per column half, each
+    recomputing the scores; 32-key dQ tiles) held to the plain version by
+    the same scaled comparison and timed in turns with the shipped ones.
+    Adds ``bit_identical_calls``, ``earlier_ms``, ``earlier_design`` and
+    ``earlier_scaled`` to the rows ``dkv`` and ``dq``."""
+    lib = build.load()
+    got = flash_attention_bwd_dkv(q, k, v, do, *stats, **kw) + \
+        (flash_attention_bwd_dq(q, k, v, do, *stats, **kw),)
+    again = flash_attention_bwd_dkv(q, k, v, do, *stats, **kw) + \
+        (flash_attention_bwd_dq(q, k, v, do, *stats, **kw),)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "flash bwd D=256: two calls on the same inputs differ")
+    e_kv = (torch.empty_like(k), torch.empty_like(v))
+    e_q = torch.empty_like(q)
+    earlier_kv = _entry(lib, "repro_flash_attention_bwd_dkv_earlier",
+                        (q, k, v, do) + stats + e_kv, kw["causal"],
+                        kw["window"])
+    earlier_q = _entry(lib, "repro_flash_attention_bwd_dq_earlier",
+                       (q, k, v, do) + stats + (e_q,), kw["causal"],
+                       kw["window"])
+    earlier_kv()
+    earlier_q()
+    torch.cuda.synchronize()
+    want = attention_bwd_plain(q, k, v, do, *stats, **kw)
+    dq["earlier_scaled"] = {"dq": _scaled_err(e_q, want[0],
+                                              "flash bwd D=256 earlier dq")}
+    dkv["earlier_scaled"] = {
+        n: _scaled_err(g, w, f"flash bwd D=256 earlier {n}")
+        for n, g, w in (("dk", e_kv[0], want[1]), ("dv", e_kv[1], want[2]))}
+    del want
+    dkv["ms"], dkv["earlier_ms"] = time_in_turns(
+        lambda: flash_attention_bwd_dkv(q, k, v, do, *stats, **kw),
+        earlier_kv, 3)
+    dq["ms"], dq["earlier_ms"] = time_in_turns(
+        lambda: flash_attention_bwd_dq(q, k, v, do, *stats, **kw),
+        earlier_q, 5)
+    dkv["earlier_design"] = ("two blocks per 128 keys, one per column half, "
+                             "each recomputing the scores")
+    dq["earlier_design"] = "32-key tiles, three stages"
+    for row in (dkv, dq):
+        row["bit_identical_calls"] = True
 
 
 # ---------------------------------------------------------------------------
@@ -1141,7 +1235,8 @@ def memory_guards(shapes=GUARD_SHAPES, repeats=GUARD_REPEATS):
     and every output, filled with NaN before each launch, must come out bit
     for bit as the launch on ordinary tensors gave it, ``repeats`` times in
     a row (a race would show as a difference).  Those outputs are held to
-    the plain versions first.  Then the same for the RG-LRU backward
+    the plain versions first.  The D = 256 dK/dV's head-slice partials lie
+    in a guard band too.  Then the same for the RG-LRU backward
     (``rglru_guards``)."""
     lib = build.load()
     gen = torch.Generator(device=DEV)
@@ -1156,10 +1251,12 @@ def memory_guards(shapes=GUARD_SHAPES, repeats=GUARD_REPEATS):
         what = f"memory_guards {(B, S, H, K, D, window)}"
         o2, m2, l2 = attention_fwd_stats_plain(q, k, v, **kw)
         pairs = [(served, o2), (o, o2), (m, m2), (l, l2)]
+        # entry point, inputs, outputs, scratch (after the outputs; None: a
+        # null pointer)
         launches = {
-            "fwd": ("repro_flash_attention_fwd", (q, k, v), (served,)),
+            "fwd": ("repro_flash_attention_fwd", (q, k, v), (served,), ()),
             "fwd_stats": ("repro_flash_attention_fwd_stats", (q, k, v),
-                          (o, m, l))}
+                          (o, m, l), ())}
         if D in BWD_HEAD_DIMS:
             delta = attention_delta(o, do)
             dk, dv = flash_attention_bwd_dkv(q, k, v, do, m, l, delta, **kw)
@@ -1168,23 +1265,33 @@ def memory_guards(shapes=GUARD_SHAPES, repeats=GUARD_REPEATS):
             pairs += zip((dq, dk, dv), attention_bwd_plain(
                 q, k, v, do, m, l, delta, **kw))
             stats = (m, l, delta)
+            nsl = dkv_slices(B, S, H, K, D, torch.bfloat16)
+            ws = torch.zeros(2 * nsl * k.numel(), device=DEV) \
+                if nsl > 1 else None
             launches["bwd_dkv"] = ("repro_flash_attention_bwd_dkv",
-                                   (q, k, v, do) + stats, (dk, dv))
+                                   (q, k, v, do) + stats, (dk, dv), (ws,))
             launches["bwd_dq"] = ("repro_flash_attention_bwd_dq",
-                                  (q, k, v, do) + stats, (dq,))
+                                  (q, k, v, do) + stats, (dq,), ())
         err = max(_err(a, b, 2e-2, what) for a, b in pairs)
         del o2, m2, l2, pairs
-        for name, (entry, ins, wants) in launches.items():
+        for name, (entry, ins, wants, scratch) in launches.items():
             for offset in GUARD_OFFSETS:
                 g_in = [_guarded(x, offset) for x in ins]
                 g_out = [_guarded(w, offset) for w in wants]
-                call = _entry(lib, entry, [g[0] for g in g_in + g_out],
+                g_ws = [None if x is None else _guarded(x, offset)
+                        for x in scratch]
+                call = _entry(lib, entry, [g[0] for g in g_in + g_out] +
+                              [None if g is None else g[0] for g in g_ws],
                               True, window)
-                _guarded_runs(call, g_in, g_out, wants,
-                              f"{what} {name} offset {offset} B", repeats)
-                del g_in, g_out, call
+                _guarded_runs(call, g_in + [g for g in g_ws if g], g_out,
+                              wants, f"{what} {name} offset {offset} B",
+                              repeats)
+                del g_in, g_out, g_ws, call
         out.append({"shape": [B, S, S, H, K, D], "window": window,
                     "max_abs_err": err, "launches": sorted(launches),
+                    "scratch": {n: [None if x is None else x.numel()
+                                    for x in s[3]]
+                                for n, s in launches.items() if s[3]},
                     "offsets_bytes": list(GUARD_OFFSETS),
                     "repeats": repeats})
         del q, k, v, do, served, o, m, l, launches
@@ -1743,12 +1850,11 @@ def _ssd_bwd_fn(entry, lib=None):
 def _ssd_bwd_entry(entry, ins, dy, states, aend, dh=None, h0=None,
                    nsl=None, lib=None):
     """A closure that launches the backward's C entry point ``entry``
-    (``repro_ssd_bwd``, or ``repro_ssd_bwd_earlier``: the replaced bf16
-    design, fp32 math on the CUDA cores) on these inputs, into outputs and
-    scratch of its own (``nsl`` dB / dC partials a group; by default one
-    per head, the replaced design's; ``lib``: another build of the kernels'
-    library); returns (call, outputs, scratch), outputs (dx, ddt, dA, dB,
-    dC, dh0 or None).  It holds the tensors."""
+    (``repro_ssd_bwd``) on these inputs, into outputs and scratch of its
+    own (``nsl`` dB / dC partials a group; by default one per head;
+    ``lib``: another build of the kernels' library); returns (call,
+    outputs, scratch), outputs (dx, ddt, dA, dB, dC, dh0 or None).  It
+    holds the tensors."""
     fn = _ssd_bwd_fn(entry, lib)
     x, dt, A, Bm, Cm = ins
     B, S, H, P = x.shape
@@ -1838,9 +1944,8 @@ def ssd_bwd_cases(gen):
     in fp32 against autograd of ssd_plain, each saved forward (the ssd
     kernel's states) held to ssd_plain first; then the trained shape: the
     forward against ssd_plain, the backward against ssd_bwd_plain, two
-    calls bit-identical, planted faults and the hi-only control rejected,
-    timed in turns with the replaced design (``repro_ssd_bwd_earlier``),
-    which is held to ssd_bwd_plain too."""
+    calls bit-identical, planted faults and the hi-only control
+    rejected."""
     t0 = time.perf_counter()
     rows = []
     for (B, S, H, P, G, N, served, with_h0, with_dh) in SSD_BWD_CASES:
@@ -1908,19 +2013,9 @@ def ssd_bwd_cases(gen):
     faults = _ssd_bwd_faults(ins, dy, want, dt_, L)
     max_err = float(max((g.float() - w).abs().max()
                         for g, w in zip(got[:5], want[:5])))
-    # the replaced design on the same inputs, held to the same comparison
-    earlier, e_outs, _ = _ssd_bwd_entry("repro_ssd_bwd_earlier", ins, dy,
-                                        states, aend)
-    earlier()
-    torch.cuda.synchronize()
-    _ssd_bwd_check(e_outs, want, dt_, "ssd_bwd earlier design")
-    earlier_err = float(max((g.float() - w).abs().max()
-                            for g, w in zip(e_outs[:5], want[:5])))
     fwd_ms = time_ms([lambda: ssd(*ins)], 10)
     fwd_plain_ms = time_ms([lambda: ssd_plain(*ins)], 2)
-    ms, earlier_ms = time_in_turns(
-        lambda: ssd_bwd(*ins, dy, states=states, aend=aend), earlier, 10)
-    del earlier, e_outs
+    ms = time_ms([lambda: ssd_bwd(*ins, dy, states=states, aend=aend)], 10)
     plain_ms = time_ms([lambda: ssd_bwd_plain(*ins, dy)], 2)
     staged = _profile(lambda: [ssd_bwd(*ins, dy, states=states, aend=aend)
                                for _ in range(10)], "ssd_bwd trained shape")
@@ -1958,9 +2053,6 @@ def ssd_bwd_cases(gen):
                     "max_abs_err": max_err, "scaled": scaled,
                     "bit_identical_calls": True,
                     "planted_faults_rejected": faults, "ms": ms,
-                    "earlier_ms": earlier_ms,
-                    "earlier_design": "five launches, cuda-cores",
-                    "earlier_max_abs_err": earlier_err,
                     "plain_ms": plain_ms, "library_ms": None,
                     "stage_ms_profiled": stage_ms,
                     "bound_ms_with_saved_states": _bound(
@@ -1985,12 +2077,11 @@ def ssd_bwd_guards(shapes=SSD_BWD_GUARD_SHAPES, repeats=GUARD_REPEATS):
     """The SSD backward's C entry point on guarded tensors, its scratch
     too, as ``memory_guards`` does for the attention kernels: no guard may
     change and every output must equal the unguarded launch bit for bit,
-    ``repeats`` times in a row; at the trained shape the replaced design's
-    entry point (``repro_ssd_bwd_earlier``, its per-head scratch) too."""
+    ``repeats`` times in a row."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(2)
     out = []
-    for i, (B, S, H, P, G, N, extra) in enumerate(shapes):
+    for B, S, H, P, G, N, extra in shapes:
         t0 = time.perf_counter()
         ins = _ssd_inputs(gen, B, S, H, P, G, N, torch.bfloat16, served=True)
         dy = _randn(gen, B, S, H, P, dtype=torch.float32)
@@ -2002,8 +2093,6 @@ def ssd_bwd_guards(shapes=SSD_BWD_GUARD_SHAPES, repeats=GUARD_REPEATS):
                  if w is not None]
         entries = [("repro_ssd_bwd",
                     ssd_bwd_slices(H // G, P, N, torch.bfloat16))]
-        if i == 0:
-            entries.append(("repro_ssd_bwd_earlier", H // G))
         row = {"shape": [B, S, H, P, G, N], "h0_dh_final": extra,
                "offsets_bytes": list(GUARD_OFFSETS), "repeats": repeats}
         for entry, nsl in entries:
@@ -2012,8 +2101,7 @@ def ssd_bwd_guards(shapes=SSD_BWD_GUARD_SHAPES, repeats=GUARD_REPEATS):
             call()
             torch.cuda.synchronize()
             wants = [w for w in outs if w is not None]
-            row[entry] = {"design": ssd_bwd_design(P, N, torch.bfloat16)
-                          if entry == "repro_ssd_bwd" else "cuda-cores",
+            row[entry] = {"design": ssd_bwd_design(P, N, torch.bfloat16),
                           "scaled_vs_plain": {
                               n: _scaled_err(g, w, f"{what} {entry} {n}",
                                              _ssd_bwd_tol(n, torch.bfloat16))

@@ -40,7 +40,8 @@
 //     conflicts on the score products), so fp32 never rounds through TF32.
 //   * bf16 inputs at D = 64, 128, 160 (stablelm-12b) and 256
 //     (recurrentgemma-2b): warpgroup products fed by the TMA
-//     (flash_bwd_dkv_wgmma_kernel and flash_bwd_dq_wgmma_kernel, below).
+//     (flash_bwd_dkv_wgmma_kernel and flash_bwd_dq_wgmma_kernel, below; at
+//     D = 256 flash_bwd_dkv_d256_kernel and flash_bwd_dq_d256_kernel).
 //   * bf16 at D = 32: all products run on the tensor cores with warp-level
 //     mma.sync (m16n8k16, fp32 accumulate), as the forward kernel does.
 //     dK/dV: each of 4 warps owns 16 keys and computes the transposed tiles
@@ -109,7 +110,9 @@
 //     3.9 % faster than one m64n32k16 a panel, timed in turns on the
 //     H100 (PERF.md).  Shared memory: K and V 81,920 bytes,
 //     three stages of q, dO and statistics 62,592.
-//   * D = 256: one warpgroup's dK and dV over all 256 columns would be
+//   * D = 256 (the earlier design, replaced by flash_bwd_dkv_d256_kernel;
+//     repro_flash_attention_bwd_dkv_earlier launches it for one comparison
+//     in turns): one warpgroup's dK and dV over all 256 columns would be
 //     2 x 128 fp32 registers a thread, past setmaxnreg 240.  So the grid
 //     has two blocks per 128 keys, one per column half (DkvLayout::NH):
 //     each recomputes S^T and dP^T over all four 64-column panels and
@@ -170,9 +173,11 @@
 //     panel.  A consumer thread holds 80 fp32 of dQ, 32 of S, 32 of dP and
 //     16 packed dS, so the 64-key tile stays; shared memory: q and dO
 //     81,920 bytes, three stages of K and V 122,880.
-//   * D = 256: q and dO of 128 positions take 131,072 bytes, and one stage
-//     of 64 keys of K and V 65,536, so the key tiles are DqLayout::BN = 32
-//     keys in three stages (98,304 bytes; 230,456 in all).  S and dP are
+//   * D = 256 (the earlier design, replaced by flash_bwd_dq_d256_kernel;
+//     repro_flash_attention_bwd_dq_earlier launches it): q and dO of 128
+//     positions take 131,072 bytes, and one stage of 64 keys of K and V
+//     65,536, so the key tiles are DqLayout::BN = 32 keys in three stages
+//     (98,304 bytes; 230,456 in all).  S and dP are
 //     m64n32k16 over 16 k-steps (16 + 16 fp32 a thread beside 128 of dQ);
 //     dQ += dS K is one m64n256k16 per 16 keys over the four panels, as the
 //     forward's P V.
@@ -181,6 +186,55 @@
 //   * Left out: fusing dQ into the dK/dV kernel with fp32 atomics (the
 //     gradients would no longer be deterministic), and a dS tile shared
 //     through shared memory between the two kernels.
+//
+// flash_bwd_dkv_d256_kernel (bf16, D = 256: recurrentgemma-2b's 10 query
+// heads over one KV head, trained under its 2048 window).  The earlier
+// design above spent its time, measured by leaving each part out in turn
+// (scripts/probe_variant.py dkv_d256_parts; PERF.md), on the score
+// products (0.39 of 1.27 ms: each of the two column-half blocks recomputes
+// them), the elementwise pass (0.30: no product runs beside it) and the
+// gradient products (0.17); its 128 blocks on 132 SMs wait for the
+// heaviest (680 pairs against a mean of 510); the q / dO loads cost 0.02
+// (so no TMA multicast).  What this design does:
+//   * One block per work item: 64 keys of one (batch, KV head) and one
+//     slice of the group's heads (dkv256_slices: enough items for about
+//     three per SM, four slices of 3, 3, 2, 2 heads at the trained shape:
+//     512 items), key tiles in order, so the heaviest come first; without
+//     the slices it is 0.25 ms slower.  With more than one slice each
+//     writes an fp32 partial of dK and dV, and flash_bwd_dkv_sum_kernel
+//     sums them in slice order: no atomics, bit-identical calls.
+//   * Pairs of (64 query positions, head): warpgroup cw computes S^T = K
+//     Q^T and dP^T = V dO^T for queries cw * 32 .. cw * 32 + 31 (two
+//     m64n32k16 chains over the four panels), its elementwise pass (p,
+//     dS^T), and P^T split into bf16 hi + lo (dV's first keys sum some
+//     20,000 terms; the dkv_d256_split probe) -- each score product
+//     once a pair, 10 D flops a live pair against the earlier 14 D.
+//   * Each warpgroup writes its queries' P^T hi, lo and dS^T to the
+//     exchange by stmatrix (K-major rows of 128 bytes, the 128-byte
+//     swizzle) between two named barriers, then accumulates dK and dV for
+//     128 of the 256 columns (64 + 64 fp32 a thread) over all 64 queries:
+//     three m64n128k16 per 16 queries, A from the exchange, B MN-major over
+//     two panels.
+//   * Tried and dropped (PERF.md): 32-query pairs with warpgroup 0
+//     computing S^T, P^T and dS^T and warpgroup 1 dP^T, handed over through
+//     shared memory (0.98 ms: warpgroup 0's elementwise pass and exchange
+//     in series while the other waits); issuing the next pair's score
+//     products before this pair's gradient products (ptxas serialised
+//     them: C7515); each warpgroup's own queries' gradient products from
+//     registers before the exchange (no gain).
+//   * Shared memory: K and V 65,536 bytes, two stages of q, dO (64
+//     positions) and statistics 132,608, the exchange 24,576: 223,784 in
+//     all.  ptxas: 168 registers (the launch bound), 0 spill.
+//
+// flash_bwd_dq_d256_kernel (bf16, D = 256).  The earlier dQ spent 0.17 of
+// 0.43 ms on its m64n32k16 score products, 0.08 on the elementwise pass,
+// 0.004 on K / V loads.  This design takes 48-key tiles (m64n48k16 score
+// products, three m64n256k16 for dS K) in two stages: 131,072 + 98,304
+// bytes.  Tried and dropped (PERF.md): the warpgroups taking turns
+// to issue their score products (0.014 ms slower); each tile's dQ product
+// issued behind the next tile's score products, with its A fragments in
+// registers (ptxas held them, C7519: 0.44 ms) or dS through shared memory
+// (32-key tiles: 0.48 ms).
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -1587,6 +1641,647 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 dK/dV at D = 256: the score products once per pair, split between the
+// consumer warpgroups by queries; key tiles in head slices, heaviest first
+// ---------------------------------------------------------------------------
+constexpr int D256_KV_BN = 64;      // keys of a work item: both warpgroups'
+constexpr int D256_KV_BM = 64;      // query positions of a pair: 32 each
+constexpr int D256_KV_STAGES = 2;   // (q, dO, statistics) tiles in flight
+constexpr int D256_ITEMS = 396;     // work items aimed at: 3 per H100 SM
+
+// byte offsets from the 1024-aligned base: K and V (four 64-column panels
+// of 64 keys), the stages' q and dO panels (64 positions), then the pair's
+// exchange: P^T hi, P^T lo and dS^T in bf16 (64 keys x 64 queries each,
+// K-major rows of 128 bytes under the 128-byte swizzle: the A operands of
+// the gradient products), the stages' statistics, the barriers.
+struct Dkv256Layout {
+  static constexpr int NP = 4, RB = 128, BM = D256_KV_BM;
+  static constexpr int KV_PANEL = D256_KV_BN * RB;
+  static constexpr int Q_PANEL = BM * RB;
+  static constexpr int X_TILE = D256_KV_BN * BM * 2;
+  static constexpr int K = 0;
+  static constexpr int V = K + NP * KV_PANEL;
+  static constexpr int Q = V + NP * KV_PANEL;
+  static constexpr int DO = Q + D256_KV_STAGES * NP * Q_PANEL;
+  static constexpr int XP = DO + D256_KV_STAGES * NP * Q_PANEL;
+  static constexpr int STATS = XP + 3 * X_TILE;
+  static constexpr int BAR = STATS + D256_KV_STAGES * 3 * BM * 4;
+  static constexpr int BYTES = BAR + (2 * D256_KV_STAGES + 1) * 8 + 1024;
+};
+static_assert(Dkv256Layout::BYTES <= 232448, "D = 256 dK/dV exceeds the SM");
+static_assert(Dkv256Layout::X_TILE % 1024 == 0,
+              "each exchanged tile starts on a 128-byte swizzle boundary");
+
+// Head slices per key tile: enough work items for about D256_ITEMS (three
+// per SM of an H100), at most one slice per head of the group.  Python's
+// flash_attention_bwd.dkv_d256_slices is the same rule.
+inline int dkv256_slices(int B, int T, int K, int G) {
+  const int tiles = B * K * ((T + D256_KV_BN - 1) / D256_KV_BN);
+  const int n = (D256_ITEMS + tiles - 1) / tiles;
+  return n < G ? n : G;
+}
+
+// S^T = K Q^T or dP^T = V dO^T of the 64 keys and one warpgroup's 32
+// queries (b_addr: their first row), over the 16 k-steps of the four
+// panels; one commit group
+__device__ __forceinline__ void dkv256_score(float (&acc)[16],
+                                             uint32_t a_addr,
+                                             uint32_t b_addr) {
+  using namespace hopper;
+  using Lay = Dkv256Layout;
+#pragma unroll
+  for (int ks = 0; ks < 16; ++ks)
+    wgmma_ss(acc,
+             panel_desc<64>(a_addr + (ks >> 2) * Lay::KV_PANEL +
+                                (ks & 3) * 32, 16),
+             panel_desc<64>(b_addr + (ks >> 2) * Lay::Q_PANEL +
+                                (ks & 3) * 32, 16),
+             ks > 0);
+  wgmma_commit();
+}
+
+// dV += P_hi^T dO + P_lo^T dO and dK += dS^T Q over one warpgroup's 128
+// columns (two 64-column panels, MN-major, the descriptor's LBO stepping
+// between them) and all 64 queries of the pair: per 16 queries three
+// m64n128k16, A from the exchange
+__device__ __forceinline__ void dkv256_grads(float (&dv)[64],
+                                             float (&dk)[64], uint32_t xp,
+                                             uint32_t q_cols,
+                                             uint32_t do_cols) {
+  using namespace hopper;
+  using Lay = Dkv256Layout;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < Lay::BM / 16; ++kk) {
+    const uint64_t bo = panel_desc<64>(do_cols + kk * 16 * Lay::RB,
+                                       Lay::Q_PANEL);
+    wgmma_ss_n128<1>(dv, panel_desc<64>(xp + kk * 32, 16), bo, 1);
+    wgmma_ss_n128<1>(dv, panel_desc<64>(xp + Lay::X_TILE + kk * 32, 16), bo,
+                     1);
+    wgmma_ss_n128<1>(dk, panel_desc<64>(xp + 2 * Lay::X_TILE + kk * 32, 16),
+                     panel_desc<64>(q_cols + kk * 16 * Lay::RB, Lay::Q_PANEL),
+                     1);
+  }
+  wgmma_commit();
+}
+
+__global__ void __launch_bounds__(WG_NT, 1)
+flash_bwd_dkv_d256_kernel(__grid_constant__ const CUtensorMap tq,
+                          __grid_constant__ const CUtensorMap tk,
+                          __grid_constant__ const CUtensorMap tv,
+                          __grid_constant__ const CUtensorMap tdo,
+                          const float* __restrict__ m,
+                          const float* __restrict__ l,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv,
+                          float* __restrict__ ws, int B, int S, int Tk, int H,
+                          int K, int G, int nsl, int causal, int window,
+                          float scale, float softcap) {
+  using namespace hopper;
+  using Lay = Dkv256Layout;
+  constexpr int D = 256, BM = Lay::BM, BN = D256_KV_BN, NP = Lay::NP;
+  constexpr int STAGES = D256_KV_STAGES;
+  // named barriers of the two consumer warpgroups (256 threads): both are
+  // done with the exchange of the last pair; both halves of this pair's
+  // exchange are written
+  constexpr int X_FREE = 1, X_READY = 2;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + Lay::BAR);
+  uint64_t* empty = full + STAGES;
+  uint64_t* kv_full = empty + STAGES;
+  float* stats = reinterpret_cast<float*>(sm + Lay::STATS);
+
+  // the work item: key tiles in order (n0 = 0, the heaviest under causal,
+  // first), within a tile the slices with one head more first
+  int item = blockIdx.x;
+  const int b = item % B;
+  item /= B;
+  const int kh = item % K;
+  item /= K;
+  const int sl = item % nsl;
+  const int n0 = item / nsl * BN;
+  const int gs = G / nsl + (sl < G % nsl);              // heads of the slice
+  const int g0 = sl * (G / nsl) + min(sl, G % nsl);     // its first head
+  int m_begin, m_end;
+  live_query_tiles(n0, BN, BM, S, causal, window, m_begin, m_end);
+  // (query tile, head of the slice) pairs: pair i is tile m_begin + (i /
+  // gs) * BM, head kh * G + g0 + i % gs
+  const int n_pairs =
+      m_begin < m_end ? (m_end - m_begin + BM - 1) / BM * gs : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 32);    // the producer warp's lanes
+      mbar_init(&empty[s], 8);    // lane 0 of each consumer warp
+    }
+    mbar_init(kv_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer: K, V once; then q, dO and statistics per pair ----
+    regs_dealloc<24>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        prefetch_tensor_map(&tq);
+        prefetch_tensor_map(&tk);
+        prefetch_tensor_map(&tv);
+        prefetch_tensor_map(&tdo);
+        mbar_arrive_expect_tx(kv_full, 2 * BN * D * 2);
+        for (int p = 0; p < NP; ++p) {
+          tma_load_3d(sm + Lay::K + p * Lay::KV_PANEL, &tk, kv_full,
+                      kh * D + p * 64, n0, b);
+          tma_load_3d(sm + Lay::V + p * Lay::KV_PANEL, &tv, kv_full,
+                      kh * D + p * 64, n0, b);
+        }
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int i = 0; i < n_pairs; ++i) {
+        const int m0 = m_begin + (i / gs) * BM;
+        const int hq = kh * G + g0 + i % gs;
+        mbar_wait(&empty[stage], phase ^ 1);
+        // rows past S: m = 0, 1/l = 1, delta = 0 (the mask zeroes their p)
+        float* st = stats + stage * 3 * BM;
+        for (int r = lane; r < BM; r += 32) {    // two rows a lane
+          const bool live = m0 + r < S;
+          const size_t at = ((size_t)b * S + (live ? m0 + r : 0)) * H + hq;
+          st[r] = live ? m[at] : 0.f;
+          st[BM + r] = live ? 1.f / l[at] : 1.f;
+          st[2 * BM + r] = live ? delta[at] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[stage], BM * D * 4);  // q, dO
+          for (int p = 0; p < NP; ++p) {
+            const int o = (stage * NP + p) * Lay::Q_PANEL;
+            tma_load_3d(sm + Lay::Q + o, &tq, &full[stage], hq * D + p * 64,
+                        m0, b);
+            tma_load_3d(sm + Lay::DO + o, &tdo, &full[stage],
+                        hq * D + p * 64, m0, b);
+          }
+        } else {
+          mbar_arrive(&full[stage]);
+        }
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: both own the same 64 keys.  Per pair warpgroup cw
+  // computes S^T and dP^T, P^T and dS^T for queries cw * 32 .. cw * 32 +
+  // 31 of the tile and writes them to the exchange; then it accumulates dK
+  // and dV of columns cw * 128 .. cw * 128 + 127 over all 64 queries ----
+  regs_alloc<240>();
+  const int t = threadIdx.x - 128;
+  // the warpgroup, made warp-uniform for the compiler (ptxas serialises
+  // wgmma in code it cannot prove warp-uniform, C7518)
+  const int cw = __shfl_sync(0xffffffffu, t >> 7, 0);
+  const int warp = (t >> 5) & 3;
+  const int lane = t & 31;
+  const int qc = (lane & 3) * 2;
+  const int row0 = warp * 16 + (lane >> 2);   // key n0 + row0 (+ 8)
+  const int qo = cw * 32;                     // this warpgroup's queries
+
+  // [j * 4 + e] is key n0 + row0 + 8 * (e >> 1), column cw * 128 + j * 8 +
+  // qc + (e & 1)
+  float dk_acc[64], dv_acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  const uint32_t base = smem_u32(sm);
+  const uint32_t col_ofs = cw * 2 * Lay::Q_PANEL;   // this warpgroup's panels
+  const float inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
+  mbar_wait(kv_full, 0);
+
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int i = 0; i < n_pairs; ++i) {
+    const int m0 = m_begin + (i / gs) * BM;
+    const int mq0 = m0 + qo;                  // this warpgroup's first query
+    const float* ms = stats + stage * 3 * BM + qo;
+    const uint32_t q_st = base + Lay::Q + stage * NP * Lay::Q_PANEL;
+    const uint32_t do_st = base + Lay::DO + stage * NP * Lay::Q_PANEL;
+    mbar_wait(&full[stage], phase);
+
+    // ---- S^T and dP^T (64 keys x 32 queries): [j * 4 + e] is key n0 +
+    // row0 + 8 * (e >> 1), query mq0 + j * 8 + qc + (e & 1) ----
+    float sc[16], dpt[16];
+    wgmma_fence();
+    dkv256_score(sc, base + Lay::K, q_st + qo * Lay::RB);
+    dkv256_score(dpt, base + Lay::V, do_st + qo * Lay::RB);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dpt);
+
+    // ---- P^T and dS^T: soft-cap, mask and exp branch-free, decided once
+    // per pair; the queries' statistics two at a time ----
+    if (softcap > 0.f) {
+      const float to_t = scale / softcap;
+#pragma unroll
+      for (int i2 = 0; i2 < 16; ++i2)
+        sc[i2] = softcap * tanhf(sc[i2] * to_t);
+    } else {
+#pragma unroll
+      for (int i2 = 0; i2 < 16; ++i2) sc[i2] *= scale;
+    }
+    uint32_t live = 0xffffu;
+    if (mq0 + 32 > S || n0 + BN > Tk || (causal && n0 + BN - 1 > mq0) ||
+        (window > 0 && mq0 + 31 - n0 >= window)) {
+      live = 0u;
+#pragma unroll
+      for (int i2 = 0; i2 < 16; ++i2) {
+        const int qpos = mq0 + (i2 >> 2) * 8 + qc + (i2 & 1);
+        const int kpos = n0 + row0 + 8 * ((i2 >> 1) & 1);
+        const int diff = qpos - kpos;
+        const bool dead = (qpos >= S) | (kpos >= Tk) |
+                          ((causal != 0) & (diff < 0)) |
+                          ((window > 0) & (diff >= window));
+        live |= (uint32_t)!dead << i2;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 mq = *reinterpret_cast<const float2*>(ms + j * 8 + qc);
+      const float2 il =
+          *reinterpret_cast<const float2*>(ms + BM + j * 8 + qc);
+      const float2 dl =
+          *reinterpret_cast<const float2*>(ms + 2 * BM + j * 8 + qc);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i2 = j * 4 + e;
+        const float x = sc[i2];
+        const float tc = x * inv_cap;
+        const float pv = (live >> i2) & 1u
+                             ? __expf(x - (e & 1 ? mq.y : mq.x)) *
+                                   (e & 1 ? il.y : il.x)
+                             : 0.f;
+        sc[i2] = pv;
+        dpt[i2] = pv * (dpt[i2] - (e & 1 ? dl.y : dl.x)) * (1.f - tc * tc) *
+                  scale;
+      }
+    }
+
+    // ---- this warpgroup's queries of P^T hi, lo and dS^T in bf16 into the
+    // exchange, once both warpgroups' gradient products of the last pair
+    // are done: row r (key), 16-byte chunk c (8 queries) of the row at
+    // c ^ (r % 8); per tile and 8-key half one stmatrix of the four 8 x 8
+    // blocks of the 32 queries ----
+    uint32_t hi[2][4], lo[2][4], dsb[2][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i2 = j * 4 + 2 * h;
+        hi[h][j] = pack_bf16(sc[i2], sc[i2 + 1]);
+        const __nv_bfloat162 h2 =
+            *reinterpret_cast<const __nv_bfloat162*>(&hi[h][j]);
+        lo[h][j] = pack_bf16(sc[i2] - __low2float(h2),
+                             sc[i2 + 1] - __high2float(h2));
+        dsb[h][j] = pack_bf16(dpt[i2], dpt[i2 + 1]);
+      }
+    named_bar_sync(X_FREE, 256);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // lane 8 i + rr: row rr of the block of queries qo + i * 8
+      const int r = warp * 16 + 8 * h + (lane & 7);
+      const uint32_t at = base + Lay::XP + r * 128 +
+                          (((cw * 4 + (lane >> 3)) ^ (lane & 7)) << 4);
+      stmatrix_x4(at, hi[h][0], hi[h][1], hi[h][2], hi[h][3]);
+      stmatrix_x4(at + Lay::X_TILE, lo[h][0], lo[h][1], lo[h][2], lo[h][3]);
+      stmatrix_x4(at + 2 * Lay::X_TILE, dsb[h][0], dsb[h][1], dsb[h][2],
+                  dsb[h][3]);
+    }
+    fence_proxy_async();
+    named_bar_sync(X_READY, 256);
+
+    // ---- dV += P^T dO, dK += dS^T Q over this warpgroup's columns ----
+    dkv256_grads(dv_acc, dk_acc, base + Lay::XP, q_st + col_ofs,
+                 do_st + col_ofs);
+    wgmma_wait<0>();
+    fence_regs(dk_acc);
+    fence_regs(dv_acc);
+    if (lane == 0) mbar_arrive(&empty[stage]);  // this warp is done
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  // ---- dK and dV of this warpgroup's columns: bf16 with one slice, else
+  // the slice's fp32 partial (summed in slice order by
+  // flash_bwd_dkv_sum_kernel) ----
+  const size_t n_all = (size_t)B * Tk * K * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = n0 + row0 + 8 * h;
+    if (key >= Tk) continue;
+    const size_t at = ((size_t)b * Tk + key) * K * D + (size_t)kh * D;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = cw * 128 + j * 8 + qc;
+      const float k0 = dk_acc[j * 4 + 2 * h], k1 = dk_acc[j * 4 + 2 * h + 1];
+      const float v0 = dv_acc[j * 4 + 2 * h], v1 = dv_acc[j * 4 + 2 * h + 1];
+      if (nsl == 1) {
+        *reinterpret_cast<uint32_t*>(dk + at + c) = pack_bf16(k0, k1);
+        *reinterpret_cast<uint32_t*>(dv + at + c) = pack_bf16(v0, v1);
+      } else {
+        *reinterpret_cast<float2*>(ws + sl * n_all + at + c) =
+            make_float2(k0, k1);
+        *reinterpret_cast<float2*>(ws + (nsl + sl) * n_all + at + c) =
+            make_float2(v0, v1);
+      }
+    }
+  }
+}
+
+// dK and dV (n elements each, bf16) from the nsl fp32 partials of
+// flash_bwd_dkv_d256_kernel, summed in slice order: four elements a thread
+__global__ void flash_bwd_dkv_sum_kernel(const float* __restrict__ ws,
+                                         __nv_bfloat16* __restrict__ dk,
+                                         __nv_bfloat16* __restrict__ dv,
+                                         size_t n, int nsl) {
+  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i >= n) return;
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {
+    const float* p = ws + (size_t)w * nsl * n + i;
+    float4 a = *reinterpret_cast<const float4*>(p);
+    for (int s = 1; s < nsl; ++s) {
+      const float4 x = *reinterpret_cast<const float4*>(p + s * n);
+      a.x += x.x;
+      a.y += x.y;
+      a.z += x.z;
+      a.w += x.w;
+    }
+    uint2 o;
+    o.x = pack_bf16(a.x, a.y);
+    o.y = pack_bf16(a.z, a.w);
+    *reinterpret_cast<uint2*>((w == 0 ? dk : dv) + i) = o;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 dQ at D = 256: 48-key tiles in two stages
+// ---------------------------------------------------------------------------
+constexpr int D256_Q_BN = 48;       // keys per tile
+constexpr int D256_Q_STAGES = 2;    // K/V tiles in flight
+
+// byte offsets from the 1024-aligned base: q and dO (four 64-column panels
+// of DQ_BM = 128 positions), two stages of K and V (48 keys a panel, 6144
+// bytes: six swizzle periods), the barriers
+struct Dq256Layout {
+  static constexpr int NP = 4, RB = 128, BN = D256_Q_BN;
+  static constexpr int Q_PANEL = DQ_BM * RB;
+  static constexpr int KV_PANEL = BN * RB;
+  static constexpr int Q = 0;
+  static constexpr int DO = Q + NP * Q_PANEL;
+  static constexpr int K = DO + NP * Q_PANEL;
+  static constexpr int V = K + D256_Q_STAGES * NP * KV_PANEL;
+  static constexpr int BAR = V + D256_Q_STAGES * NP * KV_PANEL;
+  static constexpr int BYTES = BAR + (2 * D256_Q_STAGES + 1) * 8 + 1024;
+};
+static_assert(Dq256Layout::BYTES <= 232448, "D = 256 dQ exceeds the SM");
+static_assert(Dq256Layout::KV_PANEL % 1024 == 0,
+              "each K/V panel starts on a 128-byte swizzle boundary");
+
+__global__ void __launch_bounds__(WG_NT, 1)
+flash_bwd_dq_d256_kernel(__grid_constant__ const CUtensorMap tq,
+                         __grid_constant__ const CUtensorMap tk,
+                         __grid_constant__ const CUtensorMap tv,
+                         __grid_constant__ const CUtensorMap tdo,
+                         const float* __restrict__ m,
+                         const float* __restrict__ l,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dq, int S, int Tk, int H,
+                         int G, int causal, int window, float scale,
+                         float softcap) {
+  using namespace hopper;
+  using Lay = Dq256Layout;
+  constexpr int D = 256, NP = Lay::NP, RB = Lay::RB, BN = Lay::BN;
+  constexpr int NB = BN / 8;          // 8-key column blocks of S and dP
+  constexpr int PK = BN / 16;         // k-steps of dS K
+  constexpr int STAGES = D256_Q_STAGES;
+  static_assert(NB * 4 <= 32, "the live mask is one bit per element");
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + Lay::BAR);
+  uint64_t* empty = full + STAGES;
+  uint64_t* q_full = empty + STAGES;
+
+  const int hq = blockIdx.x % H;
+  const int b = blockIdx.x / H;
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * DQ_BM;    // heaviest first
+  const int kh = hq / G;
+  int n_begin, n_end;
+  live_key_tiles(m0, DQ_BM, BN, Tk, causal, window, n_begin, n_end);
+  const int n_tiles = n_begin < n_end ? (n_end - n_begin + BN - 1) / BN : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);    // lane 0 of each consumer warp
+    }
+    mbar_init(q_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer: q and dO once, then the K/V ring ----
+    regs_dealloc<24>();
+    if (threadIdx.x == 0) {
+      prefetch_tensor_map(&tq);
+      prefetch_tensor_map(&tk);
+      prefetch_tensor_map(&tv);
+      prefetch_tensor_map(&tdo);
+      mbar_arrive_expect_tx(q_full, 2 * DQ_BM * D * 2);
+      for (int p = 0; p < NP; ++p) {
+        tma_load_3d(sm + Lay::Q + p * Lay::Q_PANEL, &tq, q_full,
+                    hq * D + p * 64, m0, b);
+        tma_load_3d(sm + Lay::DO + p * Lay::Q_PANEL, &tdo, q_full,
+                    hq * D + p * 64, m0, b);
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int n0 = n_begin + j * BN;
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_arrive_expect_tx(&full[stage], BN * D * 4);  // K, V
+        for (int p = 0; p < NP; ++p) {
+          const int o = (stage * NP + p) * Lay::KV_PANEL;
+          tma_load_3d(sm + Lay::K + o, &tk, &full[stage], kh * D + p * 64,
+                      n0, b);
+          tma_load_3d(sm + Lay::V + o, &tv, &full[stage], kh * D + p * 64,
+                      n0, b);
+        }
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: 64 query rows per warpgroup ----
+  regs_alloc<240>();
+  const int t = threadIdx.x - 128;
+  const int cw = t >> 7;
+  const int warp = (t >> 5) & 3;
+  const int lane = t & 31;
+  const int qc = (lane & 3) * 2;
+  const int r_lo = m0 + cw * 64;
+  int row[2];
+  row[0] = r_lo + warp * 16 + (lane >> 2);
+  row[1] = row[0] + 8;
+  float m_r[2], il_r[2], dl_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool live = row[h] < S;
+    const size_t at = ((size_t)b * S + (live ? row[h] : 0)) * H + hq;
+    m_r[h] = live ? m[at] : 0.f;
+    il_r[h] = live ? 1.f / l[at] : 1.f;
+    dl_r[h] = live ? delta[at] : 0.f;
+  }
+  const float inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
+
+  // dQ per panel: [p][j * 4 + e] is row row[e >> 1], column p * 64 + j * 8
+  // + qc + (e & 1)
+  float acc[NP][32];
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
+
+  const uint32_t q_addr = smem_u32(sm + Lay::Q) + cw * 64 * RB;
+  const uint32_t do_addr = smem_u32(sm + Lay::DO) + cw * 64 * RB;
+  mbar_wait(q_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int j = 0; j < n_tiles; ++j) {
+    const int n0 = n_begin + j * BN;
+    mbar_wait(&full[stage], phase);
+    const uint32_t k_addr =
+        smem_u32(sm + Lay::K) + stage * NP * Lay::KV_PANEL;
+    const uint32_t v_addr =
+        smem_u32(sm + Lay::V) + stage * NP * Lay::KV_PANEL;
+
+    // ---- S = Q K^T, dP = dO V^T (64 x 48), two commit groups: p is
+    // computed while dP is in flight; [nb * 4 + e] is row row[e >> 1], key
+    // n0 + nb * 8 + qc + (e & 1) ----
+    float s[NB * 4];
+    float dp[NB * 4];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 16; ++ks)
+      wgmma_ss(s,
+               panel_desc<64>(q_addr + (ks >> 2) * Lay::Q_PANEL +
+                                  (ks & 3) * 32, 16),
+               panel_desc<64>(k_addr + (ks >> 2) * Lay::KV_PANEL +
+                                  (ks & 3) * 32, 16),
+               ks > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int ks = 0; ks < 16; ++ks)
+      wgmma_ss(dp,
+               panel_desc<64>(do_addr + (ks >> 2) * Lay::Q_PANEL +
+                                  (ks & 3) * 32, 16),
+               panel_desc<64>(v_addr + (ks >> 2) * Lay::KV_PANEL +
+                                  (ks & 3) * 32, 16),
+               ks > 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s);
+
+    // ---- p (1 - (x/c)^2) scale, branch-free: the soft-cap and the mask
+    // are decided once per tile ----
+    if (softcap > 0.f) {
+      const float to_t = scale / softcap;
+#pragma unroll
+      for (int i = 0; i < NB * 4; ++i)
+        s[i] = softcap * tanhf(s[i] * to_t);
+    } else {
+#pragma unroll
+      for (int i = 0; i < NB * 4; ++i) s[i] *= scale;
+    }
+    uint32_t live = 0xffffffffu;
+    if (n0 + BN > Tk || (causal && n0 + BN - 1 > r_lo) ||
+        (window > 0 && r_lo + 63 - n0 >= window)) {
+      live = 0u;
+#pragma unroll
+      for (int i = 0; i < NB * 4; ++i) {
+        const int kpos = n0 + (i >> 2) * 8 + qc + (i & 1);
+        const int diff = row[(i >> 1) & 1] - kpos;
+        const bool dead = (kpos >= Tk) | ((causal != 0) & (diff < 0)) |
+                          ((window > 0) & (diff >= window));
+        live |= (uint32_t)!dead << i;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NB * 4; ++i) {
+      const int h = (i >> 1) & 1;
+      const float x = s[i];
+      const float pv = (live >> i) & 1u ? __expf(x - m_r[h]) * il_r[h] : 0.f;
+      const float tc = x * inv_cap;
+      s[i] = pv * (1.f - tc * tc) * scale;
+    }
+
+    // ---- dS, packed to bf16 as the A fragments of dQ += dS K ----
+    wgmma_wait<0>();
+    fence_regs(dp);
+    uint32_t da[PK][4];
+#pragma unroll
+    for (int kk = 0; kk < PK; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = 8 * kk + 2 * r;
+        const float dl = dl_r[r & 1];
+        da[kk][r] =
+            pack_bf16(s[i] * (dp[i] - dl), s[i + 1] * (dp[i + 1] - dl));
+      }
+
+    // ---- dQ += dS K: one m64n256k16 per 16 keys over the four panels ----
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < PK; ++kk)
+      wgmma_rs_panels<64, NP>(acc, da[kk], k_addr + kk * 16 * RB,
+                              Lay::KV_PANEL);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int p = 0; p < NP; ++p) fence_regs(acc[p]);
+    if (lane == 0) mbar_arrive(&empty[stage]);  // this warp is done
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row[h] < S) {
+      __nv_bfloat16* orow = dq + (((size_t)b * S + row[h]) * H + hq) * D;
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<uint32_t*>(orow + p * 64 + j * 8 + qc) =
+              pack_bf16(acc[p][j * 4 + 2 * h], acc[p][j * 4 + 2 * h + 1]);
+    }
+  }
+}
+
 template <typename KernelT>
 int configure(KernelT kernel, int bytes, bool& done) {
   if (done) return 0;
@@ -1727,6 +2422,65 @@ int launch_dq_wgmma(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// bf16 dK/dV at D = 256: one launch over the work items, then (with more
+// than one head slice) the fixed-order sum of the slices' partials from
+// ws, 2 * nsl * B * Tk * K * 256 floats (dkv256_slices)
+int launch_dkv_d256(const void* q, const void* k, const void* v,
+                    const void* dout, const float* m, const float* l,
+                    const float* delta, void* dk, void* dv, float* ws, int B,
+                    int S, int Tk, int H, int K, int causal, int window,
+                    float softcap, cudaStream_t stream) {
+  using Lay = Dkv256Layout;
+  const int G = H / K;
+  const int nsl = dkv256_slices(B, Tk, K, G);
+  if (nsl > 1 && ws == nullptr) return ERR_UNSUPPORTED;
+  CUtensorMap tq, tk, tv, tdo;
+  int rc = hopper::make_tensor_map(&tq, q, B, S, H * 256, Lay::BM);
+  if (rc == 0)
+    rc = hopper::make_tensor_map(&tdo, dout, B, S, H * 256, Lay::BM);
+  if (rc == 0)
+    rc = hopper::make_tensor_map(&tk, k, B, Tk, K * 256, D256_KV_BN);
+  if (rc == 0)
+    rc = hopper::make_tensor_map(&tv, v, B, Tk, K * 256, D256_KV_BN);
+  if (rc != 0) return rc;
+  static bool configured = false;
+  rc = configure(flash_bwd_dkv_d256_kernel, Lay::BYTES, configured);
+  if (rc != 0) return rc;
+  const int items = (Tk + D256_KV_BN - 1) / D256_KV_BN * nsl * K * B;
+  flash_bwd_dkv_d256_kernel<<<items, WG_NT, Lay::BYTES, stream>>>(
+      tq, tk, tv, tdo, m, l, delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
+      ws, B, S, Tk, H, K, G, nsl, causal, window, 1.0f / 16.0f, softcap);
+  rc = (int)cudaGetLastError();
+  if (rc != 0 || nsl == 1) return rc;
+  const size_t n = (size_t)B * Tk * K * 256;
+  flash_bwd_dkv_sum_kernel<<<(unsigned)((n / 4 + 255) / 256), 256, 0,
+                             stream>>>(ws, (__nv_bfloat16*)dk,
+                                       (__nv_bfloat16*)dv, n, nsl);
+  return (int)cudaGetLastError();
+}
+
+int launch_dq_d256(const void* q, const void* k, const void* v,
+                   const void* dout, const float* m, const float* l,
+                   const float* delta, void* dq, int B, int S, int Tk, int H,
+                   int K, int causal, int window, float softcap,
+                   cudaStream_t stream) {
+  using Lay = Dq256Layout;
+  CUtensorMap tq, tk, tv, tdo;
+  int rc = hopper::make_tensor_map(&tq, q, B, S, H * 256, DQ_BM);
+  if (rc == 0) rc = hopper::make_tensor_map(&tdo, dout, B, S, H * 256, DQ_BM);
+  if (rc == 0) rc = hopper::make_tensor_map(&tk, k, B, Tk, K * 256, Lay::BN);
+  if (rc == 0) rc = hopper::make_tensor_map(&tv, v, B, Tk, K * 256, Lay::BN);
+  if (rc != 0) return rc;
+  static bool configured = false;
+  rc = configure(flash_bwd_dq_d256_kernel, Lay::BYTES, configured);
+  if (rc != 0) return rc;
+  const dim3 grid(H * B, (S + DQ_BM - 1) / DQ_BM);
+  flash_bwd_dq_d256_kernel<<<grid, WG_NT, Lay::BYTES, stream>>>(
+      tq, tk, tv, tdo, m, l, delta, (__nv_bfloat16*)dq, S, Tk, H, H / K,
+      causal, window, 1.0f / 16.0f, softcap);
+  return (int)cudaGetLastError();
+}
+
 // Which design serves dK/dV and dQ at (D, dtype): fp32 on the CUDA cores;
 // bf16 on warpgroup products fed by the TMA at D = 64, 128 (llama's heads),
 // 160 (stablelm-12b) and 256 (recurrentgemma-2b), on mma.sync at D = 32.
@@ -1741,15 +2495,20 @@ int bwd_design(int D, int dtype) {
 }  // namespace
 
 // q, dout: (B, S, H, D); k, v: (B, T, K, D); m, l, delta: (B, S, H) fp32;
-// dk, dv: (B, T, K, D) in the inputs' dtype.  All contiguous.  Returns 0, a
-// cudaError_t, or ERR_UNSUPPORTED.  Does not synchronise.
+// dk, dv: (B, T, K, D) in the inputs' dtype; ws: fp32 scratch of
+// 2 * repro_flash_attention_bwd_dkv_slices(...) * B * T * K * D floats
+// where that is above 1, else unused (may be null).  All contiguous.
+// Returns 0, a cudaError_t, or ERR_UNSUPPORTED.  Does not synchronise.
 extern "C" int repro_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const float* m, const float* l, const float* delta, void* dk, void* dv,
-    int B, int S, int T, int H, int K, int D, int dtype, int causal,
-    int window, float softcap, void* stream) {
+    float* ws, int B, int S, int T, int H, int K, int D, int dtype,
+    int causal, int window, float softcap, void* stream) {
   if (!shape_ok(B, S, T, H, K)) return ERR_UNSUPPORTED;
   cudaStream_t st = (cudaStream_t)stream;
+  if (D == 256 && bwd_design(D, dtype) == DESIGN_WGMMA)
+    return launch_dkv_d256(q, k, v, dout, m, l, delta, dk, dv, ws, B, S, T,
+                           H, K, causal, window, softcap, st);
 #define REPRO_DKV_ARGS                                                      \
   q, k, v, dout, m, l, delta, dk, dv, B, S, T, H, K, causal, window,       \
       softcap, st
@@ -1773,7 +2532,6 @@ extern "C" int repro_flash_attention_bwd_dkv(
         case 64: return launch_dkv_wgmma<64>(REPRO_DKV_ARGS);
         case 128: return launch_dkv_wgmma<128>(REPRO_DKV_ARGS);
         case 160: return launch_dkv_wgmma<160>(REPRO_DKV_ARGS);
-        case 256: return launch_dkv_wgmma<256>(REPRO_DKV_ARGS);
       }
       break;
   }
@@ -1811,7 +2569,7 @@ extern "C" int repro_flash_attention_bwd_dq(
         case 64: return launch_dq_wgmma<64>(REPRO_DQ_ARGS);
         case 128: return launch_dq_wgmma<128>(REPRO_DQ_ARGS);
         case 160: return launch_dq_wgmma<160>(REPRO_DQ_ARGS);
-        case 256: return launch_dq_wgmma<256>(REPRO_DQ_ARGS);
+        case 256: return launch_dq_d256(REPRO_DQ_ARGS);
       }
       break;
   }
@@ -1828,4 +2586,42 @@ extern "C" int repro_flash_attention_bwd_dkv_design(int D, int dtype) {
 // The design that repro_flash_attention_bwd_dq launches for (D, dtype).
 extern "C" int repro_flash_attention_bwd_dq_design(int D, int dtype) {
   return bwd_design(D, dtype);
+}
+
+// Head slices of the bf16 D = 256 dK/dV's key tiles (each slice's fp32
+// partial lies in the scratch, two floats per slice and element of dK / dV);
+// 1 wherever no scratch is read.
+extern "C" int repro_flash_attention_bwd_dkv_slices(int B, int T, int H,
+                                                    int K, int D, int dtype) {
+  if (D != 256 || bwd_design(D, dtype) != DESIGN_WGMMA || K <= 0 ||
+      H % K != 0)
+    return 1;
+  return dkv256_slices(B, T, K, H / K);
+}
+
+// The earlier bf16 D = 256 designs -- dK/dV in two blocks per 128 keys, one
+// per column half, each recomputing the scores; dQ at 32-key tiles -- kept
+// for one comparison in turns with the designs above (chip_smoke.py
+// bwd_main_shape); the arguments of the entry points above without ws.
+extern "C" int repro_flash_attention_bwd_dkv_earlier(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* m, const float* l, const float* delta, void* dk, void* dv,
+    int B, int S, int T, int H, int K, int D, int dtype, int causal,
+    int window, float softcap, void* stream) {
+  if (!shape_ok(B, S, T, H, K) || D != 256 || dtype != DTYPE_BF16)
+    return ERR_UNSUPPORTED;
+  return launch_dkv_wgmma<256>(q, k, v, dout, m, l, delta, dk, dv, B, S, T,
+                               H, K, causal, window, softcap,
+                               (cudaStream_t)stream);
+}
+
+extern "C" int repro_flash_attention_bwd_dq_earlier(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* m, const float* l, const float* delta, void* dq, int B,
+    int S, int T, int H, int K, int D, int dtype, int causal, int window,
+    float softcap, void* stream) {
+  if (!shape_ok(B, S, T, H, K) || D != 256 || dtype != DTYPE_BF16)
+    return ERR_UNSUPPORTED;
+  return launch_dq_wgmma<256>(q, k, v, dout, m, l, delta, dq, B, S, T, H, K,
+                              causal, window, softcap, (cudaStream_t)stream);
 }

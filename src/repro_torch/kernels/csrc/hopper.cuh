@@ -135,6 +135,31 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// generic-proxy writes to shared memory (st.shared) made visible to the
+// async proxy that wgmma reads its shared-memory operands through; the
+// writing threads issue it before the barrier that hands the tile over
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// named barrier `id` (1-15; 0 is __syncthreads): wait for all `n` threads
+__device__ __forceinline__ void named_bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// four 8 x 8 b16 matrices into shared memory, each from registers in the
+// layout of an mma accumulator pair (thread t holds row t / 4, columns 2 (t
+// % 4) and 2 (t % 4) + 1): a_i is this thread's pair of matrix i, and lane
+// 8 i + r gives the address of row r of matrix i (16 bytes)
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t a0,
+                                            uint32_t a1, uint32_t a2,
+                                            uint32_t a3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+      ::"r"(addr), "r"(a0), "r"(a1), "r"(a2), "r"(a3)
+      : "memory");
+}
+
 // ---- warpgroups ----
 
 template <int R> __device__ __forceinline__ void regs_alloc() {
@@ -181,7 +206,9 @@ __device__ __forceinline__ uint64_t panel_desc(uint32_t saddr, uint32_t lbo) {
 }
 
 // d (64 x 128, fp32) = [d +] a (64 x 16) b (16 x 128), a and b in shared
-// memory (descriptors), both K-major; accumulate = 0 overwrites d
+// memory (descriptors), a K-major, b K-major (TB = 0) or MN-major (TB = 1,
+// the transposed-B flag); accumulate = 0 overwrites d
+template <int TB = 0>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
                                               uint64_t b, int accumulate) {
   asm volatile(
@@ -195,7 +222,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
       "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
       "%62, %63"
       "}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      "%64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
         "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -209,7 +236,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
         "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TB));
 }
 
 // d (64 x 64, fp32) = [d +] a (64 x 16) b (16 x 64), a and b in shared
@@ -253,7 +280,32 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// the SS product whose width the accumulator's size names: n32, n64, n128
+// d (64 x 48, fp32) = [d +] a (64 x 16) b (16 x 48), a and b in shared
+// memory (descriptors), both K-major; accumulate = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n48(float (&d)[24], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23"
+      "}, "
+      "%24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// the SS product whose width the accumulator's size names: n32, n48, n64,
+// n128
+__device__ __forceinline__ void wgmma_ss(float (&d)[24], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  wgmma_ss_n48(d, a, b, accumulate);
+}
 __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a,
                                          uint64_t b, int accumulate) {
   wgmma_ss_n32(d, a, b, accumulate);

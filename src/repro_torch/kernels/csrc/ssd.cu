@@ -748,8 +748,7 @@ ssd_output_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
 // dy, B, C, h_c, G_c and three L x L arrays in shared memory (226,336 bytes
 // at P = 64, N = 128: one block an SM).  Its bf16 instantiation served
 // mamba2's bf16 training until the tensor-core design replaced it (4.33 ms
-// at the trained shape, stage (c') 3.65 of it, PERF.md); it stays callable
-// as repro_ssd_bwd_earlier for one comparison in turns.
+// at the trained shape, stage (c') 3.65 of it, PERF.md).
 
 constexpr int BW_NT = 256;
 
@@ -2241,28 +2240,4 @@ extern "C" int repro_ssd_bwd_design(int P, int N, int dtype) {
 // serves it.
 extern "C" int repro_ssd_bwd_slices(int hpg, int P, int N, int dtype) {
   return hpg > 0 ? ssd_bwd_slices(hpg, P, N, dtype) : 0;
-}
-
-// The replaced bf16 design (every product fp32 on the CUDA cores,
-// per-head dB / dC partials), kept beside the tensor-core design for one
-// comparison in turns: repro_ssd_bwd's arguments, bf16 x, B, C only,
-// dB_part / dC_part (B, S, H, N).
-extern "C" int repro_ssd_bwd_earlier(
-    const void* x, const float* dt, const float* A, const void* Bm,
-    const void* Cm, const float* dy, const float* dh_final,
-    const float* states, const float* aend, void* dx, float* ddt, float* dA,
-    void* dB, void* dC, float* dh0, float* gstates, float* dB_part,
-    float* dC_part, float* dA_part, int n_chunks, int B, int S, int H, int P,
-    int G, int N, int dtype, void* stream) {
-  if (dtype != DTYPE_BF16 || B <= 0 || S <= 0 || H <= 0 || G <= 0 ||
-      H % G != 0 || B > 65535 || H > 65535 ||
-      n_chunks != (S + SSD_C - 1) / SSD_C || n_chunks > 65535 || P < 4 ||
-      P % 4 != 0 || N < 4 || N % 4 != 0 || bw_chunk_smem(P, N) > MAX_SMEM)
-    return ERR_UNSUPPORTED;
-  const SsdBwdArgs a{x,     Bm,      Cm,      dt,      A,       dy,
-                     dh_final, states, aend,  dx,      dB,      dC,
-                     ddt,   dA,      dh0,     gstates, dB_part, dC_part,
-                     dA_part, B,     S,       H,       P,       G,
-                     N,     n_chunks};
-  return launch_bwd<bf16>(a, (cudaStream_t)stream);
 }

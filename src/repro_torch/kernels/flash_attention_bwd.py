@@ -33,12 +33,17 @@ the CUDA cores; in bf16 the stats forward is the forward's design
 at D = 32.
 The dK/dV block of the warpgroup design owns 128 keys and walks the (query
 tile, group head) pairs of ``live_query_tiles`` (tiles of 64 query
-positions, 32 above D = 128); at D = 256 two blocks share each 128 keys,
-one per column half, each recomputing the scores over all columns.  The dQ
-block owns 128 query positions of one head and walks the key tiles of
-``flash_attention.live_key_tiles`` (64 keys, 32 at D = 256): the same
-bounds as the ``.cu`` files compute.  At D = 160 all of them keep a head's columns as five
-32-column panels, elsewhere as 64-column panels.
+positions, 32 above D = 128).  At D = 256 a block owns 64 keys and one
+slice of the group's heads (``dkv_d256_slices`` slices a key tile, heaviest
+tiles first) and walks pairs of 64 query positions and a head: the two
+warpgroups compute S^T and dP^T once a pair, each for 32 of the queries,
+exchange P^T and dS^T through shared memory, and each accumulates dK and dV
+for 128 of the 256 columns; with more than one slice the slices' fp32
+partials are summed in slice order by a second launch.  The dQ block owns
+128 query positions of one head and walks the key tiles of
+``flash_attention.live_key_tiles`` (64 keys, 48 at D = 256): the same
+bounds as the ``.cu`` files compute.  At D = 160 all of them keep a head's
+columns as five 32-column panels, elsewhere as 64-column panels.
 
 Every wrapper launches its kernel for CUDA tensors -- or raises: there is no
 fallback -- and runs the plain version only for tensors on the CPU.  Each
@@ -94,6 +99,32 @@ def design_dq(head_dim: int, dtype) -> str:
     """The design the dQ kernels launch for (``head_dim``, ``dtype``), as
     the library's dispatch reports it; builds the library if needed."""
     return _design("repro_flash_attention_bwd_dq_design", head_dim, dtype)
+
+
+# the bf16 D = 256 backward (csrc/flash_attention_bwd.cu Dkv256Layout,
+# Dq256Layout): dK/dV's keys of a work item, query positions of a pair and
+# work items aimed at (three per SM of an H100); dQ's keys of a tile
+D256_DKV_BN, D256_DKV_BM, D256_DKV_ITEMS = 64, 64, 396
+D256_DQ_BN = 48
+
+
+def dkv_d256_slices(B: int, T: int, K: int, G: int) -> int:
+    """Head slices per 64-key tile of the bf16 D = 256 dK/dV: enough work
+    items for about ``D256_DKV_ITEMS``, at most one per head of the group
+    (``csrc`` ``dkv256_slices``, the same rule).  Slice ``s`` of ``n`` holds
+    ``G // n`` heads, one more for ``s < G % n``."""
+    tiles = B * K * -(-T // D256_DKV_BN)
+    return min(G, -(-D256_DKV_ITEMS // tiles))
+
+
+def dkv_slices(B: int, T: int, H: int, K: int, D: int, dtype) -> int:
+    """The head slices ``flash_attention_bwd_dkv``'s kernel sums partials
+    over at (shape, dtype), as the library reports it (1: no scratch);
+    builds the library if needed."""
+    fn = build.load().repro_flash_attention_bwd_dkv_slices
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 6
+    return fn(int(B), int(T), int(H), int(K), int(D), _DTYPE_CODE[dtype])
 
 
 def live_query_tiles(n0: int, BN: int, BM: int, S: int, causal: bool,
@@ -275,11 +306,17 @@ def flash_attention_bwd_dkv(q, k, v, do, m, l, delta, *, causal: bool = True,
         return dk, dv
     _kernel_args(q, k, v, do, m, l, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch(_kernel("repro_flash_attention_bwd_dkv", 9), q, k,
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    nsl = dkv_slices(B, T, H, K, D, q.dtype)
+    # the head slices' fp32 partials of dK and dV (bf16, D = 256)
+    ws = torch.empty(2 * nsl * k.numel(), dtype=torch.float32,
+                     device=q.device) if nsl > 1 else None
+    _launch(_kernel("repro_flash_attention_bwd_dkv", 10), q, k,
             (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              m.data_ptr(), l.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-             dv.data_ptr()), causal, window, softcap,
-            "flash_attention_bwd_dkv")
+             dv.data_ptr(), None if ws is None else ws.data_ptr()), causal,
+            window, softcap, "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 

@@ -14,10 +14,12 @@ oracle (``repro.kernels.ref.attention_ref`` and ``jax.grad`` of it) at the
 reference's 5e-4, so a bound that drops a live tile fails here before any
 time on the card.  At stablelm-12b's D = 160 the forward walks 128-key tiles,
 dK/dV 32-query tiles and dQ 64-key tiles (``D160_CASES``); at
-recurrentgemma-2b's D = 256 the forward walks 64-key tiles, dK/dV 32-query
-tiles in two column halves (each block accumulates dK and dV for 128 of the
-256 columns over the scores of all of them) and dQ 32-key tiles
-(``D256_CASES``: MQA with G = 10, a window, ragged S).  Each
+recurrentgemma-2b's D = 256 the forward walks 64-key tiles, dQ 48-key tiles,
+and dK/dV work items of 64 keys and one slice of the group's heads
+(``flash_attention_bwd.dkv_d256_slices``), each walking 64-query tiles with
+S^T and dP^T computed once a pair and split by the two warpgroups' 128
+columns, the slices' partials summed in slice order (``D256_CASES``: MQA
+with G = 10, a window, ragged S).  Each
 walks with plain products or on the kernels' column panels: the bf16
 warpgroup kernels keep a head's D columns in shared memory as panels of
 ``panel_cols(D)`` columns, the layout the TMA writes (``csrc/hopper.cuh``):
@@ -29,8 +31,9 @@ one m64n160k16 whose descriptor's LBO steps from panel to panel).  A walk
 that leaves the tail panel out -- columns 128-159 at D = 160, as a split of
 160 columns into 64-column panels would; columns 192-255 at D = 256 -- must
 fail the comparison that the whole walk passes, and so must a D = 256
-backward walk with one column half left out (columns 128-255 of dk, dv and
-dq).
+backward walk with one warpgroup's column half left out (columns 128-255
+of dk, dv and dq), or with one head slice's partial dropped or counted
+twice.
 """
 import functools
 import math
@@ -80,9 +83,10 @@ D256_CASES = [
     (2, 140, 200, 10, 1, 256, True, 0, 0.0),      # B = 2, S != T
 ]
 D256_BN = 64
-# the D = 256 backward (csrc DkvLayout<256>, DqLayout<256>): dK/dV's
-# query positions a tile and column halves, dQ's keys a tile
-D256_DKV_BM, D256_HALVES, D256_DQ_BN = 32, 2, 32
+# the D = 256 backward (csrc Dkv256Layout, Dq256Layout): dK/dV's keys a
+# work item and query positions a pair, dQ's keys a tile
+D256_DKV_BN, D256_DKV_BM, D256_DQ_BN = (fab.D256_DKV_BN, fab.D256_DKV_BM,
+                                        fab.D256_DQ_BN)
 # the same walks on llama's 64-column panels (D = 128) and at D = 64
 PANEL64_CASES = [
     (1, 200, 200, 4, 2, 128, True, 0, 0.0),
@@ -198,28 +202,18 @@ def forward_tile_walk(q, k, v, *, causal, window, softcap, BM, BN=BN,
 
 
 def dkv_tile_walk(q, k, v, do, m, l, delta, *, causal, window, softcap, BM,
-                  BN=BN, pw=None, n_panels=None, halves=1, run=None):
+                  BN=BN, pw=None, n_panels=None):
     """The warpgroup dK/dV's walk in fp32: per KV head and block of BN keys,
     the (query tile, group head) pairs of ``live_query_tiles``; p from the
     saved statistics, the exact soft-cap derivative, dK and dV summed over
     the group in the block; the products on ``pw``-column panels where
-    ``pw`` is given, dK's and dV's from the first ``n_panels`` only.  With
-    ``halves`` > 1 each block is that many blocks, one per column half
-    (``run``: the halves that run, all by default), each with the scores of
-    all D columns and dK, dV of its half's panels (the kernel's blocks
-    recompute the same scores; here they are computed once)."""
+    ``pw`` is given, dK's and dV's from the first ``n_panels`` only."""
     B, S, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
     scale = 1.0 / math.sqrt(D)
     dk = torch.zeros_like(k)
     dv = torch.zeros_like(v)
-    npo = (D // (pw or D)) // halves      # panels of one half
-    cols = [(h * npo, (h + 1) * npo if n_panels is None
-             else min((h + 1) * npo, n_panels))
-            for h in (range(halves) if run is None else run)]
-    if halves > 1:
-        assert pw is not None and halves * npo * pw == D
     for kh in range(K):
         for n0 in range(0, T, BN):
             keys = torch.arange(n0, min(n0 + BN, T))
@@ -241,12 +235,83 @@ def dkv_tile_walk(q, k, v, do, m, l, delta, *, causal, window, softcap, BM,
                     dst = pt * (dpt - delta[:, rows, h][:, None])
                     if softcap > 0:
                         dst = dst * (1.0 - (st / softcap) ** 2)
-                    for first, last in cols:
-                        dv_acc += panel_product(pt, dot, pw, last, first)
-                        dk_acc += panel_product(dst * scale, qt, pw, last,
-                                                first)
+                    dv_acc += panel_product(pt, dot, pw, n_panels)
+                    dk_acc += panel_product(dst * scale, qt, pw, n_panels)
             dk[:, keys, kh] = dk_acc
             dv[:, keys, kh] = dv_acc
+    return dk, dv
+
+
+def d256_dkv_items(B, T, K, G, nsl=None):
+    """The D = 256 dK/dV's work items in launch order (``csrc``
+    ``flash_bwd_dkv_d256_kernel``): (key tile n0, slice, its first head,
+    its heads, KV head, batch row), key tiles in order, within a tile the
+    slices with one head more first."""
+    nsl = fab.dkv_d256_slices(B, T, K, G) if nsl is None else nsl
+    items = []
+    for n0 in range(0, T, D256_DKV_BN):
+        for s in range(nsl):
+            gs = G // nsl + (s < G % nsl)
+            g0 = s * (G // nsl) + min(s, G % nsl)
+            items += [(n0, s, g0, gs, kh, b) for kh in range(K)
+                      for b in range(B)]
+    return items, nsl
+
+
+def dkv_d256_walk(q, k, v, do, m, l, delta, *, causal, window, softcap,
+                  pw=None, warpgroups=(0, 1), nsl=None, fault=None):
+    """The D = 256 dK/dV's walk in fp32: per work item (64 keys, one slice
+    of the group's heads) the (query tile of 64 positions, head of the
+    slice) pairs of ``live_query_tiles``; S^T and dP^T computed once a pair,
+    P^T and dS^T shared by the warpgroups, each of ``warpgroups`` adding
+    dV += P^T dO and dK += dS^T Q for its 128 columns (two 64-column panels
+    where ``pw`` is given); each slice's dK and dV kept as a partial, the
+    partials summed in slice order.  ``fault``: ("dropped" or "doubled",
+    item index) plants that fault in the sum."""
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = 1.0 / math.sqrt(D)
+    items, nsl = d256_dkv_items(B, T, K, G, nsl)
+    part_k = torch.zeros((nsl,) + k.shape)
+    part_v = torch.zeros((nsl,) + v.shape)
+    for i, (n0, s, g0, gs, kh, b) in enumerate(items):
+        keys = torch.arange(n0, min(n0 + D256_DKV_BN, T))
+        kt, vt = k[b, keys, kh], v[b, keys, kh]         # (keys, D)
+        dk_acc = torch.zeros((len(keys), D))
+        dv_acc = torch.zeros((len(keys), D))
+        m_begin, m_end = live_query_tiles(n0, D256_DKV_BN, D256_DKV_BM, S,
+                                          causal, window)
+        for m0 in range(m_begin, m_end, D256_DKV_BM):
+            rows = torch.arange(m0, min(m0 + D256_DKV_BM, S))
+            for h in range(kh * G + g0, kh * G + g0 + gs):
+                qt, dot = q[b, rows, h], do[b, rows, h]
+                st = _scores(kt, qt, scale, softcap, pw)   # keys x queries
+                dead = _dead(rows, keys, S, T, causal, window).T
+                pt = torch.where(dead, 0.0, torch.exp(
+                    st - m[b, rows, h]) / l[b, rows, h])
+                dst = pt * (kstep_product(vt, dot, pw) - delta[b, rows, h])
+                if softcap > 0:
+                    dst = dst * (1.0 - (st / softcap) ** 2)
+                for w in warpgroups:      # columns 128 w .. 128 w + 127
+                    if pw:                    # panels 2 w and 2 w + 1
+                        dv_acc += panel_product(pt, dot, pw, 2 * w + 2,
+                                                2 * w)
+                        dk_acc += panel_product(dst * scale, qt, pw,
+                                                2 * w + 2, 2 * w)
+                    else:
+                        cols = slice(128 * w, 128 * w + 128)
+                        dv_acc[:, cols] += pt @ dot[:, cols]
+                        dk_acc[:, cols] += (dst * scale) @ qt[:, cols]
+        times = 1
+        if fault is not None and fault[1] == i:
+            times = {"dropped": 0, "doubled": 2}[fault[0]]
+        part_k[s, b, keys, kh] += times * dk_acc
+        part_v[s, b, keys, kh] += times * dv_acc
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for s in range(nsl):                # the sum launch: slice order
+        dk += part_k[s]
+        dv += part_v[s]
     return dk, dv
 
 
@@ -432,14 +497,15 @@ def test_dropped_last_panel_d256_fails(case):
 @pytest.mark.parametrize("pw", [None, 64])
 @pytest.mark.parametrize("case", D256_CASES)
 def test_dkv_tile_walk_d256_matches_plain_and_oracle(case, pw):
-    """32-query tiles of 128-key blocks, two column halves."""
+    """Work items of 64 keys and a head slice, 64-query tiles, the scores
+    once a pair, two warpgroups' column halves, the slices' partials summed
+    in order."""
     B, S, T, H, K, D, causal, window, softcap = case
     q, k, v, do = (torch.from_numpy(a) for a in _inputs(B, S, T, H, K, D))
     kw = dict(causal=causal, window=window, softcap=softcap)
     o, m, l = fab.attention_fwd_stats_plain(q, k, v, **kw)
     delta = fab.attention_delta(o, do)
-    dk, dv = dkv_tile_walk(q, k, v, do, m, l, delta, BM=D256_DKV_BM, pw=pw,
-                           halves=D256_HALVES if pw else 1, **kw)
+    dk, dv = dkv_d256_walk(q, k, v, do, m, l, delta, pw=pw, **kw)
     _, dk2, dv2 = fab.attention_bwd_plain(q, k, v, do, m, l, delta, **kw)
     _close(dk, dk2, 1e-5, "dk vs attention_bwd_plain")
     _close(dv, dv2, 1e-5, "dv vs attention_bwd_plain")
@@ -451,7 +517,7 @@ def test_dkv_tile_walk_d256_matches_plain_and_oracle(case, pw):
 @pytest.mark.parametrize("pw", [None, 64])
 @pytest.mark.parametrize("case", D256_CASES)
 def test_dq_tile_walk_d256_matches_plain_and_oracle(case, pw):
-    """32-key tiles under blocks of 128 positions."""
+    """48-key tiles under blocks of 128 positions."""
     B, S, T, H, K, D, causal, window, softcap = case
     q, k, v, do = (torch.from_numpy(a) for a in _inputs(B, S, T, H, K, D))
     kw = dict(causal=causal, window=window, softcap=softcap)
@@ -466,17 +532,17 @@ def test_dq_tile_walk_d256_matches_plain_and_oracle(case, pw):
 
 @pytest.mark.parametrize("case", D256_CASES)
 def test_dropped_column_half_d256_fails(case):
-    """The first of the two column halves alone: dk and dv miss columns
-    128-255; a dQ walk over the first two of the four panels misses the
-    same columns of dq; the comparison that the whole walk passes rejects
-    each of them."""
+    """The first warpgroup's columns alone (the second warpgroup lost): dk
+    and dv miss columns 128-255; a dQ walk over the first two of the four
+    panels misses the same columns of dq; the comparison that the whole
+    walk passes rejects each of them."""
     B, S, T, H, K, D, causal, window, softcap = case
     q, k, v, do = (torch.from_numpy(a) for a in _inputs(B, S, T, H, K, D))
     kw = dict(causal=causal, window=window, softcap=softcap)
     o, m, l = fab.attention_fwd_stats_plain(q, k, v, **kw)
     delta = fab.attention_delta(o, do)
-    dk, dv = dkv_tile_walk(q, k, v, do, m, l, delta, BM=D256_DKV_BM, pw=64,
-                           halves=D256_HALVES, run=(0,), **kw)
+    dk, dv = dkv_d256_walk(q, k, v, do, m, l, delta, pw=64, warpgroups=(0,),
+                           **kw)
     dq = dq_tile_walk(q, k, v, do, m, l, delta, BM=128, BN=D256_DQ_BN,
                       pw=64, n_panels=2, **kw)
     dq2, dk2, dv2 = fab.attention_bwd_plain(q, k, v, do, m, l, delta, **kw)
@@ -491,10 +557,9 @@ def test_dropped_column_half_d256_fails(case):
                                            (True, 50), (True, 200),
                                            (False, 64)])
 def test_d256_dq_tile_bounds_skip_only_dead_tiles(causal, window):
-    """The integer check for the D = 256 dQ's 32-key tiles under blocks of
-    128 positions (its dK/dV tiles are D = 160's, checked below)."""
+    """The integer check for the D = 256 dQ's 48-key tiles under blocks of
+    128 positions (its dK/dV items are checked below)."""
     BNq = D256_DQ_BN
-    assert D256_DKV_BM == D160_DKV_BM
     for S, T in ((1, 1), (100, 77), (77, 100), (129, 300), (300, 129),
                  (513, 513)):
         live = ~_dead(torch.arange(S), torch.arange(T), S, T, causal,
@@ -505,7 +570,72 @@ def test_d256_dq_tile_bounds_skip_only_dead_tiles(causal, window):
             assert n_begin % BNq == 0
             for n0 in range(n_begin, n_end, BNq):
                 seen[m0:m0 + 128, n0:n0 + BNq] = True
-        assert not (live & ~seen).any(), (S, T, "dQ, 32-key tiles")
+        assert not (live & ~seen).any(), (S, T, "dQ, 48-key tiles")
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 50), (True, 200),
+                                           (False, 64)])
+def test_d256_dkv_items_cover_each_live_pair_once(causal, window):
+    """The integer check for the D = 256 dK/dV's work items: over every
+    (query, key, head) -- B = 2, G = 10 and G = 3 over two KV heads, the
+    slice rule's count and others -- each live pair lies in exactly one
+    walked (64-query tile, 64-key item, head), and no pair in two."""
+    for S, T in ((1, 1), (100, 77), (77, 100), (129, 300), (300, 129),
+                 (513, 513)):
+        live = ~_dead(torch.arange(S), torch.arange(T), S, T, causal,
+                      window).numpy()
+        for B, K, G, nsl in ((2, 1, 10, None), (1, 2, 3, None),
+                             (1, 1, 10, 1), (1, 1, 10, 3), (1, 1, 10, 4)):
+            items, nsl = d256_dkv_items(B, T, K, G, nsl)
+            assert 1 <= nsl <= G
+            seen = np.zeros((B, S, T, K * G), np.int32)
+            for n0, s, g0, gs, kh, b in items:
+                m_begin, m_end = live_query_tiles(n0, D256_DKV_BN,
+                                                  D256_DKV_BM, S, causal,
+                                                  window)
+                assert m_begin % D256_DKV_BM == 0
+                heads = slice(kh * G + g0, kh * G + g0 + gs)
+                for m0 in range(m_begin, m_end, D256_DKV_BM):
+                    seen[b, m0:m0 + D256_DKV_BM, n0:n0 + D256_DKV_BN,
+                         heads] += 1
+            assert seen.max() <= 1, (S, T, B, K, G, nsl, "a pair twice")
+            assert (seen[:, live] == 1).all(), (S, T, B, K, G, nsl,
+                                                "a live pair not walked")
+
+
+def test_d256_dkv_slice_rule():
+    """The slices of a key tile: about D256_DKV_ITEMS work items, at most
+    one slice per head; recurrentgemma-2b's trained shape (2 x 4096, 10
+    heads over 1) takes four (heads 3, 3, 2, 2: 512 items on 132 SMs)."""
+    assert fab.dkv_d256_slices(2, 4096, 1, 10) == 4
+    assert fab.dkv_d256_slices(1, 4096, 1, 10) == 7
+    assert fab.dkv_d256_slices(1, 300, 1, 10) == 10
+    assert fab.dkv_d256_slices(8, 65536, 1, 10) == 1
+    items, nsl = d256_dkv_items(2, 4096, 1, 10)
+    assert len(items) == 512
+    assert [gs for _, s, _, gs, _, b in items[:8] if b == 0] == [3, 3, 2, 2]
+
+
+@pytest.mark.parametrize("fault", ["dropped", "doubled"])
+def test_d256_slice_partial_fault_fails(fault):
+    """One work item's partial dropped from the slices' sum, or counted
+    twice: the comparison that the whole walk passes rejects it."""
+    case = D256_CASES[0]
+    B, S, T, H, K, D, causal, window, softcap = case
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(B, S, T, H, K, D))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, m, l = fab.attention_fwd_stats_plain(q, k, v, **kw)
+    delta = fab.attention_delta(o, do)
+    _, dk2, dv2 = fab.attention_bwd_plain(q, k, v, do, m, l, delta, **kw)
+    items, nsl = d256_dkv_items(B, T, K, H // K, 3)
+    at = next(i for i, it in enumerate(items) if it[0] == 128 and it[1] == 1)
+    dk, dv = dkv_d256_walk(q, k, v, do, m, l, delta, nsl=3,
+                           fault=(fault, at), **kw)
+    for name, got, want in (("dk", dk, dk2), ("dv", dv, dv2)):
+        _close(got[:, :128], want[:, :128], 1e-5, f"{name} other keys")
+        with pytest.raises(AssertionError):
+            _close(got, want, 1e-5, name)
 
 
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
