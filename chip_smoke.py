@@ -33,9 +33,8 @@ per line, each with ``at_s``, the seconds since the script's imports ended:
                 half (columns 128-255 of dq, dk and dv: one warpgroup's
                 dK and dV), tiles skipped under the window and a head
                 slice's dK/dV partial dropped or counted twice must be
-                rejected, two calls must be bit-identical, and the earlier
-                designs are held to the same comparison and timed in turns
-                with the shipped ones); the RG-LRU backward
+                rejected, and two calls must be bit-identical); the RG-LRU
+                backward
                 against its plain reverse scan and autograd of the plain
                 forward (ragged S, with and without h0) and at the trained
                 shape, where a zeroed carry into chunk 1 must be rejected,
@@ -70,7 +69,21 @@ per line, each with ``at_s``, the seconds since the script's imports ended:
   serve_paged   llama3.2-3b at full width in bf16, random weights from seed
                 0 made on the device, 16 requests through
                 ``AsyncServeEngine(mode="paged")``; pure-decode iterations
-                must go through the paged decode kernel;
+                must go through the paged decode kernel.  Every serving
+                phase serves through the engine's CUDA graphs (its
+                default): ``warmup()`` captures one per step key, and the
+                line reports their count, capture seconds and pool bytes;
+                the launch counts include the replays' captured launches;
+  graphs        the served engine against one with ``graphs=False``, in
+                turns (graphs, eager, eager, graphs: two rounds each, two
+                sets of prompts), for llama3.2-3b paged here and for
+                mamba2-780m and recurrentgemma-2b dense after their serving
+                phases: greedy streams identical, launch counts equal, TTFT
+                / TPOT p50 / p99 and tokens/s of each round, and one
+                profiled decode step each way (a paged decode iteration of
+                8 rows for llama; the dense decode step over every slot)
+                whose logits must be bit-identical, or else within 2e-2 of
+                max-abs;
   serve_dense   the same model, ``mode="dense"``, 4 requests; every prefill
                 must go through the flash-attention kernel;
   parity        greedy streams with the kernels equal those with the plain
@@ -188,6 +201,7 @@ from repro_torch.configs import get_config                    # noqa: E402
 from repro_torch.configs.base import (ATTN, ATTN_LOCAL,        # noqa: E402
                                       RGLRU, SSM, PolicyConfig,
                                       ShapeConfig)
+from repro_torch.cluster.telemetry import ServingStats        # noqa: E402
 from repro_torch.data import SyntheticDataset                  # noqa: E402
 from repro_torch.kernels import build, ops                     # noqa: E402
 from repro_torch.kernels.registry import bucket_pow2           # noqa: E402
@@ -272,7 +286,6 @@ PTXAS_KERNELS = [
     "flash_bwd_dkv_wgmma_kernelILi160", "flash_bwd_dkv_wgmma_kernelILi128",
     "flash_bwd_dkv_wgmma_kernelILi64", "flash_bwd_dq_wgmma_kernelILi160",
     "flash_bwd_dq_wgmma_kernelILi128", "flash_bwd_dq_wgmma_kernelILi64",
-    "flash_bwd_dkv_wgmma_kernelILi256", "flash_bwd_dq_wgmma_kernelILi256",
     "flash_bwd_dkv_d256_kernel", "flash_bwd_dq_d256_kernel",
     "flash_bwd_dkv_sum_kernel",
     "flash_bwd_dkv_kernelIfLi256", "flash_bwd_dq_kernelIfLi256",
@@ -991,9 +1004,7 @@ def bwd_main_shape(gen, cfg, B, S, window=0):
     a dropped tail panel of o, dq, dk and dv; at D = 256 a lost column half
     of dq, dk and dv, tiles skipped under the window and a head slice's
     dK/dV partial dropped or doubled.  At D = 256 two calls must also be
-    bit-identical, and the earlier designs (the ``_earlier`` entry points) are
-    held to the same comparison and timed in turns with the shipped ones
-    (``earlier_ms``)."""
+    bit-identical."""
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = torch.bfloat16
     q, k, v, do = _bwd_inputs(gen, B, S, S, H, K, D, dt)
@@ -1075,19 +1086,14 @@ def bwd_main_shape(gen, cfg, B, S, window=0):
     dkv["scaled"] = {n: scaled[n] for n in ("dk", "dv")}
     dq["scaled"] = {"dq": scaled["dq"]}
     if D in HALF_COLUMNS:
-        _d256_against_earlier(q, k, v, do, stats, kw, dkv, dq)
+        _d256_bit_identical(q, k, v, do, stats, kw, dkv, dq)
     return fwd, dkv, dq, faults
 
 
-def _d256_against_earlier(q, k, v, do, stats, kw, dkv, dq):
-    """The D = 256 backward at the trained shape: two calls bit-identical;
-    the earlier designs (``repro_flash_attention_bwd_dkv_earlier`` /
-    ``_dq_earlier``: two blocks per 128 keys, one per column half, each
-    recomputing the scores; 32-key dQ tiles) held to the plain version by
-    the same scaled comparison and timed in turns with the shipped ones.
-    Adds ``bit_identical_calls``, ``earlier_ms``, ``earlier_design`` and
-    ``earlier_scaled`` to the rows ``dkv`` and ``dq``."""
-    lib = build.load()
+def _d256_bit_identical(q, k, v, do, stats, kw, dkv, dq):
+    """The D = 256 backward at the trained shape: two calls on the same
+    inputs must be bit-identical (the slices' partials are summed in a fixed
+    order).  Adds ``bit_identical_calls`` to the rows ``dkv`` and ``dq``."""
     got = flash_attention_bwd_dkv(q, k, v, do, *stats, **kw) + \
         (flash_attention_bwd_dq(q, k, v, do, *stats, **kw),)
     again = flash_attention_bwd_dkv(q, k, v, do, *stats, **kw) + \
@@ -1095,33 +1101,6 @@ def _d256_against_earlier(q, k, v, do, stats, kw, dkv, dq):
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           "flash bwd D=256: two calls on the same inputs differ")
-    e_kv = (torch.empty_like(k), torch.empty_like(v))
-    e_q = torch.empty_like(q)
-    earlier_kv = _entry(lib, "repro_flash_attention_bwd_dkv_earlier",
-                        (q, k, v, do) + stats + e_kv, kw["causal"],
-                        kw["window"])
-    earlier_q = _entry(lib, "repro_flash_attention_bwd_dq_earlier",
-                       (q, k, v, do) + stats + (e_q,), kw["causal"],
-                       kw["window"])
-    earlier_kv()
-    earlier_q()
-    torch.cuda.synchronize()
-    want = attention_bwd_plain(q, k, v, do, *stats, **kw)
-    dq["earlier_scaled"] = {"dq": _scaled_err(e_q, want[0],
-                                              "flash bwd D=256 earlier dq")}
-    dkv["earlier_scaled"] = {
-        n: _scaled_err(g, w, f"flash bwd D=256 earlier {n}")
-        for n, g, w in (("dk", e_kv[0], want[1]), ("dv", e_kv[1], want[2]))}
-    del want
-    dkv["ms"], dkv["earlier_ms"] = time_in_turns(
-        lambda: flash_attention_bwd_dkv(q, k, v, do, *stats, **kw),
-        earlier_kv, 3)
-    dq["ms"], dq["earlier_ms"] = time_in_turns(
-        lambda: flash_attention_bwd_dq(q, k, v, do, *stats, **kw),
-        earlier_q, 5)
-    dkv["earlier_design"] = ("two blocks per 128 keys, one per column half, "
-                             "each recomputing the scores")
-    dq["earlier_design"] = "32-key tiles, three stages"
     for row in (dkv, dq):
         row["bit_identical_calls"] = True
 
@@ -2280,13 +2259,24 @@ def _latency(rep):
             "tpot_p50_s": rep["tpot_s"]["p50"],
             "tpot_p99_s": rep["tpot_s"]["p99"],
             "throughput_tok_s": rep["throughput_tok_s"],
-            "iterations": rep["iterations"], "compile_s": rep["compile_s"]}
+            "iterations": rep["iterations"], "compile_s": rep["compile_s"],
+            "graphs": rep["graphs"]}
+
+
+def _graphs_on(rep, what):
+    """The engine served through its CUDA graphs: they were captured."""
+    g = rep["graphs"]
+    check(g["enabled"] and g["graphs"] > 0,
+          f"{what}: the engine captured no step graph: {g}")
+
+
+PAGED_KW = dict(mode="paged", fused=True, n_slots=8, max_seq=2048,
+                page_size=16, prefill_chunk=256)
 
 
 def serve_paged(cfg, model, policy):
-    eng = AsyncServeEngine(cfg, model, policy, mode="paged", fused=True,
-                           n_slots=8, max_seq=2048, page_size=16,
-                           prefill_chunk=256, device=DEV)
+    """Returns the paged launches and the engine (for ``graphs_paged``)."""
+    eng = AsyncServeEngine(cfg, model, policy, device=DEV, **PAGED_KW)
     eng.warmup()
     shared = _prompt(999, 256, cfg.vocab_size)
     lens = np.linspace(128, 1024, 16).astype(int).tolist()
@@ -2320,13 +2310,14 @@ def serve_paged(cfg, model, policy):
                            f"iterations x layers = {want}")
     hit = rep["kv_pages"]["hit_rate"]
     check(hit > 0, "serve_paged: prefix reuse gave hit_rate 0")
+    _graphs_on(rep, "serve_paged")
     emit("serve_paged", arch=cfg.name, n_layers=cfg.n_layers, dtype="bfloat16",
          requests=len(reqs), served=served, prompt_lens=lens, max_new=64,
          wall_s=wall, decode_iterations=rep["decode_iterations"],
          paged_kernel_launches=n_paged, hit_rate=hit,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
-         **_latency(rep))
-    return n_paged
+         memory_reserved=torch.cuda.memory_reserved(), **_latency(rep))
+    return n_paged, eng
 
 
 def serve_dense(cfg, model, policy):
@@ -2356,6 +2347,7 @@ def serve_dense(cfg, model, policy):
     check(n_flash == len(reqs) * cfg.n_layers,
           f"flash launches {n_flash} != prefills x layers = "
           f"{len(reqs) * cfg.n_layers}")
+    _graphs_on(rep, "serve_dense")
     emit("serve_dense", arch=cfg.name, n_layers=cfg.n_layers,
          requests=len(reqs), served=served,
          prompt_lens=lens, max_new=16, wall_s=wall,
@@ -2425,6 +2417,208 @@ def parity(cfg, model):
                                f"(> 2e-2 x max-abs {scale})")
     emit("parity", fp32_streams_equal=equal, bf16_decode_logits_max_abs=scale,
          bf16_decode_logits_max_abs_err=err, tol_rel=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# one program per step: the served engines with and without CUDA graphs
+# ---------------------------------------------------------------------------
+# (way, prompt set) in the order served: each way serves both sets, in turns
+GRAPH_TURNS = (("graphs", 0), ("eager", 0), ("eager", 1), ("graphs", 1))
+GRAPH_PAGED_LENS = [128, 192, 256, 320, 384, 448, 512, 576]
+GRAPH_MAX_NEW = 24
+
+
+def _round(eng, prompts, max_new, what):
+    """``prompts`` served to the end as fresh requests: the streams, the
+    launches counted from zero, wall seconds, TTFT / TPOT p50 / p99 and
+    output tokens/s of this round alone."""
+    reqs = [ServeRequest(i, list(p), max_new=max_new)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        check(eng.submit(r), f"{what}: request {r.rid} rejected: "
+                             f"{r.why_rejected}")
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    check(all(r.done and len(r.out) == max_new for r in reqs),
+          f"{what}: a request was not served whole")
+    ttft = ServingStats._dist([r.ttft_s() for r in reqs])
+    tpot = ServingStats._dist([r.tpot_s() for r in reqs])
+    return {"streams": [r.out for r in reqs], "launches": counts,
+            "wall_s": wall, "ttft_p50_s": ttft["p50"],
+            "ttft_p99_s": ttft["p99"], "tpot_p50_s": tpot["p50"],
+            "tpot_p99_s": tpot["p99"],
+            "throughput_tok_s": sum(len(r.out) for r in reqs) / wall}
+
+
+def _in_turns(engines, sets, max_new, what):
+    """Both prompt sets served by the graph engine and the eager one in
+    turns (``GRAPH_TURNS``: host clocks drift between calls, so each way
+    gets an early and a late round); per set the greedy streams must be
+    identical and the launch counts equal.  Returns each way's rounds."""
+    by_set: dict = {}
+    rounds = {"graphs": [], "eager": []}
+    for way, i in GRAPH_TURNS:
+        r = _round(engines[way], sets[i], max_new, f"{what} {way}")
+        by_set.setdefault(i, {})[way] = r
+        rounds[way].append(dict({k: v for k, v in r.items()
+                                 if k != "streams"}, prompt_set=i))
+    for i, r in by_set.items():
+        check(r["graphs"]["streams"] == r["eager"]["streams"],
+              f"{what}: greedy streams differ with and without graphs "
+              f"(prompt set {i})")
+        check(r["graphs"]["launches"] == r["eager"]["launches"],
+              f"{what}: launches {r['graphs']['launches']} with graphs != "
+              f"{r['eager']['launches']} without (prompt set {i})")
+        check(any(v > 0 for v in r["graphs"]["launches"].values()),
+              f"{what}: no kernel launched (prompt set {i})")
+    return rounds
+
+
+STEP_REPS = 3
+
+
+def _step_ms(eng, fn, key, reps=STEP_REPS):
+    """``fn()`` (one engine step) ``reps`` times more without the profiler:
+    the median host wall of a call that ends in a synchronize, and where
+    ``key`` has a graph the median device time of its replay alone (CUDA
+    events around ``replay()``: kernels and the gaps between them)."""
+    walls, replays = [], []
+    graph = eng.graphs.graph(key)
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if graph is not None:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            graph.replay()
+            b.record()
+            torch.cuda.synchronize()
+            replays.append(a.elapsed_time(b))
+    return {"wall_ms_unprofiled": float(np.median(walls)),
+            "replay_ms": float(np.median(replays)) if replays else None,
+            "key": list(key)}
+
+
+def _same_logits(got, want, what):
+    """One decode step's logits with graphs against without: bit-identical
+    (the same kernels on the same inputs), or else within the parity
+    phase's 2e-2 of max-abs."""
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    bit = torch.equal(got, want)
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite logits")
+    check(bit or err <= 2e-2 * scale,
+          f"{what}: logits with graphs differ by {err} (> 2e-2 x max-abs "
+          f"{scale}) from those without")
+    return {"bit_identical": bit, "max_abs_err": err, "max_abs": scale,
+            "shape": list(got.shape)}
+
+
+def _profile_paged(eng, prompts, what):
+    """Requests of ``prompts`` (one a slot) served until all decode, then
+    one decode
+    iteration's step over all of them (``_run_paged``, width 1: a graph
+    replay where the engine has graphs) under ``torch.profiler``; then the
+    requests finish.  Returns the profile and that step's logits."""
+    reqs = [ServeRequest(1000 + i, list(p), max_new=16)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        check(eng.submit(r), f"{what}: request {r.rid} rejected")
+    for _ in range(len(reqs) * 4):
+        if all(r.state == "decode" and r.out for r in reqs):
+            break
+        eng.step()
+    check(all(r.state == "decode" and r.out for r in reqs),
+          f"{what}: the requests did not all reach decode")
+    toks = [[r.out[-1]] for r in reqs]
+    pos = [[r.prompt_len + len(r.out) - 1] for r in reqs]
+    out = {}
+
+    def step():
+        out.update(step=eng._run_paged(reqs, toks, pos, [[True]] * len(reqs),
+                                       [0] * len(reqs)))
+
+    prof = _profile(step, what)
+    logits = out["step"][1].float().clone()
+    key = ("decode", min(bucket_pow2(len(reqs), floor=1), eng.n_slots),
+           eng._table_width(reqs, 1), 1)
+    prof.update(_step_ms(eng, step, key))    # rewrites the same K/V
+    eng.run()                 # the step rewrote what the next one writes
+    check(all(r.done for r in reqs), f"{what}: a request was not served")
+    return dict(prof, rows=len(reqs)), logits
+
+
+def _graphs_line(cfg, mode, eng, eager, rounds, prof, same, t0):
+    g, e = eng.report(), eager.report()
+    _graphs_on(g, f"graphs {cfg.name}")
+    check(not e["graphs"]["enabled"] and e["graphs"]["graphs"] == 0,
+          f"graphs {cfg.name}: the eager engine captured graphs")
+    emit("graphs", arch=cfg.name, n_layers=cfg.n_layers, dtype="bfloat16",
+         mode=mode, rounds=rounds, turns=GRAPH_TURNS,
+         streams_identical=True, launches_equal=True,
+         capture=g["graphs"], graph_compile_s=g["compile_s"],
+         eager_compile_s=e["compile_s"], profiled_decode=prof,
+         decode_logits=same, memory_reserved=torch.cuda.memory_reserved(),
+         phase_s=time.perf_counter() - t0)
+
+
+def graphs_paged(cfg, model, policy, eng):
+    """``eng`` (``serve_paged``'s engine, with its graphs) against a
+    ``graphs=False`` engine of the same shape."""
+    t0 = time.perf_counter()
+    eager = AsyncServeEngine(cfg, model, policy, graphs=False, device=DEV,
+                             **PAGED_KW)
+    eager.warmup()
+    engines = {"graphs": eng, "eager": eager}
+    sets = [[_prompt(800 + 10 * k + i, n, cfg.vocab_size)
+             for i, n in enumerate(GRAPH_PAGED_LENS)] for k in range(2)]
+    rounds = _in_turns(engines, sets, GRAPH_MAX_NEW, f"graphs {cfg.name}")
+    short = [_prompt(900 + i, 64, cfg.vocab_size)
+             for i in range(eng.n_slots)]
+    prof, logits = {}, {}
+    for way in ("graphs", "eager"):
+        prof[way], logits[way] = _profile_paged(
+            engines[way], short, f"graphs {cfg.name} paged decode ({way})")
+    same = _same_logits(logits["graphs"], logits["eager"],
+                        f"graphs {cfg.name}")
+    _graphs_line(cfg, "paged", eng, eager, rounds, prof, same, t0)
+
+
+def graphs_dense(cfg, model, policy, eng, lens, max_new):
+    """``eng`` (the dense serving phase's engine, with its graphs) against a
+    ``graphs=False`` engine of the same shape; the profiled decode step's
+    logits compared on the slots the last round used; a prefill of
+    ``max(lens)`` tokens timed each way without the profiler (the serving
+    phase profiled the graph's)."""
+    t0 = time.perf_counter()
+    eager = AsyncServeEngine(cfg, model, policy, mode="auto",
+                             n_slots=eng.n_slots, max_seq=eng.max_seq,
+                             graphs=False, device=DEV)
+    eager.warmup()
+    engines = {"graphs": eng, "eager": eager}
+    sets = [[_prompt(820 + 10 * k + i, n, cfg.vocab_size)
+             for i, n in enumerate(lens)] for k in range(2)]
+    rounds = _in_turns(engines, sets, max_new, f"graphs {cfg.name}")
+    prof, logits = {}, {}
+    for way in ("graphs", "eager"):
+        e, n = engines[way], max(lens)
+        S = min(bucket_pow2(n, floor=16), e.max_seq)
+        prof[way], lg = _profile_decode(e, n, f"graphs {cfg.name} ({way})")
+        prof[way]["prefill"] = _step_ms(e, lambda: e.prefill_once([0] * n),
+                                        ("prefill", S))
+        logits[way] = lg[:len(lens)]       # slots 0.. of the last round
+    same = _same_logits(logits["graphs"], logits["eager"],
+                        f"graphs {cfg.name}")
+    _graphs_line(cfg, "dense", eng, eager, rounds, prof, same, t0)
 
 
 # ---------------------------------------------------------------------------
@@ -2747,7 +2941,7 @@ def _serve_dense_auto(cfg, model, policy, *, n_slots, max_seq, lens, max_new,
     requests of the given prompt lengths; launches are counted from zero
     after the warm-up.  Returns (engine report, requests, launch counts,
     the warm-up's launch counts, wall seconds, peak device memory, the
-    profiled prefill and decode step)."""
+    profiled prefill and decode step, the engine)."""
     eng = AsyncServeEngine(cfg, model, policy, mode="auto", n_slots=n_slots,
                            max_seq=max_seq, device=DEV)
     check(eng.mode == "dense", f"{cfg.name}: auto mode picked {eng.mode}")
@@ -2772,24 +2966,41 @@ def _serve_dense_auto(cfg, model, policy, *, n_slots, max_seq, lens, max_new,
                                             for t in r.out) for r in reqs),
           f"{cfg.name}: a request's output is malformed")
     peak = torch.cuda.max_memory_allocated()
-    profiled = _profile_dense(eng, max(lens), f"{cfg.name} prefill")
-    return eng.report(), reqs, counts, warm, wall, peak, profiled
+    rep = eng.report()
+    _graphs_on(rep, cfg.name)
+    profiled = {"prefill": _profile_prefill(eng, max(lens),
+                                            f"{cfg.name} prefill"),
+                "decode_step": _profile_decode(eng, max(lens),
+                                               f"{cfg.name} decode")[0]}
+    return rep, reqs, counts, warm, wall, peak, profiled, eng
 
 
-def _profile_dense(eng, prompt_len, what):
-    """One more bucketed prefill of ``prompt_len`` tokens and one decode
-    step over all slots, each under ``torch.profiler``."""
+def _profile_prefill(eng, prompt_len, what):
+    """One more bucketed prefill of ``prompt_len`` tokens under
+    ``torch.profiler``, then timed without it (``_step_ms``), through the
+    engine's step: a graph replay where it has graphs."""
     S = min(bucket_pow2(prompt_len, floor=16), eng.max_seq)
-    toks = torch.zeros((1, S), dtype=torch.int32, device=DEV)
-    length = torch.full((1,), prompt_len, dtype=torch.int32, device=DEV)
-    prefill = _profile(lambda: eng.prefill(eng.model, toks, length), what)
+    prompt = [0] * prompt_len
+    prof = _profile(lambda: eng.prefill_once(prompt), what)
+    prof.update(_step_ms(eng, lambda: eng.prefill_once(prompt),
+                         ("prefill", S)))
+    return dict(prof, tokens=prompt_len, bucket=S)
+
+
+def _profile_decode(eng, prompt_len, what):
+    """One decode step over all slots (token 0 at position ``prompt_len``)
+    under ``torch.profiler``, then timed without it, through the engine's
+    step.  Returns the profile and the profiled step's logits."""
     B = eng.n_slots
-    tok = torch.zeros((B, 1), dtype=torch.int32, device=DEV)
-    pos = torch.full((B, 1), prompt_len, dtype=torch.int32, device=DEV)
-    decode = _profile(lambda: eng.decode(eng.model, eng.caches, tok, pos),
-                      what.replace("prefill", "decode"))
-    return {"prefill": dict(prefill, tokens=prompt_len, bucket=S),
-            "decode_step": dict(decode, rows=B)}
+    tok = np.zeros((B, 1), np.int32)
+    pos = np.full((B, 1), prompt_len, np.int32)
+    out = {}
+    prof = _profile(lambda: out.update(step=eng.decode_once(tok, pos)), what)
+    logits = out["step"][1][:, -1].float().clone()
+    # the repeats advance the recurrent states of every slot once more each
+    prof.update(_step_ms(eng, lambda: eng.decode_once(tok, pos),
+                         ("decode", B)))
+    return dict(prof, rows=B), logits
 
 
 def _per_prefill(cfg, counts, n_prefills, want_per_prefill):
@@ -2804,7 +3015,7 @@ def _per_prefill(cfg, counts, n_prefills, want_per_prefill):
 
 def serve_ssm(cfg, model, policy):
     lens = np.linspace(100, 1500, 12).astype(int).tolist()
-    rep, reqs, counts, warm, wall, peak, profiled = _serve_dense_auto(
+    rep, reqs, counts, warm, wall, peak, profiled, eng = _serve_dense_auto(
         cfg, model, policy, n_slots=8, max_seq=2048, lens=lens, max_new=64,
         seed=400)
     _per_prefill(cfg, counts, len(reqs), {"ssd": cfg.pattern.count("ssm")})
@@ -2819,12 +3030,12 @@ def serve_ssm(cfg, model, policy):
          wall_s=wall, launches=counts, ssd_design=ssd_des,
          warmup_launches=warm,
          max_memory_allocated=peak, profiled=profiled, **_latency(rep))
-    return counts["ssd"]
+    return counts["ssd"], eng
 
 
 def serve_hybrid(cfg, model, policy):
     lens = [200, 700, 1300, 2100, 2600, 3000]   # three past the window
-    rep, reqs, counts, warm, wall, peak, profiled = _serve_dense_auto(
+    rep, reqs, counts, warm, wall, peak, profiled, eng = _serve_dense_auto(
         cfg, model, policy, n_slots=4, max_seq=4096, lens=lens, max_new=32,
         seed=500)
     _per_prefill(cfg, counts, len(reqs),
@@ -2840,7 +3051,7 @@ def serve_hybrid(cfg, model, policy):
          wall_s=wall, launches=counts,
          warmup_launches=warm,
          max_memory_allocated=peak, profiled=profiled, **_latency(rep))
-    return counts
+    return counts, eng
 
 
 def _dense_streams(cfg, model, impl, prompts, max_seq):
@@ -2950,18 +3161,22 @@ def parity_recurrent(cfg, model, n_layers, lens, max_seq, prefill_len):
 
 
 def recurrent(policy):
-    """serve_ssm, serve_hybrid and their parity; returns the launches of
-    the two served runs."""
+    """serve_ssm, serve_hybrid, their ``graphs`` phase and their parity;
+    returns the launches of the two served runs."""
     out = {}
     parities = []
     for arch, serve in ((SSM_ARCH, serve_ssm), (HYBRID_ARCH, serve_hybrid)):
         cfg = get_config(arch)
         model = LM.init(cfg, seed=0, dtype=torch.bfloat16, device=DEV)
-        out[arch] = serve(cfg, model, policy)
+        out[arch], eng = serve(cfg, model, policy)
         if arch == SSM_ARCH:
+            graphs_dense(cfg, model, policy, eng, [150, 600, 1200], 12)
+            del eng
             parities.append(parity_recurrent(cfg, model, 2, [40, 300, 700],
                                              1024, 1000))
         else:   # one fp32 prompt and the bf16 one past the 2048 window
+            graphs_dense(cfg, model, policy, eng, [200, 900, 2300], 12)
+            del eng
             parities.append(parity_recurrent(cfg, model, 3,
                                              [40, 700, 2300], 4096, 2500))
         del model
@@ -3048,7 +3263,9 @@ def main() -> int:
     policy = PolicyConfig(compute_dtype="bfloat16", remat="none",
                           attn_impl="kernel")
     model = LM.init(cfg, seed=0, dtype=torch.bfloat16, device=DEV)
-    n_paged = serve_paged(cfg, model, policy)
+    n_paged, eng = serve_paged(cfg, model, policy)
+    graphs_paged(cfg, model, policy, eng)
+    del eng
     n_flash = serve_dense(cfg, model, policy)
     parity(cfg, model)
     del model
@@ -3066,7 +3283,8 @@ def main() -> int:
     # stablelm-12b (D = 160): served at full width and depth, trained at
     # full width with its depth cut
     model = LM.init(slm, seed=0, dtype=torch.bfloat16, device=DEV)
-    n_paged_d160 = serve_paged(slm, model, policy)
+    n_paged_d160, eng = serve_paged(slm, model, policy)
+    del eng
     n_flash_d160 = serve_dense(slm, model, policy)
     del model
     torch.cuda.empty_cache()

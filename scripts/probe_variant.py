@@ -13,16 +13,6 @@ flags.  The probes:
                   one m64n64k16 per panel; on ``chip_smoke.ATTN_D256_CASES``'
                   bf16 cases and recurrentgemma-2b's served shape, timed at
                   the served shape;
-  dkv_d256_split  the earlier bf16 D = 256 dK/dV (the ``_earlier`` entry
-                  point) as it was (P in bf16 hi + lo halves for dV += P^T
-                  dO, ``csrc/flash_attention_bwd.cu`` ``DkvLayout::SPLIT_P``)
-                  and with P in bf16 alone; at
-                  recurrentgemma-2b's trained shape (q (2,4096,10,256), k/v
-                  (2,4096,1,256), causal, window 2048) over six input draws,
-                  each gradient's worst ratio of error to chip_smoke.py's
-                  elementwise bound (0.02 + 0.02 |want|), where it sits and
-                  how many elements pass half of it; the shipped build must
-                  repeat bit for bit;
   ssd_bwd_heads   the bf16 SSD backward at mamba2-780m's trained shape with
                   each block of stage (c') walking up to 48 heads of a
                   group (shipped: one slice at H = 48, G = 1, no group sum
@@ -33,18 +23,18 @@ flags.  The probes:
                   (``SSD_BWD_PARTS``), timed in turns: what each part costs;
   dkv_d256_parts  the bf16 D = 256 dK/dV at recurrentgemma-2b's trained
                   shape against variants that each leave one part out
-                  (``DKV_D256_PARTS``: the q / dO loads, the statistics'
-                  loads, the score products, the gradient products, the
-                  elementwise pass, one column half's blocks), timed in
-                  turns, for each design the library exports;
+                  (``DKV_D256_PARTS``: the q / dO loads, the score
+                  products, the gradient products, the elementwise pass,
+                  the exchange, the slices' sum, the head slices), timed
+                  in turns;
   dq_d256_parts   the same for the bf16 D = 256 dQ (``DQ_D256_PARTS``:
-                  the K / V loads, the statistics, the score products, the
-                  gradient product, the elementwise pass).
+                  the K / V loads, the score products, the gradient
+                  product, the elementwise pass).
 
 Run from the repository root (no name runs every probe):
 
-    python3 scripts/probe_variant.py [fwd_d256_pv] [dkv_d256_split]
-        [ssd_bwd_heads] [ssd_bwd_parts] [dkv_d256_parts] [dq_d256_parts]
+    python3 scripts/probe_variant.py [fwd_d256_pv] [ssd_bwd_heads]
+        [ssd_bwd_parts] [dkv_d256_parts] [dq_d256_parts]
 
 Prints the card's name and power limit, then one JSON object per case,
 draw and round of turns, and exits non-zero without a CUDA device or on a
@@ -129,55 +119,6 @@ def fwd_d256_pv(gen) -> None:
                 print(json.dumps({"served_ms": {
                     "shipped": ms, "per_panel": ms_per_panel,
                     "gain": 1 - ms / ms_per_panel}}), flush=True)
-
-
-def _worst(got, want):
-    """The worst |got - want| / (0.02 + 0.02 |want|), its index, and the
-    count of elements above half of it."""
-    got, want = got.float(), want.float()
-    ratio = (got - want).abs() / (0.02 + 0.02 * want.abs())
-    at = [int(i) for i in torch.unravel_index(ratio.argmax(), ratio.shape)]
-    return {"worst_ratio": float(ratio.max()), "at_b_t_k_col": at,
-            "over_half": int((ratio > 0.5).sum())}
-
-
-def dkv_d256_split(gen, draws: int = 6) -> None:
-    split = "  static constexpr bool SPLIT_P = D > 160;"
-    libs = {"shipped": build.load(), "bf16_p": variant_library(
-        "dkv_d256_split", "flash_attention_bwd.cu", "flash_attention_bwd.cu",
-        split, split.replace("D > 160", "false"))}
-    B, S, H, K, D, window = 2, 4096, 10, 1, 256, 2048
-    kw = dict(causal=True, window=window, softcap=0.0)
-    for draw in range(draws):
-        q, k, v, do = cs._bwd_inputs(gen, B, S, S, H, K, D, torch.bfloat16)
-        o, m, l = cs.flash_attention_fwd_stats(q, k, v, **kw)
-        delta = cs.attention_delta(o, do)
-        outs = {n: (torch.empty_like(k), torch.empty_like(v)) for n in libs}
-        calls = {n: cs._entry(lib, "repro_flash_attention_bwd_dkv_earlier",
-                              (q, k, v, do, m, l, delta) + outs[n], True,
-                              window) for n, lib in libs.items()}
-        for call in calls.values():
-            call()
-        again = [x.clone() for x in outs["shipped"]]
-        calls["shipped"]()
-        torch.cuda.synchronize()
-        _, dk, dv = cs.attention_bwd_plain(q, k, v, do, m, l, delta, **kw)
-        row = {"probe": "dkv_d256_split", "draw": draw,
-               "shape": [B, S, H, K, D, window],
-               "shipped_repeats_bit_identical": all(
-                   torch.equal(a, b) for a, b in zip(again, outs["shipped"]))}
-        for n, (gk, gv) in outs.items():
-            row[n] = {"dk": _worst(gk, dk), "dv": _worst(gv, dv)}
-        print(json.dumps(row), flush=True)
-        if draw == draws - 1:
-            for _ in range(2):
-                ms, ms_bf16 = cs.time_in_turns(calls["shipped"],
-                                               calls["bf16_p"], 3)
-                print(json.dumps({"trained_ms": {
-                    "shipped": ms, "bf16_p": ms_bf16,
-                    "cost": ms / ms_bf16 - 1}}), flush=True)
-        del q, k, v, do, o, m, l, delta, outs, calls, again, dk, dv
-        torch.cuda.empty_cache()
 
 
 def ssd_bwd_heads(gen, heads=(8, 16, 24)) -> None:
@@ -289,123 +230,15 @@ def ssd_bwd_parts(gen) -> None:
                           "saved_ms": ms - ms_var}), flush=True)
 
 
-# Parts of the earlier bf16 D = 256 dK/dV and dQ
-# (``flash_bwd_dkv_wgmma_kernel`` and ``flash_bwd_dq_wgmma_kernel`` of
-# csrc/flash_attention_bwd.cu, the ``_earlier`` entry points) that
+# Parts of the bf16 D = 256 dK/dV and dQ (``flash_bwd_dkv_d256_kernel``,
+# ``flash_bwd_dq_d256_kernel`` of csrc/flash_attention_bwd.cu) that
 # dkv_d256_parts and dq_d256_parts leave out, one variant each: (texts,
-# their replacements).  A part left out
-# leaves its registers or shared memory as they were (the outputs are then
-# wrong and are not checked); where the next stage would be dead code
-# without it, a cheap use of its result stands in.
-DKV_D256_PARTS_EARLIER = {
-    "no_q_do_loads": (
-        ["mbar_arrive_expect_tx(&full[stage], 2 * BM * D * 2);\n"
-         "          for (int p = 0; p < NP; ++p) {"],
-        ["mbar_arrive(&full[stage]);\n"
-         "          for (int p = 0; p < 0; ++p) {"]),
-    "no_stats": (
-        ["for (int r = lane; r < BM; r += 32) {\n"
-         "          const bool live = m0 + r < S;"],
-        ["for (int r = lane; r < 0; r += 32) {\n"
-         "          const bool live = m0 + r < S;"]),
-    "no_scores": (
-        ["float st[QB * 4], dpt[QB * 4];",
-         "for (int ks = 0; ks < KS; ++ks) {\n"
-         "        const uint32_t kofs = (ks % KSP) * 32;\n"
-         "        wgmma_ss(st,",
-         "for (int ks = 0; ks < KS; ++ks) {\n"
-         "        const uint32_t kofs = (ks % KSP) * 32;\n"
-         "        wgmma_ss(dpt,"],
-        ["float st[QB * 4], dpt[QB * 4];\n"
-         "      for (int i = 0; i < QB * 4; ++i) st[i] = dpt[i] = "
-         "(float)(m0 + i);",
-         "for (int ks = 0; ks < 0; ++ks) {\n"
-         "        const uint32_t kofs = (ks % KSP) * 32;\n"
-         "        wgmma_ss(st,",
-         "for (int ks = 0; ks < 0; ++ks) {\n"
-         "        const uint32_t kofs = (ks % KSP) * 32;\n"
-         "        wgmma_ss(dpt,"]),
-    "no_grad_products": (
-        ["for (int kk = 0; kk < PK; ++kk) {\n"
-         "        wgmma_rs_panels<PW, NPO>(dv_acc, pa[kk],"],
-        ["for (int kk = 0; kk < PK; ++kk)\n"
-         "        dk_acc[0][kk] += __uint_as_float(\n"
-         "            pa[kk][0] ^ pa[kk][1] ^ pa[kk][2] ^ pa[kk][3] ^ "
-         "da[kk][0] ^\n"
-         "            da[kk][1] ^ da[kk][2] ^ da[kk][3] ^\n"
-         "            pl[Lay::SPLIT_P ? kk : 0][kk & 3]);\n"
-         "      for (int kk = 0; kk < 0; ++kk) {\n"
-         "        wgmma_rs_panels<PW, NPO>(dv_acc, pa[kk],"]),
-    "no_elementwise": (
-        ["for (int i = 0; i < QB * 4; ++i)\n"
-         "          st[i] = softcap * tanhf(st[i] * to_t);",
-         "for (int j = 0; j < QB; ++j)\n#pragma unroll\n"
-         "        for (int e = 0; e < 2; ++e) {"],
-        ["for (int i = 0; i < 0; ++i)\n"
-         "          st[i] = softcap * tanhf(st[i] * to_t);",
-         "for (int j = 0; j < 0; ++j)\n#pragma unroll\n"
-         "        for (int e = 0; e < 2; ++e) {"]),
-    # half the blocks: at B = 2, K = 1 both column halves of batch 0 run
-    "one_column_half": (
-        ["const dim3 grid(K * B * Lay::NH, (Tk + DKV_BN - 1) / DKV_BN);"],
-        ["const dim3 grid(K * B * Lay::NH / (D == 256 ? 2 : 1),\n"
-         "                  (Tk + DKV_BN - 1) / DKV_BN);"]),
-}
-DQ_D256_PARTS_EARLIER = {
-    "no_k_v_loads": (
-        ["mbar_arrive_expect_tx(&full[stage], 2 * BN * D * 2);\n"
-         "        for (int p = 0; p < NP; ++p) {"],
-        ["mbar_arrive(&full[stage]);\n"
-         "        for (int p = 0; p < 0; ++p) {"]),
-    "no_stats": (
-        ["      m_r[h] = live ? m[at] : 0.f;\n"
-         "      il_r[h] = live ? 1.f / l[at] : 1.f;\n"
-         "      dl_r[h] = live ? delta[at] : 0.f;"],
-        ["      m_r[h] = 0.f;\n      il_r[h] = 1.f;\n"
-         "      dl_r[h] = (float)at;"]),
-    "no_scores": (
-        ["float s[NB * 4], dp[NB * 4];",
-         "for (int ks = 0; ks < KS; ++ks) {\n"
-         "        const uint32_t kofs = (ks % KSP) * 32;\n"
-         "        wgmma_ss(\n            s,",
-         "for (int ks = 0; ks < KS; ++ks) {\n"
-         "        const uint32_t kofs = (ks % KSP) * 32;\n"
-         "        wgmma_ss(\n            dp,"],
-        ["float s[NB * 4], dp[NB * 4];\n"
-         "      for (int i = 0; i < NB * 4; ++i) s[i] = dp[i] = "
-         "(float)(n0 + i);",
-         "for (int ks = 0; ks < 0; ++ks) {\n"
-         "        const uint32_t kofs = (ks % KSP) * 32;\n"
-         "        wgmma_ss(\n            s,",
-         "for (int ks = 0; ks < 0; ++ks) {\n"
-         "        const uint32_t kofs = (ks % KSP) * 32;\n"
-         "        wgmma_ss(\n            dp,"]),
-    "no_grad_product": (
-        ["for (int kk = 0; kk < PK; ++kk)\n"
-         "        wgmma_rs_panels<PW, NP>(acc, da[kk],"],
-        ["for (int kk = 0; kk < PK; ++kk)\n"
-         "        acc[0][kk] += __uint_as_float(da[kk][0] ^ da[kk][1] ^ "
-         "da[kk][2] ^\n"
-         "                                      da[kk][3]);\n"
-         "      for (int kk = 0; kk < 0; ++kk)\n"
-         "        wgmma_rs_panels<PW, NP>(acc, da[kk],"]),
-    "no_elementwise": (
-        ["for (int i = 0; i < NB * 4; ++i) s[i] = softcap * "
-         "tanhf(s[i] * to_t);",
-         "for (int i = 0; i < NB * 4; ++i) {\n"
-         "        const int h = (i >> 1) & 1;"],
-        ["for (int i = 0; i < 0; ++i) s[i] = softcap * "
-         "tanhf(s[i] * to_t);",
-         "for (int i = 0; i < 0; ++i) {\n"
-         "        const int h = (i >> 1) & 1;"]),
-}
-
-
-# The same for the shipped designs (``flash_bwd_dkv_d256_kernel``,
-# ``flash_bwd_dq_d256_kernel``), and variants that take out what the
-# design adds: dK/dV without head slices (``one_slice``: the balance), with
-# the slices' partials left unsummed (``no_sum``), without the exchange's
-# writes (``no_exchange``).
+# their replacements).  A part left out leaves its registers or shared
+# memory as they were (the outputs are then wrong and are not checked);
+# where the next stage would be dead code without it, a cheap use of its
+# result stands in.  dK/dV also without head slices (``one_slice``: the
+# balance), with the slices' partials left unsummed (``no_sum``), without
+# the exchange's writes (``no_exchange``).
 DKV_D256_PARTS = {
     "no_q_do_loads": (
         ["mbar_arrive_expect_tx(&full[stage], BM * D * 4);  // q, dO\n"
@@ -478,39 +311,33 @@ DQ_D256_PARTS = {
 }
 
 
-def _attn_parts(gen, probe, designs, iters) -> None:
-    """Each design's entry point (``designs``: name -> (entry, its parts))
-    against variants of csrc/flash_attention_bwd.cu that each leave one
-    part out, at recurrentgemma-2b's trained shape (q (2,4096,10,256), k/v
+def _attn_parts(gen, probe, entry, parts, iters) -> None:
+    """The shipped ``entry`` against variants of
+    csrc/flash_attention_bwd.cu that each leave one part out (``parts``), at recurrentgemma-2b's trained shape (q (2,4096,10,256), k/v
     (2,4096,1,256), bf16, causal, window 2048), timed in turns (shipped,
     variant, variant, shipped); a part's share is the time its variant
     saves."""
     from concurrent.futures import ThreadPoolExecutor
     shipped_lib = build.load()
-    todo = [(d, name, old, new) for d, (_, ps) in designs.items()
-            for name, (old, new) in ps.items()]
-    with ThreadPoolExecutor(len(todo)) as pool:
-        futs = {(d, name): pool.submit(
-            variant_library, f"{probe}_{d}_{name}", "flash_attention_bwd.cu",
-            "flash_attention_bwd.cu", old, new) for d, name, old, new in todo}
-        libs = {key: f.result() for key, f in futs.items()}
+    with ThreadPoolExecutor(len(parts)) as pool:
+        futs = {name: pool.submit(
+            variant_library, f"{probe}_{name}", "flash_attention_bwd.cu",
+            "flash_attention_bwd.cu", old, new)
+            for name, (old, new) in parts.items()}
+        libs = {name: f.result() for name, f in futs.items()}
     B, S, H, K, D, window = 2, 4096, 10, 1, 256, 2048
     q, k, v, do = cs._bwd_inputs(gen, B, S, S, H, K, D, torch.bfloat16)
     o, m, l = cs.flash_attention_fwd_stats(q, k, v, causal=True,
                                            window=window)
     ins = (q, k, v, do, m, l, cs.attention_delta(o, do))
-    for d, (entry, _) in designs.items():
-        outs = _outs(entry, q, k, v)
-        shipped = cs._entry(shipped_lib, entry, ins + outs, True, window)
-        for (dd, name), lib in libs.items():
-            if dd != d:
-                continue
-            call = cs._entry(lib, entry, ins + outs, True, window)
-            ms, ms_var = cs.time_in_turns(shipped, call, iters)
-            print(json.dumps({"probe": probe, "design": d, "entry": entry,
-                              "variant": name, "shipped_ms": ms,
-                              "variant_ms": ms_var,
-                              "saved_ms": ms - ms_var}), flush=True)
+    outs = _outs(entry, q, k, v)
+    shipped = cs._entry(shipped_lib, entry, ins + outs, True, window)
+    for name, lib in libs.items():
+        call = cs._entry(lib, entry, ins + outs, True, window)
+        ms, ms_var = cs.time_in_turns(shipped, call, iters)
+        print(json.dumps({"probe": probe, "entry": entry, "variant": name,
+                          "shipped_ms": ms, "variant_ms": ms_var,
+                          "saved_ms": ms - ms_var}), flush=True)
 
 
 def _outs(entry, q, k, v):
@@ -518,8 +345,6 @@ def _outs(entry, q, k, v):
     head slices' partials, or dq."""
     if "_dq" in entry:
         return (torch.empty_like(q),)
-    if entry.endswith("_earlier"):
-        return torch.empty_like(k), torch.empty_like(v)
     B, S, H, D = q.shape
     nsl = cs.dkv_slices(B, k.shape[1], H, k.shape[2], D, q.dtype)
     return torch.empty_like(k), torch.empty_like(v), torch.empty(
@@ -527,25 +352,19 @@ def _outs(entry, q, k, v):
 
 
 def dkv_d256_parts(gen) -> None:
-    """Where the bf16 D = 256 dK/dV spends its time: the earlier design
-    (``DKV_D256_PARTS_EARLIER``) and the shipped one (``DKV_D256_PARTS``)."""
-    _attn_parts(gen, "dkv_d256_parts", {
-        "earlier": ("repro_flash_attention_bwd_dkv_earlier",
-                    DKV_D256_PARTS_EARLIER),
-        "shipped": ("repro_flash_attention_bwd_dkv", DKV_D256_PARTS)}, 3)
+    """Where the bf16 D = 256 dK/dV spends its time
+    (``DKV_D256_PARTS``)."""
+    _attn_parts(gen, "dkv_d256_parts", "repro_flash_attention_bwd_dkv",
+                DKV_D256_PARTS, 3)
 
 
 def dq_d256_parts(gen) -> None:
-    """The same for the bf16 D = 256 dQ (``DQ_D256_PARTS_EARLIER``,
-    ``DQ_D256_PARTS``)."""
-    _attn_parts(gen, "dq_d256_parts", {
-        "earlier": ("repro_flash_attention_bwd_dq_earlier",
-                    DQ_D256_PARTS_EARLIER),
-        "shipped": ("repro_flash_attention_bwd_dq", DQ_D256_PARTS)}, 5)
+    """The same for the bf16 D = 256 dQ (``DQ_D256_PARTS``)."""
+    _attn_parts(gen, "dq_d256_parts", "repro_flash_attention_bwd_dq",
+                DQ_D256_PARTS, 5)
 
 
-PROBES = {"fwd_d256_pv": fwd_d256_pv, "dkv_d256_split": dkv_d256_split,
-          "ssd_bwd_heads": ssd_bwd_heads, "ssd_bwd_parts": ssd_bwd_parts,
+PROBES = {"fwd_d256_pv": fwd_d256_pv, "ssd_bwd_heads": ssd_bwd_heads, "ssd_bwd_parts": ssd_bwd_parts,
           "dkv_d256_parts": dkv_d256_parts, "dq_d256_parts": dq_d256_parts}
 
 

@@ -63,7 +63,7 @@
 //     axis, so no transpose is paid per layer; the outputs are written in
 //     the input dtype from fp32 accumulators.
 //
-// flash_bwd_dkv_wgmma_kernel<D> (bf16, D = 64, 128, 160 and 256).  Bounded by
+// flash_bwd_dkv_wgmma_kernel<D> (bf16, D = 64, 128 and 160).  Bounded by
 // operations (four products per live (query, key) pair).  The mma.sync
 // design above spends 512 bytes of shared-memory traffic on each 4096-flop
 // mma (its K and V fragments are re-read for every row block) and cannot
@@ -110,36 +110,12 @@
 //     3.9 % faster than one m64n32k16 a panel, timed in turns on the
 //     H100 (PERF.md).  Shared memory: K and V 81,920 bytes,
 //     three stages of q, dO and statistics 62,592.
-//   * D = 256 (the earlier design, replaced by flash_bwd_dkv_d256_kernel;
-//     repro_flash_attention_bwd_dkv_earlier launches it for one comparison
-//     in turns): one warpgroup's dK and dV over all 256 columns would be
-//     2 x 128 fp32 registers a thread, past setmaxnreg 240.  So the grid
-//     has two blocks per 128 keys, one per column half (DkvLayout::NH):
-//     each recomputes S^T and dP^T over all four 64-column panels and
-//     accumulates dK and dV for its two panels only (64 + 64 fp32 a
-//     thread), 1.5x the products of one pass.  Rejected: a dV launch and a
-//     dK launch (1.25x the products, but two launches and the score
-//     products twice over anyway), and dV and dK in different warpgroups
-//     (1.38x slower at D = 160, PERF.md).  32-query tiles, m64n32k16 score
-//     products, one m64n64k16 a panel for the gradient products.  A key
-//     near the start of the sequence sums P^T dO over some 20,000 (query,
-//     head) pairs of G = 10 heads in a 2048 window, and with P rounded to
-//     bf16 alone the worst dV element of the trained shape reached 0.53-0.78
-//     of chip_smoke.py's elementwise bound (0.02 + 0.02 |want|) over six
-//     draws, and passed it in another.  So at D = 256 P is split into bf16
-//     hi + lo halves (DkvLayout::SPLIT_P) and dV += P^T dO takes both, as
-//     the SSD splits its fp32 operands: one more m64n64k16 a panel, which
-//     took the same draws to 0.26-0.31 for 2 % more time, timed in turns on
-//     the H100 by scripts/probe_variant.py (dkv_d256_split; PERF.md).
-//     Shared memory: K and V 131,072 bytes, three stages of q, dO and
-//     statistics 99,456: 231,608 bytes with the barriers and the alignment,
-//     against 232,448.
-//   * ptxas (sm_90a, -Xptxas -v, nvcc 12.9): 168 registers at D = 64, 128,
-//     160 and 256 -- the bound of a 384-thread block; setmaxnreg moves the
+//   * ptxas (sm_90a, -Xptxas -v, nvcc 12.9): 168 registers at D = 64, 128
+//     and 160 -- the bound of a 384-thread block; setmaxnreg moves the
 //     producer to 24 and the consumers to 240 -- and 0 bytes of spill.
 //     chip_smoke.py prints both (kernel_cases, ptxas) and fails on a spill.
 //
-// flash_bwd_dq_wgmma_kernel<D> (bf16, D = 64, 128, 160 and 256).  Bounded by
+// flash_bwd_dq_wgmma_kernel<D> (bf16, D = 64, 128 and 160).  Bounded by
 // operations (three products per live pair).  The mma.sync design above
 // re-reads its K and V fragments through ldmatrix for every 16 query rows
 // and cannot reach the tensor-core rate (at D = 160: 4.2x its bound).
@@ -173,14 +149,6 @@
 //     panel.  A consumer thread holds 80 fp32 of dQ, 32 of S, 32 of dP and
 //     16 packed dS, so the 64-key tile stays; shared memory: q and dO
 //     81,920 bytes, three stages of K and V 122,880.
-//   * D = 256 (the earlier design, replaced by flash_bwd_dq_d256_kernel;
-//     repro_flash_attention_bwd_dq_earlier launches it): q and dO of 128
-//     positions take 131,072 bytes, and one stage of 64 keys of K and V
-//     65,536, so the key tiles are DqLayout::BN = 32 keys in three stages
-//     (98,304 bytes; 230,456 in all).  S and dP are
-//     m64n32k16 over 16 k-steps (16 + 16 fp32 a thread beside 128 of dQ);
-//     dQ += dS K is one m64n256k16 per 16 keys over the four panels, as the
-//     forward's P V.
 //   * The mask and the soft-cap are decided once per tile and each
 //     elementwise pass is branch-free, as in the other warpgroup kernels.
 //   * Left out: fusing dQ into the dK/dV kernel with fp32 atomics (the
@@ -189,7 +157,9 @@
 //
 // flash_bwd_dkv_d256_kernel (bf16, D = 256: recurrentgemma-2b's 10 query
 // heads over one KV head, trained under its 2048 window).  The earlier
-// design above spent its time, measured by leaving each part out in turn
+// design (two blocks per 128 keys, one per column half, each recomputing
+// the scores; deleted once this one was timed against it) spent its time,
+// measured by leaving each part out in turn
 // (scripts/probe_variant.py dkv_d256_parts; PERF.md), on the score
 // products (0.39 of 1.27 ms: each of the two column-half blocks recomputes
 // them), the elementwise pass (0.30: no product runs beside it) and the
@@ -226,7 +196,8 @@
 //     positions) and statistics 132,608, the exchange 24,576: 223,784 in
 //     all.  ptxas: 168 registers (the launch bound), 0 spill.
 //
-// flash_bwd_dq_d256_kernel (bf16, D = 256).  The earlier dQ spent 0.17 of
+// flash_bwd_dq_d256_kernel (bf16, D = 256).  The earlier dQ (32-key
+// tiles, deleted) spent 0.17 of
 // 0.43 ms on its m64n32k16 score products, 0.08 on the elementwise pass,
 // 0.004 on K / V loads.  This design takes 48-key tiles (m64n48k16 score
 // products, three m64n256k16 for dS K) in two stages: 131,072 + 98,304
@@ -1035,7 +1006,7 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dK/dV, D = 64, 128, 160 and 256: warpgroup products fed by the TMA
+// bf16 dK/dV, D = 64, 128 and 160: warpgroup products fed by the TMA
 // ---------------------------------------------------------------------------
 constexpr int DKV_BN = 128;    // keys per block: 2 consumer warpgroups x 64
 constexpr int DKV_STAGES = 3;  // (q, dO, statistics) tiles in flight
@@ -1044,18 +1015,13 @@ constexpr int WG_NT = 384;     // producer warpgroup + 2 consumer warpgroups
 // byte offsets from the block's 1024-aligned shared-memory base: K and V (NP
 // panels of 128 keys each), then DKV_STAGES x NP panels of q, the same of
 // dO, DKV_STAGES x (m, 1/l, delta) x BM floats, the barriers.  A panel is
-// PW columns (hopper.cuh): 64 at D = 64 / 128 / 256, 32 at D = 160.  BM
-// query positions a tile: 64, and 32 above D = 128, where the dK and dV
-// accumulators alone take 160 (D = 160) or 128 (D = 256, a column half)
-// fp32 registers a thread.  NH column halves: at D = 256 a block
-// accumulates dK and dV for NPO = 2 of the 4 panels (see the note at the
-// top).
+// PW columns (hopper.cuh): 64 at D = 64 / 128, 32 at D = 160.  BM query
+// positions a tile: 64, and 32 above D = 128, where the dK and dV
+// accumulators alone take 160 fp32 registers a thread.
 template <int D> struct DkvLayout {
+  static_assert(D <= 160, "D = 256 has flash_bwd_dkv_d256_kernel");
   static constexpr int PW = hopper::kPanelCols<D>;
   static constexpr int NP = D / PW;
-  static constexpr int NH = D > 160 ? 2 : 1;
-  static constexpr int NPO = NP / NH;           // panels of dK, dV a block owns
-  static constexpr bool SPLIT_P = D > 160;      // dV += (P_hi + P_lo)^T dO
   static constexpr int RB = 2 * PW;             // bytes of a panel row
   static constexpr int BM = D > 128 ? 32 : 64;
   static constexpr int KV_PANEL = DKV_BN * RB;
@@ -1069,9 +1035,6 @@ template <int D> struct DkvLayout {
   static constexpr int BYTES = BAR + (2 * DKV_STAGES + 1) * 8 + 1024;
 };
 static_assert(DkvLayout<160>::BYTES <= 232448, "D = 160 tiles exceed the SM");
-static_assert(DkvLayout<256>::BYTES <= 232448, "D = 256 tiles exceed the SM");
-static_assert(DkvLayout<256>::NH * DkvLayout<256>::NPO * 64 == 256,
-              "the column halves must cover all D = 256 columns");
 
 template <int D>
 __global__ void __launch_bounds__(WG_NT, 1)
@@ -1089,7 +1052,6 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
   using namespace hopper;
   using Lay = DkvLayout<D>;
   constexpr int NP = Lay::NP;
-  constexpr int NPO = Lay::NPO;
   constexpr int PW = Lay::PW;
   constexpr int RB = Lay::RB;
   constexpr int BM = Lay::BM;
@@ -1099,7 +1061,6 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
   constexpr int PK = BM / 16;       // k-steps of the gradient products
   constexpr int CB = PW / 8;        // 8-column blocks of a panel
   static_assert(NP * PW == D, "the panels must cover all D columns");
-  static_assert(Lay::NH * NPO == NP, "the halves must cover all panels");
   static_assert(QB * 4 <= 32, "the live mask is one bit per element");
 
   extern __shared__ unsigned char smem_raw[];
@@ -1109,9 +1070,8 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
   uint64_t* kv_full = empty + DKV_STAGES;
   float* stats = reinterpret_cast<float*>(sm + Lay::STATS);
 
-  const int panel0 = (blockIdx.x % Lay::NH) * NPO;  // the first panel of dK, dV
-  const int kh = blockIdx.x / Lay::NH % K;
-  const int b = blockIdx.x / Lay::NH / K;
+  const int kh = blockIdx.x % K;
+  const int b = blockIdx.x / K;
   const int n0 = blockIdx.y * DKV_BN;   // n0 = 0 (heaviest) first
   int m_begin, m_end;
   live_query_tiles(n0, DKV_BN, BM, S, causal, window, m_begin, m_end);
@@ -1194,11 +1154,11 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
     key[0] = k_lo + warp * 16 + (lane >> 2);
     key[1] = key[0] + 8;
 
-    // gradient accumulators per panel of this block's columns: [j * 4 + e]
-    // is key key[e >> 1], column (panel0 + p) * PW + j * 8 + qc + (e & 1)
-    float dk_acc[NPO][CB * 4], dv_acc[NPO][CB * 4];
+    // gradient accumulators per panel: [j * 4 + e] is key key[e >> 1],
+    // column p * PW + j * 8 + qc + (e & 1)
+    float dk_acc[NP][CB * 4], dv_acc[NP][CB * 4];
 #pragma unroll
-    for (int p = 0; p < NPO; ++p)
+    for (int p = 0; p < NP; ++p)
 #pragma unroll
       for (int i = 0; i < CB * 4; ++i) dk_acc[p][i] = dv_acc[p][i] = 0.f;
 
@@ -1298,43 +1258,30 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
           }
         }
 
-      // ---- dV += P^T dO, dK += dS^T Q over this block's panels: bf16 A
-      // fragments straight from the accumulators; per 16 queries one
-      // m64n64k16 per panel (D = 64, 128, 256) or one m64n160k16 over the
-      // five panels (D = 160) ----
-      uint32_t pa[PK][4], da[PK][4], pl[Lay::SPLIT_P ? PK : 1][4];
+      // ---- dV += P^T dO, dK += dS^T Q over all panels: bf16 A fragments
+      // straight from the accumulators; per 16 queries one m64n64k16 per
+      // panel (D = 64, 128) or one m64n160k16 over the five panels (D =
+      // 160) ----
+      uint32_t pa[PK][4], da[PK][4];
 #pragma unroll
       for (int kk = 0; kk < PK; ++kk)
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          const float pv0 = st[8 * kk + 2 * r], pv1 = st[8 * kk + 2 * r + 1];
-          pa[kk][r] = pack_bf16(pv0, pv1);
+          pa[kk][r] = pack_bf16(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
           da[kk][r] = pack_bf16(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
-          if constexpr (Lay::SPLIT_P) {
-            // the rounding error of the hi half, itself rounded to bf16
-            const __nv_bfloat162 h2 =
-                *reinterpret_cast<const __nv_bfloat162*>(&pa[kk][r]);
-            pl[kk][r] =
-                pack_bf16(pv0 - __low2float(h2), pv1 - __high2float(h2));
-          }
         }
       wgmma_fence();
-      const uint32_t o_at = panel0 * Lay::Q_PANEL;
 #pragma unroll
       for (int kk = 0; kk < PK; ++kk) {
-        wgmma_rs_panels<PW, NPO>(dv_acc, pa[kk],
-                                 do_addr + o_at + kk * 16 * RB, Lay::Q_PANEL);
-        if constexpr (Lay::SPLIT_P)
-          wgmma_rs_panels<PW, NPO>(dv_acc, pl[kk],
-                                   do_addr + o_at + kk * 16 * RB,
-                                   Lay::Q_PANEL);
-        wgmma_rs_panels<PW, NPO>(dk_acc, da[kk],
-                                 q_addr + o_at + kk * 16 * RB, Lay::Q_PANEL);
+        wgmma_rs_panels<PW, NP>(dv_acc, pa[kk], do_addr + kk * 16 * RB,
+                                Lay::Q_PANEL);
+        wgmma_rs_panels<PW, NP>(dk_acc, da[kk], q_addr + kk * 16 * RB,
+                                Lay::Q_PANEL);
       }
       wgmma_commit();
       wgmma_wait<0>();
 #pragma unroll
-      for (int p = 0; p < NPO; ++p) {
+      for (int p = 0; p < NP; ++p) {
         fence_regs(dv_acc[p]);
         fence_regs(dk_acc[p]);
       }
@@ -1350,10 +1297,10 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
       if (key[h] < Tk) {
         const size_t at = ((size_t)b * Tk + key[h]) * K * D + (size_t)kh * D;
 #pragma unroll
-        for (int p = 0; p < NPO; ++p)
+        for (int p = 0; p < NP; ++p)
 #pragma unroll
           for (int j = 0; j < CB; ++j) {
-            const int c = (panel0 + p) * PW + j * 8 + qc;
+            const int c = p * PW + j * 8 + qc;
             *reinterpret_cast<uint32_t*>(dk + at + c) = pack_bf16(
                 dk_acc[p][j * 4 + 2 * h], dk_acc[p][j * 4 + 2 * h + 1]);
             *reinterpret_cast<uint32_t*>(dv + at + c) = pack_bf16(
@@ -1365,7 +1312,7 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dQ, D = 64, 128, 160 and 256: warpgroup products fed by the TMA
+// bf16 dQ, D = 64, 128 and 160: warpgroup products fed by the TMA
 // ---------------------------------------------------------------------------
 constexpr int DQ_BM = 128;     // query positions per block: 2 warpgroups x 64
 constexpr int DQ_STAGES = 3;   // K/V tiles in flight
@@ -1373,13 +1320,13 @@ constexpr int DQ_STAGES = 3;   // K/V tiles in flight
 // byte offsets from the block's 1024-aligned shared-memory base: q and dO
 // (NP panels of 128 rows each), then DQ_STAGES x NP panels of K, the same
 // of V, then the barriers.  A panel is PW columns (hopper.cuh): 64 at D =
-// 64 / 128 / 256, 32 at D = 160 (q and dO 81,920 bytes, three stages of K
-// and V 122,880).  BN keys a tile: 64, and 32 at D = 256, where q and dO
-// take 131,072 bytes (three stages of 32 keys 98,304).
+// 64 / 128, 32 at D = 160 (q and dO 81,920 bytes, three stages of K and V
+// 122,880).  BN = 64 keys a tile.
 template <int D> struct DqLayout {
+  static_assert(D <= 160, "D = 256 has flash_bwd_dq_d256_kernel");
   static constexpr int PW = hopper::kPanelCols<D>;
   static constexpr int NP = D / PW;
-  static constexpr int BN = D > 160 ? 32 : 64;
+  static constexpr int BN = 64;
   static constexpr int RB = 2 * PW;             // bytes of a panel row
   static constexpr int Q_PANEL = DQ_BM * RB;
   static constexpr int KV_PANEL = BN * RB;
@@ -1392,7 +1339,6 @@ template <int D> struct DqLayout {
 };
 static_assert(DqLayout<160>::BYTES <= 232448, "D = 160 tiles exceed the SM");
 static_assert(DqLayout<128>::BYTES <= 232448, "D = 128 tiles exceed the SM");
-static_assert(DqLayout<256>::BYTES <= 232448, "D = 256 tiles exceed the SM");
 
 template <int D>
 __global__ void __launch_bounds__(WG_NT, 1)
@@ -1608,8 +1554,8 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap tq,
         }
 
       // ---- dQ += dS K: K MN-major (the transposed-B flag), per 16 keys
-      // one m64n64k16 per panel (D = 64, 128), one m64n160k16 over the
-      // five panels (D = 160) or one m64n256k16 over the four (D = 256) ----
+      // one m64n64k16 per panel (D = 64, 128) or one m64n160k16 over the
+      // five panels (D = 160) ----
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < PK; ++kk)
@@ -2369,7 +2315,7 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v,
   static bool configured = false;
   rc = configure(flash_bwd_dkv_wgmma_kernel<D>, bytes, configured);
   if (rc != 0) return rc;
-  const dim3 grid(K * B * Lay::NH, (Tk + DKV_BN - 1) / DKV_BN);
+  const dim3 grid(K * B, (Tk + DKV_BN - 1) / DKV_BN);
   flash_bwd_dkv_wgmma_kernel<D><<<grid, WG_NT, bytes, stream>>>(
       tq, tk, tv, tdo, m, l, delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
       S, Tk, H, K, H / K, causal, window, 1.0f / sqrtf((float)D), softcap);
@@ -2597,31 +2543,4 @@ extern "C" int repro_flash_attention_bwd_dkv_slices(int B, int T, int H,
       H % K != 0)
     return 1;
   return dkv256_slices(B, T, K, H / K);
-}
-
-// The earlier bf16 D = 256 designs -- dK/dV in two blocks per 128 keys, one
-// per column half, each recomputing the scores; dQ at 32-key tiles -- kept
-// for one comparison in turns with the designs above (chip_smoke.py
-// bwd_main_shape); the arguments of the entry points above without ws.
-extern "C" int repro_flash_attention_bwd_dkv_earlier(
-    const void* q, const void* k, const void* v, const void* dout,
-    const float* m, const float* l, const float* delta, void* dk, void* dv,
-    int B, int S, int T, int H, int K, int D, int dtype, int causal,
-    int window, float softcap, void* stream) {
-  if (!shape_ok(B, S, T, H, K) || D != 256 || dtype != DTYPE_BF16)
-    return ERR_UNSUPPORTED;
-  return launch_dkv_wgmma<256>(q, k, v, dout, m, l, delta, dk, dv, B, S, T,
-                               H, K, causal, window, softcap,
-                               (cudaStream_t)stream);
-}
-
-extern "C" int repro_flash_attention_bwd_dq_earlier(
-    const void* q, const void* k, const void* v, const void* dout,
-    const float* m, const float* l, const float* delta, void* dq, int B,
-    int S, int T, int H, int K, int D, int dtype, int causal, int window,
-    float softcap, void* stream) {
-  if (!shape_ok(B, S, T, H, K) || D != 256 || dtype != DTYPE_BF16)
-    return ERR_UNSUPPORTED;
-  return launch_dq_wgmma<256>(q, k, v, dout, m, l, delta, dq, B, S, T, H, K,
-                              causal, window, softcap, (cudaStream_t)stream);
 }

@@ -103,3 +103,11 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for w in _WRAPPERS:
         w.launches = 0
+
+
+def add_launch_counts(delta: Dict[str, int]) -> None:
+    """Add ``delta`` (wrapper name -> launches) to the counts: a replayed
+    CUDA graph calls no wrapper, so the serving graphs add what their
+    capture recorded (``serve/graphs.py``)."""
+    for w in _WRAPPERS:
+        w.launches += delta.get(w.__name__, 0)

@@ -1,8 +1,9 @@
 """Shape-bucket helpers, held against ``repro/kernels/registry.py``.
 
-Only ``bucket_pow2`` and ``fit_block`` are here: the serving engine buckets
-block-table widths and prompt lengths with the first, and the second fits a
-tile to a dimension.  The tuned-config registry itself arrives with the
+Only ``bucket_pow2`` and ``fit_block`` are here: the serving engine pads
+its steps' batch rows, block-table widths and prompt lengths to the first's
+buckets (the keys of its CUDA graphs, ``serve/graphs.py``), and the second
+fits a tile to a dimension.  The tuned-config registry itself arrives with the
 autotuner.
 """
 from __future__ import annotations

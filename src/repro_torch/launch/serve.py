@@ -89,8 +89,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         sched_policy=args.sched, mode=args.mode, fused=args.fused,
         request_timeout_s=args.request_timeout, device=args.device)
     if args.warmup:
-        print(f"warmup: built and first-launched the kernels in "
-              f"{eng.warmup():.1f}s")
+        dt = eng.warmup()
+        print(f"warmup: built and first-launched the kernels and captured "
+              f"{eng.graphs.n_graphs} step graphs in {dt:.1f}s")
 
     pending = deque(
         ServeRequest(i, np.random.RandomState(i).randint(

@@ -27,12 +27,22 @@ Where the kernels sit (``attn_impl="kernel"``):
 
 With ``attn_impl="full"`` every path runs its plain version: the oracle.
 
-Differences from the reference that PyTorch's eager execution brings: there
-is no ``jit``, so batch rows are not padded to power-of-two buckets (that
-padding bounded trace counts); caches and the pool are updated in place;
-and the parameters are cast to the compute dtype **once**, when the engine
-is built (``LM.cast_weights_``), instead of on every call -- same values,
-same arithmetic.  Engines run on the GPU unless the caller passes
+Where the reference jits a step (``jax.jit``: one program per input shape),
+``AsyncServeEngine`` runs it through ``serve.graphs.StepGraphs``: one CUDA
+graph per step key, captured in ``warmup()`` and replayed per step.  Its
+steps are padded to the reference's power-of-two buckets, which keep the
+keys few: batch rows to ``min(bucket_pow2(B, floor=1), n_slots)``, block
+tables to ``min(bucket_pow2(pages, floor=1), pages_for(max_seq))`` and
+dense-mode prompts to ``min(bucket_pow2(L, floor=16), max_seq)``.  Graphs
+hold the paged decode step (width 1), the dense decode step and the dense
+bucketed prefill; the paged step with prefill chunks runs eagerly, bucketed
+all the same.  ``graphs=False`` runs every step eagerly through the same
+static buffers (the counterpart of ``jax.disable_jit()``), as the CPU does.
+
+Other differences from the reference: caches and the pool are updated in
+place, and the parameters are cast to the compute dtype **once**, when the
+engine is built (``LM.cast_weights_``), instead of on every call -- same
+values, same arithmetic.  Engines run on the GPU unless the caller passes
 ``device="cpu"``.
 """
 from __future__ import annotations
@@ -41,6 +51,7 @@ import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.cluster.telemetry import ServingStats
@@ -50,6 +61,7 @@ from repro_torch.models.attention import PagedDecodeCache
 from repro_torch.models.lm import LM, require_device
 from repro_torch.models import transformer
 from repro_torch.serve import kvcache
+from repro_torch.serve.graphs import StepGraphs
 from repro_torch.serve.scheduler import (DECODE, PREFILL, RequestScheduler,
                                          ServeRequest)
 from repro_torch.train.trainer import make_run_ctx
@@ -135,6 +147,16 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
 
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
     return logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+
+
+def pow2_buckets(top: int, floor: int = 1) -> List[int]:
+    """Every ``min(bucket_pow2(n, floor), top)`` for n in 1..top: the padded
+    sizes, hence the step keys, a dimension capped at ``top`` can take."""
+    out, b = [], floor
+    while b < top:
+        out.append(b)
+        b *= 2
+    return out + [top]
 
 
 # ---------------------------------------------------------------------------
@@ -232,10 +254,15 @@ class AsyncServeEngine:
     request because masking is purely positional.
 
     ``warmup()`` builds and first-launches the kernels (and the libraries'
-    own first-call set-up) so latency percentiles measure steady state; that
-    time is reported separately (``report()["compile_s"]``).  A caller that
+    own first-call set-up) and captures a CUDA graph of every step key
+    (``serve.graphs``) so latency percentiles measure steady state; that
+    time is reported separately (``report()["compile_s"]``, and the
+    captures' seconds, count and pool bytes under ``report()["graphs"]``).
+    A replay adds its captured launches to the counts, so a caller that
     counts the launches of the served path sets the counts to zero after
-    ``warmup()``.
+    ``warmup()`` and reads them as if every step had run eagerly.
+    ``graphs=False`` serves eagerly (for comparisons); with graphs on a CUDA
+    device a capture or replay that fails raises.
 
     Execution modes:
       * ``paged``  -- all-attention architectures: block tables over a
@@ -267,7 +294,8 @@ class AsyncServeEngine:
                  fused: bool = True, sched_policy: str = "slo",
                  mode: str = "auto", mesh=None, clock=None,
                  tracker=None, track_every: int = 16,
-                 request_timeout_s: float = 0.0, device="cuda"):
+                 request_timeout_s: float = 0.0, graphs: bool = True,
+                 device="cuda"):
         self.cfg = cfg
         self.device = _place(model, device)
         self.policy = policy
@@ -275,6 +303,7 @@ class AsyncServeEngine:
         self.max_seq = max_seq
         self.prefill_chunk = prefill_chunk
         self.fused = fused
+        self.graphs = StepGraphs(self.device, capture=graphs)
         self.request_timeout_s = request_timeout_s
         self._draining = False
         self.clock = clock or time.monotonic
@@ -312,6 +341,11 @@ class AsyncServeEngine:
             self.pool = None
             self.caches = init_caches(cfg, n_slots, max_seq, self.ctx_dtype,
                                       self.device)
+            # a decode graph reads and writes these tensors: the decode step
+            # must update them in place, never rebind them
+            self._cache_leaves = [(layer, name, leaf)
+                                  for layer in self.caches
+                                  for name, leaf in layer.items()]
             self.slot_req: List[Optional[ServeRequest]] = [None] * n_slots
             # pow2-bucketed one-shot prefill: prompts are right-padded to
             # the next power of two (few distinct kernel shapes)
@@ -324,9 +358,6 @@ class AsyncServeEngine:
     # ------------------------------------------------------------ plumbing --
     def now(self) -> float:
         return self.clock()
-
-    def _i32(self, rows) -> torch.Tensor:
-        return torch.tensor(rows, dtype=torch.int32, device=self.device)
 
     def submit(self, req: ServeRequest) -> bool:
         """Admission-queue a request; False = rejected (with reason in
@@ -444,34 +475,69 @@ class AsyncServeEngine:
         logits = h.to(cd) @ self.model.head_table().to(cd).T
         return logits.argmax(dim=-1).to(torch.int32), logits
 
+    def _decode_rows_step(self, tables, toks, positions, valid, last_idx):
+        return self._paged_step(tables, toks, positions, valid != 0,
+                                last_idx, dense_view=False)
+
+    def _chunk_rows_step(self, tables, toks, positions, valid, last_idx):
+        return self._paged_step(tables, toks, positions, valid != 0,
+                                last_idx, dense_view=True)
+
     def _table_width(self, reqs: List[ServeRequest], span: int) -> int:
-        """Block-table width for this batch: every row's pages, and at least
-        ``span`` token slots, so that the padded columns of a chunk row
+        """The reference's bucketed block-table width, ``min(bucket_pow2(
+        pages, floor=1), pages_for(max_seq))`` over the rows' pages, and at
+        least ``span`` token slots, so that the padded columns of a chunk row
         (positions after its valid tokens, up to ``span - 1``) index inside
         the dense view; the extra entries name the scratch page.  (The
-        reference buckets the width to bound jit traces and lets XLA drop
-        out-of-range scatter indices; neither exists here.)"""
-        return max(max(len(r.table) for r in reqs),
+        reference lets XLA drop out-of-range scatter indices instead.)"""
+        need = max(len(r.table) for r in reqs)
+        cap = self.pool.pages_for(self.max_seq)
+        return max(min(bucket_pow2(need, floor=1), cap),
                    self.pool.pages_for(span))
+
+    def _padding_rows(self, B: int, P: int, W: int) -> Dict[str, np.ndarray]:
+        """A paged step's host inputs for ``B`` rows of width ``W`` over
+        ``P`` table entries, every row padding: a table of the scratch
+        page, token 0, position 0, ``valid`` False, ``last_idx`` 0."""
+        z = np.zeros((B, W), np.int32)
+        return {"tables": np.full((B, P), self.pool.trash, np.int32),
+                "toks": z, "positions": z.copy(), "valid": z.copy(),
+                "last_idx": np.zeros((B,), np.int32)}
 
     def _run_paged(self, reqs: List[ServeRequest], toks, positions, valid,
                    last_idx, *, dense_view: Optional[bool] = None):
-        """Returns (next tokens as a host list, last-position logits).
-        ``toks``/``positions``/``valid``/``last_idx`` are host lists;
-        ``dense_view=None`` picks by row width (1 -> straight off the
-        pool)."""
+        """Returns (next tokens as a host list, last-position logits) of the
+        live rows.  ``toks``/``positions``/``valid``/``last_idx`` are host
+        lists; ``dense_view=None`` picks by row width (1 -> straight off the
+        pool).  As in the reference, the rows are padded to
+        ``min(bucket_pow2(B, floor=1), n_slots)`` with ``_padding_rows``: a
+        padding row's paged length is 0 and its K/V lands on the scratch
+        page; its logits are stripped here.  The step then runs
+        under the key (kind, rows, table width, row width): a graph replay
+        for width 1.  The logits are valid until the next step."""
+        W = len(toks[0])
         if dense_view is None:
-            dense_view = len(toks[0]) > 1
+            dense_view = W > 1
         if not dense_view:
             self._decode_iters += 1
+        B = len(reqs)
+        Bp = min(bucket_pow2(B, floor=1), self.n_slots)
         P = self._table_width(reqs, max(max(row) for row in positions) + 1)
-        tables = self._i32([self.pool.padded_table(r.table, P)
-                            for r in reqs])
-        nxt, logits = self._paged_step(
-            tables, self._i32(toks), self._i32(positions),
-            torch.tensor(valid, dtype=torch.bool, device=self.device),
-            self._i32(last_idx), dense_view)
-        return nxt.tolist(), logits      # .tolist() waits for the device
+        arrays = self._padding_rows(Bp, P, W)
+        for i, r in enumerate(reqs):
+            arrays["tables"][i] = self.pool.padded_table(r.table, P)
+        arrays["toks"][:B] = toks
+        arrays["positions"][:B] = positions
+        arrays["valid"][:B] = valid
+        arrays["last_idx"][:B] = last_idx
+        if dense_view:
+            nxt, logits = self.graphs.run(("chunk", Bp, P, W),
+                                          self._chunk_rows_step, arrays,
+                                          capture=False)
+        else:
+            nxt, logits = self.graphs.run(("decode", Bp, P, W),
+                                          self._decode_rows_step, arrays)
+        return nxt[:B].tolist(), logits[:B]   # .tolist() waits for the device
 
     def _paged_prefill_chunks(self, now: float) -> int:
         work = self.sched.prefill_work()
@@ -557,37 +623,44 @@ class AsyncServeEngine:
         return done_tokens
 
     def warmup(self, max_tokens: Optional[int] = None) -> float:
-        """Build and first-launch what the engine's steps run: the CUDA
-        kernels (compiled at first use) and the libraries' first-call
-        set-up, at the table width serving ``max_tokens`` (default
-        ``max_seq``).  Rows are all-invalid -- K/V writes land on the
-        scratch page and a dense-mode prefill's cache is dropped -- so pool
-        state, request stats and the prefix cache are untouched.  Returns
-        the seconds spent (also accumulated into ``self.compile_s`` and
-        reported separately so latency percentiles measure steady
-        state)."""
+        """Build and first-launch what the engine's steps run, and capture
+        one CUDA graph per step key (``serve.graphs``), up to the table
+        width or prompt bucket that serves ``max_tokens`` (default
+        ``max_seq``): paged, the width-1 step at every row bucket and table
+        width (and the chunk step once, eagerly, at the widest); dense, the
+        prefill at every prompt bucket and the decode step.  Paged rows are
+        all padding -- K/V writes land on the scratch page -- so pool state,
+        request stats and the prefix cache are untouched; a dense prefill's
+        cache is dropped, and the dense decode step writes only slots that
+        a prefill overwrites whole before they serve.  Returns the seconds
+        spent (also accumulated into ``self.compile_s`` and reported
+        separately so latency percentiles measure steady state)."""
         t0 = time.perf_counter()
+        tokens = max_tokens or self.max_seq
         if self.mode == "paged":
-            P = self.pool.pages_for(max_tokens or self.max_seq)
-            B = self.n_slots
-            tables = torch.full((B, P), self.pool.trash, dtype=torch.int32,
-                                device=self.device)
-            for W in (1, self.prefill_chunk):
-                zeros = torch.zeros((B, W), dtype=torch.int32,
-                                    device=self.device)
-                nxt, _ = self._paged_step(
-                    tables, zeros, zeros,
-                    torch.zeros((B, W), dtype=torch.bool,
-                                device=self.device),
-                    zeros[:, 0], dense_view=W > 1)
-            nxt.tolist()
+            cap = self.pool.pages_for(self.max_seq)
+            top = min(bucket_pow2(self.pool.pages_for(tokens), floor=1), cap)
+            rows = pow2_buckets(self.n_slots)
+            for B in rows:
+                for P in pow2_buckets(top):
+                    self.graphs.prepare(("decode", B, P, 1),
+                                        self._decode_rows_step,
+                                        self._padding_rows(B, P, 1))
+            C = self.prefill_chunk
+            self.graphs.prepare(("chunk", rows[-1], top, C),
+                                self._chunk_rows_step,
+                                self._padding_rows(rows[-1], top, C),
+                                capture=False)
         else:
-            toks = torch.zeros((1, min(16, self.max_seq)),
-                               dtype=torch.int32, device=self.device)
-            logits, _ = self.prefill(
-                self.model, toks,
-                torch.ones((1,), dtype=torch.int32, device=self.device))
-            logits.sum().item()
+            top = min(bucket_pow2(tokens, floor=16), self.max_seq)
+            for S in pow2_buckets(top, floor=16):
+                self.graphs.prepare(("prefill", S), self._prefill_step,
+                                    self._prompt_rows([0], S))
+            z = np.zeros((self.n_slots, 1), np.int32)
+            self.graphs.prepare(("decode", self.n_slots), self._decode_step,
+                                {"toks": z, "positions": z})
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0
         self.compile_s += dt
         return dt
@@ -610,21 +683,55 @@ class AsyncServeEngine:
         return len(work)
 
     # ------------------------------------------------------- dense stepping --
+    def _prefill_step(self, tokens, length):
+        """(greedy next tokens, logits, caches) of a bucketed prefill."""
+        logits, caches = self.prefill(self.model, tokens, length)
+        return greedy_sample(logits)[:, 0], logits, caches
+
+    def _decode_step(self, toks, positions):
+        """(greedy next tokens, logits) of a decode step over every slot;
+        the caches are written in place."""
+        logits, caches = self.decode(self.model, self.caches, toks,
+                                     positions)
+        if not (all(a is b for a, b in zip(caches, self.caches))
+                and all(layer[name] is leaf
+                        for layer, name, leaf in self._cache_leaves)):
+            raise RuntimeError("the decode step rebound a cache tensor: a "
+                               "replayed graph would read stale state")
+        return greedy_sample(logits)[:, 0], logits
+
+    def _prompt_rows(self, prompt, S: int) -> Dict[str, np.ndarray]:
+        """A prefill's host inputs: ``prompt`` right-padded to ``S``."""
+        tokens = np.zeros((1, S), np.int32)
+        tokens[0, :len(prompt)] = prompt
+        return {"tokens": tokens,
+                "length": np.array([len(prompt)], np.int32)}
+
+    def prefill_once(self, prompt):
+        """One prefill of ``prompt`` padded to its pow2 bucket (capped at
+        capacity), through the bucket's graph where there is one: (greedy
+        next token (1,), logits, the caches of one slot)."""
+        S = min(bucket_pow2(len(prompt), floor=16), self.max_seq)
+        return self.graphs.run(("prefill", S), self._prefill_step,
+                               self._prompt_rows(prompt, S))
+
+    def decode_once(self, toks, positions):
+        """One decode step over every slot (``toks``, ``positions``:
+        (n_slots, 1) host ints), through its graph where there is one:
+        (greedy next tokens (n_slots,), logits)."""
+        return self.graphs.run(("decode", self.n_slots), self._decode_step,
+                               {"toks": toks, "positions": positions})
+
     def _dense_prefill(self, now: float) -> int:
         work = self.sched.prefill_work()
         if not work:
             return 0
         done = 0
         for req in work[:1]:          # one-shot prefill, one request/iter
-            s = req.table
-            L = req.prompt_len
-            # pad to the pow2 bucket (capped at capacity)
-            Spad = min(bucket_pow2(L, floor=16), self.max_seq)
-            row = list(map(int, req.prompt)) + [0] * (Spad - L)
-            logits, one = self.prefill(self.model, self._i32([row]),
-                                       self._i32([L]))
-            nxt = int(greedy_sample(logits)[0, 0])
-            kvcache.scatter_slot(self.caches, one, s)
+            # padded to the pow2 bucket (capped at capacity)
+            nxt, _, one = self.prefill_once([int(t) for t in req.prompt])
+            kvcache.scatter_slot(self.caches, one, req.table)
+            nxt = int(nxt[0])
             done += req.prompt_len
             self.sched.note_prefilled(req, req.prompt_len, now)
             if self.sched.note_token(req, nxt, now):
@@ -635,14 +742,13 @@ class AsyncServeEngine:
         work = [r for r in self.sched.decode_work() if r.out]
         if not work:
             return 0
-        toks = [[0]] * self.n_slots
-        pos = [[0]] * self.n_slots
+        toks = np.zeros((self.n_slots, 1), np.int32)
+        pos = np.zeros((self.n_slots, 1), np.int32)
         for r in work:
-            toks[r.table] = [r.out[-1]]
-            pos[r.table] = [r.prompt_len + len(r.out) - 1]
-        logits, self.caches = self.decode(
-            self.model, self.caches, self._i32(toks), self._i32(pos))
-        nxt = greedy_sample(logits)[:, 0].tolist()
+            toks[r.table, 0] = r.out[-1]
+            pos[r.table, 0] = r.prompt_len + len(r.out) - 1
+        nxt, _ = self.decode_once(toks, pos)
+        nxt = nxt.tolist()
         for r in list(work):
             if self.sched.note_token(r, nxt[r.table], now):
                 self._finish(r, now)
@@ -717,6 +823,7 @@ class AsyncServeEngine:
         rep["iterations"] = self._iters
         rep["decode_iterations"] = self._decode_iters
         rep["compile_s"] = self.compile_s
+        rep["graphs"] = self.graphs.report()
         if self.pool is not None:
             kv = self.pool.stats()
             # mean occupancy over engine iterations; "utilization" alone
