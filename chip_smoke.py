@@ -26,7 +26,11 @@ per line, each with ``at_s``, the seconds since the script's imports ended:
                 result (a skipped 64- or 128-key tile) must fail the same
                 comparison, and at D = 160 so must a dropped tail panel
                 (columns 128-159 of o, dq, dk and dv zeroed); the training
-                kernels also at recurrentgemma-2b's D = 256 (the reference's
+                kernels also at bert-base's trained attention (96 x 384, 12
+                heads of 64, bidirectional: sub-row (e), with its bound
+                and scaled_dot_product_attention's times, where a skipped
+                tile must be rejected) and at recurrentgemma-2b's D = 256
+                (the reference's
                 backward cases at D = 256 in fp32 and bf16, its MQA heads
                 under windows, and its trained shape, 2 x 4096 tokens under
                 the 2048 window, where a dropped tail panel, a lost column
@@ -151,11 +155,28 @@ per line, each with ``at_s``, the seconds since the script's imports ended:
                 (its fp32 parameters and AdamW state at full depth, about
                 194 GB, do not fit one card), 2 steps of 1 x 4096 tokens:
                 the same launch counts per step and first-step parity;
+  paper_bench   the paper's five Table II workloads (``PAPER_WORKLOADS``)
+                trained at their batch and image or sequence size on one
+                card (YOLOv5-L's batch cut, ``PAPER_BATCH_CUT``): random
+                weights from seed 0 made on the device, one fixed batch,
+                3 steps + one profiled; the CNNs in fp32 (TF32 off in
+                cuDNN too), BERT in bf16 through the B2 kernels
+                bidirectionally (2 x L stats forwards, L dK/dV, L dQ a
+                step); the loss must fall; each CNN on the card against
+                the CPU at batch 2 (float64 within 1e-4, float32 outputs
+                within 1e-3), BERT's fp32 pass through the kernels against
+                the plain attention (5e-4 of each layer's max-abs), its
+                bf16 step's loss (2e-2) and its no-grad QA logits through
+                B1 (see ``_qa_b1_check``); step p50, images or sequences
+                and tokens a second, model flops over the dtype's peak,
+                peak memory, device ms by kind, ``phase_s``;
   summary       the run's elapsed seconds, the kernels' build included;
   kernels       the per-kernel summary line, launches counted on the served
                 and trained runs above (the attention kernels have a row per
-                head dim: llama's D = 128, stablelm's D = 160 and
-                recurrentgemma's D = 256; the SSD one for the served and one
+                head dim: llama's D = 128, stablelm's D = 160,
+                recurrentgemma's D = 256 and, for B2, bert-base's
+                bidirectional D = 64, ``*_bert``; the SSD one for the
+                served and one
                 for the trained shape), and the RG-LRU and SSD backwards'
                 rows (no TPU kernel: each replaces the reference's XLA
                 gradient), each row with the design the library's dispatch
@@ -221,6 +242,9 @@ from repro_torch.kernels.ssd import (                          # noqa: E402
     CHUNK, bwd_design as ssd_bwd_design, bwd_slices as ssd_bwd_slices,
     design as ssd_design, kernel_chunk, ssd, ssd_bwd, ssd_bwd_plain,
     ssd_plain)
+from repro_torch.configs.paper_bench import (                  # noqa: E402
+    MOBILENETV2, PAPER_WORKLOADS, RESNET50, YOLOV5L)
+from repro_torch.models import bert, vision                    # noqa: E402
 from repro_torch.models.lm import LM                           # noqa: E402
 from repro_torch.models.ssm import ssd_decode_step             # noqa: E402
 from repro_torch.optim import (AdamWConfig, ScheduleConfig,    # noqa: E402
@@ -418,6 +442,10 @@ ATTN_CASES = [
     (1, 300, 300, 8, 2, 160, True, 64, torch.bfloat16),
     (2, 130, 200, 12, 4, 160, False, 0, torch.bfloat16),
     (1, 256, 256, 32, 8, 160, True, 0, torch.bfloat16),
+    # BERT's bidirectional MHA at D = 64 (bf16, the warpgroup design):
+    # ragged S over several 128-row and 128-key tiles, 12 heads of a group
+    # of one
+    (2, 200, 200, 12, 12, 64, False, 0, torch.bfloat16),
 ]
 PAGED_CASES = [
     # B, T, D, G, K, page_size, lengths -- the reference's test cases
@@ -708,6 +736,10 @@ BWD_CASES = [
     (1, 96, 200, 6, 1, 64, False, 0, torch.bfloat16),
     (1, 384, 384, 24, 8, 128, True, 0, torch.bfloat16),
     (1, 384, 384, 24, 8, 64, True, 0, torch.bfloat16),
+    # BERT's bidirectional MHA at D = 64: ragged S (bert-base's 12 heads),
+    # and bert-large's 16 heads at its 384 tokens
+    (2, 200, 200, 12, 12, 64, False, 0, torch.bfloat16),
+    (1, 384, 384, 16, 16, 64, False, 0, torch.bfloat16),
     # the warpgroup dQ (bf16, D = 128 and 64, 128 positions a block):
     # several blocks with ragged S, windows, G = 3, S != T
     (2, 300, 300, 6, 2, 64, True, 100, torch.bfloat16),
@@ -829,9 +861,9 @@ def _window_mask(S, T, window):
     return (j <= i) & (i - j < window)
 
 
-def _library_bwd_ms(q, k, v, do, iters, rounds=5, window=0):
+def _library_bwd_ms(q, k, v, do, iters, rounds=5, window=0, causal=True):
     """The backward of ``scaled_dot_product_attention`` (dq, dk and dv in
-    one call; causal, under ``window`` as a boolean mask where it is
+    one call; causal or not, under ``window`` as a boolean mask where it is
     given) through ``torch.autograd.grad``, timed with CUDA events around
     ``iters`` eager calls, in ``rounds`` rounds (autograd's backward is not
     graph-captured here, and one round's time spread 1.2-2.7 ms between
@@ -839,7 +871,7 @@ def _library_bwd_ms(q, k, v, do, iters, rounds=5, window=0):
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     dot = do.transpose(1, 2)
-    mask = dict(is_causal=True) if window == 0 else dict(
+    mask = dict(is_causal=causal) if window == 0 else dict(
         attn_mask=_window_mask(q.shape[1], k.shape[1], window))
     times = []
     with torch.enable_grad():
@@ -995,20 +1027,21 @@ def _slice_partial_faults(q, k, v, do, stats, want, window):
     return out
 
 
-def bwd_main_shape(gen, cfg, B, S, window=0):
+def bwd_main_shape(gen, cfg, B, S, window=0, causal=True):
     """The trained model's attention at B x S tokens: its heads and head_dim,
     bf16, causal under ``window`` (llama3.2-3b: 24 heads over 8 KV heads of
     128; stablelm-12b: 32 over 8 of 160; recurrentgemma-2b: 10 over 1 of
-    256, window 2048).  Faults planted in the plain backward's result must
-    fail the comparison: a skipped 64- or 128-key tile; at D = 160 and 256
-    a dropped tail panel of o, dq, dk and dv; at D = 256 a lost column half
-    of dq, dk and dv, tiles skipped under the window and a head slice's
-    dK/dV partial dropped or doubled.  At D = 256 two calls must also be
-    bit-identical."""
+    256, window 2048), or bidirectional (``causal=False``: bert-base, 12
+    heads of 64, every (query, key) pair live).  Faults planted in the
+    plain backward's result must fail the comparison: a skipped 64- or
+    128-key tile; at D = 160 and 256 a dropped tail panel of o, dq, dk and
+    dv; at D = 256 a lost column half of dq, dk and dv, tiles skipped under
+    the window and a head slice's dK/dV partial dropped or doubled.  At
+    D = 256 two calls must also be bit-identical."""
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = torch.bfloat16
     q, k, v, do = _bwd_inputs(gen, B, S, S, H, K, D, dt)
-    kw = dict(causal=True, window=window, softcap=0.0)
+    kw = dict(causal=causal, window=window, softcap=0.0)
     ef, ekv, eq, scaled = _bwd_check(q, k, v, do, kw, 2e-2, 2e-2,
                                      f"flash bwd main shape {cfg.name}")
     o, m, l = flash_attention_fwd_stats(q, k, v, **kw)
@@ -1042,9 +1075,9 @@ def bwd_main_shape(gen, cfg, B, S, window=0):
     qkv_bytes = (q.numel() + k.numel() + v.numel()) * q.element_size()
     row_bytes = m.numel() * 4                  # one fp32 per query row
     # live (query, key) pairs
-    pairs = H * B * _live_pairs(S, S, True, window)
+    pairs = H * B * _live_pairs(S, S, causal, window)
     shape = {"arch": cfg.name, "shape": [B, S, S, H, K, D], "dtype": str(dt),
-             "window": window, "tol": 2e-2}
+             "causal": causal, "window": window, "tol": 2e-2}
 
     fwd = dict(shape, max_abs_err=ef, design=design(D, dt), **_bound(
         qkv_bytes + q.numel() * 2 + 2 * row_bytes, 4 * D * pairs, dt))
@@ -1054,7 +1087,7 @@ def bwd_main_shape(gen, cfg, B, S, window=0):
     fwd["plain_ms"] = time_ms(
         [lambda: attention_fwd_stats_plain(q, k, v, **kw)], 2)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    mask = dict(is_causal=True) if window == 0 else dict(
+    mask = dict(is_causal=causal) if window == 0 else dict(
         attn_mask=_window_mask(S, S, window))
     fwd["library_ms"] = time_ms(
         [lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -1063,7 +1096,8 @@ def bwd_main_shape(gen, cfg, B, S, window=0):
     # backward: q, k, v, dO and three row statistics read; dk, dv or dq
     # written (in the inputs' dtype)
     bwd_in = qkv_bytes + do.numel() * 2 + 3 * row_bytes
-    library_ms, library_min = _library_bwd_ms(q, k, v, do, 5, window=window)
+    library_ms, library_min = _library_bwd_ms(q, k, v, do, 5, window=window,
+                                              causal=causal)
     dkv = dict(shape, max_abs_err=ekv, design=design_dkv(D, dt), **_bound(
         bwd_in + (k.numel() + v.numel()) * 2, 8 * D * pairs, dt))
 
@@ -2631,11 +2665,11 @@ TRAIN_POLICY = PolicyConfig(compute_dtype="bfloat16", param_dtype="float32",
 def _model_flops_per_step(cfg, n_params, shape):
     """6 * N * tokens for the weight products, plus the attention blocks'
     products (QK^T and PV: 4 * D flops per live (query, key) pair and head
-    forward, twice that backward; causal, under the window in a local
-    block); activation recompute not counted."""
+    forward, twice that backward; causal unless the model is not, under the
+    window in a local block); activation recompute not counted."""
     B, S = shape.global_batch, shape.seq_len
     pairs = sum(B * cfg.n_heads * _live_pairs(
-        S, S, True, cfg.local_window if blk == ATTN_LOCAL else 0)
+        S, S, cfg.causal, cfg.local_window if blk == ATTN_LOCAL else 0)
         for blk in cfg.pattern if blk in (ATTN, ATTN_LOCAL))
     return 6 * n_params * B * S + 12 * cfg.head_dim * pairs
 
@@ -2644,6 +2678,12 @@ KINDS = (("attention_kernels", ("flash_fwd", "flash_bwd", "paged_")),
          ("ssd_bwd_kernels", ("ssd_bwd_",)),
          ("ssd_kernels", ("ssd_state", "ssd_pass", "ssd_output")),
          ("rglru_kernels", ("rglru_",)),
+         # cuDNN's and PyTorch's batch norm, then cuDNN's convolutions, the
+         # complex-fp32 (cf32) GEMMs of its FFT convolutions among them (the
+         # vision models of ``paper_bench``; no other phase runs either)
+         ("batch_norm", ("batch_norm", "bn_fw", "bn_bw")),
+         ("conv", ("conv", "fprop", "dgrad", "wgrad", "winograd", "fft",
+                   "cf32", "cudnn")),
          ("matmul", ("gemm", "xmma", "nvjet", "cutlass")))
 
 
@@ -2846,10 +2886,11 @@ def train(cfg, shape=TRAIN_SHAPE, steps=TRAIN_STEPS,
 ATTN_LEAVES = ("wq", "wk", "wv")
 
 
-def _grads(model, policy, batch):
+def _grads(model, policy, batch, loss_fn=None):
     """Gradients by parameter name and loss of one forward and backward
-    pass; the parameters' ``.grad`` is cleared again."""
-    loss_fn = trainer.make_loss_fn(model.cfg, policy)
+    pass (of ``loss_fn``, by default the LM loss under ``policy``); the
+    parameters' ``.grad`` is cleared again."""
+    loss_fn = loss_fn or trainer.make_loss_fn(model.cfg, policy)
     grads, loss, _ = trainer._accum_grads(
         loss_fn, model, trainer._device_batch(batch, DEV), 1)
     for p in model.parameters():
@@ -2926,6 +2967,376 @@ def train_parity(cfg):
                "loss": [l16k, l16f], "grad_norm": [n16k, n16f],
                "worst_attention_grad_err_over_max_abs": worst16,
                "tol_rel": 2e-2})
+
+
+# ---------------------------------------------------------------------------
+# the paper's Table II workloads trained
+# ---------------------------------------------------------------------------
+PAPER_STEPS = 3
+VISION_CFGS = {c.name: c for c in (RESNET50, MOBILENETV2, YOLOV5L)}
+# bert-base's trained attention (sub-row (e) of the B2 kernels): its batch
+# and sequence in PAPER_WORKLOADS, 12 heads of 64, bidirectional
+BERT_ARCH = "bert-base"
+BERT_TRAINED = next((w.batch_size, w.seq_or_img) for w in PAPER_WORKLOADS
+                    if w.name == BERT_ARCH)
+# the paper's batch (its global batch over eight GPUs, §V-C-1) on one card,
+# but where it does not fit: YOLOv5-L's fp32 step peaks at 75.6 GB with 76
+# images of 640 px on the H100 (~0.99 GB an image, PERF.md), so 88 would
+# need ~87 GB, more than the card holds; 76 keeps the peak under 90 % of it
+PAPER_BATCH_CUT = {"yolov5l": (76, "global batch 88 -> 76 (fp32 "
+                                   "activations, ~0.99 GB a 640 px image, "
+                                   "do not fit one card at 88)")}
+# AdamW as every arch trains (the port's defaults: b2 0.95, weight decay
+# 0.1 where ndim >= 2, clip 1.0) at a constant lr: Adam's default 1e-3 for
+# the CNNs; BERT's pre-training 1e-4 (arXiv:1810.04805, appendix A.2)
+PAPER_LR = {"vision": 1e-3, "nlp": 1e-4}
+# the vision models on the card against the same port code on the CPU, at
+# batch 2: in float64 both sides within 1e-4 of max-abs (outputs and every
+# gradient); the card's float32 outputs within 1e-3 of max-abs of the CPU's
+# float64 ones (batch statistics over 8 values a channel: float32 rounding
+# alone moves the CPU's own outputs by up to 3.4e-4, YOLOv5-L at 64 px,
+# tests/test_torch_vision.py; its gradients by tens of percent,
+# tests/test_torch_vision_grads.py, so the float32 gradients are reported,
+# not held)
+VISION_CHECK_SIZES = {"resnet50": (64, 57), "mobilenetv2": (64, 57),
+                      "yolov5l": (64, 96)}
+VISION_TOL_FP64 = 1e-4
+VISION_TOL_FP32_FWD = 1e-3
+
+
+def _paper_batch(work, cfg, B, gen):
+    """One fixed batch made on the device from ``gen``: images N(0, 1) with
+    labels, or YOLO's three N(0, 1) target maps; for BERT tokens, segments
+    (a question of 8-63 tokens, then the context), and a span of up to 16
+    tokens in the context."""
+    n = work.seq_or_img
+    if work.domain == "vision":
+        out = {"images": torch.randn((B, n, n, 3), generator=gen,
+                                     device=DEV)}
+        if cfg.arch == "yolov5l":
+            out["targets"] = [torch.randn((B, n // s, n // s, 255),
+                                          generator=gen, device=DEV)
+                              for s in (8, 16, 32)]
+        else:
+            out["labels"] = torch.randint(0, cfg.num_classes, (B,),
+                                          generator=gen, device=DEV)
+        return out
+    q_len = torch.randint(8, 64, (B, 1), generator=gen, device=DEV)
+    start = q_len[:, 0] + (torch.rand((B,), generator=gen, device=DEV)
+                           * (n - 16 - q_len[:, 0])).long()
+    end = start + torch.randint(0, 16, (B,), generator=gen, device=DEV)
+    return {"tokens": torch.randint(0, cfg.vocab_size, (B, n),
+                                    generator=gen, device=DEV),
+            "segments": (torch.arange(n, device=DEV)[None, :]
+                         >= q_len).int(), "start": start, "end": end}
+
+
+def _vision_grads(model, batch):
+    """(outputs, gradients by name) of one forward and backward pass; the
+    parameters' ``.grad`` is left untouched."""
+    out = vision.apply_vision(model, batch["images"])
+    loss = vision.vision_loss(model, batch)
+    names, params = zip(*model.named_parameters())
+    grads = torch.autograd.grad(loss, params)
+    out = out if isinstance(out, list) else [out]
+    return [o.detach() for o in out], dict(zip(names, grads))
+
+
+def _worst(got, want, floor=0.0):
+    """The largest error over max-abs of the tensors of ``want`` against
+    ``got`` (on the CPU, float64); a tensor whose max-abs is at most
+    ``floor`` is measured against ``floor`` instead."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        g, w = g.detach().cpu().double(), w.detach().cpu().double()
+        worst = max(worst, float((g - w).abs().max())
+                    / max(float(w.abs().max()), floor))
+    return worst
+
+
+def vision_check(model, cfg):
+    """``model`` (fp32 on the card) against the same weights on the CPU at
+    batch 2 and ``VISION_CHECK_SIZES``: float64 on both sides within
+    ``VISION_TOL_FP64`` of max-abs, outputs and gradients (a gradient zero
+    by design, at most 1e-9 of the largest, is measured against 1e-9 of the
+    largest: MobileNetV2's ``project.bn`` biases); the card's float32
+    outputs within ``VISION_TOL_FP32_FWD`` of the CPU's float64 ones."""
+    cpu64 = copy.deepcopy(model).to("cpu", torch.float64)
+    dev64 = copy.deepcopy(model).double()
+    gen = torch.Generator()
+    rows = []
+    for size in VISION_CHECK_SIZES[cfg.arch]:
+        gen.manual_seed(size)
+        x = torch.randn((2, size, size, 3), generator=gen,
+                        dtype=torch.float64)
+        b = {"images": x}
+        if cfg.arch == "yolov5l":
+            b["targets"] = [torch.randn((2, size // s, size // s, 255),
+                                        generator=gen, dtype=torch.float64)
+                            for s in (8, 16, 32)]
+        else:
+            b["labels"] = torch.tensor([1, 2])
+        on_dev = {k: [t.to(DEV) for t in v] if isinstance(v, list)
+                  else v.to(DEV) for k, v in b.items()}
+        on_dev32 = {k: [t.float() for t in v] if isinstance(v, list)
+                    else (v.float() if v.is_floating_point() else v)
+                    for k, v in on_dev.items()}
+        want_out, want_g = _vision_grads(cpu64, b)
+        got_out, got_g = _vision_grads(dev64, on_dev)
+        out32, g32 = _vision_grads(model, on_dev32)
+        floor = 1e-9 * max(float(g.abs().max()) for g in want_g.values())
+        names = list(want_g)
+        live = [n for n in names if float(want_g[n].abs().max()) > floor]
+        row = {"size": size, "batch": 2,
+               "fp64_outputs": _worst(got_out, want_out),
+               "fp64_grads": _worst([got_g[n] for n in names],
+                                    [want_g[n] for n in names], floor),
+               "fp32_outputs": _worst(out32, want_out),
+               # the leaves that are not zero by design
+               "fp32_grads_reported": _worst([g32[n] for n in live],
+                                             [want_g[n] for n in live])}
+        for key, tol in (("fp64_outputs", VISION_TOL_FP64),
+                         ("fp64_grads", VISION_TOL_FP64),
+                         ("fp32_outputs", VISION_TOL_FP32_FWD)):
+            check(row[key] <= tol, f"paper_bench {cfg.name} at {size} px: "
+                                   f"{key} on the card against the CPU "
+                                   f"{row[key]} (> {tol} of max-abs)")
+        rows.append(row)
+    del cpu64, dev64
+    return rows
+
+
+def _vision_flops(model, n, B):
+    """3 x the convs' and fc's 2 x MACs of one forward at ``n`` px
+    (``FlopCounterMode`` over a forward at batch 2, times ``B / 2``):
+    forward, and the backward's two products per layer."""
+    from torch.utils.flop_counter import FlopCounterMode
+    counter = FlopCounterMode(display=False)
+    with torch.no_grad(), counter:
+        model(torch.randn((2, n, n, 3), device=DEV))
+    return 3 * B * counter.get_total_flops() // 2
+
+
+def _qa_logits(model, batch, cfg, dtype, impl):
+    """Start and end logits of the no-grad QA forward on 8 sequences
+    (``impl="kernel"``: B1's forward-only kernel once a layer)."""
+    ctx = trainer.make_run_ctx(cfg, dataclasses.replace(
+        TRAIN_POLICY, compute_dtype=dtype, attn_impl=impl))
+    before = ops.launch_counts()["flash_attention"]
+    with torch.no_grad():
+        out = bert.forward_qa(model, batch["tokens"][:8], ctx,
+                              segments=batch["segments"][:8])
+    n = ops.launch_counts()["flash_attention"] - before
+    check(n == (cfg.n_layers if impl == "kernel" else 0),
+          f"paper_bench {cfg.name}: {n} forward-only flash launches in the "
+          f"{impl} {dtype} QA forward")
+    return out
+
+
+def _qa_b1_check(model, batch, cfg):
+    """The no-grad QA forward through B1 against the plain attention: in
+    fp32 the start and end logits within ``SCALED_TOL``; in bf16 within
+    ``NOISE_MULTIPLE`` times the plain path's own bf16 error against its
+    fp32 logits (max error over max-abs), measured here (bf16 rounding
+    alone moves bert-base's 12-layer logits by percents)."""
+    out = {(dt, impl): _qa_logits(model, batch, cfg, dt, impl)
+           for dt in ("float32", "bfloat16") for impl in ("kernel", "full")}
+    res = {"fp32": {n: _scaled_err(g, w, f"paper_bench {cfg.name} B1 fp32 "
+                                         f"{n} logits")
+                    for n, g, w in zip(("start", "end"),
+                                       out[("float32", "kernel")],
+                                       out[("float32", "full")])}}
+    for n, got, plain, ref in zip(("start", "end"),
+                                  out[("bfloat16", "kernel")],
+                                  out[("bfloat16", "full")],
+                                  out[("float32", "full")]):
+        err, noise = _scaled(got, plain), _scaled(plain, ref)
+        key = "max_err_over_max_abs"
+        check(err[key] <= NOISE_MULTIPLE * noise[key],
+              f"paper_bench {cfg.name}: bf16 B1 {n} logits kernel vs plain "
+              f"{err} past {NOISE_MULTIPLE} x the plain bf16 vs fp32 "
+              f"{noise}")
+        res[f"bf16_{n}"] = {"kernel_vs_plain": err,
+                            "plain_bf16_vs_fp32": noise,
+                            "tol_noise_multiple": NOISE_MULTIPLE}
+    return res
+
+
+def _layer_worst(got, want):
+    """The largest error over max-abs, each layer's gradients (named
+    ``...blocks.{i}.attn.{leaf}``) measured against the largest of that
+    layer's; and per leaf, against the leaf's own max-abs."""
+    layers: dict = {}
+    for n in want:
+        layers.setdefault(n.rsplit(".", 1)[0], []).append(n)
+    per_layer = per_leaf = 0.0
+    for names in layers.values():
+        scale = max(float(want[n].abs().max()) for n in names)
+        for n in names:
+            err = float((got[n].float() - want[n].float()).abs().max())
+            per_layer = max(per_layer, err / scale)
+            per_leaf = max(per_leaf, err / float(want[n].abs().max()))
+    return {"per_layer": per_layer, "per_leaf": per_leaf}
+
+
+def paper_bench():
+    """The paper's five Table II workloads (``PAPER_WORKLOADS``), each
+    trained on one card at its batch and image or sequence size (or the cut
+    of ``PAPER_BATCH_CUT``): random weights from seed 0 made on the device,
+    one fixed batch made from the seed, ``PAPER_STEPS`` steps plus one
+    profiled.  The vision models in fp32 (parameters, compute, AdamW), BERT
+    as the LMs train (fp32 parameters, bf16 compute, per-block remat, the
+    B2 kernels).  Checks: the loss falls over the steps; every BERT step
+    launches the stats forward 2 x L times, dK/dV and dQ L times, and a
+    vision step no kernel of the port; BERT's first bf16 step's loss within
+    2e-2 of one pass through the plain attention, and one fp32 pass through
+    the kernels against one through the plain attention (loss, and the wq /
+    wk / wv gradients of every layer, within 5e-4 of the layer's max-abs);
+    its no-grad QA forward through B1 against the plain path
+    (``_qa_b1_check``); each vision model on the card against the CPU
+    (``vision_check``).  Returns bert-base's launches over its steps."""
+    counts = {}
+    for work in PAPER_WORKLOADS:
+        t_start = time.perf_counter()
+        nlp = work.domain == "nlp"
+        cfg = get_config(work.name) if nlp else VISION_CFGS[work.name]
+        B, *cuts = PAPER_BATCH_CUT.get(work.name, (work.batch_size,))
+        torch.cuda.reset_peak_memory_stats()
+        policy = TRAIN_POLICY if nlp else PolicyConfig(
+            compute_dtype="float32", param_dtype="float32", remat="none")
+        model = (bert.BertQA.init(cfg, seed=0, device=DEV) if nlp
+                 else vision.init_vision(cfg, seed=0, device=DEV))
+        n_params = sum(p.numel() for p in model.parameters())
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(0)
+        batch = _paper_batch(work, cfg, B, gen)
+        optcfg = AdamWConfig(lr=PAPER_LR[work.domain])
+        state = trainer.TrainState.create(model, policy, optcfg)
+        loss_fn = trainer.paper_loss_fn(cfg, policy)
+        step_fn = trainer.make_step(loss_fn, optcfg)
+        t_init = time.perf_counter()
+        checks = {}
+        if nlp:
+            L = cfg.n_layers
+            want = dict({k: 0 for k in ops.launch_counts()},
+                        flash_attention_fwd_stats=2 * L,
+                        flash_attention_bwd_dkv=L, flash_attention_bwd_dq=L)
+            checks["b1_no_grad_logits_vs_plain"] = _qa_b1_check(model, batch,
+                                                                cfg)
+            # the first step's gradients: one pass through the kernels
+            # against one through the plain attention, in fp32 (held) and
+            # in bf16 (the loss held; bf16 rounding alone moves the deep
+            # layers' wq / wk gradients, 50-100x smaller than wv's at this
+            # init, by more than their own size: reported)
+            ref = {}
+            for dt, impl in (("float32", "kernel"), ("float32", "full"),
+                             ("bfloat16", "full")):
+                pol = dataclasses.replace(policy, compute_dtype=dt,
+                                          attn_impl=impl)
+                grads, loss = _grads(model, pol, batch,
+                                     trainer.paper_loss_fn(cfg, pol))
+                ref[(dt, impl)] = (loss, _pick(grads))
+                del grads
+            (l32, g32), (p32, gp32) = ref[("float32", "kernel")], \
+                ref[("float32", "full")]
+            check(abs(l32 - p32) <= 5e-4 * abs(p32),
+                  f"paper_bench {work.name}: fp32 loss {l32} vs {p32} "
+                  f"through the plain attention (> 5e-4)")
+            errs32 = _layer_worst(g32, gp32)
+            check(errs32["per_layer"] <= 5e-4,
+                  f"paper_bench {work.name}: fp32 attention gradients "
+                  f"kernel vs plain {errs32} (> 5e-4 of each layer's "
+                  f"max-abs)")
+            checks["fp32_pass_vs_plain_attention"] = {
+                "loss": [l32, p32], "leaves": list(ATTN_LEAVES),
+                "tol_rel": 5e-4, "worst_grad_err_over_max_abs": errs32}
+            full_loss, full_attn = ref[("bfloat16", "full")]
+            del ref, g32, gp32
+        else:
+            want = {k: 0 for k in ops.launch_counts()}
+            checks["card_vs_cpu"] = vision_check(model, cfg)
+        torch.cuda.synchronize()
+        t_ref = time.perf_counter()
+        losses, norms, step_s = [], [], []
+        ops.reset_launch_counts()               # just before the main path
+        for i in range(PAPER_STEPS):
+            before = ops.launch_counts()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            after = ops.launch_counts()
+            per_step = {k: after[k] - before[k] for k in after}
+            check(per_step == want, f"paper_bench {work.name} step {i}: "
+                                    f"launches {per_step} != {want}")
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            if i == 0:
+                if nlp:
+                    check(abs(losses[0] - full_loss) <= 2e-2 * abs(full_loss),
+                          f"paper_bench {work.name}: first loss {losses[0]} "
+                          f"vs {full_loss} through the plain attention")
+                    checks["first_bf16_step_vs_plain_attention"] = {
+                        "loss": [losses[0], full_loss], "loss_tol_rel": 2e-2,
+                        "grad_err_over_max_abs_reported": _layer_worst(
+                            _pick({n: p.grad for n, p in
+                                   model.named_parameters()}), full_attn)}
+                    del full_attn
+                torch.cuda.reset_peak_memory_stats()
+        counts[work.name] = ops.launch_counts()     # just after
+        designs = {}
+        if nlp:
+            designs = {n: f(cfg.head_dim, torch.bfloat16) for n, f in zip(
+                TRAIN_KERNELS, (design, design_dkv, design_dq))}
+            want_design = {n: WANT_DESIGN[n][cfg.head_dim] for n in designs}
+            check(designs == want_design,
+                  f"paper_bench {work.name}: designs {designs}, not "
+                  f"{want_design}")
+        t_steps = time.perf_counter()
+        last = []
+        profile = _profile(lambda: last.append(step_fn(state, batch)[1]),
+                           f"paper_bench {work.name}")
+        losses.append(float(last[0]["loss"]))
+        norms.append(float(last[0]["grad_norm"]))
+        check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+              f"paper_bench {work.name}: non-finite loss or grad norm "
+              f"{losses} {norms}")
+        check(losses[-1] < losses[0], f"paper_bench {work.name}: loss did "
+                                      f"not fall: {losses}")
+        p50 = float(np.median(step_s[1:]))      # the first step is warm-up
+        if nlp:
+            S = work.seq_or_img
+            matmul_params = n_params - sum(
+                p.numel() for p in (model.lm.embed, model.lm.pos_embed,
+                                    model.segment_embed))
+            flops = _model_flops_per_step(
+                cfg, matmul_params, ShapeConfig("paper", S, B, "train"))
+            peak, dtype = PEAK_FLOPS[torch.bfloat16], "bfloat16"
+            rates = {"sequences_per_s": B / p50, "tokens_per_s": B * S / p50}
+        else:
+            flops = _vision_flops(model, work.seq_or_img, B)
+            peak, dtype = PEAK_FLOPS[torch.float32], "float32"
+            rates = {"images_per_s": B / p50}
+        emit("paper_bench", workload=work.name, domain=work.domain,
+             params=n_params, params_paper=work.params_paper, batch=B,
+             batch_paper=work.batch_size, seq_or_img=work.seq_or_img,
+             compute_dtype=dtype, param_dtype="float32",
+             remat=policy.remat, lr=optcfg.lr, steps=PAPER_STEPS,
+             warmup_steps_excluded=1, losses=losses, grad_norms=norms,
+             step_s=step_s, step_s_p50=p50, **rates,
+             model_flops_per_step=flops, model_flops_per_s=flops / p50,
+             model_flops_share_of_peak=flops / p50 / peak,
+             peak_flops=peak, max_memory_allocated=torch.cuda
+             .max_memory_allocated(), launches=counts[work.name],
+             designs=designs, checks=checks, profiled_step=profile,
+             cuts=cuts, phase_s={
+                 "init": t_init - t_start, "checks": t_ref - t_init,
+                 "steps": t_steps - t_ref,
+                 "profile": time.perf_counter() - t_steps,
+                 "all": time.perf_counter() - t_start})
+        del state, step_fn, model, batch
+        torch.cuda.empty_cache()
+    return counts[BERT_ARCH]
 
 
 # ---------------------------------------------------------------------------
@@ -3192,6 +3603,7 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False    # fp32 means fp32
+    torch.backends.cudnn.allow_tf32 = False          # in convolutions too
     smi = nvidia_smi_line()
     build.load()
     nvcc = subprocess.run([build.find_nvcc(), "--version"],
@@ -3228,6 +3640,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         *b_d256, b_faults_d256 = bwd_main_shape(gen, hyb, *TRAIN_SHAPE_BS,
                                                 window=hyb.local_window)
+        torch.cuda.empty_cache()
+        *b_bert, b_faults_bert = bwd_main_shape(gen, get_config(BERT_ARCH),
+                                                *BERT_TRAINED, causal=False)
     torch.cuda.empty_cache()
     emit("kernel_cases",
          flash_attention={"cases": f_cases, "main_path": f_main,
@@ -3250,10 +3665,13 @@ def main() -> int:
                                                          b_d160)),
                               "main_path_d256": dict(zip(TRAIN_KERNELS,
                                                          b_d256)),
+                              "main_path_bert": dict(zip(TRAIN_KERNELS,
+                                                         b_bert)),
                               "scaled_tol": SCALED_TOL,
                               "planted_faults_rejected": b_faults,
                               "planted_faults_rejected_d160": b_faults_d160,
-                              "planted_faults_rejected_d256": b_faults_d256})
+                              "planted_faults_rejected_d256": b_faults_d256,
+                              "planted_faults_rejected_bert": b_faults_bert})
     emit("ptxas", kernels=ptxas_usage(PTXAS_KERNELS))
     with torch.no_grad():
         emit("memory_guards", cases=memory_guards(),
@@ -3291,6 +3709,8 @@ def main() -> int:
     n_train_d160 = train(cut_depth(slm, TRAIN_CUT_LAYERS), TRAIN_CUT_SHAPE,
                          TRAIN_CUT_STEPS, cuts=TRAIN_CUT, full=False)
     torch.cuda.empty_cache()
+    # the paper's Table II workloads: bert-base's steps launch sub-row (e)
+    n_bert = paper_bench()
 
     def row(name, source, replaces, launches, main, kernel_design):
         head = main[-1]                     # the largest main-path shape
@@ -3344,6 +3764,11 @@ def main() -> int:
             b_d256):
         rows.append(row(f"{name}_d256", src, ref, n_train_hyb[name], [got],
                         des(hyb.head_dim, bf16)))
+    for name, src, ref, des, got in zip(
+            TRAIN_KERNELS, (fa_src, bwd_src, bwd_src), bwd_ref, designs,
+            b_bert):
+        rows.append(row(f"{name}_bert", src, ref, n_bert[name], [got],
+                        des(got["shape"][-1], bf16)))
     rows += [
         row("ssd", "src/repro_torch/kernels/csrc/ssd.cu",
             "src/repro/kernels/ssd.py:103", n_rec[SSM_ARCH], [s_main],

@@ -29,12 +29,23 @@ flags.  The probes:
                   in turns;
   dq_d256_parts   the same for the bf16 D = 256 dQ (``DQ_D256_PARTS``:
                   the K / V loads, the score products, the gradient
-                  product, the elementwise pass).
+                  product, the elementwise pass);
+
+and two model-level alternatives, each a train step of ``chip_smoke``'s
+``paper_bench`` at its workload's batch (p50 of steps 2-5), timed in turns:
+
+  bert_gather     bert-base's and bert-large's step with the learned
+                  positions and the segments gathered by ``F.embedding``
+                  (shipped) and by indexing (``table.to(dtype)[ids]``,
+                  whose backward summed each row's repeats one by one);
+  vision_layout   the CNNs' step with NCHW activations (shipped) and with
+                  channels_last activations and weights.
 
 Run from the repository root (no name runs every probe):
 
     python3 scripts/probe_variant.py [fwd_d256_pv] [ssd_bwd_heads]
-        [ssd_bwd_parts] [dkv_d256_parts] [dq_d256_parts]
+        [ssd_bwd_parts] [dkv_d256_parts] [dq_d256_parts] [bert_gather]
+        [vision_layout]
 
 Prints the card's name and power limit, then one JSON object per case,
 draw and round of turns, and exits non-zero without a CUDA device or on a
@@ -364,8 +375,119 @@ def dq_d256_parts(gen) -> None:
                 DQ_D256_PARTS, 5)
 
 
-PROBES = {"fwd_d256_pv": fwd_d256_pv, "ssd_bwd_heads": ssd_bwd_heads, "ssd_bwd_parts": ssd_bwd_parts,
-          "dkv_d256_parts": dkv_d256_parts, "dq_d256_parts": dq_d256_parts}
+def _step_turns(probe, work, cfg, variants, make, B):
+    """``work``'s train step under each of ``variants`` (name -> a function
+    that installs it) in turns (a, b, b, a): ``make()`` builds the model
+    after the variant is installed.  Prints the p50 of steps 2-5, the
+    losses and, for each, one profiled step's device ms by kind."""
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import trainer
+    (a, set_a), (b, set_b) = variants.items()
+    policy = cs.TRAIN_POLICY if work.domain == "nlp" else \
+        cs.PolicyConfig(compute_dtype="float32", param_dtype="float32",
+                        remat="none")
+    for name, install in ((a, set_a), (b, set_b), (b, set_b), (a, set_a)):
+        install()
+        model = make()
+        opt = AdamWConfig(lr=cs.PAPER_LR[work.domain])
+        state = trainer.TrainState.create(model, policy, opt)
+        step = trainer.make_step(trainer.paper_loss_fn(cfg, policy), opt)
+        gen = torch.Generator(device=cs.DEV)
+        gen.manual_seed(0)
+        batch = cs._paper_batch(work, cfg, B, gen)
+        times, losses = [], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = cs.time.perf_counter()
+            _, m = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(cs.time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        prof = cs._profile(lambda: step(state, batch), f"{probe} {name}")
+        print(json.dumps({"probe": probe, "workload": work.name,
+                          "variant": name, "batch": B,
+                          "step_s_p50": float(cs.np.median(times[1:])),
+                          "step_s": times, "losses": losses,
+                          "device_busy_ms": prof["device_busy_ms"],
+                          "device_ms_by_kind": prof["device_ms_by_kind"]}),
+              flush=True)
+        del model, state, step, batch
+        torch.cuda.empty_cache()
+    set_a()
+
+
+def bert_gather(gen) -> None:
+    """bert-base's and bert-large's step: positions and segments gathered
+    by ``F.embedding`` (shipped) and by indexing."""
+    from repro_torch.models import bert, lm
+    shipped = (lm.LM.embed_inputs, bert.forward_qa)
+
+    def embed_indexed(self, inputs, ctx, positions):
+        cd = ctx.compute_dtype
+        return (lm.layers.embed_tokens(self.embed, inputs, cd)
+                + self.pos_embed.to(cd)[positions.long()])
+
+    def forward_indexed(model, tokens, ctx, *, segments=None,
+                        attn_mask=None):
+        B, S = tokens.shape
+        pos = torch.arange(S, dtype=torch.int32,
+                           device=tokens.device).expand(B, S)
+        hidden = model.lm(tokens, ctx, positions=pos, return_hidden=True)[0]
+        hidden = hidden + model.segment_embed.to(hidden.dtype)[
+            segments.long()]
+        logits = (hidden.float() @ model.qa_head.w.float()
+                  + model.qa_head.b.float())
+        return logits[..., 0], logits[..., 1]
+
+    def install(embed, forward):
+        def go():
+            lm.LM.embed_inputs, bert.forward_qa = embed, forward
+        return go
+
+    variants = {"embedding": install(*shipped),
+                "index": install(embed_indexed, forward_indexed)}
+    with torch.enable_grad():
+        for work in cs.PAPER_WORKLOADS:
+            if work.domain == "nlp":
+                cfg = cs.get_config(work.name)
+                _step_turns("bert_gather", work, cfg, variants,
+                            lambda: bert.BertQA.init(cfg, device=cs.DEV),
+                            work.batch_size)
+
+
+def vision_layout(gen) -> None:
+    """The CNNs' fp32 step with NCHW activations (shipped) and with
+    channels_last activations and weights."""
+    from repro_torch.models import vision
+    shipped = vision._Vision.forward
+    layout = {"memory_format": torch.contiguous_format}
+
+    def forward_cl(self, images):
+        return self.apply_nchw(images.permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last))
+
+    def install(forward, fmt):
+        def go():
+            vision._Vision.forward = forward
+            layout["memory_format"] = fmt
+        return go
+
+    variants = {"nchw": install(shipped, torch.contiguous_format),
+                "channels_last": install(forward_cl, torch.channels_last)}
+    with torch.enable_grad():
+        for work in cs.PAPER_WORKLOADS:
+            if work.domain == "vision":
+                cfg = cs.VISION_CFGS[work.name]
+                B = cs.PAPER_BATCH_CUT.get(work.name, (work.batch_size,))[0]
+                _step_turns("vision_layout", work, cfg, variants,
+                            lambda: vision.init_vision(cfg, device=cs.DEV)
+                            .to(memory_format=layout["memory_format"]), B)
+
+
+PROBES = {"fwd_d256_pv": fwd_d256_pv, "ssd_bwd_heads": ssd_bwd_heads,
+          "ssd_bwd_parts": ssd_bwd_parts, "dkv_d256_parts": dkv_d256_parts,
+          "dq_d256_parts": dq_d256_parts, "bert_gather": bert_gather,
+          "vision_layout": vision_layout}
 
 
 def main(names) -> int:
@@ -377,6 +499,10 @@ def main(names) -> int:
     if not torch.cuda.is_available():
         print("probe_variant: needs a CUDA device", file=sys.stderr)
         return 1
+    # fp32 means fp32, as in chip_smoke.py: cuDNN and cuBLAS would run fp32
+    # products in TF32 by default
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     print(cs.nvidia_smi_line(), flush=True)
     gen = torch.Generator(device=cs.DEV)
     with torch.no_grad():

@@ -8,10 +8,14 @@
 | BERT-base    | NLP QA |  110M  |  12   |
 | BERT-large   | NLP QA |  340M  |  24   |
 
-The vision models use ``VisionConfig`` (see ``repro_torch.models.vision``); BERT
+The vision models take a ``VisionConfig`` (``repro_torch.models.vision``:
+``ResNet50``, ``MobileNetV2``, ``YOLOv5L``, built by ``init_vision``); BERT
 reuses ``ModelConfig`` with ``causal=False`` + learned positions
-(see ``repro_torch.models.bert``). Paper batch sizes from §V-C-1 are recorded so the
-benchmark harness reproduces the paper's exact workload points.
+(``repro_torch.models.bert.BertQA``: the port's ``LM`` plus the segment
+embedding and the QA head).  ``PAPER_WORKLOADS`` records the paper's batch
+sizes and image / sequence sizes (§V-C-1); ``chip_smoke.py``'s
+``paper_bench`` phase trains each workload at its point on one card (with a
+stated cut where the batch does not fit).
 """
 from __future__ import annotations
 

@@ -12,6 +12,13 @@ each slot of the unit).  Weight layouts are the same on both sides
 ``mlp.wo (ff,d)``, tables ``(padded_vocab, d)``; the ``ssm`` and ``rglru``
 mixers' leaves under the reference's names), so leaves are copied, not
 transposed.
+
+``bert_from_reference`` / ``bert_to_reference`` carry ``init_bert_qa``'s
+pytree (the ``LM`` leaves plus ``segment_embed`` and ``qa_head``), and
+``vision_from_reference`` / ``vision_to_reference`` the three vision
+models' (``repro/models/vision.py``): their parameter names mirror the
+reference's nested dicts and lists leaf for leaf, and conv weights go from
+the reference's HWIO to PyTorch's OIHW.
 """
 from __future__ import annotations
 
@@ -22,6 +29,9 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import RGLRU, SSM, ModelConfig
+from repro_torch.configs.paper_bench import VisionConfig
+from repro_torch.models import vision
+from repro_torch.models.bert import BertQA
 from repro_torch.models.lm import LM, require_device
 from repro_torch.models.transformer import plan_segments
 
@@ -71,8 +81,12 @@ def from_reference(params: Mapping[str, Any], cfg: ModelConfig, *,
     numpy arrays.  Handles ``tie_embeddings`` (no ``head`` leaf), ``qkv_bias``,
     ``qk_norm``, layernorm biases and the padded vocabulary (tables have
     ``cfg.padded_vocab`` rows on both sides)."""
-    dev = require_device(device)
-    model = LM(cfg, dtype=dtype, device=dev)
+    model = LM(cfg, dtype=dtype, device=require_device(device))
+    _load_lm(model, params, cfg)
+    return model
+
+
+def _load_lm(model: LM, params: Mapping[str, Any], cfg: ModelConfig) -> None:
     _put(model.embed, params["embed"]["table"], "embed.table")
     if not cfg.tie_embeddings:
         _put(model.head, params["head"]["table"], "head.table")
@@ -109,7 +123,6 @@ def from_reference(params: Mapping[str, Any], cfg: ModelConfig, *,
                 if n in tree["mlp"]:
                     _put(getattr(block.mlp, n), tree["mlp"][n],
                          f"{pre}.mlp.{n}")
-    return model
 
 
 def to_reference(model: LM, leaf: Optional[Callable] = None
@@ -180,3 +193,91 @@ def by_name(model: LM, tensors: Mapping[str, torch.Tensor]) -> Callable:
     parameter name, as the optimizer state is) that belongs to a parameter."""
     names = {id(p): n for n, p in model.named_parameters()}
     return lambda p: tensors[names[id(p)]]
+
+
+# ---------------------------------------------------------------------------
+# the paper's Table II models
+# ---------------------------------------------------------------------------
+def bert_from_reference(params: Mapping[str, Any], cfg: ModelConfig, *,
+                        dtype=torch.float32, device="cuda") -> BertQA:
+    """The port's ``BertQA`` holding ``init_bert_qa``'s weights (numpy)."""
+    model = BertQA(cfg, dtype=dtype, device=require_device(device))
+    _load_lm(model.lm, params, cfg)
+    _put(model.segment_embed, params["segment_embed"], "segment_embed")
+    _put(model.qa_head.w, params["qa_head"]["w"], "qa_head.w")
+    _put(model.qa_head.b, params["qa_head"]["b"], "qa_head.b")
+    return model
+
+
+def bert_to_reference(model: BertQA, leaf: Optional[Callable] = None
+                      ) -> Dict[str, Any]:
+    """The inverse (``leaf`` as in ``to_reference``)."""
+    pick = leaf if leaf is not None else (lambda p: p)
+
+    def arr(p):
+        return pick(p).detach().float().cpu().numpy()
+
+    out = to_reference(model.lm, leaf)
+    out["segment_embed"] = arr(model.segment_embed)
+    out["qa_head"] = {"w": arr(model.qa_head.w), "b": arr(model.qa_head.b)}
+    return out
+
+
+def flatten_tree(tree, prefix: str = "") -> Dict[str, Any]:
+    """A reference pytree of dicts and lists as {dotted name: leaf}; list
+    items are named by their index, as ``nn.ModuleList`` names them."""
+    if isinstance(tree, Mapping):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out: Dict[str, Any] = {}
+    for k, v in items:
+        out.update(flatten_tree(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def vision_from_reference(params: Mapping[str, Any], cfg: VisionConfig, *,
+                          dtype=torch.float32, device="cuda") -> nn.Module:
+    """The port's vision model holding ``init_vision(key, cfg)``'s weights
+    (numpy) in ``dtype``: every leaf mapped by name, every shape checked,
+    none left over on either side.  4-D leaves are conv weights, HWIO ->
+    OIHW."""
+    dev = require_device(device)
+    model = vision.VISION_MODELS[cfg.arch](cfg, dtype=dtype, device=dev)
+    ours = dict(model.named_parameters())
+    leaves = flatten_tree(params)
+    if set(leaves) != set(ours):
+        raise ValueError(
+            f"{cfg.name}: reference leaves without a parameter "
+            f"{sorted(set(leaves) - set(ours))[:5]}, parameters without a "
+            f"leaf {sorted(set(ours) - set(leaves))[:5]}")
+    for name, a in leaves.items():
+        a = np.asarray(a)
+        _put(ours[name], a.transpose(3, 2, 0, 1) if a.ndim == 4 else a, name)
+    return model
+
+
+def vision_to_reference(model: nn.Module, leaf: Optional[Callable] = None
+                        ) -> Dict[str, Any]:
+    """The inverse: the reference's nested dicts and lists of numpy arrays
+    in the parameters' dtype (fp32, or fp64 for a model cast to it), conv
+    weights HWIO; ``leaf`` as in ``to_reference``."""
+    pick = leaf if leaf is not None else (lambda p: p)
+    root: Dict[str, Any] = {}
+    for name, p in model.named_parameters():
+        a = pick(p).detach().cpu().numpy()
+        node, *path, last = [root] + name.split(".")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[last] = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a
+
+    def lists(t):
+        if not isinstance(t, dict):
+            return t
+        if all(k.isdigit() for k in t):
+            return [lists(t[str(i)]) for i in range(len(t))]
+        return {k: lists(v) for k, v in t.items()}
+
+    return lists(root)

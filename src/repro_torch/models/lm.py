@@ -89,7 +89,10 @@ class LM(nn.Module):
         if cfg.pos_embedding == "sinusoidal":
             x = x + layers.sinusoidal_positions(positions, cfg.d_model, cd)
         elif cfg.pos_embedding == "learned":
-            x = x + self.pos_embed.to(cd)[positions.long()]
+            # a gather, as the tokens': its backward sums a position's B
+            # repeats in fp32 at once, where indexing summed them one by
+            # one in the compute dtype
+            x = x + layers.embed_tokens(self.pos_embed, positions, cd)
         return x
 
     def head_table(self):

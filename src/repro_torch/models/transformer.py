@@ -33,7 +33,7 @@ from repro_torch.configs.base import (ATTN, ATTN_LOCAL, RGLRU, SSM,
 from repro_torch.models import attention, layers, rglru, ssm
 
 _BLOCKS = (ATTN, ATTN_LOCAL, SSM, RGLRU)
-_MOE = "ROADMAP queue A item 5 (MoE / BERT / vision)"
+_MOE = "ROADMAP queue A item 5 (MoE)"
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,8 @@ from typing import Any, Callable, Dict, Mapping, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig, PolicyConfig, ShapeConfig
-from repro_torch.models import lm
+from repro_torch.configs.paper_bench import VisionConfig
+from repro_torch.models import bert, lm, vision
 from repro_torch.models.lm import LM
 from repro_torch.models.transformer import RunCtx
 from repro_torch.optim import adamw, schedule
@@ -164,8 +165,14 @@ def _accum_grads(loss_fn, model: LM, batch, n_accum: int):
     return acc, loss_sum / n_accum, _detach(metrics)
 
 
-def _device_batch(batch, device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+def _device_batch(batch, device) -> Dict[str, Any]:
+    """Each array of ``batch`` on ``device``; a list or tuple of arrays
+    (YOLO's three target maps) becomes a list of tensors."""
+    def put(v):
+        return torch.as_tensor(v).to(device)
+
+    return {k: [put(x) for x in v] if isinstance(v, (list, tuple)) else put(v)
+            for k, v in batch.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -185,12 +192,25 @@ def make_train_step(cfg: ModelConfig, policy: PolicyConfig,
                 if policy.grad_compression == "int8_ef" else "")
         raise NotImplementedError(_MESH + what)
     seq_len = shape.seq_len if shape is not None else None
-    loss_fn = make_loss_fn(cfg, policy, mesh, seq_len=seq_len)
+    return make_step(make_loss_fn(cfg, policy, mesh, seq_len=seq_len),
+                     optcfg, schedcfg, n_accum=policy.grad_accum)
+
+
+def make_step(loss_fn: Callable,
+              optcfg: adamw.AdamWConfig = adamw.AdamWConfig(),
+              schedcfg: Optional[schedule.ScheduleConfig] = None, *,
+              n_accum: int = 1) -> Callable:
+    """``train_step(state, batch) -> (state, metrics)`` for any model and
+    ``loss_fn(model, batch) -> (loss, metrics)``: the loss, its backward
+    (``_accum_grads``) and ``adamw.apply``, metrics as ``make_train_step``'s.
+    The reference's Table II models have no step beyond ``value_and_grad``
+    of their loss (``tests/test_paper_bench.py``); they take this one with
+    ``paper_loss_fn``."""
 
     def train_step(state: TrainState, batch: Mapping[str, Any]):
         batch = _device_batch(batch, state.device)
         grads, loss, metrics = _accum_grads(loss_fn, state.model, batch,
-                                            policy.grad_accum)
+                                            n_accum)
         lr = None
         if schedcfg is not None:
             lr = schedule.lr_at(state.opt.step, schedcfg)
@@ -199,3 +219,18 @@ def make_train_step(cfg: ModelConfig, policy: PolicyConfig,
         return state, dict(metrics, **om, loss=loss)
 
     return train_step
+
+
+def paper_loss_fn(cfg, policy: PolicyConfig) -> Callable:
+    """``loss_fn(model, batch)`` of a Table II workload: ``bert.qa_loss``
+    under ``policy``'s run context for BERT (a ``ModelConfig``), or
+    ``vision.vision_loss`` for a ``VisionConfig`` (fp32, as the
+    reference; the policy's dtypes do not apply)."""
+    if isinstance(cfg, VisionConfig):
+        def vision_loss_fn(model, batch):
+            loss = vision.vision_loss(model, batch)
+            return loss, {"loss": loss}
+
+        return vision_loss_fn
+    ctx = make_run_ctx(cfg, policy)
+    return lambda model, batch: bert.qa_loss(model, batch, ctx)

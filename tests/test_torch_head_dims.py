@@ -7,7 +7,7 @@ CUDA kernels lack shows only on the card -- where the wrapper raises (no
 fallback).  The first test reads the lists the wrappers check
 (``HEAD_DIMS`` of ``flash_attention`` and ``paged_attention``,
 ``BWD_HEAD_DIMS`` of ``flash_attention_bwd``) against each arch's paths:
-dense prefill (any attention block), paged decode (patterns of global
+dense prefill (any attention block), paged decode (causal patterns of global
 attention only: ``mode="auto"`` picks paged serving for them) and training
 (any attention block: every block kind trains, ``ssm`` blocks through the
 SSD backward, so a hybrid of SSM and attention blocks trains its attention
@@ -41,12 +41,14 @@ def _paths(cfg):
     attn = set(cfg.pattern) & {ATTN, ATTN_LOCAL}
     global_only = all(b == ATTN for b in cfg.pattern)
     return {"flash_attention": bool(attn),
-            "paged_decode_attention": global_only,
+            "paged_decode_attention": global_only and cfg.causal,
             "flash_attention_bwd": bool(attn)}
 
 
-# the full-size archs whose blocks the port builds (MoE FFNs raise)
-BUILT = [a for a in ASSIGNED_ARCHS if get_config(a).moe is None]
+# the full-size archs whose blocks the port builds (MoE FFNs raise), and the
+# paper's BERT encoders (trained bidirectionally, never decoded)
+BUILT = [a for a in ASSIGNED_ARCHS if get_config(a).moe is None] + [
+    "bert-base", "bert-large"]
 
 
 @pytest.mark.parametrize("arch", BUILT)
