@@ -170,12 +170,37 @@ per line, each with ``at_s``, the seconds since the script's imports ended:
                 B1 (see ``_qa_b1_check``); step p50, images or sequences
                 and tokens a second, model flops over the dtype's peak,
                 peak memory, device ms by kind, ``phase_s``;
+  moe           moonshot-v1-16b-a3b (48 layers, 64 experts top-6 and 2
+                shared, 28.9 B parameters) at full size in bf16, random
+                weights from seed 0 made on the device: serve_paged and
+                serve_dense as above, through the step graphs (the paged
+                decode kernel once per layer of every pure-decode
+                iteration, flash once per layer of every prefill); one
+                decode step and one prefill run eagerly under
+                ``_moe_split`` (device ms of routing / sort / dispatch /
+                combine, the expert products, the shared experts, the
+                attention mixer, the rest); parity: 2-layer fp32 greedy
+                streams kernel == plain, the full-depth bf16 decode logits
+                reported with the share of (token, layer) routes the two
+                paths agree on, and ``parity_moe``: at 16 layers in fp32
+                the decode logits kernel vs plain within 2e-4 of max-abs,
+                the plain path's own bf16 spread against fp32 reported
+                (top-k routing at depth makes bf16 no oracle);
+                llama4-scout-17b-a16e cut to 12 of 48 layers, served paged
+                and dense; moonshot trained at 4 of 48 layers (``train``:
+                3 steps + one profiled + one under ``_moe_split``, lr 1e-4;
+                the first step in fp32, kernels against the plain
+                attention: every leaf within 5e-4 of its max-abs, the
+                routes equal); the ``moe`` line: the splits, peak memory,
+                ``phase_s``;
   summary       the run's elapsed seconds, the kernels' build included;
   kernels       the per-kernel summary line, launches counted on the served
                 and trained runs above (the attention kernels have a row per
                 head dim: llama's D = 128, stablelm's D = 160,
                 recurrentgemma's D = 256 and, for B2, bert-base's
-                bidirectional D = 64, ``*_bert``; the SSD one for the
+                bidirectional D = 64, ``*_bert``; moonshot's D = 128 at
+                G = 1 and scout's at G = 5, ``*_moonshot`` / ``*_scout``;
+                the SSD one for the
                 served and one
                 for the trained shape), and the RG-LRU and SSD backwards'
                 rows (no TPU kernel: each replaces the reference's XLA
@@ -244,7 +269,10 @@ from repro_torch.kernels.ssd import (                          # noqa: E402
     ssd_plain)
 from repro_torch.configs.paper_bench import (                  # noqa: E402
     MOBILENETV2, PAPER_WORKLOADS, RESNET50, YOLOV5L)
+from repro_torch.models import attention as attention_mod      # noqa: E402
 from repro_torch.models import bert, vision                    # noqa: E402
+from repro_torch.models import layers as layers_mod            # noqa: E402
+from repro_torch.models import moe as moe_mod                  # noqa: E402
 from repro_torch.models.lm import LM                           # noqa: E402
 from repro_torch.models.ssm import ssd_decode_step             # noqa: E402
 from repro_torch.optim import (AdamWConfig, ScheduleConfig,    # noqa: E402
@@ -2355,12 +2383,14 @@ def serve_paged(cfg, model, policy):
 
 
 def serve_dense(cfg, model, policy):
+    """Returns the flash launches and the engine."""
     eng = AsyncServeEngine(cfg, model, policy, mode="dense", n_slots=4,
                            max_seq=2048, device=DEV)
     eng.warmup()
     lens = [300, 500, 1100, 1500]           # pow2 buckets 512, 512, 2048, 2048
     reqs = [ServeRequest(i, _prompt(100 + i, n, cfg.vocab_size), max_new=16)
             for i, n in enumerate(lens)]
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     for r in reqs:
@@ -2385,8 +2415,10 @@ def serve_dense(cfg, model, policy):
     emit("serve_dense", arch=cfg.name, n_layers=cfg.n_layers,
          requests=len(reqs), served=served,
          prompt_lens=lens, max_new=16, wall_s=wall,
-         flash_kernel_launches=n_flash, **_latency(rep))
-    return n_flash
+         flash_kernel_launches=n_flash,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         memory_reserved=torch.cuda.memory_reserved(), **_latency(rep))
+    return n_flash, eng
 
 
 def _streams(cfg, model, impl, mode, prompts, dtype="float32"):
@@ -2425,32 +2457,120 @@ def parity(cfg, model):
     del m2
 
     # full depth, bf16: one decode step's logits, kernel vs plain
-    logits = {}
-    prompt = _prompt(300, 200, cfg.vocab_size)
+    logits, routes = {}, {}
     for impl in ("kernel", "full"):
-        policy = PolicyConfig(compute_dtype="bfloat16", remat="none",
-                              attn_impl=impl)
-        eng = AsyncServeEngine(cfg, model, policy, mode="paged", n_slots=2,
-                               max_seq=512, page_size=16, prefill_chunk=256,
-                               device=DEV)
-        req = ServeRequest(0, list(prompt), max_new=4)
-        eng.submit(req)
-        while not (req.state == "decode" and req.out):
-            eng.step()
-        _, lg = eng._run_paged(
-            [req], [[req.out[-1]]], [[req.prompt_len + len(req.out) - 1]],
-            [[True]], [0])
-        logits[impl] = lg.float()
+        logits[impl], routes[impl] = _decode_logits(cfg, model, impl,
+                                                    "bfloat16")
     scale = float(logits["full"].abs().max())
     err = float((logits["kernel"] - logits["full"]).abs().max())
     check(bool(torch.isfinite(logits["kernel"]).all()),
           "parity: non-finite bf16 logits")
     check(logits["kernel"].shape == (1, cfg.padded_vocab),
           "parity: logits have the wrong shape")
-    check(err <= 2e-2 * scale, f"parity: bf16 decode logits differ by {err} "
-                               f"(> 2e-2 x max-abs {scale})")
-    emit("parity", fp32_streams_equal=equal, bf16_decode_logits_max_abs=scale,
-         bf16_decode_logits_max_abs_err=err, tol_rel=2e-2)
+    if cfg.moe is None:
+        check(err <= 2e-2 * scale, f"parity: bf16 decode logits differ by "
+                                   f"{err} (> 2e-2 x max-abs {scale})")
+        extra = {"tol_rel": 2e-2}
+    else:
+        # top-k routes flip with bf16 rounding and the flips compound over
+        # 48 layers: reported only; ``parity_moe`` holds the logits in fp32
+        # at a depth cut, and measures the plain path's own bf16 spread
+        extra = {"checked": False, "routes_equal_share": _route_share(
+            routes["kernel"], routes["full"])}
+    emit("parity", arch=cfg.name, fp32_streams_equal=equal,
+         bf16_decode_logits_max_abs=scale,
+         bf16_decode_logits_max_abs_err=err, **extra)
+
+
+# moonshot's logits at this depth cut fit one card in fp32 (10.1 B
+# parameters, 40 GB)
+MOE_PARITY_LAYERS = 16
+
+
+def parity_moe(cfg, n_layers=MOE_PARITY_LAYERS):
+    """One decode step's logits after a 200-token prompt through the paged
+    engine, ``cfg`` cut to ``n_layers`` with random fp32 weights: kernels
+    against the plain versions in fp32 within 2e-4 of max-abs, and, as
+    numbers only, the plain path in bf16 against itself in fp32 (the
+    rounding alone) and the kernels against the plain path both in bf16;
+    each with the share of (token, layer) routes the two runs agree on."""
+    small = cut_depth(cfg, n_layers)
+    model = LM.init(small, seed=0, dtype=torch.float32, device=DEV)
+    runs = {}
+    # the bf16 runs cast the weights in place (the engine's cast_weights_):
+    # they come last
+    for impl, dt in (("kernel", "float32"), ("full", "float32"),
+                     ("full", "bfloat16"), ("kernel", "bfloat16")):
+        runs[impl, dt] = _decode_logits(small, model, impl, dt)
+    del model
+
+    def compare(a, b):
+        (la, ra), (lb, rb) = runs[a], runs[b]
+        check(bool(torch.isfinite(la).all()), f"parity_moe: {a} non-finite")
+        scale = float(lb.abs().max())
+        return {"max_abs": scale, "max_abs_err": float((la - lb).abs().max()),
+                "routes_equal_share": _route_share(ra, rb)}
+
+    fp32 = compare(("kernel", "float32"), ("full", "float32"))
+    check(fp32["max_abs_err"] <= 2e-4 * fp32["max_abs"],
+          f"parity_moe: fp32 decode logits differ {fp32} (> 2e-4 x max-abs)")
+    emit("parity_moe", arch=cfg.name, n_layers=n_layers,
+         cut=f"depth {cfg.n_layers} -> {n_layers} layers (fp32 at full depth, "
+             f"{cfg.param_count() * 4 / 1e9:.1f} GB, does not fit one card)",
+         fp32_kernel_vs_plain=dict(fp32, tol_rel=2e-4),
+         bf16_plain_vs_fp32_plain=compare(("full", "bfloat16"),
+                                          ("full", "float32")),
+         bf16_kernel_vs_bf16_plain=compare(("kernel", "bfloat16"),
+                                           ("full", "bfloat16")))
+
+
+def _decode_logits(cfg, model, impl, dtype):
+    """(logits of one decode step after a 200-token prompt through the
+    paged engine, the routes of every MoE call on the way).  With MoE the
+    engine runs eagerly, so that every step calls the router where the
+    routes are recorded."""
+    policy = PolicyConfig(compute_dtype=dtype, remat="none", attn_impl=impl)
+    eng = AsyncServeEngine(cfg, model, policy, mode="paged", n_slots=2,
+                           max_seq=512, page_size=16, prefill_chunk=256,
+                           graphs=cfg.moe is None, device=DEV)
+    req = ServeRequest(0, _prompt(300, 200, cfg.vocab_size), max_new=4)
+    eng.submit(req)
+    with _RouteLog() as log:
+        while not (req.state == "decode" and req.out):
+            eng.step()
+        _, lg = eng._run_paged(
+            [req], [[req.out[-1]]], [[req.prompt_len + len(req.out) - 1]],
+            [[True]], [0])
+    return lg.float(), log.idx
+
+
+class _RouteLog:
+    """While open, records the experts (sorted per token) that every
+    ``moe.route`` call chooses, in call order."""
+
+    def __enter__(self):
+        self.idx, self._route = [], moe_mod.route
+
+        def route(x2d, router_w, top_k):
+            out = self._route(x2d, router_w, top_k)
+            self.idx.append(out[1].detach().sort(dim=-1).values)
+            return out
+
+        moe_mod.route = route
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod.route = self._route
+
+
+def _route_share(a, b):
+    """Share of (token, layer) routes that two runs' logs agree on: a
+    token's set of experts in one call."""
+    check(len(a) == len(b) and all(x.shape == y.shape for x, y in zip(a, b)),
+          "routes: the two runs made different MoE calls")
+    same = sum(int((x == y).all(dim=-1).sum()) for x, y in zip(a, b))
+    total = sum(x.shape[0] for x in a)
+    return same / total if total else None
 
 
 # ---------------------------------------------------------------------------
@@ -2663,10 +2783,12 @@ TRAIN_POLICY = PolicyConfig(compute_dtype="bfloat16", param_dtype="float32",
 
 
 def _model_flops_per_step(cfg, n_params, shape):
-    """6 * N * tokens for the weight products, plus the attention blocks'
-    products (QK^T and PV: 4 * D flops per live (query, key) pair and head
-    forward, twice that backward; causal unless the model is not, under the
-    window in a local block); activation recompute not counted."""
+    """6 * N * tokens for the weight products (``n_params``: the weights
+    that take part in products, without the input lookup tables), plus the
+    attention blocks' products (QK^T and PV: 4 * D flops per live (query,
+    key) pair and head forward, twice that backward; causal unless the model
+    is not, under the window in a local block); activation recompute not
+    counted."""
     B, S = shape.global_batch, shape.seq_len
     pairs = sum(B * cfg.n_heads * _live_pairs(
         S, S, cfg.causal, cfg.local_window if blk == ATTN_LOCAL else 0)
@@ -2727,7 +2849,7 @@ def _profile(fn, what):
 
 def train(cfg, shape=TRAIN_SHAPE, steps=TRAIN_STEPS,
           cuts=("global batch 256 -> 2 (one card)",), full=True,
-          leaves=None):
+          leaves=None, split=False, lr=3e-4):
     """``cfg`` (llama3.2-3b, recurrentgemma-2b or mamba2-780m at full width
     and depth) trained in bf16 compute, fp32 parameters and AdamW state,
     per-block activation checkpointing, ``shape`` tokens per step, random
@@ -2746,21 +2868,25 @@ def train(cfg, shape=TRAIN_SHAPE, steps=TRAIN_STEPS,
     That fp32 pass runs the SSD backward's fp32 design (the CUDA cores);
     the bf16 steps run its tensor-core design, which ``ssd_bwd_cases``
     holds at the trained shape, and the first step's bf16 loss within 2e-2
-    of the fp32 reference's.  ``full``: the loss must fall, and one more step is profiled;
-    else (a depth cut, two steps) only the launches and the first step's
-    parity are held."""
+    of the fp32 reference's.  With MoE blocks the reference pass is fp32
+    too (top-k routing flips with bf16 rounding), the gradients compared
+    are kept on the host, and the share of (token, layer) routes the two
+    fp32 passes agree on is reported.  ``full``: the loss must fall, and
+    one more step is profiled; else (a depth cut, two steps) only the
+    launches and the first step's parity are held.  ``split``: one more
+    step under ``_moe_split``."""
     t_start = time.perf_counter()
     L = cfg.n_layers
     leaves = leaves or ATTN_LEAVES
     n_attn = sum(blk in (ATTN, ATTN_LOCAL) for blk in cfg.pattern)
     n_rec = cfg.pattern.count(RGLRU)
     n_ssm = cfg.pattern.count(SSM)
-    optcfg = AdamWConfig(lr=3e-4)
+    optcfg = AdamWConfig(lr=lr)
     # Adam's first updates move every weight by about lr * sign(g): from
     # this random init the loss rises for two steps at any lr >= 1.5e-4 and
     # falls again as the cosine decays (PERF.md, the training findings); with
     # the one warm-up step at lr 0 it ends below where it started
-    sched = ScheduleConfig(kind="cosine", peak_lr=3e-4, warmup_steps=1,
+    sched = ScheduleConfig(kind="cosine", peak_lr=lr, warmup_steps=1,
                            total_steps=steps)
     torch.cuda.reset_peak_memory_stats()
     state = trainer.init_state(cfg, TRAIN_POLICY, optcfg, seed=0, device=DEV)
@@ -2780,24 +2906,34 @@ def train(cfg, shape=TRAIN_SHAPE, steps=TRAIN_STEPS,
     t_init = time.perf_counter()
     plain = dataclasses.replace(TRAIN_POLICY, attn_impl="full")
     tol, ref_dtype, full_attn, attn_err = 2e-2, "bfloat16", None, None
-    if n_ssm:
+    routes = None
+    if n_ssm or cfg.moe is not None:
         fp32 = dataclasses.replace(TRAIN_POLICY, compute_dtype="float32")
         tol, ref_dtype = 5e-4, "float32"
-        grads, full_loss = _grads(state.model, dataclasses.replace(
-            plain, compute_dtype="float32"), batches[0])
+        with _RouteLog() as plain_routes:
+            grads, full_loss = _grads(state.model, dataclasses.replace(
+                plain, compute_dtype="float32"), batches[0])
         plain32 = _pick(grads, leaves)
-        grads, loss32 = _grads(state.model, fp32, batches[0])
+        if cfg.moe is not None:      # every leaf: kept on the host
+            plain32 = {n: g.cpu() for n, g in plain32.items()}
+        del grads
+        with _RouteLog() as kernel_routes:
+            grads, loss32 = _grads(state.model, fp32, batches[0])
         check(abs(loss32 - full_loss) <= tol * abs(full_loss),
               f"train: fp32 first loss {loss32} vs {full_loss} through the "
               f"plain versions (> {tol})")
         attn_err = _leaf_errs(_pick(grads, leaves), plain32, tol,
                               "train: fp32 first step vs the plain versions")
-        del grads, plain32
+        if cfg.moe is not None:
+            routes = _route_share(kernel_routes.idx, plain_routes.idx)
+            check(routes == 1.0, f"train: the fp32 passes route "
+                                 f"{routes} of the tokens alike, not all")
+        del grads, plain32, plain_routes, kernel_routes
     else:
         grads, full_loss = _grads(state.model, plain, batches[0])
         full_attn = _pick(grads, leaves)
         del grads
-    losses, norms, lrs, step_s = [], [], [], []
+    losses, auxes, norms, lrs, step_s = [], [], [], [], []
     torch.cuda.synchronize()
     t_ref = time.perf_counter()
     ops.reset_launch_counts()               # just before the main path
@@ -2813,6 +2949,7 @@ def train(cfg, shape=TRAIN_SHAPE, steps=TRAIN_STEPS,
                                 f"{want} (two forwards and one backward per "
                                 f"attention, RG-LRU and SSM block)")
         losses.append(float(m["loss"]))
+        auxes.append(float(m["aux"]))
         norms.append(float(m["grad_norm"]))
         lrs.append(float(m["lr"]))
         if i == 0:
@@ -2849,22 +2986,31 @@ def train(cfg, shape=TRAIN_SHAPE, steps=TRAIN_STEPS,
           f"{want_design}")
     check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
           f"train: non-finite loss or grad norm {losses} {norms}")
-    profile = None
+    profile, moe_split = None, None
     t_steps = time.perf_counter()
     if full:
         profile = _profile(lambda: step_fn(state, batches[-1]), "train")
+        if split:
+            moe_split = _moe_split(lambda: step_fn(state, batches[-1]),
+                                   f"train {cfg.name}")
         # a smoke signal only: whether the gradients are right is checked
         # above
         check(losses[-1] < losses[0],
               f"train: loss did not fall over {steps} steps: {losses}")
     p50 = float(np.median(step_s[1:]))      # the first step is warm-up
     tokens = shape.tokens
-    flops = _model_flops_per_step(cfg, n_params, shape)
+    # an MoE token passes through its top-k experts, not all of them; the
+    # input table's lookup does no products (a tied table is the head's)
+    n_active = cfg.active_param_count() if cfg.moe is not None else n_params
+    if not cfg.tie_embeddings:
+        n_active -= state.model.embed.numel()
+    flops = _model_flops_per_step(cfg, n_active, shape)
     emit("train", arch=cfg.name, n_layers=L, params=n_params,
          batch=shape.global_batch, seq=shape.seq_len,
          compute_dtype="bfloat16", param_dtype="float32", remat="block",
          steps=steps, warmup_steps_excluded=1, losses=losses,
-         grad_norms=norms, lrs=lrs, step_s=step_s, step_s_p50=p50,
+         aux_terms=auxes, grad_norms=norms, lrs=lrs, step_s=step_s,
+         step_s_p50=p50,
          tokens_per_s=tokens / p50, model_flops_per_step=flops,
          model_flops_per_s=flops / p50,
          model_flops_per_s_over_989_tflops=flops / p50 / 989e12,
@@ -2872,9 +3018,10 @@ def train(cfg, shape=TRAIN_SHAPE, steps=TRAIN_STEPS,
          first_step_vs_plain_attention={
              "loss": [losses[0], full_loss], "leaves": list(leaves),
              "worst_grad_err_over_max_abs": attn_err,
-             "tol_rel": tol, "reference_dtype": ref_dtype},
+             "tol_rel": tol, "reference_dtype": ref_dtype,
+             "routes_equal_share": routes},
          max_memory_allocated=torch.cuda.max_memory_allocated(),
-         profiled_step=profile, cuts=list(cuts),
+         profiled_step=profile, moe_split=moe_split, cuts=list(cuts),
          phase_s={"init": t_init - t_start, "reference_passes": t_ref - t_init,
                   "steps": t_steps - t_ref,
                   "profile": time.perf_counter() - t_steps})
@@ -2909,6 +3056,7 @@ def _leaf_errs(got, want, tol, what):
     max-abs; returns the worst error over max-abs."""
     worst = 0.0
     for n, w in want.items():
+        w = w.to(got[n].device)
         scale = float(w.abs().max())
         err = float((got[n] - w).abs().max())
         check(err <= tol * scale, f"{what}: gradient {n} differs by {err} "
@@ -3596,6 +3744,215 @@ def recurrent(policy):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the MoE archs
+# ---------------------------------------------------------------------------
+MOE_ARCH = "moonshot-v1-16b-a3b"
+SCOUT_ARCH = "llama4-scout-17b-a16e"
+# llama4-scout: 107.8 B parameters at its 48 layers, 216 GB in bf16
+SCOUT_LAYERS = 12
+SCOUT_CUT = ("depth 48 -> 12 layers (107.8 B parameters, 216 GB in bf16 at "
+             "full depth, do not fit one card)",)
+# moonshot trained: 28.9 B fp32 parameters with gradients and AdamW state
+# (~462 GB) at full depth
+MOE_TRAIN_LAYERS = 4
+MOE_TRAIN_STEPS = 3
+# at lr 3e-4 the first update multiplies the load-balance term 3.5-fold (the
+# routes crowd onto few experts) and the loss, aux included, rises over 3
+# steps though the cross entropy falls; at 1e-4 both the loss and the cross
+# entropy fall (PERF.md, the MoE findings)
+MOE_TRAIN_LR = 1e-4
+MOE_TRAIN_CUT = ("depth 48 -> 4 layers (28.9 B fp32 parameters with "
+                 "gradients and AdamW state, ~462 GB, do not fit one card)",
+                 "global batch 256 -> 2 (one card)", "5 steps -> 3")
+# every leaf of a moonshot block (norm scales, attention, router, routed
+# and shared experts) and the tables
+MOE_TRAIN_LEAVES = ("embed", "head", "scale", "wq", "wk", "wv", "wo",
+                    "router", "wi", "wg")
+
+# the device time of one step by part: kernels are attributed to the
+# innermost range or autograd node on their launching op's stack
+# (``record_function`` ranges that ``_moe_split`` opens around the MoE's
+# parts and the attention mixer; in a backward, the node that launched
+# them; elementwise backward nodes fall to "rest")
+MOE_SPLIT = (("expert_products", ("moe.experts", "BmmBackward")),
+             ("moe_dispatch", ("moe.sorted", "IndexSelectBackward",
+                               "IndexCopyBackward", "TopkBackward",
+                               "SoftmaxBackward")),
+             ("shared_experts", ("moe.shared",)),
+             ("attention", ("attn.mixer", "FlashAttentionFn")))
+
+
+def _moe_split(fn, what):
+    """``fn()`` once under ``torch.profiler`` with ranges around
+    ``moe_sorted`` (routing, sort, dispatch, combine), ``_expert_ffn`` (the
+    expert products), the shared experts' MLP and the attention mixer
+    (projections, RoPE, the kernel): device ms of each part (``MOE_SPLIT``)
+    and the rest, and the device's idle share.  ``fn`` must run eagerly: a
+    graph replay calls none of the ranges."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def ranged(name, f):
+        def run(*a, **k):
+            with record_function(name):
+                return f(*a, **k)
+        return run
+
+    patches = [(moe_mod, "moe_sorted", "moe.sorted"),
+               (moe_mod, "_expert_ffn", "moe.experts"),
+               (layers_mod, "apply_mlp", "moe.shared"),
+               (attention_mod, "apply_attention", "attn.mixer")]
+    saved = [getattr(m, n) for m, n, _ in patches]
+    for (m, n, r), f in zip(patches, saved):
+        setattr(m, n, ranged(r, f))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for (m, n, _), f in zip(patches, saved):
+            setattr(m, n, f)
+    ms = dict({k: 0.0 for k, _ in MOE_SPLIT}, rest=0.0)
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CPU or not ev.kernels:
+            continue
+        kind, node = "rest", ev
+        while node is not None and kind == "rest":
+            kind = next((k for k, keys in MOE_SPLIT
+                         if any(t in node.name for t in keys)), "rest")
+            node = node.cpu_parent
+        ms[kind] += sum(k.duration for k in ev.kernels) / 1e3
+    busy = sum(ms.values())
+    check(busy > 0, f"{what}: the profiler saw no device activity")
+    check(busy <= 1.05 * wall_ms,
+          f"{what}: device time {busy} ms exceeds the wall {wall_ms} ms")
+    return {"device_ms": ms, "device_busy_ms": busy, "wall_ms": wall_ms,
+            "device_idle_share": 1.0 - busy / wall_ms}
+
+
+def _moe_decode_split(eng, cfg):
+    """One paged decode iteration of ``eng.n_slots`` rows (64-token
+    prompts), run eagerly on the inputs its graph was staged with, under
+    ``_moe_split``."""
+    prompts = [_prompt(950 + i, 64, cfg.vocab_size)
+               for i in range(eng.n_slots)]
+    reqs = [ServeRequest(2000 + i, p, max_new=8)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        check(eng.submit(r), f"moe split: request {r.rid} rejected")
+    while not all(r.state == "decode" and r.out for r in reqs):
+        eng.step()
+    toks = [[r.out[-1]] for r in reqs]
+    pos = [[r.prompt_len + len(r.out) - 1] for r in reqs]
+    n = len(reqs)
+    eng._run_paged(reqs, toks, pos, [[True]] * n, [0] * n)
+    key = ("decode", n, eng._table_width(reqs, 1), 1)
+    inputs = eng.graphs._steps[key].inputs     # as that step staged them
+    out = _moe_split(lambda: eng._decode_rows_step(*inputs),
+                     f"{cfg.name} decode")      # rewrites the same K/V
+    eng.run()
+    check(all(r.done for r in reqs), "moe split: a request was not served")
+    return dict(out, rows=n)
+
+
+def _moe_prefill_split(eng, cfg, n):
+    """One dense prefill of ``n`` tokens (padded to its bucket), run eagerly
+    on the inputs its graph was staged with, under ``_moe_split``."""
+    S = min(bucket_pow2(n, floor=16), eng.max_seq)
+    eng.prefill_once(_prompt(960, n, cfg.vocab_size))
+    inputs = eng.graphs._steps[("prefill", S)].inputs
+    return dict(_moe_split(lambda: eng._prefill_step(*inputs),
+                           f"{cfg.name} prefill"), tokens=n, bucket=S)
+
+
+def moe_kernel_cases(gen):
+    """The attention kernels at the MoE archs' shapes: B1 at moonshot's
+    and scout's dense prefill, B3 at their paged decode, B2 at moonshot's
+    trained shape."""
+    moon = get_config(MOE_ARCH)
+    scout = cut_depth(get_config(SCOUT_ARCH), SCOUT_LAYERS)
+    with torch.no_grad():
+        out = {"flash_moonshot": flash_main_shape(gen, moon, 2048),
+               "flash_scout": flash_main_shape(gen, scout, 2048),
+               "paged_moonshot": paged_main_shape(gen, moon),
+               "paged_scout": paged_main_shape(gen, scout)}
+        torch.cuda.empty_cache()
+        *out["bwd_moonshot"], out["bwd_faults_moonshot"] = bwd_main_shape(
+            gen, moon, *TRAIN_SHAPE_BS)
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe(policy):
+    """moonshot-v1-16b-a3b served at full size (paged and dense, through
+    the step graphs) with its parity, llama4-scout-17b-a16e served at its
+    depth cut, moonshot trained at its depth cut; returns the launches of
+    each run.  The ``moe`` line: where a moonshot decode step and a
+    prefill spend their device time, peak memory, ``phase_s``."""
+    t0 = time.perf_counter()
+    out, phase_s = {}, {}
+    cfg = get_config(MOE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    model = LM.init(cfg, seed=0, dtype=torch.bfloat16, device=DEV)
+    n_params = sum(p.numel() for p in model.parameters())
+    phase_s["init"] = time.perf_counter() - t0
+    out["paged_moonshot"], eng = serve_paged(cfg, model, policy)
+    decode_split = _moe_decode_split(eng, cfg)
+    del eng
+    torch.cuda.empty_cache()
+    out["flash_moonshot"], eng = serve_dense(cfg, model, policy)
+    prefill_split = _moe_prefill_split(eng, cfg, 1500)
+    del eng
+    torch.cuda.empty_cache()
+    phase_s["serve"] = time.perf_counter() - t0 - sum(phase_s.values())
+    parity(cfg, model)
+    del model
+    torch.cuda.empty_cache()
+    peak_serve = torch.cuda.max_memory_allocated()
+    parity_moe(cfg)
+    torch.cuda.empty_cache()
+    phase_s["parity"] = time.perf_counter() - t0 - sum(phase_s.values())
+
+    scout = cut_depth(get_config(SCOUT_ARCH), SCOUT_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    model = LM.init(scout, seed=0, dtype=torch.bfloat16, device=DEV)
+    n_scout = sum(p.numel() for p in model.parameters())
+    out["paged_scout"], eng = serve_paged(scout, model, policy)
+    scout_split = _moe_decode_split(eng, scout)
+    del eng
+    torch.cuda.empty_cache()
+    out["flash_scout"] = serve_dense(scout, model, policy)[0]
+    del model
+    torch.cuda.empty_cache()
+    peak_scout = torch.cuda.max_memory_allocated()
+    phase_s["scout"] = time.perf_counter() - t0 - sum(phase_s.values())
+
+    out["train_moonshot"] = train(
+        cut_depth(cfg, MOE_TRAIN_LAYERS), TRAIN_SHAPE, MOE_TRAIN_STEPS,
+        cuts=MOE_TRAIN_CUT, leaves=MOE_TRAIN_LEAVES, split=True,
+        lr=MOE_TRAIN_LR)
+    torch.cuda.empty_cache()
+    phase_s["train"] = time.perf_counter() - t0 - sum(phase_s.values())
+    m = cfg.moe
+    # a decode step's routed experts read whole: E * 3 * d * f bf16 a layer
+    expert_bytes = cfg.n_layers * m.n_experts * 3 * cfg.d_model \
+        * m.d_ff_expert * 2
+    emit("moe", arch=cfg.name, params=n_params, scout_params=n_scout,
+         scout_cuts=list(SCOUT_CUT), decode_split=decode_split,
+         prefill_split=prefill_split, scout_decode_split=scout_split,
+         decode_expert_bytes=expert_bytes,
+         decode_expert_bytes_ms_at_hbm_rate=expert_bytes / HBM_BYTES_PER_S
+         * 1e3,
+         max_memory_allocated={"moonshot_serve": peak_serve,
+                               "scout_serve": peak_scout},
+         phase_s=dict(phase_s, total=time.perf_counter() - t0))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script proves the port on "
@@ -3644,6 +4001,7 @@ def main() -> int:
         *b_bert, b_faults_bert = bwd_main_shape(gen, get_config(BERT_ARCH),
                                                 *BERT_TRAINED, causal=False)
     torch.cuda.empty_cache()
+    mc = moe_kernel_cases(gen)
     emit("kernel_cases",
          flash_attention={"cases": f_cases, "main_path": f_main,
                           "main_path_d160": [f_d160],
@@ -3671,7 +4029,8 @@ def main() -> int:
                               "planted_faults_rejected": b_faults,
                               "planted_faults_rejected_d160": b_faults_d160,
                               "planted_faults_rejected_d256": b_faults_d256,
-                              "planted_faults_rejected_bert": b_faults_bert})
+                              "planted_faults_rejected_bert": b_faults_bert},
+         moe_archs=mc)
     emit("ptxas", kernels=ptxas_usage(PTXAS_KERNELS))
     with torch.no_grad():
         emit("memory_guards", cases=memory_guards(),
@@ -3684,7 +4043,7 @@ def main() -> int:
     n_paged, eng = serve_paged(cfg, model, policy)
     graphs_paged(cfg, model, policy, eng)
     del eng
-    n_flash = serve_dense(cfg, model, policy)
+    n_flash = serve_dense(cfg, model, policy)[0]
     parity(cfg, model)
     del model
     torch.cuda.empty_cache()
@@ -3703,7 +4062,7 @@ def main() -> int:
     model = LM.init(slm, seed=0, dtype=torch.bfloat16, device=DEV)
     n_paged_d160, eng = serve_paged(slm, model, policy)
     del eng
-    n_flash_d160 = serve_dense(slm, model, policy)
+    n_flash_d160 = serve_dense(slm, model, policy)[0]
     del model
     torch.cuda.empty_cache()
     n_train_d160 = train(cut_depth(slm, TRAIN_CUT_LAYERS), TRAIN_CUT_SHAPE,
@@ -3711,6 +4070,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the paper's Table II workloads: bert-base's steps launch sub-row (e)
     n_bert = paper_bench()
+    torch.cuda.empty_cache()
+    # the MoE archs: sub-rows (m) and (s)
+    n_moe = moe(policy)
 
     def row(name, source, replaces, launches, main, kernel_design):
         head = main[-1]                     # the largest main-path shape
@@ -3787,6 +4149,17 @@ def main() -> int:
         row("ssd_bwd", "src/repro_torch/kernels/csrc/ssd.cu",
             "src/repro/models/ssm.py:38", n_train_ssm["ssd_bwd"], [sb_main],
             sb_main["design"])]
+    # moonshot's (G = 1) and scout's (G = 5) attention at D = 128
+    for tag in ("moonshot", "scout"):
+        fl, pg = mc[f"flash_{tag}"], mc[f"paged_{tag}"]
+        rows += [row(f"flash_attention_{tag}", fa_src, fa_ref,
+                     n_moe[f"flash_{tag}"], [fl], fl["design"]),
+                 row(f"paged_decode_attention_{tag}", pa_src, pa_ref,
+                     n_moe[f"paged_{tag}"], [pg], pg["design"])]
+    for name, src, ref, got in zip(TRAIN_KERNELS, (fa_src, bwd_src, bwd_src),
+                                   bwd_ref, mc["bwd_moonshot"]):
+        rows.append(row(f"{name}_moonshot", src, ref,
+                        n_moe["train_moonshot"][name], [got], got["design"]))
     emit("summary", elapsed_s=time.perf_counter() - t_start,
          kernel_build_s=build.build_seconds)
     print(json.dumps({"kernels": rows}), flush=True)

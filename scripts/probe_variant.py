@@ -39,13 +39,19 @@ and two model-level alternatives, each a train step of ``chip_smoke``'s
                   (shipped) and by indexing (``table.to(dtype)[ids]``,
                   whose backward summed each row's repeats one by one);
   vision_layout   the CNNs' step with NCHW activations (shipped) and with
-                  channels_last activations and weights.
+                  channels_last activations and weights;
+
+and the learning rate of ``chip_smoke``'s MoE training:
+
+  moe_train_lr    moonshot-v1-16b-a3b's 4-layer cut, four steps at peak
+                  lr 3e-4 and 1e-4, on new batches and on one batch: the
+                  loss, cross entropy and load-balance term a step.
 
 Run from the repository root (no name runs every probe):
 
     python3 scripts/probe_variant.py [fwd_d256_pv] [ssd_bwd_heads]
         [ssd_bwd_parts] [dkv_d256_parts] [dq_d256_parts] [bert_gather]
-        [vision_layout]
+        [vision_layout] [moe_train_lr]
 
 Prints the card's name and power limit, then one JSON object per case,
 draw and round of turns, and exits non-zero without a CUDA device or on a
@@ -484,10 +490,44 @@ def vision_layout(gen) -> None:
                             .to(memory_format=layout["memory_format"]), B)
 
 
+# (peak lr, one fixed batch): chip_smoke's MOE_TRAIN_LR against the other
+# archs' 3e-4, each on new batches and on one batch
+MOE_LR_VARIANTS = ((3e-4, False), (3e-4, True), (1e-4, False), (1e-4, True))
+
+
+def moe_train_lr(gen) -> None:
+    """moonshot-v1-16b-a3b at ``chip_smoke``'s 4-layer training cut: four
+    steps from seed 0 under ``chip_smoke.train``'s schedule (cosine, one
+    warm-up step at lr 0, 3 steps) for each of ``MOE_LR_VARIANTS``; the
+    loss, cross entropy and load-balance term of every step."""
+    del gen
+    cfg = cs.cut_depth(cs.get_config(cs.MOE_ARCH), cs.MOE_TRAIN_LAYERS)
+    ds = cs.SyntheticDataset(cfg, cs.TRAIN_SHAPE, seed=0)
+    for lr, fixed in MOE_LR_VARIANTS:
+        opt = cs.AdamWConfig(lr=lr)
+        sched = cs.ScheduleConfig(kind="cosine", peak_lr=lr, warmup_steps=1,
+                                  total_steps=cs.MOE_TRAIN_STEPS)
+        state = cs.trainer.init_state(cfg, cs.TRAIN_POLICY, opt, seed=0,
+                                      device=cs.DEV)
+        step = cs.trainer.make_train_step(cfg, cs.TRAIN_POLICY, opt, sched,
+                                          shape=cs.TRAIN_SHAPE)
+        metrics = []
+        with torch.enable_grad():
+            for i in range(cs.MOE_TRAIN_STEPS + 1):
+                m = step(state, ds.batch_at(0 if fixed else i))[1]
+                metrics.append({k: float(m[k])
+                                for k in ("loss", "xent", "aux", "lr")})
+        print(json.dumps({"probe": "moe_train_lr", "arch": cfg.name,
+                          "peak_lr": lr, "fixed_batch": fixed,
+                          "steps": metrics}), flush=True)
+        del state, step
+        torch.cuda.empty_cache()
+
+
 PROBES = {"fwd_d256_pv": fwd_d256_pv, "ssd_bwd_heads": ssd_bwd_heads,
           "ssd_bwd_parts": ssd_bwd_parts, "dkv_d256_parts": dkv_d256_parts,
           "dq_d256_parts": dq_d256_parts, "bert_gather": bert_gather,
-          "vision_layout": vision_layout}
+          "vision_layout": vision_layout, "moe_train_lr": moe_train_lr}
 
 
 def main(names) -> int:

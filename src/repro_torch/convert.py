@@ -10,8 +10,9 @@ unstacks them into the ``ModuleList`` (layer order: for each repeat, for
 each slot of the unit).  Weight layouts are the same on both sides
 (``wq (d,H,hd)``, ``wk/wv (d,K,hd)``, ``wo (H,hd,d)``, ``wi/wg (d,ff)``,
 ``mlp.wo (ff,d)``, tables ``(padded_vocab, d)``; the ``ssm`` and ``rglru``
-mixers' leaves under the reference's names), so leaves are copied, not
-transposed.
+mixers' leaves under the reference's names; a block's ``moe`` subtree:
+``router (d,E)``, ``wi/wg (E,d,f)``, ``wo (E,f,d)`` and the ``shared`` MLP),
+so leaves are copied, not transposed.
 
 ``bert_from_reference`` / ``bert_to_reference`` carry ``init_bert_qa``'s
 pytree (the ``LM`` leaves plus ``segment_embed`` and ``qa_head``), and
@@ -116,13 +117,22 @@ def _load_lm(model: LM, params: Mapping[str, Any], cfg: ModelConfig) -> None:
                           f"{pre}.attn.q_norm")
                 _put_norm(block.attn.k_norm, a["k_norm"],
                           f"{pre}.attn.k_norm")
+        if ("mlp" in tree or "moe" in tree) and not cfg.parallel_residual:
+            _put_norm(block.norm2, tree["norm2"], f"{pre}.norm2")
         if "mlp" in tree:
-            if not cfg.parallel_residual:
-                _put_norm(block.norm2, tree["norm2"], f"{pre}.norm2")
-            for n in ("wi", "wg", "wo"):
-                if n in tree["mlp"]:
-                    _put(getattr(block.mlp, n), tree["mlp"][n],
-                         f"{pre}.mlp.{n}")
+            _put_mlp(block.mlp, tree["mlp"], f"{pre}.mlp")
+        if "moe" in tree:
+            t = tree["moe"]
+            for n in ("router", "wi", "wg", "wo"):
+                _put(getattr(block.moe, n), t[n], f"{pre}.moe.{n}")
+            if "shared" in t:
+                _put_mlp(block.moe.shared, t["shared"], f"{pre}.moe.shared")
+
+
+def _put_mlp(mlp, tree, name: str) -> None:
+    for n in ("wi", "wg", "wo"):
+        if n in tree:
+            _put(getattr(mlp, n), tree[n], f"{name}.{n}")
 
 
 def to_reference(model: LM, leaf: Optional[Callable] = None
@@ -147,22 +157,26 @@ def to_reference(model: LM, leaf: Optional[Callable] = None
             out["bias"] = arr(m.bias)
         return out
 
+    def own(m):
+        return {n: arr(p) for n, p in m.named_parameters(recurse=False)}
+
     def block_tree(b):
         kind = b.blk if b.blk in (SSM, RGLRU) else "attn"
         mixer = getattr(b, kind)
-        t = {"norm1": norm(b.norm1),
-             kind: {n: arr(p) for n, p in
-                    mixer.named_parameters(recurse=False)}}
+        t = {"norm1": norm(b.norm1), kind: own(mixer)}
         if kind == SSM:
             t[kind]["norm"] = norm(mixer.norm)
         if kind == "attn" and cfg.qk_norm:
             t["attn"]["q_norm"] = norm(b.attn.q_norm)
             t["attn"]["k_norm"] = norm(b.attn.k_norm)
+        if hasattr(b, "norm2"):
+            t["norm2"] = norm(b.norm2)
         if hasattr(b, "mlp"):
-            if not cfg.parallel_residual:
-                t["norm2"] = norm(b.norm2)
-            t["mlp"] = {n: arr(p) for n, p in
-                        b.mlp.named_parameters(recurse=False)}
+            t["mlp"] = own(b.mlp)
+        if hasattr(b, "moe"):
+            t["moe"] = own(b.moe)
+            if hasattr(b.moe, "shared"):
+                t["moe"]["shared"] = own(b.moe.shared)
         return t
 
     def stack_trees(trees):

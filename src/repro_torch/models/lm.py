@@ -100,18 +100,19 @@ class LM(nn.Module):
 
     def forward(self, inputs, ctx: RunCtx, *, positions=None, caches=None,
                 kv_mask=None, return_hidden: bool = False):
-        """Returns (logits_or_hidden, new_caches, aux).  ``aux`` is the MoE
-        load-balance term of the reference: zero for the stacks ported so
-        far (no MoE)."""
+        """Returns (logits_or_hidden, new_caches, aux).  ``aux`` is the sum
+        of the MoE blocks' load-balance terms, as the reference's (fp32 zero
+        without MoE)."""
         B, S = inputs.shape[0], inputs.shape[1]
         if positions is None:
             positions = torch.arange(
                 S, dtype=torch.int32, device=inputs.device).expand(B, S)
         x = self.embed_inputs(inputs, ctx, positions)
-        x, new_caches = self.stack(x, ctx, positions=positions,
-                                   caches=caches, kv_mask=kv_mask)
+        x, new_caches, aux = self.stack(x, ctx, positions=positions,
+                                        caches=caches, kv_mask=kv_mask)
         x = self.final_norm(x)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if return_hidden:
             return x, new_caches, aux
         logits = layers.unembed(self.head_table(), x, ctx.compute_dtype)

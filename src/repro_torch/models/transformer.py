@@ -17,7 +17,10 @@ window, ring-buffer caches), ``ssm`` (the Mamba-2 mixer; ``d_ff == 0`` gives
 mamba2 its FFN-free block) and ``rglru`` (the Griffin recurrent block), with
 and without ``parallel_residual``.  ``RunCtx.attn_impl`` picks the kernels
 (``"kernel"``) or their plain versions (``"full"``) for every mixer's
-prefill.  MoE FFNs raise ``NotImplementedError`` naming their ROADMAP item.
+prefill.  Where the config has ``moe``, a block's FFN is ``models.moe.MoE``
+on its sorted dispatch at the default capacity, and the stack returns the
+sum of the blocks' load-balance terms (the reference's ``apply_stack``
+aux).
 """
 from __future__ import annotations
 
@@ -30,10 +33,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN, ATTN_LOCAL, RGLRU, SSM,
                                       ModelConfig)
-from repro_torch.models import attention, layers, rglru, ssm
+from repro_torch.models import attention, layers, moe, rglru, ssm
 
 _BLOCKS = (ATTN, ATTN_LOCAL, SSM, RGLRU)
-_MOE = "ROADMAP queue A item 5 (MoE)"
 
 
 # ---------------------------------------------------------------------------
@@ -74,19 +76,16 @@ def _has_ffn(cfg: ModelConfig) -> bool:
     return cfg.d_ff > 0 or cfg.moe is not None
 
 
-def _check_ported(cfg: ModelConfig, blk: str) -> None:
+def _check_block(blk: str) -> None:
     if blk not in _BLOCKS:
         raise ValueError(blk)
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"MoE FFNs ({cfg.name}) are not ported yet: {_MOE}")
 
 
 class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, blk: str, *, generator=None,
                  dtype=torch.float32, device="cpu"):
         super().__init__()
-        _check_ported(cfg, blk)
+        _check_block(blk)
         self.cfg, self.blk = cfg, blk
         kw = dict(dtype=dtype, device=device)
         self.norm1 = layers.Norm(cfg.norm, cfg.d_model, eps=cfg.norm_eps,
@@ -101,12 +100,23 @@ class Block(nn.Module):
             if not cfg.parallel_residual:
                 self.norm2 = layers.Norm(cfg.norm, cfg.d_model,
                                          eps=cfg.norm_eps, **kw)
-            self.mlp = layers.MLP(cfg.d_model, cfg.d_ff, cfg.act,
-                                  generator=generator, **kw)
+            if cfg.moe is not None:
+                self.moe = moe.MoE(cfg, generator=generator, **kw)
+            else:
+                self.mlp = layers.MLP(cfg.d_model, cfg.d_ff, cfg.act,
+                                      generator=generator, **kw)
+
+    def _ffn(self, h, ctx: RunCtx):
+        """(FFN output, the MoE's aux or None)."""
+        if self.cfg.moe is None:
+            return self.mlp(h, ctx.compute_dtype), None
+        return moe.apply_moe(self.moe, h, self.cfg,
+                             compute_dtype=ctx.compute_dtype)
 
     def forward(self, x, ctx: RunCtx, *, positions, cache=None,
                 kv_mask=None, rope=None):
-        """Returns (x, new_cache)."""
+        """Returns (x, new_cache, aux): ``aux`` the MoE's load-balance term,
+        None for a block without MoE."""
         cfg, cd = self.cfg, ctx.compute_dtype
         h = self.norm1(x)
         if self.blk in (SSM, RGLRU):
@@ -123,13 +133,13 @@ class Block(nn.Module):
                 cache=cache, kv_mask=kv_mask,
                 cache_capacity=ctx.cache_capacity, rope=rope)
         if not _has_ffn(cfg):
-            return x + mix.to(x.dtype), new_cache
+            return x + mix.to(x.dtype), new_cache, None
         if cfg.parallel_residual:
-            f = self.mlp(h, cd)
-            return x + (mix + f).to(x.dtype), new_cache
+            f, aux = self._ffn(h, ctx)
+            return x + (mix + f).to(x.dtype), new_cache, aux
         x = x + mix.to(x.dtype)
-        f = self.mlp(self.norm2(x), cd)
-        return x + f.to(x.dtype), new_cache
+        f, aux = self._ffn(self.norm2(x), ctx)
+        return x + f.to(x.dtype), new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -139,7 +149,7 @@ def init_block_cache(cfg: ModelConfig, blk: str, batch: int, max_seq: int,
                      dtype=torch.bfloat16, device="cpu"):
     """As the reference: attention caches in ``dtype``, the recurrent
     blocks' caches in their own default (fp32 conv tails and states)."""
-    _check_ported(cfg, blk)
+    _check_block(blk)
     if blk == SSM:
         return ssm.init_ssm_cache(cfg, batch, device=device)
     if blk == RGLRU:
@@ -170,12 +180,14 @@ class Stack(nn.Module):
 
     def forward(self, x, ctx: RunCtx, *, positions, caches=None,
                 kv_mask=None):
-        """Returns (x, new_caches|None).
+        """Returns (x, new_caches|None, aux): ``aux`` the sum of the MoE
+        blocks' load-balance terms (fp32), None without MoE.
 
         ``caches``: None (no cache), "init" (prefill -> build caches), or a
         list with one cache per layer (decode / chunk).
         """
         new_caches: Optional[list] = None if caches is None else []
+        aux_total = None
         cfg, rope = self.cfg, None
         if cfg.pos_embedding == "rope":
             # the same for every layer: made once per forward pass
@@ -186,18 +198,22 @@ class Stack(nn.Module):
             torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):
             if remat:
-                x = checkpoint(self._run_block, block, x, ctx, positions,
-                               kv_mask, rope, use_reentrant=False)
-                continue
-            c_in = caches if caches is None or isinstance(caches, str) \
-                else caches[i]
-            x, nc = block(x, ctx, positions=positions, cache=c_in,
-                          kv_mask=kv_mask, rope=rope)
-            if new_caches is not None:
-                new_caches.append(nc)
-        return x, new_caches
+                x, aux = checkpoint(self._run_block, block, x, ctx,
+                                    positions, kv_mask, rope,
+                                    use_reentrant=False)
+            else:
+                c_in = caches if caches is None or isinstance(caches, str) \
+                    else caches[i]
+                x, nc, aux = block(x, ctx, positions=positions, cache=c_in,
+                                   kv_mask=kv_mask, rope=rope)
+                if new_caches is not None:
+                    new_caches.append(nc)
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
+        return x, new_caches, aux_total
 
     @staticmethod
     def _run_block(block, x, ctx, positions, kv_mask, rope):
-        return block(x, ctx, positions=positions, kv_mask=kv_mask,
-                     rope=rope)[0]
+        x, _, aux = block(x, ctx, positions=positions, kv_mask=kv_mask,
+                          rope=rope)
+        return x, aux

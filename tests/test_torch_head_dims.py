@@ -11,8 +11,8 @@ dense prefill (any attention block), paged decode (causal patterns of global
 attention only: ``mode="auto"`` picks paged serving for them) and training
 (any attention block: every block kind trains, ``ssm`` blocks through the
 SSD backward, so a hybrid of SSM and attention blocks trains its attention
-through B2 too).  MoE archs raise when their blocks are built (ROADMAP queue
-A item 5) and are left out.
+through B2 too).  All ten assigned archs are walked, the two MoE archs
+(head dim 128) among them.
 
 The D = 160 tests hold the plain forward to the reference's Pallas flash
 kernel in interpret mode (2e-5) and the plain backward, through
@@ -45,10 +45,9 @@ def _paths(cfg):
             "flash_attention_bwd": bool(attn)}
 
 
-# the full-size archs whose blocks the port builds (MoE FFNs raise), and the
-# paper's BERT encoders (trained bidirectionally, never decoded)
-BUILT = [a for a in ASSIGNED_ARCHS if get_config(a).moe is None] + [
-    "bert-base", "bert-large"]
+# every assigned full-size arch, and the paper's BERT encoders (trained
+# bidirectionally, never decoded)
+BUILT = list(ASSIGNED_ARCHS) + ["bert-base", "bert-large"]
 
 
 @pytest.mark.parametrize("arch", BUILT)

@@ -29,7 +29,7 @@ from repro_torch import convert
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import PolicyConfig
 from repro_torch.kernels import ops
-from repro_torch.models import attention, transformer
+from repro_torch.models import attention, moe, transformer
 from repro_torch.models.lm import LM
 from repro_torch.train import trainer
 from repro_torch.train.trainer import make_run_ctx
@@ -301,16 +301,18 @@ def test_lm_init_defaults_to_cuda_and_raises_without_one():
     ("mamba2-780m", "ssd"), ("recurrentgemma-2b", "rglru"),
     ("moonshot-v1-16b-a3b", "MoE")])
 def test_unported_blocks_raise_naming_the_roadmap(arch, item):
-    """MoE blocks are not ported; the recurrent blocks serve and train: the
-    ssd blocks through SSDFn (the hand-written SSD backward), the rglru
-    blocks through RGLRUFn (the hand-written RG-LRU backward)."""
+    """Every block kind builds and trains: the ssd blocks through SSDFn (the
+    hand-written SSD backward), the rglru blocks through RGLRUFn (the
+    hand-written RG-LRU backward), MoE FFNs through ``models.moe``; only
+    MoE's expert parallelism (``apply_moe(impl="ep")``) raises, naming the
+    parallel layer's ROADMAP item."""
     cfg = reduced(get_config(arch))
+    model = LM.init(cfg, device="cpu")
     if item == "MoE":
+        x = torch.zeros((1, 4, cfg.d_model))
         with pytest.raises(NotImplementedError, match="ROADMAP") as e:
-            LM.init(cfg, device="cpu")
-        assert item in str(e.value)
-        return
-    LM.init(cfg, device="cpu")
+            moe.apply_moe(model.stack.blocks[0].moe, x, cfg, impl="ep")
+        assert "queue A item 7" in str(e.value)
     policy = PolicyConfig(compute_dtype="float32")
     assert callable(trainer.make_train_step(cfg, policy))
 
