@@ -104,6 +104,13 @@ per line, each with ``at_s``, the seconds since the script's imports ended:
                 same weights and batch; the loss must fall (a smoke signal
                 only); then one more step under torch.profiler (device time
                 by kind of kernel, idle share);
+  tracking      llama3.2-3b's serve_paged and train ran under one tracking
+                ``Run`` in a temporary directory, handed to that engine as
+                its ``tracker`` and to that train loop's ``StepTracker``
+                (no other phase logs to it), read back with
+                ``read_events``: one serve row per ``track_every``
+                iterations, one row per train step with rising steps and
+                the losses the ``train`` line printed, a finish record;
   train_parity  one step with the kernels against one with the plain
                 attention from the same weights and batch (2 layers,
                 full-width heads, fp32: loss, grad norm, every gradient
@@ -193,6 +200,17 @@ per line, each with ``at_s``, the seconds since the script's imports ended:
                 attention: every leaf within 5e-4 of its max-abs, the
                 routes equal); the ``moe`` line: the splits, peak memory,
                 ``phase_s``;
+  composable    the composable-system analytics (``repro_torch.core``) on
+                the card: (a) its total memory, a 1 GiB device copy (read +
+                write) and a bf16 8192^3 ``torch.matmul`` beside the port's
+                ``ChipSpec``; (b) pinned 256 MiB host->device and
+                device->host copies and a 4-byte copy's latency beside the
+                ``HOST`` link (no measured figure may beat its constant by
+                more than 5 %); (c) every ``train`` run above priced by the
+                cost model (``step_flops`` over the bf16 peak,
+                ``analytic_hbm_bytes`` over the HBM rate, 1 x 1 mesh, the
+                policy that ran) beside its measured step p50, which the
+                prediction may not exceed by more than 5 %;
   summary       the run's elapsed seconds, the kernels' build included;
   kernels       the per-kernel summary line, launches counted on the served
                 and trained runs above (the attention kernels have a row per
@@ -233,8 +251,10 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -248,6 +268,10 @@ from repro_torch.configs.base import (ATTN, ATTN_LOCAL,        # noqa: E402
                                       RGLRU, SSM, PolicyConfig,
                                       ShapeConfig)
 from repro_torch.cluster.telemetry import ServingStats        # noqa: E402
+from repro_torch import tracking                               # noqa: E402
+from repro_torch.core import costmodel                         # noqa: E402
+from repro_torch.core.topology import (ChipSpec, DEFAULT_LINKS,  # noqa: E402
+                                       LinkClass)
 from repro_torch.data import SyntheticDataset                  # noqa: E402
 from repro_torch.kernels import build, ops                     # noqa: E402
 from repro_torch.kernels.registry import bucket_pow2           # noqa: E402
@@ -282,9 +306,12 @@ from repro_torch.serve.engine import (make_decode_step,        # noqa: E402
                                       make_prefill_step)
 from repro_torch.train import trainer                          # noqa: E402
 
-# published peaks of one H100 SXM (dense): what the bounds are stated against
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# published peaks of one H100 SXM (dense): what the bounds are stated
+# against; the HBM rate and the bf16 peak are the port's ``ChipSpec``'s (its
+# ``core.topology``: the data sheet's figures), fp32 has no field there
+CHIP = ChipSpec()
+HBM_BYTES_PER_S = CHIP.hbm_bw
+PEAK_FLOPS = {torch.bfloat16: CHIP.peak_flops_bf16, torch.float32: 67e12}
 
 ARCH = "llama3.2-3b"
 DEV = "cuda"
@@ -2336,9 +2363,10 @@ PAGED_KW = dict(mode="paged", fused=True, n_slots=8, max_seq=2048,
                 page_size=16, prefill_chunk=256)
 
 
-def serve_paged(cfg, model, policy):
+def serve_paged(cfg, model, policy, tracker=None):
     """Returns the paged launches and the engine (for ``graphs_paged``)."""
-    eng = AsyncServeEngine(cfg, model, policy, device=DEV, **PAGED_KW)
+    eng = AsyncServeEngine(cfg, model, policy, device=DEV, tracker=tracker,
+                           **PAGED_KW)
     eng.warmup()
     shared = _prompt(999, 256, cfg.vocab_size)
     lens = np.linspace(128, 1024, 16).astype(int).tolist()
@@ -2847,9 +2875,14 @@ def _profile(fn, what):
             "top_kernels_ms": [[k[:80], v / 1e3] for k, v in top]}
 
 
+# every ``train`` run's model, shape, step p50 and losses, in order: what
+# the ``composable`` phase prices (llama3.2-3b's is the ``tracking`` line's)
+TRAINED = []
+
+
 def train(cfg, shape=TRAIN_SHAPE, steps=TRAIN_STEPS,
           cuts=("global batch 256 -> 2 (one card)",), full=True,
-          leaves=None, split=False, lr=3e-4):
+          leaves=None, split=False, lr=3e-4, tracker=None):
     """``cfg`` (llama3.2-3b, recurrentgemma-2b or mamba2-780m at full width
     and depth) trained in bf16 compute, fp32 parameters and AdamW state,
     per-block activation checkpointing, ``shape`` tokens per step, random
@@ -2874,7 +2907,8 @@ def train(cfg, shape=TRAIN_SHAPE, steps=TRAIN_STEPS,
     fp32 passes agree on is reported.  ``full``: the loss must fall, and
     one more step is profiled; else (a depth cut, two steps) only the
     launches and the first step's parity are held.  ``split``: one more
-    step under ``_moe_split``."""
+    step under ``_moe_split``.  ``tracker``: a tracking run that a
+    ``StepTracker`` logs each step to."""
     t_start = time.perf_counter()
     L = cfg.n_layers
     leaves = leaves or ATTN_LEAVES
@@ -2934,6 +2968,9 @@ def train(cfg, shape=TRAIN_SHAPE, steps=TRAIN_STEPS,
         full_attn = _pick(grads, leaves)
         del grads
     losses, auxes, norms, lrs, step_s = [], [], [], [], []
+    # it reads the metrics after the step's synchronize, outside its time
+    stepper = (trainer.StepTracker(shape.tokens, tracker)
+               if tracker is not None else None)
     torch.cuda.synchronize()
     t_ref = time.perf_counter()
     ops.reset_launch_counts()               # just before the main path
@@ -2952,6 +2989,8 @@ def train(cfg, shape=TRAIN_SHAPE, steps=TRAIN_STEPS,
         auxes.append(float(m["aux"]))
         norms.append(float(m["grad_norm"]))
         lrs.append(float(m["lr"]))
+        if stepper is not None:
+            stepper.step(i, m)
         if i == 0:
             check(abs(losses[0] - full_loss) <= 2e-2 * abs(full_loss),
                   f"train: first loss {losses[0]} vs {full_loss} through "
@@ -2998,6 +3037,10 @@ def train(cfg, shape=TRAIN_SHAPE, steps=TRAIN_STEPS,
         check(losses[-1] < losses[0],
               f"train: loss did not fall over {steps} steps: {losses}")
     p50 = float(np.median(step_s[1:]))      # the first step is warm-up
+    if stepper is not None:
+        stepper.summary()
+    TRAINED.append({"cfg": cfg, "shape": shape, "step_s_p50": p50,
+                    "losses": losses})
     tokens = shape.tokens
     # an MoE token passes through its top-k experts, not all of them; the
     # input table's lookup does no products (a tied table is the head's)
@@ -3013,7 +3056,8 @@ def train(cfg, shape=TRAIN_SHAPE, steps=TRAIN_STEPS,
          step_s_p50=p50,
          tokens_per_s=tokens / p50, model_flops_per_step=flops,
          model_flops_per_s=flops / p50,
-         model_flops_per_s_over_989_tflops=flops / p50 / 989e12,
+         model_flops_per_s_over_989_tflops=flops / p50
+         / CHIP.peak_flops_bf16,
          launches=counts, designs=designs,
          first_step_vs_plain_attention={
              "loss": [losses[0], full_loss], "leaves": list(leaves),
@@ -3783,13 +3827,13 @@ MOE_SPLIT = (("expert_products", ("moe.experts", "BmmBackward")),
              ("attention", ("attn.mixer", "FlashAttentionFn")))
 
 
-def _moe_split(fn, what):
+def _moe_profile(fn):
     """``fn()`` once under ``torch.profiler`` with ranges around
     ``moe_sorted`` (routing, sort, dispatch, combine), ``_expert_ffn`` (the
     expert products), the shared experts' MLP and the attention mixer
-    (projections, RoPE, the kernel): device ms of each part (``MOE_SPLIT``)
-    and the rest, and the device's idle share.  ``fn`` must run eagerly: a
-    graph replay calls none of the ranges."""
+    (projections, RoPE, the kernel); returns the profiler's events and the
+    call's wall ms.  ``fn`` must run eagerly: a graph replay calls none of
+    the ranges."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     def ranged(name, f):
@@ -3816,16 +3860,40 @@ def _moe_split(fn, what):
     finally:
         for (m, n, _), f in zip(patches, saved):
             setattr(m, n, f)
+    return prof.events(), wall_ms
+
+
+def _split_ms(events):
+    """Device ms of each part (``MOE_SPLIT``) and the rest, each kernel
+    counted once.  The profiler hangs a correlation id's kernels on every
+    CPU event with that id: the op that launched them, and also events
+    such as CUPTI's "Command Buffer Full" or ``cudaStreamIsCapturing`` that
+    share its id.  So the kernels are counted once an id, for the first
+    part any of its events falls under."""
+    by_id = {}
+    for ev in events:
+        if ev.device_type == torch.autograd.DeviceType.CPU and ev.kernels:
+            by_id.setdefault(ev.id, []).append(ev)
     ms = dict({k: 0.0 for k, _ in MOE_SPLIT}, rest=0.0)
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CPU or not ev.kernels:
-            continue
-        kind, node = "rest", ev
-        while node is not None and kind == "rest":
-            kind = next((k for k, keys in MOE_SPLIT
-                         if any(t in node.name for t in keys)), "rest")
-            node = node.cpu_parent
-        ms[kind] += sum(k.duration for k in ev.kernels) / 1e3
+    for group in by_id.values():
+        kinds = []
+        for node in group:
+            kind = "rest"
+            while node is not None and kind == "rest":
+                kind = next((k for k, keys in MOE_SPLIT
+                             if any(t in node.name for t in keys)), "rest")
+                node = node.cpu_parent
+            kinds.append(kind)
+        kind = next((k for k in kinds if k != "rest"), "rest")
+        ms[kind] += sum(k.duration for k in group[0].kernels) / 1e3
+    return ms
+
+
+def _moe_split(fn, what):
+    """``fn()`` under ``_moe_profile``: device ms of each part
+    (``MOE_SPLIT``) and the rest, and the device's idle share."""
+    events, wall_ms = _moe_profile(fn)
+    ms = _split_ms(events)
     busy = sum(ms.values())
     check(busy > 0, f"{what}: the profiler saw no device activity")
     check(busy <= 1.05 * wall_ms,
@@ -3953,6 +4021,205 @@ def moe(policy):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the composable-system analytics on the card
+# ---------------------------------------------------------------------------
+BEATS = 1.05        # no measured figure may beat its constant by more
+HBM_COPY_BYTES = 2 ** 30
+MATMUL_N = 8192
+HOST_COPY_BYTES = 256 * 2 ** 20
+FIGURE_REPS = 7
+LATENCY_REPS = 200
+
+
+def _event_ms(fn, reps):
+    """Median device milliseconds of ``fn()`` over ``reps`` calls, each
+    between its own pair of CUDA events (one warm-up call first)."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return float(np.median(out))
+
+
+def _beside(measured, constant):
+    return {"measured": measured, "constant": constant,
+            "ratio": measured / constant}
+
+
+def chip_figures(chip):
+    """(a) the card against ``chip`` (the port's ``ChipSpec``): its memory,
+    a device-to-device copy of 1 GiB (read + write counted) and a bf16
+    ``torch.matmul`` at 8192^3 (a library call: it measures the card and
+    ports no kernel), medians of ``FIGURE_REPS`` by CUDA events."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    src = torch.empty(HBM_COPY_BYTES, dtype=torch.uint8, device=DEV)
+    dst = torch.empty_like(src)
+    copy_ms = _event_ms(lambda: dst.copy_(src), FIGURE_REPS)
+    del src, dst
+    n = MATMUL_N
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    a = torch.randn(n, n, generator=gen, device=DEV, dtype=torch.bfloat16)
+    b = torch.randn(n, n, generator=gen, device=DEV, dtype=torch.bfloat16)
+    mm_ms = _event_ms(lambda: torch.matmul(a, b), FIGURE_REPS)
+    del a, b
+    torch.cuda.empty_cache()
+    out = {"total_memory_bytes": _beside(total, chip.hbm_bytes),
+           "hbm_bytes_per_s": _beside(2 * HBM_COPY_BYTES / (copy_ms / 1e3),
+                                      chip.hbm_bw),
+           "bf16_matmul_flops_per_s": _beside(
+               2 * n ** 3 / (mm_ms / 1e3), chip.peak_flops_bf16),
+           "hbm_copy_ms": copy_ms, "matmul_ms": mm_ms,
+           "reps": FIGURE_REPS}
+    for k in ("total_memory_bytes", "hbm_bytes_per_s",
+              "bf16_matmul_flops_per_s"):
+        check(out[k]["ratio"] <= BEATS,
+              f"composable: the card's {k} {out[k]['measured']} beats the "
+              f"ChipSpec figure {out[k]['constant']} by more than 5 %")
+    return out
+
+
+def host_link(link):
+    """(b) the card's host link against ``link`` (the port's ``HOST``
+    ``LinkSpec``): pinned host->device and device->host copies of 256 MiB
+    (medians of ``FIGURE_REPS`` by CUDA events) and a 4-byte copy plus
+    synchronize (median of ``LATENCY_REPS`` by the host clock)."""
+    host = torch.empty(HOST_COPY_BYTES, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(HOST_COPY_BYTES, dtype=torch.uint8, device=DEV)
+    h2d = _event_ms(lambda: dev.copy_(host, non_blocking=True), FIGURE_REPS)
+    d2h = _event_ms(lambda: host.copy_(dev, non_blocking=True), FIGURE_REPS)
+    del host, dev
+    small_h = torch.zeros(1, dtype=torch.float32, pin_memory=True)
+    small_d = torch.zeros(1, dtype=torch.float32, device=DEV)
+    lat = []
+    for _ in range(LATENCY_REPS):
+        t0 = time.perf_counter()
+        small_d.copy_(small_h, non_blocking=True)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    out = {"h2d_bytes_per_s": _beside(HOST_COPY_BYTES / (h2d / 1e3),
+                                      link.bandwidth),
+           "d2h_bytes_per_s": _beside(HOST_COPY_BYTES / (d2h / 1e3),
+                                      link.bandwidth),
+           "copy_4_bytes_s": _beside(float(np.median(lat)), link.latency),
+           "copy_bytes": HOST_COPY_BYTES, "reps": FIGURE_REPS,
+           "latency_reps": LATENCY_REPS}
+    for k in ("h2d_bytes_per_s", "d2h_bytes_per_s"):
+        check(out[k]["ratio"] <= BEATS,
+              f"composable: the host link's {k} {out[k]['measured']} beats "
+              f"HOST's {link.bandwidth} by more than 5 %")
+    return out
+
+
+ONE_CHIP = {"data": 1, "model": 1}
+
+
+def cost_vs_measured(chip):
+    """(c) each ``train`` run (``TRAINED``) priced by the port's cost model
+    on one card: ``compute_s`` = ``step_flops`` over the bf16 peak and
+    ``memory_s`` = ``analytic_hbm_bytes`` over the HBM rate, at the shape
+    and policy (per-block remat) that ran, on a 1 x 1 mesh; the prediction
+    is their max, beside the measured step p50.  A roofline the card beats
+    is a wrong count or a wrong constant."""
+    rows = []
+    for t in TRAINED:
+        cfg, shape = t["cfg"], t["shape"]
+        flops = costmodel.step_flops(cfg, shape, TRAIN_POLICY)
+        nbytes = costmodel.analytic_hbm_bytes(cfg, shape, TRAIN_POLICY,
+                                              ONE_CHIP)
+        compute_s = flops / chip.peak_flops_bf16
+        memory_s = nbytes / chip.hbm_bw
+        pred = max(compute_s, memory_s)
+        got = t["step_s_p50"]
+        figs = (flops, nbytes, compute_s, memory_s, pred, got)
+        check(all(np.isfinite(figs)) and min(figs) > 0,
+              f"composable: {cfg.name}: a figure is not finite and "
+              f"positive: {figs}")
+        check(pred <= BEATS * got,
+              f"composable: {cfg.name}: the cost model's {pred} s beats "
+              f"the measured step {got} s by more than 5 %")
+        rows.append({"arch": cfg.name, "shape": [shape.global_batch,
+                                                 shape.seq_len],
+                     "step_flops": flops, "analytic_hbm_bytes": nbytes,
+                     "compute_s": compute_s, "memory_s": memory_s,
+                     "predicted_s": pred, "measured_p50_s": got,
+                     "measured_over_predicted": got / pred})
+    return rows
+
+
+def _metric_rows(path, key):
+    return [e for e in tracking.read_events(path)
+            if e["kind"] == "metrics" and key in e["metrics"]]
+
+
+def tracked_serve(run, eng, what):
+    """``eng``'s tracker ``run``: one windowed row per ``track_every``
+    iterations of ``eng`` so far, at those iterations."""
+    rows = _metric_rows(run.path, "iter")
+    every = eng.track_every
+    want = [every * (i + 1) for i in range(eng._iters // every)]
+    got = [r["metrics"]["iter"] for r in rows]
+    check(want and got == want,
+          f"{what}: the tracked serve rows are at iterations {got}, not "
+          f"one per {every} of {eng._iters}: {want}")
+    return {"rows": len(rows), "iterations": eng._iters,
+            "track_every": every}
+
+
+def tracked_train(run, serve, trained):
+    """The finished run read back: ``serve``'s rows (``tracked_serve``) and
+    no other, one ``metrics`` row per train step of ``trained`` with rising
+    steps and the losses the ``train`` line printed, and a ``finish``
+    record at its end."""
+    events = tracking.read_events(run.path)
+    rows = _metric_rows(run.path, "loss")
+    steps = [r["step"] for r in rows]
+    losses = [r["metrics"]["loss"] for r in rows]
+    check(len(_metric_rows(run.path, "iter")) == serve["rows"],
+          "tracking: serve rows other than serve_paged's are in the run")
+    check(len(rows) == len(trained["losses"])
+          and all(a < b for a, b in zip(steps, steps[1:])),
+          f"tracking: tracked train steps {steps} are not one a step, "
+          f"rising")
+    check(losses == trained["losses"],
+          f"tracking: tracked losses {losses} != the train line's "
+          f"{trained['losses']}")
+    finish = [e for e in events if e["kind"] == "finish"]
+    check(len(finish) == 1 and finish[0]["status"] == "ok"
+          and events[-1] is finish[0],
+          "tracking: the tracked run has no finish record at its end")
+    kinds = {}
+    for e in events:
+        kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+    emit("tracking", arch=trained["cfg"].name, run_id=run.id, events=kinds,
+         serve_paged=serve, train_rows=len(rows), train_steps=steps,
+         train_losses=losses)
+
+
+def composable():
+    """The ``composable`` line: (a) the card against ``ChipSpec``, (b) its
+    host link against ``HOST``, (c) the cost model against the measured
+    steps."""
+    t0 = time.perf_counter()
+    chip = ChipSpec()
+    out = {"chip_spec": dataclasses.asdict(chip),
+           "chip": chip_figures(chip),
+           "host_link": host_link(DEFAULT_LINKS[LinkClass.HOST]),
+           "links": {c.value: {"bandwidth": l.bandwidth,
+                               "latency": l.latency}
+                     for c, l in DEFAULT_LINKS.items()}}
+    torch.cuda.empty_cache()
+    out["cost_model"] = cost_vs_measured(chip)
+    emit("composable", **out, phase_s=time.perf_counter() - t0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script proves the port on "
@@ -4040,14 +4307,24 @@ def main() -> int:
     policy = PolicyConfig(compute_dtype="bfloat16", remat="none",
                           attn_impl="kernel")
     model = LM.init(cfg, seed=0, dtype=torch.bfloat16, device=DEV)
-    n_paged, eng = serve_paged(cfg, model, policy)
+    # llama3.2-3b's paged serve and its training under one tracking run,
+    # handed to that engine and that train loop and to nothing else
+    track_dir = tempfile.mkdtemp(prefix="chip_smoke_runs_")
+    run = tracking.Run(f"chip_smoke-{ARCH}", config={"arch": ARCH},
+                       tags=("chip_smoke",), dir=track_dir)
+    n_paged, eng = serve_paged(cfg, model, policy, tracker=run)
+    tracked = tracked_serve(run, eng, "serve_paged")
+    eng.tracker = None                      # the tracked serve ends here
     graphs_paged(cfg, model, policy, eng)
     del eng
     n_flash = serve_dense(cfg, model, policy)[0]
     parity(cfg, model)
     del model
     torch.cuda.empty_cache()
-    n_train = train(cfg)
+    n_train = train(cfg, tracker=run)
+    run.finish()
+    tracked_train(run, tracked, TRAINED[-1])
+    shutil.rmtree(track_dir, ignore_errors=True)
     train_parity(cfg)
     n_rec = recurrent(policy)
     n_hybrid = n_rec[HYBRID_ARCH]
@@ -4073,6 +4350,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the MoE archs: sub-rows (m) and (s)
     n_moe = moe(policy)
+    # the composable-system analytics on the card, over the runs above
+    composable()
 
     def row(name, source, replaces, launches, main, kernel_design):
         head = main[-1]                     # the largest main-path shape

@@ -45,13 +45,29 @@ and the learning rate of ``chip_smoke``'s MoE training:
 
   moe_train_lr    moonshot-v1-16b-a3b's 4-layer cut, four steps at peak
                   lr 3e-4 and 1e-4, on new batches and on one batch: the
-                  loss, cross entropy and load-balance term a step.
+                  loss, cross entropy and load-balance term a step;
+
+how ``chip_smoke._moe_split`` counts a train step's device time:
+
+  moe_split_count moonshot-v1-16b-a3b's 4-layer train step profiled
+                  ``SPLIT_ROUNDS`` times: each kernel event once, against
+                  ``_split_ms`` (each correlation id once) and the sum of
+                  every CPU event's kernels;
+
+and the card's own figures against the port's constants:
+
+  card_figures    ``chip_smoke``'s ``composable`` parts (a) and (b) alone
+                  on an idle card, ``CARD_ROUNDS`` rounds: total memory,
+                  the 1 GiB copy and the bf16 8192^3 matmul beside
+                  ``ChipSpec``, the pinned host link beside ``HOST`` (with
+                  the phase's checks: the card beats no constant by more
+                  than 5 %).
 
 Run from the repository root (no name runs every probe):
 
     python3 scripts/probe_variant.py [fwd_d256_pv] [ssd_bwd_heads]
         [ssd_bwd_parts] [dkv_d256_parts] [dq_d256_parts] [bert_gather]
-        [vision_layout] [moe_train_lr]
+        [vision_layout] [moe_train_lr] [moe_split_count] [card_figures]
 
 Prints the card's name and power limit, then one JSON object per case,
 draw and round of turns, and exits non-zero without a CUDA device or on a
@@ -524,10 +540,75 @@ def moe_train_lr(gen) -> None:
         torch.cuda.empty_cache()
 
 
+SPLIT_ROUNDS = 8
+
+
+def moe_split_count(gen) -> None:
+    """moonshot-v1-16b-a3b's 4-layer train step (``chip_smoke``'s cut and
+    batch) under ``chip_smoke._moe_profile``, ``SPLIT_ROUNDS`` times: the
+    wall ms, the device ms of every kernel event (each once; the ranges'
+    device-side spans left out), the device ms ``chip_smoke._split_ms``
+    counts (each correlation id once) and what summing every CPU event's
+    kernels counts (a correlation id's kernels hang on each CPU event with
+    that id), with the CPU events that share an id."""
+    del gen
+    cfg = cs.cut_depth(cs.get_config(cs.MOE_ARCH), cs.MOE_TRAIN_LAYERS)
+    ds = cs.SyntheticDataset(cfg, cs.TRAIN_SHAPE, seed=0)
+    opt = cs.AdamWConfig(lr=cs.MOE_TRAIN_LR)
+    sched = cs.ScheduleConfig(kind="cosine", peak_lr=cs.MOE_TRAIN_LR,
+                              warmup_steps=1, total_steps=cs.MOE_TRAIN_STEPS)
+    state = cs.trainer.init_state(cfg, cs.TRAIN_POLICY, opt, seed=0,
+                                  device=cs.DEV)
+    step = cs.trainer.make_train_step(cfg, cs.TRAIN_POLICY, opt, sched,
+                                      shape=cs.TRAIN_SHAPE)
+    batch = ds.batch_at(0)
+    cpu, dev = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    with torch.enable_grad():
+        for _ in range(2):
+            step(state, batch)
+        for i in range(SPLIT_ROUNDS):
+            events, wall = cs._moe_profile(lambda: step(state, batch))
+            held = [e for e in events if e.device_type == cpu and e.kernels]
+            by_id = {}
+            for e in held:
+                by_id.setdefault(e.id, []).append(e.name[:40])
+            print(json.dumps({
+                "probe": "moe_split_count", "round": i, "wall_ms": wall,
+                "kernel_events_ms": sum(e.time_range.elapsed_us()
+                                        for e in events
+                                        if e.device_type == dev
+                                        and not e.is_user_annotation) / 1e3,
+                "split_ms": sum(cs._split_ms(events).values()),
+                "every_event_ms": sum(k.duration for e in held
+                                      for k in e.kernels) / 1e3,
+                "shared_ids": [g for g in by_id.values()
+                               if len(g) > 1][:6]}), flush=True)
+    del state, step
+    torch.cuda.empty_cache()
+
+
+CARD_ROUNDS = 3
+
+
+def card_figures(gen) -> None:
+    """``chip_smoke.chip_figures`` and ``host_link`` on an idle card,
+    ``CARD_ROUNDS`` times: what the port's ``ChipSpec`` and ``HOST`` link
+    are held against, without the rest of the run's load before it."""
+    del gen
+    chip = cs.ChipSpec()
+    for i in range(CARD_ROUNDS):
+        print(json.dumps({"probe": "card_figures", "round": i,
+                          "chip": cs.chip_figures(chip),
+                          "host_link": cs.host_link(
+                              cs.DEFAULT_LINKS[cs.LinkClass.HOST])}),
+              flush=True)
+
+
 PROBES = {"fwd_d256_pv": fwd_d256_pv, "ssd_bwd_heads": ssd_bwd_heads,
           "ssd_bwd_parts": ssd_bwd_parts, "dkv_d256_parts": dkv_d256_parts,
           "dq_d256_parts": dq_d256_parts, "bert_gather": bert_gather,
-          "vision_layout": vision_layout, "moe_train_lr": moe_train_lr}
+          "vision_layout": vision_layout, "moe_train_lr": moe_train_lr,
+          "moe_split_count": moe_split_count, "card_figures": card_figures}
 
 
 def main(names) -> int:

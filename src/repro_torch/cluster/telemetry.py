@@ -2,7 +2,7 @@
 
 Only ``ServingStats`` and ``_percentile`` are here (what the serving engine
 reports through); the rest of the cluster plane's telemetry arrives with the
-analytics/cluster slice.
+cluster control plane (ROADMAP queue A item 8b).
 """
 from __future__ import annotations
 

@@ -21,8 +21,13 @@ on the GPU unless ``--device cpu`` is given; without a GPU and without
       ... --resume auto                                  # carries on
 
 ``--zero`` has no effect without a mesh (as in the reference's un-sharded
-step); meshes are ROADMAP queue A item 7.  ``--track`` needs the tracking
-plane, queue A item 8, and raises.
+step); meshes are ROADMAP queue A item 7.  ``--track`` records the run
+through ``repro_torch.tracking`` (``results/torch/runs/<run_id>/
+events.jsonl`` under the working directory): one row per step from a
+``StepTracker``, and a ``ProcSampler`` for the process.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \\
+      --reduced --steps 3 --track
 """
 from __future__ import annotations
 
@@ -85,18 +90,26 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="simulate a crash at this step (elastic test)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--track", action="store_true",
-                    help="record the run via the tracking plane (not "
-                         "ported yet)")
+                    help="record the run via repro_torch.tracking "
+                         "(results/torch/runs/<run_id>/events.jsonl)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises when absent) or cpu")
     args = ap.parse_args(argv)
 
-    if args.track:
-        raise NotImplementedError(
-            "--track needs the tracking plane, which is not ported yet: "
-            "ROADMAP queue A item 8")
     cfg, policy, optcfg, schedcfg = build(args)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
+
+    run = None
+    if args.track:
+        from repro_torch import tracking
+        run = tracking.init(
+            f"train-{args.arch}",
+            config={"arch": args.arch, "preset": args.preset,
+                    "steps": args.steps, "batch": args.batch,
+                    "seq": args.seq, "lr": args.lr, "dtype": args.dtype,
+                    "zero": args.zero, "grad_accum": args.grad_accum},
+            tags=("train",), samplers=[tracking.ProcSampler()])
+        print(f"tracking run {run.id} -> {run.path}")
     print(f"training {cfg.name}: {cfg.param_count()/1e6:.1f}M params, "
           f"batch {args.batch} x seq {args.seq}, {args.steps} steps "
           f"on {args.device}")
@@ -112,9 +125,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     step_fn = trainer.make_train_step(cfg, policy, optcfg, schedcfg,
                                       shape=shape)
     ds = SyntheticDataset(cfg, shape)
+    stepper = trainer.StepTracker(shape.tokens, run)
     t0 = time.time()
     for step in range(start, args.steps):
         state, metrics = step_fn(state, ds.batch_at(step))
+        stepper.step(step, metrics)
         if args.ckpt and (step + 1) % args.ckpt_every == 0:
             checkpoint.save(args.ckpt, step + 1, state)
         if args.fail_at and step + 1 == args.fail_at:
@@ -122,6 +137,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 checkpoint.save(args.ckpt, step + 1, state)
             print(f"simulated failure at step {step + 1} -- restart with "
                   f"--resume auto")
+            if run is not None:
+                stepper.summary()
+                run.finish("failed")
             return 17
         if (step + 1) % args.log_every == 0 or step == start:
             toks = shape.tokens * (step + 1 - start)
@@ -132,6 +150,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         checkpoint.save(args.ckpt, args.steps, state)
     if state.device.type == "cuda":
         torch.cuda.synchronize()
+    if run is not None:
+        stepper.summary()
+        run.finish()
     print(f"done in {time.time() - t0:.1f}s")
     return 0
 

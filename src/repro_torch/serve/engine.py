@@ -282,9 +282,10 @@ class AsyncServeEngine:
     ``clock`` is injectable for deterministic tests (defaults to
     ``time.monotonic``).
 
-    ``tracker`` is an optional object with ``log(row, step=)`` and
-    ``log_system(row)``; with one given, every ``track_every`` iterations a
-    windowed metrics row is logged plus a sample of KV-page occupancy.
+    ``tracker`` is an optional ``repro_torch.tracking.Run`` (default: the
+    process-wide ``tracking.current_run()``); with one active, every
+    ``track_every`` engine iterations one windowed metrics row is logged
+    plus a sample of KV-page occupancy.
     """
 
     def __init__(self, cfg: ModelConfig, model: LM, policy: PolicyConfig, *,
@@ -778,8 +779,9 @@ class AsyncServeEngine:
         return n
 
     def _track_window(self, now: float) -> None:
-        """Log one windowed metrics row to the tracker, if one was given."""
-        run = self.tracker
+        """Log one windowed metrics row to the active tracking run."""
+        from repro_torch import tracking
+        run = self.tracker or tracking.current_run()
         if run is None:
             return
         s = self.stats

@@ -1,6 +1,7 @@
 """Training step builder, held against ``repro/train/trainer.py``:
 ``make_run_ctx`` (lines 91-111), ``init_state`` (114-123), ``make_loss_fn``
-(144-159), ``_accum_grads`` (162-185) and ``make_train_step`` (191-225).
+(144-159), ``_accum_grads`` (162-185), ``make_train_step`` (191-225) and
+``StepTracker`` (292-345).
 
 The step is ``train_step(state, batch) -> (state, metrics)`` as in the
 reference; it updates the state **in place** (parameters, moments and
@@ -12,7 +13,7 @@ waits for the step to finish.
 Not ported: meshes and with them ZeRO sharding and the manual-pod
 gradient exchange with ``grad_compression="int8_ef"`` (ROADMAP queue A item
 7; ``zero_stage`` has no effect without a mesh, as in the reference's
-un-sharded jit); ``StepTracker``, which needs ``repro.tracking`` (item 8).
+un-sharded jit).
 ``rglru`` blocks train through ``RGLRUFn`` (the forward kernel and the
 hand-written RG-LRU backward), ``ssm`` blocks through ``SSDFn`` (the SSD
 forward kernel and the hand-written SSD backward) and ``attn_local`` blocks
@@ -234,3 +235,63 @@ def paper_loss_fn(cfg, policy: PolicyConfig) -> Callable:
         return vision_loss_fn
     ctx = make_run_ctx(cfg, policy)
     return lambda model, batch: bert.qa_loss(model, batch, ctx)
+
+
+# ---------------------------------------------------------------------------
+# run tracking -- per-step loss / step_s / tokens-per-s into the tracking plane
+# ---------------------------------------------------------------------------
+class StepTracker:
+    """Adapter from the training loop to the tracking plane.
+
+    Call :meth:`step` once per optimizer step with the step's metrics
+    dict; it derives wall-clock ``step_s`` and ``tokens_per_s`` from an
+    injectable clock and logs one tracking row per step (plus a system
+    sample every ``system_every`` steps).  All methods are no-ops when
+    no run is active, so the loop needs no tracking conditionals.
+
+    Reading a metric (``float`` of a 0-d device tensor) waits for the step
+    to finish: a loop that times its steps on the host synchronizes first.
+    """
+
+    def __init__(self, tokens_per_step: int, run=None, *,
+                 clock=None, system_every: int = 50):
+        import time as _time
+        from repro_torch import tracking
+        self.run = run if run is not None else tracking.current_run()
+        self.tokens_per_step = tokens_per_step
+        self.clock = clock or _time.time
+        self.system_every = max(int(system_every), 1)
+        self._last_t: Optional[float] = None
+        self._n = 0
+        self._loss: Optional[float] = None
+        self._tok_s = 0.0
+
+    def step(self, step: int, metrics: Mapping[str, Any]) -> None:
+        if self.run is None:
+            return
+        now = self.clock()
+        row: Dict[str, Any] = {
+            k: float(v) for k, v in metrics.items()
+            if isinstance(v, (int, float)) or hasattr(v, "item")}
+        if self._last_t is not None:
+            step_s = now - self._last_t
+            row["step_s"] = step_s
+            row["tokens_per_s"] = (self.tokens_per_step / step_s
+                                   if step_s > 0 else 0.0)
+            self._tok_s = row["tokens_per_s"]
+        self._last_t = now
+        self._n += 1
+        self._loss = row.get("loss", self._loss)
+        self.run.log(row, step=step + 1)
+        if self._n % self.system_every == 0:
+            self.run.log_system()
+
+    def summary(self) -> Dict[str, Any]:
+        """Final-row metrics; also merged into the run summary."""
+        out: Dict[str, Any] = {"steps": self._n,
+                               "tokens_per_s": self._tok_s}
+        if self._loss is not None:
+            out["final_loss"] = self._loss
+        if self.run is not None:
+            self.run.log_summary(out)
+        return out

@@ -1,0 +1,281 @@
+"""Port vs reference: the analytic cost model and the topology recommender
+(``repro_torch/core/{costmodel,recommend}.py`` against ``repro/core/...``).
+
+The analytic counts take no constant and must equal the reference's float
+for float, for all ten assigned archs over their ``applicable_shapes``, on
+a 1-, 8- and 256-chip mesh.  The pricing (``roofline``,
+``predict_step_time``, ``price_on_fabrics``, ``recommend``) is held with the
+reference's constants fed to the port (``ref_constants``): its chip and its
+link table, which ``recommend._estimate`` reads by name (``ICI_BW``,
+``DEFAULT_LINKS``) as well as through ``ChipSpec()``; the results must be
+byte-identical (``canon``: ``json.dumps(..., sort_keys=True)``; both from
+``tests/test_torch_topology.py``).  Every
+float comes from the same arithmetic in the same order and compares
+exactly.
+"""
+import json
+
+import pytest
+
+from repro.configs import ASSIGNED_ARCHS as REF_ARCHS
+from repro.configs import get_config as ref_get_config
+from repro.configs.base import PolicyConfig as RefPolicy
+from repro.configs.base import applicable_shapes as ref_applicable_shapes
+from repro.core import compose as ref_compose
+from repro.core import costmodel as ref_costmodel
+from repro.core import fabrics as ref_fabrics
+from repro.core import recommend as ref_recommend
+from repro.core import topology as ref_topology
+
+from repro_torch.configs import ASSIGNED_ARCHS, get_config
+from repro_torch.configs.base import PolicyConfig, applicable_shapes
+from repro_torch.core import compose, costmodel, fabrics, recommend, topology
+from repro_torch.core.topology import LinkClass
+
+from test_torch_topology import canon, ref_constants  # noqa: F401
+
+MESHES = {1: {"data": 1, "model": 1}, 8: {"data": 4, "model": 2},
+          256: {"data": 16, "model": 16}}
+POLICIES = [dict(), dict(remat="none"), dict(remat="full", zero_stage=1),
+            dict(tp_axis=None, dp_axes=("data", "model"))]
+
+
+def _cells():
+    assert tuple(ASSIGNED_ARCHS) == tuple(REF_ARCHS)
+    for arch in ASSIGNED_ARCHS:
+        cfg, ref_cfg = get_config(arch), ref_get_config(arch)
+        shapes = applicable_shapes(cfg)
+        assert [s.name for s in shapes] == \
+            [s.name for s in ref_applicable_shapes(ref_cfg)]
+        for shape, ref_shape in zip(shapes, ref_applicable_shapes(ref_cfg)):
+            yield arch, cfg, ref_cfg, shape, ref_shape
+
+
+# ---------------------------------------------------------------------------
+# analytic counts
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+def test_analytic_counts_equal_the_reference(arch):
+    n = 0
+    for a, cfg, ref_cfg, shape, ref_shape in _cells():
+        if a != arch:
+            continue
+        for logits in (True, False):
+            assert costmodel.forward_flops(cfg, shape, with_logits=logits) \
+                == ref_costmodel.forward_flops(ref_cfg, ref_shape,
+                                               with_logits=logits)
+        assert costmodel.model_flops(cfg, shape) == \
+            ref_costmodel.model_flops(ref_cfg, ref_shape)
+        for kw in POLICIES:
+            pol, ref_pol = PolicyConfig(**kw), RefPolicy(**kw)
+            assert costmodel.step_flops(cfg, shape, pol) == \
+                ref_costmodel.step_flops(ref_cfg, ref_shape, ref_pol)
+            for mesh in MESHES.values():
+                got = costmodel.analytic_hbm_bytes(cfg, shape, pol, mesh)
+                assert got > 0
+                assert got == ref_costmodel.analytic_hbm_bytes(
+                    ref_cfg, ref_shape, ref_pol, mesh)
+                n += 1
+        assert costmodel.kv_bytes_per_token(cfg) == \
+            ref_costmodel.kv_bytes_per_token(ref_cfg)
+        for step_s in (1e-3, 0.05):
+            assert costmodel.serving_throughput(cfg, shape, step_s) == \
+                ref_costmodel.serving_throughput(ref_cfg, ref_shape, step_s)
+    assert n >= 3 * len(POLICIES) * len(MESHES)
+
+
+# ---------------------------------------------------------------------------
+# one report priced on the fabrics
+# ---------------------------------------------------------------------------
+def _report(cm, arch, shape_name, mesh):
+    cfg = (get_config if cm is costmodel else ref_get_config)(arch)
+    from repro.configs.base import SHAPES as REF_SHAPES
+    from repro_torch.configs.base import SHAPES
+    shape = (SHAPES if cm is costmodel else REF_SHAPES)[shape_name]
+    pol = (PolicyConfig if cm is costmodel else RefPolicy)()
+    colls = [cm.CollectiveOp("all-reduce", 3.2e8, mesh["data"], ("data",),
+                             trip_count=4),
+             cm.CollectiveOp("all-gather", 1.1e9, mesh["model"], ("model",)),
+             cm.CollectiveOp("reduce-scatter", 5e7, 256,
+                             ("data", "model"), computation="body"),
+             cm.CollectiveOp("collective-permute", 4e6, 2, ("pod",)),
+             cm.CollectiveOp("all-to-all", 2e6, 2, ())]
+    return cm.CostReport(
+        arch=arch, shape=shape_name, mesh=dict(mesh), flops_hlo=1.5e13,
+        flops_analytic=cm.step_flops(cfg, shape, pol),
+        model_flops=cm.model_flops(cfg, shape), hbm_bytes=4.4e11,
+        peak_memory=None,
+        hbm_bytes_analytic=cm.analytic_hbm_bytes(cfg, shape, pol, mesh),
+        collectives=colls)
+
+
+@pytest.mark.parametrize("arch,shape_name",
+                         [("llama3.2-3b", "train_4k"),
+                          ("mamba2-780m", "decode_32k")])
+def test_roofline_and_prices_on_the_fabrics(ref_constants, arch, shape_name):
+    mesh = MESHES[256]
+    report, ref_report = (_report(costmodel, arch, shape_name, mesh),
+                          _report(ref_costmodel, arch, shape_name, mesh))
+    assert canon(report) == canon(ref_report)
+    assert report.per_axis_wire_bytes() == ref_report.per_axis_wire_bytes()
+    assert report.collective_bytes_total() == \
+        ref_report.collective_bytes_total()
+    systems = {lb: compose.preset(lb) for lb in compose.PRESET_LABELS}
+    ref_systems = {lb: ref_compose.preset(lb)
+                   for lb in ref_compose.PRESET_LABELS}
+    # a pod axis priced on the slowest path, hops and derate included
+    pool = topology.make_pool(256, 256, pods=2,
+                              topology=fabrics.make_topology("pcie_cascade"))
+    ref_pool = ref_topology.make_pool(
+        256, 256, pods=2, topology=ref_fabrics.make_topology("pcie_cascade"))
+    systems["spanned"] = compose.compose(
+        pool, "s", ("data", "model"), (16, 16),
+        {"data": LinkClass.SWITCH, "model": LinkClass.LOCAL},
+        axis_hops={"data": 3}, axis_bw_scale={"data": 0.7})
+    ref_systems["spanned"] = ref_compose.compose(
+        ref_pool, "s", ("data", "model"), (16, 16),
+        {"data": ref_topology.LinkClass.SWITCH,
+         "model": ref_topology.LinkClass.LOCAL},
+        axis_hops={"data": 3}, axis_bw_scale={"data": 0.7})
+    for name in systems:
+        r = costmodel.roofline(report, systems[name])
+        assert canon(r) == canon(ref_costmodel.roofline(ref_report,
+                                                        ref_systems[name]))
+        assert r.summary() == ref_costmodel.roofline(
+            ref_report, ref_systems[name]).summary()
+        for overlap in (0.0, 0.5, 1.0):
+            assert costmodel.predict_step_time(
+                report, systems[name], overlap) == \
+                ref_costmodel.predict_step_time(ref_report,
+                                                ref_systems[name], overlap)
+    assert costmodel.price_on_fabrics(report, systems) == \
+        ref_costmodel.price_on_fabrics(ref_report, ref_systems)
+    # an explicit chip overrides the system's
+    chip = topology.ChipSpec(peak_flops_bf16=1e15, hbm_bw=2e12)
+    ref_chip = ref_topology.ChipSpec(peak_flops_bf16=1e15, hbm_bw=2e12)
+    assert canon(costmodel.roofline(report, systems["localGPUs"], chip)) == \
+        canon(ref_costmodel.roofline(ref_report, ref_systems["localGPUs"],
+                                     ref_chip))
+
+
+# ---------------------------------------------------------------------------
+# calibration
+# ---------------------------------------------------------------------------
+SPEEDUPS = [{}, {"flash_attention": 1.7}, {"flash_attention": 2.0,
+                                          "flash_attention_bwd": 1.25,
+                                          "ssd": 3.0, "rglru": 0.8}]
+
+
+@pytest.mark.parametrize("speedup", range(len(SPEEDUPS)))
+def test_calibrated_cost_json_round_trip_and_compute_scale(speedup):
+    cal = costmodel.CalibratedCost(kernel_speedup=dict(SPEEDUPS[speedup]))
+    ref = ref_costmodel.CalibratedCost(kernel_speedup=dict(
+        SPEEDUPS[speedup]))
+    for c in (cal, ref):
+        c.measure_cell("llama3.2-3b", "train_4k", "1x1", 0.7289)
+        c.measure_cell("mamba2-780m", "train_4k", "8x1", 0.25)
+    assert json.dumps(cal.to_json(), sort_keys=True) == \
+        json.dumps(ref.to_json(), sort_keys=True)
+    back = costmodel.CalibratedCost.from_json(
+        json.loads(json.dumps(cal.to_json())))
+    assert back == cal and bool(back) and not costmodel.CalibratedCost()
+    assert costmodel.CalibratedCost.cell_key("a", "b", "c") == \
+        ref_costmodel.CalibratedCost.cell_key("a", "b", "c")
+    assert cal.step_override("llama3.2-3b", "train_4k", "1x1") == 0.7289
+    assert cal.step_override("llama3.2-3b", "train_4k", "2x1") is None
+    for arch, cfg, ref_cfg, shape, ref_shape in _cells():
+        assert cal.compute_scale(cfg, shape) == \
+            ref.compute_scale(ref_cfg, ref_shape)
+
+
+def test_from_registry_waits_for_the_registry():
+    assert not hasattr(costmodel.CalibratedCost, "from_registry")
+    assert not hasattr(costmodel, "parse_hlo_collectives")
+    assert not hasattr(costmodel, "extract")
+
+
+@pytest.mark.parametrize("name", ["recommend_from_measurements",
+                                  "set_calibration", "get_calibration"])
+def test_recommend_surface_waits_for_its_callers(name):
+    """The reference's measured mode reads dry-run artifacts (ROADMAP item
+    7) and its process-wide calibration serves the cluster scheduler (item
+    8b): neither is ported before its caller, so ``recommend`` has no
+    hidden input."""
+    assert hasattr(ref_recommend, name)
+    assert not hasattr(recommend, name)
+
+
+# ---------------------------------------------------------------------------
+# recommendation
+# ---------------------------------------------------------------------------
+def _calibration(cm):
+    cal = cm.CalibratedCost(kernel_speedup={"flash_attention": 1.5,
+                                            "ssd": 2.0})
+    cal.measure_cell("llama3.2-3b", "train_4k", "4x2", 0.125)
+    cal.measure_cell("command-r-35b", "train_4k", "32x8", 1.5)
+    return cal
+
+
+@pytest.mark.parametrize("n_chips", [8, 256])
+@pytest.mark.parametrize("variant", ["flat", "calibrated", "cascade",
+                                     "calibrated_cascade"])
+def test_recommend_rankings(ref_constants, n_chips, variant):
+    ref_kw, kw = {}, {}
+    if variant.startswith("calibrated"):
+        ref_kw["calibration"] = _calibration(ref_costmodel)
+        kw["calibration"] = _calibration(costmodel)
+    if variant.endswith("cascade"):
+        ref_kw.update(topology=ref_fabrics.make_topology("pcie_cascade",
+                                                         tiers=2),
+                      domain_chips=4)
+        kw.update(topology=fabrics.make_topology("pcie_cascade", tiers=2),
+                  domain_chips=4)
+    for arch in ASSIGNED_ARCHS:
+        for shape in ("train_4k", "prefill_32k", "decode_32k"):
+            got = recommend.recommend(arch, shape, n_chips=n_chips,
+                                      top=len(recommend.candidates(
+                                          n_chips)), **kw)
+            want = ref_recommend.recommend(
+                arch, shape, n_chips=n_chips,
+                top=len(ref_recommend.candidates(n_chips)), **ref_kw)
+            assert canon(got) == canon(want), (arch, shape)
+
+
+def test_estimate_and_candidates(ref_constants):
+    assert recommend.candidates(256) == ref_recommend.candidates(256)
+    for arch in ("command-r-35b", "llama4-scout-17b-a16e", "qwen2-0.5b"):
+        cfg, ref_cfg = get_config(arch), ref_get_config(arch)
+        from repro.configs.base import SHAPES as REF_SHAPES
+        from repro_torch.configs.base import SHAPES
+        for name in ("train_4k", "prefill_32k", "decode_32k"):
+            for dp, tp, pods in ((64, 4, 1), (8, 32, 1), (16, 8, 2),
+                                 (128, 2, 1)):
+                got = recommend._estimate(cfg, SHAPES[name], dp, tp, pods)
+                want = ref_recommend._estimate(ref_cfg, REF_SHAPES[name],
+                                               dp, tp, pods)
+                assert canon(got) == canon(want)
+                assert got.label == want.label
+                cal = recommend.calibrate_candidate(
+                    got, cfg, arch, name, SHAPES[name],
+                    _calibration(costmodel))
+                ref_cal = ref_recommend.calibrate_candidate(
+                    want, ref_cfg, arch, name, REF_SHAPES[name],
+                    _calibration(ref_costmodel))
+                assert canon(cal) == canon(ref_cal)
+
+
+def test_estimate_reads_the_h100_table_by_default():
+    """Without patching: the chip, the NVLink rate and the DCN rate of the
+    port's own table (the reference's 6.25e9 cross-pod default is its DCN
+    row there)."""
+    from repro_torch.configs.base import SHAPES
+    cfg = get_config("llama3.2-3b")
+    shape = SHAPES["train_4k"]
+    got = recommend._estimate(cfg, shape, 8, 4, pods=2)
+    h100 = recommend._estimate(
+        cfg, shape, 8, 4, pods=2, chip=topology.ChipSpec(),
+        dcn_bw=topology.DEFAULT_LINKS[LinkClass.DCN].bandwidth)
+    assert got == h100
+    assert got.terms["compute"] == pytest.approx(
+        costmodel.step_flops(cfg, shape, PolicyConfig())
+        / (64 * 989e12), rel=1e-15)

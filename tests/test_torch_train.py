@@ -455,8 +455,6 @@ def test_launch_train_runs_on_cpu_and_raises_without_a_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             _main("--reduced", "--steps", "3")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        _main("--device", "cpu", "--reduced", "--track")
 
 
 def test_launch_train_fail_at_then_resume(tmp_path):
