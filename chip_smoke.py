@@ -211,6 +211,35 @@ per line, each with ``at_s``, the seconds since the script's imports ended:
                 ``analytic_hbm_bytes`` over the HBM rate, 1 x 1 mesh, the
                 policy that ran) beside its measured step p50, which the
                 prediction may not exceed by more than 5 %;
+  elastic       a failure and resume through the kernels: mamba2-780m at
+                full width, depth cut to 2 of 48 layers, trained on 2 x
+                4096 tokens (bf16 compute, fp32 parameters, AdamW, per-block
+                remat); run A takes 6 steps from seed 0 and run A' the same
+                again (is the step deterministic?); run B takes 3 steps,
+                saves a checkpoint (``train/checkpoint``), its 1 x 1
+                composition in a modelled pool of H100s loses its device
+                (``train/elastic.handle_failure``: a recompose onto a
+                spare), the model, optimizer state and cached allocator
+                blocks are dropped, a state from seed 1 is restored from the
+                checkpoint onto the card (``elastic.resume``) and B takes
+                steps 4-6 on the same batches.  B's losses and final
+                parameters and moments must equal A's bit for bit (or, if
+                A and A' differ, lie within their spread; the line says
+                which held), each resumed step must launch the SSD forward
+                4 times and its backward 2, and the run's events must be
+                failure, recompose, restore; the checkpoint's bytes, save
+                and restore seconds and GB/s are printed beside the rate at
+                which the cluster simulator prices a restore
+                (``Scheduler.restore_s``: the tranche's per-lessee read
+                rate);
+  cluster       the cluster control plane (``repro_torch.cluster``) at the
+                H100's constants: ``examples/cluster_trace.py``'s trace (24
+                jobs, 0.2 Hz, seed 7, a 12-device wave at 120 s repaired
+                after 180 s) and the same trace with a ``FaultPlan``, a
+                ``RecomposeConfig`` and the ``priority_preempt`` policy,
+                each run twice: the reports must be byte-identical, every
+                job accounted for, no lease conflict; jobs done, makespan,
+                AUU, pool utilisation, recompositions and ``wall_s``;
   summary       the run's elapsed seconds, the kernels' build included;
   kernels       the per-kernel summary line, launches counted on the served
                 and trained runs above (the attention kernels have a row per
@@ -267,11 +296,16 @@ from repro_torch.configs import get_config                    # noqa: E402
 from repro_torch.configs.base import (ATTN, ATTN_LOCAL,        # noqa: E402
                                       RGLRU, SSM, PolicyConfig,
                                       ShapeConfig)
+from repro_torch.cluster import (ClusterSimulator, FaultPlan,  # noqa: E402
+                                 FaultSpec, Job, Scheduler, TraceConfig)
+from repro_torch.cluster.recomposer import RecomposeConfig    # noqa: E402
+from repro_torch.cluster.simulator import DEFAULT_TEMPLATES   # noqa: E402
 from repro_torch.cluster.telemetry import ServingStats        # noqa: E402
 from repro_torch import tracking                               # noqa: E402
+from repro_torch.core import compose as compose_mod            # noqa: E402
 from repro_torch.core import costmodel                         # noqa: E402
 from repro_torch.core.topology import (ChipSpec, DEFAULT_LINKS,  # noqa: E402
-                                       LinkClass)
+                                       LinkClass, make_pool)
 from repro_torch.data import SyntheticDataset                  # noqa: E402
 from repro_torch.kernels import build, ops                     # noqa: E402
 from repro_torch.kernels.registry import bucket_pow2           # noqa: E402
@@ -304,7 +338,7 @@ from repro_torch.optim import (AdamWConfig, ScheduleConfig,    # noqa: E402
 from repro_torch.serve import AsyncServeEngine, ServeRequest   # noqa: E402
 from repro_torch.serve.engine import (make_decode_step,        # noqa: E402
                                       make_prefill_step)
-from repro_torch.train import trainer                          # noqa: E402
+from repro_torch.train import checkpoint, elastic, trainer    # noqa: E402
 
 # published peaks of one H100 SXM (dense): what the bounds are stated
 # against; the HBM rate and the bf16 peak are the port's ``ChipSpec``'s (its
@@ -4220,6 +4254,253 @@ def composable():
     emit("composable", **out, phase_s=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# elastic training: a failure and resume through the kernels
+# ---------------------------------------------------------------------------
+ELASTIC_LAYERS = 2
+ELASTIC_STEPS = 6
+ELASTIC_SAVE_AT = 3          # steps before the failure
+ELASTIC_POOL = (4, 4)        # modelled H100s: local, switch-attached
+ELASTIC_LR = 3e-4
+ELASTIC_CUT = ("depth 48 -> 2 layers (the checkpoint of fp32 parameters "
+               "and both AdamW moments stays ~1.3 GB)",
+               "global batch 256 -> 2 (one card)")
+
+
+def _elastic_steps(state, step_fn, batches, first, want):
+    """Steps ``first`` .. ``len(batches) - 1`` of ``state``, each holding
+    its launches to ``want``; returns (state, losses)."""
+    losses = []
+    for i in range(first, len(batches)):
+        before = ops.launch_counts()
+        state, m = step_fn(state, batches[i])
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        per_step = {k: after[k] - before[k] for k in after}
+        check(per_step == want, f"elastic step {i + 1}: launches {per_step} "
+                                f"!= {want}")
+        losses.append(float(m["loss"]))
+    return state, losses
+
+
+def _state_diff(a, b):
+    """Largest |a - b| over the parameters, over each moment, and whether
+    every leaf (the optimizer step too) is bit-identical."""
+    la, lb = checkpoint._leaves(a), checkpoint._leaves(b)
+    check(sorted(la) == sorted(lb), "elastic: the states' leaves differ")
+    worst = {"params": 0.0, "m": 0.0, "v": 0.0}
+    same = True
+    for k, x in la.items():
+        if not torch.is_tensor(x):
+            same = same and x == lb[k]
+            continue
+        same = same and torch.equal(x, lb[k])
+        group = k.split("/")[0] if k.startswith("params/") \
+            else k.split("/")[1]
+        if group in ("params", "m", "v"):
+            worst[group] = max(worst[group], float(
+                (x.detach().float() - lb[k].detach().float()).abs().max()))
+    return worst, same
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def elastic_phase():
+    """The ``elastic`` line: mamba2-780m at full width, depth cut to
+    ``ELASTIC_LAYERS``, trained on ``TRAIN_SHAPE`` (bf16 compute, fp32
+    parameters, AdamW, per-block remat) through the SSD kernels.  Run A
+    takes ``ELASTIC_STEPS`` steps from seed 0, run A' the same again (is
+    the step deterministic?).  Run B takes ``ELASTIC_SAVE_AT`` steps, saves
+    a checkpoint (``train/checkpoint``), and its 1 x 1 composition in a
+    modelled pool of H100s loses its device (``elastic.handle_failure``:
+    recompose onto a spare); the model, the optimizer state and the cached
+    allocator blocks are dropped, a state from another seed is restored
+    from the checkpoint onto the card (``elastic.resume``), and B takes the
+    remaining steps on the same batches.  B's losses after the resume and
+    its final parameters and moments must equal A's bit for bit or, if A
+    and A' differ, lie within their spread; each resumed step launches the
+    SSD forward twice and its backward once per layer."""
+    t0 = time.perf_counter()
+    cfg = cut_depth(get_config(SSM_ARCH), ELASTIC_LAYERS)
+    n_ssm = cfg.pattern.count(SSM)
+    optcfg = AdamWConfig(lr=ELASTIC_LR)
+    sched = ScheduleConfig(kind="cosine", peak_lr=ELASTIC_LR,
+                           warmup_steps=1, total_steps=ELASTIC_STEPS)
+    step_fn = trainer.make_train_step(cfg, TRAIN_POLICY, optcfg, sched,
+                                      shape=TRAIN_SHAPE)
+    ds = SyntheticDataset(cfg, TRAIN_SHAPE, seed=0)
+    batches = [ds.batch_at(i) for i in range(ELASTIC_STEPS)]
+    want = dict({k: 0 for k in ops.launch_counts()}, ssd=2 * n_ssm,
+                ssd_bwd=n_ssm)
+
+    def fresh(seed):
+        return trainer.init_state(cfg, TRAIN_POLICY, optcfg, seed=seed,
+                                  device=DEV)
+
+    a, losses_a = _elastic_steps(fresh(0), step_fn, batches, 0, want)
+    a2, losses_a2 = _elastic_steps(fresh(0), step_fn, batches, 0, want)
+    spread, deterministic = _state_diff(a, a2)
+    deterministic = deterministic and losses_a == losses_a2
+    del a2
+    t_ab = time.perf_counter()
+
+    b, losses_b = _elastic_steps(fresh(0), step_fn,
+                                 batches[:ELASTIC_SAVE_AT], 0, want)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        checkpoint.save(ckpt_dir, ELASTIC_SAVE_AT, b)
+        save_s = time.perf_counter() - ts
+        nbytes = _dir_bytes(ckpt_dir)
+        pool = make_pool(*ELASTIC_POOL, pods=1)
+        system = compose_mod.compose(
+            pool, "elastic-job", ("data", "model"), (1, 1),
+            {"data": LinkClass.LOCAL, "model": LinkClass.LOCAL})
+        run = elastic.ElasticRun(system, ckpt_dir=ckpt_dir)
+        new = elastic.handle_failure(run, pool, system.device_uids,
+                                     step=ELASTIC_SAVE_AT)
+        check(new.axis_sizes == (1, 1)
+              and set(new.device_uids).isdisjoint(system.device_uids),
+              f"elastic: the job was not recomposed onto a spare: {new}")
+        del b                       # the model and the optimizer state
+        torch.cuda.empty_cache()    # and the cached allocator blocks
+        b = fresh(1)
+        torch.cuda.synchronize()
+        tr = time.perf_counter()
+        b, step = elastic.resume(run, b)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - tr
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    check(step == ELASTIC_SAVE_AT and b.opt.step == ELASTIC_SAVE_AT
+          and b.device.type == "cuda",
+          f"elastic: resumed at step {step} (optimizer {b.opt.step}) on "
+          f"{b.device}, not at {ELASTIC_SAVE_AT} on the card")
+    ops.reset_launch_counts()               # just before the main path
+    b, resumed = _elastic_steps(b, step_fn, batches, step, want)
+    counts = ops.launch_counts()            # just after
+    losses_b += resumed
+    diff, equal = _state_diff(a, b)
+    equal = equal and losses_b == losses_a
+    loss_diff = max(abs(x - y) for x, y in zip(losses_b, losses_a))
+    loss_spread = max(abs(x - y) for x, y in zip(losses_a2, losses_a))
+    within = (all(diff[k] <= spread[k] for k in diff)
+              and loss_diff <= loss_spread)
+    held = "bit_identical" if equal else "within_spread"
+    check(equal or (not deterministic and within),
+          f"elastic: the resumed run differs from the uninterrupted one "
+          f"(losses {losses_b} vs {losses_a}, largest differences {diff}) "
+          f"beyond A vs A' ({spread}, deterministic={deterministic})")
+    kinds = [e.kind for e in run.events]
+    check(kinds == ["failure", "recompose", "restore"],
+          f"elastic: events {kinds}")
+    check(counts["ssd"] == 2 * n_ssm * len(resumed)
+          and counts["ssd_bwd"] == n_ssm * len(resumed),
+          f"elastic: resumed steps launched {counts}")
+    # what the cluster simulator prices this job's restore at: its
+    # tranche's per-lessee read rate (``Scheduler.restore_s``), for the
+    # full-depth job it would run
+    sched_pool = make_pool(*ELASTIC_POOL, pods=1)
+    sim_sched = Scheduler(sched_pool)
+    job = Job("elastic-job", SSM_ARCH, "train_4k", 1, steps=ELASTIC_STEPS)
+    sim_sched.submit(job, 0.0)
+    check(sim_sched.poll(0.0) == [job], "elastic: the scheduler did not "
+                                        "start the modelled job")
+    job.steps_done = float(ELASTIC_SAVE_AT)
+    priced_s = sim_sched.restore_s(job)
+    priced_bw = sim_sched.storage.read_bw(job.system.tranche)
+    n_params = sum(p.numel() for p in b.model.parameters())
+    emit("elastic", arch=cfg.name, n_layers=ELASTIC_LAYERS, params=n_params,
+         batch=TRAIN_SHAPE.global_batch, seq=TRAIN_SHAPE.seq_len,
+         compute_dtype="bfloat16", param_dtype="float32", remat="block",
+         steps=ELASTIC_STEPS, failure_after_step=ELASTIC_SAVE_AT,
+         losses_uninterrupted=losses_a, losses_again=losses_a2,
+         losses_resumed=losses_b, held=held,
+         deterministic_a_vs_a_again=deterministic,
+         a_vs_a_again_max_abs=spread, resumed_vs_a_max_abs=diff,
+         events=[dataclasses.asdict(e) for e in run.events],
+         launches_resumed_steps=counts,
+         launches_per_resumed_step={"ssd": 2 * n_ssm, "ssd_bwd": n_ssm},
+         checkpoint_bytes=nbytes, save_s=save_s, restore_s=restore_s,
+         save_gb_per_s=nbytes / save_s / 1e9,
+         restore_gb_per_s=nbytes / restore_s / 1e9,
+         simulator_restore={
+             "arch": SSM_ARCH, "tranche": job.system.tranche,
+             "priced_read_gb_per_s": priced_bw / 1e9,
+             "priced_restore_s_full_depth_fp32_params": priced_s,
+             "priced_s_for_this_checkpoint": nbytes / priced_bw},
+         cuts=list(ELASTIC_CUT),
+         phase_s={"runs_a": t_ab - t0,
+                  "total": time.perf_counter() - t0})
+    del a, b, step_fn
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the cluster control plane at the H100's constants
+# ---------------------------------------------------------------------------
+# ``examples/cluster_trace.py``'s trace: 24 jobs at 0.2 Hz, seed 7, a
+# 12-device failure wave at 120 s repaired after 180 s
+CLUSTER_TRACE = TraceConfig(n_jobs=24, arrival_rate_hz=0.2, seed=7,
+                            failures=((120.0, 12),), repair_after_s=180.0)
+# the same trace with every template elastic, under priority_preempt, with
+# a fault plan (a drawer out, the switch fabric at half its rate, a tranche
+# at a quarter) and the live recomposition plane
+CLUSTER_CHAOS = dataclasses.replace(
+    CLUSTER_TRACE, policy="priority_preempt",
+    templates=tuple(dataclasses.replace(t, elastic=True)
+                    for t in DEFAULT_TEMPLATES),
+    faults=FaultPlan(faults=(
+        FaultSpec("domain_outage", t=90.0, domain=1, t_clear=150.0,
+                  detect_s=2.0),
+        FaultSpec("link_degrade", t=60.0, link="switch", frac=0.5,
+                  t_clear=200.0),
+        FaultSpec("tranche_brownout", t=100.0, tranche="local-nvme-0",
+                  frac=0.25, t_clear=240.0)), retry_backoff_s=5.0),
+    recompose=RecomposeConfig(interval_s=10.0, cooldown_s=20.0))
+
+
+def cluster_phase():
+    """The ``cluster`` line: the simulator at the port's (the H100's)
+    constants, each configuration run twice; the two reports must be
+    byte-identical, every job accounted for, no lease conflict."""
+    t0 = time.perf_counter()
+    out = {}
+    for name, cfg in (("cluster_trace", CLUSTER_TRACE),
+                      ("faults_recompose_priority_preempt", CLUSTER_CHAOS)):
+        reps, walls = [], []
+        for _ in range(2):
+            sim = ClusterSimulator(cfg)
+            reps.append(sim.run())
+            walls.append(sim.wall_s)
+        texts = [json.dumps(r, sort_keys=True, default=str) for r in reps]
+        check(texts[0] == texts[1],
+              f"cluster: {name}: two runs' reports differ")
+        rep = reps[0]
+        jobs = rep["jobs"]
+        check(jobs["completed"] + jobs["rejected"] + jobs["failed"]
+              + jobs["stranded"] == jobs["submitted"] > 0
+              and rep["lease_conflicts"] == 0,
+              f"cluster: {name}: jobs {jobs}, lease conflicts "
+              f"{rep['lease_conflicts']}")
+        out[name] = {"jobs": jobs, "makespan_s": rep["makespan_s"],
+                     "auu": rep["auu"],
+                     "pool_utilization": rep["pool_utilization"],
+                     "recompositions": rep["recomposition"]["count"],
+                     "recompose": rep.get("recompose"),
+                     "faults_injected": rep["faults"]["injected"],
+                     "policy": rep["policy"],
+                     "pool_devices": rep["config"]["pool_devices"],
+                     "report_bytes": len(texts[0]),
+                     "reports_identical": True, "wall_s": walls}
+    emit("cluster", chip=ChipSpec().name, **out,
+         phase_s=time.perf_counter() - t0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script proves the port on "
@@ -4352,6 +4633,10 @@ def main() -> int:
     n_moe = moe(policy)
     # the composable-system analytics on the card, over the runs above
     composable()
+    # a failure and resume through the trainer's kernels, and the cluster
+    # control plane at the card's constants
+    elastic_phase()
+    cluster_phase()
 
     def row(name, source, replaces, launches, main, kernel_design):
         head = main[-1]                     # the largest main-path shape

@@ -11,9 +11,10 @@ factorizations of the chip budget.  The model is deliberately coarse
 ordering on every cell it profiled: it exists to pre-screen compositions
 so only the top few need a run.  The reference's measured mode
 (``recommend_from_measurements``, ranking dry-run artifacts) comes with
-the port's dry run, and its process-wide calibration hook
-(``set_calibration``) with the cluster scheduler that reads it (ROADMAP
-items 7 and 8b); here a calibration is passed to ``recommend``.
+the port's dry run (ROADMAP item 7).  Its process-wide calibration hook
+(``set_calibration`` / ``get_calibration``) is not ported: a calibration
+is passed to ``recommend``, as to the cluster ``Scheduler``, so no
+ranking has a hidden input.
 
 The wire model reads the link table by name (``ICI_BW`` and
 ``DEFAULT_LINKS``); the chip and the cross-pod bandwidth default to

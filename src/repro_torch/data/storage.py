@@ -23,8 +23,8 @@ accelerator manager, MLPerf-Storage's AU accounting):
 
 A composition is then *devices + storage*: ``core.compose.compose()``
 accepts a ``(storage_pool, tranche)`` pair and leases the tranche under
-the composition's name (in the reference, the cluster plane's admission
-also requires a storage lease before a job may start; ROADMAP item 8b).
+the composition's name (the cluster plane's admission also requires a
+storage lease before a job may start: ``cluster.scheduler``).
 
 Invariants:
 

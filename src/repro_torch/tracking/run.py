@@ -13,12 +13,11 @@ a serving session).  It owns an **append-only JSONL event stream** at
   * ``{"kind": "system", ...}``   — a system-metric sample (process
     RSS/CPU from the pluggable samplers plus any harness-reported
     counters such as simulated AUU or KV-page occupancy);
+  * ``{"kind": "event", ...}``    — a discrete event mirror (the cluster
+    simulator's evict/shrink/gang/storage stream), with optional
+    simulated-time ``sim_t``;
   * ``{"kind": "summary", ...}``  — the final summary row;
   * ``{"kind": "finish", ...}``   — terminator with exit status.
-
-The reference's ``{"kind": "event"}`` records (``Run.log_event``, the
-cluster simulator's event mirror) come with the port's simulator
-(ROADMAP item 8b).
 
 Invariants:
 
@@ -32,8 +31,8 @@ Invariants:
   * **One current run per process** — ``init()`` installs the run as the
     process-wide current run (``current_run()``), mirroring the
     ``wandb.run`` global; producers resolve it as their default tracker
-    so a run's stream collects the trainer's and the engine's telemetry
-    produced under it.
+    so a run's stream collects the trainer's, the engine's and the
+    cluster simulator's telemetry produced under it.
 """
 from __future__ import annotations
 
@@ -134,6 +133,16 @@ class Run:
         self._emit({"kind": "metrics", "step": n, "t": self.clock(),
                     "metrics": dict(metrics)})
         return n
+
+    def log_event(self, name: str, data: Optional[Mapping[str, object]] = None,
+                  sim_t: Optional[float] = None) -> None:
+        """Append one discrete event (the simulator telemetry mirror)."""
+        rec: Dict[str, object] = {"kind": "event", "event": name,
+                                  "step": self.step, "t": self.clock(),
+                                  "data": dict(data or {})}
+        if sim_t is not None:
+            rec["sim_t"] = sim_t
+        self._emit(rec)
 
     def log_system(self, counters: Optional[Mapping[str, float]] = None
                    ) -> Dict[str, float]:

@@ -3,17 +3,20 @@
 
 A sampler is any object with a ``sample() -> dict[str, float]`` method;
 :meth:`.run.Run.log_system` merges every attached
-sampler's dict into one ``{"kind": "system"}`` record.  The built-in
-:class:`ProcSampler` scrapes process RSS and CPU time from ``/proc/self``
-(no psutil dependency; degrades to an empty sample on platforms without
-procfs).  The reference's ``CounterSampler`` serves its cluster simulator
-and comes with the port's (ROADMAP item 8b).
+sampler's dict into one ``{"kind": "system"}`` record.  Two built-ins:
+
+  * :class:`ProcSampler` — process RSS and CPU time scraped from
+    ``/proc/self`` (no psutil dependency; degrades to an empty sample on
+    platforms without procfs).
+  * :class:`CounterSampler` — adapts harness-reported counters (simulated
+    AUU, per-link byte rates, KV-page occupancy ...) into the sampler
+    protocol: the harness pushes values, ``sample()`` snapshots them.
 """
 from __future__ import annotations
 
 import os
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Mapping, Optional
 
 
 class ProcSampler:
@@ -73,3 +76,22 @@ class ProcSampler:
             self._last_cpu_s, self._last_t = cpu, now
         return out
 
+
+class CounterSampler:
+    """Harness-reported counters behind the sampler protocol.
+
+    The owning harness calls :meth:`update` whenever its simulated
+    counters move (AUU, per-link byte rates, KV-page occupancy);
+    ``sample()`` returns the latest snapshot, prefixed for namespacing.
+    """
+
+    def __init__(self, prefix: str = "sim",
+                 initial: Optional[Mapping[str, float]] = None):
+        self.prefix = prefix
+        self._counters: Dict[str, float] = dict(initial or {})
+
+    def update(self, counters: Mapping[str, float]) -> None:
+        self._counters.update(counters)
+
+    def sample(self) -> Dict[str, float]:
+        return {f"{self.prefix}.{k}": v for k, v in self._counters.items()}

@@ -198,9 +198,13 @@ def test_from_registry_waits_for_the_registry():
                                   "set_calibration", "get_calibration"])
 def test_recommend_surface_waits_for_its_callers(name):
     """The reference's measured mode reads dry-run artifacts (ROADMAP item
-    7) and its process-wide calibration serves the cluster scheduler (item
-    8b): neither is ported before its caller, so ``recommend`` has no
-    hidden input."""
+    7): it is not ported before its caller.  Its process-wide calibration
+    (``set_calibration`` / ``get_calibration``) is not ported at all: the
+    port's ``recommend``, ``Scheduler`` and recomposer read only the
+    calibration they are handed (``calibration=``,
+    ``TraceConfig.calibration``), so no call has a hidden input; handing
+    it in gives the reference's report under ``set_calibration``
+    (``tests/test_torch_cluster_sim.py``)."""
     assert hasattr(ref_recommend, name)
     assert not hasattr(recommend, name)
 

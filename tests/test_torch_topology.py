@@ -24,10 +24,13 @@ from repro.core import compose as ref_compose
 from repro.core import fabrics as ref_fabrics
 from repro.core import topology as ref_topology
 
+from repro_torch.cluster import (faults, lease, recomposer, scheduler,
+                                 simulator, telemetry)
 from repro_torch.core import (compose, costmodel, fabrics, recommend,
                                topology)
 from repro_torch.core.topology import LinkClass
 from repro_torch.data import pipeline, storage
+from repro_torch.train import elastic
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -63,13 +66,21 @@ REF_VALUES = {
         for c, l in ref_topology.DEFAULT_LINKS.items()}}
 
 
+# every port module that prices through the chip or the link table: the
+# analytics, the data plane, and the cluster plane above them
+# (``test_ref_constants_reach_every_module_that_names_one`` fails when a
+# module binds one of the constants by name and is missing here)
+PATCHED = (topology, compose, fabrics, costmodel, recommend, storage,
+           pipeline, telemetry, lease, scheduler, faults, recomposer,
+           simulator, elastic)
+
+
 @pytest.fixture
 def ref_constants(monkeypatch):
     """The reference's chip and link table fed to every port module that
     names them (``recommend`` reads ``ICI_BW`` and ``DEFAULT_LINKS`` by
     name; the others through the dataclass defaults)."""
-    for mod in (topology, compose, fabrics, costmodel, recommend, storage,
-                pipeline):
+    for mod in PATCHED:
         for name, value in REF_VALUES.items():
             if hasattr(mod, name):
                 monkeypatch.setattr(mod, name, value)
@@ -149,6 +160,81 @@ def test_chip_smoke_reads_its_peaks_from_the_chip_spec():
         os.path.join(ROOT, "chip_smoke.py")).read()))
         if isinstance(n, ast.Constant) and isinstance(n.value, float)}
     assert not lits & {989e12, 3.35e12}
+
+
+# the chip's and the link table's figures, and what they are built from
+CONSTANTS = set(REF_VALUES) | {"NVLINK_BW", "PCIE_SWITCH_BW", "HOST_BW",
+                               "DCN_BW", "DCN_LAT", "PAPER_LL_LAT",
+                               "PAPER_FL_LAT", "PAPER_FF_LAT"}
+
+
+def _binds_a_constant(src: str) -> set:
+    """Constants a module binds when it is imported: module-level
+    ``from ... import`` of one, and one read in a function default or a
+    class-level default (not a ``default_factory``), or a ``ChipSpec()``
+    there, which would be bound when the function is defined."""
+    tree = ast.parse(src)
+    found = set()
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom):
+            found |= {a.asname or a.name for a in node.names} & CONSTANTS
+    defaults = []
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.Lambda)):
+            defaults += node.args.defaults + [
+                d for d in node.args.kw_defaults if d is not None]
+        elif isinstance(node, ast.ClassDef):
+            defaults += [s.value for s in node.body
+                         if isinstance(s, ast.AnnAssign) and s.value
+                         is not None and not (
+                             isinstance(s.value, ast.Call)
+                             and getattr(s.value.func, "attr",
+                                         getattr(s.value.func, "id", ""))
+                             in ("field", "_const"))]
+    for d in defaults:
+        for n in ast.walk(d):
+            name = n.id if isinstance(n, ast.Name) else \
+                n.attr if isinstance(n, ast.Attribute) else None
+            if name in CONSTANTS or name == "ChipSpec":
+                found.add(name)
+    return found
+
+
+def test_ref_constants_reach_every_module_that_names_one():
+    """A module that binds a chip or link constant when it is imported
+    would keep the H100's figure under ``ref_constants`` unless the fixture
+    patches it: every such module of the port is in ``PATCHED``, and no
+    default binds one at definition.  The check itself must see a planted
+    import and a planted default."""
+    assert _binds_a_constant(
+        "from repro_torch.core.topology import ICI_BW, LinkClass\n") == \
+        {"ICI_BW"}
+    assert _binds_a_constant(
+        "def f(bw=topology.HBM_BW, chip=ChipSpec()):\n    pass\n") == \
+        {"HBM_BW", "ChipSpec"}
+    assert _binds_a_constant(
+        "class A:\n    x: float = _const('HBM_BW')\n") == set()
+    patched = {m.__name__ for m in PATCHED}
+    pkg = os.path.join(ROOT, "src", "repro_torch")
+    seen = 0
+    for dirpath, _, files in os.walk(pkg):
+        for fn in sorted(files):
+            if not fn.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, fn)
+            mod = os.path.relpath(path, os.path.join(ROOT, "src"))[:-3] \
+                .replace(os.sep, ".").removesuffix(".__init__")
+            found = _binds_a_constant(open(path).read())
+            seen += 1
+            if mod == "repro_torch.core.topology":
+                continue                     # where they are defined
+            assert "ChipSpec" not in found, mod
+            assert not found or mod in patched, (mod, found)
+    assert seen > 50
+    # the new cluster plane is patched too
+    assert {"repro_torch.cluster.scheduler", "repro_torch.cluster.simulator",
+            "repro_torch.train.elastic"} <= patched
 
 
 # ---------------------------------------------------------------------------

@@ -146,16 +146,57 @@ def test_proc_sampler_keys():
 
 
 @pytest.mark.parametrize("module, name", [
-    ("tracking", "gate"), ("tracking", "trajectory"),
-    ("tracking", "CounterSampler"), ("Run", "log_event")])
+    ("tracking", "gate"), ("tracking", "trajectory")])
 def test_tracking_surface_waits_for_its_callers(module, name):
     """The reference's trajectories and perf gate serve its benchmark
-    harness, and ``CounterSampler`` / ``Run.log_event`` its cluster
-    simulator (ROADMAP item 8b): none is ported before its caller."""
+    harness: neither is ported before its caller (ROADMAP)."""
     ref = {"tracking": ref_tracking, "Run": ref_tracking.Run}[module]
     port = {"tracking": tracking, "Run": tracking.Run}[module]
     assert hasattr(ref, name)
     assert not hasattr(port, name)
+
+
+def test_counter_sampler_is_the_reference_sampler(tmp_path):
+    """``CounterSampler``, exported beside ``ProcSampler``: the same
+    snapshots, and the same ``system`` rows when a run samples it."""
+    def drive(trk, d):
+        cs = trk.CounterSampler("sim", {"auu": 0.5, "links": 1})
+        snaps = [cs.sample()]
+        cs.update({"auu": 0.75, "kv.pages": 3})
+        snaps.append(cs.sample())
+        run = trk.Run("cs", dir=str(d), clock=Clock(), seed=1, sha="s",
+                      samplers=[cs, trk.CounterSampler()])
+        run.log_system({"extra": 2.0})
+        cs.update({"links": 4})
+        run.log_system()
+        run.finish()
+        return snaps, _bytes(run.path)
+    assert drive(tracking, tmp_path / "port") ==         drive(ref_tracking, tmp_path / "ref")
+    assert "CounterSampler" in tracking.__all__
+    assert tracking.CounterSampler().sample() == {}
+
+
+def test_log_event_rows_are_the_reference_rows(tmp_path):
+    """``Run.log_event`` (the cluster simulator's mirror): rows with and
+    without ``sim_t`` and data, between step rows, byte for byte."""
+    def drive(trk, d):
+        run = trk.Run("ev", dir=str(d), clock=Clock(), seed=4, sha="s")
+        run.log_event("sim.fault", {"job": "j", "detail": "2 device(s)"},
+                      sim_t=12.5)
+        run.log({"loss": 1.0}, step=3)
+        run.log_event("sim.repair")
+        run.log_event("sim.evict", {"job": "k"}, sim_t=0.0)
+        run.finish()
+        run.log_event("sim.late")                   # dropped: finished
+        return _bytes(run.path)
+    port = drive(tracking, tmp_path / "port")
+    assert port == drive(ref_tracking, tmp_path / "ref")
+    rows = [json.loads(l) for l in port.splitlines()]
+    events = [r for r in rows if r["kind"] == "event"]
+    assert [e["event"] for e in events] == ["sim.fault", "sim.repair",
+                                            "sim.evict"]
+    assert [e.get("sim_t") for e in events] == [12.5, None, 0.0]
+    assert [e["step"] for e in events] == [0, 3, 3]
 
 
 # ---------------------------------------------------------------------------
