@@ -88,6 +88,17 @@ per line, each with ``at_s``, the seconds since the script's imports ended:
                 8 rows for llama; the dense decode step over every slot)
                 whose logits must be bit-identical, or else within 2e-2 of
                 max-abs;
+  tune          the kernel registry and autotuner (``tune_phase``): the
+                sweep of ``autotune.DEFAULT_CASES`` on the card (each cell's
+                candidates held to the plain version, then timed; key,
+                every candidate's us, default, winner, speedup), llama3.2-3b
+                served by an engine built under the swept registry in turns
+                with the untuned one (each decode graph's piece length,
+                launches, both TPOT p50s, the share of equal greedy
+                tokens), and ``CalibratedCost.from_registry``'s
+                calibration; the script runs untuned everywhere else (it
+                fails at its start if ``$REPRO_TORCH_TUNED_CONFIGS`` names
+                a registry, and the line resets its own);
   serve_dense   the same model, ``mode="dense"``, 4 requests; every prefill
                 must go through the flash-attention kernel;
   parity        greedy streams with the kernels equal those with the plain
@@ -304,10 +315,12 @@ from repro_torch.cluster.telemetry import ServingStats        # noqa: E402
 from repro_torch import tracking                               # noqa: E402
 from repro_torch.core import compose as compose_mod            # noqa: E402
 from repro_torch.core import costmodel                         # noqa: E402
+from repro_torch.core.recommend import recommend               # noqa: E402
 from repro_torch.core.topology import (ChipSpec, DEFAULT_LINKS,  # noqa: E402
                                        LinkClass, make_pool)
 from repro_torch.data import SyntheticDataset                  # noqa: E402
-from repro_torch.kernels import build, ops                     # noqa: E402
+from repro_torch.kernels import autotune, build, ops           # noqa: E402
+from repro_torch.kernels import registry as kernel_registry    # noqa: E402
 from repro_torch.kernels.registry import bucket_pow2           # noqa: E402
 from repro_torch.kernels.flash_attention import (              # noqa: E402
     attention_plain, design, flash_attention, live_key_tiles)
@@ -318,11 +331,13 @@ from repro_torch.kernels.flash_attention_bwd import (          # noqa: E402
     flash_attention_bwd_dq,
     flash_attention_fwd_stats, flash_attention_vjp)
 from repro_torch.kernels.paged_attention import (              # noqa: E402
-    paged_attention_plain, paged_decode_attention, split_pieces)
+    PIECE_TOKENS, paged_attention_plain, paged_decode_attention,
+    split_pieces)
 from repro_torch.kernels.rglru import (                        # noqa: E402
     CHUNK as rglru_chunk_len, rglru, rglru_bwd, rglru_bwd_plain, rglru_plain)
 from repro_torch.kernels.ssd import (                          # noqa: E402
-    CHUNK, bwd_design as ssd_bwd_design, bwd_slices as ssd_bwd_slices,
+    CHUNK, KERNEL_CHUNK as SSD_KERNEL_CHUNK, bwd_design as ssd_bwd_design,
+    bwd_slices as ssd_bwd_slices,
     design as ssd_design, kernel_chunk, ssd, ssd_bwd, ssd_bwd_plain,
     ssd_plain)
 from repro_torch.configs.paper_bench import (                  # noqa: E402
@@ -708,36 +723,48 @@ def _paged_inputs(gen, B, T, D, G, K, ps, lengths, dt, copies=1):
     return q, kp, vp, tables, lens
 
 
+# every piece length the autotuner can choose (``autotune.candidates_for``
+# at page 16: 1-16 pages); a page above one piece's tokens makes it one page
+PIECE_LENGTHS = (16, 32, 64, 128, 256)
+
+
 def paged_cases(gen):
+    """Each case in fp32 and bf16, soft-cap 0 and 30, at every piece length
+    of ``PIECE_LENGTHS``: one row each (the largest error over the lengths);
+    zero-length rows exactly zero.  Then slots past ``lengths[b]``, poisoned
+    with NaN, must change nothing at any piece length."""
     rows = []
     for (B, T, D, G, K, ps, lengths) in PAGED_CASES:
         for dt in (torch.float32, torch.bfloat16):
             q, kp, vp, tabs, lens = _paged_inputs(gen, B, T, D, G, K, ps,
                                                   lengths, dt)
             for softcap in (0.0, 30.0):
-                got = paged_decode_attention(q, kp, vp, tabs[0], lens,
-                                             softcap=softcap)
-                torch.cuda.synchronize()
                 want = paged_attention_plain(q, kp, vp, tabs[0], lens,
                                              softcap=softcap)
                 tol = _tol(dt, 1e-5)
-                what = f"paged_decode_attention " \
-                       f"{(B, T, D, G, K, ps, lengths)} {dt} " \
-                       f"softcap={softcap}"
-                err = _err(got, want, tol, what)
-                for b, n in enumerate(lengths):
-                    if n == 0:
-                        check(bool((got[b] == 0).all()),
-                              f"{what}: zero-length row is not zero")
+                err = 0.0
+                for tokens in PIECE_LENGTHS:
+                    got = paged_decode_attention(q, kp, vp, tabs[0], lens,
+                                                 softcap=softcap,
+                                                 block_k=tokens)
+                    torch.cuda.synchronize()
+                    what = f"paged_decode_attention " \
+                           f"{(B, T, D, G, K, ps, lengths)} {dt} " \
+                           f"softcap={softcap} block_k={tokens}"
+                    err = max(err, _err(got, want, tol, what))
+                    for b, n in enumerate(lengths):
+                        if n == 0:
+                            check(bool((got[b] == 0).all()),
+                                  f"{what}: zero-length row is not zero")
                 rows.append({"shape": [B, T, D, G, K, ps],
                              "lengths": lengths, "softcap": softcap,
                              "dtype": str(dt), "tol": tol,
+                             "piece_tokens": list(PIECE_LENGTHS),
                              "max_abs_err": err})
     # slots at or past lengths[b] are never read: poison them with NaN
-    B, T, D, G, K, ps, lengths = 2, 64, 32, 2, 2, 16, [40, 17]
+    B, T, D, G, K, ps, lengths = 3, 512, 160, 4, 2, 16, [300, 17, 0]
     q, kp, vp, tabs, lens = _paged_inputs(gen, B, T, D, G, K, ps, lengths,
                                           torch.float32)
-    clean = paged_decode_attention(q, kp, vp, tabs[0], lens)
     kp2, vp2 = kp.clone(), vp.clone()
     kp2[-1] = vp2[-1] = float("nan")
     tab = tabs[0].cpu()
@@ -745,9 +772,14 @@ def paged_cases(gen):
         for t in range(n, T):
             kp2[tab[b, t // ps], t % ps] = float("nan")
             vp2[tab[b, t // ps], t % ps] = float("nan")
-    dirty = paged_decode_attention(q, kp2, vp2, tabs[0], lens)
-    check(bool(torch.equal(clean, dirty)),
-          "paged_decode_attention read a slot past lengths[b]")
+    for tokens in PIECE_LENGTHS:
+        clean = paged_decode_attention(q, kp, vp, tabs[0], lens,
+                                       block_k=tokens)
+        dirty = paged_decode_attention(q, kp2, vp2, tabs[0], lens,
+                                       block_k=tokens)
+        check(bool(torch.equal(clean, dirty)),
+              f"paged_decode_attention read a slot past lengths[b] at "
+              f"block_k={tokens}")
     return rows
 
 
@@ -2397,21 +2429,52 @@ PAGED_KW = dict(mode="paged", fused=True, n_slots=8, max_seq=2048,
                 page_size=16, prefill_chunk=256)
 
 
+PAGED_LENS = np.linspace(128, 1024, 16).astype(int).tolist()
+PAGED_MAX_NEW = 64
+
+
+def _paged_prompts(cfg):
+    """``serve_paged``'s 16 prompts of ``PAGED_LENS`` tokens; 0, 5, 10 and
+    15 share a 256-token prefix."""
+    shared = _prompt(999, 256, cfg.vocab_size)
+    prompts = []
+    for i, n in enumerate(PAGED_LENS):
+        if i % 5 == 0:
+            prompts.append(shared + _prompt(i, max(n, 320) - 256,
+                                            cfg.vocab_size))
+        else:
+            prompts.append(_prompt(i, n, cfg.vocab_size))
+    return prompts
+
+
+def _warm_splits(eng):
+    """``eng.warmup()``, recording after each decode graph's capture the
+    paged wrapper's ``last_split`` (pages a piece, pieces): what that graph
+    replays.  Returns {decode key: split}."""
+    splits = {}
+    prepare = eng.graphs.prepare
+
+    def spy(key, fn, arrays, capture=True):
+        prepare(key, fn, arrays, capture=capture)
+        if key[0] == "decode":
+            splits[key] = paged_decode_attention.last_split
+    eng.graphs.prepare = spy
+    try:
+        eng.warmup()
+    finally:
+        del eng.graphs.prepare
+    return splits
+
+
 def serve_paged(cfg, model, policy, tracker=None):
-    """Returns the paged launches and the engine (for ``graphs_paged``)."""
+    """Returns the paged launches, the engine (for ``graphs_paged``) and the
+    split of each captured decode graph (for ``tune_phase``)."""
     eng = AsyncServeEngine(cfg, model, policy, device=DEV, tracker=tracker,
                            **PAGED_KW)
-    eng.warmup()
-    shared = _prompt(999, 256, cfg.vocab_size)
-    lens = np.linspace(128, 1024, 16).astype(int).tolist()
-    reqs = []
-    for i, n in enumerate(lens):
-        if i % 5 == 0:                      # 0, 5, 10, 15 share a prefix
-            n = max(n, 320)
-            prompt = shared + _prompt(i, n - 256, cfg.vocab_size)
-        else:
-            prompt = _prompt(i, n, cfg.vocab_size)
-        reqs.append(ServeRequest(i, prompt, max_new=64))
+    splits = _warm_splits(eng)
+    lens = PAGED_LENS
+    reqs = [ServeRequest(i, p, max_new=PAGED_MAX_NEW)
+            for i, p in enumerate(_paged_prompts(cfg))]
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()               # just before the main path
     t0 = time.perf_counter()
@@ -2424,8 +2487,9 @@ def serve_paged(cfg, model, policy, tracker=None):
     rep = eng.report()
     served = sum(r.done for r in reqs)
     check(served == len(reqs), f"serve_paged served {served}/{len(reqs)}")
-    check(all(len(r.out) == 64 and all(0 <= t < cfg.padded_vocab
-                                       for t in r.out) for r in reqs),
+    check(all(len(r.out) == PAGED_MAX_NEW
+              and all(0 <= t < cfg.padded_vocab for t in r.out)
+              for r in reqs),
           "serve_paged: a request's output is malformed")
     n_paged = counts["paged_decode_attention"]
     want = rep["decode_iterations"] * cfg.n_layers
@@ -2436,12 +2500,13 @@ def serve_paged(cfg, model, policy, tracker=None):
     check(hit > 0, "serve_paged: prefix reuse gave hit_rate 0")
     _graphs_on(rep, "serve_paged")
     emit("serve_paged", arch=cfg.name, n_layers=cfg.n_layers, dtype="bfloat16",
-         requests=len(reqs), served=served, prompt_lens=lens, max_new=64,
+         requests=len(reqs), served=served, prompt_lens=lens,
+         max_new=PAGED_MAX_NEW,
          wall_s=wall, decode_iterations=rep["decode_iterations"],
          paged_kernel_launches=n_paged, hit_rate=hit,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          memory_reserved=torch.cuda.memory_reserved(), **_latency(rep))
-    return n_paged, eng
+    return n_paged, eng, splits
 
 
 def serve_dense(cfg, model, policy):
@@ -2807,6 +2872,291 @@ def graphs_paged(cfg, model, policy, eng):
     same = _same_logits(logits["graphs"], logits["eager"],
                         f"graphs {cfg.name}")
     _graphs_line(cfg, "paged", eng, eager, rounds, prof, same, t0)
+
+
+# ---------------------------------------------------------------------------
+# the kernel registry and autotuner on the card
+# ---------------------------------------------------------------------------
+# (engine, round) in the order served: each engine serves serve_paged's
+# prompts twice, in turns
+TUNE_TURNS = ("tuned", "default", "default", "tuned")
+# the piece length forced where the sweep keeps the default everywhere
+TUNE_FORCED_TOKENS = 64
+# the row-length sets a swept decode cell of the served engine is timed on:
+# up to this many of the replays that serve_paged's prompts make at its key
+TUNE_LENGTH_SETS = 8
+# recommend's ranking with and without the sweep's calibration
+TUNE_RECOMMEND = (("llama3.2-3b", "train_4k"), ("llama3.2-3b", "decode_32k"),
+                  ("recurrentgemma-2b", "prefill_32k"))
+
+
+def _decode_cell(cfg, key):
+    """The autotuner's cell of a paged decode step key ("decode", rows,
+    table pages, 1) of ``cfg``'s engine."""
+    _, B, P, _ = key
+    ps = PAGED_KW["page_size"]
+    return autotune.decode_case(B=B, T=P * ps, D=cfg.head_dim,
+                                G=cfg.n_heads // cfg.n_kv_heads,
+                                page_size=ps, dtype="bfloat16",
+                                kv_heads=cfg.n_kv_heads)
+
+
+def _served_lengths(eng, prompts):
+    """One untuned round of ``prompts`` on ``eng``, recording each paged
+    decode step's row lengths (``_paged_step``'s: position + 1 on a live
+    row, 0 on a padding row) by step key.  Returns {key: the lengths of up
+    to ``TUNE_LENGTH_SETS`` of its replays, evenly spaced}."""
+    seen = {}
+    run = eng.graphs.run
+
+    def spy(key, fn, arrays, capture=True):
+        if key[0] == "decode":
+            live = arrays["valid"][:, 0] != 0
+            seen.setdefault(key, []).append(tuple(
+                np.where(live, arrays["positions"][:, 0] + 1, 0).tolist()))
+        return run(key, fn, arrays, capture=capture)
+    eng.graphs.run = spy
+    try:
+        _round(eng, prompts, PAGED_MAX_NEW, "tune lengths")
+    finally:
+        del eng.graphs.run
+    out = {}
+    for key, sets in seen.items():
+        n = min(TUNE_LENGTH_SETS, len(sets))
+        out[key] = tuple(sets[i * len(sets) // n] for i in range(n))
+    return out
+
+
+def _want_split(cfg, key, registry):
+    """(pages a piece, pieces) that the dispatch gives ``key``'s decode step
+    under ``registry`` (None: untuned, ``PIECE_TOKENS``)."""
+    P, ps = key[2], PAGED_KW["page_size"]
+    if registry is None:
+        return split_pieces(P, ps)
+    kernel_registry.set_registry(registry)
+    try:
+        tokens = autotune.resolve(_decode_cell(cfg, key))["block_k"]
+    finally:
+        kernel_registry.reset_registry()
+    return split_pieces(P, ps, tokens)
+
+
+def _tuned_engine(cfg, model, policy, registry, keys, what):
+    """A paged engine warmed up under ``registry``: each decode graph must
+    have captured the piece length the registry gives its cell."""
+    kernel_registry.set_registry(registry)
+    try:
+        eng = AsyncServeEngine(cfg, model, policy, device=DEV, **PAGED_KW)
+        splits = _warm_splits(eng)
+    finally:
+        kernel_registry.reset_registry()
+    check(sorted(splits) == keys, f"{what}: decode graphs {sorted(splits)} "
+                                  f"!= the default engine's {keys}")
+    for key in keys:
+        want = _want_split(cfg, key, registry)
+        check(splits[key] == want, f"{what}: the decode graph {key} "
+                                   f"launched (pages, pieces) {splits[key]}, "
+                                   f"the registry gives {want}")
+    return eng, splits
+
+
+def _tune_round(cfg, eng, registry, prompts, what):
+    """``_round`` with ``registry`` installed; the paged launches must equal
+    the pure-decode iterations x layers."""
+    before = eng.report()["decode_iterations"]
+    kernel_registry.set_registry(registry)
+    try:
+        r = _round(eng, prompts, PAGED_MAX_NEW, what)
+    finally:
+        kernel_registry.reset_registry()
+    iters = eng.report()["decode_iterations"] - before
+    n = r["launches"]["paged_decode_attention"]
+    check(n > 0 and n == iters * cfg.n_layers,
+          f"{what}: paged decode launches {n} != pure-decode iterations x "
+          f"layers = {iters} x {cfg.n_layers}")
+    return dict(r, decode_iterations=iters, paged_kernel_launches=n)
+
+
+def _same_share(a, b):
+    """Share of greedy tokens of streams ``a`` equal to ``b``'s, position
+    by position."""
+    n = sum(len(x) for x in a)
+    return sum(int(u == v) for x, y in zip(a, b) for u, v in zip(x, y)) / n
+
+
+def _knob(blocks):
+    """The one knob a cell varies: tokens a piece, steps a chunk, the SSD
+    chunk, or the flash tile as "BQxBK"."""
+    for k in ("block_seq", "chunk"):
+        if k in blocks:
+            return blocks[k]
+    if blocks.get("block_q") == 1:
+        return blocks["block_k"]
+    return f"{blocks['block_q']}x{blocks['block_k']}"
+
+
+def tune_phase(cfg, model, policy, eng, splits):
+    """The ``tune`` line, while ``cfg``'s full-width model is on the card:
+    (a) ``autotune.sweep`` of ``DEFAULT_CASES`` (every candidate held to
+    the plain version, then timed), each decode cell of ``eng``'s steps
+    timed on the row lengths that an untuned round of ``serve_paged``'s
+    prompts replays at its key (``_served_lengths``); every decode graph of
+    ``eng``
+    (``serve_paged``'s engine, untuned) has its cell and launched 128-token
+    pieces, and every cell resolves to its winner at dispatch; (b) a second
+    paged engine built under the swept registry, whose decode graphs must
+    each launch the registry's piece length, serves ``serve_paged``'s
+    prompts once to warm its prefix cache, then in turns with ``eng``
+    (``TUNE_TURNS``; both TPOT p50s, launches
+    = pure-decode iterations x layers, the share of greedy tokens equal to
+    the untuned run's); where the sweep keeps 128 tokens at every cell of
+    the engine, a registry forcing ``TUNE_FORCED_TOKENS`` serves once too;
+    (c) the sweep's ``CalibratedCost.from_registry`` and ``recommend``'s top
+    candidate with and without it.  Every later phase runs untuned."""
+    t0 = time.perf_counter()
+    ps = PAGED_KW["page_size"]
+    check(kernel_chunk() == SSD_KERNEL_CHUNK,
+          f"ssd.KERNEL_CHUNK {SSD_KERNEL_CHUNK} != the library's "
+          f"{kernel_chunk()}")
+    prompts = _paged_prompts(cfg)
+    served = {_decode_cell(cfg, k): v
+              for k, v in _served_lengths(eng, prompts).items()}
+    missing = set(served) - set(autotune.DEFAULT_CASES)
+    check(not missing, f"tune: served decode keys without a cell: "
+                       f"{sorted(c.label() for c in missing)}")
+    cases = [dataclasses.replace(c, lengths=served[c]) if c in served else c
+             for c in autotune.DEFAULT_CASES]
+    record_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    try:
+        reg, results = autotune.sweep(
+            cases, device=DEV, merge=False,
+            path=os.path.join(tmp, "tuned_configs.json"))
+    finally:
+        kernel_registry.reset_registry()    # the sweep installs its winners
+        shutil.rmtree(tmp, ignore_errors=True)
+    sweep_s = time.perf_counter() - t0 - record_s
+    cells = []
+    for r in results:
+        js = r.to_json()
+        c = r.case
+        sets = c.lengths or ((autotune.served_lengths(c.batch, c.dim("t")),)
+                             if c.kernel == "decode_attention" else ())
+        cells.append({
+            "key": js["key"], "batch": c.batch, "kv_heads": c.kv_heads,
+            **({"lengths": {"from": "served" if c.lengths else "rule",
+                            "sets": len(sets),
+                            "live_rows": [sum(n > 0 for n in ls)
+                                          for ls in sets],
+                            "tokens": [min(min(ls) for ls in sets),
+                                       max(max(ls) for ls in sets)]}}
+               if sets else {}),
+            "candidates_us": [[_knob(c["blocks"]), c["us"]]
+                              for c in js["candidates"]],
+            "default": _knob(js["default"]), "default_us": js["default_us"],
+            "best": _knob(js["best"]), "us": js["us"],
+            "speedup": js["speedup"],
+            "max_abs_err": max(c["max_abs_err"] for c in js["candidates"]),
+            "rel_fro_max": max((e["rel_fro"] for c in js["candidates"]
+                                for e in c.get("scaled", ())),
+                               default=None)})
+    # each cell resolves at dispatch to its key's entry, unfitted (cells of
+    # one bucket share a key: T = 16 and 32 tokens, the RG-LRU's batches 1
+    # and 2; the last one swept wrote it)
+    kernel_registry.set_registry(reg)
+    try:
+        for c in cases:
+            got = autotune.resolve(c)
+            check(got == reg.get(c.key).blocks,
+                  f"tune: {c.label()} resolves to {got}; the registry holds "
+                  f"{reg.get(c.key).blocks}")
+    finally:
+        kernel_registry.reset_registry()
+
+    keys = sorted(splits)
+    check(len(keys) > 0, "tune: serve_paged's engine captured no decode "
+                         "graph")
+    for key in keys:
+        check(reg.get(_decode_cell(cfg, key).key) is not None,
+              f"tune: the swept cells miss the decode graph {key}")
+        check(splits[key] == _want_split(cfg, key, None)
+              and splits[key][0] * ps == PIECE_TOKENS,
+              f"tune: the untuned decode graph {key} launched "
+              f"{splits[key]}, not {PIECE_TOKENS}-token pieces")
+    tuned, tuned_splits = _tuned_engine(cfg, model, policy, reg, keys,
+                                        "tune")
+    # ``eng`` served these prompts in serve_paged: the tuned engine serves
+    # them once too, so that both hold the same prefixes when the turns
+    # begin (a cold round's prefills interleave its decode steps: TPOT p50
+    # 0.0126 s against 0.0065 s warm on the H100, PERF.md §6)
+    warm = _tune_round(cfg, tuned, reg, prompts, "tune tuned warm-up")
+    engines = {"tuned": (tuned, reg), "default": (eng, None)}
+    rounds = {"tuned": [], "default": []}
+    for name in TUNE_TURNS:
+        e, r_ = engines[name]
+        rounds[name].append(_tune_round(cfg, e, r_, prompts,
+                                        f"tune {name}"))
+    del tuned, engines
+    share = [_same_share(t["streams"], d["streams"])
+             for t, d in zip(rounds["tuned"], rounds["default"])]
+    share_default = _same_share(rounds["default"][0]["streams"],
+                                rounds["default"][1]["streams"])
+    # piece lengths other than 128 tokens on tables of 128 tokens or more
+    full = PIECE_TOKENS // ps
+
+    def other(sp):
+        return {str(k): v for k, v in sp.items()
+                if k[2] >= full and v[0] * ps != PIECE_TOKENS}
+
+    shown, forced = other(tuned_splits), None
+    if not shown:
+        forced_reg = kernel_registry.Registry(dict(reg.entries))
+        for key in keys:
+            cell = _decode_cell(cfg, key)
+            blocks = {"block_q": 1, "block_k": TUNE_FORCED_TOKENS}
+            if blocks in autotune.candidates_for(cell):
+                forced_reg.put(cell.key, kernel_registry.TunedEntry(
+                    blocks, backend="forced by chip_smoke.py"))
+        e, forced_splits = _tuned_engine(cfg, model, policy, forced_reg,
+                                         keys, "tune forced")
+        r = _tune_round(cfg, e, forced_reg, prompts, "tune forced")
+        del e
+        shown = other(forced_splits)
+        forced = {"tokens": TUNE_FORCED_TOKENS,
+                  "tpot_p50_s": r["tpot_p50_s"],
+                  "decode_iterations": r["decode_iterations"],
+                  "paged_kernel_launches": r["paged_kernel_launches"],
+                  "same_token_share": _same_share(
+                      r["streams"], rounds["default"][0]["streams"])}
+    check(len(shown) > 0, "tune: no decode graph launched a piece length "
+                          "other than the default")
+    torch.cuda.empty_cache()
+
+    cal = costmodel.CalibratedCost.from_registry(reg)
+    ranked = {}
+    for arch, shape in TUNE_RECOMMEND:
+        a = recommend(arch, shape, top=1)[0]
+        b = recommend(arch, shape, top=1, calibration=cal)[0]
+        ranked[f"{arch}|{shape}"] = {
+            "untuned": {"mesh": a.label, "step_s": a.step_s},
+            "calibrated": {"mesh": b.label, "step_s": b.step_s}}
+    for r_ in rounds["tuned"] + rounds["default"] + [warm]:
+        del r_["streams"]
+        del r_["launches"]
+    emit("tune", arch=cfg.name, card=nvidia_smi_line(),
+         cells=cells, n_cells=len(cells),
+         n_candidates=sum(len(c["candidates_us"]) for c in cells),
+         served_keys=len(served), record_s=record_s, sweep_s=sweep_s,
+         served={"turns": TUNE_TURNS, "rounds": rounds, "warm_up": warm,
+                 "tpot_p50_s": {n: [r_["tpot_p50_s"] for r_ in rounds[n]]
+                                for n in rounds},
+                 "same_token_share": share,
+                 "same_token_share_default_rounds": share_default,
+                 "decode_graphs": len(keys),
+                 "tuned_splits": {str(k): tuned_splits[k] for k in keys},
+                 "non_default_splits": shown, "forced": forced},
+         calibration=cal.kernel_speedup, recommend=ranked,
+         phase_s=time.perf_counter() - t0)
 
 
 def graphs_dense(cfg, model, policy, eng, lens, max_new):
@@ -4002,7 +4352,7 @@ def moe(policy):
     model = LM.init(cfg, seed=0, dtype=torch.bfloat16, device=DEV)
     n_params = sum(p.numel() for p in model.parameters())
     phase_s["init"] = time.perf_counter() - t0
-    out["paged_moonshot"], eng = serve_paged(cfg, model, policy)
+    out["paged_moonshot"], eng, _ = serve_paged(cfg, model, policy)
     decode_split = _moe_decode_split(eng, cfg)
     del eng
     torch.cuda.empty_cache()
@@ -4023,7 +4373,7 @@ def moe(policy):
     torch.cuda.reset_peak_memory_stats()
     model = LM.init(scout, seed=0, dtype=torch.bfloat16, device=DEV)
     n_scout = sum(p.numel() for p in model.parameters())
-    out["paged_scout"], eng = serve_paged(scout, model, policy)
+    out["paged_scout"], eng, _ = serve_paged(scout, model, policy)
     scout_split = _moe_decode_split(eng, scout)
     del eng
     torch.cuda.empty_cache()
@@ -4507,6 +4857,11 @@ def main() -> int:
               "a GPU and has no CPU fallback", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    # untuned: only the ``tune`` line installs a registry, for its own
+    # engine, and resets it after
+    check(kernel_registry.get_registry() is None,
+          f"${kernel_registry.ENV_VAR} names a tuned-config registry: "
+          f"chip_smoke.py runs untuned, unset it")
     torch.backends.cuda.matmul.allow_tf32 = False    # fp32 means fp32
     torch.backends.cudnn.allow_tf32 = False          # in convolutions too
     smi = nvidia_smi_line()
@@ -4593,10 +4948,13 @@ def main() -> int:
     track_dir = tempfile.mkdtemp(prefix="chip_smoke_runs_")
     run = tracking.Run(f"chip_smoke-{ARCH}", config={"arch": ARCH},
                        tags=("chip_smoke",), dir=track_dir)
-    n_paged, eng = serve_paged(cfg, model, policy, tracker=run)
+    n_paged, eng, splits = serve_paged(cfg, model, policy, tracker=run)
     tracked = tracked_serve(run, eng, "serve_paged")
     eng.tracker = None                      # the tracked serve ends here
     graphs_paged(cfg, model, policy, eng)
+    # the registry and autotuner: a sweep of the main path's cells, llama
+    # served under it in turns with ``eng``; every later phase untuned
+    tune_phase(cfg, model, policy, eng, splits)
     del eng
     n_flash = serve_dense(cfg, model, policy)[0]
     parity(cfg, model)
@@ -4618,7 +4976,7 @@ def main() -> int:
     # stablelm-12b (D = 160): served at full width and depth, trained at
     # full width with its depth cut
     model = LM.init(slm, seed=0, dtype=torch.bfloat16, device=DEV)
-    n_paged_d160, eng = serve_paged(slm, model, policy)
+    n_paged_d160, eng, _ = serve_paged(slm, model, policy)
     del eng
     n_flash_d160 = serve_dense(slm, model, policy)[0]
     del model

@@ -23,10 +23,10 @@ composed fabric by swapping the FabricSpec under the collective term
 
 Not here: the readers of XLA artifacts (``parse_hlo_collectives`` and
 ``extract``, which fill a ``CostReport`` from a compiled executable) wait
-for the port's dry run, ROADMAP queue A item 7;
-``CalibratedCost.from_registry`` waits for the tuned-kernel registry, item
-11.  A ``CostReport`` is built directly, its ``collectives`` given as
-``CollectiveOp`` records.
+for the port's dry run, ROADMAP queue A item 7.  A ``CostReport`` is built
+directly, its ``collectives`` given as ``CollectiveOp`` records.
+``CalibratedCost.from_registry`` reads the speedups that the autotuner
+measured on the card (``kernels.registry.kernel_speedups``).
 """
 from __future__ import annotations
 
@@ -363,9 +363,8 @@ class CalibratedCost:
          measurably less time, and the scheduler/simulator should price
          that in.
 
-    Constructed explicitly (the reference's ``from_registry()``, which
-    pulls the speedups out of the tuned-config registry, waits for the
-    registry: ROADMAP queue A item 11).
+    Construct explicitly, or via ``from_registry()`` to pull the speedups
+    out of a tuned-config registry.
     """
     cell_step_s: Dict[str, float] = dataclasses.field(default_factory=dict)
     kernel_speedup: Dict[str, float] = dataclasses.field(
@@ -374,6 +373,13 @@ class CalibratedCost:
     @staticmethod
     def cell_key(arch: str, shape_name: str, mesh_label: str) -> str:
         return f"{arch}|{shape_name}|{mesh_label}"
+
+    @classmethod
+    def from_registry(cls, registry=None) -> "CalibratedCost":
+        """Speedups measured by the autotuner (``registry``, else the
+        active one; empty when untuned)."""
+        from repro_torch.kernels import registry as kreg
+        return cls(kernel_speedup=kreg.kernel_speedups(registry))
 
     def __bool__(self) -> bool:
         return bool(self.cell_step_s or self.kernel_speedup)

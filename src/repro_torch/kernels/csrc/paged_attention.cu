@@ -14,7 +14,9 @@
 //   * The TPU kernel's scalar-prefetched tables steering a sequential grid
 //     of page copies become blocks that read their own table rows.  Each
 //     row's token axis is cut into pieces of a whole number of pages
-//     (paged_attention.py split_pieces: about 128 tokens), and one block
+//     (paged_attention.py split_pieces: about 128 tokens, or the registry's
+//     piece length: on the H100 32- and 64-token pieces won on tables of
+//     128-1024 tokens by 1.1-1.7x, PERF.md §6), and one block
 //     runs per (piece, kv head, sequence): 568 live blocks at 8 served
 //     sequences of up to 2048 tokens on 8 kv heads, where one block per
 //     (sequence, kv head) gave 64 on 132 SMs and the longest row set the

@@ -11,8 +11,12 @@
 // What the design does about it (a chunked scan, repro_rglru_fwd): one
 // thread per channel walking all S steps gave 20 blocks of 128 threads at
 // batch 1 on 132 SMs, and the chain of S dependent exp-FMA steps, not the
-// bytes, set the time.  Here the sequence is cut into chunks of RG_CHUNK =
-// 64 steps, three launches from one call:
+// bytes, set the time.  Here the sequence is cut into chunks of `chunk`
+// steps (the caller's, a multiple of AHEAD = 16 from 16 to 256; 64 by
+// default, rglru.py CHUNK; the autotuner times the others: on the H100,
+// 16-step chunks won at S = 128..1024 by 1.2-1.8x, which at 64 steps leave
+// SMs idle, and 64 / 128 at S = 4096; PERF.md §6), three launches from
+// one call:
 //   (a) rglru_chunk_kernel, one thread per (chunk, channel): the chunk's
 //       composite, A_c = prod exp(log_a_t) multiplied step by step and e_c,
 //       the chunk's scan from zero, into a small fp32 workspace (B, chunks,
@@ -24,15 +28,15 @@
 //   (c) rglru_scan_kernel, one thread per (chunk, channel): the chunk again
 //       from its entering carry with the serial arithmetic h = exp(log_a_t)
 //       h + gated_t, writing y.
-// 64 chunks x 20 channel tiles = 1280 blocks at the served shape.  The
-// threads of a warp own neighbouring channels, so every load and store is
-// coalesced across them; each thread loads AHEAD steps of both inputs
-// before it runs their dependent FMA chain.  The inputs are read twice
-// (about 210 MB, 63 us at 3.35 TB/s).  Chunk 0 is the serial arithmetic
-// exactly; a later chunk's entering carry differs from the serial one by
-// the rounding of A_c h + e_c.  Any S, any B.  The serial design it
-// replaced (one thread per channel over all S steps, 0.5258 ms at the served
-// shape against 0.0854) is deleted; PERF.md keeps its times.
+// At 64-step chunks, 64 chunks x 20 channel tiles = 1280 blocks at the
+// served shape.  The threads of a warp own neighbouring channels, so every
+// load and store is coalesced across them; each thread loads AHEAD steps
+// of both inputs before it runs their dependent FMA chain.  The inputs are
+// read twice (about 210 MB, 63 us at 3.35 TB/s).  Chunk 0 is the serial
+// arithmetic exactly; a later chunk's entering carry differs from the
+// serial one by the rounding of A_c h + e_c.  Any S, any B.  The serial
+// design it replaced (one thread per channel over all S steps, 0.5258 ms at
+// the served shape against 0.0854) is deleted; PERF.md keeps its times.
 //
 // The backward (repro_rglru_bwd; no TPU kernel: the reference differentiates
 // rglru_scan_chunked, repro/models/rglru.py:134, through XLA).  With
@@ -41,7 +45,8 @@
 // the gradients are d gated_t = lam_t, d log_a_t = lam_t a_t h_{t-1} (h_{-1}
 // = h0, or zero) and d h0 = a_0 lam_0.  lam is the forward's recurrence run
 // from the end with the decay shifted by one step, so the same three
-// launches serve it, mirrored: (a) rglru_bwd_chunk_kernel, each chunk's
+// launches serve it, over RG_CHUNK = 64-step chunks whatever chunk the
+// forward ran, mirrored: (a) rglru_bwd_chunk_kernel, each chunk's
 // composite from its end (the product of a_{t+1} over the chunk and its
 // reverse scan from zero; the first chunk's is not needed); (b)
 // rglru_bwd_carry_kernel, the adjoint entering each chunk from the right;
@@ -59,8 +64,9 @@ namespace {
 using namespace repro;
 
 constexpr int RG_NT = 128;     // threads (channels) per block
-constexpr int RG_CHUNK = 64;   // steps per chunk
-constexpr int AHEAD = 16;      // steps loaded before their FMA chain runs
+constexpr int RG_CHUNK = 64;    // steps per chunk of the backward
+constexpr int AHEAD = 16;       // steps loaded before their FMA chain runs
+constexpr int MAX_CHUNK = 256;  // the forward's longest chunk
 
 // Steps t0 .. t0+n-1 of one channel (element `base` at step 0, stride W)
 // from h: h = exp(log_a_t) h + gated_t, with the product of the exp(log_a_t)
@@ -100,16 +106,16 @@ __device__ __forceinline__ void walk(const float* __restrict__ log_a,
 __global__ void __launch_bounds__(RG_NT)
 rglru_chunk_kernel(const float* __restrict__ log_a,
                    const float* __restrict__ gated, float* __restrict__ ca,
-                   float* __restrict__ ce, int S, int W) {
+                   float* __restrict__ ce, int S, int W, int chunk) {
   const int w = blockIdx.x * RG_NT + threadIdx.x;
   const int c = blockIdx.y;
   const int b = blockIdx.z;
   const int nc = gridDim.y + 1;  // the last chunk has no launch here
   if (w >= W) return;
-  const int t0 = c * RG_CHUNK;
+  const int t0 = c * chunk;
   float a = 1.f, h = 0.f;
   walk<true, false>(log_a, gated, nullptr, ((size_t)b * S + t0) * W + w, W,
-                    RG_CHUNK, a, h);
+                    chunk, a, h);
   const size_t at = ((size_t)b * nc + c) * W + w;
   ca[at] = a;
   ce[at] = h;
@@ -152,16 +158,16 @@ __global__ void __launch_bounds__(RG_NT)
 rglru_scan_kernel(const float* __restrict__ log_a,
                   const float* __restrict__ gated,
                   const float* __restrict__ ce, float* __restrict__ y, int S,
-                  int W) {
+                  int W, int chunk) {
   const int w = blockIdx.x * RG_NT + threadIdx.x;
   const int c = blockIdx.y;
   const int b = blockIdx.z;
   if (w >= W) return;
-  const int t0 = c * RG_CHUNK;
+  const int t0 = c * chunk;
   float a = 1.f;
   float h = ce[((size_t)b * gridDim.y + c) * W + w];
   walk<false, true>(log_a, gated, y, ((size_t)b * S + t0) * W + w, W,
-                    min(RG_CHUNK, S - t0), a, h);
+                    min(chunk, S - t0), a, h);
 }
 
 // ---------------------------------------------------------------------------
@@ -310,16 +316,18 @@ rglru_bwd_scan_kernel(const float* __restrict__ log_a,
 
 }  // namespace
 
-// log_a, gated, y (B, S, W) fp32; h0 (B, W) fp32 or null; ws 2 * B *
-// n_chunks * W fp32, n_chunks = ceil(S / RG_CHUNK) (rglru.py CHUNK); all
-// contiguous.  Three launches on `stream`.  Returns 0, a cudaError_t, or
-// ERR_UNSUPPORTED.  Does not synchronise.
+// log_a, gated, y (B, S, W) fp32; h0 (B, W) fp32 or null; chunk the steps
+// of a chunk, a multiple of AHEAD from AHEAD to MAX_CHUNK; ws 2 * B *
+// n_chunks * W fp32, n_chunks = ceil(S / chunk); all contiguous.  Three
+// launches on `stream`.  Returns 0, a cudaError_t, or ERR_UNSUPPORTED.
+// Does not synchronise.
 extern "C" int repro_rglru_fwd(const float* log_a, const float* gated,
                                const float* h0, float* y, float* ws,
-                               int n_chunks, int B, int S, int W,
+                               int chunk, int n_chunks, int B, int S, int W,
                                void* stream) {
-  if (B <= 0 || S <= 0 || W <= 0 || B > 65535 ||
-      n_chunks != (S + RG_CHUNK - 1) / RG_CHUNK || n_chunks > 65535)
+  if (B <= 0 || S <= 0 || W <= 0 || B > 65535 || chunk < AHEAD ||
+      chunk > MAX_CHUNK || chunk % AHEAD != 0 ||
+      n_chunks != (S + chunk - 1) / chunk || n_chunks > 65535)
     return ERR_UNSUPPORTED;
   cudaStream_t st = (cudaStream_t)stream;
   const int tiles = (W + RG_NT - 1) / RG_NT;
@@ -327,7 +335,7 @@ extern "C" int repro_rglru_fwd(const float* log_a, const float* gated,
   float* ce = ws + (size_t)B * n_chunks * W;
   if (n_chunks > 1) {
     rglru_chunk_kernel<<<dim3(tiles, n_chunks - 1, B), RG_NT, 0, st>>>(
-        log_a, gated, ca, ce, S, W);
+        log_a, gated, ca, ce, S, W, chunk);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
@@ -336,15 +344,16 @@ extern "C" int repro_rglru_fwd(const float* log_a, const float* gated,
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   rglru_scan_kernel<<<dim3(tiles, n_chunks, B), RG_NT, 0, st>>>(
-      log_a, gated, ce, y, S, W);
+      log_a, gated, ce, y, S, W, chunk);
   return (int)cudaGetLastError();
 }
 
 
 // The backward of repro_rglru_fwd.  log_a, hs (the forward's output), dy,
-// dlog_a, dgated (B, S, W) fp32; h0, dh0 (B, W) fp32 or both null; ws as
-// the forward's.  Three launches on `stream`.  Returns 0, a cudaError_t, or
-// ERR_UNSUPPORTED.  Does not synchronise.
+// dlog_a, dgated (B, S, W) fp32; h0, dh0 (B, W) fp32 or both null; ws 2 * B
+// * n_chunks * W fp32, n_chunks = ceil(S / RG_CHUNK).  Three launches on
+// `stream`.  Returns 0, a cudaError_t, or ERR_UNSUPPORTED.  Does not
+// synchronise.
 extern "C" int repro_rglru_bwd(const float* log_a, const float* hs,
                                const float* dy, const float* h0,
                                float* dlog_a, float* dgated, float* dh0,

@@ -66,6 +66,22 @@ def design(head_dim: int, dtype) -> str:
     return DESIGNS[fn(int(head_dim), _DTYPE_CODE[dtype])]
 
 
+def tile(head_dim: int, dtype):
+    """(block_q, block_k) that the forward design for (``head_dim``,
+    ``dtype``) launches, or None where no design serves: the warpgroup
+    design's 128 positions of one query head by 128 keys (64 at D = 256,
+    ``csrc/flash_attention.cu`` ``WG_BM`` x ``FwdLayout::BN``); the
+    ``mma.sync`` (bf16, D = 32) and CUDA-core (fp32) designs' 64 rows of the
+    flattened (position, group head) axis by 64 keys (``BM`` x ``BN``).
+    Each design has this one tile, and the stats-emitting forward of
+    training launches it too."""
+    if head_dim not in HEAD_DIMS or dtype not in _DTYPE_CODE:
+        return None
+    if dtype == torch.bfloat16 and head_dim != 32:
+        return 128, (64 if head_dim > 160 else 128)
+    return 64, 64
+
+
 def live_key_tiles(m0: int, BM: int, BN: int, T: int, causal: bool,
                    window: int):
     """Keys ``[n_begin, n_end)`` that any query position of ``m0 ..

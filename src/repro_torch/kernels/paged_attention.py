@@ -10,7 +10,8 @@ dense ``(B, W, K, D)`` view that ``kvcache.gather_dense`` makes.
 
 On this card the function is bounded by bytes: every live K/V byte is read
 once and used by the G heads of one group only.  The kernel splits each
-row's token axis into pieces of whole pages (``split_pieces``), runs one
+row's token axis into pieces of whole pages (``split_pieces``: ``block_k``
+tokens rounded down to whole pages, ``PIECE_TOKENS`` by default), runs one
 block per (piece, kv head, sequence) -- a block whose piece starts at or
 past ``lengths[b]`` returns at once, so no page past it is read -- writes
 each piece's fp32 partial ``(m, l, acc)`` to a workspace that the wrapper
@@ -21,7 +22,9 @@ never reads ``lengths``.  The source note in the ``.cu`` file has the rest.
 ``paged_decode_attention`` launches the kernel for CUDA tensors -- or raises:
 there is no fallback -- and runs ``paged_attention_plain`` only for tensors
 that lie on the CPU.  ``paged_decode_attention.launches`` counts calls that
-launched (one per call: the pieces and their merge).
+launched (one per call: the pieces and their merge), and
+``paged_decode_attention.last_split`` holds the last launch's ``(pages a
+piece, pieces)``.
 It has no backward, and raises on either device where autograd would need a
 gradient of q or the pages.
 """
@@ -39,7 +42,10 @@ NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128, 160)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # tokens a piece of the split-KV kernel aims at (rounded to whole pages)
+# where no ``block_k`` is given
 PIECE_TOKENS = 128
+# page ids a block of the kernel stages (csrc/paged_attention.cu)
+MAX_PIECE_PAGES = 128
 
 _fn = None
 
@@ -55,11 +61,16 @@ def _kernel():
     return _fn
 
 
-def split_pieces(P: int, page_size: int):
+def split_pieces(P: int, page_size: int, piece_tokens: int = PIECE_TOKENS):
     """(pages per piece, pieces) of the split-KV kernel for a table of
-    ``P`` pages: pieces of ``PIECE_TOKENS`` tokens rounded down to whole
-    pages (at least one), enough of them to cover the table."""
-    pages = max(1, PIECE_TOKENS // page_size)
+    ``P`` pages: pieces of ``piece_tokens`` tokens rounded down to whole
+    pages (at least one), enough of them to cover the table.  Raises where
+    a piece would be more than ``MAX_PIECE_PAGES`` pages."""
+    pages = max(1, piece_tokens // page_size)
+    if pages > MAX_PIECE_PAGES:
+        raise ValueError(f"paged_decode_attention: a piece of {piece_tokens} "
+                         f"tokens is {pages} pages of {page_size}; the "
+                         f"kernel stages at most {MAX_PIECE_PAGES}")
     return pages, -(-P // pages)
 
 
@@ -121,10 +132,18 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths, *,
     """q (B,H,D) one decode token per sequence; k/v pages (N,ps,K,D); tables
     (B,P) page ids; lengths (B,) valid-token counts -> (B,H,D).
 
-    ``block_k`` is the reference's TPU tiling knob: accepted, ignored.
+    ``block_k`` is the tokens a split-KV piece, rounded down to whole pages
+    (``split_pieces``); None means ``PIECE_TOKENS``.  A value under one page,
+    or over ``MAX_PIECE_PAGES`` pages, raises on either device.
     """
-    del block_k
     _check(q, k_pages, v_pages, tables, lengths)
+    ps = k_pages.shape[1]
+    if block_k is None:
+        block_k = PIECE_TOKENS
+    elif block_k < ps:
+        raise ValueError(f"paged_decode_attention: block_k={block_k} tokens "
+                         f"fit no whole page of {ps}")
+    pages, n_pieces = split_pieces(tables.shape[1], ps, block_k)
     if needs_grad(q, k_pages, v_pages):
         raise RuntimeError(
             "paged_decode_attention is forward-only (a decode step) and "
@@ -136,8 +155,7 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths, *,
         raise ValueError(f"paged_decode_attention: unsupported device "
                          f"{q.device}")
     B, H, D = q.shape
-    ps, K = k_pages.shape[1], k_pages.shape[2]
-    P = tables.shape[1]
+    K, P = k_pages.shape[2], tables.shape[1]
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"paged_decode_attention kernel takes float32 or "
                         f"bfloat16, not {q.dtype}")
@@ -154,7 +172,6 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths, *,
                              f"contiguous {name}")
     check_aligned(q, k_pages, v_pages)     # 16-byte copies of every row
     out = torch.empty_like(q)
-    pages, n_pieces = split_pieces(P, ps)
     # each piece's (m, l, acc[G][D]) partial, fp32, from the caching
     # allocator: no cudaMalloc and no host sync in a decode step
     ws = torch.empty(B * H * n_pieces * (D + 2), dtype=torch.float32,
@@ -171,7 +188,9 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths, *,
             f"paged_decode_attention kernel launch failed (code {rc}) for q "
             f"{tuple(q.shape)} pages {tuple(k_pages.shape)} {q.dtype}")
     paged_decode_attention.launches += 1
+    paged_decode_attention.last_split = (pages, n_pieces)
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.last_split = None

@@ -7,10 +7,12 @@ Replaces the TPU kernel ``repro/kernels/rglru.py`` (``rglru`` /
 combine rule of the model path's ``rglru_scan``
 (``repro/models/rglru.py:100-114``), and an optional ``h0`` folded into the
 first step as there.  On this card the function is bounded by bytes.  The
-kernel is a chunked scan over ``CHUNK``-step chunks: each chunk's composite
-(the product of its decays and its scan from zero) into a workspace that the
-wrapper allocates, then the carries across chunks, then each chunk again
-from its entering carry; the source note in the ``.cu`` file has the rest.
+kernel is a chunked scan over chunks of ``chunk`` steps (``CHUNK`` by
+default; a multiple of 16 from 16 to 256, ``check_chunk``): each chunk's
+composite (the product of its decays and its scan from zero) into a
+workspace that the wrapper allocates, then the carries across chunks, then
+each chunk again from its entering carry; the source note in the ``.cu``
+file has the rest.
 
 ``rglru`` launches the kernel for CUDA tensors -- or raises: there is no
 fallback -- and runs ``rglru_plain`` only for tensors that lie on the CPU.
@@ -24,9 +26,10 @@ The backward has no TPU kernel: the reference differentiates its XLA scan
 wraps the hand-written ``repro_rglru_bwd`` (the adjoint
 ``lam_t = dy_t + a_{t+1} lam_{t+1}`` as the forward's chunked scan run from
 the end, then ``d gated = lam``, ``d log_a_t = lam_t a_t h_{t-1}``,
-``d h0 = a_0 lam_0``), ``rglru_bwd_plain`` is the same reverse scan in torch
-ops, and ``RGLRUFn`` joins the forward and the backward; it saves the
-forward's output ``hs`` and ``log_a``.  ``rglru_bwd.launches`` counts as
+``d h0 = a_0 lam_0``; its chunks are 64 steps whatever chunk the forward
+ran), ``rglru_bwd_plain`` is the same reverse scan in torch ops, and
+``RGLRUFn`` joins the forward and the backward; it saves the forward's
+output ``hs`` and ``log_a``.  ``rglru_bwd.launches`` counts as
 ``rglru.launches`` does.
 """
 from __future__ import annotations
@@ -38,23 +41,42 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import needs_grad
 
-# steps per chunk of the kernel's scan (csrc/rglru.cu RG_CHUNK; the C entry
-# point refuses a workspace cut for another length)
+# steps per chunk of the kernel's scan: the forward's default and the
+# backward's only length (csrc/rglru.cu RG_CHUNK); the forward takes any
+# multiple of AHEAD from AHEAD to MAX_CHUNK (the C entry point refuses
+# another, or a workspace cut for another length)
 CHUNK = 64
+AHEAD = 16
+MAX_CHUNK = 256
 
 _fns: dict = {}
 
 
-def _kernel(name: str, n_ptr: int):
-    """The C entry point ``name``: ``n_ptr`` pointers, then n_chunks, B, S,
-    W and the stream."""
+def _kernel(name: str, n_ptr: int, n_int: int = 4):
+    """The C entry point ``name``: ``n_ptr`` pointers, then ``n_int`` ints
+    (the forward's chunk, then n_chunks, B, S, W) and the stream."""
     if name not in _fns:
         fn = getattr(build.load(), name)
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + \
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + \
             [ctypes.c_void_p]
         _fns[name] = fn
     return _fns[name]
+
+
+def check_chunk(chunk: int) -> None:
+    """Raises ValueError unless the forward kernel takes ``chunk`` (a
+    multiple of ``AHEAD`` from ``AHEAD`` to ``MAX_CHUNK``)."""
+    if not (AHEAD <= chunk <= MAX_CHUNK and chunk % AHEAD == 0):
+        raise ValueError(f"rglru: chunk={chunk} is not a multiple of {AHEAD} "
+                         f"from {AHEAD} to {MAX_CHUNK}")
+
+
+def fit_chunk(block_seq: int) -> int:
+    """The forward chunk for a ``block_seq`` (the reference's knob):
+    rounded down to whole ``AHEAD``-step loads and clamped to the kernel's
+    range.  The kernel takes any S, so the chunk need not divide it."""
+    return min(MAX_CHUNK, max(AHEAD, block_seq // AHEAD * AHEAD))
 
 
 def _scan(a, b):
@@ -111,10 +133,12 @@ def _check(log_a, gated, h0):
         raise ValueError("rglru: all inputs must share one device")
 
 
-def rglru(log_a, gated, *, h0=None):
+def rglru(log_a, gated, *, h0=None, chunk: int = CHUNK):
     """log_a/gated (B,S,W) -> hs (B,S,W) fp32, h starting at ``h0`` (B,W)
-    or zero.  Any S."""
+    or zero.  Any S.  ``chunk``: the kernel's steps a chunk
+    (``check_chunk``); the plain version has none."""
     _check(log_a, gated, h0)
+    check_chunk(chunk)
     if log_a.device.type == "cpu":
         return rglru_plain(log_a, gated, h0=h0)
     if log_a.device.type != "cuda":
@@ -124,15 +148,16 @@ def rglru(log_a, gated, *, h0=None):
             "the rglru forward kernel records no autograd graph and an "
             "input needs a gradient: use RGLRUFn (ops.rglru routes there)")
     y = torch.empty_like(log_a)
-    _launch("repro_rglru_fwd", (log_a, gated, h0), (y,), "rglru")
+    _launch("repro_rglru_fwd", (log_a, gated, h0), (y,), "rglru", chunk)
     rglru.launches += 1
     return y
 
 
-def _launch(name, ins, outs, what):
+def _launch(name, ins, outs, what, chunk=None):
     """Checks the fp32 contiguous inputs and launches ``name`` on
     ``ins + outs`` (None for a null pointer) and a fresh workspace: each
-    chunk's (product of decays, scan from zero), then the carries."""
+    chunk's (product of decays, scan from zero), then the carries.  The
+    forward is passed its ``chunk``; the backward's is ``CHUNK``."""
     given = [t for t in ins if t is not None]
     if not all(t.dtype == torch.float32 for t in given):
         raise TypeError(f"{what} kernel takes float32, not "
@@ -140,13 +165,14 @@ def _launch(name, ins, outs, what):
     if not all(t.is_contiguous() for t in given):
         raise ValueError(f"{what} kernel takes contiguous inputs")
     B, S, W = ins[0].shape
-    n_chunks = -(-S // CHUNK)
+    n_chunks = -(-S // (chunk or CHUNK))
     ws = torch.empty(2 * B * n_chunks * W, dtype=torch.float32,
                      device=ins[0].device)
     ptrs = [None if t is None else t.data_ptr() for t in ins + outs]
+    ints = ([] if chunk is None else [chunk]) + [n_chunks, B, S, W]
     with torch.cuda.device(ins[0].device):
-        rc = _kernel(name, len(ptrs) + 1)(
-            *ptrs, ws.data_ptr(), n_chunks, B, S, W,
+        rc = _kernel(name, len(ptrs) + 1, len(ints))(
+            *ptrs, ws.data_ptr(), *ints,
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed (code {rc}) for "
@@ -182,8 +208,8 @@ class RGLRUFn(torch.autograd.Function):
     forward runs again in the backward pass)."""
 
     @staticmethod
-    def forward(ctx, log_a, gated, h0):
-        hs = rglru(log_a, gated, h0=h0)
+    def forward(ctx, log_a, gated, h0, chunk=CHUNK):
+        hs = rglru(log_a, gated, h0=h0, chunk=chunk)
         ctx.save_for_backward(log_a, hs, h0)
         return hs
 
@@ -191,4 +217,4 @@ class RGLRUFn(torch.autograd.Function):
     def backward(ctx, dy):
         log_a, hs, h0 = ctx.saved_tensors
         dla, dg, dh0 = rglru_bwd(log_a, hs, dy.contiguous(), h0=h0)
-        return dla, dg, dh0
+        return dla, dg, dh0, None

@@ -46,6 +46,9 @@ from repro_torch.kernels.flash_attention import (DESIGNS, check_aligned,
                                                  needs_grad)
 
 CHUNK = 256      # the plain version's chunk: the reference's DEFAULT_SSD_CHUNK
+# the kernels' own chunk length (csrc/ssd.cu SSD_C, which ``kernel_chunk``
+# reads from the library): they run it whatever ``chunk`` they are passed
+KERNEL_CHUNK = 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _fn = None

@@ -47,8 +47,12 @@ def make_run_ctx(cfg: ModelConfig, policy: PolicyConfig, mesh=None, *,
                  seq_len: Optional[int] = None, decode: bool = False,
                  batch: Optional[int] = None) -> RunCtx:
     """``seq_len`` / ``decode`` / ``batch`` key the reference's tuned-tile
-    lookup; the CUDA kernels take no tile arguments yet, so they are
-    accepted and unused until the autotuner is ported."""
+    lookup for ``RunCtx.attn_blocks``, the tiles of its XLA flash path
+    (``repro/train/trainer.py:64-90``).  The port has no such path, and its
+    attention kernels launch the one tile of their design
+    (``kernels/ops.py``), so they are accepted and unused; the knobs that
+    the registry does tune resolve in ``kernels/ops.py`` when a kernel is
+    called."""
     del cfg, seq_len, decode, batch
     if mesh is not None:
         raise NotImplementedError(_MESH)

@@ -188,10 +188,49 @@ def test_calibrated_cost_json_round_trip_and_compute_scale(speedup):
             ref.compute_scale(ref_cfg, ref_shape)
 
 
-def test_from_registry_waits_for_the_registry():
-    assert not hasattr(costmodel.CalibratedCost, "from_registry")
+def test_hlo_readers_wait_for_the_dry_run():
+    """``parse_hlo_collectives`` and ``extract`` read XLA artifacts: they
+    come with the port's dry run (ROADMAP queue A item 7)."""
     assert not hasattr(costmodel, "parse_hlo_collectives")
     assert not hasattr(costmodel, "extract")
+
+
+@pytest.mark.parametrize("installed", [False, True])
+def test_from_registry_equals_the_reference(installed):
+    """The same tuned-config registry on both sides: handed in, or
+    installed as the active one (the reference's would otherwise read its
+    CPU-interpreter file); no registry gives an empty calibration."""
+    from repro.kernels import registry as ref_kreg
+    from repro_torch.kernels import registry as kreg
+    cells = {"decode_attention|b=8,d=128,g=3,t=2048|bfloat16|causal":
+             ({"block_q": 1, "block_k": 64}, 20.0, 25.0),
+             "decode_attention|b=1,d=128,g=3,t=2048|bfloat16|causal":
+             ({"block_q": 1, "block_k": 32}, 11.0, 12.5),
+             "rglru|s=4096,w=2560|float32|": ({"block_seq": 128}, 70., 84.),
+             "ssd|g=1,h=48,n=128,p=64,s=2048|bfloat16|": ({"chunk": 64},
+                                                          0.0, 150.0)}
+    mine, ref = kreg.Registry(), ref_kreg.Registry()
+    for key, (blocks, us, dus) in cells.items():
+        mine.put(key, kreg.TunedEntry(dict(blocks), us, dus, 5, "card"))
+        ref.put(key, ref_kreg.TunedEntry(dict(blocks), us, dus, 5, "card"))
+    try:
+        kreg.set_registry(mine if installed else None)
+        ref_kreg.set_registry(ref if installed else None)
+        got = costmodel.CalibratedCost.from_registry(
+            None if installed else mine)
+        want = ref_costmodel.CalibratedCost.from_registry(
+            None if installed else ref)
+        assert canon(got.to_json()) == canon(want.to_json())
+        assert got.kernel_speedup["decode_attention"] == \
+            (25.0 / 20.0 + 12.5 / 11.0) / 2
+        kreg.set_registry(None)
+        ref_kreg.set_registry(None)
+        assert costmodel.CalibratedCost.from_registry().to_json() == \
+            ref_costmodel.CalibratedCost.from_registry().to_json()
+        assert not costmodel.CalibratedCost.from_registry()
+    finally:
+        kreg.reset_registry()
+        ref_kreg.reset_registry()
 
 
 @pytest.mark.parametrize("name", ["recommend_from_measurements",

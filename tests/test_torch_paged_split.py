@@ -1,7 +1,8 @@
 """The split-KV design of ``csrc/paged_attention.cu``, walked on the CPU.
 
 The kernel cuts each row's token axis into pieces of whole pages
-(``split_pieces``: about 128 tokens), computes one fp32 partial ``(m, l,
+(``split_pieces``: about 128 tokens, or the ``block_k`` tokens that the
+registry or the caller gives), computes one fp32 partial ``(m, l,
 acc)`` per (piece, kv head, sequence) over the piece's live tokens -- a
 piece that starts at or past ``lengths[b]`` computes nothing -- and merges
 the live pieces of each (sequence, kv head) as ``sum_i f_i acc_i /
@@ -13,8 +14,10 @@ reference's Pallas ``paged_decode_attention`` in interpret mode at 1e-5, as
 ``tests/test_torch_kernels.py`` runs it.  The cases cover stablelm-12b's
 D = 160 with G = 4, lengths at and one past a piece boundary, a row shorter
 than one piece, a zero-length row, pieces with no live token, and the
-soft-cap at 0 and 30.
+soft-cap at 0 and 30, and every piece length the autotuner times (16, 32,
+64, 128 and 256 tokens) at D = 160 with a zero-length row.
 """
+import functools
 import math
 
 import jax.numpy as jnp
@@ -32,6 +35,17 @@ from repro_torch.kernels.paged_attention import (NEG_INF, PIECE_TOKENS,
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The walk on one CPU thread: its tensors are small, and beside the
+    other test workers' threads PyTorch's parallel regions stall it (as in
+    ``tests/test_torch_vision.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(B, T, D, G, K, ps, lengths, seed=0):
     """Random q and a paged K/V pool with per-row exclusive, shuffled
     tables; one page no table names."""
@@ -44,7 +58,8 @@ def _inputs(B, T, D, G, K, ps, lengths, seed=0):
     return q, kp, vp, tables, np.asarray(lengths, np.int32)
 
 
-def split_partials(q, k_pages, v_pages, tables, lengths, *, softcap=0.0):
+def split_partials(q, k_pages, v_pages, tables, lengths, *, softcap=0.0,
+                   piece_tokens=PIECE_TOKENS):
     """Each piece's fp32 ``(m, l, acc)`` as the split kernel computes it:
     (B, K, pieces, G), (B, K, pieces, G), (B, K, pieces, G, D).  A piece
     with no live token keeps m = NEG_INF, l = 0, acc = 0."""
@@ -52,7 +67,7 @@ def split_partials(q, k_pages, v_pages, tables, lengths, *, softcap=0.0):
     ps, K = k_pages.shape[1], k_pages.shape[2]
     P = tables.shape[1]
     G = H // K
-    pages, n_pieces = split_pieces(P, ps)
+    pages, n_pieces = split_pieces(P, ps, piece_tokens)
     pt = pages * ps
     m = torch.full((B, K, n_pieces, G), NEG_INF)
     l = torch.zeros((B, K, n_pieces, G))
@@ -105,11 +120,11 @@ def merge(m, l, acc, lengths, piece_tokens, *, only_live=True):
 
 
 def split_kv(q, k_pages, v_pages, tables, lengths, *, softcap=0.0,
-             only_live=True):
+             only_live=True, piece_tokens=PIECE_TOKENS):
     B, H, D = q.shape
-    pages, _ = split_pieces(tables.shape[1], k_pages.shape[1])
+    pages, _ = split_pieces(tables.shape[1], k_pages.shape[1], piece_tokens)
     parts = split_partials(q, k_pages, v_pages, tables, lengths,
-                           softcap=softcap)
+                           softcap=softcap, piece_tokens=piece_tokens)
     out = merge(*parts, lengths, pages * k_pages.shape[1],
                 only_live=only_live)
     return out.reshape(B, H, D)
@@ -143,6 +158,35 @@ def test_split_kv_matches_plain_and_reference_kernel(B, T, D, G, K, ps,
             assert torch.equal(got[b], torch.zeros_like(got[b]))
 
 
+@functools.lru_cache(maxsize=1)
+def _d160_case():
+    """Inputs at D = 160, G = 4 with lengths [300, 129, 0], the plain
+    version's output and the reference kernel's (whose own piece length
+    changes only the rounding): computed once for the piece lengths."""
+    inputs = _inputs(3, 512, 160, 4, 2, 16, [300, 129, 0], seed=2)
+    t = [torch.from_numpy(a) for a in inputs]
+    ref = ref_paged_decode_attention(*(jnp.asarray(a) for a in inputs),
+                                     block_k=128, interpret=True)
+    return t, paged_attention_plain(*t), np.asarray(ref)
+
+
+@pytest.mark.parametrize("piece_tokens", [16, 32, 64, 128, 256])
+def test_every_candidate_piece_length_matches_plain_and_reference_kernel(
+        piece_tokens):
+    """stablelm-12b's D = 160, G = 4 at each piece length the autotuner
+    times: rows past one piece boundary, shorter than one piece (at 256)
+    and of zero length."""
+    t, plain, ref = _d160_case()
+    pages, n = split_pieces(32, 16, piece_tokens)
+    assert (pages * 16, n) == (piece_tokens, 512 // piece_tokens)
+    got = split_kv(*t, piece_tokens=piece_tokens)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **TOL)
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)
+    assert torch.equal(got[2], torch.zeros_like(got[2]))
+    every = split_kv(*t, piece_tokens=piece_tokens, only_live=False)
+    np.testing.assert_allclose(every.numpy(), got.numpy(), **TOL)
+
+
 def test_pieces_without_a_live_token_contribute_nothing():
     """Merged over every piece -- the dead ones with m = NEG_INF, l = 0 --
     the result is the same and finite: exp(NEG_INF - max m) is 0, and a row
@@ -168,4 +212,17 @@ def test_pieces_without_a_live_token_contribute_nothing():
 def test_split_pieces_are_whole_pages_covering_the_table(P, ps, pages, n):
     assert split_pieces(P, ps) == (pages, n)
     assert pages * ps <= max(PIECE_TOKENS, ps)
+    assert (n - 1) * pages < P <= n * pages
+
+
+@pytest.mark.parametrize("P,ps,tokens,pages,n", [
+    (128, 16, 16, 1, 128),           # the autotuner's shortest piece
+    (128, 16, 256, 16, 8),           # and its longest
+    (1, 16, 256, 16, 1),             # a piece longer than the table
+    (10, 12, 40, 3, 4),              # rounded down to whole pages
+])
+def test_split_pieces_of_a_given_length_cover_the_table(P, ps, tokens,
+                                                        pages, n):
+    assert split_pieces(P, ps, tokens) == (pages, n)
+    assert pages * ps <= max(tokens, ps)
     assert (n - 1) * pages < P <= n * pages

@@ -1,15 +1,18 @@
 """The chunked RG-LRU scan of ``csrc/rglru.cu``, walked on the CPU.
 
 The kernel computes ``h_t = exp(log_a_t) h_{t-1} + gated_t`` over chunks of
-``CHUNK`` = 64 steps in three passes: (a) each chunk's composite, ``A_c``
+``CHUNK`` = 64 steps (or the 16, 32, 128 or 256 that the autotuner times)
+in three passes: (a) each chunk's composite, ``A_c``
 (the product of its decays, multiplied step by step) and ``e_c`` (its scan
 from zero); (b) the carries ``h_c = A_c h_{c-1} + e_c`` from ``h0`` or zero;
 (c) each chunk again from its entering carry with the serial arithmetic.
 Here a plain PyTorch version runs exactly those passes in fp32 and is held
 to ``rglru_plain`` at 1e-5 and to the reference's Pallas RG-LRU in interpret
 mode at 2e-5, as ``tests/test_torch_rglru.py`` runs it.  The cases cover a
-ragged last chunk, S shorter than one chunk, B > 1 and ``h0``.
+ragged last chunk, S shorter than one chunk, B > 1 and ``h0``, and every
+chunk length the forward takes from the registry.
 """
+import functools
 import math
 
 import jax.numpy as jnp
@@ -23,6 +26,17 @@ from repro_torch.kernels.rglru import CHUNK, rglru_plain
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 TOL_REF = dict(atol=2e-5, rtol=2e-5)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The walk on one CPU thread: its tensors are small, and beside the
+    other test workers' threads PyTorch's parallel regions stall it (as in
+    ``tests/test_torch_vision.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _inputs(B, S, W, seed=0):
@@ -97,6 +111,29 @@ def test_three_passes_match_plain_and_reference_kernel(B, S, W, with_h0):
                          block_seq=math.gcd(S, 64), impl="pallas",
                          interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL_REF)
+
+
+@functools.lru_cache(maxsize=1)
+def _ragged_case():
+    """(2, 300, 48): ragged for every chunk length; the plain version's
+    output and the reference kernel's, computed once."""
+    log_a, gated, h0 = _inputs(2, 300, 48, seed=5)
+    la, g = torch.from_numpy(log_a), torch.from_numpy(gated)
+    want = ref_ops.rglru(jnp.asarray(log_a), jnp.asarray(gated),
+                         block_seq=math.gcd(300, 64), impl="pallas",
+                         interpret=True)
+    return la, g, torch.from_numpy(h0), rglru_plain(la, g), np.asarray(want)
+
+
+@pytest.mark.parametrize("c", [16, 32, 128, 256])
+def test_every_candidate_chunk_matches_plain_and_reference_kernel(c):
+    la, g, h0, plain, ref = _ragged_case()
+    got = rglru_three_pass(la, g, c=c)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **TOL)
+    np.testing.assert_allclose(got.numpy(), ref, **TOL_REF)
+    with_h0 = rglru_three_pass(la, g, h0, c=c)
+    np.testing.assert_allclose(with_h0.numpy(),
+                               rglru_plain(la, g, h0=h0).numpy(), **TOL)
 
 
 def test_chunk_zero_is_the_serial_arithmetic_exactly():
