@@ -251,6 +251,20 @@ per line, each with ``at_s``, the seconds since the script's imports ended:
                 each run twice: the reports must be byte-identical, every
                 job accounted for, no lease conflict; jobs done, makespan,
                 AUU, pool utilisation, recompositions and ``wall_s``;
+  ladder        the paper's software ladder (§V-4) as the data-parallel
+                layer (``ladder_phase``): qwen2-0.5b at full width on a
+                one-rank NCCL ``DeviceMesh`` (``data`` = 1), each distinct
+                program of ``policy.ladder()`` trained in turns (DP in fp32,
+                DDP+mixed in bf16, ZeRO-3; DDP is DP's program) with B2's
+                kernels at its shape (the ``*_qwen`` rows, G = 7 at D = 64),
+                step p50, tokens/s, memory, launches and the collectives
+                ``hierarchy`` counted, ZeRO-3's parameters bit for bit
+                DDP+mixed's; the int8 error-feedback exchange over
+                its gradients against ``compress``'s math and the
+                ``hierarchy`` prices; the four-rank ``gloo`` rehearsal on
+                the host (``launch/rehearse``; started after the build, it
+                runs beside ``kernel_cases``); each rank's state bytes
+                from the specs;
   summary       the run's elapsed seconds, the kernels' build included;
   kernels       the per-kernel summary line, launches counted on the served
                 and trained runs above (the attention kernels have a row per
@@ -285,6 +299,7 @@ Then the card's name and power limit as ``nvidia-smi`` prints them, and last
 """
 from __future__ import annotations
 
+import concurrent.futures
 import copy
 import ctypes
 import dataclasses
@@ -315,6 +330,8 @@ from repro_torch.cluster.telemetry import ServingStats        # noqa: E402
 from repro_torch import tracking                               # noqa: E402
 from repro_torch.core import compose as compose_mod            # noqa: E402
 from repro_torch.core import costmodel                         # noqa: E402
+from repro_torch.core import hierarchy                         # noqa: E402
+from repro_torch.core import policy as policy_mod              # noqa: E402
 from repro_torch.core.recommend import recommend               # noqa: E402
 from repro_torch.core.topology import (ChipSpec, DEFAULT_LINKS,  # noqa: E402
                                        LinkClass, make_pool)
@@ -348,8 +365,11 @@ from repro_torch.models import layers as layers_mod            # noqa: E402
 from repro_torch.models import moe as moe_mod                  # noqa: E402
 from repro_torch.models.lm import LM                           # noqa: E402
 from repro_torch.models.ssm import ssd_decode_step             # noqa: E402
+from repro_torch.launch import rehearse                        # noqa: E402
+from repro_torch.launch.mesh import (make_mesh,                # noqa: E402
+                                     make_production_mesh)
 from repro_torch.optim import (AdamWConfig, ScheduleConfig,    # noqa: E402
-                               global_norm)
+                               compress, global_norm)
 from repro_torch.serve import AsyncServeEngine, ServeRequest   # noqa: E402
 from repro_torch.serve.engine import (make_decode_step,        # noqa: E402
                                       make_prefill_step)
@@ -4851,6 +4871,306 @@ def cluster_phase():
          phase_s=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# the paper's software ladder (§V-4) as the data-parallel layer
+# ---------------------------------------------------------------------------
+LADDER_ARCH = "qwen2-0.5b"
+# the distinct programs of ``policy.ladder()``: DDP differs from DP only in
+# ``hierarchical_allreduce``, which changes nothing in the step (as in the
+# reference), so it is DP's program and is not timed twice
+LADDER_RUNGS = ("DP", "DDP+mixed", "DDP+mixed+sharded")
+LADDER_TIMED = 3                # after one warm-up step each, in turns
+LADDER_LR = 3e-4
+EF_REPS = 3
+EF_WORLDS = (4, 8)              # cards priced for the int8 exchange
+STATE_ARCHS = ("stablelm-12b", "moonshot-v1-16b-a3b",
+               "llama4-scout-17b-a16e")
+STATE_WORLDS = (1, 2, 4, 8, 16)
+
+
+def _tensor_bytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if torch.is_tensor(t))
+
+
+def _ladder_steps(cfg, mesh):
+    """(a): each program of ``LADDER_RUNGS`` on ``mesh`` from seed 0, one
+    warm-up step each, then ``LADDER_TIMED`` rounds in turns; every step
+    launches B2's kernels as llama's steps do (two stats-emitting forwards,
+    one dK/dV and one dQ per layer) and each rung's first loss is held to
+    the same step without a mesh (2e-2, the ``train`` check), which is held
+    to the plain attention's (2e-2).  Returns (the line's fields, the
+    bf16 rungs' launches, the DP rung's last gradients)."""
+    base = PolicyConfig(param_dtype="float32", remat="block",
+                        attn_impl="kernel", dp_axes=("data",))
+    rungs = policy_mod.ladder(base)
+    check(dataclasses.replace(rungs["DDP"], hierarchical_allreduce=False)
+          == rungs["DP"], "ladder: DDP is not DP's program")
+    optcfg = AdamWConfig(lr=LADDER_LR)
+    sched = ScheduleConfig(kind="cosine", peak_lr=LADDER_LR, warmup_steps=1,
+                           total_steps=1 + LADDER_TIMED)
+    ds = SyntheticDataset(cfg, TRAIN_SHAPE, seed=0)
+    batches = [ds.batch_at(i) for i in range(1 + LADDER_TIMED)]
+    n = cfg.n_layers
+    want = dict({k: 0 for k in ops.launch_counts()},
+                flash_attention_fwd_stats=2 * n, flash_attention_bwd_dkv=n,
+                flash_attention_bwd_dq=n)
+    # the same first step without a mesh, through the kernels and through
+    # the plain attention, in each compute dtype
+    no_mesh = {}
+    model = LM.init(cfg, seed=0, device=DEV)
+    for dt in ("float32", "bfloat16"):
+        pol = dataclasses.replace(base, compute_dtype=dt)
+        got = _grads(model, pol, batches[0])[1]
+        plain = _grads(model, dataclasses.replace(pol, attn_impl="full"),
+                       batches[0])[1]
+        check(abs(got - plain) <= 2e-2 * abs(plain),
+              f"ladder: {dt} first loss {got} vs {plain} through the plain "
+              f"attention (> 2e-2)")
+        no_mesh[dt] = {"kernels": got, "plain_attention": plain}
+    del model
+    torch.cuda.empty_cache()
+
+    states, steps, rows = {}, {}, {}
+    for name in LADDER_RUNGS:
+        pol = rungs[name]
+        states[name] = trainer.init_state(cfg, pol, optcfg, seed=0,
+                                          device=DEV, mesh=mesh)
+        steps[name] = trainer.make_train_step(cfg, pol, optcfg, sched,
+                                              mesh=mesh, shape=TRAIN_SHAPE)
+        rows[name] = {"zero_stage": pol.zero_stage,
+                      "compute_dtype": pol.compute_dtype,
+                      "state_bytes": _tensor_bytes(checkpoint._leaves(
+                          states[name]).values()),
+                      "losses": [], "step_s": [], "step_peak_extra_bytes": []}
+    launches = {name: {k: 0 for k in want} for name in LADDER_RUNGS}
+
+    def step(name, i):
+        fn = steps[name]
+        fn.traffic.reset()
+        before = ops.launch_counts()
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        states[name], m = fn(states[name], batches[i])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        after = ops.launch_counts()
+        per = {k: after[k] - before[k] for k in after}
+        check(per == want, f"ladder {name} step {i}: launches {per} != "
+                           f"{want}")
+        r = rows[name]
+        r["losses"].append(float(m["loss"]))
+        r["step_s"].append(dt)
+        r["step_peak_extra_bytes"].append(
+            torch.cuda.max_memory_allocated() - start)
+        r["collectives_per_step"] = fn.traffic.report()
+        return per
+
+    for name in LADDER_RUNGS:               # warm-up
+        step(name, 0)
+        dt = rows[name]["compute_dtype"]
+        first, ref = rows[name]["losses"][0], no_mesh[dt]["kernels"]
+        check(abs(first - ref) <= 2e-2 * abs(ref),
+              f"ladder {name}: first loss {first} vs {ref} without a mesh")
+    ops.reset_launch_counts()               # just before the main path
+    for i in range(1, 1 + LADDER_TIMED):
+        for name in LADDER_RUNGS:
+            per = step(name, i)
+            for k in per:
+                launches[name][k] += per[k]
+    counts = ops.launch_counts()            # just after
+    check(counts == {k: sum(launches[r][k] for r in LADDER_RUNGS)
+                     for k in counts}, f"ladder: launches {counts}")
+    for name, r in rows.items():
+        check(all(np.isfinite(r["losses"])), f"ladder {name}: losses "
+                                             f"{r['losses']}")
+        p50 = float(np.median(r["step_s"][1:]))
+        r.update(step_s_p50=p50, tokens_per_s=TRAIN_SHAPE.tokens / p50,
+                 step_peak_extra_bytes=max(r["step_peak_extra_bytes"][1:]),
+                 launches_per_step={k: v for k, v in want.items() if v},
+                 launches_timed=launches[name])
+    # ZeRO-3 against DDP+mixed after the same steps: on one rank every
+    # gather and reduce-scatter is a copy and the norm is summed in the
+    # same order, so the two programs compute the same numbers
+    z3 = dict(states["DDP+mixed+sharded"].model.named_parameters())
+    errs = {}
+    for name, p in states["DDP+mixed"].model.named_parameters():
+        scale = float(p.detach().abs().max()) or 1.0
+        err = float((z3[name].detach() - p.detach()).abs().max())
+        errs[name] = (err / scale, err, scale)
+    worst = max(v[0] for v in errs.values())
+    top = sorted(errs.items(), key=lambda kv: -kv[1][0])[:5]
+    check(worst == 0.0, f"ladder: ZeRO-3's parameters differ from "
+                        f"DDP+mixed's on one rank, by up to {worst} of a "
+                        f"leaf's max-abs; largest {top}")
+    grads = {n: p.grad for n, p in states["DP"].model.named_parameters()}
+    bf16_launches = {k: launches["DDP+mixed"][k]
+                     + launches["DDP+mixed+sharded"][k] for k in want}
+    fields = {"rungs": rows,
+              "DDP": "DP's program (hierarchical_allreduce only names the "
+                     "rung; the step is the same), not timed twice",
+              "first_step_without_mesh": no_mesh,
+              "zero3_vs_ddp_mixed": {"worst_over_max_abs": worst,
+                                     "bit_identical": worst == 0.0,
+                                     "largest": top},
+              "max_memory_allocated_all_states":
+                  torch.cuda.max_memory_allocated()}
+    del states, steps, z3
+    return fields, bf16_launches, grads
+
+
+def _ladder_int8(mesh, grads):
+    """(b): ``allreduce_int8_ef`` over the gradient tree on the one-rank
+    group, bit for bit ``compress``'s math at world size 1, timed with CUDA
+    events (encode, gather and decode of every leaf, host launch gaps
+    included), beside ``hierarchy``'s prices of the exchange it stands for
+    on each link class of the port's table."""
+    traffic = hierarchy.Traffic()
+    group = hierarchy.axis_group(mesh, ("data",), traffic)
+    zeros = hierarchy.init_residual(grads)
+    out, res = hierarchy.allreduce_int8_ef(grads, zeros, group)
+    for n, g in grads.items():
+        q, scale, new_r = compress.ef_compress_leaf(g, zeros[n])
+        check(torch.equal(out[n], compress.int8_decode(q, scale))
+              and torch.equal(res[n], new_r),
+              f"ladder int8: {n} differs from compress's math")
+    del out, res
+    ms = []
+    for _ in range(EF_REPS):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        a.record()
+        hierarchy.allreduce_int8_ef(grads, zeros, group)
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    codec_ms = float(np.median(ms))
+    nbytes = _tensor_bytes(grads.values())
+    fast = DEFAULT_LINKS[LinkClass.LOCAL].bandwidth
+    prices = {}
+    for cls, link in DEFAULT_LINKS.items():
+        for n in EF_WORLDS:
+            # two pods of n / 2 cards on NVLink, joined by ``cls``; the int8
+            # hop carries 1 / (n / 2) of the gradient, so of the codec too
+            f = n // 2
+            fp32 = hierarchy.hierarchical_time(nbytes, f, 2, fast,
+                                               link.bandwidth) * 1e3
+            int8 = hierarchy.hierarchical_time(
+                nbytes, f, 2, fast, link.bandwidth,
+                compress=1 / compress.compression_ratio()) * 1e3
+            codec = codec_ms / f
+            prices[f"{cls.value}/n{n}"] = {
+                "slow_link_gb_per_s": link.bandwidth / 1e9,
+                "flat_fp32_ms": hierarchy.flat_time(
+                    nbytes, n, link.bandwidth) * 1e3,
+                "hierarchical_fp32_ms": fp32,
+                "hierarchical_int8_ms": int8,
+                "codec_ms_on_the_slow_hop_share": codec,
+                "int8_pays": fp32 - int8 > codec}
+    return {"leaves": len(grads), "grad_bytes": nbytes,
+            "bit_identical_to_compress": True, "codec_ms": ms,
+            "codec_ms_p50": codec_ms,
+            "codec_gb_per_s": nbytes / (codec_ms / 1e3) / 1e9,
+            "collectives": traffic.report(), "prices": prices}
+
+
+def _state_bytes_by_world():
+    """(d): the bytes of parameters, gradients and both AdamW moments (fp32,
+    ``TRAIN_POLICY``) each rank holds under ZeRO 0 / 1 / 3 at ``data`` =
+    ``STATE_WORLDS``, from the specs (activations not counted), and the
+    smallest world where they fit the card."""
+    out = {}
+    for arch in STATE_ARCHS:
+        cfg = get_config(arch)
+        meta = LM(cfg, device="meta")
+        shapes = {n: tuple(p.shape) for n, p in meta.named_parameters()}
+        full = sum(int(np.prod(s)) for s in shapes.values()) * 4
+        rows = {}
+        for zero in (0, 1, 3):
+            pol = PolicyConfig(zero_stage=zero)
+            per = {}
+            for n in STATE_WORLDS:
+                axes = {"data": n}
+                ps = policy_mod.param_specs(meta, cfg, pol, axes)
+                ms = policy_mod.opt_state_specs(meta, cfg, pol, axes)
+
+                def local(specs):
+                    return 4 * sum(int(np.prod(policy_mod.local_shape(
+                        s, specs[k], axes))) for k, s in shapes.items())
+
+                params = local(ps)
+                per[n] = params + (params if zero >= 3 else full) \
+                    + 2 * local(ms)
+            fits = [n for n in STATE_WORLDS if per[n] <= CHIP.hbm_bytes]
+            rows[f"zero{zero}"] = {"bytes_per_rank": per,
+                                   "smallest_world_fitting": min(fits)
+                                   if fits else None}
+        out[arch] = {"params": full // 4, "n_layers": cfg.n_layers,
+                     "hbm_bytes": CHIP.hbm_bytes, **rows}
+    return out
+
+
+def ladder_phase(rehearsal=None):
+    """The ``ladder`` line: (a) ``_ladder_steps`` and the (q) rows, B2 at
+    qwen2-0.5b's trained shape (2 x 4096 tokens, 14 heads over 2 of 64:
+    G = 7) against its plain versions with the bound and
+    ``scaled_dot_product_attention``'s time; (b) ``_ladder_int8``; (c) the
+    four-rank ``gloo`` rehearsal on the host's CPU
+    (``rehearse.rehearse``: ZeRO-3 against DP on ``data`` = 4, the int8
+    exchange on ``(pod, data) = (2, 2)``, a checkpoint saved on four ranks
+    and resumed on two: ``rehearsal``, a future of it that ``main``
+    starts after the build, else run here); (d) ``_state_bytes_by_world``.
+    Returns the (q) rows and the bf16 rungs' launches."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    cfg = get_config(LADDER_ARCH)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    with torch.no_grad():
+        *q_rows, q_faults = bwd_main_shape(gen, cfg, *TRAIN_SHAPE_BS)
+    torch.cuda.empty_cache()
+    t_rows = time.perf_counter()
+    # one rank: NCCL still runs every collective, shard and gather
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1,), ("data",), device="cuda")
+        try:
+            make_production_mesh()
+            check(False, "ladder: a production mesh of 256 on one rank")
+        except RuntimeError as e:
+            check("need 256 devices" in str(e), f"ladder: {e}")
+        fields, launches, grads = _ladder_steps(cfg, mesh)
+        t_steps = time.perf_counter()
+        int8 = _ladder_int8(mesh, grads)
+    finally:
+        dist.destroy_process_group()
+    del grads
+    torch.cuda.empty_cache()
+    t_int8 = time.perf_counter()
+    rehearsal = (rehearse.rehearse() if rehearsal is None
+                 else rehearsal.result())
+    check(rehearsal["ok"], f"ladder: the four-rank rehearsal failed "
+                           f"{rehearsal}")
+    t_rehearsal = time.perf_counter()
+    states = _state_bytes_by_world()
+    emit("ladder", arch=cfg.name, n_layers=cfg.n_layers,
+         params=cfg.param_count(), batch=TRAIN_SHAPE.global_batch,
+         seq=TRAIN_SHAPE.seq_len, mesh={"data": 1}, backend="nccl",
+         param_dtype="float32", remat="block", **fields,
+         launches_bf16_rungs_timed=launches,
+         b2_at_this_shape={"planted_faults_rejected": q_faults},
+         int8_ef=int8, rehearsal_four_gloo_ranks=rehearsal,
+         state_bytes_per_rank=states,
+         phase_s={"b2_rows": t_rows - t0, "steps": t_steps - t_rows,
+                  "int8": t_int8 - t_steps,
+                  "rehearsal_wait": t_rehearsal - t_int8,
+                  "total": time.perf_counter() - t0})
+    return q_rows, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script proves the port on "
@@ -4873,6 +5193,12 @@ def main() -> int:
          nvcc=nvcc.stdout.strip().splitlines()[-1],
          python=sys.version.split()[0], kernel_build_s=build.build_seconds,
          kernel_sources=[os.path.relpath(p, ROOT) for p in build.sources()])
+    # the ``ladder`` line's four-rank rehearsal needs only the host's CPU:
+    # it runs from here on, while ``kernel_cases`` times the kernels on the
+    # card (CUDA events around graph replays), and the line reads it
+    host = concurrent.futures.ThreadPoolExecutor(1)
+    rehearsal = host.submit(rehearse.rehearse)
+    host.shutdown(wait=False)
 
     cfg = get_config(ARCH)
     slm = get_config(STABLELM_ARCH)
@@ -4995,6 +5321,8 @@ def main() -> int:
     # control plane at the card's constants
     elastic_phase()
     cluster_phase()
+    # the paper's ladder on a one-rank NCCL mesh: sub-row (q)
+    q_rows, n_ladder = ladder_phase(rehearsal)
 
     def row(name, source, replaces, launches, main, kernel_design):
         head = main[-1]                     # the largest main-path shape
@@ -5082,6 +5410,13 @@ def main() -> int:
                                    bwd_ref, mc["bwd_moonshot"]):
         rows.append(row(f"{name}_moonshot", src, ref,
                         n_moe["train_moonshot"][name], [got], got["design"]))
+    # qwen2-0.5b's trained attention (G = 7 at D = 64) on the ladder's
+    # bf16 rungs
+    for name, src, ref, des, got in zip(
+            TRAIN_KERNELS, (fa_src, bwd_src, bwd_src), bwd_ref, designs,
+            q_rows):
+        rows.append(row(f"{name}_qwen", src, ref, n_ladder[name], [got],
+                        des(got["shape"][-1], bf16)))
     emit("summary", elapsed_s=time.perf_counter() - t_start,
          kernel_build_s=build.build_seconds)
     print(json.dumps({"kernels": rows}), flush=True)

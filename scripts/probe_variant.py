@@ -63,11 +63,18 @@ and the card's own figures against the port's constants:
                   the phase's checks: the card beats no constant by more
                   than 5 %).
 
+and one phase of ``chip_smoke`` alone:
+
+  ladder          ``chip_smoke.ladder_phase`` (its ``ladder`` line: the
+                  paper's ladder on a one-rank NCCL mesh, the int8
+                  exchange, the four-rank rehearsal, per-rank bytes).
+
 Run from the repository root (no name runs every probe):
 
     python3 scripts/probe_variant.py [fwd_d256_pv] [ssd_bwd_heads]
         [ssd_bwd_parts] [dkv_d256_parts] [dq_d256_parts] [bert_gather]
         [vision_layout] [moe_train_lr] [moe_split_count] [card_figures]
+        [ladder]
 
 Prints the card's name and power limit, then one JSON object per case,
 draw and round of turns, and exits non-zero without a CUDA device or on a
@@ -604,11 +611,20 @@ def card_figures(gen) -> None:
               flush=True)
 
 
+def ladder(gen) -> None:
+    """``chip_smoke.ladder_phase`` alone, after the build."""
+    del gen
+    build.load()
+    with torch.enable_grad():
+        cs.ladder_phase()
+
+
 PROBES = {"fwd_d256_pv": fwd_d256_pv, "ssd_bwd_heads": ssd_bwd_heads,
           "ssd_bwd_parts": ssd_bwd_parts, "dkv_d256_parts": dkv_d256_parts,
           "dq_d256_parts": dq_d256_parts, "bert_gather": bert_gather,
           "vision_layout": vision_layout, "moe_train_lr": moe_train_lr,
-          "moe_split_count": moe_split_count, "card_figures": card_figures}
+          "moe_split_count": moe_split_count, "card_figures": card_figures,
+          "ladder": ladder}
 
 
 def main(names) -> int:

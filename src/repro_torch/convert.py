@@ -23,7 +23,7 @@ the reference's HWIO to PyTorch's OIHW.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -145,11 +145,39 @@ def to_reference(model: LM, leaf: Optional[Callable] = None
     ``by_name(model, state.opt.m)`` for AdamW's first moments -- so that
     gradients and optimizer state compare leaf by leaf with the
     reference's."""
-    cfg = model.cfg
     pick = leaf if leaf is not None else (lambda p: p)
+    return _reference_tree(
+        model, lambda p: pick(p).detach().float().cpu().numpy(), np.stack)
 
-    def arr(p):
-        return pick(p).detach().float().cpu().numpy()
+
+def reference_paths(model: LM) -> Dict[str, Tuple[str, Tuple[int, ...]]]:
+    """Each parameter's name -> (its leaf's path in the reference's pytree,
+    ``"stack/seg0/slot0/attn/wq"`` as ``jax.tree_util`` keys join with
+    ``/``, and that leaf's shape: stacked, with the segment's repeat count
+    first, where the segment scans).  Shapes only, so a model on the
+    ``meta`` device will do."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    tree = _reference_tree(model, lambda p: [(names[id(p)], tuple(p.shape))],
+                           lambda per: [x for layer in per for x in layer])
+    out: Dict[str, Tuple[str, Tuple[int, ...]]] = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, f"{path}/{k}" if path else k)
+            return
+        shape = t[0][1] if len(t) == 1 else (len(t),) + t[0][1]
+        out.update({name: (path, shape) for name, _ in t})
+
+    walk(tree, "")
+    return out
+
+
+def _reference_tree(model: LM, arr: Callable, stack: Callable
+                    ) -> Dict[str, Any]:
+    """The reference's pytree with ``arr(param)`` at each leaf and
+    ``stack([leaf of each repeat])`` where a segment scans."""
+    cfg = model.cfg
 
     def norm(m):
         out = {"scale": arr(m.scale)}
@@ -182,18 +210,18 @@ def to_reference(model: LM, leaf: Optional[Callable] = None
     def stack_trees(trees):
         if isinstance(trees[0], dict):
             return {k: stack_trees([t[k] for t in trees]) for k in trees[0]}
-        return np.stack(trees)
+        return stack(trees)
 
     layers = [block_tree(b) for b in model.stack.blocks]
-    stack, at = {}, 0
+    stack_tree, at = {}, 0
     for si, (unit, k) in enumerate(plan_segments(cfg.pattern)):
         seg = {}
         for slot in range(len(unit)):
             per = [layers[at + rep * len(unit) + slot] for rep in range(k)]
             seg[f"slot{slot}"] = stack_trees(per) if k > 1 else per[0]
-        stack[f"seg{si}"] = seg
+        stack_tree[f"seg{si}"] = seg
         at += k * len(unit)
-    out = {"embed": {"table": arr(model.embed)}, "stack": stack,
+    out = {"embed": {"table": arr(model.embed)}, "stack": stack_tree,
            "final_norm": norm(model.final_norm)}
     if not cfg.tie_embeddings:
         out["head"] = {"table": arr(model.head)}

@@ -13,9 +13,11 @@ Composable operations:
   * ``recompose(...)``         — swap fabric/axes after failure or resize
   * ``PRESETS``                — the paper's five Table III configurations
 
-``ComposedSystem.mesh()`` / ``abstract_mesh()`` make a ``jax.Mesh`` in the
-reference.  Here they become a ``torch`` device mesh with the parallel layer
-(ROADMAP queue A item 7) and raise until then; the pricing needs no mesh.
+``ComposedSystem.mesh()`` makes the composition's ``torch`` ``DeviceMesh``
+over an initialised process group (``launch/mesh.make_mesh``), where the
+reference makes a ``jax.Mesh``; ``abstract_mesh()`` is the ``{axis: size}``
+mapping the policy engine takes (the reference's ``AbstractMesh``), and
+needs no group.  The pricing needs no mesh.
 """
 from __future__ import annotations
 
@@ -27,10 +29,6 @@ import numpy as np
 from repro_torch.core.topology import (
     LOCAL_NVME, SWITCH_NVME, ChipSpec, DevicePool, FabricSpec, LeaseError,
     LinkClass, StorageSpec, make_pool)
-
-
-_MESH = ("meshes are not ported yet: ROADMAP queue A item 7 (the parallel "
-         "layer)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,13 +62,15 @@ class ComposedSystem:
         return self.shape[axis]
 
     # --------------------------------------------------------------- mesh --
-    def mesh(self, devices=None):
-        """The reference's ``jax.Mesh``; a device mesh arrives with the
-        parallel layer."""
-        raise NotImplementedError(_MESH)
+    def mesh(self, device: str = "cuda"):
+        """The composition's ``DeviceMesh`` over the initialised process
+        group, one rank a device (``launch/mesh.make_mesh``)."""
+        from repro_torch.launch.mesh import make_mesh
+        return make_mesh(self.axis_sizes, self.axis_names, device=device)
 
-    def abstract_mesh(self):
-        raise NotImplementedError(_MESH)
+    def abstract_mesh(self) -> Dict[str, int]:
+        """The mesh's ``{axis: size}``, what ``core/policy`` takes."""
+        return dict(self.shape)
 
     # ----------------------------------------------------------- pricing --
     def axis_bandwidth(self, axis: str) -> float:

@@ -1,0 +1,456 @@
+"""Rehearse the data-parallel layer on the CPU: ``world`` processes in one
+``gloo`` group, each a rank of a ``DeviceMesh``, running the mesh step
+(``train/trainer.py``), the int8 error-feedback exchange
+(``core/hierarchy.py``) and an elastic shrink (``train/elastic.py``).  What
+the multi-card half of the layer does between cards, a card cannot show
+alone; four processes can, at a reduced size.
+
+  PYTHONPATH=src python -m repro_torch.launch.rehearse
+
+prints one JSON line: ZeRO-3 against DP on ``data = 4``, the int8 exchange
+on ``(pod, data) = (2, 2)`` against the same arithmetic in numpy, and a
+checkpoint saved on 4 ranks and resumed on the first 2 of them after the
+others' devices fail; exit 0 when all hold.
+
+Each rank runs on one thread, meets the others through a ``FileStore`` in
+a temporary directory (no port), and gives its group a timeout; ``spawn``
+joins with a timeout and kills what is left, so a hang fails the call and
+stalls nothing.  The ranks import neither JAX nor the reference: a caller
+that compares with the reference hands numpy arrays in and gets numpy
+arrays back.
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import json
+import os
+import queue
+import shutil
+import sys
+import tempfile
+import time
+import traceback
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
+
+import numpy as np
+
+GROUP_TIMEOUT_S = 60.0          # a collective that no peer reaches fails
+
+
+def spawn(fn: Callable, world: int, *args, timeout: float = 120.0,
+          store_dir: Optional[str] = None) -> List[Any]:
+    """``fn(rank, world, *args)`` in ``world`` fresh processes of one
+    ``gloo`` group; returns each rank's result in rank order.  Raises with
+    the ranks' tracebacks when one fails, and when they have not all
+    answered within ``timeout`` seconds (the processes are killed).  The
+    rendezvous file goes to a new directory under ``store_dir``."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="rehearse_", dir=store_dir)
+    answers = ctx.Queue()
+    procs = [ctx.Process(target=_rank, daemon=True,
+                         args=(rank, world, os.path.join(tmp, "store"), fn,
+                               args, answers))
+             for rank in range(world)]
+    results: List[Any] = [None] * world
+    errors: List[str] = []
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.start()
+        for _ in range(world):
+            try:
+                rank, ok, value = answers.get(
+                    timeout=max(deadline - time.monotonic(), 0.1))
+            except queue.Empty:
+                errors.append(f"no answer within {timeout} s")
+                break
+            if not ok:
+                errors.append(f"rank {rank}:\n{value}")
+                break
+            results[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=max(deadline - time.monotonic(), 1.0)
+                   if not errors else 1.0)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(5.0)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if errors:
+        raise RuntimeError(f"{getattr(fn, '__name__', fn)} on {world} "
+                           f"ranks failed: " + "\n".join(errors))
+    return results
+
+
+def _rank(rank, world, store, fn, args, answers):
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(store, world), rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+        answers.put((rank, True, fn(rank, world, *args)))
+    except Exception:       # the boundary: report it to the parent
+        answers.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# what the ranks run
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Job:
+    """One training run on a mesh: ``reduced(arch, n_layers)`` in fp32 with
+    per-block remat, ZeRO stage ``zero``, ``steps`` steps of ``batch`` x
+    ``seq`` synthetic tokens (step i's batch: ``make_batch(..., step=i)``)."""
+    arch: str = "qwen2-0.5b"
+    n_layers: int = 2
+    mesh: Tuple[Tuple[str, int], ...] = (("data", 4),)
+    zero: int = 0
+    compression: str = "none"
+    steps: int = 1
+    batch: int = 8
+    seq: int = 32
+    lr: float = 1e-3
+    masked: bool = False            # a loss mask, uneven over the ranks
+    grad_accum: int = 1
+
+    def cfg(self):
+        from repro_torch.configs import get_config, reduced
+        return reduced(get_config(self.arch), n_layers=self.n_layers)
+
+    def policy(self):
+        from repro_torch.configs.base import PolicyConfig
+        axes = tuple(a for a, _ in self.mesh if a != "model")
+        return PolicyConfig(dp_axes=axes, zero_stage=self.zero,
+                            compute_dtype="float32",
+                            grad_compression=self.compression,
+                            grad_accum=self.grad_accum, remat="block",
+                            attn_impl="kernel")
+
+    def batch_at(self, i: int):
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.data import make_batch
+        batch = make_batch(self.cfg(), ShapeConfig("rehearse", self.seq,
+                                                   self.batch, "train"),
+                           step=i)
+        if self.masked:
+            r = np.random.RandomState(i)
+            keep = r.rand(self.batch, self.seq) < np.linspace(
+                0.1, 0.9, self.batch)[:, None]
+            batch["mask"] = keep.astype(np.float32)
+        return batch
+
+
+def _model(job: Job, weights: Optional[Mapping[str, Any]], seed: int):
+    from repro_torch import convert
+    from repro_torch.models.lm import LM
+    if weights is None:
+        return LM.init(job.cfg(), seed=seed, device="cpu")
+    return convert.from_reference(weights, job.cfg(), device="cpu")
+
+
+def _state(job: Job, mesh, weights=None, seed: int = 0):
+    """The job's state on ``mesh``, from the reference's ``weights`` (a
+    pytree of numpy arrays) or else from ``seed``."""
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import trainer
+    return trainer.TrainState.create(_model(job, weights, seed),
+                                     job.policy(), AdamWConfig(lr=job.lr),
+                                     mesh=mesh)
+
+
+def _whole(state) -> Dict[str, np.ndarray]:
+    from repro_torch.train import checkpoint
+    # copies: the state's own tensors go on changing
+    return {k: np.array(x.detach().float() if hasattr(x, "detach") else x)
+            for k, x in checkpoint.whole_leaves(state)}
+
+
+def _steps(job: Job, state, mesh, first: int, last: int):
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import trainer
+    step = trainer.make_train_step(job.cfg(), job.policy(),
+                                   AdamWConfig(lr=job.lr), mesh=mesh)
+    metrics = []
+    for i in range(first, last):
+        state, m = step(state, job.batch_at(i))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return state, metrics, step.traffic.report()
+
+
+def train_jobs(rank: int, world: int, jobs, weights=None) -> List[dict]:
+    """Each job from the same weights (``weights[arch]``, else seed 0) on
+    its mesh; rank 0 returns the whole parameters after the steps, the
+    metrics of every step and the step's collective traffic, and for a
+    job with gradient compression also the first moments and the int8
+    residuals (``m``, ``ef``), whole."""
+    from repro_torch.launch.mesh import make_mesh
+    out = []
+    for job in jobs:
+        mesh = make_mesh([s for _, s in job.mesh], [a for a, _ in job.mesh],
+                         device="cpu")
+        state = _state(job, mesh, (weights or {}).get(job.arch))
+        state, metrics, traffic = _steps(job, state, mesh, 0, job.steps)
+        whole = _whole(state)
+        prefixes = {"params": "params/"}
+        if job.compression != "none":
+            prefixes.update(m="opt/m/", ef="ef/")
+        row = {part: {k[len(pre):]: v for k, v in whole.items()
+                      if k.startswith(pre)}
+               for part, pre in prefixes.items()}
+        out.append(dict(row, metrics=metrics, traffic=traffic)
+                   if rank == 0 else None)
+    return out
+
+
+def int8_exchange(rank: int, world: int, seed: int, steps: int = 2):
+    """``allreduce_int8_ef`` over the pod axis of a ``(pod, data) = (2,
+    world // 2)`` mesh, ``steps`` times with the residual carried: a tree
+    of three leaves drawn from ``(seed, step, rank)``.  Every rank returns
+    its inputs, outputs and residuals."""
+    import torch
+    from repro_torch.core import hierarchy
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((2, world // 2), ("pod", "data"), device="cpu")
+    traffic = hierarchy.Traffic()
+    pods = hierarchy.axis_group(mesh, ("pod",), traffic)
+    shapes = {"a": (37, 53), "b": (1000,), "c": (4, 8, 16)}
+    res = None
+    rows = []
+    for s in range(steps):
+        r = np.random.RandomState([seed, s, rank])
+        tree = {k: torch.from_numpy((r.standard_normal(sh) * 10.0 ** r.uniform(
+            -3, 1)).astype(np.float32)) for k, sh in shapes.items()}
+        if res is None:
+            res = hierarchy.init_residual(tree)
+        out, res = hierarchy.allreduce_int8_ef(tree, res, pods)
+        rows.append({"g": {k: v.numpy() for k, v in tree.items()},
+                     "out": {k: v.numpy() for k, v in out.items()},
+                     "res": {k: v.numpy() for k, v in res.items()}})
+    return {"coord": mesh.get_coordinate(), "steps": rows,
+            "traffic": traffic.report()}
+
+
+def save_and_go_on(rank: int, world: int, job: Job, ckpt_dir: str,
+                   save_at: int):
+    """The uninterrupted run of an elastic pair: a composition of
+    ``job.mesh``'s ``data`` ranks in a modelled pool, the job's steps with
+    a checkpoint after ``save_at``; then half the devices fail and the
+    composition shrinks.  Returns (rank 0: the run's metrics, the traffic
+    of the steps after the save, the final state whole and the events,
+    else None; every rank: the shrunk system)."""
+    from repro_torch.core import compose
+    from repro_torch.core.topology import LinkClass, make_pool
+    from repro_torch.train import checkpoint, elastic
+    n = dict(job.mesh)["data"]
+    pool = make_pool(n, 0, pods=1)
+    system = compose.compose(pool, "rehearsal", ("data",), (n,),
+                             {"data": LinkClass.LOCAL})
+    mesh = system.mesh(device="cpu")
+    state = _state(job, mesh)
+    state, before, _ = _steps(job, state, mesh, 0, save_at)
+    checkpoint.save(ckpt_dir, save_at, state)
+    state, after, traffic = _steps(job, state, mesh, save_at, job.steps)
+    run = elastic.ElasticRun(system, ckpt_dir)
+    new = elastic.handle_failure(run, pool, system.device_uids[n // 2:],
+                                 step=save_at)
+    whole = _whole(state)
+    out = {"metrics": before + after, "whole": whole, "system": new,
+           "traffic": traffic,
+           "events": [dataclasses.asdict(e) for e in run.events]}
+    return (out if rank == 0 else None), new
+
+
+def resume_and_go_on(rank: int, world: int, job: Job, ckpt_dir: str,
+                     system):
+    """The resumed half: ``system`` (the shrunk composition) as a mesh of
+    the group's first ranks (the others stop), a state drawn from another
+    seed laid out on it, ``elastic.resume`` from the checkpoint, then the
+    remaining steps.  Rank 0 returns the restored state whole, the
+    metrics and the final state whole."""
+    from repro_torch.train import elastic, trainer
+    mesh = system.mesh(device="cpu")
+    if mesh.get_coordinate() is None:
+        return None
+    job = dataclasses.replace(job, mesh=tuple(system.shape.items()))
+    state = _state(job, mesh, seed=5)
+    run = elastic.ElasticRun(system, ckpt_dir)
+    specs = trainer.state_specs(state, job.cfg(), job.policy(),
+                                dict(system.shape))
+    state, step = elastic.resume(run, state, mesh, specs)
+    restored = _whole(state)
+    state, metrics, _ = _steps(job, state, mesh, step, job.steps)
+    whole = _whole(state)
+    return {"step": step, "restored": restored, "metrics": metrics,
+            "whole": whole,
+            "events": [dataclasses.asdict(e) for e in run.events]} \
+        if rank == 0 else None
+
+
+def four_ranks(rank: int, world: int, jobs, weights, ckpt_dir: str,
+               save_job: Job, save_at: int) -> dict:
+    """``train_jobs``, ``int8_exchange``, then ``save_and_go_on`` on all
+    the ranks and ``resume_and_go_on`` on the shrunk composition's (one
+    start of the processes); ``started``: the host's clock when the
+    rank's group was up."""
+    out = {"started": time.time(),
+           "train": train_jobs(rank, world, jobs, weights),
+           "int8": int8_exchange(rank, world, 0)}
+    out["saved"], system = save_and_go_on(rank, world, save_job, ckpt_dir,
+                                          save_at)
+    out["resumed"] = resume_and_go_on(rank, world, save_job, ckpt_dir,
+                                      system)
+    return out
+
+
+def emulate_int8(ranks: List[dict], encode=None, decode=None) -> List[dict]:
+    """The int8 exchange of ``int8_exchange``'s ranks, emulated on the
+    host: per step and pod group (the ranks of one ``data`` coordinate), y
+    = g + r, the scale from the group's largest |y|, the payloads summed in
+    int32, decoded and divided by the group's size.  ``encode(y, max)`` /
+    ``decode(q, scale)`` default to numpy's float32 arithmetic; a test
+    hands in the reference's ``int8_encode`` / ``int8_decode``."""
+    def np_encode(y, m):
+        scale = np.float32(max(np.float32(m), np.float32(1e-30))
+                           / np.float32(127.0))
+        return (np.clip(np.round(y / scale), -127, 127).astype(np.int8),
+                scale)
+
+    def np_decode(q, scale):
+        return q.astype(np.float32) * np.float32(scale)
+
+    encode, decode = encode or np_encode, decode or np_decode
+    want = [{"steps": []} for _ in ranks]
+    groups: Dict[int, List[int]] = {}
+    for i, r in enumerate(ranks):
+        groups.setdefault(r["coord"][1], []).append(i)
+    res = {i: None for i in range(len(ranks))}
+    for s in range(len(ranks[0]["steps"])):
+        rows = {i: {"out": {}, "res": {}} for i in range(len(ranks))}
+        for members in groups.values():
+            for k in ranks[0]["steps"][s]["g"]:
+                ys = {i: ranks[i]["steps"][s]["g"][k] + (
+                    res[i][k] if res[i] is not None else np.float32(0.0))
+                    for i in members}
+                m = max(float(np.abs(y).max()) for y in ys.values())
+                qs = {i: encode(y, m) for i, y in ys.items()}
+                total = sum(q.astype(np.int32) for q, _ in qs.values())
+                scale = qs[members[0]][1]
+                out = np.asarray(decode(total, scale)) / np.float32(
+                    len(members))
+                for i in members:
+                    rows[i]["out"][k] = out.astype(np.float32)
+                    rows[i]["res"][k] = ys[i] - np.asarray(
+                        decode(qs[i][0].astype(np.int32), qs[i][1]))
+        for i in rows:
+            res[i] = rows[i]["res"]
+            want[i]["steps"].append(rows[i])
+    return want
+
+
+# ---------------------------------------------------------------------------
+# the standard rehearsal
+# ---------------------------------------------------------------------------
+REHEARSAL_JOB = Job(arch="qwen2-0.5b", n_layers=2, steps=2, batch=8, seq=32)
+
+
+# The key bias adds the same q . bk to every score of a query's row, which
+# the softmax takes out: its gradient is rounding noise, and Adam's first
+# steps turn noise into updates of up to lr.  These leaves are held to
+# |a - b| <= 2 lr a step instead (as in tests/test_torch_train.py).
+NOISE_LEAVES = ("attn.bk",)
+
+
+def _rel(a: Mapping[str, np.ndarray], b: Mapping[str, np.ndarray],
+         noise_bound: float) -> float:
+    """Largest |a - b| over a leaf's largest |b|, over the leaves; a
+    ``NOISE_LEAVES`` leaf past ``noise_bound`` counts as infinite."""
+    worst = 0.0
+    for k in b:
+        d = float(np.abs(a[k] - b[k]).max())
+        if any(k.endswith(n) for n in NOISE_LEAVES):
+            worst = worst if d <= noise_bound else float("inf")
+        else:
+            worst = max(worst, d / max(float(np.abs(b[k]).max()), 1e-30))
+    return worst
+
+
+def rehearse(job: Job = REHEARSAL_JOB, tol: float = 1e-5) -> dict:
+    """The three checks on four ranks (module docstring); ``ok`` when
+    ZeRO-3's parameters are within ``tol`` of DP's (each leaf's largest
+    difference over its largest value; ``NOISE_LEAVES`` within 2 lr a
+    step), the int8 exchange equals the numpy arithmetic within one part
+    in a million, the restored state equals the saved one bit for bit and
+    the resumed run's parameters equal the uninterrupted run's as ZeRO-3's
+    equal DP's.  The uninterrupted run is the ZeRO-3 run held to DP: a
+    checkpoint after its first step, then the rest of ``job.steps``."""
+    t0 = time.perf_counter()
+    clock0 = time.time()
+    zero3 = dataclasses.replace(job, zero=3)
+    ckpt = tempfile.mkdtemp(prefix="rehearse_ckpt_")
+    try:
+        four = spawn(four_ranks, 4, [job], None, ckpt, zero3, 1)
+        first, second = four[0]["saved"], four[0]["resumed"]
+        saved = np.load(os.path.join(ckpt, "step_0000000001",
+                                     "arrays.npz"))
+        restored_equal = all(np.array_equal(second["restored"][k], saved[k])
+                             for k in saved.files)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    dp, = four[0]["train"]
+    params = lambda d: {k[len("params/"):]: v     # noqa: E731
+                        for k, v in d.items() if k.startswith("params/")}
+    zero3_vs_dp = _rel(params(first["whole"]), dp["params"],
+                       2 * job.lr * job.steps)
+    ranks = [r["int8"] for r in four]
+    want = emulate_int8(ranks)
+    int8_err = max(
+        max(float(np.abs(g[part][k] - w[part][k]).max())
+            / max(float(np.abs(w[part][k]).max()), 1e-30)
+            for part in ("out", "res") for k in w[part])
+        for r, e in zip(ranks, want)
+        for g, w in zip(r["steps"], e["steps"]))
+    resumed_vs_uninterrupted = _rel(params(second["whole"]),
+                                    params(first["whole"]),
+                                    2 * job.lr * job.steps)
+    t_end = time.perf_counter()
+    ok = (zero3_vs_dp <= tol and int8_err <= 1e-6 and restored_equal
+          and resumed_vs_uninterrupted <= tol)
+    return {"ok": ok, "arch": job.arch, "n_layers": job.n_layers,
+            "batch": job.batch, "seq": job.seq, "steps": job.steps,
+            "zero3_vs_dp_data4_rel": zero3_vs_dp,
+            "losses_dp": [m["loss"] for m in dp["metrics"]],
+            "losses_zero3": [m["loss"] for m in first["metrics"]],
+            "traffic_dp_data4": dp["traffic"],
+            "traffic_zero3_data4_after_the_save": first["traffic"],
+            "int8_pod2_data2_vs_numpy_rel": int8_err,
+            "int8_traffic_rank0": ranks[0]["traffic"],
+            "resume": {"saved_on": dict(zero3.mesh), "saved_at": 1,
+                       "resumed_on": dict(first["system"].shape),
+                       "restored_bit_identical": restored_equal,
+                       "resumed_vs_uninterrupted_rel":
+                           resumed_vs_uninterrupted,
+                       "losses_resumed":
+                           [m["loss"] for m in second["metrics"]],
+                       "events": first["events"] + second["events"]},
+            "tol": tol,
+            "startup_s": max(r["started"] for r in four) - clock0,
+            "wall_s": t_end - t0}
+
+
+def main() -> int:
+    out = rehearse()
+    print(json.dumps(out, default=str))
+    return 0 if out["ok"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -20,8 +20,27 @@ on the GPU unless ``--device cpu`` is given; without a GPU and without
       --reduced --steps 30 --fail-at 12 --ckpt ckpt_demo  # exits 17; then
       ... --resume auto                                  # carries on
 
-``--zero`` has no effect without a mesh (as in the reference's un-sharded
-step); meshes are ROADMAP queue A item 7.  ``--track`` records the run
+``--mesh data=N[,pod=M]`` trains on a ``DeviceMesh`` of those axes (the
+data-parallel layer, ``train/trainer.py``) under ``--zero`` 0 / 1 / 3 and
+``--compress int8_ef`` (the pod axis), or under one rung of the paper's
+ladder, ``--rung`` (``core/policy.ladder``: DP, DDP, DDP+mixed,
+DDP+mixed+sharded; it sets the ZeRO stage and the compute dtype).  Under
+``torchrun`` each process joins its group (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR`` / ``MASTER_PORT``) and takes its rows of
+every global batch; without a launcher the program starts a one-rank group
+itself: NCCL on the card, ``gloo`` with ``--device cpu``.  A failed NCCL
+start raises: nothing falls back to ``gloo`` or the CPU.  Without
+``--mesh``, ``--zero`` has no effect (as in the reference's un-sharded
+step).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
+      --rung DDP+mixed+sharded --mesh data=1 --batch 2 --seq 4096 --steps 5
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch \\
+      qwen2-0.5b --rung DDP+mixed+sharded --mesh data=4
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --reduced --mesh data=1 --zero 3 --steps 3
+
+``--track`` records the run
 through ``repro_torch.tracking`` (``results/torch/runs/<run_id>/
 events.jsonl`` under the working directory): one row per step from a
 ``StepTracker``, and a ``ProcSampler`` for the process.
@@ -33,16 +52,23 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ModelConfig, PolicyConfig, ShapeConfig
+from repro_torch.core.policy import ladder
 from repro_torch.data import SyntheticDataset
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.lm import require_device
 from repro_torch.optim import AdamWConfig, ScheduleConfig
 from repro_torch.train import checkpoint, trainer
+
+AXIS_ORDER = ("pod", "data")        # outermost first, as the reference's
 
 
 def preset_100m(cfg: ModelConfig) -> ModelConfig:
@@ -59,13 +85,44 @@ def build(args):
         cfg = preset_100m(cfg)
     elif args.reduced:
         cfg = reduced(cfg)
+    axes = parse_mesh(args.mesh)
     policy = PolicyConfig(
         compute_dtype=args.dtype, remat=args.remat, attn_impl="kernel",
-        zero_stage=args.zero, grad_accum=args.grad_accum)
+        zero_stage=args.zero, grad_accum=args.grad_accum,
+        grad_compression=args.compress,
+        **({"dp_axes": tuple(axes)} if axes else {}))
+    if args.rung:
+        policy = ladder(policy)[args.rung]
     optcfg = AdamWConfig(lr=args.lr)
     schedcfg = ScheduleConfig(peak_lr=args.lr, warmup_steps=args.warmup,
                               total_steps=args.steps)
     return cfg, policy, optcfg, schedcfg
+
+
+def parse_mesh(text: str) -> Dict[str, int]:
+    """``"data=4,pod=2"`` -> ``{"pod": 2, "data": 4}`` (outermost first)."""
+    if not text:
+        return {}
+    sizes = {}
+    for part in text.split(","):
+        name, _, n = part.partition("=")
+        if name not in AXIS_ORDER or not n.isdigit() or int(n) < 1:
+            raise ValueError(f"--mesh {text!r}: want axis=N of {AXIS_ORDER}")
+        sizes[name] = int(n)
+    return {a: sizes[a] for a in AXIS_ORDER if a in sizes}
+
+
+def start_group(device: str) -> None:
+    """Join ``torchrun``'s group, or start a one-rank group: NCCL on the
+    card, ``gloo`` on the CPU."""
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        if backend == "nccl":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group(backend, init_method="env://")
+    else:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -94,36 +151,65 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          "(results/torch/runs/<run_id>/events.jsonl)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises when absent) or cpu")
+    ap.add_argument("--mesh", default="",
+                    help="data=N[,pod=M]: train on a device mesh")
+    ap.add_argument("--compress", default="none",
+                    choices=["none", "int8_ef"])
+    ap.add_argument("--rung", default="", choices=[""] + list(
+        ladder(PolicyConfig())))
     args = ap.parse_args(argv)
 
     cfg, policy, optcfg, schedcfg = build(args)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
+    mesh = None
+    if args.mesh:
+        require_device(args.device)
+        start_group(args.device)
+        axes = parse_mesh(args.mesh)
+        mesh = make_mesh(tuple(axes.values()), tuple(axes),
+                         device=torch.device(args.device).type)
+    try:
+        return _loop(args, cfg, policy, optcfg, schedcfg, shape, mesh)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
+
+
+def _loop(args, cfg, policy, optcfg, schedcfg, shape, mesh) -> int:
+    lead = mesh is None or dist.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
 
     run = None
-    if args.track:
+    if args.track and lead:
         from repro_torch import tracking
         run = tracking.init(
             f"train-{args.arch}",
             config={"arch": args.arch, "preset": args.preset,
                     "steps": args.steps, "batch": args.batch,
                     "seq": args.seq, "lr": args.lr, "dtype": args.dtype,
-                    "zero": args.zero, "grad_accum": args.grad_accum},
+                    "zero": policy.zero_stage, "grad_accum": args.grad_accum,
+                    "mesh": args.mesh, "rung": args.rung,
+                    "compress": args.compress},
             tags=("train",), samplers=[tracking.ProcSampler()])
-        print(f"tracking run {run.id} -> {run.path}")
-    print(f"training {cfg.name}: {cfg.param_count()/1e6:.1f}M params, "
-          f"batch {args.batch} x seq {args.seq}, {args.steps} steps "
-          f"on {args.device}")
+        say(f"tracking run {run.id} -> {run.path}")
+    where = args.device
+    if mesh is not None:
+        where += (f", mesh {args.mesh}, zero {policy.zero_stage}, "
+                  f"{policy.compute_dtype} compute")
+    say(f"training {cfg.name}: {cfg.param_count()/1e6:.1f}M params, "
+        f"batch {args.batch} x seq {args.seq}, {args.steps} steps on "
+        f"{where}")
 
     state = trainer.init_state(cfg, policy, optcfg, seed=0,
-                               device=args.device)
+                               device=args.device, mesh=mesh)
     start = 0
     if args.resume == "auto" and args.ckpt and \
             checkpoint.latest_step(args.ckpt) is not None:
         state, start = checkpoint.restore(args.ckpt, state)
-        print(f"resumed from step {start}")
+        say(f"resumed from step {start}")
 
     step_fn = trainer.make_train_step(cfg, policy, optcfg, schedcfg,
-                                      shape=shape)
+                                      mesh=mesh, shape=shape)
     ds = SyntheticDataset(cfg, shape)
     stepper = trainer.StepTracker(shape.tokens, run)
     t0 = time.time()
@@ -135,17 +221,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         if args.fail_at and step + 1 == args.fail_at:
             if args.ckpt:
                 checkpoint.save(args.ckpt, step + 1, state)
-            print(f"simulated failure at step {step + 1} -- restart with "
-                  f"--resume auto")
+            say(f"simulated failure at step {step + 1} -- restart with "
+                f"--resume auto")
             if run is not None:
                 stepper.summary()
                 run.finish("failed")
             return 17
         if (step + 1) % args.log_every == 0 or step == start:
             toks = shape.tokens * (step + 1 - start)
-            print(f"step {step + 1:5d}  loss {float(metrics['loss']):.4f}"
-                  f"  grad_norm {float(metrics['grad_norm']):.3f}"
-                  f"  tok/s {toks / (time.time() - t0):.0f}")
+            say(f"step {step + 1:5d}  loss {float(metrics['loss']):.4f}"
+                f"  grad_norm {float(metrics['grad_norm']):.3f}"
+                f"  tok/s {toks / (time.time() - t0):.0f}")
     if args.ckpt:
         checkpoint.save(args.ckpt, args.steps, state)
     if state.device.type == "cuda":
@@ -153,7 +239,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if run is not None:
         stepper.summary()
         run.finish()
-    print(f"done in {time.time() - t0:.1f}s")
+    say(f"done in {time.time() - t0:.1f}s")
+    if mesh is not None:
+        say(f"collectives: {step_fn.traffic.report()}")
     return 0
 
 

@@ -8,6 +8,11 @@ decay ``weight_decay * base`` is added only where the parameter has
 the metrics are ``grad_norm`` (before clipping) and ``lr``.
 ``torch.optim.AdamW`` differs on all three points, so it is not used.
 
+Under ZeRO (``train/trainer.py``'s mesh step) each rank updates its pieces:
+the caller hands in the norm of the whole gradient (``norm``) and each
+parameter's whole ``ndim``, which decides the decay, as a piece's view
+could not.
+
 Where the reference builds new pytrees, this updates in place, one tensor at
 a time: the moments, the masters and the parameters are overwritten, and
 the temporaries are those of one tensor (a few copies of the largest one),
@@ -85,12 +90,18 @@ def _correction(beta: float, step: int) -> float:
 @torch.no_grad()
 def apply(params: Mapping[str, torch.Tensor],
           grads: Mapping[str, torch.Tensor], state: AdamWState,
-          cfg: AdamWConfig = AdamWConfig(), *, lr: Optional[float] = None
+          cfg: AdamWConfig = AdamWConfig(), *, lr: Optional[float] = None,
+          norm: Optional[torch.Tensor] = None,
+          ndim: Optional[Mapping[str, int]] = None
           ) -> Tuple[Mapping[str, torch.Tensor], AdamWState,
                      Dict[str, torch.Tensor]]:
-    """One AdamW step, in place.  Returns (params, state, metrics)."""
+    """One AdamW step, in place.  Returns (params, state, metrics).
+    ``norm``: the global gradient norm, where ``grads`` are pieces of the
+    whole gradient; ``ndim``: each parameter's whole number of dimensions,
+    where ``params`` are pieces."""
     names = list(params)
-    gnorm = global_norm(grads[n] for n in names)
+    gnorm = norm if norm is not None else global_norm(grads[n]
+                                                      for n in names)
     scale = _clip_scale(gnorm, cfg.grad_clip) if cfg.grad_clip > 0 else None
     step = state.step + 1
     lr_t = cfg.lr if lr is None else float(lr)
@@ -110,7 +121,7 @@ def apply(params: Mapping[str, torch.Tensor],
             base = p
         else:
             base = p.to(acc)
-        if p.ndim >= 2:
+        if (p.ndim if ndim is None else ndim[n]) >= 2:
             delta.add_(base, alpha=cfg.weight_decay)
         base.sub_(delta, alpha=lr_t)        # base - lr * (delta + decay)
         if base is not p:

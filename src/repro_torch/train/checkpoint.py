@@ -13,11 +13,20 @@ the same file layout and semantics, the port's own key names.
     bf16 is stored as its raw 16-bit pattern).
 
 Keys: ``params/<parameter name>``, ``opt/step``, ``opt/m/<name>``,
-``opt/v/<name>`` and ``opt/master/<name>`` for a ``TrainState``; the
+``opt/v/<name>``, ``opt/master/<name>`` and ``ef/<name>`` (the int8
+error-feedback residuals, one per pod, stacked) for a ``TrainState``; the
 parameter names of an ``nn.Module``; ``a/b`` paths of nested dicts.
 ``restore`` copies into the tensors of the state it is given (in place, on
 their devices) and returns it.  Reading the reference's checkpoints is not
 supported.
+
+Under a mesh (a ``TrainState`` with a ``layout``) every rank calls
+``save``: each leaf is gathered whole from its pieces (a ``DTensor`` of
+its spec's placements) and rank 0 writes the same files as without a mesh.
+``restore(..., mesh=, specs=)`` lays every leaf out as the reference's
+``device_put`` under ``NamedSharding(mesh, spec)`` does: each rank copies
+its piece under the spec into the state it is given, which may sit on
+another mesh than the one that saved (an elastic shrink from 4 ranks to 2).
 """
 from __future__ import annotations
 
@@ -26,20 +35,25 @@ import os
 import re
 import shutil
 import tempfile
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch.optim.adamw import AdamWState
+from repro_torch.train import sharding
 from repro_torch.train.trainer import TrainState
 
 
 def _leaves(tree: Any, prefix: str = "") -> Dict[str, Any]:
     """key -> tensor (or, for the optimizer step, an int) of ``tree``."""
     if isinstance(tree, TrainState):
-        return {**_leaves(tree.model, "params/"), **_leaves(tree.opt, "opt/")}
+        out = {**_leaves(tree.model, "params/"), **_leaves(tree.opt, "opt/")}
+        if tree.ef_residual is not None:
+            out.update(_leaves(tree.ef_residual, "ef/"))
+        return out
     if isinstance(tree, AdamWState):
         out = {prefix + "step": tree.step}
         out.update(_leaves(tree.m, prefix + "m/"))
@@ -67,15 +81,42 @@ def _to_numpy(x) -> Tuple[np.ndarray, Optional[str]]:
     return t.numpy(), None
 
 
+def whole_leaves(tree: Any) -> Iterator[Tuple[str, Any]]:
+    """(key, leaf) of ``tree`` one at a time, each leaf whole: under a mesh
+    gathered from the ranks' pieces (every rank calls it and gets every
+    leaf; the int8 residuals stacked over the pods)."""
+    layout = getattr(tree, "layout", None)
+    specs = layout.leaf_specs(tree) if layout is not None else {}
+    for k, x in _leaves(tree).items():
+        if k in specs:
+            ef = k.startswith("ef/")
+            x = sharding.full_tensor(x.unsqueeze(0) if ef else x, specs[k],
+                                     layout.mesh)
+        yield k, x
+
+
 def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3,
          extra: Optional[Mapping[str, Any]] = None) -> str:
-    """Atomically persist ``tree`` (gathered to the host) as step ``step``."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Atomically persist ``tree`` (gathered to the host) as step ``step``.
+    Under a mesh every rank calls it, and rank 0 writes."""
+    layout = getattr(tree, "layout", None)
+    writer = layout is None or dist.get_rank() == 0
     flat, dtypes = {}, {}
-    for k, x in _leaves(tree).items():
-        flat[k], dt = _to_numpy(x)
-        if dt is not None:
-            dtypes[k] = dt
+    for k, x in whole_leaves(tree):
+        if writer:
+            flat[k], dt = _to_numpy(x)
+            if dt is not None:
+                dtypes[k] = dt
+    final = os.path.join(ckpt_dir, f"step_{step:010d}")
+    if writer:
+        _write(ckpt_dir, step, flat, dtypes, extra, final, keep)
+    if layout is not None:
+        dist.barrier()
+    return final
+
+
+def _write(ckpt_dir, step, flat, dtypes, extra, final, keep) -> None:
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix=f"tmp.{step}.", dir=ckpt_dir)
     try:
         np.savez(os.path.join(tmp, "arrays.npz"), **flat)
@@ -90,7 +131,6 @@ def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3,
             f.write("ok")
             f.flush()
             os.fsync(f.fileno())
-        final = os.path.join(ckpt_dir, f"step_{step:010d}")
         if os.path.exists(final):
             shutil.rmtree(final)
         os.rename(tmp, final)
@@ -98,7 +138,6 @@ def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3,
         shutil.rmtree(tmp, ignore_errors=True)
         raise
     _gc(ckpt_dir, keep)
-    return final
 
 
 def _gc(ckpt_dir: str, keep: int) -> None:
@@ -128,11 +167,22 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 @torch.no_grad()
-def restore(ckpt_dir: str, like: Any, *, step: Optional[int] = None
+def restore(ckpt_dir: str, like: Any, *, step: Optional[int] = None,
+            mesh=None, specs: Optional[Mapping[str, Any]] = None
             ) -> Tuple[Any, int]:
     """Load a checkpoint into ``like`` (a ``TrainState``, module or dict of
     tensors), in place; returns (like, step).  Raises ``ValueError`` when a
-    stored array's shape differs from the tensor it would fill."""
+    stored array's shape differs from the tensor it would fill.
+
+    ``mesh`` / ``specs`` (checkpoint key -> spec, as ``trainer.state_specs``
+    gives them): each rank fills ``like`` with its piece of every leaf; a
+    laid-out ``TrainState`` defaults to its own layout's."""
+    layout = getattr(like, "layout", None)
+    if layout is not None:
+        mesh = layout.mesh if mesh is None else mesh
+        specs = layout.leaf_specs(like) if specs is None else specs
+    if specs is not None and mesh is None:
+        raise ValueError("specs without a mesh")
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -145,6 +195,10 @@ def restore(ckpt_dir: str, like: Any, *, step: Optional[int] = None
         if not torch.is_tensor(leaf):
             _set_step(like, int(arr))
             continue
+        if specs is not None:
+            arr = sharding.piece(arr, specs.get(key, ()), mesh)
+            if key.startswith("ef/") and arr.ndim == leaf.ndim + 1:
+                arr = arr[0]                # this rank's pod
         if arr.shape != tuple(leaf.shape):
             raise ValueError(f"checkpoint leaf {key}: shape {arr.shape} != "
                              f"{tuple(leaf.shape)}")

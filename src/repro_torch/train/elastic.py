@@ -7,10 +7,11 @@ pool is re-composed into a smaller (or re-fabric'd) system and training
 resumes from the latest atomic checkpoint, so no part of the job is tied
 to the dead composition.
 
-The reference restores onto a ``jax`` mesh of the new composition.  Meshes
-are not ported yet (ROADMAP queue A item 7, as ``ComposedSystem.mesh()``):
-here ``resume`` restores through ``train/checkpoint.restore`` in place onto
-the device the state lives on, and raises for a mesh.
+``resume`` restores through ``train/checkpoint.restore`` in place: onto
+the device the state lives on, or, given the new composition's mesh
+(``ComposedSystem.mesh()``) and the state's specs there
+(``trainer.state_specs``), each rank's pieces of every leaf -- the
+reference's restore onto a ``jax`` mesh.
 
 Straggler mitigation: the data pipeline re-issues a shard when a simulated
 host exceeds the straggler deadline (tail-latency duplication, the standard
@@ -22,11 +23,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, List, Sequence, Tuple
 
-from repro_torch.core.compose import (_MESH, ComposedSystem,
+from repro_torch.core.compose import (ComposedSystem,
                                       CompositionError, recompose,
                                       shrink_to_pool)
 from repro_torch.core.topology import DevicePool
-from repro_torch.train import checkpoint
+from repro_torch.train import checkpoint, sharding
 
 
 @dataclasses.dataclass
@@ -99,15 +100,19 @@ def regrow(run: ElasticRun, new_system: ComposedSystem, *, step: int,
     return new_system
 
 
-def resume(run: ElasticRun, like_state: Any, mesh=None) -> Tuple[Any, int]:
+def resume(run: ElasticRun, like_state: Any, mesh=None, specs=None
+           ) -> Tuple[Any, int]:
     """Restore the latest checkpoint of ``run`` into ``like_state`` (a
-    ``TrainState``, module or dict of tensors), in place on the device its
-    tensors live on; returns ``(state, step)``.  A ``mesh`` raises: the
-    parallel layer is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
-    state, step = checkpoint.restore(run.ckpt_dir, like_state)
-    run.log(step, "restore", f"onto {_device_of(state)}")
+    ``TrainState``, module or dict of tensors), in place; returns ``(state,
+    step)``.  With ``mesh`` and ``specs`` (a state laid out on the new
+    mesh, ``init_state(..., mesh=)``, and ``trainer.state_specs`` there)
+    each rank takes its pieces, as the reference's restore onto the new
+    composition's mesh."""
+    state, step = checkpoint.restore(run.ckpt_dir, like_state, mesh=mesh,
+                                     specs=specs)
+    where = (dict(sharding.mesh_axes(mesh)) if mesh is not None
+             else _device_of(state))
+    run.log(step, "restore", f"onto {where}")
     return state, step
 
 

@@ -1,7 +1,7 @@
 """Training step builder, held against ``repro/train/trainer.py``:
-``make_run_ctx`` (lines 91-111), ``init_state`` (114-123), ``make_loss_fn``
-(144-159), ``_accum_grads`` (162-185), ``make_train_step`` (191-225) and
-``StepTracker`` (292-345).
+``make_run_ctx`` (lines 91-111), ``init_state`` (114-123), ``state_specs``
+(126-137), ``make_loss_fn`` (144-159), ``_accum_grads`` (162-185),
+``make_train_step`` (191-266) and ``StepTracker`` (292-345).
 
 The step is ``train_step(state, batch) -> (state, metrics)`` as in the
 reference; it updates the state **in place** (parameters, moments and
@@ -10,10 +10,21 @@ parameter's ``.grad`` holds the step's (unclipped, accumulated) gradient
 until the next step.  Metrics are 0-d tensors on the device: reading one
 waits for the step to finish.
 
-Not ported: meshes and with them ZeRO sharding and the manual-pod
-gradient exchange with ``grad_compression="int8_ef"`` (ROADMAP queue A item
-7; ``zero_stage`` has no effect without a mesh, as in the reference's
-un-sharded jit).
+Under a data-parallel ``DeviceMesh`` (``make_train_step(..., mesh=)``)
+the step is the paper's §V-4 ladder (``core/policy.ladder``): DP and DDP
+(``zero_stage=0``; one program, as in the reference, where only
+``ladder()`` tells them apart), mixed precision (``compute_dtype``), ZeRO-1
+(moments and fp32 masters sharded, each rank updates its pieces, the
+parameters are all-gathered) and ZeRO-3 (parameters sharded too, gathered
+per block and again for the remat recompute, gradients reduce-scattered:
+``train/sharding.py``), and the int8 error-feedback exchange over the pod
+axis with ``grad_compression="int8_ef"``.  Each rank takes its rows of the
+global batch; the loss is the reference's mean over the global batch (each
+rank's loss weighted by its share of the counted tokens).  The kernels see
+plain local tensors.  MoE under a mesh raises (expert parallelism and the
+step-wide capacity are the next slice), as BERT and the Table II CNNs do.
+Without a mesh ``zero_stage`` has no effect, as in the reference's
+un-sharded jit.
 ``rglru`` blocks train through ``RGLRUFn`` (the forward kernel and the
 hand-written RG-LRU backward), ``ssm`` blocks through ``SSDFn`` (the SSD
 forward kernel and the hand-written SSD backward) and ``attn_local`` blocks
@@ -31,12 +42,13 @@ from repro_torch.models import bert, lm, vision
 from repro_torch.models.lm import LM
 from repro_torch.models.transformer import RunCtx
 from repro_torch.optim import adamw, schedule
+from repro_torch.train import sharding
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
 
-_MESH = ("meshes are not ported yet: ROADMAP queue A item 7 (the parallel "
-         "layer)")
+_NO_MESH = ("{what} under a mesh is not ported: {why} (ROADMAP queue A item "
+            "7 names what comes next)")
 
 
 def _dt(name: str) -> torch.dtype:
@@ -53,9 +65,12 @@ def make_run_ctx(cfg: ModelConfig, policy: PolicyConfig, mesh=None, *,
     (``kernels/ops.py``), so they are accepted and unused; the knobs that
     the registry does tune resolve in ``kernels/ops.py`` when a kernel is
     called."""
-    del cfg, seq_len, decode, batch
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
+    del seq_len, decode, batch
+    if mesh is not None and cfg.moe is not None:
+        raise NotImplementedError(_NO_MESH.format(
+            what="MoE", why="expert parallelism (the reference's _moe_ep) "
+            "and the capacity and load-balance term of the whole step come "
+            "with the tensor- and expert-parallel slice"))
     if policy.attn_impl not in ("kernel", "full"):
         raise ValueError(f"attn_impl {policy.attn_impl!r} not in "
                          f"('kernel', 'full')")
@@ -67,21 +82,50 @@ def make_run_ctx(cfg: ModelConfig, policy: PolicyConfig, mesh=None, *,
 # state
 # ---------------------------------------------------------------------------
 class TrainState:
-    """The model (its parameters) and the optimizer state."""
+    """The model (its parameters), the optimizer state and the int8
+    error-feedback residuals (parameter name -> fp32 tensor, or None).
+    Under a mesh, ``layout`` (``train/sharding.Layout``) says which piece
+    of each leaf this rank holds."""
 
-    def __init__(self, model: LM, opt: adamw.AdamWState):
+    def __init__(self, model: LM, opt: adamw.AdamWState, ef_residual=None,
+                 layout: Optional[sharding.Layout] = None):
         self.model = model
         self.opt = opt
+        self.ef_residual = ef_residual
+        self.layout = layout
 
     @classmethod
     def create(cls, model: LM, policy: PolicyConfig,
-               optcfg: adamw.AdamWConfig = adamw.AdamWConfig()
-               ) -> "TrainState":
+               optcfg: adamw.AdamWConfig = adamw.AdamWConfig(), *,
+               n_pods: Optional[int] = None, mesh=None) -> "TrainState":
         """Fresh optimizer state for ``model`` (fp32 masters when the
-        parameters are bf16, as ``init_state`` decides in the reference)."""
-        return cls(model, adamw.init(
-            dict(model.named_parameters()), optcfg,
-            master_weights=(policy.param_dtype == "bfloat16")))
+        parameters are bf16, as ``init_state`` decides in the reference).
+
+        ``grad_compression="int8_ef"`` with ``n_pods > 1`` adds zero
+        residuals as the reference does, one per pod: without a mesh
+        stacked ``(n_pods,) + shape``; under ``mesh`` (whose ``pod`` axis
+        gives ``n_pods``) each rank holds its own pod's, as the piece of its
+        optimizer spec.  Under ``mesh`` the whole ``model`` is cut to this
+        rank's pieces first (``train/sharding.Layout``)."""
+        layout = None
+        params = dict(model.named_parameters())
+        if mesh is not None:
+            layout = sharding.Layout(model.cfg, policy, mesh)
+            pods = layout.axes.get("pod", 1)
+            if n_pods is not None and n_pods != pods:
+                raise ValueError(f"n_pods={n_pods} on a mesh of {pods} pods")
+            n_pods = pods
+            layout.lay_out(model)
+            params = layout.opt_params(model)
+        state = cls(model, adamw.init(
+            params, optcfg, master_weights=(policy.param_dtype == "bfloat16")),
+            layout=layout)
+        if policy.grad_compression == "int8_ef" and (n_pods or 1) > 1:
+            stack = () if mesh is not None else (n_pods,)
+            state.ef_residual = {
+                n: torch.zeros(stack + tuple(p.shape), dtype=torch.float32,
+                               device=p.device) for n, p in params.items()}
+        return state
 
     def params(self) -> Dict[str, torch.nn.Parameter]:
         return dict(self.model.named_parameters())
@@ -93,12 +137,26 @@ class TrainState:
 
 def init_state(cfg: ModelConfig, policy: PolicyConfig,
                optcfg: adamw.AdamWConfig = adamw.AdamWConfig(), *,
-               seed: int = 0, device="cuda") -> TrainState:
+               seed: int = 0, device="cuda", n_pods: Optional[int] = None,
+               mesh=None) -> TrainState:
     """Random weights from ``seed`` on ``device`` (the GPU unless the caller
-    names the CPU) in ``policy.param_dtype``, and fresh AdamW state."""
+    names the CPU) in ``policy.param_dtype``, and fresh AdamW state
+    (``TrainState.create``: the int8 residuals, and under ``mesh`` this
+    rank's pieces of a model every rank draws whole from ``seed``)."""
     model = LM.init(cfg, seed=seed, dtype=_dt(policy.param_dtype),
                     device=device)
-    return TrainState.create(model, policy, optcfg)
+    return TrainState.create(model, policy, optcfg, n_pods=n_pods, mesh=mesh)
+
+
+def state_specs(state: TrainState, cfg: ModelConfig, policy: PolicyConfig,
+                mesh_axes: Mapping[str, int]) -> Dict[str, Any]:
+    """The specs a ``TrainState`` takes on a mesh of ``mesh_axes``
+    (``sharding.specs``: the reference's, but for a mesh whose fsdp axes
+    all have size 1), keyed as ``train/checkpoint`` keys its leaves
+    (``sharding.leaf_specs``)."""
+    return sharding.leaf_specs(
+        *sharding.specs(LM(cfg, device="meta"), cfg, policy, mesh_axes),
+        state)
 
 
 # ---------------------------------------------------------------------------
@@ -190,15 +248,94 @@ def make_train_step(cfg: ModelConfig, policy: PolicyConfig,
                     shape: Optional[ShapeConfig] = None) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)`` with metrics
     ``loss``, ``xent``, ``aux``, ``grad_norm`` and ``lr``.  ``batch`` holds
-    numpy arrays or tensors; they are moved to the state's device."""
-    if mesh is not None:
-        what = (" (and with it the manual-pod exchange of "
-                "grad_compression='int8_ef')"
-                if policy.grad_compression == "int8_ef" else "")
-        raise NotImplementedError(_MESH + what)
+    numpy arrays or tensors; they are moved to the state's device.  Under
+    ``mesh`` (a ``DeviceMesh``; the state from ``init_state(...,
+    mesh=mesh)``) every rank calls it with the same global batch."""
     seq_len = shape.seq_len if shape is not None else None
-    return make_step(make_loss_fn(cfg, policy, mesh, seq_len=seq_len),
-                     optcfg, schedcfg, n_accum=policy.grad_accum)
+    loss_fn = make_loss_fn(cfg, policy, mesh, seq_len=seq_len)
+    if mesh is not None:
+        return _mesh_train_step(sharding.Layout(cfg, policy, mesh), loss_fn,
+                                optcfg, schedcfg, policy.grad_accum)
+    return make_step(loss_fn, optcfg, schedcfg, n_accum=policy.grad_accum)
+
+
+def _mesh_train_step(layout: sharding.Layout, loss_fn: Callable,
+                     optcfg: adamw.AdamWConfig,
+                     schedcfg: Optional[schedule.ScheduleConfig],
+                     n_accum: int) -> Callable:
+    """The step on ``layout``'s mesh (module docstring).  ``train_step.
+    traffic`` counts its collectives (``hierarchy.Traffic``)."""
+    from repro_torch.core import hierarchy
+    ndim = {n: len(s) for n, s in layout.shapes.items()}
+    loss_group = layout.group(layout.dp) if layout.dp else None
+    pods = layout.group(("pod",)) if layout.exchange else None
+    # the agreed int8 scale of a reference leaf (a scanned segment's layers
+    # together): over every rank that holds a piece of it, in every pod
+    scale_group = layout.group(layout.axes) if layout.exchange else None
+
+    def train_step(state: TrainState, batch: Mapping[str, Any]):
+        if not layout.same(state.layout):
+            raise ValueError("the state is not laid out on this step's mesh "
+                             "and specs: make it with init_state(..., "
+                             "mesh=mesh)")
+        model = state.model
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.grad = None
+        B = next(iter(batch.values())).shape[0]
+        b = B // n_accum
+        acc: Dict[str, torch.Tensor] = {}
+        loss_sum = None
+        for i in range(n_accum):
+            mb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()} \
+                if n_accum > 1 else batch
+            local = _device_batch(layout.batch_piece(mb), state.device)
+            # the reference's loss is a mean over the global (micro)batch:
+            # weigh this rank's mean by its share of the counted tokens
+            mask = local.get("mask")
+            count = (mask.float().sum() if mask is not None else torch.tensor(
+                float(local["labels"].numel()), device=state.device))
+            mine = torch.clamp(count, min=1.0)
+            if loss_group is not None:
+                count = hierarchy.all_reduce(count.clone(), loss_group)
+            w = mine / torch.clamp(count, min=1.0)
+            with layout.unsharded(model):
+                loss, metrics = loss_fn(model, local)
+                (loss * (w / n_accum)).backward()
+            for n, p in params.items():
+                if p.dtype != torch.float32 and n_accum > 1 and \
+                        p.grad is not None:
+                    g = p.grad.float()
+                    acc[n] = g if n not in acc else acc[n].add_(g)
+                    p.grad = None
+            # this rank's shares of the loss and of the last microbatch's
+            # metrics
+            last = torch.stack([loss.detach(), metrics["xent"].detach(),
+                                metrics["aux"].detach()]) * w
+            loss_sum = last[0] if loss_sum is None else loss_sum + last[0]
+        sums = torch.stack([loss_sum / n_accum, last[1], last[2]])
+        if loss_group is not None:
+            hierarchy.all_reduce(sums, loss_group)
+        grads = {n: acc[n] if n in acc else p.grad if p.grad is not None
+                 else torch.zeros_like(p) for n, p in params.items()}
+        grads = layout.reduce_grads(grads)
+        if pods is not None:
+            hierarchy.all_reduce(sums, pods).div_(pods.size)
+            grads, state.ef_residual = hierarchy.allreduce_int8_ef(
+                grads, state.ef_residual, pods, scale_group=scale_group,
+                scale_keys=layout.ref_paths)
+        lr = None
+        if schedcfg is not None:
+            lr = schedule.lr_at(state.opt.step, schedcfg)
+        _, _, om = adamw.apply(layout.opt_params(model), grads, state.opt,
+                               optcfg, lr=lr, norm=layout.global_norm(grads),
+                               ndim=ndim)
+        layout.gather_params(model)
+        loss, xent, aux = sums.unbind(0)
+        return state, dict(xent=xent, aux=aux, **om, loss=loss)
+
+    train_step.traffic = layout.traffic
+    return train_step
 
 
 def make_step(loss_fn: Callable,
@@ -226,11 +363,20 @@ def make_step(loss_fn: Callable,
     return train_step
 
 
-def paper_loss_fn(cfg, policy: PolicyConfig) -> Callable:
+def paper_loss_fn(cfg, policy: PolicyConfig, mesh=None) -> Callable:
     """``loss_fn(model, batch)`` of a Table II workload: ``bert.qa_loss``
     under ``policy``'s run context for BERT (a ``ModelConfig``), or
     ``vision.vision_loss`` for a ``VisionConfig`` (fp32, as the
-    reference; the policy's dtypes do not apply)."""
+    reference; the policy's dtypes do not apply).  A ``mesh`` raises: the
+    reference's batch norm takes its statistics over the global batch,
+    which a rank's batch norm would not, and BERT's QA step is not wired
+    to the mesh step."""
+    if mesh is not None:
+        what = "A vision model" if isinstance(cfg, VisionConfig) else "BERT"
+        why = ("its batch norm's statistics are the global batch's in the "
+               "reference" if isinstance(cfg, VisionConfig) else
+               "its QA loss has no mesh step")
+        raise NotImplementedError(_NO_MESH.format(what=what, why=why))
     if isinstance(cfg, VisionConfig):
         def vision_loss_fn(model, batch):
             loss = vision.vision_loss(model, batch)

@@ -180,8 +180,24 @@ def test_resume_raises_for_a_mesh(tmp_path):
                               "model": topology.LinkClass.LOCAL})
     run = elastic.ElasticRun(system, ckpt_dir=str(tmp_path / "ck"))
     checkpoint.save(run.ckpt_dir, 1, state)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        elastic.resume(run, state, mesh=object())
+    # onto a mesh whose pieces this state does not hold (a one-rank view of
+    # data = 2): the shapes refuse it, and no restore is logged
+    specs = trainer.state_specs(state, cfg, dataclasses.replace(
+        policy, zero_stage=3), {"data": 2})
+    assert any("data" in s for s in specs.values())
+
+    class Mesh:
+        mesh_dim_names = ("data",)
+        mesh = torch.zeros(2)
+
+        @staticmethod
+        def get_local_rank(axis):
+            return 0
+
+    with pytest.raises(ValueError, match="shape"):
+        elastic.resume(run, state, mesh=Mesh, specs=specs)
+    with pytest.raises(ValueError, match="specs without a mesh"):
+        elastic.resume(run, state, specs=specs)
     assert run.events == []
     with pytest.raises(FileNotFoundError):
         elastic.resume(elastic.ElasticRun(system, str(tmp_path / "none")),

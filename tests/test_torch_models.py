@@ -318,7 +318,10 @@ def test_unported_blocks_raise_naming_the_roadmap(arch, item):
 
 
 def test_unported_attention_paths_raise_naming_the_roadmap():
-    """The mesh paths are not ported; the sliding-window ones are."""
+    """The tensor-parallel (mesh) attention paths are not ported; the
+    sliding-window ones are.  Under the data-parallel layer a dense model's
+    run context is the one without a mesh (its kernels see each rank's
+    local tensors); an MoE model's still raises (expert parallelism)."""
     cfg = dataclasses.replace(reduced(get_config("qwen2-0.5b")),
                               block_pattern=("attn_local",) * 2)
     LM.init(cfg, device="cpu")
@@ -334,8 +337,11 @@ def test_unported_attention_paths_raise_naming_the_roadmap():
         attention.apply_attention(model.stack.blocks[0].attn, x, base,
                                   local=False, mesh=object(), positions=pos,
                                   compute_dtype=torch.float32)
+    policy = PolicyConfig(compute_dtype="float32")
+    assert make_run_ctx(base, policy, mesh=object()) == \
+        make_run_ctx(base, policy)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_run_ctx(base, PolicyConfig(compute_dtype="float32"),
+        make_run_ctx(reduced(get_config("moonshot-v1-16b-a3b")), policy,
                      mesh=object())
 
 

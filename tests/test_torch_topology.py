@@ -19,6 +19,7 @@ import json
 import os
 
 import pytest
+import torch
 
 from repro.core import compose as ref_compose
 from repro.core import fabrics as ref_fabrics
@@ -420,7 +421,12 @@ def test_presets_and_collective_time(ref_constants, label):
 
 
 def test_meshes_wait_for_the_parallel_layer():
+    """``abstract_mesh()`` is the policy engine's ``{axis: size}``;
+    ``mesh()`` waits for a process group (``launch/mesh``) and never starts
+    one itself."""
     s = compose.preset("localGPUs", data=2, model=2)
-    for fn in (s.mesh, s.abstract_mesh):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            fn()
+    assert s.abstract_mesh() == {"data": 2, "model": 2}
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(RuntimeError, match="initialised process group"):
+        s.mesh(device="cpu")
+    assert not torch.distributed.is_initialized()

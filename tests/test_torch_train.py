@@ -354,12 +354,20 @@ def test_train_step_matches_the_reference_jitted_step():
 
 
 def test_make_train_step_refuses_a_mesh():
-    _, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        trainer.make_train_step(cfg, BASE, mesh=object())
-    with pytest.raises(NotImplementedError, match="int8_ef"):
-        trainer.make_train_step(cfg, dataclasses.replace(
-            BASE, grad_compression="int8_ef"), mesh=object())
+    """The data-parallel step takes a mesh (``tests/test_torch_parallel.py``);
+    MoE (expert parallelism, the step-wide capacity) and BERT and the Table
+    II CNNs (the batch norm's global-batch statistics) still refuse one,
+    before they touch it."""
+    with pytest.raises(NotImplementedError, match="item 7") as e:
+        trainer.make_train_step(reduced(get_config("moonshot-v1-16b-a3b")),
+                                BASE, mesh=object())
+    assert "expert parallelism" in str(e.value)
+    from repro_torch.configs.paper_bench import MOBILENETV2
+    for cfg, what in ((get_config("bert-base"), "BERT"),
+                      (MOBILENETV2, "batch norm")):
+        with pytest.raises(NotImplementedError, match=what):
+            trainer.paper_loss_fn(cfg, BASE, mesh=object())
+        assert callable(trainer.paper_loss_fn(cfg, BASE))
 
 
 # ---------------------------------------------------------------------------
