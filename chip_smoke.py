@@ -263,8 +263,30 @@ per line, each with ``at_s``, the seconds since the script's imports ended:
                 its gradients against ``compress``'s math and the
                 ``hierarchy`` prices; the four-rank ``gloo`` rehearsal on
                 the host (``launch/rehearse``; started after the build, it
-                runs beside ``kernel_cases``); each rank's state bytes
-                from the specs;
+                runs beside ``kernel_cases``, and holds tensor
+                parallelism on (data, model) = (2, 2) to DP, expert
+                parallelism with ZeRO-3 to without, and a ServeEngine's
+                streams on (2, 2) to one process's); each rank's state
+                bytes from the specs;
+  tp            tensor and expert parallelism (``tp_phase``) on a one-rank
+                NCCL mesh (data, model) = (1, 1): nothing crosses cards,
+                every collective runs on the one rank; each path held to
+                the no-mesh path at the same seed: llama3.2-3b served by
+                the dense ``ServeEngine`` in turns with and without the
+                mesh (greedy streams equal; TTFT, TPOT p50, flash
+                launches), a mamba2-780m prefill batch through
+                ``ssd_sharded`` (logits bit for bit; B4 launches), a
+                moonshot prefill batch through ``_moe_ep`` at its served
+                depth (logits bit for bit; run inside ``moe``, its peak
+                memory apart from the ``moe`` line's), the ladder's
+                DDP+mixed rung of qwen2-0.5b with the model axis (the first
+                loss bit for bit; later losses, gradient norms, step 0's
+                gradients and parameters as ``TP_RUNG_*`` say; step p50,
+                B2 launches, collectives a step per axis; run inside
+                ``ladder_phase``), B1 on K/V repeated to H against GQA
+                (what ``sharded_flash``'s repeat costs), the bytes a rank holds at ``model`` = 2 / 4 / 8
+                from the specs (arithmetic), and the rehearsal's TP / EP
+                checks; ``phase_s``;
   summary       the run's elapsed seconds, the kernels' build included;
   kernels       the per-kernel summary line, launches counted on the served
                 and trained runs above (the attention kernels have a row per
@@ -367,12 +389,13 @@ from repro_torch.models.lm import LM                           # noqa: E402
 from repro_torch.models.ssm import ssd_decode_step             # noqa: E402
 from repro_torch.launch import rehearse                        # noqa: E402
 from repro_torch.launch.mesh import (make_mesh,                # noqa: E402
-                                     make_production_mesh)
+                                     make_production_mesh, one_rank)
 from repro_torch.optim import (AdamWConfig, ScheduleConfig,    # noqa: E402
                                compress, global_norm)
 from repro_torch.serve import AsyncServeEngine, ServeRequest   # noqa: E402
-from repro_torch.serve.engine import (make_decode_step,        # noqa: E402
-                                      make_prefill_step)
+from repro_torch.serve.engine import (Request, ServeEngine,     # noqa: E402
+                                      make_decode_step, make_prefill_step)
+from repro_torch.models.transformer import ParallelCtx         # noqa: E402
 from repro_torch.train import checkpoint, elastic, trainer    # noqa: E402
 
 # published peaks of one H100 SXM (dense): what the bounds are stated
@@ -4382,9 +4405,15 @@ def moe(policy):
     torch.cuda.empty_cache()
     phase_s["serve"] = time.perf_counter() - t0 - sum(phase_s.values())
     parity(cfg, model)
+    peak_serve = torch.cuda.max_memory_allocated()
+    # the ``tp`` line's part (c): one prefill batch through ``_moe_ep``,
+    # its peak read apart
+    torch.cuda.reset_peak_memory_stats()
+    out["tp_moe"] = _tp_moe(cfg, model)
+    out["tp_moe"]["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    phase_s["tp_moe"] = time.perf_counter() - t0 - sum(phase_s.values())
     del model
     torch.cuda.empty_cache()
-    peak_serve = torch.cuda.max_memory_allocated()
     parity_moe(cfg)
     torch.cuda.empty_cache()
     phase_s["parity"] = time.perf_counter() - t0 - sum(phase_s.values())
@@ -4900,7 +4929,8 @@ def _ladder_steps(cfg, mesh):
     one dK/dV and one dQ per layer) and each rung's first loss is held to
     the same step without a mesh (2e-2, the ``train`` check), which is held
     to the plain attention's (2e-2).  Returns (the line's fields, the
-    bf16 rungs' launches, the DP rung's last gradients)."""
+    bf16 rungs' launches, the DP rung's last gradients, the DDP+mixed
+    rung's parameters after its steps and its gradients of step 0)."""
     base = PolicyConfig(param_dtype="float32", remat="block",
                         attn_impl="kernel", dp_axes=("data",))
     rungs = policy_mod.ladder(base)
@@ -4942,7 +4972,8 @@ def _ladder_steps(cfg, mesh):
                       "compute_dtype": pol.compute_dtype,
                       "state_bytes": _tensor_bytes(checkpoint._leaves(
                           states[name]).values()),
-                      "losses": [], "step_s": [], "step_peak_extra_bytes": []}
+                      "losses": [], "grad_norms": [], "step_s": [],
+                      "step_peak_extra_bytes": []}
     launches = {name: {k: 0 for k in want} for name in LADDER_RUNGS}
 
     def step(name, i):
@@ -4962,6 +4993,7 @@ def _ladder_steps(cfg, mesh):
                            f"{want}")
         r = rows[name]
         r["losses"].append(float(m["loss"]))
+        r["grad_norms"].append(float(m["grad_norm"]))
         r["step_s"].append(dt)
         r["step_peak_extra_bytes"].append(
             torch.cuda.max_memory_allocated() - start)
@@ -4970,6 +5002,10 @@ def _ladder_steps(cfg, mesh):
 
     for name in LADDER_RUNGS:               # warm-up
         step(name, 0)
+        if name == "DDP+mixed":
+            first_grads = {n: p.grad.detach().clone() for n, p in
+                           states[name].model.named_parameters()
+                           if p.grad is not None}
         dt = rows[name]["compute_dtype"]
         first, ref = rows[name]["losses"][0], no_mesh[dt]["kernels"]
         check(abs(first - ref) <= 2e-2 * abs(ref),
@@ -5006,6 +5042,8 @@ def _ladder_steps(cfg, mesh):
                         f"DDP+mixed's on one rank, by up to {worst} of a "
                         f"leaf's max-abs; largest {top}")
     grads = {n: p.grad for n, p in states["DP"].model.named_parameters()}
+    ddp_params = {n: p.detach() for n, p in
+                  states["DDP+mixed"].model.named_parameters()}
     bf16_launches = {k: launches["DDP+mixed"][k]
                      + launches["DDP+mixed+sharded"][k] for k in want}
     fields = {"rungs": rows,
@@ -5018,7 +5056,7 @@ def _ladder_steps(cfg, mesh):
               "max_memory_allocated_all_states":
                   torch.cuda.max_memory_allocated()}
     del states, steps, z3
-    return fields, bf16_launches, grads
+    return fields, bf16_launches, grads, (ddp_params, first_grads)
 
 
 def _ladder_int8(mesh, grads):
@@ -5122,7 +5160,9 @@ def ladder_phase(rehearsal=None):
     exchange on ``(pod, data) = (2, 2)``, a checkpoint saved on four ranks
     and resumed on two: ``rehearsal``, a future of it that ``main``
     starts after the build, else run here); (d) ``_state_bytes_by_world``.
-    Returns the (q) rows and the bf16 rungs' launches."""
+    Returns the (q) rows, the bf16 rungs' launches, the ``tp`` line's
+    rung (``_tp_rung``, timed inside the ladder's one-rank group) and the
+    rehearsal's result."""
     import torch.distributed as dist
     t0 = time.perf_counter()
     cfg = get_config(LADDER_ARCH)
@@ -5142,14 +5182,20 @@ def ladder_phase(rehearsal=None):
             check(False, "ladder: a production mesh of 256 on one rank")
         except RuntimeError as e:
             check("need 256 devices" in str(e), f"ladder: {e}")
-        fields, launches, grads = _ladder_steps(cfg, mesh)
+        fields, launches, grads, ddp = _ladder_steps(cfg, mesh)
         t_steps = time.perf_counter()
         int8 = _ladder_int8(mesh, grads)
+        del grads
+        torch.cuda.empty_cache()
+        t_int8 = time.perf_counter()
+        # the same rung with the model axis: the ``tp`` line's part (d)
+        tp_rung = _tp_rung(cfg, make_mesh((1, 1), ("data", "model"),
+                                          device="cuda"), fields, *ddp)
     finally:
         dist.destroy_process_group()
-    del grads
+    del ddp
     torch.cuda.empty_cache()
-    t_int8 = time.perf_counter()
+    t_tp = time.perf_counter()
     rehearsal = (rehearse.rehearse() if rehearsal is None
                  else rehearsal.result())
     check(rehearsal["ok"], f"ladder: the four-rank rehearsal failed "
@@ -5165,10 +5211,422 @@ def ladder_phase(rehearsal=None):
          int8_ef=int8, rehearsal_four_gloo_ranks=rehearsal,
          state_bytes_per_rank=states,
          phase_s={"b2_rows": t_rows - t0, "steps": t_steps - t_rows,
-                  "int8": t_int8 - t_steps,
-                  "rehearsal_wait": t_rehearsal - t_int8,
+                  "int8": t_int8 - t_steps, "tp_rung": t_tp - t_int8,
+                  "rehearsal_wait": t_rehearsal - t_tp,
                   "total": time.perf_counter() - t0})
-    return q_rows, launches
+    return q_rows, launches, tp_rung, rehearsal
+
+
+# ---------------------------------------------------------------------------
+# tensor and expert parallelism on a one-rank (data, model) mesh
+# ---------------------------------------------------------------------------
+TP_LENS = (128, 256, 384, 512)      # llama3.2-3b's prompts, dense serving
+TP_MAX_NEW = 32
+TP_MAX_SEQ = 640
+TP_SSM_BATCH = (4, 1024)            # mamba2-780m's prefill batch
+TP_MOE_BATCH = (2, 512)             # moonshot's prefill batch
+TP_WORLDS = (2, 4, 8)               # model axis sizes priced from the specs
+TP_SERVE_ARCHS = ("command-r-35b", "llama4-scout-17b-a16e")
+TP_SERVE_SLOTS = (8, 4096)          # slots x cache length priced
+TP_TRAIN_ARCHS = ("stablelm-12b", "moonshot-v1-16b-a3b")
+# (d) against the ladder's DDP+mixed rung.  On one rank the forward keeps
+# its order (the first loss bit for bit) and the backward does not: B2 on
+# K/V repeated to H (G = 1) writes each head's dK / dV in bf16 and the
+# repeat's backward sums the group, where the G = 7 kernel sums the group's
+# heads in fp32 registers.  So step 0's gradients (the same parameters and
+# batch) are held leaf by leaf, relative Frobenius, at a few bf16 roundings
+# (0.0036 read, on wk): a zeroed, sign-flipped or rescaled leaf is 1 or more
+# off.  ``rehearse.NOISE_LEAVES`` are not held there: a key bias cancels in
+# the softmax, its gradient is rounding noise.  The later losses and every
+# step's gradient norm are held at about 5x what was read (2.1e-5, 1.7e-4);
+# the parameters only within 2 lr a step, as AdamW divides each element's
+# gradient by its own RMS and moves an element whose gradient is of the
+# order of the rounding by up to lr.
+TP_RUNG_LOSS_TOL = 1e-4             # relative
+TP_RUNG_NORM_TOL = 1e-3             # relative
+TP_RUNG_GRAD_TOL = 1e-2             # relative Frobenius, each leaf
+
+
+def _tp_ctx(mesh):
+    return ParallelCtx(mesh=mesh, dp_axes=("data",), tp_axis="model")
+
+
+def _tp_logits_cmp(got, want):
+    """Bit identity, else the largest difference over the largest value."""
+    same = torch.equal(got, want)
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max()) or 1.0
+    return {"bit_identical": same, "max_abs_err": err,
+            "max_abs_err_over_max": err / scale,
+            "tokens_equal": bool(torch.equal(got.argmax(-1),
+                                             want.argmax(-1)))}
+
+
+def _tp_prefill(cfg, model, policy, tokens, mesh):
+    """One prefill batch without a mesh and on ``mesh`` (the same model:
+    on one rank every piece is the whole leaf), the launches of the mesh
+    run, its collectives."""
+    S = tokens.shape[1]
+    plain = make_prefill_step(cfg, policy, cache_capacity=S)
+    pctx = _tp_ctx(mesh)
+    tp = make_prefill_step(cfg, policy, cache_capacity=S, mesh=mesh,
+                           pctx=pctx)
+    with torch.no_grad():
+        want = plain(model, tokens)[0]
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()           # just before the mesh path
+        got = tp(model, tokens)[0]
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()        # just after
+    return dict(_tp_logits_cmp(got, want),
+                launches={k: v for k, v in counts.items() if v},
+                collectives=pctx.traffic.report())
+
+
+def _tp_moe(cfg, model):
+    """(c) moonshot at its served depth: one prefill batch through
+    ``_moe_ep`` (``make_run_ctx`` picks ``"ep"`` on the mesh) against the
+    sorted path without a mesh; the next tokens must be equal."""
+    t0 = time.perf_counter()
+    policy = PolicyConfig(compute_dtype="bfloat16", remat="none",
+                          attn_impl="kernel")
+    B, S = TP_MOE_BATCH
+    tokens = torch.tensor(np.random.RandomState(31).randint(
+        0, cfg.vocab_size, (B, S)), dtype=torch.int32, device=DEV)
+    with one_rank(device=DEV) as mesh:
+        check(trainer.make_run_ctx(cfg, policy, mesh).moe_impl == "ep",
+              "tp moe: the mesh run context is not expert-parallel")
+        out = _tp_prefill(cfg, model, policy, tokens, mesh)
+    check(out["tokens_equal"], f"tp moe: _moe_ep's next tokens differ from "
+                               f"moe_sorted's: {out}")
+    # one rank keeps the no-mesh path's order: the same bits
+    check(out["bit_identical"], f"tp moe: _moe_ep's logits differ from "
+                                f"moe_sorted's: {out}")
+    check(out["launches"].get("flash_attention") == cfg.n_layers,
+          f"tp moe: flash launches {out['launches']}")
+    return dict(out, arch=cfg.name, n_layers=cfg.n_layers, batch=[B, S],
+                phase_s=time.perf_counter() - t0)
+
+
+def _tp_rung(cfg, mesh, ladder, ddp_params, first_grads):
+    """(d) qwen2-0.5b whole, the ladder's DDP+mixed rung on ``mesh``
+    ((data, model) = (1, 1)): one warm-up and ``LADDER_TIMED`` steps on the
+    ladder's batches, held to that rung's losses, gradient norms, step 0's
+    gradients ``first_grads`` and parameters as ``TP_RUNG_*`` say."""
+    t0 = time.perf_counter()
+    base = PolicyConfig(param_dtype="float32", remat="block",
+                        attn_impl="kernel", dp_axes=("data",))
+    pol = policy_mod.ladder(base)["DDP+mixed"]
+    optcfg = AdamWConfig(lr=LADDER_LR)
+    sched = ScheduleConfig(kind="cosine", peak_lr=LADDER_LR, warmup_steps=1,
+                           total_steps=1 + LADDER_TIMED)
+    ds = SyntheticDataset(cfg, TRAIN_SHAPE, seed=0)
+    state = trainer.init_state(cfg, pol, optcfg, seed=0, device=DEV,
+                               mesh=mesh)
+    step = trainer.make_train_step(cfg, pol, optcfg, sched, mesh=mesh,
+                                   shape=TRAIN_SHAPE)
+    losses, norms, step_s, traffic = [], [], [], None
+    n = cfg.n_layers
+    want_launches = dict({k: 0 for k in ops.launch_counts()},
+                         flash_attention_fwd_stats=2 * n,
+                         flash_attention_bwd_dkv=n,
+                         flash_attention_bwd_dq=n)
+    for i in range(1 + LADDER_TIMED):
+        if i == 1:
+            ops.reset_launch_counts()       # just before the timed steps
+        step.traffic.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, ds.batch_at(i))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        traffic = step.traffic.report()
+        if i == 0:
+            # the same parameters and batch: each leaf's gradient against
+            # DDP+mixed's, relative Frobenius
+            grad_err = {
+                name: float((p.grad - first_grads[name]).norm()
+                            / first_grads[name].norm().clamp_min(1e-30))
+                for name, p in state.model.named_parameters()
+                if not any(name.endswith(leaf)
+                           for leaf in rehearse.NOISE_LEAVES)}
+    counts = ops.launch_counts()            # just after
+    check(counts == {k: LADDER_TIMED * v for k, v in want_launches.items()},
+          f"tp rung: launches {counts}")
+    rung = ladder["rungs"]["DDP+mixed"]
+    want, want_norms = rung["losses"], rung["grad_norms"]
+    bound = 2 * LADDER_LR * (1 + LADDER_TIMED)
+    params_worst = max(float((p.detach() - ddp_params[name]).abs().max())
+                       for name, p in state.model.named_parameters())
+    grad_worst = max(grad_err.values())
+    top = dict(sorted(grad_err.items(), key=lambda kv: -kv[1])[:5])
+    check(losses[0] == want[0],
+          f"tp rung: first loss {losses[0]} vs the ladder's {want[0]}")
+    check(all(abs(a - b) <= TP_RUNG_LOSS_TOL * abs(b)
+              for a, b in zip(losses, want)),
+          f"tp rung: losses {losses} vs the ladder's {want} "
+          f"(> {TP_RUNG_LOSS_TOL})")
+    norm_err = max(abs(a - b) / b for a, b in zip(norms, want_norms))
+    check(norm_err <= TP_RUNG_NORM_TOL,
+          f"tp rung: grad norms {norms} vs the ladder's {want_norms} "
+          f"(> {TP_RUNG_NORM_TOL})")
+    check(grad_worst <= TP_RUNG_GRAD_TOL,
+          f"tp rung: step 0's gradients differ from the ladder's DDP+mixed "
+          f"by {grad_worst} (relative Frobenius, > {TP_RUNG_GRAD_TOL}); "
+          f"largest {top}")
+    check(params_worst <= bound,
+          f"tp rung: parameters differ from the ladder's DDP+mixed by "
+          f"{params_worst} > {bound}")
+    p50 = float(np.median(step_s[1:]))
+    return {"arch": cfg.name, "n_layers": n, "rung": "DDP+mixed",
+            "mesh": {"data": 1, "model": 1}, "losses": losses,
+            "ladder_losses": want,
+            "losses_bit_identical": [a == b for a, b in zip(losses, want)],
+            "grad_norms": norms, "ladder_grad_norms": want_norms,
+            "grad_norm_err_rel": norm_err,
+            "grad_norm_tol_rel": TP_RUNG_NORM_TOL,
+            "step0_grads_vs_ladder": {
+                "worst_rel_fro": grad_worst, "tol": TP_RUNG_GRAD_TOL,
+                "noise_leaves_not_held": list(rehearse.NOISE_LEAVES),
+                "largest": top},
+            "params_vs_ladder_max_abs": params_worst,
+            "params_bound_2_lr_a_step": bound,
+            "loss_tol_rel": TP_RUNG_LOSS_TOL,
+            "step_s": step_s, "step_s_p50": p50,
+            "tokens_per_s": TRAIN_SHAPE.tokens / p50,
+            "launches_timed": {k: v for k, v in counts.items() if v},
+            "collectives_per_step": traffic,
+            "phase_s": time.perf_counter() - t0}
+
+
+def _tp_serve_round(cfg, model, policy, mesh, prompts):
+    """``ServeEngine`` (dense slots) on ``mesh`` or none: every prompt
+    prefilled (TTFT: the prefill and its token read back), then decode
+    steps until every request has ``TP_MAX_NEW`` tokens (TPOT: a step)."""
+    eng = ServeEngine(cfg, model, policy, n_slots=len(prompts),
+                      max_seq=TP_MAX_SEQ, mesh=mesh, device=DEV)
+    reqs = [Request(i, torch.tensor(p, dtype=torch.int32, device=DEV),
+                    max_new=TP_MAX_NEW) for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()               # just before the path
+    ttft, tpot = [], []
+    for r in reqs:
+        t = time.perf_counter()
+        check(eng.add_request(r), "tp serve: no free slot")
+        ttft.append(time.perf_counter() - t)
+    while any(not r.done for r in reqs):
+        t = time.perf_counter()
+        eng.step()
+        tpot.append(time.perf_counter() - t)
+    counts = ops.launch_counts()            # just after
+    return {"mesh": mesh is not None, "streams": [r.out for r in reqs],
+            "ttft_s": ttft, "ttft_p50_s": float(np.median(ttft)),
+            "tpot_p50_s": float(np.median(tpot)), "decode_steps": len(tpot),
+            "flash_attention_launches": counts["flash_attention"],
+            "launches": {k: v for k, v in counts.items() if v},
+            "collectives": (eng.place.traffic.report()
+                            if eng.place is not None else None)}
+
+
+def _tp_serve(mesh):
+    """(a) llama3.2-3b at full width, dense ``ServeEngine`` on ``mesh``
+    against ``mesh=None`` in turns (mesh, none, none, mesh) from one
+    model: greedy streams equal, TTFT / TPOT p50 and flash launches of
+    each."""
+    cfg = get_config(ARCH)
+    policy = PolicyConfig(compute_dtype="bfloat16", remat="none",
+                          attn_impl="kernel")
+    model = LM.init(cfg, seed=0, dtype=torch.bfloat16, device=DEV)
+    prompts = [_prompt(300 + i, n, cfg.vocab_size)
+               for i, n in enumerate(TP_LENS)]
+    rounds = [_tp_serve_round(cfg, model, policy, m, prompts)
+              for m in (mesh, None, None, mesh)]
+    del model
+    torch.cuda.empty_cache()
+    want = rounds[1]["streams"]
+    for r in rounds:
+        check(r.pop("streams") == want,
+              "tp serve: greedy streams on the mesh differ from those "
+              "without")
+        check(r["flash_attention_launches"] == len(TP_LENS) * cfg.n_layers,
+              f"tp serve: flash launches {r['flash_attention_launches']}")
+    return {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "prompt_lens": list(TP_LENS), "max_new": TP_MAX_NEW,
+            "streams_equal": True, "rounds_mesh_none_none_mesh": rounds}
+
+
+def _tp_ssm(mesh):
+    """(b) mamba2-780m: one prefill batch through ``ssd_sharded``."""
+    cfg = get_config(SSM_ARCH)
+    policy = PolicyConfig(compute_dtype="bfloat16", remat="none",
+                          attn_impl="kernel")
+    model = LM.init(cfg, seed=0, dtype=torch.bfloat16, device=DEV)
+    B, S = TP_SSM_BATCH
+    tokens = torch.tensor(np.random.RandomState(32).randint(
+        0, cfg.vocab_size, (B, S)), dtype=torch.int32, device=DEV)
+    out = _tp_prefill(cfg, model, policy, tokens, mesh)
+    del model
+    torch.cuda.empty_cache()
+    check(out["launches"].get("ssd") == cfg.n_layers,
+          f"tp ssm: ssd launches {out['launches']}")
+    # one rank keeps the no-mesh path's order: the same bits
+    check(out["bit_identical"], f"tp ssm: logits {out}")
+    return dict(out, arch=cfg.name, n_layers=cfg.n_layers, batch=[B, S])
+
+
+def _tp_host_us(mesh, reps=200):
+    """Host microseconds of what every tensor-parallel block repeats on the
+    one-rank group: one all-reduce of a decode step's (4, 1, 3072) bf16
+    activation, a *copy* and a *reduce* of it (autograd functions), and a
+    ``ParallelCtx.cut`` of a whole leaf (perf_counter over ``reps`` calls,
+    one synchronize at the end)."""
+    pctx = _tp_ctx(mesh)
+    x = torch.zeros(4, 1, get_config(ARCH).d_model, dtype=torch.bfloat16,
+                    device=DEV)
+    w = torch.zeros(64, 8, 128, device=DEV)
+    calls = {"all_reduce": lambda: hierarchy.all_reduce(x, pctx.tp_group),
+             "copy_then_reduce": lambda: pctx.reduce(pctx.copy(x)),
+             "cut": lambda: pctx.cut(w, 1, 8)}
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        out[f"{name}_us"] = (time.perf_counter() - t) / reps * 1e6
+    return out
+
+
+def _tp_repeat_cost():
+    """B1 at llama3.2-3b's prefill shapes (S = 512, 2048): GQA's 8 K/V heads
+    (G = 3) against the 24 that ``sharded_flash`` repeats them to (G = 1),
+    timed in turns, and the bytes each reads."""
+    cfg = get_config(ARCH)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(7)
+    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    out = {}
+    for S in (512, 2048):
+        q = _randn(gen, 1, S, H, D, dtype=torch.bfloat16)
+        k, v = (_randn(gen, 1, S, K, D, dtype=torch.bfloat16)
+                for _ in range(2))
+        kr, vr = (t.repeat_interleave(H // K, dim=2) for t in (k, v))
+        gqa = lambda: flash_attention(q, k, v, causal=True)     # noqa: E731
+        rep = lambda: flash_attention(q, kr, vr, causal=True)   # noqa: E731
+        same = _tp_logits_cmp(rep(), gqa())
+        check(same["max_abs_err_over_max"] <= 2e-2,
+              f"tp: B1 at G = 1 on the repeated K/V against G = 3 (S={S}): "
+              f"{same}")
+        ms_rep, ms_gqa = time_in_turns(rep, gqa, 20)
+        kv = 2 * S * D * 2
+        out[f"S{S}"] = {"gqa_ms": ms_gqa, "repeated_ms": ms_rep,
+                        "kv_bytes_gqa": K * kv, "kv_bytes_repeated": H * kv,
+                        "ratio": ms_rep / ms_gqa,
+                        "bit_identical": same["bit_identical"],
+                        "max_abs_err": same["max_abs_err"]}
+    return out
+
+
+def _tp_bytes():
+    """(e) arithmetic: the bytes a rank holds at ``model`` = 2 / 4 / 8 from
+    the specs -- serving: bf16 parameters (``sharding.Layout.use_specs``:
+    the pieces a rank computes with) and its piece of the bf16 caches
+    (``cache_specs``) of ``TP_SERVE_SLOTS``; training: fp32 parameters,
+    gradients and both AdamW moments (ZeRO 0 at ``data`` = 1, ZeRO-3 at
+    ``data`` = 8)."""
+    from repro_torch.models import transformer as transformer_mod
+    from repro_torch.train import sharding
+    out = {"serving_bf16": {}, "training_fp32": {}}
+    for arch in TP_SERVE_ARCHS:
+        cfg = get_config(arch)
+        meta = LM(cfg, device="meta")
+        shapes = {n: tuple(p.shape) for n, p in meta.named_parameters()}
+        caches = transformer_mod.init_stack_cache(cfg, *TP_SERVE_SLOTS,
+                                                  device="meta")
+        row = {"params_whole_bytes": 2 * sum(int(np.prod(s))
+                                             for s in shapes.values())}
+        for m in TP_WORLDS:
+            axes = {"data": 1, "model": m}
+            pol = PolicyConfig(zero_stage=0)
+            specs = sharding.specs(meta, cfg, pol, axes)[0]
+            params = 2 * sum(int(np.prod(policy_mod.local_shape(
+                s, specs[n], axes))) for n, s in shapes.items())
+            cspecs = policy_mod.stack_cache_specs(cfg, caches, pol, axes)
+            cache = sum(int(np.prod(policy_mod.local_shape(
+                t.shape, cspecs[i][n], axes))) * 2
+                for i, layer in enumerate(caches) for n, t in layer.items())
+            row[f"model{m}"] = {"params_bytes": params, "cache_bytes": cache,
+                                "fits": params + cache <= CHIP.hbm_bytes}
+        out["serving_bf16"][arch] = row
+    for arch in TP_TRAIN_ARCHS:
+        cfg = get_config(arch)
+        meta = LM(cfg, device="meta")
+        shapes = {n: tuple(p.shape) for n, p in meta.named_parameters()}
+        row = {}
+        for m in TP_WORLDS:
+            for data, zero in ((1, 0), (8, 3)):
+                axes = {"data": data, "model": m}
+                pol = PolicyConfig(zero_stage=zero)
+                ps, ms = sharding.specs(meta, cfg, pol, axes)
+
+                def local(specs):
+                    return 4 * sum(int(np.prod(policy_mod.local_shape(
+                        s, specs[n], axes))) for n, s in shapes.items())
+                total = 2 * local(ps) + 2 * local(ms)
+                row[f"data{data}_model{m}_zero{zero}"] = {
+                    "bytes_per_rank": total,
+                    "fits": total <= CHIP.hbm_bytes}
+        out["training_fp32"][arch] = row
+    out["hbm_bytes"] = CHIP.hbm_bytes
+    out["what"] = ("arithmetic from the specs, not measured: activations "
+                   "and workspace not counted")
+    return out
+
+
+def tp_phase(moe_part, rung, rehearsal):
+    """The ``tp`` line: the tensor- and expert-parallel paths on a one-rank
+    NCCL mesh (data, model) = (1, 1) -- nothing crosses cards; every copy,
+    reduce, gather and all-reduce of a wider mesh runs on the one rank --
+    each held to the no-mesh path at the same seed: (a) ``_tp_serve``, (b)
+    ``_tp_ssm``, (c) ``_tp_moe`` (run inside ``moe``, where moonshot is
+    built whole), (d) ``_tp_rung`` (inside ``ladder_phase``'s group), (e)
+    ``_tp_bytes``; B1 on repeated K/V against GQA (``_tp_repeat_cost``);
+    the host's cost of a collective and a cut (``_tp_host_us``); the
+    four-rank ``gloo`` rehearsal's TP / EP checks."""
+    t0 = time.perf_counter()
+    with one_rank(device=DEV) as mesh:
+        serve = _tp_serve(mesh)
+        t_serve = time.perf_counter()
+        ssm_part = _tp_ssm(mesh)
+        host_us = _tp_host_us(mesh)
+    t_ssm = time.perf_counter()
+    with torch.no_grad():
+        repeat = _tp_repeat_cost()
+    t_repeat = time.perf_counter()
+    nbytes = _tp_bytes()
+    emit("tp", mesh={"data": 1, "model": 1}, backend="nccl",
+         crosses_cards=False,
+         note="one card: the tensor- and expert-parallel collectives run "
+              "on a one-rank group; their time between cards is not "
+              "measured",
+         serve_dense=serve, ssm_prefill=ssm_part, moe_ep_prefill=moe_part,
+         ddp_mixed_rung=rung, b1_repeated_kv=repeat,
+         host_us_one_rank=host_us,
+         bytes_per_rank=nbytes,
+         rehearsal_four_gloo_ranks={
+             "tensor_parallel": rehearsal["tensor_parallel"],
+             "expert_parallel": rehearsal["expert_parallel"]},
+         phase_s={"serve": t_serve - t0, "ssm": t_ssm - t_serve,
+                  "b1_repeat": t_repeat - t_ssm,
+                  "bytes": time.perf_counter() - t_repeat,
+                  "moe_in_moe_line": moe_part["phase_s"],
+                  "rung_in_ladder_line": rung["phase_s"],
+                  "total": time.perf_counter() - t0 + moe_part["phase_s"]
+                  + rung["phase_s"]})
 
 
 def main() -> int:
@@ -5322,7 +5780,9 @@ def main() -> int:
     elastic_phase()
     cluster_phase()
     # the paper's ladder on a one-rank NCCL mesh: sub-row (q)
-    q_rows, n_ladder = ladder_phase(rehearsal)
+    q_rows, n_ladder, tp_rung, rehearsed = ladder_phase(rehearsal)
+    # tensor and expert parallelism on a one-rank (data, model) mesh
+    tp_phase(n_moe["tp_moe"], tp_rung, rehearsed)
 
     def row(name, source, replaces, launches, main, kernel_design):
         head = main[-1]                     # the largest main-path shape

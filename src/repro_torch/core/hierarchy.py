@@ -12,7 +12,10 @@ Where the reference writes ``psum`` / ``pmax`` / ``all_gather`` over a named
 axis inside a ``shard_map``, the port calls ``torch.distributed`` on the
 process group of one or more ``DeviceMesh`` axes (a ``Group``).  Every
 collective here adds its calls and bytes to the group's ``Traffic``, so a
-step can report what it moved on each axis.
+step can report what it moved on each axis.  The tensor-parallel paths
+enter and leave their regions through autograd functions of these
+collectives: ``tp_copy`` / ``tp_reduce`` (Megatron-LM's f and g), and
+``tp_psum``, ``tp_gather``, ``tp_split``, ``gather_param``.
 """
 from __future__ import annotations
 
@@ -31,6 +34,8 @@ _ALL_GATHER = getattr(dist, "all_gather_single", None) or \
     dist.all_gather_into_tensor
 _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or \
     dist.reduce_scatter_tensor
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 # ring wire bytes per rank as a share of the payload, on n ranks
 _WIRE = {"all_reduce": lambda n: 2.0 * (n - 1) / n,
@@ -75,9 +80,9 @@ class Group:
 
 def axis_group(mesh, axes: Sequence[str], traffic: Traffic) -> Group:
     """The group of ``mesh``'s ``axes``.  One axis is its ``DeviceMesh``
-    group; several are the world's group where they span the world (the
-    data-parallel meshes of this port: a tensor-parallel axis larger than
-    one is refused before a group is asked for)."""
+    group; several are the world's group where they span the world, else
+    one ``new_group`` per coset of the other axes (every rank joins every
+    ``new_group`` call, in the same order, and keeps its own coset's)."""
     axes = tuple(a for a in mesh.mesh_dim_names if a in axes)
     if not axes:
         raise ValueError("a group needs at least one mesh axis")
@@ -90,10 +95,26 @@ def axis_group(mesh, axes: Sequence[str], traffic: Traffic) -> Group:
     elif size == dist.get_world_size() == mesh.mesh.numel():
         pg = dist.group.WORLD
     else:
-        raise NotImplementedError(
-            f"a group over axes {axes} that do not span the world: only "
-            f"data-parallel meshes are ported (ROADMAP queue A item 7)")
+        pg = _coset_group(mesh, axes)
     return Group(pg, "+".join(axes), size, traffic)
+
+
+def _coset_group(mesh, axes: Tuple[str, ...]):
+    """The process group of this rank's coset of ``axes``: the ranks that
+    differ from it only along ``axes``.  Every rank of the world calls
+    ``new_group`` for every coset, in the mesh's order (a rank past the
+    mesh, too), as ``torch.distributed`` asks."""
+    names = list(mesh.mesh_dim_names)
+    keep = [names.index(a) for a in axes]
+    other = [i for i in range(len(names)) if i not in keep]
+    ranks = mesh.mesh.permute(other + keep).reshape(
+        -1, int(torch.tensor([mesh.mesh.shape[i] for i in keep]).prod()))
+    me, mine = dist.get_rank(), None
+    for row in ranks.tolist():
+        pg = dist.new_group(row)
+        if me in row:
+            mine = pg
+    return mine
 
 
 def _count(group: Group, kind: str, t: torch.Tensor) -> None:
@@ -104,8 +125,7 @@ def all_reduce(x: torch.Tensor, group: Group, op: str = "sum"
                ) -> torch.Tensor:
     """``x`` reduced (``"sum"`` or ``"max"``) over the group, in place."""
     _count(group, "all_reduce", x)
-    dist.all_reduce(x, op={"sum": dist.ReduceOp.SUM,
-                           "max": dist.ReduceOp.MAX}[op], group=group.pg)
+    dist.all_reduce(x, op=_OPS[op], group=group.pg)
     return x
 
 
@@ -131,6 +151,125 @@ def reduce_scatter(x: torch.Tensor, group: Group, dim: int = 0
     _count(group, "reduce_scatter", x)
     _REDUCE_SCATTER(out, parts.contiguous().flatten(0, 1), group=group.pg)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the entry and exit of a tensor-parallel region (Megatron-LM's f and g,
+# Shoeybi et al., arXiv:1909.08053 section 3), and the reference's psum and
+# ZeRO-style gather inside a manual region, as autograd functions
+# ---------------------------------------------------------------------------
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+class _GatherAct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = dist.get_rank(ctx.group.pg)
+        return g.narrow(ctx.dim, r * ctx.n, ctx.n).contiguous(), None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        n = x.shape[dim] // group.size
+        r = dist.get_rank(group.pg)
+        return x.narrow(dim, r * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim), None, None
+
+
+class _GatherSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g.contiguous(), ctx.group, ctx.dim), None, None
+
+
+def _recorded(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def tp_copy(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """*f*, the entry of a tensor-parallel region: ``x`` (the same on every
+    rank of ``group``) forward; the ranks' partial gradients summed
+    backward."""
+    return _Copy.apply(x, group) if _recorded(x) else x
+
+
+def tp_reduce(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """*g*, the exit: the ranks' partial results summed forward; the
+    gradient (the same on every rank) passed through backward.  Where no
+    gradient is recorded the sum is taken in place: pass a tensor nothing
+    else reads."""
+    return _Reduce.apply(x, group) if _recorded(x) else all_reduce(x, group)
+
+
+def tp_psum(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """The reference's ``psum`` where every rank goes on with its own use
+    of the sum: summed forward, and the ranks' gradients summed backward
+    (in place where no gradient is recorded, as ``tp_reduce``)."""
+    return _Psum.apply(x, group) if _recorded(x) else all_reduce(x, group)
+
+
+def tp_gather(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    """The ranks' pieces joined along ``dim`` forward, for a use that every
+    rank repeats; backward, this rank's piece of the (same) gradient."""
+    return _GatherAct.apply(x, group, dim) if _recorded(x) else \
+        all_gather(x, group, dim)
+
+
+def tp_split(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    """This rank's piece along ``dim`` of ``x`` (the same on every rank)
+    forward; the pieces' gradients joined backward."""
+    return _Split.apply(x, group, dim)
+
+
+def gather_param(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    """A parameter's pieces joined along ``dim`` (ZeRO-3's all-gather, the
+    reference's ``all_gather(..., tiled=True)`` inside ``_moe_ep``); the
+    ranks' gradients of the whole reduce-scattered back to the piece."""
+    return _GatherSum.apply(x, group, dim)
 
 
 def allreduce_flat(tree: Mapping[str, torch.Tensor], group: Group

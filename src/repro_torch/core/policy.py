@@ -28,8 +28,13 @@ leaf that is small alone but large stacked (llama3.2-3b's norm scales:
 3072 elements, 86016 over its 28 layers) is sharded where the reference
 shards it.
 
-Not here: ``cache_specs``, ``logits_spec`` and ``constrain``, which belong
-to the tensor-parallel paths (ROADMAP queue A item 7).
+``cache_specs`` (decode caches: batch over the dp axes, the attention
+cache's length over the tp axis, recurrent state channels over it where
+they divide) and ``logits_spec`` are the reference's rules over its cache
+paths (``seg0/slot0/k``); ``stack_cache_specs`` maps them onto the port's
+per-layer caches.  ``constrain`` has no GSPMD to pin: here it is "this
+rank's piece of a whole tensor under ``spec``", the whole tensor without a
+mesh.
 """
 from __future__ import annotations
 
@@ -171,12 +176,12 @@ def _stack_skip(pstr: str, cfg: ModelConfig) -> int:
 def param_spec(pstr: str, shape: Tuple[int, ...], cfg: ModelConfig,
                policy: PolicyConfig, mesh_axes: Mapping[str, int],
                *, shard_fsdp: bool, is_opt: bool = False,
-               fsdp_min: int = 2) -> Spec:
+               fsdp_min: int = 2, tp_min: int = 2) -> Spec:
     """The spec of one leaf of the reference's pytree: ``pstr`` its path,
     ``shape`` its (stacked) shape.  An fsdp axis of the mesh takes part
-    from size ``fsdp_min`` on: 2 is the reference's rule; 1 shards over
-    axes of size 1 too, whose pieces are the whole tensor
-    (``train/sharding.py``)."""
+    from size ``fsdp_min`` on, the tp axis from size ``tp_min``: 2 is the
+    reference's rule; 1 shards over axes of size 1 too, whose pieces are
+    the whole tensor (``train/sharding.py``)."""
     if _prod(shape) < _REPLICATE_BELOW:
         return ()
     skip = _stack_skip(pstr, cfg)
@@ -185,7 +190,7 @@ def param_spec(pstr: str, shape: Tuple[int, ...], cfg: ModelConfig,
     tp = policy.tp_axis
     tp_size = mesh_axes.get(tp, 1) if tp else 1
     tp_dim = None
-    if tp and tp_size > 1:
+    if tp and tp in mesh_axes and tp_size >= tp_min:
         tp_dim = _pick_tp_dim(pstr, shape, skip, tp_size)
         if tp_dim is not None:
             entries[tp_dim] = tp
@@ -211,37 +216,37 @@ def param_spec(pstr: str, shape: Tuple[int, ...], cfg: ModelConfig,
 
 def _specs(model, cfg: ModelConfig, policy: PolicyConfig,
            mesh_axes: Mapping[str, int], *, shard_fsdp: bool,
-           is_opt: bool, fsdp_min: int) -> Dict[str, Spec]:
+           is_opt: bool, fsdp_min: int, tp_min: int) -> Dict[str, Spec]:
     from repro_torch.convert import reference_paths
     out = {}
     for name, (path, shape) in reference_paths(model).items():
         spec = param_spec(path, shape, cfg, policy, mesh_axes,
                           shard_fsdp=shard_fsdp, is_opt=is_opt,
-                          fsdp_min=fsdp_min)
+                          fsdp_min=fsdp_min, tp_min=tp_min)
         out[name] = spec[_stack_skip(path, cfg):] if spec else spec
     return out
 
 
 def param_specs(model, cfg: ModelConfig, policy: PolicyConfig,
                 mesh_axes: Mapping[str, int], *,
-                fsdp_min: int = 2) -> Dict[str, Spec]:
+                fsdp_min: int = 2, tp_min: int = 2) -> Dict[str, Spec]:
     """Parameter name -> spec for the port's ``LM`` (any device, ``meta``
     too): the reference's spec of the leaf, its stack entry dropped
-    (``fsdp_min``: ``param_spec``'s)."""
+    (``fsdp_min``, ``tp_min``: ``param_spec``'s)."""
     return _specs(model, cfg, policy, mesh_axes,
                   shard_fsdp=policy.zero_stage >= 3, is_opt=False,
-                  fsdp_min=fsdp_min)
+                  fsdp_min=fsdp_min, tp_min=tp_min)
 
 
 def opt_state_specs(model, cfg: ModelConfig, policy: PolicyConfig,
                     mesh_axes: Mapping[str, int], *,
-                    fsdp_min: int = 2) -> Dict[str, Spec]:
+                    fsdp_min: int = 2, tp_min: int = 2) -> Dict[str, Spec]:
     """Adam moment (and fp32 master) sharding: ZeRO-1+ shards optimizer
     state even when the params themselves are replicated (paper's "sharded
     training")."""
     return _specs(model, cfg, policy, mesh_axes,
                   shard_fsdp=policy.zero_stage >= 1, is_opt=True,
-                  fsdp_min=fsdp_min)
+                  fsdp_min=fsdp_min, tp_min=tp_min)
 
 
 # ---------------------------------------------------------------------------
@@ -279,6 +284,117 @@ def batch_specs(example: Any, policy: PolicyConfig,
             and example.shape[1] >= 2 * mesh_axes.get(seq_axis, 1)):
         entries[1] = seq_axis
     return tuple(entries)
+
+
+# ---------------------------------------------------------------------------
+# decode caches, logits, activation pieces
+# ---------------------------------------------------------------------------
+def _tree_leaves(tree, path=()):
+    """(path joined by ``/``, leaf) of a tree of dicts and lists, as
+    ``jax.tree_util`` keys join (list items by index)."""
+    if isinstance(tree, Mapping):
+        for k, v in tree.items():
+            yield from _tree_leaves(v, path + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _tree_leaves(v, path + (str(i),))
+    else:
+        yield "/".join(path), tree
+
+
+def _rebuild(tree, specs, path=()):
+    if isinstance(tree, Mapping):
+        return {k: _rebuild(v, specs, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(v, specs, path + (str(i),))
+                          for i, v in enumerate(tree))
+    return specs["/".join(path)]
+
+
+def cache_spec(pstr: str, shape: Sequence[int], policy: PolicyConfig,
+               mesh_axes: Mapping[str, int], *, tp_min: int = 2) -> Spec:
+    """The spec of one decode-cache leaf at path ``pstr`` (the reference's
+    rule, ``repro/core/policy.py:233-273``): batch over the dp axes; the
+    attention cache's length W over the tp axis where it divides and is at
+    least twice the axis; a recurrent leaf's largest such channel dim over
+    it.  A leaf under ``seg*/slot*`` has a stacked layer dim first (the
+    reference treats every one so).  The tp axis takes part from size
+    ``tp_min`` (2 is the reference's rule)."""
+    shape = tuple(int(s) for s in shape)
+    nd = len(shape)
+    tp = policy.tp_axis
+    tp_size = mesh_axes.get(tp, 1) if tp else 1
+    skip = 1 if re.search(r"seg\d+/slot\d+", pstr) and nd >= 1 else 0
+    entries: list = [None] * nd
+    bdim = skip
+    if nd > bdim:
+        entries[bdim] = dp_spec_for_batch(shape[bdim], policy, mesh_axes)
+    if tp and tp in mesh_axes and tp_size >= tp_min and nd > bdim + 1:
+        if re.search(r"/(k|v|pos)$", pstr):
+            wdim = bdim + 1
+            if shape[wdim] % tp_size == 0 and shape[wdim] >= 2 * tp_size:
+                entries[wdim] = tp
+        else:
+            cands = [(shape[d], d) for d in range(bdim + 1, nd)
+                     if shape[d] % tp_size == 0 and shape[d] >= 2 * tp_size]
+            if cands:
+                entries[max(cands)[1]] = tp
+    return tuple(entries)
+
+
+def cache_specs(caches: Any, policy: PolicyConfig,
+                mesh_axes: Mapping[str, int], *, tp_min: int = 2) -> Any:
+    """``cache_spec`` of every leaf of ``caches`` (nested dicts and lists of
+    anything with a ``shape``, laid out as the reference's stacked cache
+    tree), in the tree's structure."""
+    specs = {p: cache_spec(p, leaf.shape, policy, mesh_axes, tp_min=tp_min)
+             for p, leaf in _tree_leaves(caches)}
+    return _rebuild(caches, specs)
+
+
+def stack_cache_specs(cfg: ModelConfig, caches: Sequence[Mapping[str, Any]],
+                      policy: PolicyConfig, mesh_axes: Mapping[str, int], *,
+                      tp_min: int = 2) -> List[Dict[str, Spec]]:
+    """The spec of each leaf of the port's per-layer caches (a list of one
+    dict a layer): ``cache_spec`` on the leaf's path and stacked shape in
+    the reference's tree (``seg{i}/slot{j}/<name>``, the segment's repeat
+    count first where it scans), the stack entry dropped."""
+    out, layer = [], 0
+    for si, (unit, k) in enumerate(plan_segments(cfg.pattern)):
+        for rep in range(k):
+            for slot in range(len(unit)):
+                row = {}
+                for name, leaf in caches[layer].items():
+                    shape = tuple(leaf.shape)
+                    spec = cache_spec(f"seg{si}/slot{slot}/{name}",
+                                      ((k,) + shape) if k > 1 else shape,
+                                      policy, mesh_axes, tp_min=tp_min)
+                    row[name] = spec[1:] if k > 1 else spec
+                out.append(row)
+                layer += 1
+    return out
+
+
+def logits_spec(policy: PolicyConfig, mesh_axes: Mapping[str, int],
+                batch: int, *, tp_min: int = 2) -> Spec:
+    """(B, S, V) logits: batch over the dp axes, the vocabulary over the tp
+    axis (``tp_min`` as ``cache_spec``'s)."""
+    dp = dp_spec_for_batch(batch, policy, mesh_axes)
+    tp = policy.tp_axis if (policy.tp_axis in mesh_axes and mesh_axes[
+        policy.tp_axis] >= tp_min) else None
+    return (dp, None, tp)
+
+
+def constrain(x, spec: Optional[Spec], mesh=None):
+    """This rank's piece of the whole tensor ``x`` under ``spec`` (a view);
+    ``x`` itself without a mesh or a spec.  The reference pins a layout for
+    GSPMD (``with_sharding_constraint``, a no-op without a mesh); the port
+    has no GSPMD, and a tensor that every rank holds whole is cut here."""
+    if spec is None or mesh is None:
+        return x
+    from repro_torch.train.sharding import piece
+    return piece(x, spec, mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -8,9 +8,42 @@ program never finds itself in a group it did not ask for.
 """
 from __future__ import annotations
 
-from typing import Sequence
+import contextlib
+import os
+from typing import Dict, Sequence
 
 import torch.distributed as dist
+
+AXIS_ORDER = ("pod", "data", "model")    # outermost first, as the reference's
+
+
+def parse_mesh(text: str) -> Dict[str, int]:
+    """``"model=2,data=4"`` -> ``{"data": 4, "model": 2}``: the launchers'
+    ``--mesh``, axes in ``AXIS_ORDER`` (outermost first)."""
+    if not text:
+        return {}
+    sizes = {}
+    for part in text.split(","):
+        name, _, n = part.partition("=")
+        if name not in AXIS_ORDER or not n.isdigit() or int(n) < 1:
+            raise ValueError(f"--mesh {text!r}: want axis=N of {AXIS_ORDER}")
+        sizes[name] = int(n)
+    return {a: sizes[a] for a in AXIS_ORDER if a in sizes}
+
+
+def start_group(device: str) -> None:
+    """Join ``torchrun``'s group (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+    ``MASTER_ADDR`` / ``MASTER_PORT``), or start a one-rank group: NCCL on
+    the card, ``gloo`` on the CPU.  A failed NCCL start raises."""
+    import torch
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        if backend == "nccl":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group(backend, init_method="env://")
+    else:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
 
 
 def _world(what: str) -> int:
@@ -62,3 +95,20 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
         return init_device_mesh(device, shape, mesh_dim_names=axes)
     return DeviceMesh(device, torch.arange(n).reshape(shape),
                       mesh_dim_names=axes)
+
+
+@contextlib.contextmanager
+def one_rank(shape: Sequence[int] = (1, 1),
+             axes: Sequence[str] = ("data", "model"), device: str = "cuda"):
+    """A one-rank group (NCCL on the card, ``gloo`` on the CPU) and a mesh
+    of ``shape`` (every size 1) over it, destroyed on leaving: the mesh on
+    which one card (or one test process) runs every collective, shard and
+    gather of a wider mesh's program."""
+    import torch
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield make_mesh(shape, axes, device=torch.device(device).type)
+    finally:
+        dist.destroy_process_group()

@@ -8,9 +8,12 @@ alone; four processes can, at a reduced size.
   PYTHONPATH=src python -m repro_torch.launch.rehearse
 
 prints one JSON line: ZeRO-3 against DP on ``data = 4``, the int8 exchange
-on ``(pod, data) = (2, 2)`` against the same arithmetic in numpy, and a
+on ``(pod, data) = (2, 2)`` against the same arithmetic in numpy, a
 checkpoint saved on 4 ranks and resumed on the first 2 of them after the
-others' devices fail; exit 0 when all hold.
+others' devices fail, tensor parallelism on ``(data, model) = (2, 2)``
+against DP on ``data = 4``, expert parallelism with ZeRO-3 against without,
+and a ``ServeEngine``'s greedy streams on ``(2, 2)`` against one process's;
+exit 0 when all hold.
 
 Each rank runs on one thread, meets the others through a ``FileStore`` in
 a temporary directory (no port), and gives its group a timeout; ``spawn``
@@ -21,6 +24,7 @@ arrays back.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import datetime
 import json
@@ -191,7 +195,8 @@ def train_jobs(rank: int, world: int, jobs, weights=None) -> List[dict]:
     its mesh; rank 0 returns the whole parameters after the steps, the
     metrics of every step and the step's collective traffic, and for a
     job with gradient compression also the first moments and the int8
-    residuals (``m``, ``ef``), whole."""
+    residuals (``m``, ``ef``), whole; for a job with a ``model`` axis the
+    first moments."""
     from repro_torch.launch.mesh import make_mesh
     out = []
     for job in jobs:
@@ -203,6 +208,8 @@ def train_jobs(rank: int, world: int, jobs, weights=None) -> List[dict]:
         prefixes = {"params": "params/"}
         if job.compression != "none":
             prefixes.update(m="opt/m/", ef="ef/")
+        elif "model" in dict(job.mesh):
+            prefixes.update(m="opt/m/")
         row = {part: {k[len(pre):]: v for k, v in whole.items()
                       if k.startswith(pre)}
                for part, pre in prefixes.items()}
@@ -295,19 +302,182 @@ def resume_and_go_on(rank: int, world: int, job: Job, ckpt_dir: str,
         if rank == 0 else None
 
 
-def four_ranks(rank: int, world: int, jobs, weights, ckpt_dir: str,
-               save_job: Job, save_at: int) -> dict:
-    """``train_jobs``, ``int8_exchange``, then ``save_and_go_on`` on all
-    the ranks and ``resume_and_go_on`` on the shrunk composition's (one
-    start of the processes); ``started``: the host's clock when the
-    rank's group was up."""
+# ---------------------------------------------------------------------------
+# the tensor- and expert-parallel paths, case by case
+# ---------------------------------------------------------------------------
+def _pctx(mesh, fsdp_experts: bool = False):
+    from repro_torch.models.transformer import ParallelCtx
+    return ParallelCtx(mesh=mesh, dp_axes=("data",), tp_axis="model",
+                       fsdp_experts=fsdp_experts)
+
+
+def _rows(a, mesh):
+    """This rank's rows (its piece over ``data``) of a numpy array, as a
+    tensor."""
+    import torch
+    from repro_torch.train.sharding import piece
+    return torch.from_numpy(np.ascontiguousarray(piece(a, ("data",),
+                                                       mesh)))
+
+
+def _flash_case(pctx, mesh, case):
+    from repro_torch.models.attention import sharded_flash
+    q, k, v = (_rows(case[n], mesh) for n in ("q", "k", "v"))
+    return sharded_flash(q, k, v, pctx=pctx, causal=True,
+                         whole=True).numpy()
+
+
+def _decode_case(pctx, mesh, case):
+    import torch
+    from repro_torch.models.attention import cache_w_split, sharded_decode
+    from repro_torch.train.sharding import piece
+    W, tp = case["k"].shape[1], pctx.tp
+    spec = ("data", "model") if cache_w_split(W, tp) else ("data",)
+    cache = {n: torch.from_numpy(np.ascontiguousarray(piece(case[n], spec,
+                                                            mesh)))
+             for n in ("k", "v", "pos")}
+    res = sharded_decode(*(_rows(case[n], mesh) for n in (
+        "q", "k_new", "v_new")), cache, _rows(case["positions"], mesh),
+        pctx=pctx, W=W, window=case["window"])
+    if res is None:
+        return None
+    out, cache = res
+    return {"out": out.numpy(), **{n: t.numpy() for n, t in cache.items()}}
+
+
+def _ssd_case(pctx, mesh, case):
+    from repro_torch.models.ssm import ssd_sharded
+    x, dt, Bm, Cm = (_rows(case[n], mesh) for n in ("x", "dt", "B", "C"))
+    import torch
+    A = torch.from_numpy(case["A"])
+    H = x.shape[2]
+    y, h = ssd_sharded(x, dt, A, Bm, Cm, chunk=case["chunk"], pctx=pctx,
+                       heads=H)
+    if y.shape[2] != H:
+        y, h = pctx.all_gather(y, 2), pctx.all_gather(h, 1)
+    return {"y": y.numpy(), "h": h.numpy()}
+
+
+def _moe_case(pctx, mesh, case):
+    import types
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.moe import _moe_ep
+    from repro_torch.train.sharding import piece
+    cfg = reduced(get_config(case["arch"]))
+    n_dp = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))["data"]
+    params = {"router": torch.from_numpy(case["router"])}
+    for n in ("wi", "wg", "wo"):
+        w = case[n]
+        spec = ["model", None, None]
+        if case["fsdp"]:
+            # the reference's ``_fsdp_dim``: the largest non-E dim that
+            # divides over the dp ranks
+            spec[max((w.shape[d], d) for d in (1, 2)
+                     if w.shape[d] % n_dp == 0)[1]] = "data"
+        params[n] = torch.from_numpy(np.ascontiguousarray(
+            piece(w, tuple(spec), mesh)))
+    y, aux = _moe_ep(types.SimpleNamespace(**params),
+                     _rows(case["x"], mesh), cfg, torch.float32, pctx, None)
+    return {"y": y.numpy(), "aux": float(aux)}
+
+
+def serve_streams(arch: str, weights, prompts, max_new: int, mesh=None,
+                  n_slots: int = 4, max_seq: int = 64,
+                  engine: str = "slots") -> List[List[int]]:
+    """Greedy streams of a reduced ``arch``'s ``ServeEngine`` (``engine``
+    "slots"; "dense": ``AsyncServeEngine(mode="dense")``), fp32 on the CPU,
+    from ``weights`` (the reference's pytree, numpy; else seed 0), on
+    ``mesh`` or none."""
+    import torch
+    from repro_torch.configs.base import PolicyConfig
+    from repro_torch.serve.engine import (AsyncServeEngine, Request,
+                                          ServeEngine)
+    from repro_torch.serve.scheduler import ServeRequest
+    job = Job(arch=arch)
+    model = _model(job, weights, 0)
+    policy = PolicyConfig(compute_dtype="float32", attn_impl="kernel")
+    if engine == "dense":
+        eng = AsyncServeEngine(job.cfg(), model, policy, n_slots=n_slots,
+                               max_seq=max_seq, mode="dense", mesh=mesh,
+                               graphs=False, device="cpu")
+        reqs = [ServeRequest(i, list(p), max_new=max_new)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            if not eng.submit(r):
+                raise ValueError(f"request {r.rid}: {r.why_rejected}")
+        eng.run()
+        return [list(r.out) for r in reqs]
+    eng = ServeEngine(job.cfg(), model, policy, n_slots=n_slots,
+                      max_seq=max_seq, mesh=mesh, device="cpu")
+    reqs = [Request(rid=i, prompt=torch.tensor(p), max_new=max_new)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        if not eng.add_request(r):
+            raise ValueError("more prompts than slots")
+    while any(not r.done for r in reqs):
+        eng.step()
+    return [list(r.out) for r in reqs]
+
+
+def _serve_case(pctx, mesh, case):
+    return serve_streams(case["arch"], case.get("weights"), case["prompts"],
+                         case["max_new"], mesh=mesh,
+                         engine=case.get("engine", "slots"))
+
+
+def _group_case(pctx, mesh, case):
+    """An all-reduce of each rank's global rank over ``case["axes"]``'s
+    group, and the rank's mesh coordinate."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import hierarchy
+    group = hierarchy.axis_group(mesh, case["axes"], hierarchy.Traffic())
+    x = torch.tensor([float(dist.get_rank())])
+    return {"sum": float(hierarchy.all_reduce(x, group)[0]),
+            "coord": list(mesh.get_coordinate()), "size": group.size}
+
+
+_CASES = {"flash": _flash_case, "decode": _decode_case, "ssd": _ssd_case,
+          "moe": _moe_case, "serve": _serve_case, "group": _group_case}
+
+
+def tp_cases(rank: int, world: int, cases: Mapping[str, dict]) -> dict:
+    """Each case (``kind``: flash, decode, ssd, moe, serve or group, on its
+    ``mesh``, ((axes), (sizes))) from numpy inputs: ``sharded_flash``
+    (every head, joined), ``sharded_decode`` (its output and this rank's
+    cache piece, or None where it declines), ``ssd_sharded`` (every head),
+    ``_moe_ep`` (this rank's tokens' y, the global aux), a
+    ``ServeEngine``'s greedy streams and an all-reduce over a group of
+    axes.  Every rank returns its own."""
+    from repro_torch.launch.mesh import make_mesh
+    out = {}
+    for name, case in cases.items():
+        axes, sizes = case["mesh"]
+        mesh = make_mesh(sizes, axes, device="cpu")
+        pctx = _pctx(mesh, case.get("fsdp", False))
+        out[name] = _CASES[case["kind"]](pctx, mesh, case)
+    return out
+
+
+def four_ranks(rank: int, world: int, jobs, weights, ckpt_dir: str = None,
+               save_job: Optional[Job] = None, save_at: int = 1,
+               cases: Optional[Mapping[str, dict]] = None) -> dict:
+    """``train_jobs``, then (with ``save_job``) ``int8_exchange``,
+    ``save_and_go_on`` on all the ranks and ``resume_and_go_on`` on the
+    shrunk composition's, then (with ``cases``) ``tp_cases``: one start of
+    the processes; ``started``: the host's clock when the rank's group was
+    up."""
     out = {"started": time.time(),
-           "train": train_jobs(rank, world, jobs, weights),
-           "int8": int8_exchange(rank, world, 0)}
-    out["saved"], system = save_and_go_on(rank, world, save_job, ckpt_dir,
-                                          save_at)
-    out["resumed"] = resume_and_go_on(rank, world, save_job, ckpt_dir,
-                                      system)
+           "train": train_jobs(rank, world, jobs, weights)}
+    if save_job is not None:
+        out["int8"] = int8_exchange(rank, world, 0)
+        out["saved"], system = save_and_go_on(rank, world, save_job,
+                                              ckpt_dir, save_at)
+        out["resumed"] = resume_and_go_on(rank, world, save_job, ckpt_dir,
+                                          system)
+    if cases is not None:
+        out["cases"] = tp_cases(rank, world, cases)
     return out
 
 
@@ -360,6 +530,13 @@ def emulate_int8(ranks: List[dict], encode=None, decode=None) -> List[dict]:
 # the standard rehearsal
 # ---------------------------------------------------------------------------
 REHEARSAL_JOB = Job(arch="qwen2-0.5b", n_layers=2, steps=2, batch=8, seq=32)
+# tensor parallelism against data parallelism on the same four ranks, and
+# expert parallelism with ZeRO-3 against without
+TP_MESH = (("data", 2), ("model", 2))
+TP_JOB = Job(arch="llama3.2-3b", mesh=TP_MESH)
+EP_JOB = Job(arch="moonshot-v1-16b-a3b", mesh=TP_MESH, steps=2)
+SERVE_PROMPTS = [[(7 * i + 3 * j) % 500 for j in range(9 + 5 * i)]
+                 for i in range(4)]
 
 
 # The key bias adds the same q . bk to every score of a query's row, which
@@ -383,6 +560,26 @@ def _rel(a: Mapping[str, np.ndarray], b: Mapping[str, np.ndarray],
     return worst
 
 
+def _rel_sure(a: Mapping[str, np.ndarray], b: Mapping[str, np.ndarray],
+              m: Mapping[str, np.ndarray], bound: float) -> float:
+    """``_rel`` over the elements whose first moment ``m`` (``b``'s run's)
+    is above 1e-7 -- a gradient above ~1e-6, where rounding noise cannot
+    steer Adam's step; an element below it counts as infinite past
+    ``bound``.  Two reduction orders (tensor- against data-parallel) move
+    such a gradient by rounding noise, which Adam's first steps turn into
+    updates of up to lr."""
+    worst = 0.0
+    for k in b:
+        d = np.abs(a[k] - b[k])
+        sure = np.abs(m[k]) > 1e-7
+        if np.any(d[~sure] > bound):
+            return float("inf")
+        if np.any(sure):
+            worst = max(worst, float(d[sure].max())
+                        / max(float(np.abs(b[k]).max()), 1e-30))
+    return worst
+
+
 def rehearse(job: Job = REHEARSAL_JOB, tol: float = 1e-5) -> dict:
     """The three checks on four ranks (module docstring); ``ok`` when
     ZeRO-3's parameters are within ``tol`` of DP's (each leaf's largest
@@ -395,9 +592,19 @@ def rehearse(job: Job = REHEARSAL_JOB, tol: float = 1e-5) -> dict:
     t0 = time.perf_counter()
     clock0 = time.time()
     zero3 = dataclasses.replace(job, zero=3)
+    tp_dp = dataclasses.replace(TP_JOB, mesh=(("data", 4),))
+    ep_z3 = dataclasses.replace(EP_JOB, zero=3)
+    serve = {"kind": "serve", "mesh": (("data", "model"), (2, 2)),
+             "arch": TP_JOB.arch, "prompts": SERVE_PROMPTS, "max_new": 6}
     ckpt = tempfile.mkdtemp(prefix="rehearse_ckpt_")
     try:
-        four = spawn(four_ranks, 4, [job], None, ckpt, zero3, 1)
+        # the streams without a mesh, from a thread while the ranks run
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            want_streams = pool.submit(serve_streams, TP_JOB.arch, None,
+                                       SERVE_PROMPTS, 6)
+            four = spawn(four_ranks, 4, [job, TP_JOB, tp_dp, EP_JOB, ep_z3],
+                         None, ckpt, zero3, 1, {"serve": serve})
+            streams_want = want_streams.result()
         first, second = four[0]["saved"], four[0]["resumed"]
         saved = np.load(os.path.join(ckpt, "step_0000000001",
                                      "arrays.npz"))
@@ -405,9 +612,14 @@ def rehearse(job: Job = REHEARSAL_JOB, tol: float = 1e-5) -> dict:
                              for k in saved.files)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
-    dp, = four[0]["train"]
+    dp, tp, tpdp, ep, epz3 = four[0]["train"]
     params = lambda d: {k[len("params/"):]: v     # noqa: E731
                         for k, v in d.items() if k.startswith("params/")}
+    tp_vs_dp = _rel_sure(tp["params"], tpdp["params"], tp["m"],
+                         2 * TP_JOB.lr * TP_JOB.steps)
+    ep_zero3_vs_ep = _rel(epz3["params"], ep["params"],
+                          2 * job.lr * job.steps)
+    streams_equal = all(r["cases"]["serve"] == streams_want for r in four)
     zero3_vs_dp = _rel(params(first["whole"]), dp["params"],
                        2 * job.lr * job.steps)
     ranks = [r["int8"] for r in four]
@@ -423,7 +635,8 @@ def rehearse(job: Job = REHEARSAL_JOB, tol: float = 1e-5) -> dict:
                                     2 * job.lr * job.steps)
     t_end = time.perf_counter()
     ok = (zero3_vs_dp <= tol and int8_err <= 1e-6 and restored_equal
-          and resumed_vs_uninterrupted <= tol)
+          and resumed_vs_uninterrupted <= tol and tp_vs_dp <= tol
+          and ep_zero3_vs_ep <= tol and streams_equal)
     return {"ok": ok, "arch": job.arch, "n_layers": job.n_layers,
             "batch": job.batch, "seq": job.seq, "steps": job.steps,
             "zero3_vs_dp_data4_rel": zero3_vs_dp,
@@ -441,6 +654,18 @@ def rehearse(job: Job = REHEARSAL_JOB, tol: float = 1e-5) -> dict:
                        "losses_resumed":
                            [m["loss"] for m in second["metrics"]],
                        "events": first["events"] + second["events"]},
+            "tensor_parallel": {
+                "arch": TP_JOB.arch, "mesh": dict(TP_MESH),
+                "tp_vs_dp_data4_rel": tp_vs_dp,
+                "losses_tp": [m["loss"] for m in tp["metrics"]],
+                "losses_dp": [m["loss"] for m in tpdp["metrics"]],
+                "traffic_tp_rank0": tp["traffic"],
+                "serve_streams_equal_no_mesh": streams_equal},
+            "expert_parallel": {
+                "arch": EP_JOB.arch, "mesh": dict(TP_MESH),
+                "zero3_vs_zero0_rel": ep_zero3_vs_ep,
+                "losses": [m["loss"] for m in ep["metrics"]],
+                "traffic_zero3_rank0": epz3["traffic"]},
             "tol": tol,
             "startup_s": max(r["started"] for r in four) - clock0,
             "wall_s": t_end - t0}

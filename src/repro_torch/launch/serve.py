@@ -17,6 +17,16 @@ front (exit code 2) -- the engine never truncates silently.
 ``--request-timeout SECONDS`` puts a deadline on every request: requests
 past the deadline are cancelled, a per-request timeout report is printed,
 and the command exits 3.
+
+``--mesh data=N[,model=M][,pod=P]`` serves on a ``DeviceMesh`` (the dense
+mode: slots over ``pod`` / ``data``, heads, the FFN width, the vocabulary,
+the cache's length and the experts over ``model``; every rank runs the
+same requests).  Under ``torchrun`` each process joins its group; without
+a launcher the program starts a one-rank group itself (NCCL on the card,
+``gloo`` with ``--device cpu``).
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.serve --device cpu \\
+      --mode dense --mesh data=2,model=2 --requests 4
 """
 from __future__ import annotations
 
@@ -68,30 +78,61 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"],
                     help="compute and cache dtype")
+    ap.add_argument("--mesh", default="",
+                    help="data=N[,model=M][,pod=P]: serve on a device mesh "
+                         "(model: tensor and expert parallelism; the dense "
+                         "mode)")
     args = ap.parse_args(argv)
+    mesh = None
+    if args.mesh:
+        import torch.distributed as dist
+        from repro_torch.launch.mesh import make_mesh, parse_mesh, start_group
+        from repro_torch.models.lm import require_device
+        require_device(args.device)
+        start_group(args.device)
+        axes = parse_mesh(args.mesh)
+        mesh = make_mesh(tuple(axes.values()), tuple(axes),
+                         device=torch.device(args.device).type)
+        try:
+            return _serve(args, mesh, axes)
+        finally:
+            dist.destroy_process_group()
+    return _serve(args, None, {})
+
+
+def _serve(args, mesh, axes) -> int:
+    """The run (``main``'s), on ``mesh`` where one is given; rank 0
+    prints."""
+    import torch.distributed as dist
+    lead = mesh is None or dist.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
 
     if args.prompt_len + args.max_new > args.max_seq:
-        print(f"error: prompt ({args.prompt_len}) + max-new "
-              f"({args.max_new}) tokens exceed --max-seq ({args.max_seq}); "
-              f"raise --max-seq or shorten the request")
+        say(f"error: prompt ({args.prompt_len}) + max-new "
+            f"({args.max_new}) tokens exceed --max-seq ({args.max_seq}); "
+            f"raise --max-seq or shorten the request")
         return 2
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
     policy = PolicyConfig(compute_dtype=args.dtype, remat="none",
-                          attn_impl="kernel")
+                          attn_impl="kernel",
+                          **({"dp_axes": tuple(a for a in axes
+                                               if a != "model")}
+                             if axes else {}))
     model = LM.init(cfg, seed=0, dtype=getattr(torch, args.dtype),
                     device=args.device)
     eng = AsyncServeEngine(
         cfg, model, policy, n_slots=args.slots, max_seq=args.max_seq,
         page_size=args.page_size, prefill_chunk=args.prefill_chunk,
         sched_policy=args.sched, mode=args.mode, fused=args.fused,
-        request_timeout_s=args.request_timeout, device=args.device)
+        request_timeout_s=args.request_timeout, device=args.device,
+        mesh=mesh)
     if args.warmup:
         dt = eng.warmup()
-        print(f"warmup: built and first-launched the kernels and captured "
-              f"{eng.graphs.n_graphs} step graphs in {dt:.1f}s")
+        say(f"warmup: built and first-launched the kernels and captured "
+            f"{eng.graphs.n_graphs} step graphs in {dt:.1f}s")
 
     pending = deque(
         ServeRequest(i, np.random.RandomState(i).randint(
@@ -103,33 +144,33 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     while pending:
         req = pending.popleft()
         if not eng.submit(req):
-            print(f"error: request {req.rid} rejected: {req.why_rejected}")
+            say(f"error: request {req.rid} rejected: {req.why_rejected}")
             return 2
     eng.run()
     dt = time.time() - t0
 
     rep = eng.report()
     done = sum(r.done for r in reqs)
-    print(f"served {done}/{len(reqs)} requests in {dt:.1f}s "
-          f"[{rep['mode']} mode"
-          f"{', fused' if rep.get('fused') else ''}] "
-          f"tput={rep['throughput_tok_s']:.1f} tok/s "
-          f"ttft_p50={rep['ttft_s']['p50']*1e3:.0f}ms "
-          f"tpot_p50={rep['tpot_s']['p50']*1e3:.0f}ms "
-          f"compile={rep['compile_s']:.1f}s")
+    say(f"served {done}/{len(reqs)} requests in {dt:.1f}s "
+        f"[{rep['mode']} mode"
+        f"{', fused' if rep.get('fused') else ''}] "
+        f"tput={rep['throughput_tok_s']:.1f} tok/s "
+        f"ttft_p50={rep['ttft_s']['p50']*1e3:.0f}ms "
+        f"tpot_p50={rep['tpot_s']['p50']*1e3:.0f}ms "
+        f"compile={rep['compile_s']:.1f}s")
     if "kv_pages" in rep:
         kv = rep["kv_pages"]
-        print(f"kv pages: {kv['n_pages']}x{kv['page_size']}tok "
-              f"hit_rate={kv['hit_rate']*100:.0f}% "
-              f"evictions={kv['evictions']}")
+        say(f"kv pages: {kv['n_pages']}x{kv['page_size']}tok "
+            f"hit_rate={kv['hit_rate']*100:.0f}% "
+            f"evictions={kv['evictions']}")
     for r in reqs[:3]:
-        print(f"  req {r.rid}: {r.out[:8]}...")
+        say(f"  req {r.rid}: {r.out[:8]}...")
     if eng.sched.cancelled:
-        print(f"error: {len(eng.sched.cancelled)}/{len(reqs)} requests "
-              f"timed out (--request-timeout {args.request_timeout:g}s):")
+        say(f"error: {len(eng.sched.cancelled)}/{len(reqs)} requests "
+            f"timed out (--request-timeout {args.request_timeout:g}s):")
         for r in eng.sched.cancelled:
-            print(f"  req {r.rid}: {r.why_rejected} "
-                  f"({len(r.out)}/{r.max_new} tokens generated)")
+            say(f"  req {r.rid}: {r.why_rejected} "
+                f"({len(r.out)}/{r.max_new} tokens generated)")
         return 3
     return 0 if done == len(reqs) else 1
 

@@ -20,8 +20,9 @@ on the GPU unless ``--device cpu`` is given; without a GPU and without
       --reduced --steps 30 --fail-at 12 --ckpt ckpt_demo  # exits 17; then
       ... --resume auto                                  # carries on
 
-``--mesh data=N[,pod=M]`` trains on a ``DeviceMesh`` of those axes (the
-data-parallel layer, ``train/trainer.py``) under ``--zero`` 0 / 1 / 3 and
+``--mesh data=N[,model=M][,pod=P]`` trains on a ``DeviceMesh`` of those
+axes (``train/trainer.py``: the batch over ``pod`` and ``data``, tensor and
+expert parallelism over ``model``) under ``--zero`` 0 / 1 / 3 and
 ``--compress int8_ef`` (the pod axis), or under one rung of the paper's
 ladder, ``--rung`` (``core/policy.ladder``: DP, DDP, DDP+mixed,
 DDP+mixed+sharded; it sets the ZeRO stage and the compute dtype).  Under
@@ -39,6 +40,8 @@ step).
       qwen2-0.5b --rung DDP+mixed+sharded --mesh data=4
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --reduced --mesh data=1 --zero 3 --steps 3
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu \\
+      --arch moonshot-v1-16b-a3b --reduced --mesh data=2,model=2 --steps 3
 
 ``--track`` records the run
 through ``repro_torch.tracking`` (``results/torch/runs/<run_id>/
@@ -52,9 +55,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import os
 import time
-from typing import Dict, Optional, Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -63,12 +65,11 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ModelConfig, PolicyConfig, ShapeConfig
 from repro_torch.core.policy import ladder
 from repro_torch.data import SyntheticDataset
-from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.mesh import (  # noqa: F401 (re-export)
+    AXIS_ORDER, make_mesh, parse_mesh, start_group)
 from repro_torch.models.lm import require_device
 from repro_torch.optim import AdamWConfig, ScheduleConfig
 from repro_torch.train import checkpoint, trainer
-
-AXIS_ORDER = ("pod", "data")        # outermost first, as the reference's
 
 
 def preset_100m(cfg: ModelConfig) -> ModelConfig:
@@ -90,39 +91,14 @@ def build(args):
         compute_dtype=args.dtype, remat=args.remat, attn_impl="kernel",
         zero_stage=args.zero, grad_accum=args.grad_accum,
         grad_compression=args.compress,
-        **({"dp_axes": tuple(axes)} if axes else {}))
+        **({"dp_axes": tuple(a for a in axes if a != "model")}
+           if axes else {}))
     if args.rung:
         policy = ladder(policy)[args.rung]
     optcfg = AdamWConfig(lr=args.lr)
     schedcfg = ScheduleConfig(peak_lr=args.lr, warmup_steps=args.warmup,
                               total_steps=args.steps)
     return cfg, policy, optcfg, schedcfg
-
-
-def parse_mesh(text: str) -> Dict[str, int]:
-    """``"data=4,pod=2"`` -> ``{"pod": 2, "data": 4}`` (outermost first)."""
-    if not text:
-        return {}
-    sizes = {}
-    for part in text.split(","):
-        name, _, n = part.partition("=")
-        if name not in AXIS_ORDER or not n.isdigit() or int(n) < 1:
-            raise ValueError(f"--mesh {text!r}: want axis=N of {AXIS_ORDER}")
-        sizes[name] = int(n)
-    return {a: sizes[a] for a in AXIS_ORDER if a in sizes}
-
-
-def start_group(device: str) -> None:
-    """Join ``torchrun``'s group, or start a one-rank group: NCCL on the
-    card, ``gloo`` on the CPU."""
-    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
-    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
-        if backend == "nccl":
-            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
-        dist.init_process_group(backend, init_method="env://")
-    else:
-        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
-                                world_size=1)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -152,7 +128,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises when absent) or cpu")
     ap.add_argument("--mesh", default="",
-                    help="data=N[,pod=M]: train on a device mesh")
+                    help="data=N[,model=M][,pod=P]: train on a device mesh "
+                         "(model: tensor and expert parallelism)")
     ap.add_argument("--compress", default="none",
                     choices=["none", "int8_ef"])
     ap.add_argument("--rung", default="", choices=[""] + list(

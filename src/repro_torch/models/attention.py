@@ -19,9 +19,16 @@ min(local_window, max_seq)`` slots (slot = position % W).  Shapes: q (B, S,
 H, D); k/v (B, T, Kh, D).  Caches are updated **in place** (``index_put_``)
 where the reference builds new arrays with ``.at[].set``.
 
-Not ported yet (asking for them raises ``NotImplementedError``): the mesh
-paths ``sharded_decode`` / ``sharded_flash`` (ROADMAP queue A item 7, the
-parallel layer).
+Under a mesh's tp axis (``pctx``, a ``transformer.ParallelCtx``) the block
+is tensor-parallel: ``project_qkv`` gives this rank's heads (GQA K/V
+repeated to H, H zero-padded to a multiple of the axis, as the reference's
+``sharded_flash`` lays them out), ``sharded_flash`` runs the flash kernel
+on them (G = 1), and the output projection takes this rank's rows of
+``wo`` and one *reduce*.  Decode splits the cache's length over the axis
+(``core/policy.cache_specs``): ``sharded_decode`` writes the new token on
+the rank that owns its slot and combines the ranks' partial softmaxes with
+one max and two sum all-reduces.  The paged and chunked paths take a tp
+axis of size 1 only (ROADMAP queue A item 7).
 """
 from __future__ import annotations
 
@@ -33,13 +40,15 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import hierarchy
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 
 NEG_INF = -1e30
 
-_MESH = ("mesh-sharded attention is not ported yet: ROADMAP queue A item 7 "
-         "(the parallel layer)")
+_TP_PAGED = ("paged and chunked attention under a model axis larger than 1 "
+             "are not ported: the reference reaches them only through "
+             "gather_dense (ROADMAP queue A item 7)")
 
 
 # ---------------------------------------------------------------------------
@@ -158,26 +167,196 @@ def decode_attention(q, k_cache, v_cache, cache_pos, *, window=0,
 
 
 # ---------------------------------------------------------------------------
+# tensor parallelism (the reference's shard_map bodies on local tensors)
+# ---------------------------------------------------------------------------
+def cache_w_split(W: int, tp: int) -> bool:
+    """Whether a decode cache of length ``W`` is split over a tp axis of
+    ``tp`` ranks: the reference's ``cache_specs`` rule (``W % tp == 0`` and
+    ``W >= 2 tp``), which a one-rank axis meets too."""
+    return W % tp == 0 and W >= 2 * tp
+
+
+def _kv_split(H: int, K: int, tp: int) -> bool:
+    """Whether the K/V projections give this rank its ``K / tp`` KV heads
+    (both head counts divide the axis), else every KV head."""
+    return K % tp == 0 and H % tp == 0
+
+
+def _repeat_heads(t, G: int):
+    return t.repeat_interleave(G, dim=2) if G > 1 else t
+
+
+def _rank_heads(q, k, v, pctx, heads):
+    """q, k, v of this rank's ``Hp / tp`` heads (G = 1), from q of every
+    head or of this rank's, and k / v of every KV head or of this rank's
+    ``K / tp`` (``heads`` = (H, K), the whole counts)."""
+    H, K = heads
+    G = H // K
+    tp = pctx.tp
+    if q.shape[2] == H:
+        q = pctx.cut(q, 2, H)
+    out = [q]
+    for t in (k, v):
+        if t.shape[2] == K:
+            t = pctx.cut(_repeat_heads(t, G), 2, H)
+        elif t.shape[2] * tp == K and H % tp == 0:
+            t = _repeat_heads(t, G)
+        else:
+            raise ValueError(f"{tuple(t.shape)}: neither every KV head nor "
+                             f"this rank's of {K} over {tp}")
+        out.append(t.contiguous())
+    return out
+
+
+def _attend(q, k, v, *, causal, window, softcap, impl, kv_mask):
+    """Cache-less attention: ``kernels.ops.attention`` (B1; B2 under
+    autograd) on a CUDA tensor, its plain version on a CPU one;
+    ``impl="full"`` the oracle."""
+    if impl == "full":
+        return full_attention(q, k, v, causal=causal, window=window,
+                              kv_mask=kv_mask, softcap=softcap)
+    if impl == "kernel":
+        # right padding plus the causal mask keeps padded keys out of every
+        # real query row, so the kernel needs no kv_mask; a bidirectional
+        # model with padding has no such guarantee
+        if kv_mask is not None and not causal:
+            raise NotImplementedError(
+                "kv_mask with a non-causal model needs attn_impl='full'")
+        return ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                             causal=causal, window=window, softcap=softcap)
+    raise ValueError(f"attn_impl {impl!r} not in ('kernel', 'full')")
+
+
+def sharded_flash(q, k, v, *, pctx, heads=None, causal=True, window=0,
+                  softcap=0.0, impl="kernel", kv_mask=None,
+                  whole: bool = False):
+    """Flash attention with heads over the tp axis, held against
+    ``repro/models/attention.py:465-540``: GQA K/V repeated to H *before*
+    the split, H zero-padded to a multiple of the axis, and each rank runs
+    the unsharded attention (``_attend``) on its own ``Hp / tp`` heads at
+    G = 1.  The batch is the rank's piece over the dp axes already.
+
+    q (B, S, H or H/tp, D); k/v (B, S, K or K/tp, D); ``heads`` (H, K)
+    (default: q's and k's, every head).  Returns this rank's heads (B, S,
+    Hp/tp, D), or with ``whole`` every rank's joined, padding cut: (B, S,
+    H, D).  The reference's ``S % q_block`` fallback belongs to its XLA
+    tiles; the kernels take any S."""
+    H, K = heads if heads is not None else (q.shape[2], k.shape[2])
+    ql, kl, vl = _rank_heads(q, k, v, pctx, (H, K))
+    o = _attend(ql, kl, vl, causal=causal, window=window, softcap=softcap,
+                impl=impl, kv_mask=kv_mask)
+    if whole:
+        return pctx.all_gather(o, 2)[:, :, :H]
+    return o
+
+
+def sharded_decode(q, k_new, v_new, cache, positions, *, pctx, W: int,
+                   window=0, softcap=0.0):
+    """One decode step with the cache's length over the tp axis, held
+    against ``repro/models/attention.py:367-462``: each rank holds slots
+    ``[r W/tp, (r+1) W/tp)`` of the (B, W, K, D) history; the new token is
+    written only by the rank that owns its slot (``cur % W`` for a windowed
+    layer); each rank computes its partial max ``m_l``, sum ``l_l`` and
+    accumulator ``acc_l`` (its slots' softmax times V), combined by one MAX
+    and two sum all-reduces over the axis.  q / k_new / v_new: every head
+    (B, 1, H | K, D); ``cache``: this rank's piece, updated in place.
+    Returns (out (B, 1, H, D), cache),
+    or None -- the caller takes the dense path -- where the reference
+    does: ``W % tp`` or ``W < 2 tp`` (the batch is the rank's piece already,
+    so its ``B % n_dp`` case does not arise)."""
+    tp = pctx.tp
+    if tp > 1 and not cache_w_split(W, tp):
+        return None
+    B, _, H, D = q.shape
+    ck, cv, cp = cache["k"], cache["v"], cache["pos"]
+    Wl, K = ck.shape[1], ck.shape[2]
+    G = H // K
+    cur = positions[:, :1].long()
+    slot_g = cur[:, 0] % W if window > 0 else cur[:, 0]
+    slot_l = slot_g - pctx.tp_rank * Wl
+    ok = (slot_l >= 0) & (slot_l < Wl)
+    safe = slot_l.clamp(0, Wl - 1)
+    bidx = torch.arange(B, device=q.device)
+    ck.index_put_((bidx, safe), torch.where(
+        ok[:, None, None], k_new[:, 0].to(ck.dtype), ck[bidx, safe]))
+    cv.index_put_((bidx, safe), torch.where(
+        ok[:, None, None], v_new[:, 0].to(cv.dtype), cv[bidx, safe]))
+    cp.index_put_((bidx, safe), torch.where(
+        ok, cur[:, 0].to(cp.dtype), cp[bidx, safe]))
+
+    qg = q.reshape(B, K, G, D)
+    s = torch.einsum("bkgd,btkd->bkgt", qg.float(), ck.float()) / \
+        math.sqrt(D)
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    valid = cp >= 0
+    if window > 0:
+        valid = valid & (cur - cp < window)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    # the partial softmax of this rank's slots, normalised here and
+    # reweighted after: o = sum_r (l_r exp(m_r - m) / L) (p_r V_r), with
+    # p_r V_r in the cache's dtype as ``decode_attention`` computes its
+    # whole, so that one rank gives that function's value bit for bit
+    m_l = s.amax(dim=-1)                                    # (B, K, G)
+    l_l = torch.where(valid[:, None, None, :],
+                      torch.exp(s - m_l[..., None]), 0.0).sum(dim=-1)
+    p = torch.softmax(s, dim=-1).to(cv.dtype)
+    acc_l = torch.einsum("bkgt,btkd->bkgd", p, cv)
+    group = pctx.tp_group
+    m = hierarchy.all_reduce(m_l.clone(), group, op="max")
+    lf = l_l * torch.exp(m_l - m)
+    L = hierarchy.all_reduce(lf.clone(), group)
+    w = torch.where(L > 0, lf / L.clamp_min(1e-30), 0.0)
+    out = hierarchy.all_reduce(acc_l.float() * w[..., None], group)
+    out = out.to(q.dtype)
+    return out.reshape(B, 1, H, D), cache
+
+
+def _every_head(t, pctx, whole: int):
+    """Every head of ``t`` from this rank's (an all-gather over the tp axis,
+    padding cut), or ``t`` where it holds every head already."""
+    if t.shape[2] == whole:
+        return t
+    return pctx.all_gather(t, 2)[:, :, :whole]
+
+
+# ---------------------------------------------------------------------------
 # block-level apply (projections + path dispatch + cache management)
 # ---------------------------------------------------------------------------
 def project_qkv(params: Attention, x, cfg: ModelConfig, positions,
-                compute_dtype, rope=None):
+                compute_dtype, rope=None, pctx=None):
     """``rope``: the (cos, sin) tables of ``layers.rope_tables`` for these
     positions in the compute dtype, where the caller made them once for all
-    layers; computed here when absent."""
+    layers; computed here when absent.
+
+    ``pctx``: inside the tensor-parallel region (``x`` after the *copy*), q
+    of this rank's ``Hp / tp`` heads (its columns of ``wq``: a piece by
+    heads, or its block of the whole leaf, zero-padded where H does not
+    divide); k / v of this rank's ``K / tp`` KV heads where both H and K
+    divide the axis, else of every KV head."""
     cd = compute_dtype
     x = x.to(cd)
     d = x.shape[-1]
     B, S = x.shape[0], x.shape[1]
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    wq, wk, wv = params.wq, params.wk, params.wv
+    bq, bk, bv = ((params.bq, params.bk, params.bv) if cfg.qkv_bias
+                  else (None, None, None))
+    if pctx is not None:
+        wq = pctx.cut(wq, 1, H)
+        bq = pctx.cut(bq, 0, H) if bq is not None else None
+        if _kv_split(H, K, pctx.tp):
+            wk, wv = pctx.cut(wk, 1, K), pctx.cut(wv, 1, K)
+            if bk is not None:
+                bk, bv = pctx.cut(bk, 0, K), pctx.cut(bv, 0, K)
     # einsum("bsd,dhe->bshe") as one matmul against the (d, H*hd) view
-    q = (x @ params.wq.to(cd).reshape(d, H * hd)).view(B, S, H, hd)
-    k = (x @ params.wk.to(cd).reshape(d, K * hd)).view(B, S, K, hd)
-    v = (x @ params.wv.to(cd).reshape(d, K * hd)).view(B, S, K, hd)
+    q = (x @ wq.to(cd).reshape(d, -1)).view(B, S, -1, hd)
+    k = (x @ wk.to(cd).reshape(d, -1)).view(B, S, -1, hd)
+    v = (x @ wv.to(cd).reshape(d, -1)).view(B, S, -1, hd)
     if cfg.qkv_bias:
-        q = q + params.bq.to(cd)
-        k = k + params.bk.to(cd)
-        v = v + params.bv.to(cd)
+        q = q + bq.to(cd)
+        k = k + bk.to(cd)
+        v = v + bv.to(cd)
     if cfg.qk_norm:
         q = layers.apply_norm(params.q_norm, q, "layernorm", cfg.norm_eps)
         k = layers.apply_norm(params.k_norm, k, "layernorm", cfg.norm_eps)
@@ -193,12 +372,16 @@ def project_qkv(params: Attention, x, cfg: ModelConfig, positions,
     return q, k, v
 
 
-def _project_out(params: Attention, o, compute_dtype):
-    """einsum("bshe,hed->bsd") as one matmul against the (H*hd, d) view."""
+def _project_out(params: Attention, o, compute_dtype, pctx=None,
+                 heads: int = 0):
+    """einsum("bshe,hed->bsd") as one matmul against the (H*hd, d) view;
+    under ``pctx`` this rank's heads through its rows of ``wo`` (of
+    ``heads``, the whole H), then the *reduce* over the tp axis."""
     cd = compute_dtype
-    B, S, H, hd = o.shape
-    return o.to(cd).reshape(B, S, H * hd) @ params.wo.to(cd).reshape(
-        H * hd, -1)
+    B, S = o.shape[0], o.shape[1]
+    wo = params.wo if pctx is None else pctx.cut(params.wo, 0, heads)
+    y = o.to(cd).reshape(B, S, -1) @ wo.to(cd).reshape(-1, wo.shape[-1])
+    return y if pctx is None else pctx.reduce(y)
 
 
 @dataclasses.dataclass
@@ -227,19 +410,31 @@ class PagedDecodeCache:
 def apply_attention(params: Attention, x, cfg: ModelConfig, *, local: bool,
                     positions, compute_dtype=torch.bfloat16, impl="kernel",
                     cache=None, kv_mask=None, cache_capacity: int = 0,
-                    mesh=None, rope=None):
+                    rope=None, pctx=None):
     """Returns (out (B,S,d_model), new_cache_or_None).
 
     cache (decode): dict(k=(B,W,K,D), v=(B,W,K,D), pos=(B,W) int32), updated
     in place and returned; or a ``PagedDecodeCache`` (single-token decode off
     the page pool).  For prefill (cache is the string "init"), returns the
-    filled cache.
+    filled cache.  ``pctx``: the tensor-parallel paths (module docstring);
+    the prefill's cache is then this rank's piece of its length.  Without
+    it every cut and reduce below is the identity.
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
     window = cfg.local_window if local else 0
     B = x.shape[0]
+    H, K = cfg.n_heads, cfg.n_kv_heads
     cd = compute_dtype
+    chunked = isinstance(cache, PagedDecodeCache) or (
+        isinstance(cache, dict) and x.shape[1] > 1)
+    if pctx is not None and chunked:
+        if pctx.tp > 1:
+            raise NotImplementedError(_TP_PAGED)
+        pctx = None
+    if pctx is not None:
+        x = pctx.copy(x.to(cd))
+
+    def project_out(o):
+        return _project_out(params, o, cd, pctx, H)
 
     if isinstance(cache, PagedDecodeCache):
         # ---- decode straight off the page pool (no dense view) ----
@@ -260,11 +455,11 @@ def apply_attention(params: Attention, x, cfg: ModelConfig, *, local: bool,
             q[:, 0].contiguous(), cache.k, cache.v, cache.tables,
             cache.lengths, softcap=cfg.logit_softcap,
             impl=("plain" if impl == "full" else "kernel"))
-        return _project_out(params, o[:, None], cd), cache
+        return project_out(o[:, None]), cache
 
+    q, k, v = project_qkv(params, x, cfg, positions, cd, rope, pctx)
     if cache is not None and not isinstance(cache, str):
         S = x.shape[1]
-        q, k_new, v_new = project_qkv(params, x, cfg, positions, cd, rope)
         pos_l = positions.long()
         W = cache["k"].shape[1]
         if S > 1 and window > 0:
@@ -276,66 +471,84 @@ def apply_attention(params: Attention, x, cfg: ModelConfig, *, local: bool,
             # build_cache_from_prefill and the single-token decode write
             kc, vc = cache["k"], cache["v"]
             o = chunk_decode_attention(
-                q, torch.cat([kc, k_new.to(kc.dtype)], 1),
-                torch.cat([vc, v_new.to(vc.dtype)], 1),
+                q, torch.cat([kc, k.to(kc.dtype)], 1),
+                torch.cat([vc, v.to(vc.dtype)], 1),
                 torch.cat([cache["pos"], positions.to(cache["pos"].dtype)],
                           1),
                 positions, window=window, softcap=cfg.logit_softcap)
             m = min(S, W)
             bidx = torch.arange(B, device=x.device)[:, None]
             slots = pos_l[:, -m:] % W
-            kc.index_put_((bidx, slots), k_new[:, -m:].to(kc.dtype))
-            vc.index_put_((bidx, slots), v_new[:, -m:].to(vc.dtype))
+            kc.index_put_((bidx, slots), k[:, -m:].to(kc.dtype))
+            vc.index_put_((bidx, slots), v[:, -m:].to(vc.dtype))
             cache["pos"].index_put_(
                 (bidx, slots), positions[:, -m:].to(cache["pos"].dtype))
-            return _project_out(params, o, cd), cache
+            return project_out(o), cache
         if S > 1:
             # ---- chunked prefill: S new tokens appended to the cache ----
             bidx = torch.arange(B, device=x.device)[:, None]
-            cache["k"].index_put_((bidx, pos_l), k_new.to(cache["k"].dtype))
-            cache["v"].index_put_((bidx, pos_l), v_new.to(cache["v"].dtype))
+            cache["k"].index_put_((bidx, pos_l), k.to(cache["k"].dtype))
+            cache["v"].index_put_((bidx, pos_l), v.to(cache["v"].dtype))
             cache["pos"].index_put_((bidx, pos_l),
                                     positions.to(cache["pos"].dtype))
             o = chunk_decode_attention(q, cache["k"], cache["v"],
                                        cache["pos"], positions,
                                        softcap=cfg.logit_softcap)
-            return _project_out(params, o, cd), cache
+            return project_out(o), cache
         # ---- decode: single new token at absolute position `positions`
-        # (ring slot position % W for a windowed layer) ----
-        bidx = torch.arange(B, device=x.device)
-        slot = pos_l[:, 0] % W if window > 0 else pos_l[:, 0]
-        cache["k"].index_put_((bidx, slot), k_new[:, 0].to(cache["k"].dtype))
-        cache["v"].index_put_((bidx, slot), v_new[:, 0].to(cache["v"].dtype))
-        cache["pos"].index_put_((bidx, slot),
-                                positions[:, 0].to(cache["pos"].dtype))
-        o = decode_attention(q, cache["k"], cache["v"], cache["pos"],
-                             window=window, softcap=cfg.logit_softcap)
-        return _project_out(params, o, cd), cache
+        # (ring slot position % W for a windowed layer); under ``pctx``
+        # every head on each rank and the cache's length split ----
+        res = None
+        if pctx is not None:
+            q = _every_head(q, pctx, H)
+            k, v = _every_head(k, pctx, K), _every_head(v, pctx, K)
+            if pctx.tp > 1 and not cache_capacity:
+                raise ValueError("decode under a model axis needs the "
+                                 "cache's capacity (RunCtx.cache_capacity)")
+            Wg = cache_capacity or W
+            res = sharded_decode(q, k, v, cache, positions, pctx=pctx,
+                                 W=min(window, Wg) if window > 0 else Wg,
+                                 window=window, softcap=cfg.logit_softcap)
+        if res is None:
+            # the whole cache on this rank (the reference's dense path)
+            bidx = torch.arange(B, device=x.device)
+            slot = pos_l[:, 0] % W if window > 0 else pos_l[:, 0]
+            cache["k"].index_put_((bidx, slot), k[:, 0].to(cache["k"].dtype))
+            cache["v"].index_put_((bidx, slot), v[:, 0].to(cache["v"].dtype))
+            cache["pos"].index_put_((bidx, slot),
+                                    positions[:, 0].to(cache["pos"].dtype))
+            o = decode_attention(q, cache["k"], cache["v"], cache["pos"],
+                                 window=window, softcap=cfg.logit_softcap)
+        else:
+            o, cache = res
+        if pctx is not None:
+            o = pctx.cut(o, 2, H)
+        return project_out(o), cache
 
     # ---- cache-less prefill ----
-    q, k, v = project_qkv(params, x, cfg, positions, cd, rope)
-    if impl == "full":
-        o = full_attention(q, k, v, causal=cfg.causal, window=window,
-                           kv_mask=kv_mask, softcap=cfg.logit_softcap)
-    elif impl == "kernel":
-        # right padding plus the causal mask keeps padded keys out of every
-        # real query row, so the kernel needs no kv_mask; a bidirectional
-        # model with padding has no such guarantee
-        if kv_mask is not None and not cfg.causal:
-            raise NotImplementedError(
-                "kv_mask with a non-causal model needs attn_impl='full'")
-        o = ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                          causal=cfg.causal, window=window,
-                          softcap=cfg.logit_softcap)
+    att = dict(causal=cfg.causal, window=window, softcap=cfg.logit_softcap,
+               impl=impl, kv_mask=kv_mask)
+    if pctx is None:
+        o = _attend(q, k, v, **att)
     else:
-        raise ValueError(f"attn_impl {impl!r} not in ('kernel', 'full')")
-    out = _project_out(params, o, cd)
+        o = sharded_flash(q, k, v, pctx=pctx, heads=(H, K), **att)
+    out = project_out(o)
 
     new_cache = None
     if cache == "init":
+        if pctx is not None and _kv_split(H, K, pctx.tp):
+            # re-lay the prefill's K/V once: every KV head (they left the
+            # projections by heads), then this rank's piece of the cache's
+            # length (``core/policy.cache_specs``)
+            k, v = pctx.all_gather(k, 2), pctx.all_gather(v, 2)
         new_cache = build_cache_from_prefill(
             k, v, positions, window=window, capacity=cache_capacity,
             kv_mask=kv_mask)
+        W = new_cache["k"].shape[1]
+        if pctx is not None and cache_w_split(W, pctx.tp):
+            n = W // pctx.tp
+            new_cache = {name: t.narrow(1, pctx.tp_rank * n, n).contiguous()
+                         for name, t in new_cache.items()}
     return out, new_cache
 
 

@@ -45,15 +45,21 @@ def embed_init(generator: Optional[torch.Generator], shape, *,
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
-def apply_norm(params, x, kind: str, eps: float = 1e-5):
+def apply_norm(params, x, kind: str, eps: float = 1e-5, *, psum=None,
+               width: int = 0):
     """``params`` has ``scale`` (and ``bias`` for layernorm): a ``Norm``
-    module or a dict.  fp32 inside, input dtype out."""
+    module or a dict.  fp32 inside, input dtype out.  ``psum`` (rmsnorm):
+    the last dim is this rank's piece of ``width`` over a tp axis, and
+    ``psum`` sums the squares over the axis."""
     get = params.__getitem__ if isinstance(params, dict) else \
         (lambda n: getattr(params, n))
     dt = x.dtype
     xf = x.float()
     if kind == "rmsnorm":
-        var = xf.square().mean(dim=-1, keepdim=True)
+        if psum is None:
+            var = xf.square().mean(dim=-1, keepdim=True)
+        else:
+            var = psum(xf.square().sum(dim=-1, keepdim=True)) / width
         y = xf * torch.rsqrt(var + eps) * get("scale").float()
         return y.to(dt)
     if kind == "layernorm":
@@ -154,30 +160,43 @@ def sinusoidal_positions(positions, d_model: int, dtype=torch.float32):
 # ---------------------------------------------------------------------------
 # MLP (dense FFN)
 # ---------------------------------------------------------------------------
-def apply_mlp(params, x, act: str, compute_dtype=torch.bfloat16):
+def apply_mlp(params, x, act: str, compute_dtype=torch.bfloat16, *,
+              pctx=None, d_ff: Optional[int] = None):
     """``params`` has ``wi``, ``wo`` (and ``wg`` for the gated acts): an
-    ``MLP`` module or a dict."""
+    ``MLP`` module or a dict.  Under ``pctx`` (a ``ParallelCtx`` whose mesh
+    has the tp axis) the MLP is column- then row-parallel: this rank's
+    columns of ``wi`` / ``wg`` and rows of ``wo`` (its piece of the width
+    ``d_ff``, or its block of a whole leaf, zero-padded where the width
+    does not divide), one *copy* in and one *reduce* out."""
     get = params.__getitem__ if isinstance(params, dict) else \
         (lambda n: getattr(params, n))
     cd = compute_dtype
     x = x.to(cd)
-    h = x @ get("wi").to(cd)
+    wi, wo = get("wi"), get("wo")
+    wg = get("wg") if act in ("swiglu", "geglu") else None
+    if pctx is not None:
+        width = d_ff if d_ff is not None else params.d_ff
+        x = pctx.copy(x)
+        wi, wo = pctx.cut(wi, 1, width), pctx.cut(wo, 0, width)
+        wg = pctx.cut(wg, 1, width) if wg is not None else None
+    h = x @ wi.to(cd)
     if act == "swiglu":
-        h = F.silu(h) * (x @ get("wg").to(cd))
+        h = F.silu(h) * (x @ wg.to(cd))
     elif act == "geglu":
-        h = F.gelu(h, approximate="tanh") * (x @ get("wg").to(cd))
+        h = F.gelu(h, approximate="tanh") * (x @ wg.to(cd))
     elif act == "gelu":
         h = F.gelu(h, approximate="tanh")     # jax.nn.gelu's default form
     else:
         raise ValueError(act)
-    return h @ get("wo").to(cd)
+    y = h @ wo.to(cd)
+    return pctx.reduce(y) if pctx is not None else y
 
 
 class MLP(nn.Module):
     def __init__(self, d_model: int, d_ff: int, act: str, *,
                  generator=None, dtype=torch.float32, device="cpu"):
         super().__init__()
-        self.act = act
+        self.act, self.d_ff = act, d_ff
         kw = dict(dtype=dtype, device=device)
         self.wi = nn.Parameter(dense_init(generator, (d_model, d_ff), **kw))
         if act in ("swiglu", "geglu"):
@@ -185,20 +204,47 @@ class MLP(nn.Module):
                 dense_init(generator, (d_model, d_ff), **kw))
         self.wo = nn.Parameter(dense_init(generator, (d_ff, d_model), **kw))
 
-    def forward(self, x, compute_dtype=torch.bfloat16):
-        return apply_mlp(self, x, self.act, compute_dtype)
+    def forward(self, x, compute_dtype=torch.bfloat16, pctx=None):
+        return apply_mlp(self, x, self.act, compute_dtype, pctx=pctx)
 
 
 # ---------------------------------------------------------------------------
 # embedding / unembedding
 # ---------------------------------------------------------------------------
-def embed_tokens(table, tokens, compute_dtype=torch.bfloat16):
-    """table (V, d); tokens int -> (..., d) in the compute dtype."""
-    return F.embedding(tokens.long(), table).to(compute_dtype)
+def embed_tokens(table, tokens, compute_dtype=torch.bfloat16, *, pctx=None,
+                 vocab: Optional[int] = None):
+    """table (V, d); tokens int -> (..., d) in the compute dtype.
+
+    Under ``pctx`` (the tp axis) the table is vocabulary-parallel: this
+    rank looks up the ids in its block of ``vocab`` rows (its piece, or its
+    block of a whole table), zeros the others, and the ranks' rows are
+    summed (*reduce*; one of them is non-zero, so the sum is exact)."""
+    if pctx is None:
+        return F.embedding(tokens.long(), table).to(compute_dtype)
+    tab = pctx.cut(table, 0, vocab)
+    n = tab.shape[0]
+    ids = tokens.long() - pctx.tp_rank * n
+    inside = (ids >= 0) & (ids < n)
+    rows = F.embedding(ids.clamp(0, n - 1), tab)
+    rows = rows * inside[..., None].to(rows.dtype)
+    return pctx.reduce(rows).to(compute_dtype)
 
 
-def unembed(table, x, compute_dtype=torch.bfloat16):
-    return x.to(compute_dtype) @ table.to(compute_dtype).T
+def unembed(table, x, compute_dtype=torch.bfloat16, *, pctx=None,
+            vocab: Optional[int] = None):
+    """Logits; under ``pctx`` this rank's vocabulary block of them (the
+    reference's ``logits_spec``: the vocabulary over the tp axis), from a
+    *copy* of ``x``."""
+    if pctx is None:
+        return x.to(compute_dtype) @ table.to(compute_dtype).T
+    tab = pctx.cut(table, 0, vocab)
+    return pctx.copy(x.to(compute_dtype)) @ tab.to(compute_dtype).T
+
+
+def gather_logits(logits, pctx, vocab: int):
+    """The whole vocabulary's logits from each rank's block (all-gather over
+    the tp axis, the zero-padded tail cut off); no gradient."""
+    return pctx.all_gather(logits, logits.dim() - 1)[..., :vocab]
 
 
 # ---------------------------------------------------------------------------
@@ -227,32 +273,43 @@ class _ChunkedXent(torch.autograd.Function):
     saved hidden states and per-token log-sum-exp, so the full (B, S, V)
     logits never exist in either pass.  The table's gradient is summed over
     chunks in fp32 (the reference's scan carries it in the compute dtype:
-    the same in fp32, a rounding apart in bf16)."""
+    the same in fp32, a rounding apart in bf16).
+
+    With a tp ``group`` the table is this rank's vocabulary block (its
+    rows, the first ``v0``, the whole ``vocab``): per chunk, the row max
+    over the axis (a MAX all-reduce), then one sum all-reduce of the
+    exponentials' sum and of the target's logit (from the rank whose block
+    holds it).  Backward: the local logits' gradient, so the hidden state's
+    is partial, summed by the *copy* the caller put before ``x``; the table
+    block's is whole."""
 
     @staticmethod
-    def forward(ctx, x, table, labels, mask, chunk, compute_dtype):
+    def forward(ctx, x, table, labels, mask, chunk, compute_dtype, v0,
+                vocab, group):
         B, S, _ = x.shape
         tab = table.to(compute_dtype)
         lse = torch.empty((B, S), dtype=torch.float32, device=x.device)
         tot = torch.zeros((), dtype=torch.float32, device=x.device)
         for c0 in range(0, S, chunk):
             sl = slice(c0, c0 + chunk)
-            logits = (x[:, sl].to(compute_dtype) @ tab.T).float()
-            lse[:, sl] = torch.logsumexp(logits, dim=-1)
-            nll = (lse[:, sl] - _gold_logit(logits, labels[:, sl])) \
-                * mask[:, sl]
+            logits = _vocab_logits(x[:, sl], tab, v0, vocab, compute_dtype)
+            lse[:, sl], gold = _lse_gold(logits, labels[:, sl].long() - v0,
+                                         group)
+            nll = (lse[:, sl] - gold) * mask[:, sl]
             tot = tot + nll.sum()
         cnt = mask.sum().clamp_min(1.0)
         ctx.save_for_backward(x, table, labels, mask, lse, cnt)
-        ctx.chunk, ctx.compute_dtype = chunk, compute_dtype
+        ctx.chunk, ctx.compute_dtype, ctx.v0, ctx.vocab = \
+            chunk, compute_dtype, v0, vocab
         return tot / cnt
 
     @staticmethod
     def backward(ctx, g):
         x, table, labels, mask, lse, cnt = ctx.saved_tensors
-        cd, chunk = ctx.compute_dtype, ctx.chunk
+        cd, chunk, v0 = ctx.compute_dtype, ctx.chunk, ctx.v0
         B, S, D = x.shape
         tab = table.to(cd)
+        n = tab.shape[0]
         dx = torch.empty_like(x)
         dtab = torch.zeros(table.shape, dtype=torch.float32,
                            device=table.device)
@@ -260,31 +317,73 @@ class _ChunkedXent(torch.autograd.Function):
         for c0 in range(0, S, chunk):
             sl = slice(c0, c0 + chunk)
             xc = x[:, sl].to(cd)
-            logits = (xc @ tab.T).float()
-            # d nll / d logits = softmax - onehot(label)
+            logits = _vocab_logits(xc, tab, v0, ctx.vocab, cd)
+            # d nll / d logits = softmax - onehot(label), the onehot on the
+            # rank whose block holds the label
             dl = torch.exp(logits - lse[:, sl, None])
-            dl.scatter_add_(-1, labels[:, sl].long()[..., None],
-                            -torch.ones_like(dl[..., :1]))
+            local = labels[:, sl].long() - v0
+            inside = (local >= 0) & (local < n)
+            dl.scatter_add_(-1, local.clamp(0, n - 1)[..., None],
+                            -inside[..., None].to(dl.dtype))
             dl = (dl * w[:, sl, None]).to(cd)
             dx[:, sl] = (dl @ tab).to(x.dtype)
             dtab += (dl.reshape(-1, dl.shape[-1]).T
                      @ xc.reshape(-1, D)).float()
-        return dx, dtab.to(table.dtype), None, None, None, None
+        return (dx, dtab.to(table.dtype), None, None, None, None, None,
+                None, None)
+
+
+def _vocab_logits(x, tab, v0: int, vocab: Optional[int], compute_dtype):
+    """fp32 logits of a vocabulary block; rows past ``vocab`` (the zero
+    padding of a block that does not divide) never win the softmax."""
+    logits = (x.to(compute_dtype) @ tab.T).float()
+    if vocab is not None and v0 + tab.shape[0] > vocab:
+        live = torch.arange(v0, v0 + tab.shape[0], device=x.device) < vocab
+        logits = torch.where(live, logits, float("-inf"))
+    return logits
+
+
+def _lse_gold(logits, local, group):
+    """(log-sum-exp, the target's logit) of each row; ``local`` the targets'
+    ids in this block.  With a tp ``group`` the block is one of the axis's:
+    one MAX and one sum all-reduce join the ranks' parts."""
+    if group is None:
+        return torch.logsumexp(logits, dim=-1), _gold_logit(logits, local)
+    from repro_torch.core import hierarchy
+    n = logits.shape[-1]
+    m = hierarchy.all_reduce(logits.amax(dim=-1), group, op="max")
+    inside = (local >= 0) & (local < n)
+    gold = torch.where(inside, logits.gather(
+        -1, local.clamp(0, n - 1)[..., None])[..., 0], 0.0)
+    sums = torch.stack([torch.exp(logits - m[..., None]).sum(-1), gold])
+    s, gold = hierarchy.all_reduce(sums, group).unbind(0)
+    return torch.log(s) + m, gold
 
 
 def chunked_softmax_xent(x, embed_table, labels, *, chunk: int,
-                         compute_dtype=torch.bfloat16, mask=None):
+                         compute_dtype=torch.bfloat16, mask=None, pctx=None,
+                         vocab: Optional[int] = None):
     """Cross entropy without materialising the full (B, S, V) logits.
 
     x: (B, S, D) final hidden states; embed_table: (V, D).  Each chunk of
     ``chunk`` positions computes (B, chunk, V) logits, reduces them to
     per-token NLL and discards them; the backward recomputes them chunk by
     chunk (the reference's docstring intends this; its ``lax.scan`` is
-    differentiated by JAX)."""
+    differentiated by JAX).
+
+    ``pctx`` (a mesh's tp axis): the logits split by the reference's
+    ``logits_spec`` (the ``vocab`` rows over the axis); ``embed_table`` is
+    this rank's block of the table, or the whole, and ``x`` the same on
+    every rank of the axis.  The loss is the same on every rank."""
     B, S, _ = x.shape
     if S % chunk:
         raise ValueError(f"sequence {S} is not a multiple of chunk {chunk}")
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
-    return _ChunkedXent.apply(x, embed_table, labels, mask.float(), chunk,
-                              compute_dtype)
+    if pctx is None:
+        return _ChunkedXent.apply(x, embed_table, labels, mask.float(),
+                                  chunk, compute_dtype, 0, None, None)
+    tab = pctx.cut(embed_table, 0, vocab)
+    return _ChunkedXent.apply(
+        pctx.copy(x), tab, labels, mask.float(), chunk, compute_dtype,
+        pctx.tp_rank * tab.shape[0], vocab, pctx.tp_group)

@@ -84,6 +84,9 @@ class LM(nn.Module):
         cfg, cd = self.cfg, ctx.compute_dtype
         if cfg.input_mode == "embeddings":
             x = inputs.to(cd)
+        elif ctx.pctx.tp_on:
+            x = layers.embed_tokens(self.embed, inputs, cd, pctx=ctx.pctx,
+                                    vocab=cfg.padded_vocab)
         else:
             x = layers.embed_tokens(self.embed, inputs, cd)
         if cfg.pos_embedding == "sinusoidal":
@@ -98,11 +101,24 @@ class LM(nn.Module):
     def head_table(self):
         return self.embed if self.cfg.tie_embeddings else self.head
 
+    def logits(self, hidden, ctx: RunCtx):
+        """The whole vocabulary's logits of ``hidden`` (B, S, d): under a
+        mesh's tp axis each rank's block (``layers.unembed``), gathered."""
+        cd = ctx.compute_dtype
+        if not ctx.pctx.tp_on:
+            return layers.unembed(self.head_table(), hidden, cd)
+        V = self.cfg.padded_vocab
+        return layers.gather_logits(layers.unembed(
+            self.head_table(), hidden, cd, pctx=ctx.pctx, vocab=V),
+            ctx.pctx, V)
+
     def forward(self, inputs, ctx: RunCtx, *, positions=None, caches=None,
                 kv_mask=None, return_hidden: bool = False):
         """Returns (logits_or_hidden, new_caches, aux).  ``aux`` is the sum
         of the MoE blocks' load-balance terms, as the reference's (fp32 zero
-        without MoE)."""
+        without MoE).  Under a mesh's tp axis (``ctx.pctx``) the logits are
+        this rank's vocabulary block, as the reference's ``logits_spec``
+        lays them out."""
         B, S = inputs.shape[0], inputs.shape[1]
         if positions is None:
             positions = torch.arange(
@@ -115,7 +131,10 @@ class LM(nn.Module):
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if return_hidden:
             return x, new_caches, aux
-        logits = layers.unembed(self.head_table(), x, ctx.compute_dtype)
+        logits = layers.unembed(
+            self.head_table(), x, ctx.compute_dtype,
+            pctx=ctx.pctx if ctx.pctx.tp_on else None,
+            vocab=self.cfg.padded_vocab)
         return logits, new_caches, aux
 
 
@@ -128,10 +147,17 @@ def lm_loss(model: LM, batch, ctx: RunCtx, *, xent_chunk: int = 0,
     hidden, _, aux = model(batch["inputs"], ctx, return_hidden=True)
     table = model.head_table()
     mask = batch.get("mask")
-    if xent_chunk and hidden.shape[1] % xent_chunk == 0:
+    S = hidden.shape[1]
+    chunked = bool(xent_chunk) and S % xent_chunk == 0
+    if ctx.pctx.tp_on or chunked:
+        # under a tp axis the logits are split by ``logits_spec``: the
+        # vocabulary-parallel loss, in one chunk where none divides S
         xent = layers.chunked_softmax_xent(
-            hidden, table, batch["labels"], chunk=xent_chunk,
-            compute_dtype=ctx.compute_dtype, mask=mask)
+            hidden, table, batch["labels"],
+            chunk=xent_chunk if chunked else S,
+            compute_dtype=ctx.compute_dtype, mask=mask,
+            pctx=ctx.pctx if ctx.pctx.tp_on else None,
+            vocab=model.cfg.padded_vocab)
     else:
         logits = layers.unembed(table, hidden, ctx.compute_dtype)
         xent = layers.softmax_xent(logits, batch["labels"], mask)

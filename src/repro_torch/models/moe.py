@@ -8,8 +8,11 @@ Two execution paths, as in the reference:
                   each expert takes at most ``C`` of its assignments, in the
                   stable order of a sort by expert; the rest are dropped.
 
-The reference's third path, ``ep`` (expert parallelism over a mesh), waits
-for the parallel layer and raises.
+and the reference's third, ``ep`` (``_moe_ep``): experts over a mesh's tp
+axis, tokens replicated over it.  The router runs on every rank of the axis
+(the same tokens, the same gates); each rank dispatches to, computes and
+combines its ``E / tp`` experts only (``moe_sorted`` with an expert slice)
+under the capacity of its data shard, and the ranks' outputs are summed.
 
 Routing, sorting, dispatch and combine are plain PyTorch ops, as they are
 XLA ops in the reference; the expert products are ``torch.bmm`` over the
@@ -46,10 +49,6 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
-
-_EP = ("expert parallelism (impl='ep') is not ported yet: ROADMAP queue A "
-       "item 7 (the parallel layer)")
-
 
 class MoE(nn.Module):
     """The reference's ``init_moe`` layout: ``router`` (d, E) fp32, ``wi``
@@ -120,10 +119,18 @@ def moe_sorted(params: MoE, x2d, cfg: ModelConfig, *,
     ``expert_slice``: (start, count), computing only experts ``[start,
     start + count)``; assignments to the others contribute zero.  ``params``
     may then hold all experts or just that slice."""
+    gates, idx, aux = route(x2d, params.router, cfg.moe.top_k)
+    return _dispatch(params.wi, params.wg, params.wo, x2d, gates, idx, cfg,
+                     compute_dtype, capacity, expert_slice), aux
+
+
+def _dispatch(wi, wg, wo, x2d, gates, idx, cfg: ModelConfig, compute_dtype,
+              capacity: Optional[int], expert_slice):
+    """``moe_sorted``'s dispatch, expert products and combine for routed
+    tokens (``route``'s gates and expert ids)."""
     m, cd = cfg.moe, compute_dtype
     T, d = x2d.shape
     E, k = m.n_experts, m.top_k
-    gates, idx, aux = route(x2d, params.router, k)
     C = capacity if capacity is not None else default_capacity(
         T, E, k, m.capacity_factor)
     dev = x2d.device
@@ -139,7 +146,6 @@ def moe_sorted(params: MoE, x2d, cfg: ModelConfig, *,
     pos = torch.empty_like(pos_s).scatter_(0, order, pos_s)
     keep = pos < C
 
-    wi, wg, wo = params.wi, params.wg, params.wo
     erow, n_local = eid, E
     if expert_slice is not None:
         e0, en = expert_slice
@@ -158,7 +164,55 @@ def moe_sorted(params: MoE, x2d, cfg: ModelConfig, *,
                      wg.to(cd), wo.to(cd), cfg.act).reshape(scratch, d)
     contrib = ye.index_select(0, torch.where(keep, slot, 0)) * \
         (gates.reshape(-1) * keep)[:, None].to(cd)
-    return contrib.view(T, k, d).sum(dim=1), aux
+    return contrib.view(T, k, d).sum(dim=1)
+
+
+def _moe_ep(params: MoE, x2d, cfg: ModelConfig, compute_dtype, pctx,
+            capacity: Optional[int]):
+    """Expert parallelism, held against ``repro/models/moe.py:175-254``:
+    the experts over ``pctx``'s tp axis, the tokens (this rank's data
+    shard) replicated over it.  Every rank routes every token (outside the
+    tensor-parallel region: the router's gradient is whole on each rank);
+    the gates enter the region by a *copy*; each rank runs ``moe_sorted``'s
+    dispatch on its experts ``[r E/tp, (r+1) E/tp)`` under the capacity of
+    the whole data shard (``default_capacity(T, ...)``), and ``y`` is
+    *reduce*d over the axis.  ``aux`` is the global mean over the tp and
+    dp axes (the reference's ``psum / (n_tp n_dp)``).  With
+    ``pctx.fsdp_experts`` expert weights that arrive split over the dp axes
+    too (ZeRO-3) are all-gathered here, their gradients reduce-scattered
+    back."""
+    from repro_torch.core import hierarchy
+    m = cfg.moe
+    tp = pctx.tp
+    if m.n_experts % tp:
+        raise ValueError(f"{m.n_experts} experts over {tp} ranks")
+    e_local = m.n_experts // tp
+    full = {"wi": (m.n_experts, cfg.d_model, m.d_ff_expert),
+            "wg": (m.n_experts, cfg.d_model, m.d_ff_expert),
+            "wo": (m.n_experts, m.d_ff_expert, cfg.d_model)}
+    ws = {}
+    for name, shape in full.items():
+        w = pctx.cut(getattr(params, name), 0, shape[0])
+        for dim in (1, 2):
+            if w.shape[dim] != shape[dim]:
+                if not pctx.fsdp_experts:
+                    raise ValueError(f"moe.{name} {tuple(w.shape)} is split "
+                                     f"over the dp axes without "
+                                     f"fsdp_experts")
+                w = hierarchy.gather_param(w, pctx.group(pctx.dp_names),
+                                           dim)
+        ws[name] = w
+    T = x2d.shape[0]
+    gates, idx, aux = route(x2d, params.router, m.top_k)
+    cap = capacity if capacity is not None else default_capacity(
+        T, m.n_experts, m.top_k, m.capacity_factor)
+    y = _dispatch(ws["wi"], ws["wg"], ws["wo"], pctx.copy(x2d),
+                  pctx.copy(gates), idx, cfg, compute_dtype, cap,
+                  (pctx.tp_rank * e_local, e_local))
+    y = pctx.reduce(y)
+    everyone = pctx.group((pctx.tp_axis,) + pctx.dp_names)
+    aux = hierarchy.tp_psum(aux, everyone) / everyone.size
+    return y, aux
 
 
 def moe_dense(params: MoE, x2d, cfg: ModelConfig,
@@ -176,8 +230,10 @@ def moe_dense(params: MoE, x2d, cfg: ModelConfig,
 
 def apply_moe(params: MoE, x, cfg: ModelConfig, *,
               compute_dtype=torch.bfloat16, impl: str = "sorted",
-              capacity: Optional[int] = None):
-    """x (B, S, d) -> (y (B, S, d), aux), the shared experts added."""
+              capacity: Optional[int] = None, pctx=None):
+    """x (B, S, d) -> (y (B, S, d), aux), the shared experts added.
+    ``impl="ep"`` takes ``pctx`` (a ``ParallelCtx`` whose mesh has the tp
+    axis); there the shared experts are a tensor-parallel MLP."""
     B, S, d = x.shape
     x2d = x.reshape(B * S, d)
     if impl == "dense":
@@ -186,11 +242,15 @@ def apply_moe(params: MoE, x, cfg: ModelConfig, *,
         y2d, aux = moe_sorted(params, x2d, cfg, compute_dtype=compute_dtype,
                               capacity=capacity)
     elif impl == "ep":
-        raise NotImplementedError(_EP)
+        if pctx is None or not pctx.tp_on:
+            raise ValueError("impl='ep' needs a ParallelCtx whose mesh has "
+                             "the tp axis")
+        y2d, aux = _moe_ep(params, x2d, cfg, compute_dtype, pctx, capacity)
     else:
         raise ValueError(f"MoE impl {impl!r} not in ('sorted', 'dense', "
                          f"'ep')")
     y = y2d.reshape(B, S, d)
     if cfg.moe.n_shared_experts:
-        y = y + layers.apply_mlp(params.shared, x, cfg.act, compute_dtype)
+        y = y + layers.apply_mlp(params.shared, x, cfg.act, compute_dtype,
+                                 pctx=pctx)
     return y, aux

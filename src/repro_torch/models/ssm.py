@@ -16,8 +16,17 @@ caches are updated **in place**: ``conv_*`` keep the dtype they were made
 with (fp32 from ``init_ssm_cache``, as the reference's slot caches are made)
 and are written with the same values the reference's new caches hold.
 
-``ssd_sharded`` (the reference's ``shard_map`` over a mesh) waits for the
-parallel layer.
+Under a mesh's tp axis (``pctx``) the mixer is tensor-parallel (held
+against ``repro/models/ssm.py:104-153, 310-313``): ``in_z`` / ``in_x``
+give this rank's channels (heads over the axis), ``in_b`` / ``in_c`` /
+``in_dt`` and the small conv weights are replicated and each rank takes
+its channels' columns, ``ssd_sharded`` runs B4 on ``H / tp`` heads, the
+gated RMSNorm sums its squares over the axis (``d_in`` is split), and
+``out_proj`` is row-parallel with one *reduce*.  Where ``H % tp`` the
+channels are gathered, the whole SSD runs on every rank (the reference's
+fallback) and each keeps its piece.  Decode gathers its pieces, runs the
+whole single-step recurrence, and keeps each cache leaf's piece under
+``core/policy.cache_specs``.
 
 Shapes: x (B, S, H, P); dt (B, S, H); A (H,); B/C (B, S, G, N); state
 (B, H, N, P).  H heads in G groups (heads share B/C within a group).
@@ -35,12 +44,55 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 
-_MESH = ("ssd_sharded (the SSD core under a mesh) is not ported yet: "
-         "ROADMAP queue A item 7 (the parallel layer)")
+def ssd_sharded(x, dt, A, Bm, Cm, *, chunk: int, pctx, heads=None,
+                impl="kernel"):
+    """The SSD core with heads over the tp axis, held against
+    ``repro/models/ssm.py:104-153``: the batch is the rank's piece over the
+    dp axes already; B/C are replicated; x / dt / A of every head (or of
+    this rank's ``H / tp``; ``heads``: the whole H, default x's) are cut to
+    this rank's and ``kernels.ops.ssd`` (B4) runs on them.  Returns this
+    rank's (y (B, S, H/tp, P), h (B, H/tp, N, P)).  Where ``H % tp`` it
+    falls back to the whole SSD on every rank, as the reference does, and
+    returns every head's."""
+    H = heads if heads is not None else x.shape[2]
+    if H % pctx.tp:
+        if x.shape[2] != H:
+            raise ValueError(f"{H} heads over {pctx.tp}: the fallback "
+                             f"takes every head, not {x.shape[2]}")
+        return ops.ssd(x.contiguous(), dt.contiguous(), A, Bm.contiguous(),
+                       Cm.contiguous(), chunk=chunk, impl=impl)
+    x, dt, A = pctx.cut(x, 2, H), pctx.cut(dt, 2, H), pctx.cut(A, 0, H)
+    return ops.ssd(x.contiguous(), dt.contiguous(), A.contiguous(),
+                   Bm.contiguous(), Cm.contiguous(), chunk=chunk, impl=impl)
 
 
-def ssd_sharded(x, dt, A, Bm, Cm, *, chunk: int, mesh, dp_axes, tp_axis):
-    raise NotImplementedError(_MESH)
+def _cache_tp_dim(shape, tp: int):
+    """The dim of a recurrent cache leaf (batch first, whole shape) that
+    ``core/policy.cache_spec`` splits over a tp axis of ``tp`` ranks: the
+    largest that divides and is at least ``2 tp``."""
+    cands = [(shape[d], d) for d in range(1, len(shape))
+             if shape[d] % tp == 0 and shape[d] >= 2 * tp]
+    return max(cands)[1] if cands else None
+
+
+def _whole(t, dim, pctx):
+    """The pieces of ``t`` along ``dim`` joined over the tp axis (no
+    gradient: serving); ``t`` without a mesh or a dim."""
+    return t if pctx is None or dim is None else pctx.all_gather(t, dim)
+
+
+def _keep(t, dim, pctx):
+    """This rank's piece of a whole cache leaf (``_cache_tp_dim``'s)."""
+    if pctx is None or dim is None:
+        return t
+    n = t.shape[dim] // pctx.tp
+    return t.narrow(dim, pctx.tp_rank * n, n).contiguous()
+
+
+def _param_whole(w, dim: int, full: int, pctx):
+    """A replicated leaf as it is; the pieces of one joined (no gradient:
+    the decode step's)."""
+    return w if w.shape[dim] == full else pctx.all_gather(w, dim)
 
 
 def ssd_decode_step(x, dt, A, Bm, Cm, h):
@@ -147,7 +199,8 @@ class SSM(nn.Module):
 
 def apply_ssm(params: SSM, x, cfg: ModelConfig, *,
               compute_dtype=torch.bfloat16, cache: Optional[dict] = None,
-              build_cache: bool = False, token_mask=None, impl="kernel"):
+              build_cache: bool = False, token_mask=None, impl="kernel",
+              pctx=None):
     """x (B,S,d_model) -> (y, new_cache|None).
 
     cache = {"conv_x"/"conv_b"/"conv_c": (B,K-1,*), "state": (B,H,N,P)}:
@@ -155,64 +208,124 @@ def apply_ssm(params: SSM, x, cfg: ModelConfig, *,
     ``token_mask`` (B,S) bool, True = real token: right-padded positions get
     dt = 0 (decay 1, zero input -- the state passes through unchanged) and
     the conv caches are rebuilt from the true tail.  ``impl`` "kernel" |
-    "plain" picks the prefill's SSD scan.
+    "plain" picks the prefill's SSD scan.  ``pctx``: the tensor-parallel
+    mixer (module docstring); without it every cut, gather and reduce
+    below is the identity.
     """
     s = cfg.ssm
     cd = compute_dtype
     B, S, _ = x.shape
     d_in = s.expand * cfg.d_model
-    H = d_in // s.head_dim
-    xc = x.to(cd)
+    P = s.head_dim
+    H = d_in // P
+    gn = s.n_groups * s.d_state
+    tp, rank = (pctx.tp, pctx.tp_rank) if pctx is not None else (1, 0)
+    if d_in % tp:
+        raise NotImplementedError(f"the SSM's {d_in} inner channels over a "
+                                  f"model axis of {tp}")
+    split = H % tp == 0               # heads over the axis, else gathered
 
-    z = xc @ params.in_z.to(cd)
-    xs = xc @ params.in_x.to(cd)
+    def cut(t, dim, full):
+        return t if pctx is None else pctx.cut(t, dim, full)
+
+    xc = x.to(cd) if pctx is None else pctx.copy(x.to(cd))
+    z = xc @ cut(params.in_z, 1, d_in).to(cd)             # my channels
+    xs = xc @ cut(params.in_x, 1, d_in).to(cd)
     bs = xc @ params.in_b.to(cd)
     cs = xc @ params.in_c.to(cd)
-    dt = xc @ params.in_dt.to(cd)
+    in_dt = cut(params.in_dt, 1, H) if split and cache is None \
+        else params.in_dt
+    dt = xc @ in_dt.to(cd)
 
     lengths = None
     if token_mask is not None and cache is None:
         lengths = token_mask.to(torch.int32).sum(dim=1)
-
-    cx = cache["conv_x"] if cache is not None else None
-    cb = cache["conv_b"] if cache is not None else None
-    cc = cache["conv_c"] if cache is not None else None
-    xs, ncx = causal_conv1d(xs, params.conv_x_w, cache=cx, length=lengths)
-    bs, ncb = causal_conv1d(bs, params.conv_b_w, cache=cb, length=lengths)
-    cs, ncc = causal_conv1d(cs, params.conv_c_w, cache=cc, length=lengths)
-    xs = F.silu(xs + params.conv_x_b.to(xs.dtype))
-    bs = F.silu(bs + params.conv_b_b.to(bs.dtype))
-    cs = F.silu(cs + params.conv_c_b.to(cs.dtype))
-
-    xin = xs.reshape(B, S, H, s.head_dim)
+    shapes = {"conv_x": (B, s.d_conv - 1, d_in),
+              "conv_b": (B, s.d_conv - 1, gn),
+              "conv_c": (B, s.d_conv - 1, gn),
+              "state": (B, H, s.d_state, P)}
+    dims = {n: _cache_tp_dim(sh, tp) if pctx is not None else None
+            for n, sh in shapes.items()}
+    whole = None
+    if cache is not None:
+        whole = {n: _whole(cache[n], dims[n], pctx) for n in shapes}
+    n_ch = d_in // tp
+    cx = whole["conv_x"].narrow(2, rank * n_ch, n_ch) \
+        if whole is not None else None
+    cb = whole["conv_b"] if whole is not None else None
+    cc = whole["conv_c"] if whole is not None else None
+    if cache is None:
+        wb, wc = params.conv_b_w, params.conv_c_w
+        bb, bc = params.conv_b_b, params.conv_c_b
+    else:
+        wb, wc = (_param_whole(params.conv_b_w, 1, gn, pctx),
+                  _param_whole(params.conv_c_w, 1, gn, pctx))
+        bb, bc = (_param_whole(params.conv_b_b, 0, gn, pctx),
+                  _param_whole(params.conv_c_b, 0, gn, pctx))
+    xs, ncx = causal_conv1d(xs, cut(params.conv_x_w, 1, d_in), cache=cx,
+                            length=lengths)
+    bs, ncb = causal_conv1d(bs, wb, cache=cb, length=lengths)
+    cs, ncc = causal_conv1d(cs, wc, cache=cc, length=lengths)
+    xs = F.silu(xs + cut(params.conv_x_b, 0, d_in).to(xs.dtype))
+    bs = F.silu(bs + bb.to(bs.dtype))
+    cs = F.silu(cs + bc.to(cs.dtype))
     Bm = bs.reshape(B, S, s.n_groups, s.d_state)
     Cm = cs.reshape(B, S, s.n_groups, s.d_state)
-    dtv = F.softplus(dt.float() + params.dt_bias)
-    if lengths is not None:
-        dtv = torch.where(token_mask[:, :, None], dtv, 0.0)
-    A = -torch.exp(params.A_log)
 
+    new_cache = None
     if cache is not None:
-        y, h_new = ssd_decode_step(xin[:, 0], dtv[:, 0], A, Bm[:, 0],
-                                   Cm[:, 0], cache["state"])
-        y = y[:, None]
-        for name, new in (("conv_x", ncx), ("conv_b", ncb),
-                          ("conv_c", ncc), ("state", h_new)):
-            cache[name].copy_(new)
+        # decode: every channel on each rank, the whole recurrence
+        xw = _whole(xs, 2, pctx).reshape(B, S, H, P)
+        dtv = F.softplus(dt.float() + params.dt_bias)
+        A = -torch.exp(params.A_log)
+        y, h_new = ssd_decode_step(xw[:, 0], dtv[:, 0], A, Bm[:, 0],
+                                   Cm[:, 0], whole["state"])
+        y = (y[:, None] + params.D[:, None] * xw.float()).reshape(B, S,
+                                                                  d_in)
+        y = y.narrow(2, rank * n_ch, n_ch)
+        new = {"conv_x": _whole(ncx, 2, pctx), "conv_b": ncb,
+               "conv_c": ncc, "state": h_new}
+        for name, t in new.items():
+            cache[name].copy_(_keep(t, dims[name], pctx))
         new_cache = cache
     else:
-        y, h_final = ops.ssd(xin.contiguous(), dtv.contiguous(), A,
-                             Bm.contiguous(), Cm.contiguous(),
-                             chunk=s.chunk, impl=impl)
-        new_cache = ({"conv_x": ncx, "conv_b": ncb, "conv_c": ncc,
-                      "state": h_final} if build_cache else None)
+        if split:
+            xin = xs.reshape(B, S, H // tp, P)
+            dtv = F.softplus(dt.float() + cut(params.dt_bias, 0, H))
+            A = -torch.exp(cut(params.A_log, 0, H))
+            D = cut(params.D, 0, H)
+        else:
+            xin = pctx.gather(xs, 2).reshape(B, S, H, P)
+            dtv = F.softplus(dt.float() + params.dt_bias)
+            A = -torch.exp(params.A_log)
+            D = params.D
+        if lengths is not None:
+            dtv = torch.where(token_mask[:, :, None], dtv, 0.0)
+        if pctx is None:
+            y, h_final = ops.ssd(xin.contiguous(), dtv.contiguous(), A,
+                                 Bm.contiguous(), Cm.contiguous(),
+                                 chunk=s.chunk, impl=impl)
+        else:
+            y, h_final = ssd_sharded(xin, dtv, A, Bm, Cm, chunk=s.chunk,
+                                     pctx=pctx, heads=H, impl=impl)
+        y = y + D[:, None] * xin.float()
+        y = y.reshape(B, S, -1)
+        if not split:
+            y = pctx.split(y, 2)
+        if build_cache:
+            state = _whole(h_final, 1, pctx) if split else h_final
+            new = {"conv_x": _whole(ncx, 2, pctx), "conv_b": ncb,
+                   "conv_c": ncc, "state": state}
+            new_cache = {n: _keep(t, dims[n], pctx) for n, t in new.items()}
 
-    y = y + params.D[:, None] * xin.float()
-    y = y.reshape(B, S, d_in).to(cd)
-    y = layers.apply_norm(params.norm, y * F.silu(z), "rmsnorm",
-                          cfg.norm_eps)
-    out = y.to(cd) @ params.out_proj.to(cd)
-    return out, new_cache
+    # the gated RMSNorm over all of d_in: under a tp axis its squares are
+    # summed over the axis (d_in is split)
+    y = layers.apply_norm(
+        {"scale": cut(params.norm.scale, 0, d_in)}, y.to(cd) * F.silu(z),
+        "rmsnorm", cfg.norm_eps,
+        psum=pctx.psum if pctx is not None else None, width=d_in)
+    out = y.to(cd) @ cut(params.out_proj, 0, d_in).to(cd)
+    return (out if pctx is None else pctx.reduce(out)), new_cache
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,

@@ -33,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN, ATTN_LOCAL, RGLRU, SSM,
                                       ModelConfig)
+from repro_torch.core import hierarchy
 from repro_torch.models import attention, layers, moe, rglru, ssm
 
 _BLOCKS = (ATTN, ATTN_LOCAL, SSM, RGLRU)
@@ -42,11 +43,132 @@ _BLOCKS = (ATTN, ATTN_LOCAL, SSM, RGLRU)
 # run context (how to execute; orthogonal to the params)
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
+class ParallelCtx:
+    """Mesh-aware execution context, held against the reference's (None
+    mesh = one device).  The port's model sees plain local tensors: a batch
+    a rank holds is its piece over the dp axes, and a parameter that the
+    tensor-parallel computation splits its work along is its piece over
+    ``tp_axis`` (heads, the FFN width, the vocabulary, the SSM's inner
+    channels, the experts).  Where the mesh has ``tp_axis`` (size 1 too:
+    a one-rank mesh runs the collectives a wider one does), blocks run
+    their tensor- and expert-parallel paths and count every collective into
+    ``traffic`` (``core/hierarchy``)."""
+    mesh: Any = None
+    dp_axes: Tuple[str, ...] = ("data",)
+    tp_axis: Optional[str] = "model"
+    fsdp_experts: bool = True
+    traffic: Any = dataclasses.field(default=None, compare=False)
+    # groups, and the mesh's facts read once (a block asks for them many
+    # times a step)
+    _groups: dict = dataclasses.field(default_factory=dict, compare=False,
+                                      repr=False)
+    _memo: dict = dataclasses.field(default_factory=dict, compare=False,
+                                    repr=False)
+
+    # ------------------------------------------------------------ axes --
+    def _facts(self):
+        facts = self._memo.get("facts")
+        if facts is None:
+            axes = {} if self.mesh is None else dict(zip(
+                self.mesh.mesh_dim_names,
+                (int(n) for n in self.mesh.mesh.shape)))
+            on = self.mesh is not None and self.tp_axis in axes
+            facts = self._memo["facts"] = (axes, on,
+                                           axes[self.tp_axis] if on else 1)
+        return facts
+
+    @property
+    def tp_on(self) -> bool:
+        """The tensor- and expert-parallel paths run (a mesh with the tp
+        axis, of any size)."""
+        return self._facts()[1]
+
+    @property
+    def tp(self) -> int:
+        return self._facts()[2]
+
+    @property
+    def tp_rank(self) -> int:
+        rank = self._memo.get("tp_rank")
+        if rank is None:
+            rank = self._memo["tp_rank"] = (
+                self.mesh.get_local_rank(self.tp_axis) if self.tp_on else 0)
+        return rank
+
+    @property
+    def dp_names(self) -> Tuple[str, ...]:
+        return tuple(a for a in self.mesh.mesh_dim_names
+                     if a in self.dp_axes) if self.mesh is not None else ()
+
+    def group(self, axes):
+        """The ``hierarchy.Group`` of ``axes`` (made once, counted into
+        ``traffic``)."""
+        key = tuple(a for a in self.mesh.mesh_dim_names if a in set(axes))
+        if key not in self._groups:
+            if self.traffic is None:
+                object.__setattr__(self, "traffic", hierarchy.Traffic())
+            self._groups[key] = hierarchy.axis_group(self.mesh, key,
+                                                     self.traffic)
+        return self._groups[key]
+
+    @property
+    def tp_group(self):
+        group = self._memo.get("tp_group")
+        if group is None:
+            group = self._memo["tp_group"] = self.group((self.tp_axis,))
+        return group
+
+    # ---------------------------------------------- the region's edges --
+    def copy(self, x):
+        return hierarchy.tp_copy(x, self.tp_group)
+
+    def reduce(self, x):
+        return hierarchy.tp_reduce(x, self.tp_group)
+
+    def psum(self, x):
+        return hierarchy.tp_psum(x, self.tp_group)
+
+    def gather(self, x, dim: int):
+        return hierarchy.tp_gather(x, self.tp_group, dim)
+
+    def split(self, x, dim: int):
+        return hierarchy.tp_split(x, self.tp_group, dim)
+
+    def all_gather(self, x, dim: int):
+        """The pieces joined (no gradient: serving)."""
+        return hierarchy.all_gather(x, self.tp_group, dim)
+
+    # ----------------------------------------------------------- pieces --
+    def cut(self, t, dim: int, full: int):
+        """This rank's block along ``dim`` of a tensor whose whole size
+        there is ``full``: ``t`` itself where it is that block already (a
+        piece), else ``t`` zero-padded to a multiple of the tp axis and cut
+        (a leaf held whole, or gathered)."""
+        tp = self.tp
+        padded = -(-full // tp) * tp
+        n = padded // tp
+        size = t.shape[dim]
+        if size == full:
+            if tp == 1:
+                return t
+            if padded != full:
+                pad = [0, 0] * (t.dim() - 1 - dim) + [0, padded - full]
+                t = torch.nn.functional.pad(t, pad)
+            return t.narrow(dim, self.tp_rank * n, n)
+        if size == n and full % tp == 0:
+            return t
+        raise ValueError(f"dim {dim} of {tuple(t.shape)}: neither the whole "
+                         f"{full} nor a piece of it over {self.tp} ranks")
+
+
+@dataclasses.dataclass(frozen=True)
 class RunCtx:
     compute_dtype: Any = torch.bfloat16
     attn_impl: str = "kernel"         # kernel | full
     cache_capacity: int = 0
     remat: str = "block"              # none | block
+    moe_impl: str = "sorted"          # dense | sorted | ep
+    pctx: ParallelCtx = ParallelCtx()
 
 
 # ---------------------------------------------------------------------------
@@ -107,31 +229,50 @@ class Block(nn.Module):
                                       generator=generator, **kw)
 
     def _ffn(self, h, ctx: RunCtx):
-        """(FFN output, the MoE's aux or None)."""
+        """(FFN output, the MoE's aux or None).  Under a mesh's tp axis the
+        MLP is column- then row-parallel (its width over the axis) and the
+        MoE runs ``ctx.moe_impl`` (``"ep"``: experts over the axis)."""
+        pctx = ctx.pctx if ctx.pctx.tp_on else None
         if self.cfg.moe is None:
-            return self.mlp(h, ctx.compute_dtype), None
+            return self.mlp(h, ctx.compute_dtype, pctx=pctx), None
         return moe.apply_moe(self.moe, h, self.cfg,
-                             compute_dtype=ctx.compute_dtype)
+                             compute_dtype=ctx.compute_dtype,
+                             impl=ctx.moe_impl, pctx=pctx)
 
     def forward(self, x, ctx: RunCtx, *, positions, cache=None,
                 kv_mask=None, rope=None):
         """Returns (x, new_cache, aux): ``aux`` the MoE's load-balance term,
         None for a block without MoE."""
         cfg, cd = self.cfg, ctx.compute_dtype
+        pctx = ctx.pctx if ctx.pctx.tp_on else None
         h = self.norm1(x)
-        if self.blk in (SSM, RGLRU):
-            apply = ssm.apply_ssm if self.blk == SSM else rglru.apply_rglru
-            mix, new_cache = apply(
-                getattr(self, self.blk), h, cfg, compute_dtype=cd,
+        if self.blk == RGLRU:
+            if pctx is not None and pctx.tp > 1:
+                raise NotImplementedError(
+                    "the RG-LRU block under a model axis larger than 1 is "
+                    "not ported (ROADMAP queue A item 7)")
+            mix, new_cache = rglru.apply_rglru(
+                self.rglru, h, cfg, compute_dtype=cd,
                 cache=cache if isinstance(cache, dict) else None,
                 build_cache=cache == "init", token_mask=kv_mask,
                 impl="plain" if ctx.attn_impl == "full" else "kernel")
+        elif self.blk == SSM:
+            mix, new_cache = ssm.apply_ssm(
+                self.ssm, h, cfg, compute_dtype=cd,
+                cache=cache if isinstance(cache, dict) else None,
+                build_cache=cache == "init", token_mask=kv_mask,
+                impl="plain" if ctx.attn_impl == "full" else "kernel",
+                pctx=pctx)
         else:
+            if pctx is not None and self.blk == ATTN_LOCAL and pctx.tp > 1:
+                raise NotImplementedError(
+                    "windowed attention under a model axis larger than 1 "
+                    "is not ported (ROADMAP queue A item 7)")
             mix, new_cache = attention.apply_attention(
                 self.attn, h, cfg, local=self.blk == ATTN_LOCAL,
                 positions=positions, compute_dtype=cd, impl=ctx.attn_impl,
                 cache=cache, kv_mask=kv_mask,
-                cache_capacity=ctx.cache_capacity, rope=rope)
+                cache_capacity=ctx.cache_capacity, rope=rope, pctx=pctx)
         if not _has_ffn(cfg):
             return x + mix.to(x.dtype), new_cache, None
         if cfg.parallel_residual:

@@ -39,6 +39,21 @@ bucketed prefill; the paged step with prefill chunks runs eagerly, bucketed
 all the same.  ``graphs=False`` runs every step eagerly through the same
 static buffers (the counterpart of ``jax.disable_jit()``), as the CPU does.
 
+Under a ``mesh`` (``ServeEngine`` and the dense mode) the engine runs the
+model's tensor-parallel paths (``models/transformer.ParallelCtx``): each
+rank holds its pieces of the parameters (``MeshPlacement``; a leaf the
+rule splits along another dim than its block's work is kept whole) and of
+the caches, placed by ``core/policy.cache_specs`` (slots over the dp axes
+where they divide, the attention cache's length over the tp axis).  Every
+rank runs the same host program on the same requests: a decode step runs
+the rank's slots and gathers every slot's logits (the vocabulary over the
+tp axis, the slots over the dp axes), so every rank samples the same
+tokens; a one-row prefill runs on every rank of the dp axes and is written
+into its slot by the rank that holds it.  Steps under a mesh run eagerly
+(no CUDA graphs: the collectives count per call).  The paged mode takes a
+mesh whose tp axis has size 1 and whose dp axes do not split the pool
+(every rank serves every row), and raises on a larger tp axis.
+
 Other differences from the reference: caches and the pool are updated in
 place, and the parameters are cast to the compute dtype **once**, when the
 engine is built (``LM.cast_weights_``), instead of on every call -- same
@@ -78,9 +93,78 @@ def _place(model: LM, device) -> torch.device:
 # ---------------------------------------------------------------------------
 # the steps
 # ---------------------------------------------------------------------------
+class MeshPlacement:
+    """A dense engine's pieces on ``mesh``: the parameters each rank
+    computes with (``train/sharding.Layout.use_specs``) and each cache
+    leaf's spec (``core/policy.stack_cache_specs`` over ``n_slots`` slots),
+    the ``ParallelCtx`` the steps run under, and the slots' dp rows."""
+
+    def __init__(self, cfg: ModelConfig, policy: PolicyConfig, mesh,
+                 n_slots: int, max_seq: int):
+        from repro_torch.core import policy as pol
+        from repro_torch.train import sharding
+        self.mesh = mesh
+        layout = sharding.Layout(cfg, dataclasses.replace(
+            policy, zero_stage=0), mesh)
+        self.use_specs, self.pctx = layout.use_specs, layout.pctx
+        self.traffic = layout.traffic
+        meta = transformer.init_stack_cache(cfg, n_slots, max_seq,
+                                            device="meta")
+        self.cache_specs = pol.stack_cache_specs(
+            cfg, meta, policy, layout.axes,
+            tp_min=sharding.tp_min(policy, layout.axes))
+        entries = {spec[0] for row in self.cache_specs
+                   for spec in row.values()}
+        if len(entries) != 1:
+            raise ValueError(f"cache leaves split their slots differently: "
+                             f"{entries}")
+        self.dp_entry = entries.pop()
+        self.n_slots = n_slots
+
+    def lay_out(self, model: LM) -> LM:
+        """Cut ``model``'s parameters (whole) to this rank's pieces."""
+        from repro_torch.train.sharding import piece
+        for n, p in model.named_parameters():
+            if any(e is not None for e in self.use_specs[n]):
+                p.data = piece(p.data, self.use_specs[n], self.mesh).clone()
+        return model
+
+    def caches(self, whole):
+        """This rank's pieces of whole per-layer caches."""
+        from repro_torch.train.sharding import piece
+        return [{n: piece(t, self.cache_specs[i][n], self.mesh).clone()
+                 for n, t in layer.items()} for i, layer in enumerate(whole)]
+
+    def rows(self, t):
+        """This rank's slots of a (n_slots, ...) host or device array."""
+        from repro_torch.train.sharding import piece
+        return piece(t, (self.dp_entry,), self.mesh) if self.dp_entry \
+            else t
+
+    def join_rows(self, t):
+        """Every slot's rows from each rank's (an all-gather over the dp
+        axes that split the slots)."""
+        if not self.dp_entry:
+            return t
+        from repro_torch.core import hierarchy
+        from repro_torch.core.policy import entry_axes
+        return hierarchy.all_gather(t, self.pctx.group(
+            entry_axes(self.dp_entry)), 0)
+
+    def scatter_slot(self, caches, one, slot: int) -> None:
+        """``kvcache.scatter_slot`` on the rank that holds ``slot``."""
+        if not self.dp_entry:
+            kvcache.scatter_slot(caches, one, slot)
+            return
+        from repro_torch.train.sharding import _index
+        n = caches[0][next(iter(caches[0]))].shape[0]
+        if slot // n == _index(self.dp_entry, self.mesh):
+            kvcache.scatter_slot(caches, one, slot % n)
+
+
 def make_prefill_step(cfg: ModelConfig, policy: PolicyConfig, *,
                       cache_capacity: int, mesh=None,
-                      bucketed: bool = False) -> Callable:
+                      bucketed: bool = False, pctx=None) -> Callable:
     """prefill(model, tokens) -> (last-token logits, caches).
 
     ``bucketed=True`` returns ``prefill(model, tokens, length)`` for
@@ -92,15 +176,14 @@ def make_prefill_step(cfg: ModelConfig, policy: PolicyConfig, *,
     ctx = dataclasses.replace(
         make_run_ctx(cfg, policy, mesh, seq_len=cache_capacity),
         cache_capacity=cache_capacity)
+    if pctx is not None:
+        ctx = dataclasses.replace(ctx, pctx=pctx)
 
     @torch.no_grad()
     def prefill(model: LM, tokens):
         hidden, caches, _ = model(tokens, ctx, caches="init",
                                   return_hidden=True)
-        last = hidden[:, -1:]
-        table = model.head_table()
-        out = last.to(ctx.compute_dtype) @ table.to(ctx.compute_dtype).T
-        return out, caches
+        return model.logits(hidden[:, -1:], ctx), caches
 
     @torch.no_grad()
     def prefill_bucketed(model: LM, tokens, length):
@@ -113,28 +196,30 @@ def make_prefill_step(cfg: ModelConfig, policy: PolicyConfig, *,
                                   return_hidden=True)
         last = hidden[torch.arange(B, device=tokens.device),
                       length.long() - 1][:, None]
-        table = model.head_table()
-        out = last.to(ctx.compute_dtype) @ table.to(ctx.compute_dtype).T
-        return out, caches
+        return model.logits(last, ctx), caches
 
     return prefill_bucketed if bucketed else prefill
 
 
 def make_decode_step(cfg: ModelConfig, policy: PolicyConfig, mesh=None,
                      max_seq: Optional[int] = None,
-                     batch: Optional[int] = None) -> Callable:
+                     batch: Optional[int] = None, pctx=None) -> Callable:
     """decode(model, caches, tokens, positions) -> (logits, caches).
 
     tokens (B, 1) int; positions (B, 1) int.  The caches are updated in
-    place and handed back."""
+    place and handed back; their capacity is ``max_seq``.  Under a mesh's
+    tp axis the logits are the whole vocabulary's."""
     ctx = make_run_ctx(cfg, policy, mesh, seq_len=max_seq, decode=True,
                        batch=batch)
+    ctx = dataclasses.replace(ctx, cache_capacity=max_seq or 0)
+    if pctx is not None:
+        ctx = dataclasses.replace(ctx, pctx=pctx)
 
     @torch.no_grad()
     def decode(model: LM, caches, tokens, positions):
-        logits, new_caches, _ = model(tokens, ctx, positions=positions,
-                                      caches=caches)
-        return logits, new_caches
+        hidden, new_caches, _ = model(tokens, ctx, positions=positions,
+                                      caches=caches, return_hidden=True)
+        return model.logits(hidden, ctx), new_caches
 
     return decode
 
@@ -187,12 +272,20 @@ class ServeEngine:
         self.max_seq = max_seq
         self.ctx_dtype = torch.bfloat16 \
             if policy.compute_dtype == "bfloat16" else torch.float32
+        self.place = MeshPlacement(cfg, policy, mesh, n_slots, max_seq) \
+            if mesh is not None else None
+        pctx = self.place.pctx if self.place is not None else None
+        if self.place is not None:
+            self.place.lay_out(model)
         self.model = model.cast_weights_(self.ctx_dtype).eval()
-        self.decode = make_decode_step(cfg, policy, mesh, max_seq=max_seq)
+        self.decode = make_decode_step(cfg, policy, mesh, max_seq=max_seq,
+                                       pctx=pctx)
         self.prefill = make_prefill_step(cfg, policy, cache_capacity=max_seq,
-                                         mesh=mesh)
+                                         mesh=mesh, pctx=pctx)
         self.caches = init_caches(cfg, n_slots, max_seq, self.ctx_dtype,
                                   self.device)
+        if self.place is not None:
+            self.caches = self.place.caches(self.caches)
         self.slot_req: List[Optional[Request]] = [None] * n_slots
         self.slot_pos = [0] * n_slots
         self.slot_tok = [0] * n_slots
@@ -209,7 +302,10 @@ class ServeEngine:
                                device=self.device)[None, :]
         logits, caches = self.prefill(self.model, toks)
         nxt = int(greedy_sample(logits)[0, 0])
-        kvcache.scatter_slot(self.caches, caches, s)
+        if self.place is not None:
+            self.place.scatter_slot(self.caches, caches, s)
+        else:
+            kvcache.scatter_slot(self.caches, caches, s)
         self.slot_req[s] = req
         self.slot_pos[s] = int(toks.shape[1])
         self.slot_tok[s] = nxt
@@ -224,7 +320,11 @@ class ServeEngine:
                             device=self.device)[:, None]
         pos = torch.tensor(self.slot_pos, dtype=torch.int32,
                            device=self.device)[:, None]
+        if self.place is not None:
+            toks, pos = self.place.rows(toks), self.place.rows(pos)
         logits, self.caches = self.decode(self.model, self.caches, toks, pos)
+        if self.place is not None:
+            logits = self.place.join_rows(logits)
         nxt = greedy_sample(logits)[:, 0].tolist()
         self.slot_tok = nxt
         for s in active:
@@ -304,17 +404,33 @@ class AsyncServeEngine:
         self.max_seq = max_seq
         self.prefill_chunk = prefill_chunk
         self.fused = fused
-        self.graphs = StepGraphs(self.device, capture=graphs)
+        # under a mesh the steps run eagerly: their collectives count per
+        # call
+        self.graphs = StepGraphs(self.device,
+                                 capture=graphs and mesh is None)
         self.request_timeout_s = request_timeout_s
         self._draining = False
         self.clock = clock or time.monotonic
         self.ctx_dtype = torch.bfloat16 \
             if policy.compute_dtype == "bfloat16" else torch.float32
-        self.model = model.cast_weights_(self.ctx_dtype).eval()
         if mode == "auto":
             mode = "paged" if all(b == ATTN for b in cfg.pattern) \
                 else "dense"
         self.mode = mode
+        self.place = None
+        if mesh is not None and mode == "paged":
+            n_tp = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)).get(
+                policy.tp_axis, 1)
+            if n_tp > 1:
+                raise NotImplementedError(
+                    "paged serving under a model axis larger than 1 is not "
+                    "ported: the reference reaches it only through "
+                    "gather_dense (ROADMAP queue A item 7); use "
+                    "mode='dense'")
+        elif mesh is not None:
+            self.place = MeshPlacement(cfg, policy, mesh, n_slots, max_seq)
+            self.place.lay_out(model)
+        self.model = model.cast_weights_(self.ctx_dtype).eval()
         self.sched = RequestScheduler(
             max_slots=n_slots, max_prompt=max_seq,
             prefill_chunk=prefill_chunk, prefill_batch=prefill_batch,
@@ -325,6 +441,7 @@ class AsyncServeEngine:
         ctx = make_run_ctx(cfg, policy, mesh, seq_len=max_seq, decode=True,
                            batch=n_slots)
         self.ctx = dataclasses.replace(ctx, cache_capacity=max_seq)
+        pctx = self.place.pctx if self.place is not None else None
         self._iters = 0
         self._decode_iters = 0         # paged steps whose rows all decode
         self.tracker = tracker
@@ -342,6 +459,8 @@ class AsyncServeEngine:
             self.pool = None
             self.caches = init_caches(cfg, n_slots, max_seq, self.ctx_dtype,
                                       self.device)
+            if self.place is not None:
+                self.caches = self.place.caches(self.caches)
             # a decode graph reads and writes these tensors: the decode step
             # must update them in place, never rebind them
             self._cache_leaves = [(layer, name, leaf)
@@ -352,9 +471,10 @@ class AsyncServeEngine:
             # the next power of two (few distinct kernel shapes)
             self.prefill = make_prefill_step(
                 cfg, policy, cache_capacity=max_seq, mesh=mesh,
-                bucketed=True)
+                bucketed=True, pctx=pctx)
             self.decode = make_decode_step(
-                cfg, policy, mesh, max_seq=max_seq, batch=n_slots)
+                cfg, policy, mesh, max_seq=max_seq, batch=n_slots,
+                pctx=pctx)
 
     # ------------------------------------------------------------ plumbing --
     def now(self) -> float:
@@ -472,8 +592,7 @@ class AsyncServeEngine:
                 return_hidden=True)
         h = hidden[torch.arange(toks.shape[0], device=self.device),
                    last_idx.long()]
-        cd = self.ctx.compute_dtype
-        logits = h.to(cd) @ self.model.head_table().to(cd).T
+        logits = self.model.logits(h, self.ctx)
         return logits.argmax(dim=-1).to(torch.int32), logits
 
     def _decode_rows_step(self, tables, toks, positions, valid, last_idx):
@@ -692,8 +811,13 @@ class AsyncServeEngine:
     def _decode_step(self, toks, positions):
         """(greedy next tokens, logits) of a decode step over every slot;
         the caches are written in place."""
+        if self.place is not None:
+            toks, positions = (self.place.rows(toks),
+                               self.place.rows(positions))
         logits, caches = self.decode(self.model, self.caches, toks,
                                      positions)
+        if self.place is not None:
+            logits = self.place.join_rows(logits)
         if not (all(a is b for a, b in zip(caches, self.caches))
                 and all(layer[name] is leaf
                         for layer, name, leaf in self._cache_leaves)):
@@ -731,7 +855,10 @@ class AsyncServeEngine:
         for req in work[:1]:          # one-shot prefill, one request/iter
             # padded to the pow2 bucket (capped at capacity)
             nxt, _, one = self.prefill_once([int(t) for t in req.prompt])
-            kvcache.scatter_slot(self.caches, one, req.table)
+            if self.place is not None:
+                self.place.scatter_slot(self.caches, one, req.table)
+            else:
+                kvcache.scatter_slot(self.caches, one, req.table)
             nxt = int(nxt[0])
             done += req.prompt_len
             self.sched.note_prefilled(req, req.prompt_len, now)

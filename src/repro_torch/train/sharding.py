@@ -12,20 +12,35 @@ tensor where the spec replicates.  ZeRO-3 parameters are the model's own
 per block for the forward (``Block`` forward hooks) and again for the remat
 recompute, and reduce-scatters their gradients in the backward.
 
-One departure from the reference's specs: where every fsdp axis of the
-mesh has size 1 (a one-rank mesh), the reference's rule replicates every
-leaf, and ZeRO would be DP's program.  ``specs`` then takes the rule with
-``fsdp_min=1`` (``core/policy.param_spec``), which shards over those
+With a tp axis (``model``) in the mesh, a leaf whose spec splits it over
+that axis along the dim its block's tensor-parallel computation splits its
+work along (heads of ``wq`` / ``wk`` / ``wv`` / ``wo``, the FFN width, the
+vocabulary, the SSM's inner channels, the experts) is used as that piece;
+a leaf that the rule split along another dim (``_pick_tp_dim``'s generic
+fallback: qwen2-0.5b's ``wq`` over ``d`` at ``model`` = 4) is all-gathered
+over the axis before use, with ZeRO-3's gathers, and its gradient
+reduce-scattered back.  A replicated leaf that a rank uses only a slice of
+(the SSM's ``D``, ``dt_bias``, ``A_log``, conv weights and norm scale; a
+small ``wq``) gets a partial gradient, summed over the axis; leaves used
+whole (block norms, the router) are not summed.
+
+Two departures from the reference's specs, one rule: where every fsdp axis
+of the mesh has size 1 (a one-rank mesh), the reference's rule replicates
+every leaf, and ZeRO would be DP's program.  ``specs`` then takes the rule
+with ``fsdp_min=1`` (``core/policy.param_spec``), which shards over those
 size-1 axes, so that one rank runs the program a wider mesh runs (the
 gathers per block, the reduce-scatters); every piece is still the whole
-tensor.  It costs that rank the collectives (copies on one rank), which
-is what the one-card ladder measures.
+tensor.  A tp axis of size 1 is taken the same way (``tp_min=1``), so a
+one-rank mesh runs the tensor- and expert-parallel program.  It costs that
+rank the collectives (copies on one rank), which is what the one-card
+ladder and ``tp`` lines measure.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import functools
+import re
 from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple
 
 import torch
@@ -91,14 +106,57 @@ def fsdp_min(policy: PolicyConfig, axes: Mapping[str, int]) -> int:
     return 1 if sizes and max(sizes) == 1 else 2
 
 
+def tp_min(policy: PolicyConfig, axes: Mapping[str, int]) -> int:
+    """``param_spec``'s ``tp_min``: 1 where the mesh's tp axis has size 1
+    (module docstring), else 2, the reference's rule."""
+    return 1 if axes.get(policy.tp_axis or "", 0) == 1 else 2
+
+
 def specs(model, cfg: ModelConfig, policy: PolicyConfig,
           axes: Mapping[str, int]) -> Tuple[Dict[str, Spec],
                                             Dict[str, Spec]]:
     """(parameter specs, optimizer-state specs) of ``model`` (any device,
     ``meta`` too) as the port lays them out on a mesh of ``axes``."""
-    m = fsdp_min(policy, axes)
-    return (pol.param_specs(model, cfg, policy, axes, fsdp_min=m),
-            pol.opt_state_specs(model, cfg, policy, axes, fsdp_min=m))
+    m, t = fsdp_min(policy, axes), tp_min(policy, axes)
+    return (pol.param_specs(model, cfg, policy, axes, fsdp_min=m, tp_min=t),
+            pol.opt_state_specs(model, cfg, policy, axes, fsdp_min=m,
+                                tp_min=t))
+
+
+# the dim (of the port's unstacked leaf) along which a block's
+# tensor-parallel computation splits its work, by leaf name
+_WORK_DIMS = (
+    (r"attn\.w[qkv]$", 1), (r"attn\.wo$", 0), (r"attn\.b[qkv]$", 0),
+    (r"(mlp|shared)\.w[ig]$", 1), (r"(mlp|shared)\.wo$", 0),
+    (r"^(embed|head)$", 0),
+    (r"ssm\.in_[zx]$", 1), (r"ssm\.out_proj$", 0),
+    (r"ssm\.conv_x_w$", 1), (r"ssm\.conv_x_b$", 0),
+    (r"ssm\.norm\.scale$", 0),
+    (r"moe\.w[igo]$", 0),
+)
+# leaves used whole where the heads do not divide (the SSM's replicated
+# region) and cut by heads where they do
+_SSM_HEAD_LEAVES = (r"ssm\.(in_dt|dt_bias|A_log|D)$",
+                    r"ssm\.(in_b|in_c|conv_[bc]_[wb])$")
+
+
+def work_dim(name: str, cfg: ModelConfig, tp: int) -> Optional[int]:
+    """The dim a rank takes its block of for its tensor-parallel work (the
+    heads, the width, ...; ``_WORK_DIMS``), or None for a leaf used whole
+    on every rank (norms, the router, the SSM's B / C / dt path where its
+    heads do not divide the axis)."""
+    for pat, d in _WORK_DIMS:
+        if re.search(pat, name):
+            return d
+    if re.search(r"attn\.(q|k)_norm\.", name):
+        return -1                     # applied to this rank's heads only
+    if cfg.ssm is not None and any(re.search(p, name)
+                                   for p in _SSM_HEAD_LEAVES):
+        H = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+        if H % tp == 0:
+            return 1 if re.search(r"in_dt$", name) else (
+                0 if re.search(r"(dt_bias|A_log|D)$", name) else -1)
+    return None
 
 
 def leaf_specs(pspecs: Mapping[str, Spec], mspecs: Mapping[str, Spec],
@@ -134,18 +192,27 @@ class _Gather(torch.autograd.Function):
 
 class Layout:
     """The specs of a model's parameters and optimizer state on ``mesh``
-    under ``policy``, the mesh's groups, and the ``hierarchy.Traffic`` its
-    collectives count into."""
+    under ``policy``, the mesh's groups (those of ``pctx``, the
+    ``ParallelCtx`` the model runs under), and the ``hierarchy.Traffic``
+    their collectives count into.
+
+    Per leaf: ``pspecs`` / ``mspecs`` the pieces a rank holds of it and of
+    its optimizer state; ``use_specs`` the piece its block computes with
+    (the tp entry where it is a work split, module docstring); ``zero3``
+    the leaves gathered before use (ZeRO-3's over the fsdp axes, the tp
+    fallback's over the tp axis) by ``unsharded``; ``partial`` the
+    replicated leaves whose gradient is summed over the tp axis."""
 
     def __init__(self, cfg: ModelConfig, policy: PolicyConfig, mesh):
         from repro_torch.models.lm import LM
+        from repro_torch.models.transformer import ParallelCtx
         axes = mesh_axes(mesh)
-        tp = policy.tp_axis
-        if tp and axes.get(tp, 1) > 1:
+        tp = policy.tp_axis if policy.tp_axis in axes else None
+        self.tp = tp
+        if tp and axes[tp] > 1 and cfg.rglru is not None:
             raise NotImplementedError(
-                f"a {tp!r} axis of {axes[tp]}: tensor and expert "
-                f"parallelism are not ported yet (ROADMAP queue A item 7); "
-                f"this layer is data-parallel")
+                f"a {tp!r} axis of {axes[tp]}: the RG-LRU blocks are not "
+                f"tensor-parallel yet (ROADMAP queue A item 7)")
         self.cfg, self.policy, self.mesh, self.axes = cfg, policy, mesh, axes
         from repro_torch.convert import reference_paths
         meta = LM(cfg, device="meta")
@@ -155,11 +222,37 @@ class Layout:
         # scanned segment share one, and with it one int8 scale
         self.ref_paths = {n: path for n, (path, _) in
                           reference_paths(meta).items()}
-        if policy.zero_stage >= 3 and self.pspecs != self.mspecs:
-            raise NotImplementedError("ZeRO-3 with parameter and optimizer "
-                                      "specs that differ")
-        self.zero3 = {n for n, s in self.pspecs.items() if spec_axes(s)}
         self.traffic = hierarchy.Traffic()
+        self.pctx = ParallelCtx(mesh=mesh, dp_axes=tuple(policy.dp_axes),
+                                tp_axis=policy.tp_axis,
+                                fsdp_experts=policy.zero_stage >= 3,
+                                traffic=self.traffic)
+        n_tp = axes.get(tp, 1) if tp else 1
+        ep = cfg.moe is not None and tp is not None
+        self.use_specs: Dict[str, Spec] = {}
+        self.gather_specs: Dict[str, Spec] = {}
+        self.partial = set()
+        for n, spec in self.pspecs.items():
+            wd = work_dim(n, cfg, n_tp) if tp else None
+            use = [None] * len(spec)
+            gath = list(spec)
+            for d, e in enumerate(spec):
+                if tp in entry_axes(e):
+                    if d == wd:
+                        use[d], gath[d] = e, None
+                    elif wd is None:
+                        raise NotImplementedError(
+                            f"{n}: split over {tp!r} along dim {d}, but "
+                            f"every rank uses it whole")
+            if ep and n.endswith(("moe.wi", "moe.wg", "moe.wo")):
+                # gathered over the dp axes inside ``_moe_ep``
+                gath = [None] * len(spec)
+            self.use_specs[n] = tuple(use)
+            self.gather_specs[n] = tuple(gath)
+            if wd is not None and tp not in spec_axes(spec):
+                self.partial.add(n)
+        self.zero3 = {n for n, s in self.gather_specs.items()
+                      if spec_axes(s)}
         # the gradient exchange: over the dp axes of the mesh (size 1
         # included: one rank runs the same collectives), the pod axis by
         # int8 error feedback where the policy asks for it (the reference's
@@ -172,15 +265,10 @@ class Layout:
                 tuple(e for s in self.mspecs.values() for e in s)):
             raise NotImplementedError("the int8 pod exchange with state "
                                       "sharded over the pod axis")
-        self._groups: Dict[Tuple[str, ...], hierarchy.Group] = {}
 
     # --------------------------------------------------------- groups --
     def group(self, axes: Iterable[str]) -> hierarchy.Group:
-        key = tuple(a for a in self.mesh.mesh_dim_names if a in set(axes))
-        if key not in self._groups:
-            self._groups[key] = hierarchy.axis_group(self.mesh, key,
-                                                     self.traffic)
-        return self._groups[key]
+        return self.pctx.group(axes)
 
     def same(self, other: Optional["Layout"]) -> bool:
         return other is not None and (
@@ -203,24 +291,32 @@ class Layout:
                     entry_axes(entry)), dim=d)
         return full
 
+    def _extra(self, n: str) -> Spec:
+        """The entries of ``n``'s optimizer spec that its parameter spec
+        lacks (ZeRO-1's fsdp entries)."""
+        ps, ms = self.pspecs[n], self.mspecs[n]
+        return tuple(m if (not ps or ps[d] != m) else None
+                     for d, m in enumerate(ms))
+
     def opt_params(self, model) -> Dict[str, torch.Tensor]:
         """Each parameter's piece under its optimizer spec: the parameter
-        itself (replicated, or a ZeRO-3 piece already), else a view of it
-        (ZeRO-1) that an in-place update writes through."""
-        return {n: p if n in self.zero3 else piece(p.data, self.mspecs[n],
-                                                   self.mesh)
+        itself (its piece already), else a view of it (ZeRO-1) that an
+        in-place update writes through."""
+        return {n: piece(p.data, self._extra(n), self.mesh)
+                if spec_axes(self._extra(n)) else p
                 for n, p in model.named_parameters()}
 
     def lay_out(self, model) -> None:
-        """Cut the ZeRO-3 parameters of a whole ``model`` to their pieces."""
+        """Cut every parameter of a whole ``model`` to its piece."""
         for n, p in model.named_parameters():
-            if n in self.zero3:
+            if spec_axes(self.pspecs[n]):
                 p.data = piece(p.data, self.pspecs[n], self.mesh).clone()
 
     def batch_piece(self, batch: Mapping[str, Any]) -> Dict[str, Any]:
         """This rank's rows of a global batch: split over the pod axis
         first under the pod exchange (the reference's ``P("pod")`` batch
-        spec there), then over the dp axes that divide."""
+        spec there), then over the dp axes that divide (the ranks of the tp
+        axis take the same rows)."""
         axes = dict(self.axes)
         if self.exchange:
             batch = {k: piece(v, ("pod",), self.mesh)
@@ -233,11 +329,11 @@ class Layout:
     # ------------------------------------------------- ZeRO-3 gathers --
     @contextlib.contextmanager
     def unsharded(self, model):
-        """Within: every ZeRO-3 parameter reads as the whole tensor -- a
-        block's when the block runs (again in its remat recompute), the
-        others' (tables, final norm) throughout -- and its gradient is
-        reduce-scattered to its piece in the backward.  Run the forward
-        and the backward inside."""
+        """Within: every gathered parameter (``zero3``) reads as the piece
+        its block uses -- a block's when the block runs (again in its remat
+        recompute), the others' (tables, final norm) throughout -- and its
+        gradient is reduce-scattered to its piece in the backward.  Run
+        the forward and the backward inside."""
         if not self.zero3:
             yield
             return
@@ -248,7 +344,7 @@ class Layout:
                 continue
             owner, _, leaf = n.rpartition(".")
             entry = (model.get_submodule(owner) if owner else model, leaf, p,
-                     self.pspecs[n])
+                     self.gather_specs[n])
             parts = n.split(".")
             if parts[:2] == ["stack", "blocks"]:
                 blocks.setdefault(int(parts[2]), []).append(entry)
@@ -277,16 +373,21 @@ class Layout:
     def reduce_grads(self, grads: Mapping[str, torch.Tensor]
                      ) -> Dict[str, torch.Tensor]:
         """Each gradient summed over the dp axes (the exchange axis
-        excepted), as the piece of its optimizer spec: a ZeRO-3 gradient
-        arrives reduce-scattered over its spec's axes already; a ZeRO-1
-        gradient is reduce-scattered here; the rest is all-reduced."""
+        excepted), as the piece of its optimizer spec: a gathered leaf's
+        arrives reduce-scattered over its gathered entries already (the tp
+        fallback's over the tp axis too); a ZeRO-1 gradient is
+        reduce-scattered here; the rest is all-reduced.  A ``partial``
+        leaf's is first summed over the tp axis."""
         out, flat = {}, {}
+        partial = {n: grads[n] for n in grads if n in self.partial}
+        if partial:
+            hierarchy.allreduce_flat(partial, self.group((self.tp,)))
         for n, g in grads.items():
             spec = self.mspecs[n]
-            axes = spec_axes(spec)
-            if axes and n not in self.zero3:
-                g = self.scatter(g, spec)
-            rest = tuple(a for a in self.dp if a not in axes)
+            extra = self._extra(n)
+            if spec_axes(extra):
+                g = self.scatter(g, extra)
+            rest = tuple(a for a in self.dp if a not in spec_axes(spec))
             out[n] = g
             if rest:
                 flat.setdefault(rest, {})[n] = g
@@ -314,13 +415,13 @@ class Layout:
         return torch.sqrt(sum(sqs))
 
     def gather_params(self, model) -> None:
-        """ZeRO-1: each rank updated its piece of a replicated parameter;
-        join the pieces."""
+        """ZeRO-1: each rank updated its piece of a parameter; join the
+        pieces."""
         for n, p in model.named_parameters():
-            spec = self.mspecs[n]
-            if n not in self.zero3 and spec_axes(spec):
-                p.data.copy_(self.gather(piece(p.data, spec, self.mesh),
-                                         spec))
+            extra = self._extra(n)
+            if spec_axes(extra):
+                p.data.copy_(self.gather(piece(p.data, extra, self.mesh),
+                                         extra))
 
     # ------------------------------------------------------ the state --
     def leaf_specs(self, state) -> Dict[str, Spec]:

@@ -21,8 +21,12 @@ per block and again for the remat recompute, gradients reduce-scattered:
 axis with ``grad_compression="int8_ef"``.  Each rank takes its rows of the
 global batch; the loss is the reference's mean over the global batch (each
 rank's loss weighted by its share of the counted tokens).  The kernels see
-plain local tensors.  MoE under a mesh raises (expert parallelism and the
-step-wide capacity are the next slice), as BERT and the Table II CNNs do.
+plain local tensors.  A mesh with a tp axis (``model``; size 1 too) makes
+the step tensor- and expert-parallel: the model's blocks split their work
+over the axis (``models/transformer.ParallelCtx``), the loss is
+vocabulary-parallel, and MoE takes ``_moe_ep`` (the reference's
+``moe_impl="ep"`` rule, ``moe_impl``).  BERT and the Table II CNNs under a
+mesh raise, as does MoE on a mesh without the tp axis.
 Without a mesh ``zero_stage`` has no effect, as in the reference's
 un-sharded jit.
 ``rglru`` blocks train through ``RGLRUFn`` (the forward kernel and the
@@ -32,6 +36,7 @@ through the windowed attention kernels, as ``attn`` blocks do.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, Mapping, Optional
 
 import torch
@@ -40,7 +45,7 @@ from repro_torch.configs.base import ModelConfig, PolicyConfig, ShapeConfig
 from repro_torch.configs.paper_bench import VisionConfig
 from repro_torch.models import bert, lm, vision
 from repro_torch.models.lm import LM
-from repro_torch.models.transformer import RunCtx
+from repro_torch.models.transformer import ParallelCtx, RunCtx
 from repro_torch.optim import adamw, schedule
 from repro_torch.train import sharding
 
@@ -57,25 +62,52 @@ def _dt(name: str) -> torch.dtype:
 
 def make_run_ctx(cfg: ModelConfig, policy: PolicyConfig, mesh=None, *,
                  seq_len: Optional[int] = None, decode: bool = False,
-                 batch: Optional[int] = None) -> RunCtx:
+                 batch: Optional[int] = None, traffic=None) -> RunCtx:
     """``seq_len`` / ``decode`` / ``batch`` key the reference's tuned-tile
     lookup for ``RunCtx.attn_blocks``, the tiles of its XLA flash path
     (``repro/train/trainer.py:64-90``).  The port has no such path, and its
     attention kernels launch the one tile of their design
     (``kernels/ops.py``), so they are accepted and unused; the knobs that
     the registry does tune resolve in ``kernels/ops.py`` when a kernel is
-    called."""
+    called.  Under ``mesh`` the context's ``ParallelCtx`` counts its
+    collectives into ``traffic`` (a ``hierarchy.Traffic``; a new one by
+    default)."""
     del seq_len, decode, batch
-    if mesh is not None and cfg.moe is not None:
-        raise NotImplementedError(_NO_MESH.format(
-            what="MoE", why="expert parallelism (the reference's _moe_ep) "
-            "and the capacity and load-balance term of the whole step come "
-            "with the tensor- and expert-parallel slice"))
     if policy.attn_impl not in ("kernel", "full"):
         raise ValueError(f"attn_impl {policy.attn_impl!r} not in "
                          f"('kernel', 'full')")
+    pctx = ParallelCtx(mesh=mesh, dp_axes=tuple(policy.dp_axes),
+                       tp_axis=policy.tp_axis,
+                       fsdp_experts=policy.zero_stage >= 3, traffic=traffic)
     return RunCtx(compute_dtype=_dt(policy.compute_dtype),
-                  attn_impl=policy.attn_impl, remat=policy.remat)
+                  attn_impl=policy.attn_impl, remat=policy.remat,
+                  moe_impl=moe_impl(cfg, policy, mesh), pctx=pctx)
+
+
+def moe_impl(cfg: ModelConfig, policy: PolicyConfig, mesh=None) -> str:
+    """The reference's rule (``repro/train/trainer.py:93-100``): ``"ep"``
+    for an MoE config under a mesh whose tp axis divides the experts, with
+    ``policy.ep``; else ``"sorted"``.  One departure: a tp axis of size 1
+    takes ``"ep"`` too (the reference asks for more than 1), so that a
+    one-rank mesh runs the expert-parallel program a wider one runs.  A
+    tp axis larger than 1 that ``"sorted"`` would have to run raises: the
+    port's sorted path has no tensor-parallel form."""
+    if cfg.moe is None or mesh is None:
+        return "sorted"
+    names = tuple(mesh.mesh_dim_names)
+    tp = policy.tp_axis
+    if tp not in names:
+        raise NotImplementedError(_NO_MESH.format(
+            what=f"MoE under a mesh without the {tp!r} axis",
+            why="the expert-parallel path runs over that axis (size 1 "
+                "will do)"))
+    n_tp = int(mesh.mesh.shape[names.index(tp)])
+    if policy.ep and cfg.moe.n_experts % n_tp == 0:
+        return "ep"
+    raise NotImplementedError(_NO_MESH.format(
+        what=f"MoE with {cfg.moe.n_experts} experts over {tp} = {n_tp} "
+             f"without expert parallelism",
+        why="only the expert-parallel path is tensor-parallel"))
 
 
 # ---------------------------------------------------------------------------
@@ -163,11 +195,14 @@ def state_specs(state: TrainState, cfg: ModelConfig, policy: PolicyConfig,
 # loss / grads
 # ---------------------------------------------------------------------------
 def make_loss_fn(cfg: ModelConfig, policy: PolicyConfig, mesh=None,
-                 seq_len: Optional[int] = None) -> Callable:
+                 seq_len: Optional[int] = None, *, pctx=None) -> Callable:
     """``loss_fn(model, batch) -> (loss, metrics)``.  A padded vocabulary of
     32768 or more takes the chunked cross entropy with the largest chunk in
-    (512, 256, 128, 64, 1) that divides the sequence, as the reference."""
+    (512, 256, 128, 64, 1) that divides the sequence, as the reference.
+    ``pctx``: the ``ParallelCtx`` to run under (a mesh step's layout's)."""
     ctx = make_run_ctx(cfg, policy, mesh, seq_len=seq_len)
+    if pctx is not None:
+        ctx = dataclasses.replace(ctx, pctx=pctx)
     big_vocab = cfg.padded_vocab >= 32_768
 
     def loss_fn(model: LM, batch):
@@ -252,10 +287,13 @@ def make_train_step(cfg: ModelConfig, policy: PolicyConfig,
     ``mesh`` (a ``DeviceMesh``; the state from ``init_state(...,
     mesh=mesh)``) every rank calls it with the same global batch."""
     seq_len = shape.seq_len if shape is not None else None
-    loss_fn = make_loss_fn(cfg, policy, mesh, seq_len=seq_len)
     if mesh is not None:
-        return _mesh_train_step(sharding.Layout(cfg, policy, mesh), loss_fn,
-                                optcfg, schedcfg, policy.grad_accum)
+        layout = sharding.Layout(cfg, policy, mesh)
+        loss_fn = make_loss_fn(cfg, policy, mesh, seq_len=seq_len,
+                               pctx=layout.pctx)
+        return _mesh_train_step(layout, loss_fn, optcfg, schedcfg,
+                                policy.grad_accum)
+    loss_fn = make_loss_fn(cfg, policy, mesh, seq_len=seq_len)
     return make_step(loss_fn, optcfg, schedcfg, n_accum=policy.grad_accum)
 
 

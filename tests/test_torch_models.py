@@ -303,46 +303,92 @@ def test_lm_init_defaults_to_cuda_and_raises_without_one():
 def test_unported_blocks_raise_naming_the_roadmap(arch, item):
     """Every block kind builds and trains: the ssd blocks through SSDFn (the
     hand-written SSD backward), the rglru blocks through RGLRUFn (the
-    hand-written RG-LRU backward), MoE FFNs through ``models.moe``; only
-    MoE's expert parallelism (``apply_moe(impl="ep")``) raises, naming the
+    hand-written RG-LRU backward), MoE FFNs through ``models.moe``.  MoE's
+    expert parallelism (``apply_moe(impl="ep")``) needs a mesh's tp axis;
+    the RG-LRU block under a model axis larger than 1 raises, naming the
     parallel layer's ROADMAP item."""
+    from repro_torch.models.transformer import ParallelCtx, RunCtx
     cfg = reduced(get_config(arch))
     model = LM.init(cfg, device="cpu")
     if item == "MoE":
         x = torch.zeros((1, 4, cfg.d_model))
-        with pytest.raises(NotImplementedError, match="ROADMAP") as e:
+        with pytest.raises(ValueError, match="tp axis"):
             moe.apply_moe(model.stack.blocks[0].moe, x, cfg, impl="ep")
+    if item == "rglru":
+
+        class Wide:                     # a (data, model) = (1, 2) mesh
+            mesh_dim_names = ("data", "model")
+            mesh = torch.zeros(1, 2)
+
+            def get_local_rank(self, axis):
+                return 0
+
+        ctx = RunCtx(compute_dtype=torch.float32,
+                     pctx=ParallelCtx(mesh=Wide()))
+        with pytest.raises(NotImplementedError, match="ROADMAP") as e:
+            model.stack.blocks[0](
+                torch.zeros((1, 4, cfg.d_model)), ctx,
+                positions=torch.arange(4, dtype=torch.int32)[None])
         assert "queue A item 7" in str(e.value)
     policy = PolicyConfig(compute_dtype="float32")
     assert callable(trainer.make_train_step(cfg, policy))
 
 
 def test_unported_attention_paths_raise_naming_the_roadmap():
-    """The tensor-parallel (mesh) attention paths are not ported; the
-    sliding-window ones are.  Under the data-parallel layer a dense model's
-    run context is the one without a mesh (its kernels see each rank's
-    local tensors); an MoE model's still raises (expert parallelism)."""
+    """The sliding-window paths are ported, and so are the tensor-parallel
+    ones: on a one-rank ``(data, model)`` mesh a block's TP prefill equals
+    the plain one.  Under a model axis larger than 1 the windowed and the
+    paged attention raise, naming the ROADMAP item; MoE on a mesh without
+    the tp axis raises."""
+    from repro_torch.launch.mesh import one_rank
+    from repro_torch.models.transformer import ParallelCtx
     cfg = dataclasses.replace(reduced(get_config("qwen2-0.5b")),
                               block_pattern=("attn_local",) * 2)
     LM.init(cfg, device="cpu")
     base = reduced(get_config("qwen2-0.5b"))
     model = LM.init(base, device="cpu")
-    x = torch.zeros((1, 4, base.d_model))
+    x = torch.randn((1, 4, base.d_model),
+                    generator=torch.Generator().manual_seed(0))
     pos = torch.arange(4, dtype=torch.int32)[None]
     out, _ = attention.apply_attention(model.stack.blocks[0].attn, x, base,
                                        local=True, positions=pos,
                                        compute_dtype=torch.float32)
     assert out.shape == x.shape
+    want, _ = attention.apply_attention(model.stack.blocks[0].attn, x, base,
+                                        local=False, positions=pos,
+                                        compute_dtype=torch.float32)
+    with one_rank(device="cpu") as mesh:
+        got, _ = attention.apply_attention(
+            model.stack.blocks[0].attn, x, base, local=False, positions=pos,
+            compute_dtype=torch.float32, pctx=ParallelCtx(mesh=mesh))
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+
+    class Wide:                         # a (data, model) = (1, 2) mesh
+        mesh_dim_names = ("data", "model")
+        mesh = torch.zeros(1, 2)
+
+        def get_local_rank(self, axis):
+            return 0
+
+    wide = ParallelCtx(mesh=Wide())
+    local = LM.init(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.apply_attention(model.stack.blocks[0].attn, x, base,
-                                  local=False, mesh=object(), positions=pos,
-                                  compute_dtype=torch.float32)
+        local.stack.blocks[0](x, transformer.RunCtx(
+            compute_dtype=torch.float32, pctx=wide), positions=pos)
+    paged = attention.PagedDecodeCache(*(torch.zeros(1),) * 7)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        attention.apply_attention(model.stack.blocks[0].attn, x[:, :1], base,
+                                  local=False, positions=pos[:, :1],
+                                  cache=paged, pctx=wide)
+
+    class DataOnly:
+        mesh_dim_names = ("data",)
+        mesh = torch.zeros(1)
     policy = PolicyConfig(compute_dtype="float32")
-    assert make_run_ctx(base, policy, mesh=object()) == \
-        make_run_ctx(base, policy)
+    assert not make_run_ctx(base, policy, mesh=DataOnly()).pctx.tp_on
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_run_ctx(reduced(get_config("moonshot-v1-16b-a3b")), policy,
-                     mesh=object())
+                     mesh=DataOnly())
 
 
 def test_kernel_path_counts_no_launch_on_cpu():

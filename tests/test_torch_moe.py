@@ -322,11 +322,24 @@ def test_expert_init_spread_follows_the_reference():
 
 
 def test_ep_raises_naming_the_roadmap_and_unknown_impls_are_refused():
+    """``impl="ep"`` is expert parallelism over a mesh's tp axis: without a
+    ``ParallelCtx`` it raises; on a one-rank ``(data, model)`` mesh it is
+    the sorted path (one rank holds every expert); unknown impls are
+    refused."""
+    from repro_torch.launch.mesh import one_rank
+    from repro_torch.models.transformer import ParallelCtx
     cfg = reduced(get_config("moonshot-v1-16b-a3b"))
-    mod = moe.MoE(cfg, device="cpu")
-    x = torch.zeros((1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
+    mod = moe.MoE(cfg, generator=torch.Generator().manual_seed(3),
+                  device="cpu")
+    x = torch.randn((2, 8, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(4))
+    with pytest.raises(ValueError, match="ParallelCtx"):
         moe.apply_moe(mod, x, cfg, impl="ep")
+    want, want_aux = moe.apply_moe(mod, x, cfg, compute_dtype=torch.float32)
+    with one_rank(device="cpu") as mesh:
+        got, aux = moe.apply_moe(mod, x, cfg, compute_dtype=torch.float32,
+                                 impl="ep", pctx=ParallelCtx(mesh=mesh))
+    assert torch.equal(got, want) and torch.equal(aux, want_aux)
     with pytest.raises(ValueError, match="MoE impl"):
         moe.apply_moe(mod, x, cfg, impl="einsum")
 

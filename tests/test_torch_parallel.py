@@ -398,10 +398,17 @@ def test_launcher_trains_a_rung_on_a_one_rank_group(capsys, tmp_path):
 
 
 def test_moe_bert_and_vision_refuse_a_mesh():
+    """MoE refuses a mesh without the tp axis (it trains on one with it:
+    ``tests/test_torch_tensor_parallel.py``); BERT and the vision models
+    refuse any mesh."""
     mesh = object()
+
+    class DataOnly:
+        mesh_dim_names = ("data",)
+        mesh = torch.zeros(4)
     with pytest.raises(NotImplementedError, match="MoE under a mesh"):
         trainer.make_train_step(get_config("moonshot-v1-16b-a3b"),
-                                PolicyConfig(), mesh=mesh)
+                                PolicyConfig(), mesh=DataOnly())
     with pytest.raises(NotImplementedError, match="BERT under a mesh"):
         trainer.paper_loss_fn(get_config("bert-base"), PolicyConfig(),
                               mesh=mesh)

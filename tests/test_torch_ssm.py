@@ -259,10 +259,18 @@ def test_init_ssm_cache_matches_reference_layout():
 
 
 def test_ssd_sharded_waits_for_the_parallel_layer():
+    """The parallel layer is here: ``ssd_sharded`` on a one-rank ``(data,
+    model)`` mesh runs the whole SSD on its (every) head, bit for bit the
+    plain scan; four ranks are held to the reference in
+    ``tests/test_torch_tensor_parallel.py``."""
+    from repro_torch.launch.mesh import one_rank
+    from repro_torch.models.transformer import ParallelCtx
     x, dt, A, Bm, Cm = _t(*_ssd_inputs(1, 8, 2, 4, 1, 4))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ssm.ssd_sharded(x, dt, A, Bm, Cm, chunk=8, mesh=object(),
-                        dp_axes=("data",), tp_axis="model")
+    with one_rank(device="cpu") as mesh:
+        y, h = ssm.ssd_sharded(x, dt, A, Bm, Cm, chunk=8,
+                               pctx=ParallelCtx(mesh=mesh))
+    want_y, want_h = ssd_plain(x, dt, A, Bm, Cm, chunk=8)
+    assert torch.equal(y, want_y) and torch.equal(h, want_h)
 
 
 def test_ssm_fp32_leaves_survive_a_bf16_model():

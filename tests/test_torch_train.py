@@ -354,14 +354,33 @@ def test_train_step_matches_the_reference_jitted_step():
 
 
 def test_make_train_step_refuses_a_mesh():
-    """The data-parallel step takes a mesh (``tests/test_torch_parallel.py``);
-    MoE (expert parallelism, the step-wide capacity) and BERT and the Table
-    II CNNs (the batch norm's global-batch statistics) still refuse one,
-    before they touch it."""
+    """MoE trains on a mesh with a tp axis through expert parallelism: on
+    a one-rank ``(data, model)`` mesh (``gloo`` here) the step equals the
+    step without a mesh (``tests/test_torch_tensor_parallel.py`` holds
+    four ranks to the reference); a mesh without the tp axis still refuses
+    MoE, and BERT and the Table II CNNs (the batch norm's global-batch
+    statistics) refuse any mesh, before they touch it."""
+    from repro_torch.launch.mesh import one_rank
+    cfg = reduced(get_config("moonshot-v1-16b-a3b"))
+    batch = make_batch(cfg, ShapeConfig("t", 16, 2, "train"), step=0)
+    plain = trainer.init_state(cfg, BASE, seed=0, device="cpu")
+    _, want = trainer.make_train_step(cfg, BASE)(plain, batch)
+    with one_rank(device="cpu") as mesh:
+        state = trainer.init_state(cfg, BASE, seed=0, device="cpu",
+                                   mesh=mesh)
+        _, got = trainer.make_train_step(cfg, BASE, mesh=mesh)(state, batch)
+    assert float(got["loss"]) == float(want["loss"])
+    for n, p in plain.model.named_parameters():
+        np.testing.assert_allclose(dict(state.model.named_parameters())[n]
+                                   .detach().numpy(), p.detach().numpy(),
+                                   atol=1e-6, err_msg=n)
+
+    class DataOnly:
+        mesh_dim_names = ("data",)
+        mesh = torch.zeros(1)
     with pytest.raises(NotImplementedError, match="item 7") as e:
-        trainer.make_train_step(reduced(get_config("moonshot-v1-16b-a3b")),
-                                BASE, mesh=object())
-    assert "expert parallelism" in str(e.value)
+        trainer.make_train_step(cfg, BASE, mesh=DataOnly())
+    assert "without the 'model' axis" in str(e.value)
     from repro_torch.configs.paper_bench import MOBILENETV2
     for cfg, what in ((get_config("bert-base"), "BERT"),
                       (MOBILENETV2, "batch norm")):
