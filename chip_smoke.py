@@ -264,10 +264,11 @@ per line, each with ``at_s``, the seconds since the script's imports ended:
                 ``hierarchy`` prices; the four-rank ``gloo`` rehearsal on
                 the host (``launch/rehearse``; started after the build, it
                 runs beside ``kernel_cases``, and holds tensor
-                parallelism on (data, model) = (2, 2) to DP, expert
-                parallelism with ZeRO-3 to without, and a ServeEngine's
-                streams on (2, 2) to one process's); each rank's state
-                bytes from the specs;
+                parallelism on (data, model) = (2, 2) to DP -- llama3.2-3b
+                and recurrentgemma-2b --, expert parallelism with ZeRO-3
+                to without, a ServeEngine's streams on (2, 2) and the
+                paged engine's on (1, 4) to one process's); each rank's
+                state bytes from the specs;
   tp            tensor and expert parallelism (``tp_phase``) on a one-rank
                 NCCL mesh (data, model) = (1, 1): nothing crosses cards,
                 every collective runs on the one rank; each path held to
@@ -284,9 +285,28 @@ per line, each with ``at_s``, the seconds since the script's imports ended:
                 gradients and parameters as ``TP_RUNG_*`` say; step p50,
                 B2 launches, collectives a step per axis; run inside
                 ``ladder_phase``), B1 on K/V repeated to H against GQA
-                (what ``sharded_flash``'s repeat costs), the bytes a rank holds at ``model`` = 2 / 4 / 8
-                from the specs (arithmetic), and the rehearsal's TP / EP
-                checks; ``phase_s``;
+                (what ``sharded_flash``'s repeat costs), the bytes a rank
+                holds at ``model`` = 2 / 4 / 8 from the specs
+                (arithmetic), and the rehearsal's TP / EP checks; then
+                (f) recurrentgemma-2b whole served by the dense
+                ``ServeEngine`` in turns with and without the mesh
+                (streams equal; TTFT, TPOT p50, B5 and windowed B1
+                launches), (g) its DDP+mixed step with the model axis
+                (warm-up + 3 steps) bit for bit with the data-only mesh's
+                step on K/V repeated to H, and against the data-only
+                mesh's own step as ``TP_HYB_*`` say (B5, RG-LRU backward
+                and B2 launches), (h) llama3.2-3b
+                through the paged ``AsyncServeEngine`` with heads over the
+                axis against none (streams equal; B3 launches, TPOT),
+                (i) each kernel at the per-rank shapes a wider axis
+                launches (against its plain version, timed, with its
+                bound; rows ``*_model<tp>`` of the ``kernels`` line, 0
+                launches: no path of one card runs them), (j) moonshot's
+                4-layer step on a one-rank data-only mesh (MoE in the
+                global batch's order, the per-expert counts gathered once
+                a layer and forward pass) bit for bit with the no-mesh
+                step (run inside ``moe``), and recurrentgemma's bytes a
+                rank at ``model`` = 2 / 4 / 8 / 16; ``phase_s``;
   summary       the run's elapsed seconds, the kernels' build included;
   kernels       the per-kernel summary line, launches counted on the served
                 and trained runs above (the attention kernels have a row per
@@ -333,6 +353,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -501,11 +522,19 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# GPU clock cycles (~20 ms) the stream spins (``torch.cuda._sleep``) before
+# a timed replay: the host enqueues the start event, the replay and the end
+# event while the device is still busy, so a host thread descheduled in
+# between (the rehearsal's ranks share the host's cores) adds no idle gap to
+# the span the events time
+PREROLL_CYCLES = 40_000_000
+
+
 def time_ms(calls, iters: int) -> float:
     """Mean device milliseconds of one call: ``iters`` rounds over the
     closures in ``calls`` (several closures over different buffers keep a
     bandwidth-bound kernel's inputs out of the L2 cache), timed with CUDA
-    events after a warm-up."""
+    events after a warm-up, behind a ``PREROLL_CYCLES`` spin."""
     for f in calls:
         f()
     torch.cuda.synchronize()
@@ -521,6 +550,7 @@ def time_ms(calls, iters: int) -> float:
                 f()
     graph.replay()
     torch.cuda.synchronize()
+    torch.cuda._sleep(PREROLL_CYCLES)
     start.record()
     graph.replay()
     end.record()
@@ -1233,8 +1263,9 @@ def bwd_main_shape(gen, cfg, B, S, window=0, causal=True):
                 faults["column_half"][n] = sc
             faults["window_tiles"] = _window_tile_faults(q, k, v, do, stats,
                                                          grads, window)
-            faults["slice_partials"] = _slice_partial_faults(
-                q, k, v, do, stats, grads, window)
+            if H > K:       # a group's heads are walked in slices
+                faults["slice_partials"] = _slice_partial_faults(
+                    q, k, v, do, stats, grads, window)
         del o2, grads
     qkv_bytes = (q.numel() + k.numel() + v.numel()) * q.element_size()
     row_bytes = m.numel() * 4                  # one fp32 per query row
@@ -1748,10 +1779,10 @@ def rglru_cases(gen):
     return rows
 
 
-def rglru_main_shape(gen):
-    """The served prefill; two input sets in turn keep a launch's 84 MB of
-    inputs out of L2."""
-    B, S, W = RGLRU_SERVED
+def rglru_main_shape(gen, shape=RGLRU_SERVED):
+    """The served prefill (or ``shape``: a rank's channels of it); two
+    input sets in turn keep a launch's inputs (84 MB served) out of L2."""
+    B, S, W = shape
     copies = [(-torch.nn.functional.softplus(
         _randn(gen, B, S, W, dtype=torch.float32)),
         _randn(gen, B, S, W, dtype=torch.float32)) for _ in range(2)]
@@ -1844,7 +1875,15 @@ def rglru_bwd_cases(gen):
                              got, rglru_bwd_plain(la, hs, dy, h0=H0), what),
                          "err_vs_autograd": _rel_errs(got, auto,
                                                       f"{what} autograd")})
-    B, S, W = RGLRU_TRAINED
+    return rows, rglru_bwd_main_shape(gen)
+
+
+def rglru_bwd_main_shape(gen, shape=RGLRU_TRAINED):
+    """rglru_bwd at the trained shape (or ``shape``: a rank's channels of
+    it) against its plain reverse scan, the saved forward held to
+    rglru_plain first, with a planted fault (the carry into chunk 1
+    zeroed) that must fail the same comparison; timed, with its bound."""
+    B, S, W = shape
     # two input sets in turn keep a launch's inputs (3 x 84 MB) out of L2
     copies, gated = [], []
     for _ in range(2):
@@ -1856,12 +1895,12 @@ def rglru_bwd_cases(gen):
     # the forward kernel at the trained shape (it runs there 36 times a
     # step), held to the plain scan at the forward cases' tolerance
     fwd_err = _err(hs, rglru_plain(la, gated[0]), 2e-5,
-                   "rglru trained shape (saved forward)")
+                   f"rglru {(B, S, W)} (saved forward)")
     del gated
     got = rglru_bwd(la, hs, dy)
     torch.cuda.synchronize()
     want = rglru_bwd_plain(la, hs, dy)
-    errs = _rel_errs(got, want, "rglru_bwd trained shape")
+    errs = _rel_errs(got, want, f"rglru_bwd {(B, S, W)}")
     bad = _rglru_carry_fault(la, hs, dy)
     fault = [float((a - b).abs().max() / b.abs().max())
              for a, b in zip(bad, want)]
@@ -1872,7 +1911,7 @@ def rglru_bwd_cases(gen):
     plain_ms = time_ms([lambda: rglru_bwd_plain(la, hs, dy)], 2)
     # log_a, hs and dy read once, d log_a and d gated written once; per
     # step and channel an exp and four multiply-adds
-    main = dict({"shape": [B, S, W], "dtype": "torch.float32",
+    return dict({"shape": [B, S, W], "dtype": "torch.float32",
                  "tol_rel": RGLRU_BWD_TOL,
                  "design": f"chunked reverse scan, {rglru_chunk_len}-step "
                            f"chunks",
@@ -1884,7 +1923,6 @@ def rglru_bwd_cases(gen):
                  "planted_fault_carry_into_chunk_1": fault, "ms": ms,
                  "plain_ms": plain_ms, "library_ms": None},
                 **_bound(5 * B * S * W * 4, 5 * B * S * W, torch.float32))
-    return rows, main
 
 
 # the SSD backward (ssd_bwd): ragged S, S shorter than one chunk, G = 2,
@@ -2381,12 +2419,12 @@ def _skipped_tile_fault(q, k, v, want, window, m0, BM=128, BN=64):
     return {"m0": m0, "n0": n_begin, **out}
 
 
-def flash_d256_main_shape(gen):
+def flash_d256_main_shape(gen, shape=ATTN_SERVED):
     """recurrentgemma-2b's local attention over a 4096-token prefill: q
-    (1,4096,10,256), k/v (1,4096,1,256) bf16, causal, window 2048.  A
-    dropped last panel of o and a key tile skipped under the window must be
-    rejected."""
-    B, S, T, H, K, D, causal, window, dt = ATTN_SERVED
+    (1,4096,10,256), k/v (1,4096,1,256) bf16, causal, window 2048 (or
+    ``shape``: a rank's heads of it).  A dropped last panel of o and a key
+    tile skipped under the window must be rejected."""
+    B, S, T, H, K, D, causal, window, dt = shape
     q = _randn(gen, B, S, H, D, dtype=dt)
     k = _randn(gen, B, T, K, D, dtype=dt)
     v = _randn(gen, B, T, K, D, dtype=dt)
@@ -2394,7 +2432,7 @@ def flash_d256_main_shape(gen):
     got = flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     want = attention_plain(q, k, v, **kw)
-    what = "flash_attention D=256 served shape"
+    what = f"flash_attention D=256 {(B, S, T, H, K, D)}"
     err = _err(got, want, 2e-2, what)
     scaled = _scaled_err(got, want, what)
     # the block of 128 positions whose first live tile the window decides
@@ -2721,8 +2759,8 @@ class _RouteLog:
     def __enter__(self):
         self.idx, self._route = [], moe_mod.route
 
-        def route(x2d, router_w, top_k):
-            out = self._route(x2d, router_w, top_k)
+        def route(x2d, router_w, top_k, dp_group=None):
+            out = self._route(x2d, router_w, top_k, dp_group=dp_group)
             self.idx.append(out[1].detach().sort(dim=-1).values)
             return out
 
@@ -4438,6 +4476,10 @@ def moe(policy):
         lr=MOE_TRAIN_LR)
     torch.cuda.empty_cache()
     phase_s["train"] = time.perf_counter() - t0 - sum(phase_s.values())
+    # the ``tp`` line's part (j): the step on a one-rank data-only mesh
+    out["tp_moe_data_only"] = _moe_data_only_step(cfg)
+    phase_s["tp_moe_data_only"] = (time.perf_counter() - t0
+                                   - sum(phase_s.values()))
     m = cfg.moe
     # a decode step's routed experts read whole: E * 3 * d * f bf16 a layer
     expert_bytes = cfg.n_layers * m.n_experts * 3 * cfg.d_model \
@@ -5401,14 +5443,14 @@ def _tp_rung(cfg, mesh, ladder, ddp_params, first_grads):
             "phase_s": time.perf_counter() - t0}
 
 
-def _tp_serve_round(cfg, model, policy, mesh, prompts):
+def _tp_serve_round(cfg, model, policy, mesh, prompts, max_new=TP_MAX_NEW):
     """``ServeEngine`` (dense slots) on ``mesh`` or none: every prompt
     prefilled (TTFT: the prefill and its token read back), then decode
-    steps until every request has ``TP_MAX_NEW`` tokens (TPOT: a step)."""
+    steps until every request has ``max_new`` tokens (TPOT: a step)."""
     eng = ServeEngine(cfg, model, policy, n_slots=len(prompts),
                       max_seq=TP_MAX_SEQ, mesh=mesh, device=DEV)
     reqs = [Request(i, torch.tensor(p, dtype=torch.int32, device=DEV),
-                    max_new=TP_MAX_NEW) for i, p in enumerate(prompts)]
+                    max_new=max_new) for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
     ops.reset_launch_counts()               # just before the path
     ttft, tpot = [], []
@@ -5434,7 +5476,7 @@ def _tp_serve(mesh):
     """(a) llama3.2-3b at full width, dense ``ServeEngine`` on ``mesh``
     against ``mesh=None`` in turns (mesh, none, none, mesh) from one
     model: greedy streams equal, TTFT / TPOT p50 and flash launches of
-    each."""
+    each; then (h), ``_tp_paged``, on the same model."""
     cfg = get_config(ARCH)
     policy = PolicyConfig(compute_dtype="bfloat16", remat="none",
                           attn_impl="kernel")
@@ -5443,6 +5485,9 @@ def _tp_serve(mesh):
                for i, n in enumerate(TP_LENS)]
     rounds = [_tp_serve_round(cfg, model, policy, m, prompts)
               for m in (mesh, None, None, mesh)]
+    t_dense = time.perf_counter()
+    paged = _tp_paged(mesh, cfg, model, policy)
+    paged["phase_s"] = time.perf_counter() - t_dense
     del model
     torch.cuda.empty_cache()
     want = rounds[1]["streams"]
@@ -5454,7 +5499,8 @@ def _tp_serve(mesh):
               f"tp serve: flash launches {r['flash_attention_launches']}")
     return {"arch": cfg.name, "n_layers": cfg.n_layers,
             "prompt_lens": list(TP_LENS), "max_new": TP_MAX_NEW,
-            "streams_equal": True, "rounds_mesh_none_none_mesh": rounds}
+            "streams_equal": True, "rounds_mesh_none_none_mesh": rounds}, \
+        paged
 
 
 def _tp_ssm(mesh):
@@ -5587,46 +5633,519 @@ def _tp_bytes():
     return out
 
 
-def tp_phase(moe_part, rung, rehearsal):
+# ---------------------------------------------------------------------------
+# the rest of tensor parallelism: the ``tp`` line's (f) - (j)
+# ---------------------------------------------------------------------------
+# (g): recurrentgemma-2b's DDP+mixed rung on a one-rank data mesh, the same
+# with B1 / B2 on K/V repeated to its 10 heads (``_repeat_kv_attend``: the
+# order in which the model axis sums a KV head's dK / dV, each head's in
+# bf16 and the group by the repeat's backward, where the G = 10 kernel sums
+# the group in fp32 registers), and on a one-rank (data, model) mesh.  The
+# model axis must equal the repeated K/V bit for bit through every update:
+# then the whole of its drift from the data mesh is that order's.  On the
+# H100 (scripts/probe_variant.py tp_hybrid_drift, warm-up + 3 steps) the
+# model axis equalled the repeated K/V bit for bit, both drifted from the
+# data mesh by 3.8e-4 and 9.8e-4 in the losses after the first and second
+# update and by up to 6.0e-3 in the norms, and in fp32 the two meshes
+# agreed within 2.0e-7 (losses) and 1.0e-6 (norms).  So the model axis is
+# held to the data mesh at about 3x those bf16 readings (TP_RUNG_*'s 1e-4 /
+# 1e-3 hold qwen2, whose drift is 2.1e-5 / 1.7e-4), step 0's gradients at
+# TP_RUNG_GRAD_TOL (7.4e-3 read) and the parameters within 2 lr a step
+# (3.1 lr after 3 steps read), as ``_tp_rung`` holds qwen2's.
+TP_HYB_LOSS_TOL = 3e-3              # relative
+TP_HYB_NORM_TOL = 2e-2              # relative
+TP_HYB_MAX_NEW = 16                 # (f): eager decode steps on the mesh
+TP_PAGED_MAX_NEW = 16               # (h): eager steps on both sides
+TP_HYB_WORLDS = (2, 4, 8, 16)       # recurrentgemma's model axes priced
+# (i): the per-rank shapes a wider model axis launches -- recurrentgemma's
+# RG-LRU channels (W = 2560 over 2, 4) and its 10 query heads at G = 1,
+# padded to 10 and 12 and split over 2 and 4; the paged decode on a rank's
+# heads (llama3.2-3b: 24 / 8 over 2, 4; stablelm-12b: 32 / 8 over 2)
+TP_RGLRU_RANK = ((2, (1, 4096, 1280)), (4, (1, 4096, 640)))
+TP_RGLRU_BWD_RANK = ((2, (2, 4096, 1280)),)
+TP_ATTN_RANK = ((2, 5), (4, 3))
+TP_PAGED_RANK = ((ARCH, 2, 12, 4, 128), (ARCH, 4, 6, 2, 128),
+                 (STABLELM_ARCH, 2, 16, 4, 160))
+
+
+def _counts(cfg):
+    """The RG-LRU and windowed-attention layers of ``cfg``."""
+    return (sum(b == RGLRU for b in cfg.pattern),
+            sum(b == ATTN_LOCAL for b in cfg.pattern))
+
+
+def _tp_hybrid(mesh):
+    """(f) recurrentgemma-2b whole (26 layers, W = 2560, bf16 serving):
+    dense ``ServeEngine`` on ``mesh`` against ``mesh=None`` in turns (mesh,
+    none, none, mesh) from one model: greedy streams equal, TTFT / TPOT p50
+    of each, the RG-LRU (B5) and windowed flash (B1 at D = 256, window
+    2048; G = 1 on K/V repeated to 10 heads on the mesh) launches a
+    round."""
+    cfg = get_config(HYBRID_ARCH)
+    policy = PolicyConfig(compute_dtype="bfloat16", remat="none",
+                          attn_impl="kernel")
+    model = LM.init(cfg, seed=0, dtype=torch.bfloat16, device=DEV)
+    prompts = [_prompt(400 + i, n, cfg.vocab_size)
+               for i, n in enumerate(TP_LENS)]
+    rounds = [_tp_serve_round(cfg, model, policy, m, prompts,
+                              max_new=TP_HYB_MAX_NEW)
+              for m in (mesh, None, None, mesh)]
+    del model
+    torch.cuda.empty_cache()
+    n_rg, n_at = _counts(cfg)
+    want = rounds[1]["streams"]
+    for r in rounds:
+        check(r.pop("streams") == want,
+              "tp hybrid: greedy streams on the mesh differ from those "
+              "without")
+        check(r["launches"].get("rglru") == len(TP_LENS) * n_rg
+              and r["flash_attention_launches"] == len(TP_LENS) * n_at,
+              f"tp hybrid: launches {r['launches']}")
+    return {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "window": cfg.local_window, "prompt_lens": list(TP_LENS),
+            "max_new": TP_HYB_MAX_NEW, "streams_equal": True,
+            "rounds_mesh_none_none_mesh": rounds}
+
+
+def _digest(t):
+    """A position-weighted sum of a float32 tensor's bits: equal digests
+    are, but for a 2^-64 chance, equal tensors."""
+    bits = t.detach().contiguous().view(torch.int32).flatten().long()
+    return int((bits * (torch.arange(bits.numel(), device=t.device)
+                        % 1000003 + 1)).sum())
+
+
+def _repeat_kv_attend(attend):
+    """``attention._attend`` with GQA K/V repeated to H first (G = 1):
+    ``sharded_flash``'s order of summing a KV head's dK / dV, without a
+    mesh."""
+    def repeated(q, k, v, **kw):
+        G = q.shape[2] // k.shape[2]
+        return attend(q, attention_mod._repeat_heads(k, G),
+                      attention_mod._repeat_heads(v, G), **kw)
+    return repeated
+
+
+def _tp_hybrid_rung():
+    """(g) recurrentgemma-2b whole, the ladder's DDP+mixed rung at 2 x 4096
+    tokens, a warm-up at lr 0 and ``LADDER_TIMED`` steps on each of: a
+    one-rank ``data`` mesh, the same with K/V repeated to H
+    (``_repeat_kv_attend``) and a one-rank ``(data, model)`` mesh, from the
+    same seed, one after the other (two states do not fit).  The model axis against the repeated K/V
+    bit for bit (losses, norms, step 0's gradients, the last parameters);
+    against the data mesh the first two losses (the initial parameters)
+    bit for bit, the rest and the norms within ``TP_HYB_*``, step 0's
+    gradients leaf by leaf (the RG-LRU leaves among them) within
+    ``TP_RUNG_GRAD_TOL`` and the parameters within 2 lr a step; the B5,
+    ``rglru_bwd`` and B2 launches of each run's timed steps."""
+    t0 = time.perf_counter()
+    cfg = get_config(HYBRID_ARCH)
+    base = PolicyConfig(param_dtype="float32", remat="block",
+                        attn_impl="kernel", dp_axes=("data",))
+    pol = policy_mod.ladder(base)["DDP+mixed"]
+    optcfg = AdamWConfig(lr=LADDER_LR)
+    sched = ScheduleConfig(kind="cosine", peak_lr=LADDER_LR, warmup_steps=1,
+                           total_steps=1 + LADDER_TIMED)
+    ds = SyntheticDataset(cfg, TRAIN_SHAPE, seed=0)
+    n_rg, n_at = _counts(cfg)
+    # per step: the forward twice (remat), the backward once
+    per_step = {"rglru": 2 * n_rg, "rglru_bwd": n_rg,
+                "flash_attention_fwd_stats": 2 * n_at,
+                "flash_attention_bwd_dkv": n_at,
+                "flash_attention_bwd_dq": n_at}
+    runs, ref, attend = {}, None, attention_mod._attend
+    for name, shape, axes in (("data", (1,), ("data",)),
+                              ("data_repeat", (1,), ("data",)),
+                              ("data_model", (1, 1), ("data", "model"))):
+        if name == "data_repeat":
+            attention_mod._attend = _repeat_kv_attend(attend)
+        try:
+            with one_rank(shape, axes, device=DEV) as mesh:
+                state = trainer.init_state(cfg, pol, optcfg, seed=0,
+                                           device=DEV, mesh=mesh)
+                step = trainer.make_train_step(cfg, pol, optcfg, sched,
+                                               mesh=mesh, shape=TRAIN_SHAPE)
+                losses, norms, step_s = [], [], []
+                for i in range(1 + LADDER_TIMED):
+                    if i == 1:
+                        ops.reset_launch_counts()   # just before the timed
+                    step.traffic.reset()
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    state, m = step(state, ds.batch_at(i))
+                    torch.cuda.synchronize()
+                    step_s.append(time.perf_counter() - t)
+                    losses.append(float(m["loss"]))
+                    norms.append(float(m["grad_norm"]))
+                    if i == 0:
+                        grads = {n: p.grad for n, p in
+                                 state.model.named_parameters()}
+                        digests = {n: _digest(g) for n, g in grads.items()}
+                        if ref is None:
+                            ref = {"grads": {n: g.to("cpu", copy=True)
+                                             for n, g in grads.items()}}
+                        elif name == "data_model":
+                            grad_err = {
+                                n: float((g - ref["grads"][n].to(DEV)).norm()
+                                         / ref["grads"][n].norm()
+                                         .clamp_min(1e-30))
+                                for n, g in grads.items()
+                                if not any(n.endswith(leaf) for leaf
+                                           in rehearse.NOISE_LEAVES)}
+                        del grads
+                counts = ops.launch_counts()        # just after
+                traffic = step.traffic.report()
+                params = dict(state.model.named_parameters())
+                run = {"mesh": dict(zip(axes, shape)), "losses": losses,
+                       "grad_norms": norms, "step_s": step_s,
+                       "step0_grad_digests": digests,
+                       "param_digests": {n: _digest(p)
+                                         for n, p in params.items()}}
+                if name == "data":
+                    ref["params"] = {n: p.detach().to("cpu", copy=True)
+                                     for n, p in params.items()}
+                elif name == "data_model":
+                    params_worst = max(
+                        float((p.detach() - ref["params"][n].to(DEV))
+                              .abs().max()) for n, p in params.items())
+                del state, step, params
+                torch.cuda.empty_cache()
+        finally:
+            attention_mod._attend = attend
+        check(counts == {k: LADDER_TIMED * per_step.get(k, 0)
+                         for k in counts},
+              f"tp hybrid rung ({name}): launches {counts}")
+        p50 = float(np.median(step_s[1:]))
+        runs[name] = dict(run, step_s_p50=p50,
+                          tokens_per_s=TRAIN_SHAPE.tokens / p50,
+                          launches_timed={k: v for k, v in counts.items()
+                                          if v},
+                          collectives_per_step=traffic)
+    del ref
+    got, rep, want = runs["data_model"], runs["data_repeat"], runs["data"]
+    for key in ("losses", "grad_norms", "step0_grad_digests",
+                "param_digests"):
+        a, b = got[key], rep[key]
+        differ = ([n for n in b if a[n] != b[n]][:5] if isinstance(b, dict)
+                  else (a, b) if a != b else None)
+        check(not differ, f"tp hybrid rung: the model axis's {key} differ "
+                          f"from the data mesh's with K/V repeated: {differ}")
+    check(got["losses"][:2] == want["losses"][:2],
+          f"tp hybrid rung: first losses {got['losses'][:2]} vs "
+          f"{want['losses'][:2]}")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                       want["losses"]))
+    check(loss_err <= TP_HYB_LOSS_TOL,
+          f"tp hybrid rung: losses {got['losses']} vs {want['losses']} "
+          f"(> {TP_HYB_LOSS_TOL})")
+    norm_err = max(abs(a - b) / b for a, b in zip(got["grad_norms"],
+                                                  want["grad_norms"]))
+    check(norm_err <= TP_HYB_NORM_TOL,
+          f"tp hybrid rung: grad norms {got['grad_norms']} vs "
+          f"{want['grad_norms']} (> {TP_HYB_NORM_TOL})")
+    worst = max(grad_err.values())
+    top = dict(sorted(grad_err.items(), key=lambda kv: -kv[1])[:5])
+    check(worst <= TP_RUNG_GRAD_TOL,
+          f"tp hybrid rung: step 0's gradients differ by {worst} (relative "
+          f"Frobenius, > {TP_RUNG_GRAD_TOL}); largest {top}")
+    bound = 2 * LADDER_LR * (1 + LADDER_TIMED)
+    check(params_worst <= bound,
+          f"tp hybrid rung: parameters differ from the data mesh's by "
+          f"{params_worst} > {bound}")
+    rg_leaves = {n: e for n, e in grad_err.items() if ".rglru." in n}
+    for r in runs.values():
+        for key in ("step0_grad_digests", "param_digests"):
+            r.pop(key)
+    return {"arch": cfg.name, "n_layers": cfg.n_layers, "rung": "DDP+mixed",
+            "tokens_a_step": TRAIN_SHAPE.tokens, "runs": runs,
+            "model_vs_repeat_bit_identical": True,
+            "losses_bit_identical": [a == b for a, b in zip(
+                got["losses"], want["losses"])],
+            "loss_err_rel": loss_err, "loss_tol_rel": TP_HYB_LOSS_TOL,
+            "grad_norm_err_rel": norm_err,
+            "grad_norm_tol_rel": TP_HYB_NORM_TOL,
+            "step0_grads": {"worst_rel_fro": worst, "tol": TP_RUNG_GRAD_TOL,
+                            "largest": top,
+                            "rglru_leaves_worst": max(rg_leaves.values()),
+                            "rglru_leaves_held": len(rg_leaves)},
+            "params_vs_data_max_abs": params_worst,
+            "params_bound_2_lr_a_step": bound,
+            "phase_s": time.perf_counter() - t0}
+
+
+def _tp_paged(mesh, cfg, model, policy):
+    """(h) llama3.2-3b whole: ``AsyncServeEngine(mode="paged")`` on
+    ``mesh`` (heads and each rank's pool over ``model``) against no mesh,
+    both eager, on ``serve_paged``'s prompts with ``TP_PAGED_MAX_NEW`` new
+    tokens: streams equal, the paged decode (B3) launches, TTFT / TPOT."""
+    prompts = _paged_prompts(cfg)
+    rounds = []
+    for m in (mesh, None):
+        eng = AsyncServeEngine(cfg, model, policy, device=DEV, mesh=m,
+                               graphs=False, **PAGED_KW)
+        eng.warmup()
+        reqs = [ServeRequest(i, p, max_new=TP_PAGED_MAX_NEW)
+                for i, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()           # just before the path
+        t0 = time.perf_counter()
+        for r in reqs:
+            check(eng.submit(r), f"tp paged: request {r.rid} rejected")
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()        # just after
+        rep = eng.report()
+        check(all(r.done for r in reqs), "tp paged: a request is not served")
+        n = counts["paged_decode_attention"]
+        check(n > 0 and n == rep["decode_iterations"] * cfg.n_layers,
+              f"tp paged: paged launches {n}, decode iterations "
+              f"{rep['decode_iterations']}")
+        rounds.append({"mesh": m is not None,
+                       "streams": [list(r.out) for r in reqs],
+                       "wall_s": wall, "ttft_p50_s": rep["ttft_s"]["p50"],
+                       "tpot_p50_s": rep["tpot_s"]["p50"],
+                       "decode_iterations": rep["decode_iterations"],
+                       "paged_decode_attention_launches": n,
+                       "launches": {k: v for k, v in counts.items() if v},
+                       "pool_kv_heads": eng.pool.pages[0]["k"].shape[2],
+                       "collectives": (eng.place.traffic.report()
+                                       if eng.place is not None else None)})
+        del eng
+        torch.cuda.empty_cache()
+    want = rounds[1].pop("streams")
+    check(rounds[0].pop("streams") == want,
+          "tp paged: greedy streams on the mesh differ from those without")
+    return {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "requests": len(prompts), "max_new": TP_PAGED_MAX_NEW,
+            "graphs": False, "streams_equal": True, "rounds_mesh_none":
+            rounds}
+
+
+def tp_rank_kernel_cases(gen):
+    """(i) each kernel at the per-rank shapes a wider ``model`` axis would
+    launch (``TP_*_RANK``), held to its plain version on the card, timed
+    with CUDA events over a graph of launches, beside its bound and the
+    library call where one computes the same.  Keyed
+    ``<kernel>_model<tp>``."""
+    rows = {}
+    for tp, shape in TP_RGLRU_RANK:
+        rows[f"rglru_model{tp}"] = rglru_main_shape(gen, shape)
+    for tp, shape in TP_RGLRU_BWD_RANK:
+        rows[f"rglru_bwd_model{tp}"] = rglru_bwd_main_shape(gen, shape)
+    torch.cuda.empty_cache()
+    B, S, T, _, _, D, causal, window, dt = ATTN_SERVED
+    for tp, H in TP_ATTN_RANK:
+        # G = 1: K/V repeated to the rank's heads
+        rows[f"flash_attention_d256_model{tp}"] = flash_d256_main_shape(
+            gen, (B, S, T, H, H, D, causal, window, dt))
+        heads = types.SimpleNamespace(name=f"{HYBRID_ARCH} model={tp}",
+                                      n_heads=H, n_kv_heads=H, head_dim=D)
+        *got, _ = bwd_main_shape(gen, heads, *TRAIN_SHAPE_BS, window=window)
+        for name, row in zip(TRAIN_KERNELS, got):
+            rows[f"{name}_d256_model{tp}"] = row
+        torch.cuda.empty_cache()
+    for arch, tp, H, K, D in TP_PAGED_RANK:
+        row = paged_main_shape(gen, types.SimpleNamespace(
+            name=f"{arch} model={tp}", n_heads=H, n_kv_heads=K,
+            head_dim=D))
+        rows[f"paged_decode_attention{'_d160' if D == 160 else ''}"
+             f"_model{tp}"] = row
+    return rows
+
+
+def _moe_data_only_step(cfg):
+    """(j) moonshot at its training cut, one ZeRO-3 step of 2 x 4096 tokens
+    on a one-rank ``data`` mesh (the experts gathered as any other leaf;
+    MoE sorted in the global batch's order: the per-expert counts gathered
+    over ``data``) against the same step without
+    a mesh, one after the other (two states do not fit): the loss, aux and
+    gradient norm equal, and each parameter after the step equal, bit for
+    bit (a position-weighted sum of its bits)."""
+    t0 = time.perf_counter()
+    cfg = cut_depth(cfg, MOE_TRAIN_LAYERS)
+    pol = PolicyConfig(compute_dtype="bfloat16", param_dtype="float32",
+                       remat="block", attn_impl="kernel", dp_axes=("data",),
+                       zero_stage=3)
+    optcfg = AdamWConfig(lr=MOE_TRAIN_LR)
+    batch = SyntheticDataset(cfg, TRAIN_SHAPE, seed=0).batch_at(0)
+
+    def run(mesh):
+        state = trainer.init_state(cfg, pol, optcfg, seed=0, device=DEV,
+                                   mesh=mesh)
+        step = trainer.make_train_step(cfg, pol, optcfg, mesh=mesh,
+                                       shape=TRAIN_SHAPE)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        out = {"step_s": time.perf_counter() - t,
+               "metrics": {k: float(m[k]) for k in ("loss", "aux",
+                                                    "grad_norm")},
+               "digests": {n: _digest(p)
+                           for n, p in state.model.named_parameters()},
+               "collectives": (step.traffic.report() if mesh is not None
+                               else None)}
+        del state, step
+        torch.cuda.empty_cache()
+        return out
+
+    # the per-expert counts are the one integer all-gather: one a MoE layer
+    # and forward pass (remat recomputes each), beside ZeRO-3's gathers of
+    # the float parameters on the same axis
+    counts, all_gather = [], hierarchy.all_gather
+
+    def counted(x, group, dim=0):
+        if not x.is_floating_point():
+            counts.append(tuple(x.shape))
+        return all_gather(x, group, dim)
+
+    with one_rank((1,), ("data",), device=DEV) as mesh:
+        check(trainer.moe_impl(cfg, pol, mesh) == "sorted",
+              "tp moe data-only: the step is not the sorted MoE")
+        hierarchy.all_gather = counted
+        try:
+            got = run(mesh)
+        finally:
+            hierarchy.all_gather = all_gather
+    want = run(None)
+    check(got["metrics"] == want["metrics"],
+          f"tp moe data-only: {got['metrics']} vs {want['metrics']}")
+    differ = [n for n in want["digests"]
+              if got["digests"][n] != want["digests"][n]]
+    check(not differ, f"tp moe data-only: parameters differ after the "
+                      f"step: {differ[:5]}")
+    # every block of a MoE arch is a MoE block
+    check(counts == [(1, cfg.moe.n_experts)] * 2 * cfg.n_layers,
+          f"tp moe data-only: per-expert counts gathered {counts}, not once "
+          f"a MoE layer ({cfg.n_layers}) and forward pass (2)")
+    return {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "tokens": TRAIN_SHAPE.tokens, "bit_identical": True,
+            "metrics": got["metrics"], "step_s_mesh": got["step_s"],
+            "step_s_none": want["step_s"],
+            "collectives": got["collectives"],
+            "expert_count_gathers": len(counts),
+            "params_held": len(want["digests"]),
+            "phase_s": time.perf_counter() - t0}
+
+
+def _tp_hybrid_bytes():
+    """The bytes a rank holds of recurrentgemma-2b at ``model`` = 2 / 4 /
+    8 / 16 (arithmetic from the specs): serving, bf16 parameters
+    (``Layout.use_specs``) and the caches of ``TP_SERVE_SLOTS`` as the
+    engine places them (``placed_cache_specs``: the RG-LRU states by
+    channel); training, fp32 parameters, gradients and both AdamW moments
+    at ``data`` = 1 (ZeRO 0)."""
+    from repro_torch.models import transformer as transformer_mod
+    from repro_torch.train import sharding
+    cfg = get_config(HYBRID_ARCH)
+    meta = LM(cfg, device="meta")
+    shapes = {n: tuple(p.shape) for n, p in meta.named_parameters()}
+    caches = transformer_mod.init_stack_cache(cfg, *TP_SERVE_SLOTS,
+                                              device="meta")
+    out = {"params_whole_bytes": 2 * sum(int(np.prod(s))
+                                         for s in shapes.values())}
+    for m in TP_HYB_WORLDS:
+        axes = {"data": 1, "model": m}
+        pol = PolicyConfig(zero_stage=0)
+        layout = sharding.Layout(cfg, pol, _SpecMesh(axes))
+        use = sum(int(np.prod(policy_mod.local_shape(s, layout.use_specs[n],
+                                                     axes)))
+                  for n, s in shapes.items())
+        ps, ms = sharding.specs(meta, cfg, pol, axes)
+
+        def local(specs):
+            return sum(int(np.prod(policy_mod.local_shape(s, specs[n], axes)))
+                       for n, s in shapes.items())
+        cspecs = policy_mod.placed_cache_specs(caches, pol, axes)
+        cache = sum(int(np.prod(policy_mod.local_shape(
+            t.shape, cspecs[i][n], axes))) * 2
+            for i, layer in enumerate(caches) for n, t in layer.items())
+        train_bytes = 4 * (2 * local(ps) + 2 * local(ms))
+        out[f"model{m}"] = {
+            "serving_params_bytes": 2 * use, "serving_cache_bytes": cache,
+            "training_fp32_bytes": train_bytes,
+            "gates_local": m <= 8 and 8 % m == 0,
+            "fits_serving": 2 * use + cache <= CHIP.hbm_bytes,
+            "fits_training": train_bytes <= CHIP.hbm_bytes}
+    out["what"] = ("arithmetic from the specs, not measured: activations "
+                   "and workspace not counted")
+    return out
+
+
+class _SpecMesh:
+    """A mesh's names and sizes, for a layout's specs without a group."""
+
+    def __init__(self, axes):
+        self.mesh_dim_names = tuple(axes)
+        self.mesh = torch.zeros(tuple(axes.values()))
+
+    def get_local_rank(self, axis):
+        return 0
+
+
+def tp_phase(moe_part, moe_data_only, rung, rehearsal):
     """The ``tp`` line: the tensor- and expert-parallel paths on a one-rank
     NCCL mesh (data, model) = (1, 1) -- nothing crosses cards; every copy,
     reduce, gather and all-reduce of a wider mesh runs on the one rank --
     each held to the no-mesh path at the same seed: (a) ``_tp_serve``, (b)
     ``_tp_ssm``, (c) ``_tp_moe`` (run inside ``moe``, where moonshot is
     built whole), (d) ``_tp_rung`` (inside ``ladder_phase``'s group), (e)
-    ``_tp_bytes``; B1 on repeated K/V against GQA (``_tp_repeat_cost``);
-    the host's cost of a collective and a cut (``_tp_host_us``); the
-    four-rank ``gloo`` rehearsal's TP / EP checks."""
+    ``_tp_bytes``; (f) ``_tp_hybrid``, (g) ``_tp_hybrid_rung``, (h)
+    ``_tp_paged`` (inside ``_tp_serve``), (i) ``tp_rank_kernel_cases``, (j)
+    ``_moe_data_only_step`` (inside ``moe``) and recurrentgemma's bytes a
+    rank (``_tp_hybrid_bytes``); B1 on repeated K/V against GQA
+    (``_tp_repeat_cost``); the host's cost of a collective and a cut
+    (``_tp_host_us``); the four-rank ``gloo`` rehearsal's TP / EP checks.
+    Returns (f), (g), (h) and (i) for the ``kernels`` line."""
     t0 = time.perf_counter()
     with one_rank(device=DEV) as mesh:
-        serve = _tp_serve(mesh)
+        serve, paged = _tp_serve(mesh)
         t_serve = time.perf_counter()
         ssm_part = _tp_ssm(mesh)
         host_us = _tp_host_us(mesh)
-    t_ssm = time.perf_counter()
+        t_ssm = time.perf_counter()
+        hybrid = _tp_hybrid(mesh)
+    t_hybrid = time.perf_counter()
+    hybrid_rung = _tp_hybrid_rung()
+    t_rung = time.perf_counter()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(21)
     with torch.no_grad():
         repeat = _tp_repeat_cost()
-    t_repeat = time.perf_counter()
+        t_repeat = time.perf_counter()
+        rank_rows = tp_rank_kernel_cases(gen)
+    torch.cuda.empty_cache()
+    t_rank = time.perf_counter()
     nbytes = _tp_bytes()
+    hybrid_bytes = _tp_hybrid_bytes()
     emit("tp", mesh={"data": 1, "model": 1}, backend="nccl",
          crosses_cards=False,
          note="one card: the tensor- and expert-parallel collectives run "
               "on a one-rank group; their time between cards is not "
               "measured",
          serve_dense=serve, ssm_prefill=ssm_part, moe_ep_prefill=moe_part,
-         ddp_mixed_rung=rung, b1_repeated_kv=repeat,
-         host_us_one_rank=host_us,
-         bytes_per_rank=nbytes,
+         ddp_mixed_rung=rung, hybrid_serve=hybrid,
+         hybrid_ddp_mixed_rung=hybrid_rung, paged_serve=paged,
+         moe_data_only_step=moe_data_only, rank_kernel_cases=rank_rows,
+         b1_repeated_kv=repeat, host_us_one_rank=host_us,
+         bytes_per_rank=nbytes, hybrid_bytes_per_rank=hybrid_bytes,
          rehearsal_four_gloo_ranks={
-             "tensor_parallel": rehearsal["tensor_parallel"],
-             "expert_parallel": rehearsal["expert_parallel"]},
-         phase_s={"serve": t_serve - t0, "ssm": t_ssm - t_serve,
-                  "b1_repeat": t_repeat - t_ssm,
-                  "bytes": time.perf_counter() - t_repeat,
+             k: rehearsal[k] for k in ("tensor_parallel", "expert_parallel",
+                                       "tensor_parallel_hybrid")},
+         phase_s={"serve": t_serve - t0 - paged["phase_s"],
+                  "paged": paged["phase_s"], "ssm": t_ssm - t_serve,
+                  "hybrid": t_hybrid - t_ssm,
+                  "hybrid_rung": t_rung - t_hybrid,
+                  "b1_repeat": t_repeat - t_rung,
+                  "rank_kernels": t_rank - t_repeat,
+                  "bytes": time.perf_counter() - t_rank,
                   "moe_in_moe_line": moe_part["phase_s"],
+                  "moe_data_only_in_moe_line": moe_data_only["phase_s"],
                   "rung_in_ladder_line": rung["phase_s"],
                   "total": time.perf_counter() - t0 + moe_part["phase_s"]
-                  + rung["phase_s"]})
+                  + moe_data_only["phase_s"] + rung["phase_s"]})
+    return hybrid, hybrid_rung, paged, rank_rows
 
 
 def main() -> int:
@@ -5782,7 +6301,8 @@ def main() -> int:
     # the paper's ladder on a one-rank NCCL mesh: sub-row (q)
     q_rows, n_ladder, tp_rung, rehearsed = ladder_phase(rehearsal)
     # tensor and expert parallelism on a one-rank (data, model) mesh
-    tp_phase(n_moe["tp_moe"], tp_rung, rehearsed)
+    tp_hyb, tp_hyb_rung, tp_paged, tp_rows = tp_phase(
+        n_moe["tp_moe"], n_moe["tp_moe_data_only"], tp_rung, rehearsed)
 
     def row(name, source, replaces, launches, main, kernel_design):
         head = main[-1]                     # the largest main-path shape
@@ -5877,6 +6397,40 @@ def main() -> int:
             q_rows):
         rows.append(row(f"{name}_qwen", src, ref, n_ladder[name], [got],
                         des(got["shape"][-1], bf16)))
+    # the per-rank shapes of a wider model axis (the tp line's (i)): no path
+    # of this run launches them (one card holds a one-rank axis), so their
+    # launches are 0; ``launches_full_width`` is the kernel's count at the
+    # whole model's shape on the path named by ``launches_full_width_on``:
+    # (f)'s first mesh round, (g)'s timed steps with the model axis, (h)'s
+    # mesh round, and stablelm's serve_paged
+    mesh_round = tp_hyb["rounds_mesh_none_none_mesh"][0]["launches"]
+    rung_counts = tp_hyb_rung["runs"]["data_model"]["launches_timed"]
+    paged_mesh = tp_paged["rounds_mesh_none"][0]
+    on = {"rglru": (mesh_round["rglru"], "tp (f) mesh round"),
+          "flash_attention": (mesh_round["flash_attention"],
+                              "tp (f) mesh round"),
+          "paged_decode_attention": (
+              paged_mesh["paged_decode_attention_launches"],
+              "tp (h) mesh round"),
+          "paged_decode_attention_d160": (n_paged_d160,
+                                          "serve_paged stablelm-12b")}
+    for name in ("rglru_bwd",) + TRAIN_KERNELS:
+        on[name] = (rung_counts[name], "tp (g) timed steps, model axis")
+    sources = {"rglru": ("src/repro_torch/kernels/csrc/rglru.cu",
+                         "src/repro/kernels/rglru.py:58"),
+               "rglru_bwd": ("src/repro_torch/kernels/csrc/rglru.cu",
+                             "src/repro/models/rglru.py:134"),
+               "flash_attention": (fa_src, fa_ref),
+               "paged_decode_attention": (pa_src, pa_ref),
+               "paged_decode_attention_d160": (pa_src, pa_ref)}
+    sources.update(zip(TRAIN_KERNELS, zip((fa_src, bwd_src, bwd_src),
+                                          bwd_ref)))
+    for key, got in tp_rows.items():
+        kernel = key.rsplit("_model", 1)[0].replace("_d256", "")
+        full, where = on[kernel]
+        rows.append(dict(row(key, *sources[kernel], 0, [got], got["design"]),
+                         launches_full_width=full,
+                         launches_full_width_on=where))
     emit("summary", elapsed_s=time.perf_counter() - t_start,
          kernel_build_s=build.build_seconds)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -67,14 +67,22 @@ and one phase of ``chip_smoke`` alone:
 
   ladder          ``chip_smoke.ladder_phase`` (its ``ladder`` line: the
                   paper's ladder on a one-rank NCCL mesh, the int8
-                  exchange, the four-rank rehearsal, per-rank bytes).
+                  exchange, the four-rank rehearsal, per-rank bytes);
+
+and where a tensor-parallel step's drift comes from:
+
+  tp_hybrid_drift recurrentgemma-2b's DDP+mixed step, warm-up + 3 steps,
+                  on a one-rank data mesh, the same with B1 / B2 on K/V
+                  repeated to H, and on a one-rank (data, model) mesh, in
+                  bf16; the data and (data, model) meshes in fp32: each
+                  pair's losses, norms, step 0's gradients and parameters.
 
 Run from the repository root (no name runs every probe):
 
     python3 scripts/probe_variant.py [fwd_d256_pv] [ssd_bwd_heads]
         [ssd_bwd_parts] [dkv_d256_parts] [dq_d256_parts] [bert_gather]
         [vision_layout] [moe_train_lr] [moe_split_count] [card_figures]
-        [ladder]
+        [ladder] [tp_hybrid_drift]
 
 Prints the card's name and power limit, then one JSON object per case,
 draw and round of turns, and exits non-zero without a CUDA device or on a
@@ -611,6 +619,111 @@ def card_figures(gen) -> None:
               flush=True)
 
 
+def _drift(got, want, lr):
+    """``got``'s losses, norms, step 0's gradients and last parameters
+    against ``want``'s: relative differences, bit identity, and the
+    parameters' largest difference in lr."""
+    grads = {n: float((g - want["grads"][n]).norm()
+                      / want["grads"][n].norm().clamp_min(1e-30))
+             for n, g in got["grads"].items()}
+    params = {n: float((p - want["params"][n]).abs().max())
+              for n, p in got["params"].items()}
+    top = dict(sorted(grads.items(), key=lambda kv: -kv[1])[:4])
+    return {"losses_rel": [abs(a - b) / abs(b) for a, b in
+                           zip(got["losses"], want["losses"])],
+            "norms_rel": [abs(a - b) / b for a, b in
+                          zip(got["norms"], want["norms"])],
+            "losses_bit_identical": got["losses"] == want["losses"],
+            "step0_grads_worst_rel_fro": max(grads.values()),
+            "step0_grads_largest": top,
+            "step0_grads_bit_identical": all(
+                torch.equal(g, want["grads"][n])
+                for n, g in got["grads"].items()),
+            "params_max_abs": max(params.values()),
+            "params_max_abs_in_lr": max(params.values()) / lr,
+            "params_bit_identical": all(v == 0.0 for v in params.values()),
+            "params_largest": dict(sorted(params.items(),
+                                          key=lambda kv: -kv[1])[:4])}
+
+
+DRIFT_RUNS = (("data", "bfloat16", False), ("data_repeat", "bfloat16", True),
+              ("data_model", "bfloat16", False), ("data", "float32", False),
+              ("data_model", "float32", False))
+DRIFT_PAIRS = ((("data_repeat", "bfloat16"), ("data", "bfloat16")),
+               (("data_model", "bfloat16"), ("data", "bfloat16")),
+               (("data_model", "bfloat16"), ("data_repeat", "bfloat16")),
+               (("data_model", "float32"), ("data", "float32")))
+
+
+def tp_hybrid_drift(gen) -> None:
+    """Why recurrentgemma-2b's step with the model axis drifts from the
+    step without it after an update (``chip_smoke._tp_hybrid_rung``): the
+    ladder's DDP+mixed rung at 2 x 4096 tokens, a warm-up at lr 0 and
+    ``LADDER_TIMED`` steps, on a one-rank ``data`` mesh, the same with
+    B1 / B2 on K/V repeated to H (``chip_smoke._repeat_kv_attend``), and
+    on a one-rank ``(data, model)`` mesh; then without and with the model
+    axis in fp32.  Each pair of ``DRIFT_PAIRS``: losses, gradient norms, step
+    0's gradients and the last parameters."""
+    del gen
+    from repro_torch.models import attention
+    build.load()
+    cfg = cs.get_config(cs.HYBRID_ARCH)
+    base = cs.PolicyConfig(param_dtype="float32", remat="block",
+                           attn_impl="kernel", dp_axes=("data",))
+    rung = cs.policy_mod.ladder(base)["DDP+mixed"]
+    lr = cs.LADDER_LR
+    optcfg = cs.AdamWConfig(lr=lr)
+    sched = cs.ScheduleConfig(kind="cosine", peak_lr=lr, warmup_steps=1,
+                              total_steps=1 + cs.LADDER_TIMED)
+    ds = cs.SyntheticDataset(cfg, cs.TRAIN_SHAPE, seed=0)
+    kept, attend = {}, attention._attend
+    for name, dtype, repeat in DRIFT_RUNS:
+        pol = cs.dataclasses.replace(rung, compute_dtype=dtype)
+        shape, axes = (((1, 1), ("data", "model")) if name == "data_model"
+                       else ((1,), ("data",)))
+        if repeat:
+            attention._attend = cs._repeat_kv_attend(attend)
+        try:
+            with torch.enable_grad(), cs.one_rank(shape, axes,
+                                                  device=cs.DEV) as mesh:
+                state = cs.trainer.init_state(cfg, pol, optcfg, seed=0,
+                                              device=cs.DEV, mesh=mesh)
+                step = cs.trainer.make_train_step(
+                    cfg, pol, optcfg, sched, mesh=mesh, shape=cs.TRAIN_SHAPE)
+                run = {"losses": [], "norms": [], "step_s": []}
+                for i in range(1 + cs.LADDER_TIMED):
+                    torch.cuda.synchronize()
+                    t = cs.time.perf_counter()
+                    state, m = step(state, ds.batch_at(i))
+                    torch.cuda.synchronize()
+                    run["step_s"].append(cs.time.perf_counter() - t)
+                    run["losses"].append(float(m["loss"]))
+                    run["norms"].append(float(m["grad_norm"]))
+                    if i == 0:
+                        run["grads"] = {
+                            n: p.grad.detach().to("cpu", copy=True)
+                            for n, p in state.model.named_parameters()}
+                run["params"] = {n: p.detach().to("cpu", copy=True)
+                                 for n, p in state.model.named_parameters()}
+                del state, step
+                torch.cuda.empty_cache()
+        finally:
+            attention._attend = attend
+        kept[(name, dtype)] = run
+        print(json.dumps({"probe": "tp_hybrid_drift", "run": name,
+                          "compute_dtype": dtype, "repeat_kv": repeat,
+                          **{k: run[k] for k in ("losses", "norms",
+                                                 "step_s")}}), flush=True)
+        for a, b in DRIFT_PAIRS:
+            if (name, dtype) in (a, b) and a in kept and b in kept:
+                print(json.dumps({"probe": "tp_hybrid_drift",
+                                  "pair": [list(a), list(b)], "lr": lr,
+                                  **_drift(kept[a], kept[b], lr)}),
+                      flush=True)
+        if name == "data_model":            # every pair of its dtype shown
+            kept = {k: v for k, v in kept.items() if k[1] != dtype}
+
+
 def ladder(gen) -> None:
     """``chip_smoke.ladder_phase`` alone, after the build."""
     del gen
@@ -624,7 +737,7 @@ PROBES = {"fwd_d256_pv": fwd_d256_pv, "ssd_bwd_heads": ssd_bwd_heads,
           "dq_d256_parts": dq_d256_parts, "bert_gather": bert_gather,
           "vision_layout": vision_layout, "moe_train_lr": moe_train_lr,
           "moe_split_count": moe_split_count, "card_figures": card_figures,
-          "ladder": ladder}
+          "ladder": ladder, "tp_hybrid_drift": tp_hybrid_drift}
 
 
 def main(names) -> int:

@@ -32,9 +32,10 @@ shards it.
 cache's length over the tp axis, recurrent state channels over it where
 they divide) and ``logits_spec`` are the reference's rules over its cache
 paths (``seg0/slot0/k``); ``stack_cache_specs`` maps them onto the port's
-per-layer caches.  ``constrain`` has no GSPMD to pin: here it is "this
-rank's piece of a whole tensor under ``spec``", the whole tensor without a
-mesh.
+per-layer caches, and ``placed_cache_specs`` gives the pieces the port
+places (the two differ on a segment that repeats once).  ``constrain`` has
+no GSPMD to pin: here it is "this rank's piece of a whole tensor under
+``spec``", the whole tensor without a mesh.
 """
 from __future__ import annotations
 
@@ -374,6 +375,24 @@ def stack_cache_specs(cfg: ModelConfig, caches: Sequence[Mapping[str, Any]],
                 out.append(row)
                 layer += 1
     return out
+
+
+def placed_cache_specs(caches: Sequence[Mapping[str, Any]],
+                       policy: PolicyConfig, mesh_axes: Mapping[str, int], *,
+                       tp_min: int = 2) -> List[Dict[str, Spec]]:
+    """The pieces of the port's per-layer caches that each rank computes
+    on: every layer's leaf laid out as a scanned segment's is (batch over
+    the dp axes, the attention cache's length or a recurrent leaf's largest
+    channel dim over the tp axis), whether or not its segment scans.  It
+    equals ``stack_cache_specs`` but on a segment that repeats once, where
+    the reference's rule (``_is_stacked``, ``repro/core/policy.py:
+    276-282``) takes the batch dim for a layer dim: recurrentgemma-2b's
+    ``(R, R)`` remainder, whose state's batch entry falls on its width and
+    whose channels stay whole, while the RG-LRU block computes on its
+    rank's ``W / tp`` channels (ROADMAP queue C)."""
+    return [{name: cache_spec(f"seg0/slot0/{name}", (1,) + tuple(
+        leaf.shape), policy, mesh_axes, tp_min=tp_min)[1:]
+        for name, leaf in layer.items()} for layer in caches]
 
 
 def logits_spec(policy: PolicyConfig, mesh_axes: Mapping[str, int],

@@ -11,9 +11,11 @@ prints one JSON line: ZeRO-3 against DP on ``data = 4``, the int8 exchange
 on ``(pod, data) = (2, 2)`` against the same arithmetic in numpy, a
 checkpoint saved on 4 ranks and resumed on the first 2 of them after the
 others' devices fail, tensor parallelism on ``(data, model) = (2, 2)``
-against DP on ``data = 4``, expert parallelism with ZeRO-3 against without,
-and a ``ServeEngine``'s greedy streams on ``(2, 2)`` against one process's;
-exit 0 when all hold.
+against DP on ``data = 4`` (reduced llama3.2-3b, and recurrentgemma-2b's
+RG-LRU and windowed attention), expert parallelism with ZeRO-3 against
+without, a ``ServeEngine``'s greedy streams on ``(2, 2)`` and the paged
+engine's on ``(1, 4)`` (heads over ``model``) against one process's; exit
+0 when all hold.
 
 Each rank runs on one thread, meets the others through a ``FileStore`` in
 a temporary directory (no port), and gives its group a timeout; ``spawn``
@@ -125,10 +127,15 @@ class Job:
     lr: float = 1e-3
     masked: bool = False            # a loss mask, uneven over the ranks
     grad_accum: int = 1
+    capacity_factor: Optional[float] = None     # the MoE's, where given
 
     def cfg(self):
         from repro_torch.configs import get_config, reduced
-        return reduced(get_config(self.arch), n_layers=self.n_layers)
+        cfg = reduced(get_config(self.arch), n_layers=self.n_layers)
+        if self.capacity_factor is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=self.capacity_factor))
+        return cfg
 
     def policy(self):
         from repro_torch.configs.base import PolicyConfig
@@ -153,12 +160,14 @@ class Job:
         return batch
 
 
-def _model(job: Job, weights: Optional[Mapping[str, Any]], seed: int):
+def _model(job: Job, weights: Optional[Mapping[str, Any]], seed: int,
+           cfg=None):
     from repro_torch import convert
     from repro_torch.models.lm import LM
+    cfg = cfg or job.cfg()
     if weights is None:
-        return LM.init(job.cfg(), seed=seed, device="cpu")
-    return convert.from_reference(weights, job.cfg(), device="cpu")
+        return LM.init(cfg, seed=seed, device="cpu")
+    return convert.from_reference(weights, cfg, device="cpu")
 
 
 def _state(job: Job, mesh, weights=None, seed: int = 0):
@@ -382,25 +391,54 @@ def _moe_case(pctx, mesh, case):
     return {"y": y.numpy(), "aux": float(aux)}
 
 
+def _moe_dp_case(pctx, mesh, case):
+    """``moe_sorted`` on this rank's rows of a batch split over ``data``, in
+    the global batch's order (``dp_group``), at ``case["capacity_factor"]``;
+    this rank's y and the global aux."""
+    import types
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.moe import moe_sorted
+    cfg = reduced(get_config(case["arch"]))
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=case["capacity_factor"]))
+    params = types.SimpleNamespace(**{n: torch.from_numpy(case[n]) for n in (
+        "router", "wi", "wg", "wo")})
+    y, aux = moe_sorted(params, _rows(case["x"], mesh), cfg,
+                        compute_dtype=torch.float32,
+                        dp_group=pctx.group(("data",)))
+    return {"y": y.numpy(), "aux": float(aux)}
+
+
 def serve_streams(arch: str, weights, prompts, max_new: int, mesh=None,
                   n_slots: int = 4, max_seq: int = 64,
-                  engine: str = "slots") -> List[List[int]]:
+                  engine: str = "slots", n_layers: int = 2,
+                  overrides: Optional[Mapping[str, Any]] = None
+                  ) -> List[List[int]]:
     """Greedy streams of a reduced ``arch``'s ``ServeEngine`` (``engine``
-    "slots"; "dense": ``AsyncServeEngine(mode="dense")``), fp32 on the CPU,
-    from ``weights`` (the reference's pytree, numpy; else seed 0), on
-    ``mesh`` or none."""
+    "slots"; "dense" or "paged": ``AsyncServeEngine`` in that mode, page
+    16, chunks of 16), fp32 on the CPU, from ``weights`` (the reference's
+    pytree, numpy; else seed 0), on ``mesh`` or none.  ``n_layers`` and
+    ``overrides`` (config fields) shape the reduced config."""
     import torch
     from repro_torch.configs.base import PolicyConfig
     from repro_torch.serve.engine import (AsyncServeEngine, Request,
                                           ServeEngine)
     from repro_torch.serve.scheduler import ServeRequest
-    job = Job(arch=arch)
-    model = _model(job, weights, 0)
+    job = Job(arch=arch, n_layers=n_layers)
+    cfg = dataclasses.replace(job.cfg(), **(overrides or {}))
+    model = _model(job, weights, 0, cfg)
     policy = PolicyConfig(compute_dtype="float32", attn_impl="kernel")
-    if engine == "dense":
-        eng = AsyncServeEngine(job.cfg(), model, policy, n_slots=n_slots,
-                               max_seq=max_seq, mode="dense", mesh=mesh,
-                               graphs=False, device="cpu")
+    if engine in ("dense", "paged"):
+        kw = dict(page_size=16, prefill_chunk=16) if engine == "paged" \
+            else {}
+        # a clock of steps, not of the host: the scheduler's choices (and
+        # so every rank's collectives) cannot depend on a rank's timing
+        ticks = iter(range(1 << 62))
+        eng = AsyncServeEngine(cfg, model, policy, n_slots=n_slots,
+                               max_seq=max_seq, mode=engine, mesh=mesh,
+                               graphs=False, device="cpu",
+                               clock=lambda: next(ticks) * 1e-3, **kw)
         reqs = [ServeRequest(i, list(p), max_new=max_new)
                 for i, p in enumerate(prompts)]
         for r in reqs:
@@ -408,7 +446,7 @@ def serve_streams(arch: str, weights, prompts, max_new: int, mesh=None,
                 raise ValueError(f"request {r.rid}: {r.why_rejected}")
         eng.run()
         return [list(r.out) for r in reqs]
-    eng = ServeEngine(job.cfg(), model, policy, n_slots=n_slots,
+    eng = ServeEngine(cfg, model, policy, n_slots=n_slots,
                       max_seq=max_seq, mesh=mesh, device="cpu")
     reqs = [Request(rid=i, prompt=torch.tensor(p), max_new=max_new)
             for i, p in enumerate(prompts)]
@@ -423,7 +461,10 @@ def serve_streams(arch: str, weights, prompts, max_new: int, mesh=None,
 def _serve_case(pctx, mesh, case):
     return serve_streams(case["arch"], case.get("weights"), case["prompts"],
                          case["max_new"], mesh=mesh,
-                         engine=case.get("engine", "slots"))
+                         engine=case.get("engine", "slots"),
+                         n_layers=case.get("n_layers", 2),
+                         max_seq=case.get("max_seq", 64),
+                         overrides=case.get("overrides"))
 
 
 def _group_case(pctx, mesh, case):
@@ -439,22 +480,28 @@ def _group_case(pctx, mesh, case):
 
 
 _CASES = {"flash": _flash_case, "decode": _decode_case, "ssd": _ssd_case,
-          "moe": _moe_case, "serve": _serve_case, "group": _group_case}
+          "moe": _moe_case, "moe_dp": _moe_dp_case, "serve": _serve_case,
+          "group": _group_case}
 
 
 def tp_cases(rank: int, world: int, cases: Mapping[str, dict]) -> dict:
-    """Each case (``kind``: flash, decode, ssd, moe, serve or group, on its
-    ``mesh``, ((axes), (sizes))) from numpy inputs: ``sharded_flash``
-    (every head, joined), ``sharded_decode`` (its output and this rank's
-    cache piece, or None where it declines), ``ssd_sharded`` (every head),
-    ``_moe_ep`` (this rank's tokens' y, the global aux), a
-    ``ServeEngine``'s greedy streams and an all-reduce over a group of
-    axes.  Every rank returns its own."""
+    """Each case (``kind``: flash, decode, ssd, moe, moe_dp, serve or group,
+    on its ``mesh``, ((axes), (sizes))) from numpy inputs:
+    ``sharded_flash`` (every head, joined), ``sharded_decode`` (its output
+    and this rank's cache piece, or None where it declines),
+    ``ssd_sharded`` (every head), ``_moe_ep`` (this rank's tokens' y, the
+    global aux), ``moe_sorted`` in the global batch's order over ``data``
+    (the same), an engine's greedy streams (``serve_streams``) and an
+    all-reduce over a group of axes.  Every rank returns its own; a rank
+    past a smaller mesh returns None."""
     from repro_torch.launch.mesh import make_mesh
     out = {}
     for name, case in cases.items():
         axes, sizes = case["mesh"]
         mesh = make_mesh(sizes, axes, device="cpu")
+        if mesh.get_coordinate() is None:
+            out[name] = None
+            continue
         pctx = _pctx(mesh, case.get("fsdp", False))
         out[name] = _CASES[case["kind"]](pctx, mesh, case)
     return out
@@ -535,6 +582,8 @@ REHEARSAL_JOB = Job(arch="qwen2-0.5b", n_layers=2, steps=2, batch=8, seq=32)
 TP_MESH = (("data", 2), ("model", 2))
 TP_JOB = Job(arch="llama3.2-3b", mesh=TP_MESH)
 EP_JOB = Job(arch="moonshot-v1-16b-a3b", mesh=TP_MESH, steps=2)
+# recurrentgemma-2b's RG-LRU and windowed attention under ``model``
+HYBRID_JOB = Job(arch="recurrentgemma-2b", n_layers=3, mesh=TP_MESH)
 SERVE_PROMPTS = [[(7 * i + 3 * j) % 500 for j in range(9 + 5 * i)]
                  for i in range(4)]
 
@@ -594,17 +643,25 @@ def rehearse(job: Job = REHEARSAL_JOB, tol: float = 1e-5) -> dict:
     zero3 = dataclasses.replace(job, zero=3)
     tp_dp = dataclasses.replace(TP_JOB, mesh=(("data", 4),))
     ep_z3 = dataclasses.replace(EP_JOB, zero=3)
+    hyb_dp = dataclasses.replace(HYBRID_JOB, mesh=(("data", 4),))
     serve = {"kind": "serve", "mesh": (("data", "model"), (2, 2)),
              "arch": TP_JOB.arch, "prompts": SERVE_PROMPTS, "max_new": 6}
+    # the paged engine with heads over model = 4 (H = 6 padded to 8)
+    paged = dict(serve, mesh=(("data", "model"), (1, 4)), engine="paged")
     ckpt = tempfile.mkdtemp(prefix="rehearse_ckpt_")
     try:
         # the streams without a mesh, from a thread while the ranks run
         with concurrent.futures.ThreadPoolExecutor(1) as pool:
             want_streams = pool.submit(serve_streams, TP_JOB.arch, None,
                                        SERVE_PROMPTS, 6)
-            four = spawn(four_ranks, 4, [job, TP_JOB, tp_dp, EP_JOB, ep_z3],
-                         None, ckpt, zero3, 1, {"serve": serve})
+            want_paged = pool.submit(serve_streams, TP_JOB.arch, None,
+                                     SERVE_PROMPTS, 6, engine="paged")
+            four = spawn(four_ranks, 4, [job, TP_JOB, tp_dp, EP_JOB, ep_z3,
+                                         HYBRID_JOB, hyb_dp],
+                         None, ckpt, zero3, 1, {"serve": serve,
+                                                "paged": paged})
             streams_want = want_streams.result()
+            paged_want = want_paged.result()
         first, second = four[0]["saved"], four[0]["resumed"]
         saved = np.load(os.path.join(ckpt, "step_0000000001",
                                      "arrays.npz"))
@@ -612,14 +669,17 @@ def rehearse(job: Job = REHEARSAL_JOB, tol: float = 1e-5) -> dict:
                              for k in saved.files)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
-    dp, tp, tpdp, ep, epz3 = four[0]["train"]
+    dp, tp, tpdp, ep, epz3, hyb, hybdp = four[0]["train"]
     params = lambda d: {k[len("params/"):]: v     # noqa: E731
                         for k, v in d.items() if k.startswith("params/")}
     tp_vs_dp = _rel_sure(tp["params"], tpdp["params"], tp["m"],
                          2 * TP_JOB.lr * TP_JOB.steps)
     ep_zero3_vs_ep = _rel(epz3["params"], ep["params"],
                           2 * job.lr * job.steps)
+    hyb_vs_dp = _rel_sure(hyb["params"], hybdp["params"], hyb["m"],
+                          2 * HYBRID_JOB.lr * HYBRID_JOB.steps)
     streams_equal = all(r["cases"]["serve"] == streams_want for r in four)
+    paged_equal = all(r["cases"]["paged"] == paged_want for r in four)
     zero3_vs_dp = _rel(params(first["whole"]), dp["params"],
                        2 * job.lr * job.steps)
     ranks = [r["int8"] for r in four]
@@ -636,7 +696,8 @@ def rehearse(job: Job = REHEARSAL_JOB, tol: float = 1e-5) -> dict:
     t_end = time.perf_counter()
     ok = (zero3_vs_dp <= tol and int8_err <= 1e-6 and restored_equal
           and resumed_vs_uninterrupted <= tol and tp_vs_dp <= tol
-          and ep_zero3_vs_ep <= tol and streams_equal)
+          and ep_zero3_vs_ep <= tol and streams_equal and hyb_vs_dp <= tol
+          and paged_equal)
     return {"ok": ok, "arch": job.arch, "n_layers": job.n_layers,
             "batch": job.batch, "seq": job.seq, "steps": job.steps,
             "zero3_vs_dp_data4_rel": zero3_vs_dp,
@@ -660,7 +721,14 @@ def rehearse(job: Job = REHEARSAL_JOB, tol: float = 1e-5) -> dict:
                 "losses_tp": [m["loss"] for m in tp["metrics"]],
                 "losses_dp": [m["loss"] for m in tpdp["metrics"]],
                 "traffic_tp_rank0": tp["traffic"],
-                "serve_streams_equal_no_mesh": streams_equal},
+                "serve_streams_equal_no_mesh": streams_equal,
+                "paged_model4_streams_equal_no_mesh": paged_equal},
+            "tensor_parallel_hybrid": {
+                "arch": HYBRID_JOB.arch, "n_layers": HYBRID_JOB.n_layers,
+                "mesh": dict(TP_MESH), "tp_vs_dp_data4_rel": hyb_vs_dp,
+                "losses_tp": [m["loss"] for m in hyb["metrics"]],
+                "losses_dp": [m["loss"] for m in hybdp["metrics"]],
+                "traffic_tp_rank0": hyb["traffic"]},
             "expert_parallel": {
                 "arch": EP_JOB.arch, "mesh": dict(TP_MESH),
                 "zero3_vs_zero0_rel": ep_zero3_vs_ep,

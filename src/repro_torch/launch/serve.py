@@ -80,8 +80,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="compute and cache dtype")
     ap.add_argument("--mesh", default="",
                     help="data=N[,model=M][,pod=P]: serve on a device mesh "
-                         "(model: tensor and expert parallelism; the dense "
-                         "mode)")
+                         "(model: tensor and expert parallelism; the paged "
+                         "mode takes data=1)")
     args = ap.parse_args(argv)
     mesh = None
     if args.mesh:

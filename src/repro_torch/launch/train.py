@@ -22,7 +22,9 @@ on the GPU unless ``--device cpu`` is given; without a GPU and without
 
 ``--mesh data=N[,model=M][,pod=P]`` trains on a ``DeviceMesh`` of those
 axes (``train/trainer.py``: the batch over ``pod`` and ``data``, tensor and
-expert parallelism over ``model``) under ``--zero`` 0 / 1 / 3 and
+expert parallelism over ``model`` -- every LM arch, recurrentgemma-2b's
+RG-LRU and windowed attention included; MoE on a mesh without ``model``
+in the global batch's order) under ``--zero`` 0 / 1 / 3 and
 ``--compress int8_ef`` (the pod axis), or under one rung of the paper's
 ladder, ``--rung`` (``core/policy.ladder``: DP, DDP, DDP+mixed,
 DDP+mixed+sharded; it sets the ZeRO stage and the compute dtype).  Under

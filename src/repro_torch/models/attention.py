@@ -27,8 +27,20 @@ on them (G = 1), and the output projection takes this rank's rows of
 ``wo`` and one *reduce*.  Decode splits the cache's length over the axis
 (``core/policy.cache_specs``): ``sharded_decode`` writes the new token on
 the rank that owns its slot and combines the ranks' partial softmaxes with
-one max and two sum all-reduces.  The paged and chunked paths take a tp
-axis of size 1 only (ROADMAP queue A item 7).
+one max and two sum all-reduces.
+
+The paged and chunked paths (the paged engine's pool, ``serve/kvcache``)
+split **heads**, not length: the pool is paged along length and B3 reads a
+whole block table, so a rank's pool holds the KV heads its query heads
+read (``pool_kv_heads``): its ``K / tp`` where both head counts divide the
+axis, else K/V repeated to H, zero-padded and cut as ``sharded_flash``
+lays them out (G = 1; a KV head may then live on two ranks, and a rank of
+padded heads only holds zeros).  The paged decode (B3) and the chunked
+prefill over the pool run on this rank's heads, then the row-parallel
+``wo`` and one *reduce*.  This differs from the dense cache's length split
+(``core/policy.cache_specs``): a dict cache of one new token a row is the
+dense engines' (length split), one of a chunk of several is the paged
+engine's dense view of its pool (heads split).
 """
 from __future__ import annotations
 
@@ -45,11 +57,6 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers
 
 NEG_INF = -1e30
-
-_TP_PAGED = ("paged and chunked attention under a model axis larger than 1 "
-             "are not ported: the reference reaches them only through "
-             "gather_dense (ROADMAP queue A item 7)")
-
 
 # ---------------------------------------------------------------------------
 # params
@@ -184,6 +191,23 @@ def _kv_split(H: int, K: int, tp: int) -> bool:
 
 def _repeat_heads(t, G: int):
     return t.repeat_interleave(G, dim=2) if G > 1 else t
+
+
+def pool_kv_heads(H: int, K: int, tp: int) -> int:
+    """The KV heads of a rank's page pool on a tp axis of ``tp`` ranks
+    (module docstring): ``K / tp``, or one per padded query head."""
+    return K // tp if _kv_split(H, K, tp) else -(-H // tp)
+
+
+def _pool_heads(t, pctx, heads):
+    """New K or V (B, S, K | K/tp, D) from ``project_qkv`` as this rank's
+    pool holds them (``pool_kv_heads``); ``t`` itself without ``pctx``."""
+    if pctx is None:
+        return t
+    H, K = heads
+    if _kv_split(H, K, pctx.tp):
+        return t
+    return pctx.cut(_repeat_heads(t, H // K), 2, H)
 
 
 def _rank_heads(q, k, v, pctx, heads):
@@ -424,12 +448,6 @@ def apply_attention(params: Attention, x, cfg: ModelConfig, *, local: bool,
     B = x.shape[0]
     H, K = cfg.n_heads, cfg.n_kv_heads
     cd = compute_dtype
-    chunked = isinstance(cache, PagedDecodeCache) or (
-        isinstance(cache, dict) and x.shape[1] > 1)
-    if pctx is not None and chunked:
-        if pctx.tp > 1:
-            raise NotImplementedError(_TP_PAGED)
-        pctx = None
     if pctx is not None:
         x = pctx.copy(x.to(cd))
 
@@ -443,7 +461,9 @@ def apply_attention(params: Attention, x, cfg: ModelConfig, *, local: bool,
                              "only; windowed layers use ring caches")
         if x.shape[1] != 1:
             raise ValueError("the paged decode path takes one token per row")
-        q, k_new, v_new = project_qkv(params, x, cfg, positions, cd, rope)
+        q, k_new, v_new = project_qkv(params, x, cfg, positions, cd, rope,
+                                      pctx)
+        k_new, v_new = (_pool_heads(t, pctx, (H, K)) for t in (k_new, v_new))
         n_slots = cache.k.shape[0] * cache.k.shape[1]
         kv_shape = (n_slots,) + tuple(cache.k.shape[2:])
         cache.k.view(kv_shape).index_copy_(0, cache.slot,
@@ -462,6 +482,9 @@ def apply_attention(params: Attention, x, cfg: ModelConfig, *, local: bool,
         S = x.shape[1]
         pos_l = positions.long()
         W = cache["k"].shape[1]
+        if S > 1:
+            # a chunk over the paged engine's dense view: this rank's heads
+            k, v = _pool_heads(k, pctx, (H, K)), _pool_heads(v, pctx, (H, K))
         if S > 1 and window > 0:
             # ---- chunked prefill into a ring ----
             # attend over [pre-write ring || full chunk] -- a ring write

@@ -14,6 +14,16 @@ axis, tokens replicated over it.  The router runs on every rank of the axis
 combines its ``E / tp`` experts only (``moe_sorted`` with an expert slice)
 under the capacity of its data shard, and the ranks' outputs are summed.
 
+Under a mesh without the tp axis the sorted path is the reference's
+GSPMD partitioning of the global batch's function
+(``repro/train/trainer.py:91-111``, ``moe.py:76-99``): with ``dp_group``
+(the dp axes that split the rows) each rank routes its own tokens, one
+all-gather of the ranks' per-expert counts (E integers) gives each
+assignment its place in the global batch's stable order (the counts of the
+ranks before it plus its local place), the capacity is the global batch's,
+and the load-balance term is made of all-reduced means.  The experts run
+locally on the kept tokens; nothing else crosses ranks.
+
 Routing, sorting, dispatch and combine are plain PyTorch ops, as they are
 XLA ops in the reference; the expert products are ``torch.bmm`` over the
 expert axis (the reference's ``jnp.einsum``).  Nothing on the sorted path
@@ -75,10 +85,13 @@ class MoE(nn.Module):
                                      cfg.act, generator=generator, **kw)
 
 
-def route(x2d, router_w, top_k: int):
+def route(x2d, router_w, top_k: int, dp_group=None):
     """x2d (T, d) -> gates (T, k) fp32 (renormalised), idx (T, k) int64,
     and the Switch load-balance term ``E * sum_e f_e p_e`` (``f_e`` from
-    each token's first choice)."""
+    each token's first choice).  With ``dp_group`` the rows are this rank's
+    of a global batch of ``T * size`` (equal pieces) and the term is the
+    global batch's: ``p_e`` the ranks' means summed at ``1 / size`` each
+    (its gradient summed back over the ranks), ``f_e`` the summed counts."""
     logits = x2d.float() @ router_w.float()
     probs = torch.softmax(logits, dim=-1)
     gates, idx = torch.topk(probs, top_k, dim=-1)
@@ -87,6 +100,12 @@ def route(x2d, router_w, top_k: int):
     me = probs.mean(dim=0)
     first = torch.zeros(E, dtype=torch.float32, device=x2d.device)
     first.scatter_add_(0, idx[:, 0], torch.ones_like(gates[:, 0]))
+    if dp_group is not None:
+        from repro_torch.core import hierarchy
+        n = dp_group.size
+        me = hierarchy.tp_psum(me * (1.0 / n), dp_group)
+        first = hierarchy.all_reduce(first, dp_group)
+        T = T * n
     aux = E * torch.sum(me * (first / T))
     return gates, idx, aux
 
@@ -112,27 +131,35 @@ def default_capacity(T: int, E: int, k: int, cf: float) -> int:
 
 def moe_sorted(params: MoE, x2d, cfg: ModelConfig, *,
                compute_dtype=torch.bfloat16, capacity: Optional[int] = None,
-               expert_slice: Optional[Tuple[int, int]] = None):
+               expert_slice: Optional[Tuple[int, int]] = None,
+               dp_group=None):
     """Sort-based dispatch under a capacity on one token set: (y (T, d) in
     the compute dtype, aux).
 
     ``expert_slice``: (start, count), computing only experts ``[start,
     start + count)``; assignments to the others contribute zero.  ``params``
-    may then hold all experts or just that slice."""
-    gates, idx, aux = route(x2d, params.router, cfg.moe.top_k)
+    may then hold all experts or just that slice.  ``dp_group``: ``x2d`` is
+    this rank's rows of the global batch (module docstring)."""
+    gates, idx, aux = route(x2d, params.router, cfg.moe.top_k,
+                            dp_group=dp_group)
     return _dispatch(params.wi, params.wg, params.wo, x2d, gates, idx, cfg,
-                     compute_dtype, capacity, expert_slice), aux
+                     compute_dtype, capacity, expert_slice,
+                     dp_group), aux
 
 
 def _dispatch(wi, wg, wo, x2d, gates, idx, cfg: ModelConfig, compute_dtype,
-              capacity: Optional[int], expert_slice):
+              capacity: Optional[int], expert_slice, dp_group=None):
     """``moe_sorted``'s dispatch, expert products and combine for routed
-    tokens (``route``'s gates and expert ids)."""
+    tokens (``route``'s gates and expert ids).  With ``dp_group`` the
+    capacity and each assignment's place are the global batch's (module
+    docstring); a kept assignment's row in its expert's buffer is its local
+    place, which is below the global one."""
     m, cd = cfg.moe, compute_dtype
     T, d = x2d.shape
     E, k = m.n_experts, m.top_k
+    n_dp = dp_group.size if dp_group is not None else 1
     C = capacity if capacity is not None else default_capacity(
-        T, E, k, m.capacity_factor)
+        T * n_dp, E, k, m.capacity_factor)
     dev = x2d.device
 
     eid = idx.reshape(-1)                              # (T*k,) t-major
@@ -144,7 +171,16 @@ def _dispatch(wi, wg, wo, x2d, gates, idx, cfg: ModelConfig, compute_dtype,
     pos_s = torch.arange(T * k, device=dev) - offsets[eid_s]
     # each assignment's place in its expert's list, in assignment order
     pos = torch.empty_like(pos_s).scatter_(0, order, pos_s)
-    keep = pos < C
+    if dp_group is not None:
+        # the ranks' rows in rank order: the assignments of the ranks
+        # before this one come first in each expert's list
+        import torch.distributed as dist
+        from repro_torch.core import hierarchy
+        every = hierarchy.all_gather(counts[None], dp_group, 0)   # (n, E)
+        before = every[:dist.get_rank(dp_group.pg)].sum(dim=0)
+        keep = pos + before[eid] < C
+    else:
+        keep = pos < C
 
     erow, n_local = eid, E
     if expert_slice is not None:
@@ -230,17 +266,19 @@ def moe_dense(params: MoE, x2d, cfg: ModelConfig,
 
 def apply_moe(params: MoE, x, cfg: ModelConfig, *,
               compute_dtype=torch.bfloat16, impl: str = "sorted",
-              capacity: Optional[int] = None, pctx=None):
+              capacity: Optional[int] = None, pctx=None, dp_group=None):
     """x (B, S, d) -> (y (B, S, d), aux), the shared experts added.
     ``impl="ep"`` takes ``pctx`` (a ``ParallelCtx`` whose mesh has the tp
-    axis); there the shared experts are a tensor-parallel MLP."""
+    axis); there the shared experts are a tensor-parallel MLP.
+    ``dp_group``: the sorted path over this rank's rows of a global batch
+    split over the group's ranks (module docstring)."""
     B, S, d = x.shape
     x2d = x.reshape(B * S, d)
     if impl == "dense":
         y2d, aux = moe_dense(params, x2d, cfg, compute_dtype)
     elif impl == "sorted":
         y2d, aux = moe_sorted(params, x2d, cfg, compute_dtype=compute_dtype,
-                              capacity=capacity)
+                              capacity=capacity, dp_group=dp_group)
     elif impl == "ep":
         if pctx is None or not pctx.tp_on:
             raise ValueError("impl='ep' needs a ParallelCtx whose mesh has "

@@ -21,9 +21,23 @@ recurrence in plain PyTorch, as in the reference.  Gates are block-diagonal
       -> [linear -> causal conv1d -> RG-LRU] (recurrent branch)
     y = gate * recurrent -> linear out
 
-The reference's ``batch_axes`` / ``model_axis`` sharding pins exist only
-under a mesh and are dropped.  Decode caches are updated **in place** (the
-conv cache keeps the dtype it was made with).
+Under a mesh's tp axis (``pctx``) the block is tensor-parallel, held
+against ``repro/models/rglru.py:169-212`` under ``core/policy``'s rules
+(``policy.py:86-89``): the input takes the region's *copy*; ``in_gate`` /
+``in_rec`` give this rank's ``W / tp`` channels (column-parallel); the
+depthwise conv and ``conv_b`` act on them with no exchange; the gates take
+``wa`` / ``wx`` / ``ba`` / ``bx`` / ``lam`` restricted to them, and the scan
+(``RGLRUFn`` under autograd) and the decode step run on (B, S, W/tp) and the
+rank's state piece; ``out_proj`` is row-parallel, then one *reduce*.  A
+rank's contiguous ``W / tp`` channels cover whole gate blocks only where
+``tp`` divides ``N_GATE_BLOCKS``; elsewhere (recurrentgemma-2b's ``model``
+= 16) the conv output is gathered over the axis, the gates are computed
+whole on every rank and each keeps its channels (the reference computes
+that case too: its note at ``rglru.py:68-70``).  The reference's
+``batch_axes`` / ``model_axis`` pins have no GSPMD to steer here and are
+dropped.  Decode caches are updated **in place** (the conv cache keeps the
+dtype it was made with); under ``pctx`` they are the rank's channel pieces
+(``core/policy.placed_cache_specs``).
 """
 from __future__ import annotations
 
@@ -89,15 +103,41 @@ def _block_diag(x, w, b):
     return y.reshape(x.shape[:-1] + (nb * bs,)) + b
 
 
-def rglru_gates(params: RGLRU, x, c: float):
-    """x (B,S,W) -> (log_a (B,S,W), gated_in (B,S,W)), both fp32."""
+def gate_blocks_split(tp: int) -> bool:
+    """Whether a rank's contiguous ``W / tp`` channels cover whole gate
+    blocks (``tp`` divides ``N_GATE_BLOCKS``): its gates are then local."""
+    return N_GATE_BLOCKS % tp == 0
+
+
+def rglru_gates(params: RGLRU, x, c: float, pctx=None, width: int = 0):
+    """x (B,S,W) -> (log_a (B,S,W), gated_in (B,S,W)), both fp32.  Under
+    ``pctx`` x is this rank's channels of ``width`` (whole gate blocks:
+    ``gate_blocks_split``), and the gate leaves are cut to them."""
     xf = x.float()
-    r = torch.sigmoid(_block_diag(xf, params.wa, params.ba))
-    i = torch.sigmoid(_block_diag(xf, params.wx, params.bx))
-    log_a = -c * F.softplus(params.lam) * r
+    wa, ba, wx, bx, lam = (params.wa, params.ba, params.wx, params.bx,
+                           params.lam)
+    if pctx is not None:
+        wa, wx = (pctx.cut(w, 0, N_GATE_BLOCKS) for w in (wa, wx))
+        ba, bx, lam = (pctx.cut(t, 0, width) for t in (ba, bx, lam))
+    r = torch.sigmoid(_block_diag(xf, wa, ba))
+    i = torch.sigmoid(_block_diag(xf, wx, bx))
+    log_a = -c * F.softplus(lam) * r
     a2 = torch.exp(2.0 * log_a)
     gated = torch.sqrt(torch.clamp(1.0 - a2, min=1e-12)) * (i * xf)
     return log_a, gated
+
+
+def rank_gates(params: RGLRU, x, c: float, pctx=None, width: int = 0):
+    """``rglru_gates`` of this rank's channels ``x`` (B, S, width/tp) under
+    ``pctx``: local where they cover whole gate blocks; else the gates of
+    every channel from ``x`` gathered over the axis (its backward keeps
+    this rank's piece of the gradient, the same on every rank), then this
+    rank's (its backward joins the pieces), so the gate leaves are used
+    whole and their gradients are whole on every rank."""
+    if pctx is None or gate_blocks_split(pctx.tp):
+        return rglru_gates(params, x, c, pctx, width)
+    log_a, gated = rglru_gates(params, pctx.gather(x, 2), c)
+    return pctx.split(log_a, 2), pctx.split(gated, 2)
 
 
 def rglru_decode_step(log_a, gated, h):
@@ -106,7 +146,8 @@ def rglru_decode_step(log_a, gated, h):
 
 def apply_rglru(params: RGLRU, x, cfg: ModelConfig, *,
                 compute_dtype=torch.bfloat16, cache: Optional[dict] = None,
-                build_cache: bool = False, token_mask=None, impl="kernel"):
+                build_cache: bool = False, token_mask=None, impl="kernel",
+                pctx=None):
     """x (B,S,d_model) -> (y, new_cache|None).
 
     cache = {"conv": (B,K-1,W), "state": (B,W) fp32}: single-token decode,
@@ -114,21 +155,33 @@ def apply_rglru(params: RGLRU, x, cfg: ModelConfig, *,
     True = real token: right-padded positions become identity recurrence
     steps (a = 1, input contribution 0), so the cached state is exactly the
     state after the last real token; the conv cache is rebuilt from the true
-    tail.  ``impl`` "kernel" | "plain" picks the prefill's scan.
+    tail.  ``impl`` "kernel" | "plain" picks the prefill's scan.  ``pctx``:
+    the tensor-parallel block (module docstring), its caches of W/tp
+    channels; without it every cut, gather and reduce below is the
+    identity.
     """
     r = cfg.rglru
     cd = compute_dtype
-    xc = x.to(cd)
-    gate = F.gelu(xc @ params.in_gate.to(cd), approximate="tanh")
-    rec = xc @ params.in_rec.to(cd)
+    W = r.lru_width or cfg.d_model
+    tp = pctx.tp if pctx is not None else 1
+    if W % tp or W < 2 * tp:
+        raise NotImplementedError(f"the RG-LRU's {W} channels over a model "
+                                  f"axis of {tp}")
+
+    def cut(t, dim):
+        return t if pctx is None else pctx.cut(t, dim, W)
+
+    xc = x.to(cd) if pctx is None else pctx.copy(x.to(cd))
+    gate = F.gelu(xc @ cut(params.in_gate, 1).to(cd), approximate="tanh")
+    rec = xc @ cut(params.in_rec, 1).to(cd)           # my channels
     lengths = None
     if token_mask is not None and cache is None:
         lengths = token_mask.to(torch.int32).sum(dim=1)
     conv_cache = cache["conv"] if cache is not None else None
-    rec, new_conv = causal_conv1d(rec, params.conv_w, cache=conv_cache,
-                                  length=lengths)
-    rec = rec + params.conv_b.to(rec.dtype)
-    log_a, gated = rglru_gates(params, rec, r.c)
+    rec, new_conv = causal_conv1d(rec, cut(params.conv_w, 1),
+                                  cache=conv_cache, length=lengths)
+    rec = rec + cut(params.conv_b, 0).to(rec.dtype)
+    log_a, gated = rank_gates(params, rec, r.c, pctx, W)
     if lengths is not None:
         keep = token_mask[:, :, None]
         log_a = torch.where(keep, log_a, 0.0)     # a = 1: state unchanged
@@ -145,8 +198,8 @@ def apply_rglru(params: RGLRU, x, cfg: ModelConfig, *,
         new_cache = ({"conv": new_conv, "state": hs[:, -1]}
                      if build_cache else None)
 
-    y = (hs.to(cd) * gate) @ params.out_proj.to(cd)
-    return y, new_cache
+    y = (hs.to(cd) * gate) @ cut(params.out_proj, 0).to(cd)
+    return (y if pctx is None else pctx.reduce(y)), new_cache
 
 
 def init_rglru_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,

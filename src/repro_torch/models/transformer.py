@@ -169,6 +169,10 @@ class RunCtx:
     remat: str = "block"              # none | block
     moe_impl: str = "sorted"          # dense | sorted | ep
     pctx: ParallelCtx = ParallelCtx()
+    # the dp axes of ``pctx.mesh`` that split this step's rows (a mesh
+    # train step's batch, a mesh decode step's slots): the sorted MoE then
+    # takes the global batch's capacity and order over them
+    moe_dp: Tuple[str, ...] = ()
 
 
 # ---------------------------------------------------------------------------
@@ -231,13 +235,17 @@ class Block(nn.Module):
     def _ffn(self, h, ctx: RunCtx):
         """(FFN output, the MoE's aux or None).  Under a mesh's tp axis the
         MLP is column- then row-parallel (its width over the axis) and the
-        MoE runs ``ctx.moe_impl`` (``"ep"``: experts over the axis)."""
+        MoE runs ``ctx.moe_impl`` (``"ep"``: experts over the axis); the
+        sorted MoE over rows split by ``ctx.moe_dp`` takes the global
+        batch's order."""
         pctx = ctx.pctx if ctx.pctx.tp_on else None
         if self.cfg.moe is None:
             return self.mlp(h, ctx.compute_dtype, pctx=pctx), None
+        group = ctx.pctx.group(ctx.moe_dp) \
+            if ctx.moe_dp and ctx.moe_impl == "sorted" else None
         return moe.apply_moe(self.moe, h, self.cfg,
                              compute_dtype=ctx.compute_dtype,
-                             impl=ctx.moe_impl, pctx=pctx)
+                             impl=ctx.moe_impl, pctx=pctx, dp_group=group)
 
     def forward(self, x, ctx: RunCtx, *, positions, cache=None,
                 kv_mask=None, rope=None):
@@ -247,15 +255,12 @@ class Block(nn.Module):
         pctx = ctx.pctx if ctx.pctx.tp_on else None
         h = self.norm1(x)
         if self.blk == RGLRU:
-            if pctx is not None and pctx.tp > 1:
-                raise NotImplementedError(
-                    "the RG-LRU block under a model axis larger than 1 is "
-                    "not ported (ROADMAP queue A item 7)")
             mix, new_cache = rglru.apply_rglru(
                 self.rglru, h, cfg, compute_dtype=cd,
                 cache=cache if isinstance(cache, dict) else None,
                 build_cache=cache == "init", token_mask=kv_mask,
-                impl="plain" if ctx.attn_impl == "full" else "kernel")
+                impl="plain" if ctx.attn_impl == "full" else "kernel",
+                pctx=pctx)
         elif self.blk == SSM:
             mix, new_cache = ssm.apply_ssm(
                 self.ssm, h, cfg, compute_dtype=cd,
@@ -264,10 +269,6 @@ class Block(nn.Module):
                 impl="plain" if ctx.attn_impl == "full" else "kernel",
                 pctx=pctx)
         else:
-            if pctx is not None and self.blk == ATTN_LOCAL and pctx.tp > 1:
-                raise NotImplementedError(
-                    "windowed attention under a model axis larger than 1 "
-                    "is not ported (ROADMAP queue A item 7)")
             mix, new_cache = attention.apply_attention(
                 self.attn, h, cfg, local=self.blk == ATTN_LOCAL,
                 positions=positions, compute_dtype=cd, impl=ctx.attn_impl,

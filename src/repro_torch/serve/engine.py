@@ -39,20 +39,25 @@ bucketed prefill; the paged step with prefill chunks runs eagerly, bucketed
 all the same.  ``graphs=False`` runs every step eagerly through the same
 static buffers (the counterpart of ``jax.disable_jit()``), as the CPU does.
 
-Under a ``mesh`` (``ServeEngine`` and the dense mode) the engine runs the
-model's tensor-parallel paths (``models/transformer.ParallelCtx``): each
-rank holds its pieces of the parameters (``MeshPlacement``; a leaf the
-rule splits along another dim than its block's work is kept whole) and of
-the caches, placed by ``core/policy.cache_specs`` (slots over the dp axes
-where they divide, the attention cache's length over the tp axis).  Every
+Under a ``mesh`` the engine runs the model's tensor-parallel paths
+(``models/transformer.ParallelCtx``): each rank holds its pieces of the
+parameters (``MeshPlacement``; a leaf the rule splits along another dim
+than its block's work is kept whole).  ``ServeEngine`` and the dense mode
+hold their pieces of the caches, placed by
+``core/policy.placed_cache_specs`` (slots over the dp axes where they
+divide, the attention cache's length and the recurrent leaves' channels
+over the tp axis).  Every
 rank runs the same host program on the same requests: a decode step runs
 the rank's slots and gathers every slot's logits (the vocabulary over the
 tp axis, the slots over the dp axes), so every rank samples the same
 tokens; a one-row prefill runs on every rank of the dp axes and is written
 into its slot by the rank that holds it.  Steps under a mesh run eagerly
-(no CUDA graphs: the collectives count per call).  The paged mode takes a
-mesh whose tp axis has size 1 and whose dp axes do not split the pool
-(every rank serves every row), and raises on a larger tp axis.
+(no CUDA graphs: the collectives count per call).  The paged mode splits
+heads over the tp axis: each rank's pool holds the KV heads its query
+heads read (``serve/kvcache.PagePool(kv_heads=)``), the page tables and
+the scheduler are the host's and the same on every rank, and every rank
+serves every row; a mesh whose other axes exceed 1 raises
+(``_check_paged_mesh``).
 
 Other differences from the reference: caches and the pool are updated in
 place, and the parameters are cast to the compute dtype **once**, when the
@@ -72,7 +77,7 @@ import torch
 from repro_torch.cluster.telemetry import ServingStats
 from repro_torch.configs.base import ATTN, ModelConfig, PolicyConfig
 from repro_torch.kernels.registry import bucket_pow2
-from repro_torch.models.attention import PagedDecodeCache
+from repro_torch.models.attention import PagedDecodeCache, pool_kv_heads
 from repro_torch.models.lm import LM, require_device
 from repro_torch.models import transformer
 from repro_torch.serve import kvcache
@@ -94,10 +99,10 @@ def _place(model: LM, device) -> torch.device:
 # the steps
 # ---------------------------------------------------------------------------
 class MeshPlacement:
-    """A dense engine's pieces on ``mesh``: the parameters each rank
-    computes with (``train/sharding.Layout.use_specs``) and each cache
-    leaf's spec (``core/policy.stack_cache_specs`` over ``n_slots`` slots),
-    the ``ParallelCtx`` the steps run under, and the slots' dp rows."""
+    """An engine's pieces on ``mesh``: the parameters each rank computes
+    with (``train/sharding.Layout.use_specs``) and each dense cache leaf's
+    spec (``core/policy.placed_cache_specs`` over ``n_slots`` slots), the
+    ``ParallelCtx`` the steps run under, and the slots' dp rows."""
 
     def __init__(self, cfg: ModelConfig, policy: PolicyConfig, mesh,
                  n_slots: int, max_seq: int):
@@ -110,8 +115,8 @@ class MeshPlacement:
         self.traffic = layout.traffic
         meta = transformer.init_stack_cache(cfg, n_slots, max_seq,
                                             device="meta")
-        self.cache_specs = pol.stack_cache_specs(
-            cfg, meta, policy, layout.axes,
+        self.cache_specs = pol.placed_cache_specs(
+            meta, policy, layout.axes,
             tp_min=sharding.tp_min(policy, layout.axes))
         entries = {spec[0] for row in self.cache_specs
                    for spec in row.values()}
@@ -120,6 +125,12 @@ class MeshPlacement:
                              f"{entries}")
         self.dp_entry = entries.pop()
         self.n_slots = n_slots
+
+    @property
+    def moe_dp(self):
+        """The dp axes that split the slots (``RunCtx.moe_dp``)."""
+        from repro_torch.core.policy import entry_axes
+        return entry_axes(self.dp_entry)
 
     def lay_out(self, model: LM) -> LM:
         """Cut ``model``'s parameters (whole) to this rank's pieces."""
@@ -160,6 +171,25 @@ class MeshPlacement:
         n = caches[0][next(iter(caches[0]))].shape[0]
         if slot // n == _index(self.dp_entry, self.mesh):
             kvcache.scatter_slot(caches, one, slot % n)
+
+
+def _check_paged_mesh(mesh, policy: PolicyConfig, prefill_chunk: int):
+    """The paged mode's mesh: a tp axis (any size; heads over it) and every
+    other axis of size 1.  The reference runs one replicated program on a
+    mesh whose dp axes exceed 1, and a router over replicas is no part of
+    it; a chunk of one token a row would take the dense engines' decode
+    path, whose cache splits length, not heads."""
+    wide = {a: int(n) for a, n in zip(mesh.mesh_dim_names, mesh.mesh.shape)
+            if a != policy.tp_axis and int(n) > 1}
+    if wide:
+        raise NotImplementedError(
+            f"paged serving on a mesh whose axes {wide} exceed 1 is not "
+            f"ported: the reference runs one replicated program there and "
+            f"routes no requests over replicas (ROADMAP queue A item 7); "
+            f"use mode='dense' or one engine a replica")
+    if prefill_chunk < 2:
+        raise ValueError("paged serving on a mesh takes prefill chunks of "
+                         "2 tokens or more")
 
 
 def make_prefill_step(cfg: ModelConfig, policy: PolicyConfig, *,
@@ -203,15 +233,18 @@ def make_prefill_step(cfg: ModelConfig, policy: PolicyConfig, *,
 
 def make_decode_step(cfg: ModelConfig, policy: PolicyConfig, mesh=None,
                      max_seq: Optional[int] = None,
-                     batch: Optional[int] = None, pctx=None) -> Callable:
+                     batch: Optional[int] = None, pctx=None,
+                     moe_dp=()) -> Callable:
     """decode(model, caches, tokens, positions) -> (logits, caches).
 
     tokens (B, 1) int; positions (B, 1) int.  The caches are updated in
     place and handed back; their capacity is ``max_seq``.  Under a mesh's
-    tp axis the logits are the whole vocabulary's."""
+    tp axis the logits are the whole vocabulary's.  ``moe_dp``: the dp
+    axes that split the slots (``RunCtx.moe_dp``)."""
     ctx = make_run_ctx(cfg, policy, mesh, seq_len=max_seq, decode=True,
                        batch=batch)
-    ctx = dataclasses.replace(ctx, cache_capacity=max_seq or 0)
+    ctx = dataclasses.replace(ctx, cache_capacity=max_seq or 0,
+                              moe_dp=tuple(moe_dp))
     if pctx is not None:
         ctx = dataclasses.replace(ctx, pctx=pctx)
 
@@ -278,8 +311,9 @@ class ServeEngine:
         if self.place is not None:
             self.place.lay_out(model)
         self.model = model.cast_weights_(self.ctx_dtype).eval()
-        self.decode = make_decode_step(cfg, policy, mesh, max_seq=max_seq,
-                                       pctx=pctx)
+        self.decode = make_decode_step(
+            cfg, policy, mesh, max_seq=max_seq, pctx=pctx,
+            moe_dp=self.place.moe_dp if self.place is not None else ())
         self.prefill = make_prefill_step(cfg, policy, cache_capacity=max_seq,
                                          mesh=mesh, pctx=pctx)
         self.caches = init_caches(cfg, n_slots, max_seq, self.ctx_dtype,
@@ -418,16 +452,9 @@ class AsyncServeEngine:
                 else "dense"
         self.mode = mode
         self.place = None
-        if mesh is not None and mode == "paged":
-            n_tp = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)).get(
-                policy.tp_axis, 1)
-            if n_tp > 1:
-                raise NotImplementedError(
-                    "paged serving under a model axis larger than 1 is not "
-                    "ported: the reference reaches it only through "
-                    "gather_dense (ROADMAP queue A item 7); use "
-                    "mode='dense'")
-        elif mesh is not None:
+        if mesh is not None:
+            if mode == "paged":
+                _check_paged_mesh(mesh, policy, prefill_chunk)
             self.place = MeshPlacement(cfg, policy, mesh, n_slots, max_seq)
             self.place.lay_out(model)
         self.model = model.cast_weights_(self.ctx_dtype).eval()
@@ -442,6 +469,8 @@ class AsyncServeEngine:
                            batch=n_slots)
         self.ctx = dataclasses.replace(ctx, cache_capacity=max_seq)
         pctx = self.place.pctx if self.place is not None else None
+        if pctx is not None:
+            self.ctx = dataclasses.replace(self.ctx, pctx=pctx)
         self._iters = 0
         self._decode_iters = 0         # paged steps whose rows all decode
         self.tracker = tracker
@@ -450,11 +479,14 @@ class AsyncServeEngine:
         self._win_tokens = 0
         self._win_t: Optional[float] = None
         if self.mode == "paged":
+            # under a tp axis each rank's pool holds its heads' KV heads
+            kv_heads = None if pctx is None or not pctx.tp_on else \
+                pool_kv_heads(cfg.n_heads, cfg.n_kv_heads, pctx.tp)
             self.pool = kvcache.PagePool(
                 cfg,
                 n_pages=n_pages or n_slots * (-(-max_seq // page_size)),
                 page_size=page_size, dtype=self.ctx_dtype,
-                device=self.device)
+                device=self.device, kv_heads=kv_heads)
         else:
             self.pool = None
             self.caches = init_caches(cfg, n_slots, max_seq, self.ctx_dtype,
@@ -474,7 +506,8 @@ class AsyncServeEngine:
                 bucketed=True, pctx=pctx)
             self.decode = make_decode_step(
                 cfg, policy, mesh, max_seq=max_seq, batch=n_slots,
-                pctx=pctx)
+                pctx=pctx,
+                moe_dp=self.place.moe_dp if self.place is not None else ())
 
     # ------------------------------------------------------------ plumbing --
     def now(self) -> float:

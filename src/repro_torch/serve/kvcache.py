@@ -30,9 +30,16 @@ with ``.at[].set``.
 
 Only positional (full-attention) caches page cleanly, so ``PagePool``
 requires an all-``attn`` block pattern.
+
+Under a mesh's ``model`` axis each rank's pool holds ``kv_heads`` heads: the
+KV heads its query heads read (``models/attention.pool_kv_heads``; zeros on
+a rank of padded heads only).  The page tables, the free list and the
+prefix hashes are the host's and identical on every rank: every rank runs
+the same scheduler on the same requests.
 """
 from __future__ import annotations
 
+import dataclasses
 from collections import OrderedDict, deque
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -127,7 +134,8 @@ class PagePool:
     """Shared page pool: device arrays + free list + prefix-hash table."""
 
     def __init__(self, cfg: ModelConfig, *, n_pages: int, page_size: int = 16,
-                 dtype=torch.float32, device="cuda"):
+                 dtype=torch.float32, device="cuda",
+                 kv_heads: Optional[int] = None):
         if any(b != ATTN for b in cfg.pattern):
             raise ValueError(
                 "PagePool requires an all-'attn' block pattern; "
@@ -138,6 +146,8 @@ class PagePool:
         self.n_pages = int(n_pages)
         self.trash = self.n_pages                  # scratch row
         self.device = require_device(device)
+        if kv_heads is not None:
+            cfg = dataclasses.replace(cfg, n_kv_heads=int(kv_heads))
         self.pages = transformer.init_stack_cache(
             cfg, self.n_pages + 1, self.page_size, dtype, self.device)
         self.free: deque = deque(range(self.n_pages))

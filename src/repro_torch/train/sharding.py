@@ -21,8 +21,11 @@ fallback: qwen2-0.5b's ``wq`` over ``d`` at ``model`` = 4) is all-gathered
 over the axis before use, with ZeRO-3's gathers, and its gradient
 reduce-scattered back.  A replicated leaf that a rank uses only a slice of
 (the SSM's ``D``, ``dt_bias``, ``A_log``, conv weights and norm scale; a
-small ``wq``) gets a partial gradient, summed over the axis; leaves used
-whole (block norms, the router) are not summed.
+small ``wq``; the RG-LRU's conv, ``wa`` / ``wx`` by gate block and ``ba`` /
+``bx`` / ``lam`` by channel) gets a partial gradient, summed over the
+axis; leaves used whole (block norms, the router, the RG-LRU's gate leaves
+where a rank's channels cover part of a gate block and the gates are
+computed whole) are not summed.
 
 Two departures from the reference's specs, one rule: where every fsdp axis
 of the mesh has size 1 (a one-rank mesh), the reference's rule replicates
@@ -133,6 +136,8 @@ _WORK_DIMS = (
     (r"ssm\.conv_x_w$", 1), (r"ssm\.conv_x_b$", 0),
     (r"ssm\.norm\.scale$", 0),
     (r"moe\.w[igo]$", 0),
+    (r"rglru\.in_(gate|rec)$", 1), (r"rglru\.out_proj$", 0),
+    (r"rglru\.conv_w$", 1), (r"rglru\.conv_b$", 0),
 )
 # leaves used whole where the heads do not divide (the SSM's replicated
 # region) and cut by heads where they do
@@ -150,6 +155,11 @@ def work_dim(name: str, cfg: ModelConfig, tp: int) -> Optional[int]:
             return d
     if re.search(r"attn\.(q|k)_norm\.", name):
         return -1                     # applied to this rank's heads only
+    if re.search(r"rglru\.(wa|wx|ba|bx|lam)$", name):
+        # the gates' leaves: cut to a rank's channels where they cover
+        # whole gate blocks, else used whole on the gathered conv output
+        from repro_torch.models.rglru import gate_blocks_split
+        return 0 if gate_blocks_split(tp) else None
     if cfg.ssm is not None and any(re.search(p, name)
                                    for p in _SSM_HEAD_LEAVES):
         H = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
@@ -209,10 +219,6 @@ class Layout:
         axes = mesh_axes(mesh)
         tp = policy.tp_axis if policy.tp_axis in axes else None
         self.tp = tp
-        if tp and axes[tp] > 1 and cfg.rglru is not None:
-            raise NotImplementedError(
-                f"a {tp!r} axis of {axes[tp]}: the RG-LRU blocks are not "
-                f"tensor-parallel yet (ROADMAP queue A item 7)")
         self.cfg, self.policy, self.mesh, self.axes = cfg, policy, mesh, axes
         from repro_torch.convert import reference_paths
         meta = LM(cfg, device="meta")
@@ -311,6 +317,14 @@ class Layout:
         for n, p in model.named_parameters():
             if spec_axes(self.pspecs[n]):
                 p.data = piece(p.data, self.pspecs[n], self.mesh).clone()
+
+    def rows_axes(self, n_rows: int) -> Tuple[str, ...]:
+        """The dp axes (of size above 1) that split a batch of ``n_rows``
+        rows (``batch_piece``'s rule, the pod exchange's axis aside)."""
+        if self.exchange:
+            n_rows //= self.axes["pod"]
+        dp_pol = dataclasses.replace(self.policy, dp_axes=self.dp)
+        return entry_axes(pol.dp_spec_for_batch(n_rows, dp_pol, self.axes))
 
     def batch_piece(self, batch: Mapping[str, Any]) -> Dict[str, Any]:
         """This rank's rows of a global batch: split over the pod axis

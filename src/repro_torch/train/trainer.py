@@ -25,8 +25,11 @@ plain local tensors.  A mesh with a tp axis (``model``; size 1 too) makes
 the step tensor- and expert-parallel: the model's blocks split their work
 over the axis (``models/transformer.ParallelCtx``), the loss is
 vocabulary-parallel, and MoE takes ``_moe_ep`` (the reference's
-``moe_impl="ep"`` rule, ``moe_impl``).  BERT and the Table II CNNs under a
-mesh raise, as does MoE on a mesh without the tp axis.
+``moe_impl="ep"`` rule, ``moe_impl``).  On a mesh without the tp axis MoE
+takes the sorted path in the global batch's order (``RunCtx.moe_dp``:
+capacity and sort order over every rank's rows, as the reference's GSPMD
+step computes them).  BERT and the Table II CNNs under a mesh raise: the
+reference has no mesh step for them (ROADMAP, not ported by decision).
 Without a mesh ``zero_stage`` has no effect, as in the reference's
 un-sharded jit.
 ``rglru`` blocks train through ``RGLRUFn`` (the forward kernel and the
@@ -87,20 +90,19 @@ def make_run_ctx(cfg: ModelConfig, policy: PolicyConfig, mesh=None, *,
 def moe_impl(cfg: ModelConfig, policy: PolicyConfig, mesh=None) -> str:
     """The reference's rule (``repro/train/trainer.py:93-100``): ``"ep"``
     for an MoE config under a mesh whose tp axis divides the experts, with
-    ``policy.ep``; else ``"sorted"``.  One departure: a tp axis of size 1
-    takes ``"ep"`` too (the reference asks for more than 1), so that a
-    one-rank mesh runs the expert-parallel program a wider one runs.  A
-    tp axis larger than 1 that ``"sorted"`` would have to run raises: the
-    port's sorted path has no tensor-parallel form."""
+    ``policy.ep``; else ``"sorted"`` (a mesh without the tp axis too: there
+    the step's MoE takes the global batch's order, ``models/moe.py``).  One
+    departure: a tp axis of size 1 takes ``"ep"`` too (the reference asks
+    for more than 1), so that a one-rank mesh runs the expert-parallel
+    program a wider one runs.  A tp axis larger than 1 that ``"sorted"``
+    would have to run raises: the port's sorted path has no
+    tensor-parallel form."""
     if cfg.moe is None or mesh is None:
         return "sorted"
     names = tuple(mesh.mesh_dim_names)
     tp = policy.tp_axis
     if tp not in names:
-        raise NotImplementedError(_NO_MESH.format(
-            what=f"MoE under a mesh without the {tp!r} axis",
-            why="the expert-parallel path runs over that axis (size 1 "
-                "will do)"))
+        return "sorted"
     n_tp = int(mesh.mesh.shape[names.index(tp)])
     if policy.ep and cfg.moe.n_experts % n_tp == 0:
         return "ep"
@@ -195,14 +197,17 @@ def state_specs(state: TrainState, cfg: ModelConfig, policy: PolicyConfig,
 # loss / grads
 # ---------------------------------------------------------------------------
 def make_loss_fn(cfg: ModelConfig, policy: PolicyConfig, mesh=None,
-                 seq_len: Optional[int] = None, *, pctx=None) -> Callable:
+                 seq_len: Optional[int] = None, *, pctx=None,
+                 moe_dp=()) -> Callable:
     """``loss_fn(model, batch) -> (loss, metrics)``.  A padded vocabulary of
     32768 or more takes the chunked cross entropy with the largest chunk in
     (512, 256, 128, 64, 1) that divides the sequence, as the reference.
-    ``pctx``: the ``ParallelCtx`` to run under (a mesh step's layout's)."""
+    ``pctx``: the ``ParallelCtx`` to run under (a mesh step's layout's);
+    ``moe_dp``: the dp axes that split the batch's rows
+    (``RunCtx.moe_dp``)."""
     ctx = make_run_ctx(cfg, policy, mesh, seq_len=seq_len)
     if pctx is not None:
-        ctx = dataclasses.replace(ctx, pctx=pctx)
+        ctx = dataclasses.replace(ctx, pctx=pctx, moe_dp=tuple(moe_dp))
     big_vocab = cfg.padded_vocab >= 32_768
 
     def loss_fn(model: LM, batch):
@@ -290,7 +295,7 @@ def make_train_step(cfg: ModelConfig, policy: PolicyConfig,
     if mesh is not None:
         layout = sharding.Layout(cfg, policy, mesh)
         loss_fn = make_loss_fn(cfg, policy, mesh, seq_len=seq_len,
-                               pctx=layout.pctx)
+                               pctx=layout.pctx, moe_dp=layout.dp)
         return _mesh_train_step(layout, loss_fn, optcfg, schedcfg,
                                 policy.grad_accum)
     loss_fn = make_loss_fn(cfg, policy, mesh, seq_len=seq_len)
@@ -310,6 +315,9 @@ def _mesh_train_step(layout: sharding.Layout, loss_fn: Callable,
     # the agreed int8 scale of a reference leaf (a scanned segment's layers
     # together): over every rank that holds a piece of it, in every pod
     scale_group = layout.group(layout.axes) if layout.exchange else None
+    # the sorted MoE's global order needs every rank's own rows
+    global_moe = layout.cfg.moe is not None and layout.tp is None
+    split_all = tuple(a for a in layout.dp if layout.axes[a] > 1)
 
     def train_step(state: TrainState, batch: Mapping[str, Any]):
         if not layout.same(state.layout):
@@ -322,6 +330,11 @@ def _mesh_train_step(layout: sharding.Layout, loss_fn: Callable,
             p.grad = None
         B = next(iter(batch.values())).shape[0]
         b = B // n_accum
+        if global_moe and layout.rows_axes(b) != split_all:
+            raise NotImplementedError(
+                f"MoE on a mesh without the {layout.policy.tp_axis!r} axis "
+                f"takes the global batch's order over {split_all}: a "
+                f"(micro)batch of {b} rows does not split over them")
         acc: Dict[str, torch.Tensor] = {}
         loss_sum = None
         for i in range(n_accum):

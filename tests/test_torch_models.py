@@ -297,6 +297,35 @@ def test_lm_init_defaults_to_cuda_and_raises_without_one():
     assert torch.equal(a.stack.blocks[1].mlp.wo, b.stack.blocks[1].mlp.wo)
 
 
+class _Wide:
+    """A fake ``(data, model) = (1, 2)`` mesh seen from model rank
+    ``rank``."""
+    mesh_dim_names = ("data", "model")
+    mesh = torch.zeros(1, 2)
+
+    def __init__(self, rank=0):
+        self.rank = rank
+
+    def get_local_rank(self, axis):
+        return self.rank if axis == "model" else 0
+
+
+def _rank_ctxs(mesh):
+    """Both ranks of a ``(1, 2)`` model axis in one process: each a
+    ``ParallelCtx`` of ``_Wide(r)`` whose tp group is ``mesh``'s one-rank
+    group, so its *copy* and *reduce* leave a rank's partial result as it
+    is and the two ranks' results sum to the whole."""
+    from repro_torch.core import hierarchy
+    from repro_torch.models.transformer import ParallelCtx
+    group = hierarchy.axis_group(mesh, ("model",), hierarchy.Traffic())
+    out = []
+    for r in (0, 1):
+        pctx = ParallelCtx(mesh=_Wide(r))
+        pctx._memo["tp_group"] = group
+        out.append(pctx)
+    return out
+
+
 @pytest.mark.parametrize("arch,item", [
     ("mamba2-780m", "ssd"), ("recurrentgemma-2b", "rglru"),
     ("moonshot-v1-16b-a3b", "MoE")])
@@ -304,10 +333,16 @@ def test_unported_blocks_raise_naming_the_roadmap(arch, item):
     """Every block kind builds and trains: the ssd blocks through SSDFn (the
     hand-written SSD backward), the rglru blocks through RGLRUFn (the
     hand-written RG-LRU backward), MoE FFNs through ``models.moe``.  MoE's
-    expert parallelism (``apply_moe(impl="ep")``) needs a mesh's tp axis;
-    the RG-LRU block under a model axis larger than 1 raises, naming the
-    parallel layer's ROADMAP item."""
+    expert parallelism (``apply_moe(impl="ep")``) needs a mesh's tp axis.
+    The RG-LRU block is tensor-parallel: on a one-rank ``(data, model)``
+    mesh its prefill (output and caches) is the plain block's bit for bit;
+    on a ``(1, 2)`` model axis each rank's mixer on its channels gives a
+    partial output, the two summing to the plain mixer's, and its state
+    piece; the layout uses its leaves as their pieces."""
+    from repro_torch.launch.mesh import one_rank
+    from repro_torch.models import rglru
     from repro_torch.models.transformer import ParallelCtx, RunCtx
+    from repro_torch.train import sharding
     cfg = reduced(get_config(arch))
     model = LM.init(cfg, device="cpu")
     if item == "MoE":
@@ -315,31 +350,48 @@ def test_unported_blocks_raise_naming_the_roadmap(arch, item):
         with pytest.raises(ValueError, match="tp axis"):
             moe.apply_moe(model.stack.blocks[0].moe, x, cfg, impl="ep")
     if item == "rglru":
-
-        class Wide:                     # a (data, model) = (1, 2) mesh
-            mesh_dim_names = ("data", "model")
-            mesh = torch.zeros(1, 2)
-
-            def get_local_rank(self, axis):
-                return 0
-
-        ctx = RunCtx(compute_dtype=torch.float32,
-                     pctx=ParallelCtx(mesh=Wide()))
-        with pytest.raises(NotImplementedError, match="ROADMAP") as e:
-            model.stack.blocks[0](
-                torch.zeros((1, 4, cfg.d_model)), ctx,
-                positions=torch.arange(4, dtype=torch.int32)[None])
-        assert "queue A item 7" in str(e.value)
+        f32 = torch.float32
+        blk = model.stack.blocks[0]
+        x = torch.randn((2, 6, cfg.d_model),
+                        generator=torch.Generator().manual_seed(0))
+        pos = torch.arange(6, dtype=torch.int32)[None].expand(2, 6)
+        want, want_c, _ = blk(x, RunCtx(compute_dtype=f32), positions=pos,
+                              cache="init")
+        h = blk.norm1(x)
+        mix, mix_c = rglru.apply_rglru(blk.rglru, h, cfg, compute_dtype=f32,
+                                       build_cache=True)
+        with one_rank(device="cpu") as mesh:
+            got, got_c, _ = blk(x, RunCtx(compute_dtype=f32,
+                                          pctx=ParallelCtx(mesh=mesh)),
+                                positions=pos, cache="init")
+            assert torch.equal(got, want)
+            for n in want_c:
+                assert torch.equal(got_c[n], want_c[n]), n
+            parts = [rglru.apply_rglru(blk.rglru, h, cfg, compute_dtype=f32,
+                                       build_cache=True, pctx=pctx)
+                     for pctx in _rank_ctxs(mesh)]
+        torch.testing.assert_close(parts[0][0] + parts[1][0], mix,
+                                   atol=1e-6, rtol=1e-6)
+        for n in ("conv", "state"):
+            torch.testing.assert_close(
+                torch.cat([c[n] for _, c in parts], dim=-1), mix_c[n],
+                atol=1e-6, rtol=1e-6)
+        layout = sharding.Layout(cfg, PolicyConfig(), _Wide())
+        assert layout.use_specs["stack.blocks.0.rglru.in_rec"] == (
+            None, "model")
+        assert "stack.blocks.0.rglru.wa" in layout.partial
     policy = PolicyConfig(compute_dtype="float32")
     assert callable(trainer.make_train_step(cfg, policy))
 
 
+@torch.no_grad()
 def test_unported_attention_paths_raise_naming_the_roadmap():
     """The sliding-window paths are ported, and so are the tensor-parallel
-    ones: on a one-rank ``(data, model)`` mesh a block's TP prefill equals
-    the plain one.  Under a model axis larger than 1 the windowed and the
-    paged attention raise, naming the ROADMAP item; MoE on a mesh without
-    the tp axis raises."""
+    ones: on a one-rank ``(data, model)`` mesh a block's TP prefill and the
+    paged decode over the pool equal the plain ones at 1e-6; on a ``(1,
+    2)`` model axis each rank's windowed prefill and paged decode (its
+    heads, its pool's KV heads) give partial outputs that sum to the plain
+    path's.  MoE on a mesh without the tp axis takes the sorted path."""
     from repro_torch.launch.mesh import one_rank
     from repro_torch.models.transformer import ParallelCtx
     cfg = dataclasses.replace(reduced(get_config("qwen2-0.5b")),
@@ -347,48 +399,66 @@ def test_unported_attention_paths_raise_naming_the_roadmap():
     LM.init(cfg, device="cpu")
     base = reduced(get_config("qwen2-0.5b"))
     model = LM.init(base, device="cpu")
-    x = torch.randn((1, 4, base.d_model),
-                    generator=torch.Generator().manual_seed(0))
+    attn = model.stack.blocks[0].attn
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((1, 4, base.d_model), generator=gen)
     pos = torch.arange(4, dtype=torch.int32)[None]
-    out, _ = attention.apply_attention(model.stack.blocks[0].attn, x, base,
-                                       local=True, positions=pos,
-                                       compute_dtype=torch.float32)
+    f32 = torch.float32
+    out, _ = attention.apply_attention(attn, x, base, local=True,
+                                       positions=pos, compute_dtype=f32)
     assert out.shape == x.shape
-    want, _ = attention.apply_attention(model.stack.blocks[0].attn, x, base,
-                                        local=False, positions=pos,
-                                        compute_dtype=torch.float32)
+    want, _ = attention.apply_attention(attn, x, base, local=False,
+                                        positions=pos, compute_dtype=f32)
+    # a pool of 3 pages of 4 tokens (and the scratch page): one row of 6
+    # tokens over pages 2 and 0, its new token at position 6
+    K, D = base.n_kv_heads, base.head_dim
+    pool_k, pool_v = (torch.randn((4, 4, K, D), generator=gen)
+                      for _ in range(2))
+    pool_pos = torch.full((4, 4), -1, dtype=torch.int32)
+    pool_pos[2] = torch.arange(4)
+    pool_pos[0, :2] = torch.tensor([4, 5])
+
+    def paged(heads=slice(None)):
+        return attention.PagedDecodeCache(
+            k=pool_k[:, :, heads].clone(), v=pool_v[:, :, heads].clone(),
+            pos=pool_pos.clone(), tables=torch.tensor([[2, 0]],
+                                                      dtype=torch.int32),
+            slot=torch.tensor([2]), new_pos=torch.tensor([6],
+                                                         dtype=torch.int32),
+            lengths=torch.tensor([7], dtype=torch.int32))
+
+    x1, pos1 = x[:, :1], torch.tensor([[6]], dtype=torch.int32)
+    want_paged, _ = attention.apply_attention(
+        attn, x1, base, local=False, positions=pos1, cache=paged(),
+        compute_dtype=f32)
     with one_rank(device="cpu") as mesh:
         got, _ = attention.apply_attention(
-            model.stack.blocks[0].attn, x, base, local=False, positions=pos,
-            compute_dtype=torch.float32, pctx=ParallelCtx(mesh=mesh))
-    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
-
-    class Wide:                         # a (data, model) = (1, 2) mesh
-        mesh_dim_names = ("data", "model")
-        mesh = torch.zeros(1, 2)
-
-        def get_local_rank(self, axis):
-            return 0
-
-    wide = ParallelCtx(mesh=Wide())
-    local = LM.init(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        local.stack.blocks[0](x, transformer.RunCtx(
-            compute_dtype=torch.float32, pctx=wide), positions=pos)
-    paged = attention.PagedDecodeCache(*(torch.zeros(1),) * 7)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.apply_attention(model.stack.blocks[0].attn, x[:, :1], base,
-                                  local=False, positions=pos[:, :1],
-                                  cache=paged, pctx=wide)
+            attn, x, base, local=False, positions=pos, compute_dtype=f32,
+            pctx=ParallelCtx(mesh=mesh))
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+        got, _ = attention.apply_attention(
+            attn, x1, base, local=False, positions=pos1, cache=paged(),
+            compute_dtype=f32, pctx=ParallelCtx(mesh=mesh))
+        torch.testing.assert_close(got, want_paged, atol=1e-6, rtol=1e-6)
+        ranks = _rank_ctxs(mesh)
+        assert attention.pool_kv_heads(base.n_heads, K, 2) == K // 2
+        local = sum(attention.apply_attention(
+            attn, x, base, local=True, positions=pos, compute_dtype=f32,
+            pctx=pctx)[0] for pctx in ranks)
+        split = sum(attention.apply_attention(
+            attn, x1, base, local=False, positions=pos1,
+            cache=paged(slice(r, r + 1)), compute_dtype=f32,
+            pctx=pctx)[0] for r, pctx in enumerate(ranks))
+    torch.testing.assert_close(local, out, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(split, want_paged, atol=1e-6, rtol=1e-6)
 
     class DataOnly:
         mesh_dim_names = ("data",)
         mesh = torch.zeros(1)
     policy = PolicyConfig(compute_dtype="float32")
     assert not make_run_ctx(base, policy, mesh=DataOnly()).pctx.tp_on
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_run_ctx(reduced(get_config("moonshot-v1-16b-a3b")), policy,
-                     mesh=DataOnly())
+    assert make_run_ctx(reduced(get_config("moonshot-v1-16b-a3b")), policy,
+                        mesh=DataOnly()).moe_impl == "sorted"
 
 
 def test_kernel_path_counts_no_launch_on_cpu():

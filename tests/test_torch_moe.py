@@ -467,7 +467,8 @@ class _Drops:
     def __init__(self, cfg):
         self.m, self.n = cfg.moe, 0
 
-    def __call__(self, x2d, router_w, top_k):
+    def __call__(self, x2d, router_w, top_k, dp_group=None):
+        assert dp_group is None     # the capacity below is one call's
         out = _ROUTE(x2d, router_w, top_k)
         m = self.m
         C = moe.default_capacity(x2d.shape[0], m.n_experts, top_k,

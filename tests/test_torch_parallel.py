@@ -398,17 +398,29 @@ def test_launcher_trains_a_rung_on_a_one_rank_group(capsys, tmp_path):
 
 
 def test_moe_bert_and_vision_refuse_a_mesh():
-    """MoE refuses a mesh without the tp axis (it trains on one with it:
-    ``tests/test_torch_tensor_parallel.py``); BERT and the vision models
-    refuse any mesh."""
+    """MoE takes the sorted path in the global batch's order on a mesh
+    without the tp axis (a one-rank ``data`` mesh's step is the no-mesh
+    step; four ranks against the reference:
+    ``tests/test_torch_tp_hybrid.py``) and expert parallelism on one with
+    it (``tests/test_torch_tensor_parallel.py``); BERT and the vision
+    models refuse any mesh."""
+    from repro_torch.launch.mesh import one_rank
     mesh = object()
-
-    class DataOnly:
-        mesh_dim_names = ("data",)
-        mesh = torch.zeros(4)
-    with pytest.raises(NotImplementedError, match="MoE under a mesh"):
-        trainer.make_train_step(get_config("moonshot-v1-16b-a3b"),
-                                PolicyConfig(), mesh=DataOnly())
+    job = Job(arch="moonshot-v1-16b-a3b")
+    cfg, batch = job.cfg(), job.batch_at(0)
+    policy = PolicyConfig(compute_dtype="float32")
+    plain = trainer.init_state(cfg, policy, seed=0, device="cpu")
+    _, want = trainer.make_train_step(cfg, policy)(plain, batch)
+    with one_rank((1,), ("data",), device="cpu") as data_only:
+        assert trainer.moe_impl(cfg, policy, data_only) == "sorted"
+        state = trainer.init_state(cfg, policy, seed=0, device="cpu",
+                                   mesh=data_only)
+        _, got = trainer.make_train_step(cfg, policy, mesh=data_only)(
+            state, batch)
+    for key in ("loss", "aux", "grad_norm"):
+        assert float(got[key]) == float(want[key]), key
+    for n, p in plain.model.named_parameters():
+        assert torch.equal(dict(state.model.named_parameters())[n], p), n
     with pytest.raises(NotImplementedError, match="BERT under a mesh"):
         trainer.paper_loss_fn(get_config("bert-base"), PolicyConfig(),
                               mesh=mesh)

@@ -354,33 +354,33 @@ def test_train_step_matches_the_reference_jitted_step():
 
 
 def test_make_train_step_refuses_a_mesh():
-    """MoE trains on a mesh with a tp axis through expert parallelism: on
-    a one-rank ``(data, model)`` mesh (``gloo`` here) the step equals the
-    step without a mesh (``tests/test_torch_tensor_parallel.py`` holds
-    four ranks to the reference); a mesh without the tp axis still refuses
-    MoE, and BERT and the Table II CNNs (the batch norm's global-batch
-    statistics) refuse any mesh, before they touch it."""
+    """MoE trains on a mesh with a tp axis through expert parallelism and
+    on a mesh without it through the sorted path in the global batch's
+    order: on a one-rank ``(data, model)`` mesh and on a one-rank ``data``
+    mesh (``gloo`` here) the step equals the step without a mesh
+    (``tests/test_torch_tensor_parallel.py`` and
+    ``tests/test_torch_tp_hybrid.py`` hold four ranks to the reference);
+    BERT and the Table II CNNs (the batch norm's global-batch statistics)
+    refuse any mesh, before they touch it."""
     from repro_torch.launch.mesh import one_rank
     cfg = reduced(get_config("moonshot-v1-16b-a3b"))
     batch = make_batch(cfg, ShapeConfig("t", 16, 2, "train"), step=0)
     plain = trainer.init_state(cfg, BASE, seed=0, device="cpu")
     _, want = trainer.make_train_step(cfg, BASE)(plain, batch)
-    with one_rank(device="cpu") as mesh:
-        state = trainer.init_state(cfg, BASE, seed=0, device="cpu",
-                                   mesh=mesh)
-        _, got = trainer.make_train_step(cfg, BASE, mesh=mesh)(state, batch)
-    assert float(got["loss"]) == float(want["loss"])
-    for n, p in plain.model.named_parameters():
-        np.testing.assert_allclose(dict(state.model.named_parameters())[n]
-                                   .detach().numpy(), p.detach().numpy(),
-                                   atol=1e-6, err_msg=n)
-
-    class DataOnly:
-        mesh_dim_names = ("data",)
-        mesh = torch.zeros(1)
-    with pytest.raises(NotImplementedError, match="item 7") as e:
-        trainer.make_train_step(cfg, BASE, mesh=DataOnly())
-    assert "without the 'model' axis" in str(e.value)
+    for shape, axes in (((1, 1), ("data", "model")), ((1,), ("data",))):
+        with one_rank(shape, axes, device="cpu") as mesh:
+            state = trainer.init_state(cfg, BASE, seed=0, device="cpu",
+                                       mesh=mesh)
+            step = trainer.make_train_step(cfg, BASE, mesh=mesh)
+            _, got = step(state, batch)
+        assert float(got["loss"]) == float(want["loss"]), axes
+        assert float(got["aux"]) == float(want["aux"]), axes
+        for n, p in plain.model.named_parameters():
+            np.testing.assert_allclose(dict(state.model.named_parameters())[n]
+                                       .detach().numpy(), p.detach().numpy(),
+                                       atol=1e-6, err_msg=n)
+    # the data-only step gathered the per-expert counts: the global order
+    assert step.traffic.report()["data/all_gather"]["calls"] > 0
     from repro_torch.configs.paper_bench import MOBILENETV2
     for cfg, what in ((get_config("bert-base"), "BERT"),
                       (MOBILENETV2, "batch norm")):
